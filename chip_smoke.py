@@ -7,27 +7,51 @@ Needs one NVIDIA Hopper card (sm_90) and nvcc. Phases, each printed with
 its seconds:
 
 1. device: the card's name, capability and ``nvidia-smi`` power limit;
-2. build: nvcc builds every kernel of the path (``csrc/fwd_pe.cu``) and
+2. build: nvcc builds every kernel of the paths (``csrc/fwd_pe.cu``,
+   ``csrc/train_pe.cu``), one process per source, all started together, and
    prints ptxas' register and shared-memory lines;
 3. kernel vs plain: the inline-PE render kernel against its plain PyTorch
    version on the card, at the main path's shape (2048 rays x 64 samples,
    8x256 trunk, the baseline's random init from its seed) and at
    S = 48 / 192, white background and 64-wide point features; CUDA-event
    times of both at the main path's shape;
-4. slice: ``experiments/baseline.yaml`` (as a literal dict) on the
+4. train kernel vs plain: the training-objective kernel (loss and all six
+   packed gradients) against its plain version at the three phase shapes
+   of the schedule (1024x32, 1024x48, 512x64 rays x samples, 8x256, the
+   baseline's init, inline PE); at 512x64 with a white background, a masked
+   tail, the w^2 and depth terms and 64-wide features; the pre-encoded-x
+   build (kernel 5); sigma_bias 5.0. CUDA-event times of the kernel and the
+   plain version at each phase shape;
+5. slice: ``experiments/baseline.yaml`` (as a literal dict) on the
    synthetic lego-like scene at 128x128 (5 train, 8 test views):
    ``Trainer(device="cuda").evaluate()``, whose chunks must each launch the
-   kernel once, checked against the plain pipeline on the card.
+   kernel once, checked against the plain pipeline on the card;
+6. train slice: the same trainer trains through the kernel for one epoch
+   of each phase plus one more at 32x32 and at 128x128 (``train_epoch`` at
+   epochs 0, 1, 50, 100, 101), then ``fit`` two more epochs with eval, PNG dumps and
+   checkpoints into a temporary directory; every step must launch the
+   kernel once, PSNR must rise above its value at init, and a trainer on
+   the plain path (``backend: xla``) from the same seed must give the same
+   per-step losses over epoch 0;
+7. train step breakdown: one phase-2 epoch untraced, then under
+   ``torch.profiler`` with the CUDA activity only (the device's busy share
+   of the epoch, the stream synchronizations per step) and with the CPU
+   activity too (device time per step by part: the kernel's launches,
+   Adam, the rest).
 
 Any failure raises and exits non-zero. On success the last three lines are
-the ``nvidia-smi`` name/power-limit line, a JSON line with the kernel's
+the ``nvidia-smi`` name/power-limit line, a JSON line with the kernels'
 numbers, and ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
 
 import numpy as np
@@ -64,7 +88,17 @@ HBM_BYTES_PER_S = 3.35e12
 # Kernel vs plain: fp32 sums in another order (the kernel: k-ordered FMAs;
 # cuBLAS: its blocked order); depth sums w*z with z up to 6.
 TOL = {"rgb": 1e-4, "depth": 1e-3, "acc": 1e-4, "weights": 1e-4}
+# Train kernel vs plain: loss rel 1e-5; the six packed gradients as one
+# vector rel 1e-4, and 2e-2 at sigma_bias 5.0, where the backward divides by
+# transmittances at the 1e-10 floor (the JAX gate, render/verify.py).
+TRAIN_GRAD_TOL, TRAIN_GRAD_TOL_SATURATED = 1e-4, 2e-2
+# Kernel trainer vs plain trainer, per-step losses of epoch 0.
+TRAIN_LOSS_RTOL = 1e-4
 N_TEST_VIEWS, N_TRAIN_VIEWS = 8, 5
+KERNELS = ("fwd_pe", "train_pe")
+# one epoch of each phase and one more at 32x32 and at 128x128: the first
+# epoch's steps include the first use (module loading) of every CUDA kernel
+TRAIN_EPOCHS = (0, 1, 50, 100, 101)
 
 
 @contextmanager
@@ -134,6 +168,168 @@ def random_fwd_pe_args(rng, R, S, H, L, feat_dim, device):
             on(torch.tensor(c)), tuple(p.to(device) for p in packed))
 
 
+def random_state(rng, x_dim, H, L, sigma_bias):
+    """A NeRFMLP state dict with torch-default-bounded random weights and a
+    constant sigma-head bias."""
+    def u(fan_in, *shape):
+        return torch.tensor((rng.uniform(-1, 1, shape) / np.sqrt(fan_in)).astype(np.float32))
+
+    state = {"trunk.0.weight": u(x_dim, H, x_dim), "trunk.0.bias": u(x_dim, H)}
+    for i in range(1, L):
+        state[f"trunk.{i}.weight"] = u(H, H, H)
+        state[f"trunk.{i}.bias"] = u(H, H)
+    state.update({"rgb_head.weight": u(H, 3, H), "rgb_head.bias": u(H, 3),
+                  "sigma_head.weight": u(H, 1, H),
+                  "sigma_head.bias": torch.full((1,), float(sigma_bias))})
+    return state
+
+
+def random_train_args(rng, R, S, H, L, device, *, feat_dim=0, sigma_bias=0.1,
+                      white_bkgd=False, ragged=0, reg_weight=0.0, depth_weight=0.0,
+                      inline_pe=True):
+    """Random inputs of the train kernel as ``fused_train_loss_grad`` builds
+    them: random weights (``random_state``), rays from (0, 0, 4) into the
+    scene volume, jittered samples in [2, 6], uniform rgb targets, the last
+    ``ragged`` rays masked out, depth targets in [2.5, 5.5] when
+    ``depth_weight``, features ``tanh(pts @ W)`` when ``feat_dim``.
+    Returns ``(args, opts)`` for ``fused_train_objective(*args, **opts)``."""
+    from nerf_fewshot_tpu_torch.render import train_kernel as tt
+    from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings
+
+    state = {k: v.to(device) for k, v in random_state(rng, 90 + feat_dim, H, L, sigma_bias).items()}
+    on = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    d = rng.standard_normal((R, 3))
+    d[:, 2] = -np.abs(d[:, 2]) - 1.0
+    mask = np.ones(R)
+    mask[R - ragged:] = 0.0
+    pf = None
+    if feat_dim:
+        W = on(rng.standard_normal((3, feat_dim)))
+        pf = lambda pts: torch.tanh(pts @ W)
+    settings = RenderSettings(near=2.0, far=6.0, n_samples=S, perturb=True, white_bkgd=white_bkgd)
+    return tt.train_objective_inputs(
+        state, on(np.broadcast_to([0.0, 0.0, 4.0], (R, 3))), on(d), on(rng.uniform(0, 1, (R, 3))),
+        on(mask), settings, 10, 4, L, H, uniforms=on(rng.uniform(0, 1, (R, S))),
+        inline_pe=inline_pe, reg_weight=reg_weight, depth_weight=depth_weight,
+        target_depth=on(rng.uniform(2.5, 5.5, R)) if depth_weight else None, point_features_fn=pf)
+
+
+def train_cost(args, opts):
+    """(FLOPs, bytes) the objective needs on these inputs: the forward trunk
+    and head over the unpadded input width, the backward chain (head, then
+    the hidden layers; no input gradient), the dW products; each input
+    read once, each output written once."""
+    inp, feats, z, dnorm, tgt, mask, inv_denom, e2, c, packed = args
+    w0, b0, wh, bh, wout, bout = packed
+    n_points = z.numel()
+    H, L1 = w0.shape[1], wh.shape[0]
+    if opts["inline_pe"]:
+        x_dim = inp.shape[1] + e2.shape[1] + (0 if feats is None else feats.shape[1])
+    else:
+        x_dim = inp.shape[1]
+    fwd = x_dim * H + L1 * H * H + H * 4
+    bwd = H * 4 + L1 * H * H
+    flops = 2.0 * n_points * (2 * fwd + bwd)
+    inputs = [inp, z, dnorm, tgt, mask, inv_denom, *packed]
+    inputs += [t for t in (feats, e2, c, opts["tgt_depth"]) if t is not None]
+    nbytes = 4.0 * (sum(t.numel() for t in inputs) + 1 + sum(p.numel() for p in packed))
+    return flops, nbytes
+
+
+def compare_train(name, got, want, grad_tol):
+    """Loss rel error (<= 1e-5) and the global grad rel error over all six
+    packed grads (<= grad_tol); the grads must be alive (norm > 1e-6)."""
+    (gl, gd), (wl, wd) = got, want
+    flat = lambda ts: torch.cat([t.reshape(-1).double() for t in ts])
+    g, w = flat(gd), flat(wd)
+    if not (torch.isfinite(gl) and torch.isfinite(g).all()):
+        raise RuntimeError(f"{name}: kernel loss or grads are not finite")
+    loss_rel = abs(gl.item() - wl.item()) / max(abs(wl.item()), 1e-12)
+    norm = w.norm().item()
+    grad_rel = (g - w).norm().item() / max(norm, 1e-30)
+    max_err = max((a - b).abs().max().item() for a, b in zip(gd, wd))
+    print(f"  {name}: loss {gl.item():.6e} rel err {loss_rel:.2e} (tol 1e-5), grad rel err "
+          f"{grad_rel:.2e} (tol {grad_tol:.0e}), |g| {norm:.3e}, max abs err {max_err:.2e}",
+          flush=True)
+    if not (norm > 1e-6 and loss_rel <= 1e-5 and grad_rel <= grad_tol):
+        raise RuntimeError(f"{name}: kernel disagrees with its plain version "
+                           f"(loss rel {loss_rel}, grad rel {grad_rel}, |g| {norm})")
+    return max_err
+
+
+def main_path_train_args(trainer, phase_idx, device, inline_pe=True, seed=0):
+    """One training step of the trainer at a phase's shape, as
+    ``train_epoch`` builds it: a batch of train-view-0 rays, the phase's
+    samples per ray with jitter uniforms, the trainer's weights."""
+    from nerf_fewshot_tpu_torch.render import train_kernel as tt
+
+    cfg = trainer.cfg
+    p = cfg.phases[phase_idx]
+    pd = trainer.phase_data(phase_idx)
+    n_rays = pd.rays_o.shape[1]
+    B = min(p.batch_size, n_rays)
+    g = torch.Generator(device).manual_seed(seed)
+    idx = torch.randperm(n_rays, generator=g, device=device)[:B]
+    state = {k: v.detach() for k, v in trainer.model.named_parameters()}
+    return tt.train_objective_inputs(
+        state, pd.rays_o[0][idx], pd.rays_d[0][idx], pd.targets[0][idx],
+        torch.ones(B, device=device), trainer._render_settings(p.n_samples, training=True),
+        cfg.nerf.pos_freq, cfg.nerf.dir_freq, cfg.nerf.num_layers, cfg.nerf.hidden_dim,
+        uniforms=torch.rand((B, p.n_samples), generator=g, device=device), inline_pe=inline_pe)
+
+
+def trace_epoch(trainer, epoch, with_cpu):
+    """One ``train_epoch`` under ``torch.profiler``. With the CUDA activity
+    only (``with_cpu`` False) the host is slowed least: the device's busy
+    time is the union of its kernel and copy intervals, set against the
+    epoch's wall time, and the stream synchronizations the host made are
+    counted. With the CPU activity too, Adam's device time is read from the
+    optimizer's own ``Optimizer.step#...`` range. Device-side spans of
+    annotated ranges are not kernels and are left out. Returns the wall ms,
+    the busy ms, and per step: device ms by part (the training kernel's
+    launches by name, ``adam`` with the CPU activity, ``other``: gather,
+    sampling, ``pack_params`` and its backward, copies), device events and
+    stream synchronizations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if with_cpu else [ProfilerActivity.CUDA]
+    trainer.phase_data(trainer._phase_index(epoch))
+    torch.cuda.synchronize()
+    with profile(activities=acts, acc_events=True) as prof:
+        t0 = time.perf_counter()
+        trainer.train_epoch(epoch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    steps = len(trainer.last_step_losses)
+    parts, spans, adam, syncs = {}, [], 0.0, 0
+    for evt in prof.events():
+        if evt.name == "cudaStreamSynchronize":
+            syncs += 1
+        if evt.name.startswith("Optimizer.step#"):
+            if evt.device_type == DeviceType.CPU:
+                adam += evt.device_time_total / 1e3
+            continue
+        if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
+            continue
+        spans.append((evt.time_range.start, evt.time_range.end))
+        group = next((g for g in ("train_fwd", "train_bwd", "train_dw", "train_composite",
+                                  "train_finalize", "loss_sum", "wh_transpose") if g in evt.name),
+                     "other")
+        parts[group] = parts.get(group, 0.0) + evt.time_range.elapsed_us() / 1e3
+    if with_cpu:
+        parts["other"] = parts.get("other", 0.0) - adam
+        parts["adam"] = adam
+    busy_us, last = 0.0, float("-inf")
+    for start, end in sorted(spans):
+        if end > last:
+            busy_us += end - max(start, last)
+            last = end
+    return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3,
+                parts={k: v / steps for k, v in parts.items()},
+                events=len(spans) / steps, syncs=syncs / steps, steps=steps)
+
+
 def main_path_fwd_pe_args(trainer, pose, device):
     """The first 2048-ray chunk of a 128x128 test view, exactly as
     ``fused_render_rays`` hands it to the kernel, with the trainer's
@@ -172,6 +368,91 @@ def compare(name, got, want):
     return max(errs.values())
 
 
+def run_train_slice(cfg, train, test, device, tmp, psnr_init, tt):
+    """Train the baseline through the kernel (``train_epoch`` at
+    ``TRAIN_EPOCHS``, then ``fit`` for two more epochs with eval and
+    checkpoints into ``tmp``), check it against a plain-path trainer from
+    the same seed, and return the launches of (train_pe, train_x)."""
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    out = {**BASELINE_CONFIG["output"], "save_dir": tmp, "val_freq": 2, "save_freq": 2}
+    kcfg = config_from_dict({**BASELINE_CONFIG, "output": out})
+    pcfg = config_from_dict({**BASELINE_CONFIG, "output": out, "rendering": {
+        **BASELINE_CONFIG["rendering"], "backend": "xla"}})
+    ktr = Trainer(kcfg, train, test, device=device, log_path=os.path.join(tmp, "log.jsonl"))
+    ptr = Trainer(pcfg, train, test, device=device)
+    if not ktr._use_fused() or ptr._use_fused():
+        raise RuntimeError("backend auto must train through the kernel, xla on the plain path")
+    psnr0 = ktr.evaluate()["psnr"]
+    if abs(psnr0 - psnr_init) > 1e-3:
+        raise RuntimeError(f"psnr at init {psnr0} vs the eval slice's {psnr_init}")
+    for i in range(len(cfg.phases)):  # set-up, kept out of the epoch times
+        ktr.phase_data(i)
+        ptr.phase_data(i)
+
+    tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+    steps, kernel_losses = 0, {}
+    for e in TRAIN_EPOCHS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = ktr.train_epoch(e)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n = len(ktr.last_step_losses)
+        steps += n
+        kernel_losses[e] = ktr.last_step_losses.copy()
+        pd = ktr.phase_data(ktr._phase_index(e))
+        rays = ktr.n_views * pd.rays_o.shape[1]
+        print(f"  kernel trainer epoch {e} ({pd.H}x{pd.W}, "
+              f"{cfg.phase_for_epoch(e).n_samples} samples): loss {loss:.6f}, {n} steps, "
+              f"{sec:.3f} s, {sec / n * 1e3:.3f} ms/step, {rays / sec:.0f} rays/s", flush=True)
+        if not np.isfinite(ktr.last_step_losses).all():
+            raise RuntimeError(f"epoch {e}: non-finite losses {ktr.last_step_losses}")
+    ktr.epoch = TRAIN_EPOCHS[-1] + 1
+    t0 = time.perf_counter()
+    after = ktr.fit(ktr.epoch + 2)
+    fit_steps = 2 * len(ktr.last_step_losses)
+    steps += fit_steps
+    print(f"  fit epochs {ktr.epoch - 1}-{ktr.epoch}: {fit_steps} steps, eval, "
+          f"{time.perf_counter() - t0:.3f} s; psnr {psnr0:.4f} dB at init, "
+          f"{after['psnr']:.4f} dB after, ssim {after['ssim']:.5f}", flush=True)
+    counts = dict(tt.fused_train_objective.launches)
+    print(f"  launches: {counts} for {steps} steps", flush=True)
+    if counts["train_pe"] != steps:
+        raise RuntimeError(f"{counts['train_pe']} train kernel launches for {steps} steps")
+    probe = ktr.dead_sigma_probe()
+    if not probe > 0.0:
+        raise RuntimeError(f"dead-sigma probe {probe}")
+    if not after["psnr"] > psnr0:
+        raise RuntimeError(f"psnr after training {after['psnr']} <= at init {psnr0}")
+    for name in ("best.ckpt", f"epoch_{ktr.epoch + 1}.ckpt",
+                 os.path.join(f"epoch_{ktr.epoch}", "render_0.png")):
+        if not os.path.exists(os.path.join(tmp, name)):
+            raise RuntimeError(f"fit wrote no {name}")
+    restored = Trainer(kcfg, train, test, device=device)
+    restored.load(os.path.join(tmp, f"epoch_{ktr.epoch + 1}.ckpt"))
+    for (k, a), b in zip(ktr.model.state_dict().items(), restored.model.state_dict().values()):
+        if not torch.equal(a, b):
+            raise RuntimeError(f"checkpoint round trip changed {k}")
+
+    for e in TRAIN_EPOCHS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = ptr.train_epoch(e)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        rel = np.abs(ptr.last_step_losses / kernel_losses[e] - 1.0)
+        mean_rel = abs(loss / float(np.mean(kernel_losses[e])) - 1.0)
+        print(f"  plain trainer epoch {e}: loss {loss:.6f}, {sec:.3f} s, "
+              f"{sec / len(rel) * 1e3:.3f} ms/step; gap to the kernel trainer: per step max rel "
+              f"{rel.max():.2e}, epoch mean rel {mean_rel:.2e}", flush=True)
+        if e == TRAIN_EPOCHS[0] and not rel.max() <= TRAIN_LOSS_RTOL:
+            raise RuntimeError(f"epoch {e}: kernel and plain trainers differ by rel {rel.max()} "
+                               f"(tol {TRAIN_LOSS_RTOL})")
+    return counts["train_pe"], counts["train_x"]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -179,6 +460,7 @@ def main():
     from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
     from nerf_fewshot_tpu_torch.render import cuda_build
     from nerf_fewshot_tpu_torch.render import kernels as tk
+    from nerf_fewshot_tpu_torch.render import train_kernel as tt
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.metrics import psnr
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
@@ -202,11 +484,13 @@ def main():
             raise RuntimeError(f"{kind} has capability {cap}; the kernels are built for sm_90a")
 
     with phase("build"):
-        info = cuda_build.build("fwd_pe")
-        print(f"  fwd_pe: {info.seconds:.2f} s -> {info.path}", flush=True)
-        for line in info.compiler_log.splitlines():
-            if "Used" in line or "Compiling entry" in line:
-                print(f"  {line.strip()}", flush=True)
+        with ThreadPoolExecutor(len(KERNELS)) as pool:
+            infos = list(pool.map(cuda_build.build, KERNELS))
+        for name, info in zip(KERNELS, infos):
+            print(f"  {name}: {info.seconds:.2f} s -> {info.path}", flush=True)
+            for line in info.compiler_log.splitlines():
+                if "Used" in line or "Compiling entry" in line or "spill" in line:
+                    print(f"  {line.strip()}", flush=True)
 
     cfg = config_from_dict(BASELINE_CONFIG)
     widths = (cfg.nerf.hidden_dim, cfg.nerf.num_layers, cfg.phases[-1].n_samples,
@@ -244,6 +528,49 @@ def main():
               f"{bound_ms:.3f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, "
               f"{nbytes / 1e6:.2f} MB); kernel at {flops / kernel_ms / 1e9:.2f} TFLOP/s",
               flush=True)
+
+    with phase("train kernel vs plain"):
+        train_err = {"train_pe": 0.0, "train_x": 0.0}
+        timing = {}
+        for i in range(len(cfg.phases)):
+            a, o = main_path_train_args(trainer, i, device)
+            R, S = a[2].shape
+            err = compare_train(f"phase {i} {R}x{S}, 8x256, baseline init",
+                                tt.fused_train_objective(*a, **o),
+                                tt.fused_train_objective_reference(*a, **o), TRAIN_GRAD_TOL)
+            train_err["train_pe"] = max(train_err["train_pe"], err)
+            timing[("train_pe", i)] = (a, o)
+        rng = np.random.default_rng(cfg.seed)
+        full = dict(white_bkgd=True, ragged=9, reg_weight=0.01, depth_weight=0.1, feat_dim=64)
+        for name, label, kw, tol in (
+                ("train_pe", "512x64 white, 9 masked, reg, depth, Fd 64", full, TRAIN_GRAD_TOL),
+                ("train_pe", "512x64 sigma_bias 5.0", dict(sigma_bias=5.0),
+                 TRAIN_GRAD_TOL_SATURATED),
+                ("train_x", "512x64 x input, white, 9 masked, reg, depth, Fd 64",
+                 dict(full, inline_pe=False), TRAIN_GRAD_TOL)):
+            a, o = random_train_args(rng, 512, 64, 256, 8, device, **kw)
+            err = compare_train(label, tt.fused_train_objective(*a, **o),
+                                tt.fused_train_objective_reference(*a, **o), tol)
+            train_err[name] = max(train_err[name], err)
+        a, o = main_path_train_args(trainer, len(cfg.phases) - 1, device, inline_pe=False)
+        err = compare_train("512x64 x input (kernel 5), baseline init",
+                            tt.fused_train_objective(*a, **o),
+                            tt.fused_train_objective_reference(*a, **o), TRAIN_GRAD_TOL)
+        train_err["train_x"] = max(train_err["train_x"], err)
+        timing[("train_x", len(cfg.phases) - 1)] = (a, o)
+        torch.cuda.synchronize()
+        train_ms = {}
+        for (name, i), (a, o) in timing.items():
+            k_ms = cuda_ms(lambda: tt.fused_train_objective(*a, **o), iters=20)
+            p_ms = cuda_ms(lambda: tt.fused_train_objective_reference(*a, **o), iters=5)
+            flops, nbytes = train_cost(a, o)
+            b_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+            b_by = "operations" if flops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
+            train_ms[(name, i)] = (k_ms, p_ms, b_ms, b_by)
+            R, S = a[2].shape
+            print(f"  {name} phase {i} {R}x{S}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                  f"{b_ms:.3f} ms by {b_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.2f} MB); "
+                  f"kernel at {flops / k_ms / 1e9:.2f} TFLOP/s", flush=True)
 
     with phase("slice"):
         trainer.render_views(test.poses[:1])  # warm the host path
@@ -286,6 +613,48 @@ def main():
         if abs(plain_psnr - metrics["psnr"]) > 1e-3:
             raise RuntimeError(f"psnr {metrics['psnr']} vs plain {plain_psnr}")
 
+    with phase("train slice"):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+        try:
+            train_launches, x_launches = run_train_slice(
+                cfg, train, test, device, tmp, metrics["psnr"], tt)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+    with phase("train step breakdown"):
+        epoch = TRAIN_EPOCHS[-1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_epoch(epoch)
+        torch.cuda.synchronize()
+        untraced_ms = (time.perf_counter() - t0) * 1e3
+        steps = len(trainer.last_step_losses)
+        print(f"  epoch {epoch} untraced: wall {untraced_ms:.1f} ms, "
+              f"{untraced_ms / steps:.3f} ms/step", flush=True)
+        for with_cpu in (False, True):
+            t = trace_epoch(trainer, epoch, with_cpu)
+            if not t["busy_ms"] > 0:
+                raise RuntimeError("the profiler recorded no device time")
+            label = "CPU+CUDA" if with_cpu else "CUDA only"
+            print(f"  epoch {epoch} traced ({label}): wall {t['wall_ms']:.1f} ms "
+                  f"({t['wall_ms'] / untraced_ms:.3f}x untraced), device busy "
+                  f"{t['busy_ms']:.1f} ms ({t['busy_ms'] / t['wall_ms']:.1%} of the traced wall), "
+                  f"per step: "
+                  f"{t['events']:.1f} device events, {t['syncs']:.2f} stream synchronizations, "
+                  f"device ms " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in sorted(t["parts"].items(), key=lambda kv: -kv[1]))
+                  + f", sum {sum(t['parts'].values()):.3f}", flush=True)
+
+    last = len(cfg.phases) - 1
+
+    def train_row(name, cu_line, launches):
+        k_ms, p_ms, b_ms, b_by = train_ms[(name, last)]
+        return {"name": name, "route": "cuda",
+                "source": "nerf_fewshot_tpu_torch/csrc/train_pe.cu",
+                "replaces": f"nerf_fewshot_tpu/render/train_kernel.py:{cu_line}",
+                "launches": launches, "max_abs_err": train_err[name], "ms": k_ms,
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fwd_pe",
@@ -299,7 +668,7 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }]}))
+    }, train_row("train_pe", 343, train_launches), train_row("train_x", 320, x_launches)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of ``nerf_fewshot_tpu`` for NVIDIA Hopper (sm_90a).
 
 The layers mirror the JAX package (``ops/ models/ render/ data/
-training/``); each module is a counterpart of the JAX file of the same
+training/ utils/``); each module is a counterpart of the JAX file of the same
 name and is held against it by ``tests/test_torch_port_*.py``. The port
 imports torch, numpy and the standard library only.
 
@@ -9,6 +9,6 @@ Entry points (``training.trainer.Trainer``, ``render.fused_render_rays``,
 ``data.synthetic.make_scene_dataset``) run on ``cuda`` unless the caller
 passes ``device="cpu"``; with no card and no explicit CPU request they
 raise. On CUDA tensors the render path launches the hand-written kernel in
-``csrc/fwd_pe.cu``; on CPU tensors it runs the kernel's plain PyTorch
-version.
+``csrc/fwd_pe.cu`` and each training step the one in ``csrc/train_pe.cu``;
+on CPU tensors each runs its kernel's plain PyTorch version.
 """

@@ -1,16 +1,18 @@
 """Fused rendering: sampling and host glue around the inline-PE kernel
-(counterpart of ``nerf_fewshot_tpu/render/fused.py:fused_render_rays``,
-``forward_only=True``; the differentiable path needs kernels 3 and 4).
+(counterpart of ``nerf_fewshot_tpu/render/fused.py``: ``_pad_lanes``,
+``encode_points`` and ``fused_render_rays`` with ``forward_only=True``; the
+differentiable path needs kernels 3 and 4).
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 
 from nerf_fewshot_tpu_torch.device import DeviceLike, resolve_device
 from nerf_fewshot_tpu_torch.ops.composite import RenderOutputs
+from nerf_fewshot_tpu_torch.ops.encoding import positional_encoding
 from nerf_fewshot_tpu_torch.ops.sampling import sample_along_rays
 from nerf_fewshot_tpu_torch.render.kernels import (
     D_PAD,
@@ -20,6 +22,35 @@ from nerf_fewshot_tpu_torch.render.kernels import (
     pe_layout,
 )
 from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings
+
+
+def _pad_lanes(x: torch.Tensor, multiple: int = D_PAD) -> torch.Tensor:
+    """Zero-pad the last dim up to a multiple of ``multiple``."""
+    pad = (-x.shape[-1]) % multiple
+    if pad == 0:
+        return x
+    return torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+
+
+def encode_points(
+    pts: torch.Tensor,  # (R, S, 3)
+    rays_d: torch.Tensor,  # (R, 3)
+    pos_freq: int,
+    dir_freq: int,
+    use_viewdirs: bool,
+    feats: Optional[torch.Tensor] = None,  # (R*S, Fd) per-point features
+) -> torch.Tensor:
+    """The pre-encoded (R*S, D) input of the train kernel's ``inline_pe=False``
+    mode: ``[PE(pos) | PE(dir) | feats]`` in NeRFMLP's input order (cos
+    computed directly), zero-padded to a multiple of 128 columns."""
+    R, S, _ = pts.shape
+    parts = [positional_encoding(pts.reshape(-1, 3), pos_freq)]
+    if use_viewdirs:
+        dirs = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
+        parts.append(positional_encoding(dirs, dir_freq))
+    if feats is not None:
+        parts.append(feats)
+    return _pad_lanes(torch.cat(parts, dim=-1))
 
 
 @torch.no_grad()

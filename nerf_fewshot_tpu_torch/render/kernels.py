@@ -131,6 +131,18 @@ def _phases_exact(raw: torch.Tensor, e2: torch.Tensor, c: torch.Tensor) -> torch
     return acc
 
 
+def _pe_input(raw, feats, e2, c, width: int) -> torch.Tensor:
+    """The inline-PE kernels' input ``[raw | sin(phases) | feats | 0]``,
+    zero-padded to ``width`` columns (``feats`` may be ``None``)."""
+    blocks = [raw, torch.sin(_phases_exact(raw, e2, c))]
+    if feats is not None:
+        blocks.append(feats)
+    x = torch.cat(blocks, dim=1)
+    if x.shape[1] < width:
+        x = torch.cat([x, x.new_zeros((x.shape[0], width - x.shape[1]))], dim=1)
+    return x
+
+
 def _composite(sigma: torch.Tensor, z: torch.Tensor, dnorm: torch.Tensor) -> torch.Tensor:
     """Compositing weights in log space, as the kernel computes them:
     ``om = exp(-relu(sigma)*dists) + 1e-10``, ``T = exp(cumsum(log om) -
@@ -164,12 +176,7 @@ def fused_render_fwd_pe_reference(
     _check_compute_dtype(compute_dtype)
     w0, b0, wh, bh, wout, bout = packed
     R, S = z.shape
-    blocks = [raw, torch.sin(_phases_exact(raw, e2, c))]
-    if use_feats:
-        blocks.append(feats)
-    x = torch.cat(blocks, dim=1)
-    if x.shape[1] < w0.shape[0]:
-        x = torch.cat([x, x.new_zeros((x.shape[0], w0.shape[0] - x.shape[1]))], dim=1)
+    x = _pe_input(raw, feats if use_feats else None, e2, c, w0.shape[0])
     h = torch.relu(x @ w0 + b0)
     for layer in range(wh.shape[0]):
         h = torch.relu(h @ wh[layer] + bh[layer])
@@ -195,14 +202,27 @@ def _kernel_fn():
     return lib, fn
 
 
-def _expect(t: torch.Tensor, name: str, shape, device: torch.device) -> None:
+def _expect(t: torch.Tensor, name: str, shape, device: torch.device,
+            caller: str = "fused_render_fwd_pe") -> None:
     if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
         raise ValueError(
-            f"fused_render_fwd_pe: {name} must be a contiguous float32 tensor on "
+            f"{caller}: {name} must be a contiguous float32 tensor on "
             f"{device}; got {t.dtype} on {t.device}, contiguous={t.is_contiguous()}"
         )
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fused_render_fwd_pe: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{caller}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _check_card(device: torch.device, caller: str) -> None:
+    """Raise unless ``device`` is a CUDA device of capability (9, 0)."""
+    if device.type != "cuda":
+        raise ValueError(f"{caller}: no kernel for device {device}")
+    cap = torch.cuda.get_device_capability(device)
+    if cap != (9, 0):
+        raise RuntimeError(
+            f"{caller}: the kernel is built for sm_90a (Hopper); "
+            f"{torch.cuda.get_device_name(device)} has capability {cap}"
+        )
 
 
 def fused_render_fwd_pe(
@@ -224,14 +244,7 @@ def fused_render_fwd_pe(
             raw, feats, z, dnorm, e2, c, packed, white_bkgd, compute_dtype, use_feats
         )
     device = raw.device
-    if device.type != "cuda":
-        raise ValueError(f"fused_render_fwd_pe: no kernel for device {device}")
-    cap = torch.cuda.get_device_capability(device)
-    if cap != (9, 0):
-        raise RuntimeError(
-            f"fused_render_fwd_pe: the kernel is built for sm_90a (Hopper); "
-            f"{torch.cuda.get_device_name(device)} has capability {cap}"
-        )
+    _check_card(device, "fused_render_fwd_pe")
     w0, b0, wh, bh, wout, bout = packed
     R, S = z.shape
     n_raw = raw.shape[1]

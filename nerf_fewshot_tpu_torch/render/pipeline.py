@@ -1,14 +1,15 @@
 """Plain ray-rendering pipeline: sampling -> MLP -> compositing
 (counterpart of ``nerf_fewshot_tpu/render/pipeline.py``, the XLA path).
 
-The fused path (``render.fused``) is held against this one. Hierarchical
-sampling and per-point features come with later slices.
+The fused path (``render.fused``) and the training kernel are held against
+this one. Hierarchical sampling, sigma noise and per-point features come
+with later slices.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -38,16 +39,19 @@ def render_rays(
     rays_o: torch.Tensor,
     rays_d: torch.Tensor,
     settings: RenderSettings,
+    uniforms: Optional[torch.Tensor] = None,
 ) -> RenderOutputs:
-    """Deterministic render of (R, 3) rays: the JAX path with ``key=None``.
-    Perturbed sampling and sigma noise come with training."""
+    """Render (R, 3) rays. With ``settings.perturb`` the (R, n_samples)
+    ``uniforms`` jitter the stratified samples; without them (or without
+    ``perturb``) the samples are deterministic, as the JAX path with
+    ``key=None``."""
     if settings.n_importance > 0:
         raise NotImplementedError("hierarchical sampling is not ported yet")
-    if settings.perturb or settings.noise_std > 0.0:
-        raise NotImplementedError("perturbed sampling and sigma noise are not ported yet")
+    if settings.noise_std > 0.0:
+        raise NotImplementedError("sigma noise is not ported yet")
     pts, z_vals = sample_along_rays(
         rays_o, rays_d, settings.near, settings.far, settings.n_samples,
-        lindisp=settings.lindisp,
+        uniforms=uniforms if settings.perturb else None, lindisp=settings.lindisp,
     )
     R, S, _ = pts.shape
     dirs = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)

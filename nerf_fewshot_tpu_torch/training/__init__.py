@@ -1,1 +1,1 @@
-"""Config, metrics and the trainer."""
+"""Config, losses, optimizers, metrics and the trainer."""

@@ -1,20 +1,31 @@
-"""The trainer, restricted for now to what eval and serving need
-(counterpart of ``nerf_fewshot_tpu/training/trainer.py:Trainer``).
+"""The training engine on one device (counterpart of
+``nerf_fewshot_tpu/training/trainer.py:Trainer``).
 
-``render_views`` streams every pose's rays through fixed-size chunks of
-``rendering.chunk_size`` rays; each chunk goes through
-``fused_render_rays(forward_only=True)``, which launches the inline-PE CUDA
-kernel on a card and runs its plain version on the CPU. Training, LPIPS,
-image dumps, DINO conditioning and the module architecture come with later
-slices and raise until then.
+Each step gathers a minibatch of packed ``[o|d|rgb]`` rows, draws the
+stratified-jitter uniforms from the trainer's ``torch.Generator`` and takes
+one optimizer step. On the kernel path (``_use_fused``) the loss and every
+gradient come from ``fused_train_loss_grad``, which launches the CUDA
+training kernel on a card and runs its plain version on the CPU; the plain
+path is ``render_rays`` + ``nerf_loss`` + autograd, taken with
+``rendering.backend: xla``, or on the CPU for a config the kernels cannot
+take (on a card such a config raises). Minibatch permutations come from
+``np.random.default_rng(cfg.seed)`` exactly as in the JAX trainer, so both
+draw the same batches. Eval renders every view through
+``fused_render_rays(forward_only=True)``. LPIPS, DINO conditioning, LoRA,
+hierarchical sampling and the module architecture come with later slices
+and raise until then.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import os
+import time
 from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from nerf_fewshot_tpu_torch.data.blender import BlenderDataset
 from nerf_fewshot_tpu_torch.device import DeviceLike, resolve_device
@@ -24,10 +35,27 @@ from nerf_fewshot_tpu_torch.ops.rays import get_rays
 from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
 from nerf_fewshot_tpu_torch.render.kernels import KERNEL_WIDTHS
 from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings, render_rays
+from nerf_fewshot_tpu_torch.render.train_kernel import fused_train_loss_grad
 from nerf_fewshot_tpu_torch.training.config import Config
+from nerf_fewshot_tpu_torch.training.losses import nerf_loss
 from nerf_fewshot_tpu_torch.training.metrics import psnr, ssim
+from nerf_fewshot_tpu_torch.training.optim import make_optimizer, multistep_lr, set_learning_rate
+from nerf_fewshot_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from nerf_fewshot_tpu_torch.utils.logging import JSONLLogger, save_png
+from nerf_fewshot_tpu_torch.utils.profiling import RateMeter
 
 ChunkFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+@dataclasses.dataclass
+class PhaseData:
+    """Per-phase, per-view ray data on the trainer's device."""
+
+    rays_o: torch.Tensor  # (V, HW, 3)
+    rays_d: torch.Tensor  # (V, HW, 3)
+    targets: torch.Tensor  # (V, HW, 3)
+    H: int
+    W: int
 
 
 class Trainer:
@@ -40,6 +68,7 @@ class Trainer:
         train_data: BlenderDataset,
         test_data: Optional[BlenderDataset] = None,
         device: DeviceLike = None,
+        log_path: Optional[str] = None,
     ):
         if cfg.nerf.arch != "functional":
             raise NotImplementedError(f"arch={cfg.nerf.arch!r} is not ported yet")
@@ -50,6 +79,9 @@ class Trainer:
         self.train_data = train_data
         self.test_data = test_data
         self.H, self.W, self.focal = train_data.H, train_data.W, train_data.focal
+        self.targets_full = np.asarray(train_data.white_composited(), np.float32)  # (V,H,W,3)
+        self.poses = np.asarray(train_data.poses, np.float32)
+        self.n_views = train_data.n_views
 
         generator = torch.Generator().manual_seed(cfg.seed)
         self.model = NeRFMLP(
@@ -63,7 +95,25 @@ class Trainer:
             sigma_bias_init=cfg.nerf.sigma_bias,
             generator=generator,
         ).to(self.device)
-        self.model.eval()
+
+        self.lr_at = multistep_lr(
+            cfg.optimizer.lr, cfg.optimizer.lr_milestones, cfg.optimizer.lr_gamma
+        )
+        self.optimizer = make_optimizer(cfg.optimizer, self.model.parameters())
+        self.epoch = 0
+        self.best_psnr = 0.0
+        # consecutive epochs the dead-sigma probe reported acc == 0
+        self.dead_sigma_epochs = 0
+        self.last_step_losses = np.zeros(0)  # per-step losses of the last epoch
+        self._phase_data: Dict[int, PhaseData] = {}
+        self._np_rng = np.random.default_rng(cfg.seed)
+        # stratified-jitter uniforms; torch's stream, not JAX's threefry
+        self._generator = torch.Generator(self.device).manual_seed(cfg.seed)
+        self.logger = JSONLLogger(
+            path=log_path, run_name=cfg.name, config=cfg.raw,
+            use_wandb=cfg.output.use_wandb, wandb_project=cfg.output.wandb_project,
+        )
+        self.rate_meter = RateMeter()
 
     # ------------------------------------------------------------------ model
 
@@ -72,21 +122,29 @@ class Trainer:
         self.model.load_state_dict(nerf_mlp_from_jax(params))
 
     def _kernel_ineligible_reason(self) -> Optional[str]:
-        if self.cfg.nerf.hidden_dim not in KERNEL_WIDTHS:
-            return f"hidden_dim={self.cfg.nerf.hidden_dim} not in {KERNEL_WIDTHS}"
+        """Why the kernels cannot run this config (None = eligible)."""
+        cfg = self.cfg
+        if cfg.nerf.hidden_dim not in KERNEL_WIDTHS:
+            return f"hidden_dim={cfg.nerf.hidden_dim} not in {KERNEL_WIDTHS}"
+        if not (cfg.strict_reference_behavior or cfg.rendering.noise_std == 0.0):
+            return "sigma noise_std != 0 is not implemented in the kernels"
         return None
 
     def _use_fused(self) -> bool:
-        """Whether eval goes through ``fused_render_rays``: the CUDA kernel
-        on a card, its plain version on the CPU. ``rendering.backend:
-        xla`` selects the plain pipeline; ``fused`` raises when the config
-        does not fit the kernel."""
+        """Whether training steps and eval renders go through the kernels
+        (``fused_train_loss_grad``, ``fused_render_rays``): the CUDA kernels
+        on a card, their plain versions on the CPU. ``rendering.backend:
+        xla`` selects the plain path. A config the kernels cannot take
+        raises with ``backend: fused``, and on a card with any backend but
+        ``xla``; only on the CPU does ``auto`` give it the plain path."""
         backend = self.cfg.rendering.backend
         if backend == "xla":
             return False
         reason = self._kernel_ineligible_reason()
-        if backend == "fused" and reason is not None:
-            raise ValueError(f"rendering.backend=fused rejected: {reason}")
+        if reason is not None and (backend == "fused" or self.device.type != "cpu"):
+            raise ValueError(
+                f"rendering.backend={backend} rejected on {self.device.type}: {reason} "
+                f"(backend: xla trains and renders on the plain path)")
         return reason is None
 
     def _ray_render_fn(self, settings: RenderSettings, forward_only: bool = False):
@@ -115,18 +173,152 @@ class Trainer:
 
         return fn
 
-    def _render_settings(self, n_samples: int) -> RenderSettings:
-        r = self.cfg.rendering
+    def _render_settings(self, n_samples: int, training: bool) -> RenderSettings:
+        cfg = self.cfg
+        noise = 0.0
+        if training and not cfg.strict_reference_behavior:
+            noise = cfg.rendering.noise_std
+        r = cfg.rendering
         return RenderSettings(
-            near=r.near, far=r.far, n_samples=n_samples,
-            n_importance=r.n_importance, white_bkgd=r.white_bkgd, lindisp=r.lindisp,
+            near=r.near, far=r.far, n_samples=n_samples, n_importance=r.n_importance,
+            perturb=training, noise_std=noise, white_bkgd=r.white_bkgd, lindisp=r.lindisp,
         )
+
+    # ------------------------------------------------------------- phase data
+
+    def phase_data(self, phase_idx: int) -> PhaseData:
+        """Per-phase rays and targets of every train view, on the device:
+        focal scaled with the phase resolution when ``cfg.focal_scaling``,
+        targets resized bilinearly (torch semantics, ``align_corners=False``)."""
+        if phase_idx in self._phase_data:
+            return self._phase_data[phase_idx]
+        p = self.cfg.phases[phase_idx]
+        Hp, Wp = p.H, p.W
+        focal = self.focal * (Hp / self.H) if self.cfg.focal_scaling else self.focal
+        ros, rds, tgts = [], [], []
+        for v in range(self.n_views):
+            ro, rd = get_rays(Hp, Wp, focal, torch.as_tensor(self.poses[v], device=self.device))
+            tgt = torch.as_tensor(self.targets_full[v], device=self.device)
+            if (Hp, Wp) != (self.H, self.W):
+                tgt = F.interpolate(tgt.permute(2, 0, 1)[None], size=(Hp, Wp), mode="bilinear",
+                                    align_corners=False)[0].permute(1, 2, 0)
+            ros.append(ro.reshape(-1, 3))
+            rds.append(rd.reshape(-1, 3))
+            tgts.append(tgt.reshape(-1, 3))
+        pd = PhaseData(rays_o=torch.stack(ros), rays_d=torch.stack(rds),
+                       targets=torch.stack(tgts).contiguous(), H=Hp, W=Wp)
+        self._phase_data[phase_idx] = pd
+        return pd
+
+    def _phase_index(self, epoch: int) -> int:
+        for i, p in enumerate(self.cfg.phases):
+            if p.start_epoch <= epoch < p.end_epoch:
+                return i
+        if self.cfg.phases and epoch < self.cfg.phases[0].start_epoch:
+            raise ValueError(
+                f"epoch {epoch} precedes the first phase "
+                f"(starts at {self.cfg.phases[0].start_epoch})"
+            )
+        return len(self.cfg.phases) - 1
+
+    # ------------------------------------------------------------- train step
+
+    def _kernel_loss_grad(self, ro, rd, tgt, mask, settings, uniforms) -> torch.Tensor:
+        """One step's loss; its gradients land in the parameters' ``.grad``."""
+        cfg = self.cfg
+        loss, grads = fused_train_loss_grad(
+            self.model, ro, rd, tgt, mask, settings,
+            pos_freq=cfg.nerf.pos_freq, dir_freq=cfg.nerf.dir_freq,
+            num_layers=cfg.nerf.num_layers, hidden_dim=cfg.nerf.hidden_dim,
+            use_viewdirs=cfg.nerf.use_viewdirs, compute_dtype=cfg.rendering.compute_dtype,
+            uniforms=uniforms,
+            reg_weight=0.0 if cfg.strict_reference_behavior else float(cfg.loss.reg_weight),
+        )
+        for name, p in self.model.named_parameters():
+            p.grad = grads[name]
+        return loss
+
+    def _plain_loss_grad(self, ro, rd, tgt, mask, settings, uniforms) -> torch.Tensor:
+        cfg = self.cfg
+        out = render_rays(self.model, ro, rd, settings, uniforms=uniforms)
+        losses = nerf_loss(
+            out.rgb, tgt, cfg.loss,
+            weights=None if cfg.strict_reference_behavior else out.weights, mask=mask,
+        )
+        self.optimizer.zero_grad(set_to_none=True)
+        losses["total"].backward()
+        return losses["total"].detach()
+
+    def train_epoch(self, epoch: int) -> float:
+        """One epoch over all views: a fresh permutation per view, the
+        ragged tail padded with index 0 and mask 0, one optimizer step per
+        minibatch. Returns the mean step loss."""
+        cfg = self.cfg
+        phase_idx = self._phase_index(epoch)
+        p = cfg.phases[phase_idx]
+        pd = self.phase_data(phase_idx)
+        boundary = cfg.optimizer.lora_only_after_epoch
+        if boundary and epoch >= boundary:
+            make_optimizer(cfg.optimizer, self.model.parameters(), lora_only=True)
+        set_learning_rate(self.optimizer, self.lr_at(epoch))
+
+        n_rays = pd.rays_o.shape[1]
+        B = min(p.batch_size, n_rays)
+        n_batches = (n_rays + B - 1) // B
+        V = self.n_views
+        pad_total = n_batches * B - n_rays
+        idxs = np.empty((V, n_batches, B), np.int64)
+        masks = np.ones((V, n_batches * B), np.float32)
+        for v in range(V):
+            perm = self._np_rng.permutation(n_rays)
+            idxs[v] = np.concatenate([perm, np.zeros(pad_total, perm.dtype)]).reshape(n_batches, B)
+            if pad_total:
+                masks[v, n_rays:] = 0.0
+        idxs_t = torch.as_tensor(idxs, device=self.device)
+        masks_t = torch.as_tensor(masks.reshape(V, n_batches, B), device=self.device)
+
+        settings = self._render_settings(p.n_samples, training=True)
+        step = self._kernel_loss_grad if self._use_fused() else self._plain_loss_grad
+        losses = []
+        for v in range(V):
+            view_packed = torch.cat([pd.rays_o[v], pd.rays_d[v], pd.targets[v]], dim=1)
+            for b in range(n_batches):
+                row = view_packed[idxs_t[v, b]]
+                uniforms = None
+                if settings.perturb:
+                    uniforms = torch.rand((B, p.n_samples), generator=self._generator,
+                                          device=self.device)
+                losses.append(step(row[:, 0:3], row[:, 3:6], row[:, 6:9], masks_t[v, b],
+                                   settings, uniforms))
+                self.optimizer.step()
+        self.last_step_losses = torch.stack(losses).cpu().numpy()
+        return float(np.mean(self.last_step_losses))
+
+    # ------------------------------------------------------------- health
+
+    def dead_sigma_probe(self) -> float:
+        """Max accumulated alpha over one chunk of train-view-0 rays. Exactly
+        0.0 means relu(sigma) is zero at every sampled point: compositing
+        then has exactly zero gradient and training cannot recover."""
+        chunk_size = self.cfg.rendering.chunk_size
+        fn = self._eval_chunk_fn(self.cfg.phases[-1].n_samples)
+        pd = self.phase_data(self._phase_index(self.epoch))
+        ro, rd = pd.rays_o[0], pd.rays_d[0]
+        if ro.shape[0] >= chunk_size:
+            ro, rd = ro[:chunk_size], rd[:chunk_size]
+        else:
+            reps = -(-chunk_size // ro.shape[0])
+            ro = ro.repeat(reps, 1)[:chunk_size]
+            rd = rd.repeat(reps, 1)[:chunk_size]
+        _, _, acc = fn(ro, rd)
+        return float(torch.max(acc))
 
     # ------------------------------------------------------------------- eval
 
     def _eval_chunk_fn(self, n_samples: int) -> ChunkFn:
         """Per-chunk eval renderer: (ro, rd) -> (rgb, depth, acc)."""
-        render = self._ray_render_fn(self._render_settings(n_samples), forward_only=True)
+        render = self._ray_render_fn(self._render_settings(n_samples, training=False),
+                                     forward_only=True)
 
         def chunk(ro, rd):
             out = render(ro, rd)
@@ -173,9 +365,8 @@ class Trainer:
         return rgb.cpu().numpy(), depth.cpu().numpy(), acc.cpu().numpy()
 
     def evaluate(self, max_views: Optional[int] = None, dump_dir: Optional[str] = None) -> Dict[str, float]:
-        """Full-resolution eval on the test split: mean PSNR and SSIM."""
-        if dump_dir is not None:
-            raise NotImplementedError("evaluate(dump_dir=...) is not ported yet")
+        """Full-resolution eval on the test split: mean PSNR and SSIM; with
+        ``dump_dir``, the first five views' renders and targets as PNGs."""
         if self.test_data is None:
             return {}
         n = self.test_data.n_views if max_views is None else min(max_views, self.test_data.n_views)
@@ -187,9 +378,70 @@ class Trainer:
             tgt = torch.as_tensor(np.asarray(targets[i], np.float32), device=self.device)
             all_psnr.append(float(psnr(pred, tgt)))
             all_ssim.append(float(ssim(pred, tgt)))
+            if dump_dir is not None and i < 5:
+                save_png(os.path.join(dump_dir, f"render_{i}.png"), np.clip(rendered[i], 0, 1))
+                save_png(os.path.join(dump_dir, f"gt_{i}.png"), np.asarray(targets[i]))
         return {"psnr": float(np.mean(all_psnr)), "ssim": float(np.mean(all_ssim))}
 
     # ------------------------------------------------------------------ train
 
     def fit(self, epochs: Optional[int] = None) -> Dict[str, float]:
-        raise NotImplementedError("training is not ported yet (kernel 1 comes next)")
+        """Train from ``self.epoch`` to ``epochs`` (default ``cfg.epochs``):
+        rays/s and the loss in the log every epoch, the dead-sigma probe,
+        eval with image dumps and ``best.ckpt`` every ``val_freq`` epochs,
+        ``epoch_N.ckpt`` every ``save_freq``."""
+        cfg = self.cfg
+        epochs = epochs if epochs is not None else cfg.epochs
+        metrics: Dict[str, float] = {}
+        for epoch in range(self.epoch, epochs):
+            self.epoch = epoch
+            t0 = time.perf_counter()
+            loss = self.train_epoch(epoch)  # syncs on its losses: the time is real
+            pd = self.phase_data(self._phase_index(epoch))
+            rate = self.rate_meter.update(
+                self.n_views * pd.rays_o.shape[1], time.perf_counter() - t0
+            )
+            self.logger.log({"epoch": epoch, "train_loss": loss, "lr": self.lr_at(epoch),
+                             "rays_per_sec": rate})
+            if self.dead_sigma_probe() <= 0.0:
+                self.dead_sigma_epochs += 1
+                print(
+                    f"[DEAD-SIGMA] epoch {epoch}: accumulated alpha is exactly 0 over the "
+                    f"probe chunk — relu(sigma) is zero at every sampled point, gradients "
+                    f"are exactly zero and training cannot recover "
+                    f"({self.dead_sigma_epochs} consecutive epoch(s)). Consider "
+                    f"nerf_model.sigma_bias: 0.1 or a different seed."
+                )
+                self.logger.log({"epoch": epoch, "dead_sigma": True,
+                                 "dead_sigma_epochs": self.dead_sigma_epochs})
+            else:
+                self.dead_sigma_epochs = 0
+            if (epoch + 1) % cfg.output.val_freq == 0:
+                dump = os.path.join(cfg.output.save_dir, f"epoch_{epoch}")
+                metrics = self.evaluate(dump_dir=dump)
+                self.logger.log({"epoch": epoch, **metrics})
+                if metrics.get("psnr", 0.0) > self.best_psnr:
+                    self.best_psnr = metrics["psnr"]
+                    self.save(os.path.join(cfg.output.save_dir, "best.ckpt"))
+            if (epoch + 1) % cfg.output.save_freq == 0:
+                self.save(os.path.join(cfg.output.save_dir, f"epoch_{epoch + 1}.ckpt"))
+        return metrics
+
+    # ------------------------------------------------------------- checkpoint
+
+    def save(self, path: str) -> None:
+        save_checkpoint(
+            path,
+            {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()},
+            metadata={"epoch": self.epoch, "best_psnr": self.best_psnr, "config": self.cfg.raw},
+        )
+
+    def load(self, path: str) -> None:
+        """Restore the model, the optimizer state and (from the metadata)
+        the next epoch and the best PSNR."""
+        tree, meta = restore_checkpoint(path, map_location=self.device)
+        self.model.load_state_dict(tree["model"])
+        self.optimizer.load_state_dict(tree["optimizer"])
+        if meta:
+            self.epoch = int(meta.get("epoch", 0)) + 1
+            self.best_psnr = float(meta.get("best_psnr", 0.0))

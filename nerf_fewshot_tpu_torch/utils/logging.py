@@ -1,0 +1,68 @@
+"""Structured training logs and PNG image dumps (counterpart of
+``nerf_fewshot_tpu/utils/logging.py``).
+
+A JSONL sink (one dict per line); the CSV sink (a log path ending in
+``.csv``) and the wandb mirror are not ported and raise. PNGs are written with
+``zlib`` and ``struct`` from the standard library: the card machine has no
+PIL.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import struct
+import time
+import zlib
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+
+class JSONLLogger:
+    def __init__(self, path: Optional[str] = None, use_wandb: bool = False,
+                 wandb_project: str = "nerf-fewshot-tpu", run_name: str = "run",
+                 config: Optional[Dict] = None):
+        if use_wandb:
+            raise NotImplementedError("the wandb mirror is not ported; use the JSONL sink")
+        if path and path.endswith(".csv"):
+            raise NotImplementedError("the CSV sink is not ported; use a .jsonl log path")
+        self.path = path
+        self._fh = None
+        if path:
+            os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+            self._fh = open(path, "a")
+
+    def log(self, record: Dict[str, Any]) -> None:
+        record = dict(record)
+        record.setdefault("time", time.time())
+        if self._fh:
+            self._fh.write(json.dumps(record, default=float) + "\n")
+            self._fh.flush()
+
+    def close(self) -> None:
+        if self._fh:
+            self._fh.close()
+            self._fh = None
+
+
+def _png_chunk(tag: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + tag + data
+            + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+
+def save_png(path: str, image: np.ndarray) -> None:
+    """Save an (H, W, 3) float [0, 1] image as an 8-bit RGB PNG (pixels
+    ``uint8(clip(255 * x, 0, 255))``, as the JAX package writes them)."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
+    arr = np.clip(np.asarray(image) * 255.0, 0, 255).astype(np.uint8)
+    if arr.ndim != 3 or arr.shape[2] != 3:
+        raise ValueError(f"save_png: expected an (H, W, 3) image, got {arr.shape}")
+    H, W, _ = arr.shape
+    rows = b"".join(b"\x00" + arr[y].tobytes() for y in range(H))  # filter 0 per row
+    png = (b"\x89PNG\r\n\x1a\n"
+           + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+           + _png_chunk(b"IDAT", zlib.compress(rows))
+           + _png_chunk(b"IEND", b""))
+    with open(path, "wb") as f:
+        f.write(png)

@@ -180,10 +180,11 @@ def test_trainer_init_is_seeded_and_refuses_unported_work(scene):
     for (k, va), vb in zip(a.model.state_dict().items(), b.model.state_dict().values()):
         assert torch.equal(va, vb), k
     assert torch.all(a.model.sigma_head.bias == 0.1)
-    with pytest.raises(NotImplementedError):
-        a.fit()
-    with pytest.raises(NotImplementedError):
-        a.evaluate(dump_dir="unused")
+    raw = _slice_config(tcfg).raw
+    for unported in ({"nerf_model": {**raw["nerf_model"], "lora_rank": 4}},
+                     {"model": {"use_dino": True}}):
+        with pytest.raises(NotImplementedError):
+            Trainer(tcfg.config_from_dict({**raw, **unported}), _port_data(train), device="cpu")
     with pytest.raises(ValueError, match="backend=fused"):
         cfg = tcfg.config_from_dict({**_slice_config(tcfg).raw,
                                      "nerf_model": {"hidden_dim": 64, "num_layers": 2},

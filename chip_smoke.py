@@ -7,12 +7,13 @@ Needs one NVIDIA Hopper card (sm_90) and nvcc. Phases, each printed with
 its seconds:
 
 1. device: the card's name, capability and ``nvidia-smi`` power limit;
-2. build: nvcc builds every kernel of the paths (``csrc/fwd_pe.cu``,
-   ``csrc/train_pe.cu``), one process per source, all started together, and
-   prints ptxas' register and shared-memory lines;
-3. kernel vs plain: the inline-PE render kernel against its plain PyTorch
-   version on the card, at the main path's shape (2048 rays x 64 samples,
-   8x256 trunk, the baseline's random init from its seed) and at
+2. build: nvcc builds every kernel of the paths (``csrc/fwd_pe.cu``: kernels
+   2 and 4; ``csrc/train_pe.cu``: kernels 1, 5 and 3), one process per
+   source, all started together, and prints ptxas' register and
+   shared-memory lines;
+3. kernel vs plain: the inline-PE render kernel (kernel 2) against its plain
+   PyTorch version on the card, at the main path's shape (2048 rays x 64
+   samples, 8x256 trunk, the baseline's random init from its seed) and at
    S = 48 / 192, white background and 64-wide point features; CUDA-event
    times of both at the main path's shape;
 4. train kernel vs plain: the training-objective kernel (loss and all six
@@ -22,22 +23,47 @@ its seconds:
    tail, the w^2 and depth terms and 64-wide features; the pre-encoded-x
    build (kernel 5); sigma_bias 5.0. CUDA-event times of the kernel and the
    plain version at each phase shape;
-5. slice: ``experiments/baseline.yaml`` (as a literal dict) on the
+5. render kernel 4 vs plain: the render from a pre-encoded x at the main
+   path's shape (a 2048x64 eval chunk, x 128 wide, the baseline's init) and
+   at S = 128, white background, 64-wide features (x 256 wide); times and
+   bound;
+6. render VJP kernel 3 vs plain: at 512x64 (the baseline's phase-2 batch,
+   its init, standard-normal cotangents on all four outputs), two calls bit
+   for bit, then a white background with 64-wide features, S = 128 and
+   sigma_bias 5.0; dx and the six packed gradients as one vector; times and
+   bound;
+7. differentiable render steps: the baseline ``NeRFMLP`` from its seed
+   takes 30 Adam steps (512 rays x 64 samples of the 128x128 views, a loss
+   on rgb, weights, depth and acc) through
+   ``fused_render_rays(forward_only=False)`` and the same steps through the
+   plain ``render_rays`` and autograd, then 15 hierarchical ones
+   (n_importance 64); per-step losses must agree over the first 5 steps;
+   every step launches kernels 4 and 3;
+8. slice: ``experiments/baseline.yaml`` (as a literal dict) on the
    synthetic lego-like scene at 128x128 (5 train, 8 test views):
    ``Trainer(device="cuda").evaluate()``, whose chunks must each launch the
    kernel once, checked against the plain pipeline on the card;
-6. train slice: the same trainer trains through the kernel for one epoch
+9. train slice: the same trainer trains through the kernel for one epoch
    of each phase plus one more at 32x32 and at 128x128 (``train_epoch`` at
    epochs 0, 1, 50, 100, 101), then ``fit`` two more epochs with eval, PNG dumps and
    checkpoints into a temporary directory; every step must launch the
    kernel once, PSNR must rise above its value at init, and a trainer on
    the plain path (``backend: xla``) from the same seed must give the same
    per-step losses over epoch 0;
-7. train step breakdown: one phase-2 epoch untraced, then under
+10. train step breakdown: one phase-2 epoch untraced, then under
    ``torch.profiler`` with the CUDA activity only (the device's busy share
    of the epoch, the stream synchronizations per step) and with the CPU
    activity too (device time per step by part: the kernel's launches,
-   Adam, the rest).
+   Adam, the rest);
+11. hierarchical train slice: ``experiments/hierarchical.yaml`` (a literal
+   dict) trains at the same epochs (every step: kernel 2 as the coarse
+   pass, kernel 1 over the merged 96 / 112 / 128 samples), PSNR must rise;
+   eval runs kernel 2 for both passes; kernel times at the step's shapes;
+   one ``fused_train_loss_grad(inline_pe=False)`` step (kernel 4 as the
+   coarse pass, kernel 5) against the inline-PE step;
+12. repair check: ``experiments/smoke.yaml`` (width 64) trains a phase-0
+   epoch on the plain path under ``backend: auto`` and says so in
+   ``kernel_path``; under ``fused`` it raises, and width 384 raises too.
 
 Any failure raises and exits non-zero. On success the last three lines are
 the ``nvidia-smi`` name/power-limit line, a JSON line with the kernels'
@@ -82,6 +108,47 @@ BASELINE_CONFIG = {
     "output": {"save_dir": "results/baseline_lego", "val_freq": 10, "save_freq": 50},
 }
 
+# experiments/hierarchical.yaml, parsed (a CPU test holds the two equal).
+HIERARCHICAL_CONFIG = {
+    "experiment": {"name": "NeRF-Hierarchical-Lego"},
+    "data": {"dataset": "nerf_synthetic", "scene": "lego", "num_views": 5,
+             "resolution": 128, "near": 2.0, "far": 6.0},
+    "model": {"use_dino": False},
+    "nerf_model": {"pos_freq": 10, "dir_freq": 4, "hidden_dim": 256, "num_layers": 8,
+                   "sigma_bias": 0.1},
+    "training": {"epochs": 200, "batch_size": 1024,
+                 "progressive_schedule": {"epochs_0_50": [32, 32, 32],
+                                          "epochs_50_100": [64, 64, 48],
+                                          "epochs_100_plus": [128, 128, 64]}},
+    "optimizer": {"lr": 0.0005, "weight_decay": 1e-06, "lr_milestones": [100, 150],
+                  "lr_gamma": 0.5},
+    "loss": {"rgb_weight": 1.0, "depth_weight": 0.0, "reg_weight": 0.0},
+    "rendering": {"near": 2.0, "far": 6.0, "chunk_size": 2048, "noise_std": 0.0,
+                  "white_bkgd": False, "n_importance": 64, "backend": "auto"},
+    "output": {"save_dir": "results/hierarchical_lego", "val_freq": 10, "save_freq": 100},
+}
+
+# experiments/smoke.yaml, parsed (a CPU test holds the two equal): width 64,
+# which the kernels do not take.
+SMOKE_CONFIG = {
+    "experiment": {"name": "smoke"},
+    "data": {"dataset": "nerf_synthetic", "scene": "synthetic", "num_views": 4,
+             "resolution": 32, "near": 2.0, "far": 6.0, "source": "synthetic"},
+    "model": {"use_dino": False},
+    "nerf_model": {"pos_freq": 8, "dir_freq": 2, "hidden_dim": 64, "num_layers": 4,
+                   "sigma_bias": 0.1},
+    "training": {"epochs": 10, "batch_size": 512,
+                 "progressive_schedule": {"epochs_0_50": [32, 32, 32],
+                                          "epochs_50_100": [32, 32, 32],
+                                          "epochs_100_plus": [32, 32, 32]}},
+    "optimizer": {"lr": 0.005, "weight_decay": 1e-06, "lr_milestones": [1000],
+                  "lr_gamma": 0.5},
+    "loss": {"rgb_weight": 1.0, "depth_weight": 0.0, "reg_weight": 0.0},
+    "rendering": {"near": 2.0, "far": 6.0, "chunk_size": 1024, "noise_std": 0.0,
+                  "white_bkgd": True},
+    "output": {"save_dir": "results/smoke", "val_freq": 5, "save_freq": 10},
+}
+
 # H100 SXM published peaks (dense): FP32 on the CUDA cores, HBM3 bandwidth.
 FP32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
@@ -92,10 +159,18 @@ TOL = {"rgb": 1e-4, "depth": 1e-3, "acc": 1e-4, "weights": 1e-4}
 # vector rel 1e-4, and 2e-2 at sigma_bias 5.0, where the backward divides by
 # transmittances at the 1e-10 floor (the JAX gate, render/verify.py).
 TRAIN_GRAD_TOL, TRAIN_GRAD_TOL_SATURATED = 1e-4, 2e-2
-# Kernel trainer vs plain trainer, per-step losses of epoch 0.
+# Kernel trainer vs plain trainer, per-step losses of epoch 0; the
+# differentiable render steps vs plain autograd, per-step losses of the
+# first RENDER_STEPS_GATED steps.
 TRAIN_LOSS_RTOL = 1e-4
+RENDER_STEPS, RENDER_STEPS_HIER, RENDER_STEPS_GATED = 30, 15, 5
+RENDER_STEPS_TRACED = 10  # fused steps per profiled window
+# fused_train_loss_grad(inline_pe=False) vs inline_pe=True, hierarchical:
+# kernel 2's sin(x + pi/2) and the encoded x's cos shift the importance
+# samples by ~1e-6, so the two losses differ by up to about 1e-4 rel.
+INLINE_PE_LOSS_RTOL = 1e-3
 N_TEST_VIEWS, N_TRAIN_VIEWS = 8, 5
-KERNELS = ("fwd_pe", "train_pe")
+KERNELS = ("fwd_pe", "train_pe")  # the sources, one nvcc each
 # one epoch of each phase and one more at 32x32 and at 128x128: the first
 # epoch's steps include the first use (module loading) of every CUDA kernel
 TRAIN_EPOCHS = (0, 1, 50, 100, 101)
@@ -214,6 +289,81 @@ def random_train_args(rng, R, S, H, L, device, *, feat_dim=0, sigma_bias=0.1,
         target_depth=on(rng.uniform(2.5, 5.5, R)) if depth_weight else None, point_features_fn=pf)
 
 
+def random_render_args(rng, R, S, H, L, device, *, feat_dim=0, sigma_bias=0.1):
+    """Random inputs of kernels 4 and 3 as ``fused_render_rays`` builds them:
+    random weights (``random_state``), rays from (0, 0, 4) into the scene
+    volume, jittered samples in [2, 6], ``x = encode_points(...)`` (128 wide,
+    256 with 64-wide features ``tanh(pts @ W)``). Returns ``(x, z, dnorm,
+    packed)`` and the unpadded input width."""
+    from nerf_fewshot_tpu_torch.ops.sampling import sample_along_rays
+    from nerf_fewshot_tpu_torch.render import kernels as tk
+    from nerf_fewshot_tpu_torch.render.fused import encode_points
+
+    x_dim = 90 + feat_dim
+    state = {k: v.to(device) for k, v in random_state(rng, x_dim, H, L, sigma_bias).items()}
+    on = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    d = rng.standard_normal((R, 3))
+    d[:, 2] = -np.abs(d[:, 2]) - 1.0
+    rd = on(d)
+    pts, z = sample_along_rays(on(np.broadcast_to([0.0, 0.0, 4.0], (R, 3))), rd, 2.0, 6.0, S,
+                               uniforms=on(rng.uniform(0, 1, (R, S))))
+    feats = None
+    if feat_dim:
+        feats = torch.tanh(pts.reshape(-1, 3) @ on(rng.standard_normal((3, feat_dim))))
+    x = encode_points(pts, rd, 10, 4, True, feats).contiguous()
+    packed = tk.pack_params(state, L, H, d_pad=x.shape[1])
+    return (x, z.contiguous(), torch.linalg.norm(rd, dim=-1, keepdim=True), packed), x_dim
+
+
+def random_cotangents(rng, R, S, device):
+    """Standard-normal cotangents of the render's (rgb, depth, acc, weights)."""
+    return tuple(torch.tensor(rng.standard_normal(shape).astype(np.float32), device=device)
+                 for shape in ((R, 3), (R, 1), (R, 1), (R, S)))
+
+
+def render_cost(args, x_dim, backward):
+    """(FLOPs, bytes) of kernel 4 (``backward`` False) or kernel 3 on these
+    inputs: the trunk and head over the ``x_dim`` real input columns (the
+    padding is not counted); kernel 3 adds the backward chain, the dW
+    products and dx; each input read once, each output written once."""
+    x, z, dnorm, packed = args
+    w0, b0, wh, bh, wout, bout = packed
+    N, D = x.shape
+    R, S = z.shape
+    H, L1 = w0.shape[1], wh.shape[0]
+    fwd = x_dim * H + L1 * H * H + H * 4
+    if not backward:
+        flops = 2.0 * N * fwd
+        out_elems = R * 3 + R + R + R * S
+        nbytes = 4.0 * (x.numel() + z.numel() + dnorm.numel()
+                        + sum(p.numel() for p in packed) + out_elems)
+        return flops, nbytes
+    bwd = H * 4 + L1 * H * H
+    flops = 2.0 * N * (2 * fwd + bwd + x_dim * H)
+    cot_elems = R * 3 + R + R + R * S
+    nbytes = 4.0 * (2 * x.numel() + z.numel() + dnorm.numel() + cot_elems
+                    + 2 * sum(p.numel() for p in packed))
+    return flops, nbytes
+
+
+def compare_vjp(name, got, want, tol):
+    """``dx`` and the six packed gradients as one vector: rel error <= tol,
+    alive (norm > 1e-6), finite. Returns the max abs error."""
+    flat = lambda dx, dp: torch.cat([t.reshape(-1).double() for t in (dx, *dp)])
+    g, w = flat(*got), flat(*want)
+    if not torch.isfinite(g).all():
+        raise RuntimeError(f"{name}: kernel gradients are not finite")
+    norm = w.norm().item()
+    rel = (g - w).norm().item() / max(norm, 1e-30)
+    max_err = (g - w).abs().max().item()
+    print(f"  {name}: dx + packed grads rel err {rel:.2e} (tol {tol:.0e}), |g| {norm:.3e}, "
+          f"max abs err {max_err:.2e}", flush=True)
+    if not (norm > 1e-6 and rel <= tol):
+        raise RuntimeError(f"{name}: kernel 3 disagrees with its plain version "
+                           f"(rel {rel}, |g| {norm})")
+    return max_err
+
+
 def train_cost(args, opts):
     """(FLOPs, bytes) the objective needs on these inputs: the forward trunk
     and head over the unpadded input width, the backward chain (head, then
@@ -278,30 +428,34 @@ def main_path_train_args(trainer, phase_idx, device, inline_pe=True, seed=0):
         uniforms=torch.rand((B, p.n_samples), generator=g, device=device), inline_pe=inline_pe)
 
 
-def trace_epoch(trainer, epoch, with_cpu):
-    """One ``train_epoch`` under ``torch.profiler``. With the CUDA activity
-    only (``with_cpu`` False) the host is slowed least: the device's busy
-    time is the union of its kernel and copy intervals, set against the
-    epoch's wall time, and the stream synchronizations the host made are
-    counted. With the CPU activity too, Adam's device time is read from the
-    optimizer's own ``Optimizer.step#...`` range. Device-side spans of
-    annotated ranges are not kernels and are left out. Returns the wall ms,
-    the busy ms, and per step: device ms by part (the training kernel's
-    launches by name, ``adam`` with the CPU activity, ``other``: gather,
-    sampling, ``pack_params`` and its backward, copies), device events and
-    stream synchronizations."""
+# Device-time groups of the profiled runs, by kernel name (first match).
+KERNEL_GROUPS = ("train_fwd", "train_bwd", "train_dw", "train_composite", "render_composite",
+                 "render_dx", "train_finalize", "loss_sum", "wh_transpose", "fwd_kernel")
+
+
+def trace(run, with_cpu):
+    """``run()`` (which returns its number of steps) under ``torch.profiler``.
+    With the CUDA activity only (``with_cpu`` False) the host is slowed
+    least: the device's busy time is the union of its kernel and copy
+    intervals, set against the run's wall time, and the stream
+    synchronizations the host made are counted. With the CPU activity too,
+    Adam's device time is read from the optimizer's own
+    ``Optimizer.step#...`` range. Device-side spans of annotated ranges are
+    not kernels and are left out. Returns the wall ms, the busy ms, and per
+    step: device ms by part (the CUDA kernels' launches by name, ``adam``
+    with the CPU activity, ``other``: gather, sampling, encoding,
+    ``pack_params`` and its backward, copies), device events and stream
+    synchronizations."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if with_cpu else [ProfilerActivity.CUDA]
-    trainer.phase_data(trainer._phase_index(epoch))
     torch.cuda.synchronize()
     with profile(activities=acts, acc_events=True) as prof:
         t0 = time.perf_counter()
-        trainer.train_epoch(epoch)
+        steps = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    steps = len(trainer.last_step_losses)
     parts, spans, adam, syncs = {}, [], 0.0, 0
     for evt in prof.events():
         if evt.name == "cudaStreamSynchronize":
@@ -313,9 +467,7 @@ def trace_epoch(trainer, epoch, with_cpu):
         if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
         spans.append((evt.time_range.start, evt.time_range.end))
-        group = next((g for g in ("train_fwd", "train_bwd", "train_dw", "train_composite",
-                                  "train_finalize", "loss_sum", "wh_transpose") if g in evt.name),
-                     "other")
+        group = next((g for g in KERNEL_GROUPS if g in evt.name), "other")
         parts[group] = parts.get(group, 0.0) + evt.time_range.elapsed_us() / 1e3
     if with_cpu:
         parts["other"] = parts.get("other", 0.0) - adam
@@ -330,13 +482,33 @@ def trace_epoch(trainer, epoch, with_cpu):
                 events=len(spans) / steps, syncs=syncs / steps, steps=steps)
 
 
-def main_path_fwd_pe_args(trainer, pose, device):
-    """The first 2048-ray chunk of a 128x128 test view, exactly as
-    ``fused_render_rays`` hands it to the kernel, with the trainer's
-    weights."""
+def trace_epoch(trainer, epoch, with_cpu):
+    """One ``train_epoch`` under ``trace``."""
+    trainer.phase_data(trainer._phase_index(epoch))
+
+    def run():
+        trainer.train_epoch(epoch)
+        return len(trainer.last_step_losses)
+
+    return trace(run, with_cpu)
+
+
+def print_trace(label, t, untraced_ms):
+    if not t["busy_ms"] > 0:
+        raise RuntimeError("the profiler recorded no device time")
+    print(f"  {label}: wall {t['wall_ms']:.1f} ms ({t['wall_ms'] / untraced_ms:.3f}x untraced), "
+          f"device busy {t['busy_ms']:.1f} ms ({t['busy_ms'] / t['wall_ms']:.1%} of the traced "
+          f"wall), per step: {t['events']:.1f} device events, {t['syncs']:.2f} stream "
+          f"synchronizations, device ms " + ", ".join(
+              f"{k} {v:.3f}" for k, v in sorted(t["parts"].items(), key=lambda kv: -kv[1]))
+          + f", sum {sum(t['parts'].values()):.3f}", flush=True)
+
+
+def eval_chunk(trainer, pose, device):
+    """The first 2048-ray chunk of a 128x128 test view and its deterministic
+    samples, as ``fused_render_rays`` makes them: ``(rd, pts, z)``."""
     from nerf_fewshot_tpu_torch.ops.rays import get_rays
     from nerf_fewshot_tpu_torch.ops.sampling import sample_along_rays
-    from nerf_fewshot_tpu_torch.render import kernels as tk
 
     cfg = trainer.cfg
     ro, rd = get_rays(trainer.H, trainer.W, trainer.focal,
@@ -345,12 +517,36 @@ def main_path_fwd_pe_args(trainer, pose, device):
     ro, rd = ro.reshape(-1, 3)[:chunk], rd.reshape(-1, 3)[:chunk]
     pts, z = sample_along_rays(ro, rd, cfg.rendering.near, cfg.rendering.far,
                                cfg.phases[-1].n_samples)
+    return rd, pts, z.contiguous()
+
+
+def main_path_fwd_pe_args(trainer, pose, device):
+    """An eval chunk exactly as ``fused_render_rays(forward_only=True)``
+    hands it to kernel 2, with the trainer's weights."""
+    from nerf_fewshot_tpu_torch.render import kernels as tk
+
+    cfg = trainer.cfg
+    rd, pts, z = eval_chunk(trainer, pose, device)
     perm, e2, c, x_dim = tk.pe_layout(cfg.nerf.pos_freq, cfg.nerf.dir_freq, True, 0)
     packed = tk.pack_params(trainer.model.state_dict(), cfg.nerf.num_layers,
                             cfg.nerf.hidden_dim, d_pad=-(-x_dim // 128) * 128, row_perm=perm)
-    return (tk._raw_block(pts, rd, True), None, z.contiguous(),
-            torch.linalg.norm(rd, dim=-1, keepdim=True),
+    return (tk._raw_block(pts, rd, True), None, z, torch.linalg.norm(rd, dim=-1, keepdim=True),
             torch.as_tensor(e2, device=device), torch.as_tensor(c, device=device), packed)
+
+
+def main_path_fwd_x_args(trainer, pose, device):
+    """An eval chunk encoded as ``fused_render_rays(forward_only=False)``
+    hands it to kernel 4, with the trainer's weights: ``(x, z, dnorm,
+    packed)``."""
+    from nerf_fewshot_tpu_torch.render import kernels as tk
+    from nerf_fewshot_tpu_torch.render.fused import encode_points
+
+    cfg = trainer.cfg
+    rd, pts, z = eval_chunk(trainer, pose, device)
+    x = encode_points(pts, rd, cfg.nerf.pos_freq, cfg.nerf.dir_freq, True).contiguous()
+    packed = tk.pack_params(trainer.model.state_dict(), cfg.nerf.num_layers,
+                            cfg.nerf.hidden_dim, d_pad=x.shape[1])
+    return x, z, torch.linalg.norm(rd, dim=-1, keepdim=True), packed
 
 
 def compare(name, got, want):
@@ -451,6 +647,290 @@ def run_train_slice(cfg, train, test, device, tmp, psnr_init, tt):
             raise RuntimeError(f"epoch {e}: kernel and plain trainers differ by rel {rel.max()} "
                                f"(tol {TRAIN_LOSS_RTOL})")
     return counts["train_pe"], counts["train_x"]
+
+
+def main_path_render_bwd_args(trainer, device, seed=0):
+    """One differentiable-render step's input to kernel 3 at the baseline's
+    phase-2 batch: 512 train-view-0 rays x 64 jittered samples, encoded,
+    the trainer's weights, standard-normal cotangents."""
+    from nerf_fewshot_tpu_torch.ops.sampling import sample_along_rays
+    from nerf_fewshot_tpu_torch.render import kernels as tk
+    from nerf_fewshot_tpu_torch.render.fused import encode_points
+
+    cfg = trainer.cfg
+    last = len(cfg.phases) - 1
+    p = cfg.phases[last]
+    pd = trainer.phase_data(last)
+    g = torch.Generator(device).manual_seed(seed)
+    idx = torch.randperm(pd.rays_o.shape[1], generator=g, device=device)[:p.batch_size]
+    ro, rd = pd.rays_o[0][idx], pd.rays_d[0][idx]
+    pts, z = sample_along_rays(ro, rd, cfg.rendering.near, cfg.rendering.far, p.n_samples,
+                               uniforms=torch.rand((len(idx), p.n_samples), generator=g,
+                                                   device=device))
+    x = encode_points(pts, rd, cfg.nerf.pos_freq, cfg.nerf.dir_freq, True).contiguous()
+    packed = tk.pack_params(trainer.model.state_dict(), cfg.nerf.num_layers,
+                            cfg.nerf.hidden_dim, d_pad=x.shape[1])
+    args = (x, z.contiguous(), torch.linalg.norm(rd, dim=-1, keepdim=True), packed)
+    return args, random_cotangents(np.random.default_rng(seed), len(idx), p.n_samples, device)
+
+
+def render_stepper(cfg, pd, device, n_importance, fused):
+    """A function that takes one Adam step of the baseline ``NeRFMLP`` (its
+    init from ``cfg.seed``) on a batch of the last phase's shape (512 rays x
+    64 jittered samples of the 128x128 views) and returns its loss, a loss
+    on every output of the render:
+    rgb MSE + 0.01 mean(w^2) + 1e-3 mean(|depth - 4|) + 1e-3 mean(acc),
+    through ``fused_render_rays(forward_only=False)`` (``fused``) or the
+    plain ``render_rays`` and autograd. Batches and uniforms come from a
+    generator seeded with ``cfg.seed``, so both routes see the same ones."""
+    from nerf_fewshot_tpu_torch.models.mlp import NeRFMLP
+    from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
+    from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings, render_rays
+    from nerf_fewshot_tpu_torch.training.optim import make_optimizer
+
+    n = cfg.nerf
+    model = NeRFMLP(pos_freq=n.pos_freq, dir_freq=n.dir_freq, use_viewdirs=n.use_viewdirs,
+                    hidden_dim=n.hidden_dim, num_layers=n.num_layers,
+                    sigma_bias_init=n.sigma_bias,
+                    generator=torch.Generator().manual_seed(cfg.seed)).to(device)
+    opt = make_optimizer(cfg.optimizer, model.parameters())
+    r, p = cfg.rendering, cfg.phases[-1]
+    S, n_rays = p.n_samples, pd.rays_o.shape[1]
+    B = min(p.batch_size, n_rays)
+    settings = RenderSettings(near=r.near, far=r.far, n_samples=S, n_importance=n_importance,
+                              perturb=True, white_bkgd=r.white_bkgd)
+    g = torch.Generator(device).manual_seed(cfg.seed)
+    count = [0]
+
+    def step():
+        v = count[0] % pd.rays_o.shape[0]
+        count[0] += 1
+        idx = torch.randint(0, n_rays, (B,), generator=g, device=device)
+        u = torch.rand((B, S), generator=g, device=device)
+        ui = torch.rand((B, max(n_importance, 1)), generator=g, device=device)
+        ro, rd, tgt = pd.rays_o[v][idx], pd.rays_d[v][idx], pd.targets[v][idx]
+        if fused:
+            out = fused_render_rays(dict(model.named_parameters()), ro, rd, settings,
+                                    n.pos_freq, n.dir_freq, n.num_layers, n.hidden_dim,
+                                    n.use_viewdirs, device=device, uniforms=u,
+                                    importance_uniforms=ui)
+        else:
+            out = render_rays(model, ro, rd, settings, u, ui)
+        loss = (torch.mean((out.rgb - tgt) ** 2) + 0.01 * torch.mean(out.weights ** 2)
+                + 1e-3 * torch.mean(torch.abs(out.depth - 4.0)) + 1e-3 * torch.mean(out.acc))
+        opt.zero_grad(set_to_none=True)
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    return step
+
+
+def render_steps(cfg, pd, device, n_importance, steps, fused):
+    """``steps`` steps of ``render_stepper``: the per-step losses and the ms
+    per step after the first (host clock, ended by a synchronization; the
+    first step includes one-time set-up)."""
+    step = render_stepper(cfg, pd, device, n_importance, fused)
+    losses = [step()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(steps - 1)]
+    losses = torch.stack(losses).cpu().numpy()
+    return losses, (time.perf_counter() - t0) / (steps - 1) * 1e3
+
+
+def run_render_steps(cfg, trainer, device, tk):
+    """The differentiable render path: RENDER_STEPS steps (and
+    RENDER_STEPS_HIER hierarchical ones, n_importance 64) through the fused
+    render against the same steps through the plain pipeline; returns the
+    launches of kernels 4 and 3 over the fused runs."""
+    pd = trainer.phase_data(len(cfg.phases) - 1)
+    tk.fused_render_fwd.launches = 0
+    tk.fused_render_bwd.launches = 0
+    want_fwd = want_bwd = 0
+    for n_imp, steps in ((0, RENDER_STEPS), (64, RENDER_STEPS_HIER)):
+        got, k_ms = render_steps(cfg, pd, device, n_imp, steps, fused=True)
+        want, p_ms = render_steps(cfg, pd, device, n_imp, steps, fused=False)
+        want_fwd += steps * (2 if n_imp else 1)
+        want_bwd += steps
+        if not np.isfinite(got).all():
+            raise RuntimeError(f"n_importance {n_imp}: non-finite losses {got}")
+        rel = np.abs(got / want - 1.0)
+        gated = rel[:RENDER_STEPS_GATED].max()
+        p = cfg.phases[-1]
+        print(f"  n_importance {n_imp}, {p.batch_size} x {p.n_samples} + {n_imp} samples: "
+              f"{steps} steps, after the first: fused "
+              f"{k_ms:.3f} ms/step, plain {p_ms:.3f} ms/step; loss {got[0]:.6f} -> {got[-1]:.6f}; "
+              f"per-step rel gap to the plain route: first {RENDER_STEPS_GATED} steps max "
+              f"{gated:.2e} (tol {TRAIN_LOSS_RTOL:.0e}), all steps max {rel.max():.2e}",
+              flush=True)
+        if not gated <= TRAIN_LOSS_RTOL:
+            raise RuntimeError(f"n_importance {n_imp}: fused and plain render steps differ by "
+                               f"rel {gated} (tol {TRAIN_LOSS_RTOL})")
+    counts = (tk.fused_render_fwd.launches, tk.fused_render_bwd.launches)
+    print(f"  launches: kernel 4 {counts[0]}, kernel 3 {counts[1]} for "
+          f"{RENDER_STEPS + RENDER_STEPS_HIER} steps", flush=True)
+    if counts != (want_fwd, want_bwd):
+        raise RuntimeError(f"launches {counts}, expected {(want_fwd, want_bwd)}")
+    # where a fused step's time goes (these launches are not the path's count)
+    for n_imp in (0, 64):
+        step = render_stepper(cfg, pd, device, n_imp, fused=True)
+        run = lambda: len([step() for _ in range(RENDER_STEPS_TRACED)])
+        run()  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        untraced_ms = (time.perf_counter() - t0) * 1e3
+        print(f"  fused step, n_importance {n_imp}, untraced: "
+              f"{untraced_ms / RENDER_STEPS_TRACED:.3f} ms/step", flush=True)
+        for with_cpu in (False, True):
+            print_trace(f"n_importance {n_imp} traced ({'CPU+CUDA' if with_cpu else 'CUDA only'})",
+                        trace(run, with_cpu), untraced_ms)
+    return counts
+
+
+def run_hierarchical_slice(train, test, device, tk, tt):
+    """``experiments/hierarchical.yaml`` through ``Trainer(device="cuda")``:
+    eval at init, ``train_epoch`` at TRAIN_EPOCHS (every step: kernel 2 for
+    the coarse pass, kernel 1 over the merged samples), eval again (kernel 2
+    for both passes of every chunk), CUDA-event times of kernel 1 at the
+    merged 512 x 128 and of kernel 2 as the coarse pass, and one
+    ``fused_train_loss_grad(inline_pe=False)`` step (kernel 4 as the coarse
+    pass, kernel 5 as the objective) against the inline-PE step. Returns the
+    launches of kernel 5 in this run."""
+    from nerf_fewshot_tpu_torch.render.kernels import _raw_block, pack_params, pe_layout
+    from nerf_fewshot_tpu_torch.ops.sampling import sample_along_rays
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    cfg = config_from_dict(HIERARCHICAL_CONFIG)
+    tr = Trainer(cfg, train, test, device=device)
+    if not tr._use_fused() or tr.kernel_path != "kernel":
+        raise RuntimeError(f"hierarchical.yaml takes the {tr.kernel_path} path")
+    n_chunks = -(-N_TEST_VIEWS * cfg.data.resolution ** 2 // cfg.rendering.chunk_size)
+    tk.fused_render_fwd_pe.launches = 0
+    psnr0 = tr.evaluate()["psnr"]
+    if tk.fused_render_fwd_pe.launches != 2 * n_chunks:
+        raise RuntimeError(f"eval: {tk.fused_render_fwd_pe.launches} launches for {n_chunks} "
+                           f"chunks of two passes")
+    for i in range(len(cfg.phases)):
+        tr.phase_data(i)
+    tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+    tk.fused_render_fwd_pe.launches = 0
+    tk.fused_render_fwd.launches = 0
+    steps = 0
+    for e in TRAIN_EPOCHS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = tr.train_epoch(e)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n = len(tr.last_step_losses)
+        steps += n
+        p = cfg.phase_for_epoch(e)
+        pd = tr.phase_data(tr._phase_index(e))
+        rays = tr.n_views * pd.rays_o.shape[1]
+        print(f"  hierarchical epoch {e} ({pd.H}x{pd.W}, {p.n_samples} + "
+              f"{cfg.rendering.n_importance} samples, {min(p.batch_size, pd.rays_o.shape[1])} rays "
+              f"per step): loss {loss:.6f}, {n} steps, {sec:.3f} s, {sec / n * 1e3:.3f} ms/step, "
+              f"{rays / sec:.0f} rays/s", flush=True)
+        if not np.isfinite(tr.last_step_losses).all():
+            raise RuntimeError(f"epoch {e}: non-finite losses {tr.last_step_losses}")
+    counts = (tt.fused_train_objective.launches["train_pe"], tk.fused_render_fwd_pe.launches)
+    print(f"  launches: kernel 1 {counts[0]}, kernel 2 (coarse) {counts[1]} for {steps} steps",
+          flush=True)
+    if counts != (steps, steps):
+        raise RuntimeError(f"launches {counts} for {steps} steps")
+    tk.fused_render_fwd_pe.launches = 0
+    t0 = time.perf_counter()
+    after = tr.evaluate()
+    sec = time.perf_counter() - t0
+    print(f"  evaluate: psnr {psnr0:.4f} dB at init, {after['psnr']:.4f} dB after {steps} steps, "
+          f"ssim {after['ssim']:.5f}, {sec / N_TEST_VIEWS * 1e3:.2f} ms/view, "
+          f"{tk.fused_render_fwd_pe.launches} launches for {n_chunks} chunks", flush=True)
+    if tk.fused_render_fwd_pe.launches != 2 * n_chunks:
+        raise RuntimeError("eval: not two kernel-2 launches per chunk")
+    if not after["psnr"] > psnr0:
+        raise RuntimeError(f"psnr after training {after['psnr']} <= at init {psnr0}")
+
+    # kernel times at the step's shapes (phase 2: 512 rays, 64 + 64 samples)
+    last = len(cfg.phases) - 1
+    p = cfg.phases[last]
+    g = torch.Generator(device).manual_seed(cfg.seed)
+    pd = tr.phase_data(last)
+    idx = torch.randperm(pd.rays_o.shape[1], generator=g, device=device)[:p.batch_size]
+    B = len(idx)
+    ro, rd, tgt = pd.rays_o[0][idx], pd.rays_d[0][idx], pd.targets[0][idx]
+    u = torch.rand((B, p.n_samples), generator=g, device=device)
+    ui = torch.rand((B, cfg.rendering.n_importance), generator=g, device=device)
+    settings = tr._render_settings(p.n_samples, training=True)
+    state = {k: v.detach() for k, v in tr.model.named_parameters()}
+    n = cfg.nerf
+    a, o = tt.train_objective_inputs(state, ro, rd, tgt, torch.ones(B, device=device), settings,
+                                     n.pos_freq, n.dir_freq, n.num_layers, n.hidden_dim,
+                                     uniforms=u, importance_uniforms=ui)
+    k1_ms = cuda_ms(lambda: tt.fused_train_objective(*a, **o), iters=10)
+    pts, z = sample_along_rays(ro, rd, settings.near, settings.far, p.n_samples, uniforms=u)
+    perm, e2, c, x_dim = pe_layout(n.pos_freq, n.dir_freq, True, 0)
+    coarse = (_raw_block(pts, rd, True), None, z.contiguous(),
+              torch.linalg.norm(rd, dim=-1, keepdim=True), torch.as_tensor(e2, device=device),
+              torch.as_tensor(c, device=device),
+              pack_params(state, n.num_layers, n.hidden_dim, d_pad=128, row_perm=perm))
+    k2_ms = cuda_ms(lambda: tk.fused_render_fwd_pe(*coarse), iters=20)
+    print(f"  kernel ms at the step's shapes: kernel 1 over {B} x {a[2].shape[1]} merged samples "
+          f"{k1_ms:.3f}, kernel 2 as the coarse pass over {B} x {p.n_samples} {k2_ms:.3f}",
+          flush=True)
+
+    # the pre-encoded-x route: kernel 4 as the coarse pass, kernel 5 as the objective
+    kw = dict(uniforms=u, importance_uniforms=ui)
+    args = (state, ro, rd, tgt, torch.ones(B, device=device), settings, n.pos_freq, n.dir_freq,
+            n.num_layers, n.hidden_dim)
+    before = (tk.fused_render_fwd.launches, tt.fused_train_objective.launches["train_x"])
+    lx, gx = tt.fused_train_loss_grad(*args, inline_pe=False, **kw)
+    lp, gp = tt.fused_train_loss_grad(*args, inline_pe=True, **kw)
+    after_x = (tk.fused_render_fwd.launches, tt.fused_train_objective.launches["train_x"])
+    flat = lambda gr: torch.cat([gr[k].reshape(-1).double() for k in sorted(gr)])
+    loss_rel = abs(lx.item() / lp.item() - 1.0)
+    grad_rel = ((flat(gx) - flat(gp)).norm() / flat(gp).norm()).item()
+    print(f"  inline_pe=False vs True, {B} x {p.n_samples} + {cfg.rendering.n_importance}: "
+          f"loss {lx.item():.6e} vs {lp.item():.6e}, rel {loss_rel:.2e} (tol "
+          f"{INLINE_PE_LOSS_RTOL:.0e}), grad rel {grad_rel:.2e}; launches kernel 4 "
+          f"+{after_x[0] - before[0]}, kernel 5 +{after_x[1] - before[1]}", flush=True)
+    if after_x != (before[0] + 1, before[1] + 1):
+        raise RuntimeError("the inline_pe=False step did not launch kernels 4 and 5 once each")
+    if not loss_rel <= INLINE_PE_LOSS_RTOL:
+        raise RuntimeError(f"inline_pe=False and True losses differ by rel {loss_rel}")
+    return tt.fused_train_objective.launches["train_x"]
+
+
+def run_repair_check(train, device, tk, tt):
+    """``smoke.yaml`` (width 64, ``backend: auto``) trains a phase-0 epoch on
+    the card on the plain path, as the JAX trainer does, and records why in
+    ``kernel_path``; under ``backend: fused`` it raises, and so does width 384
+    (the JAX kernels take it; the port has no build for it) under ``auto``."""
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    before = (dict(tt.fused_train_objective.launches), tk.fused_render_fwd_pe.launches)
+    tr = Trainer(config_from_dict(SMOKE_CONFIG), train, device=device)
+    loss = tr.train_epoch(0)
+    print(f"  smoke.yaml (hidden_dim 64, backend auto): {len(tr.last_step_losses)} steps, loss "
+          f"{loss:.6f}, kernel_path: {tr.kernel_path} ({tr.kernel_path_reason})", flush=True)
+    if not np.isfinite(loss) or tr.kernel_path != "plain":
+        raise RuntimeError(f"smoke.yaml: loss {loss}, path {tr.kernel_path}")
+    if (dict(tt.fused_train_objective.launches), tk.fused_render_fwd_pe.launches) != before:
+        raise RuntimeError("the plain path launched a kernel")
+    for label, over in (("width 64, backend fused", {"rendering": {
+            **SMOKE_CONFIG["rendering"], "backend": "fused"}}),
+            ("width 384, backend auto", {"nerf_model": {
+                **SMOKE_CONFIG["nerf_model"], "hidden_dim": 384}})):
+        try:
+            Trainer(config_from_dict({**SMOKE_CONFIG, **over}), train, device=device).train_epoch(0)
+        except ValueError as err:
+            print(f"  {label}: raises ({err})", flush=True)
+        else:
+            raise RuntimeError(f"{label} trained on the card")
 
 
 def main():
@@ -572,6 +1052,63 @@ def main():
                   f"{b_ms:.3f} ms by {b_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.2f} MB); "
                   f"kernel at {flops / k_ms / 1e9:.2f} TFLOP/s", flush=True)
 
+    with phase("render kernel 4 vs plain"):
+        fx_args = main_path_fwd_x_args(trainer, test.poses[0], device)
+        fwd_err = compare("main path 2048x64, 8x256, x 128 wide",
+                          tk.fused_render_fwd(*fx_args), tk.fused_render_reference(*fx_args))
+        rng = np.random.default_rng(cfg.seed)
+        for S, white, fd in ((128, False, 0), (64, True, 0), (64, False, 64)):
+            a, _ = random_render_args(rng, 2048, S, 256, 8, device, feat_dim=fd)
+            fwd_err = max(fwd_err, compare(
+                f"S={S} white_bkgd={white} Fd={fd} (x {a[0].shape[1]} wide)",
+                tk.fused_render_fwd(*a, white_bkgd=white),
+                tk.fused_render_reference(*a, white_bkgd=white)))
+        torch.cuda.synchronize()
+        fwd_ms = cuda_ms(lambda: tk.fused_render_fwd(*fx_args), iters=20)
+        fwd_plain_ms = cuda_ms(lambda: tk.fused_render_reference(*fx_args), iters=10)
+        flops, nbytes = render_cost(fx_args, 90, backward=False)
+        fwd_bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        fwd_bound_by = "operations" if flops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
+        print(f"  main path: kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, bound "
+              f"{fwd_bound_ms:.3f} ms by {fwd_bound_by} ({flops / 1e9:.1f} GFLOP on the 90 real "
+              f"input columns, {nbytes / 1e6:.2f} MB); kernel at "
+              f"{flops / fwd_ms / 1e9:.2f} TFLOP/s", flush=True)
+
+    with phase("render VJP kernel 3 vs plain"):
+        (bw_args, bw_cot) = main_path_render_bwd_args(trainer, device)
+        got = tk.fused_render_bwd(*bw_args, *bw_cot)
+        again = tk.fused_render_bwd(*bw_args, *bw_cot)
+        torch.cuda.synchronize()
+        if not all(torch.equal(p, q) for p, q in zip((got[0], *got[1]), (again[0], *again[1]))):
+            raise RuntimeError("kernel 3: two calls on the same inputs differ")
+        print("  two calls agree bit for bit", flush=True)
+        bwd_err = compare_vjp("main path 512x64, 8x256, baseline init", got,
+                              tk.fused_render_bwd_reference(*bw_args, *bw_cot), TRAIN_GRAD_TOL)
+        rng = np.random.default_rng(cfg.seed)
+        for label, kw, white, tol in (
+                ("512x64 white, Fd 64 (x 256 wide)", dict(feat_dim=64), True, TRAIN_GRAD_TOL),
+                ("512x128", {}, False, TRAIN_GRAD_TOL),
+                ("512x64 sigma_bias 5.0", dict(sigma_bias=5.0), False,
+                 TRAIN_GRAD_TOL_SATURATED)):
+            S = 128 if "x128" in label else 64
+            a, _ = random_render_args(rng, 512, S, 256, 8, device, **kw)
+            cot = random_cotangents(rng, 512, S, device)
+            bwd_err = max(bwd_err, compare_vjp(
+                label, tk.fused_render_bwd(*a, *cot, white_bkgd=white),
+                tk.fused_render_bwd_reference(*a, *cot, white_bkgd=white), tol))
+        torch.cuda.synchronize()
+        bwd_ms = cuda_ms(lambda: tk.fused_render_bwd(*bw_args, *bw_cot), iters=20)
+        bwd_plain_ms = cuda_ms(lambda: tk.fused_render_bwd_reference(*bw_args, *bw_cot), iters=5)
+        flops, nbytes = render_cost(bw_args, 90, backward=True)
+        bwd_bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+        bwd_bound_by = "operations" if flops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
+        print(f"  main path: kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, bound "
+              f"{bwd_bound_ms:.3f} ms by {bwd_bound_by} ({flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB); kernel at {flops / bwd_ms / 1e9:.2f} TFLOP/s", flush=True)
+
+    with phase("differentiable render steps"):
+        fwd_launches, bwd_launches = run_render_steps(cfg, trainer, device, tk)
+
     with phase("slice"):
         trainer.render_views(test.poses[:1])  # warm the host path
         tk.fused_render_fwd_pe.launches = 0
@@ -632,18 +1169,14 @@ def main():
         print(f"  epoch {epoch} untraced: wall {untraced_ms:.1f} ms, "
               f"{untraced_ms / steps:.3f} ms/step", flush=True)
         for with_cpu in (False, True):
-            t = trace_epoch(trainer, epoch, with_cpu)
-            if not t["busy_ms"] > 0:
-                raise RuntimeError("the profiler recorded no device time")
-            label = "CPU+CUDA" if with_cpu else "CUDA only"
-            print(f"  epoch {epoch} traced ({label}): wall {t['wall_ms']:.1f} ms "
-                  f"({t['wall_ms'] / untraced_ms:.3f}x untraced), device busy "
-                  f"{t['busy_ms']:.1f} ms ({t['busy_ms'] / t['wall_ms']:.1%} of the traced wall), "
-                  f"per step: "
-                  f"{t['events']:.1f} device events, {t['syncs']:.2f} stream synchronizations, "
-                  f"device ms " + ", ".join(
-                      f"{k} {v:.3f}" for k, v in sorted(t["parts"].items(), key=lambda kv: -kv[1]))
-                  + f", sum {sum(t['parts'].values()):.3f}", flush=True)
+            print_trace(f"epoch {epoch} traced ({'CPU+CUDA' if with_cpu else 'CUDA only'})",
+                        trace_epoch(trainer, epoch, with_cpu), untraced_ms)
+
+    with phase("hierarchical train slice"):
+        x_launches_hier = run_hierarchical_slice(train, test, device, tk, tt)
+
+    with phase("repair check"):
+        run_repair_check(train, device, tk, tt)
 
     last = len(cfg.phases) - 1
 
@@ -668,7 +1201,32 @@ def main():
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": None,
-    }, train_row("train_pe", 343, train_launches), train_row("train_x", 320, x_launches)]}))
+    }, train_row("train_pe", 343, train_launches),
+        train_row("train_x", 320, x_launches + x_launches_hier), {
+        "name": "fwd",
+        "route": "cuda",
+        "source": "nerf_fewshot_tpu_torch/csrc/fwd_pe.cu",
+        "replaces": "nerf_fewshot_tpu/render/kernels.py:139",
+        "launches": fwd_launches,
+        "max_abs_err": fwd_err,
+        "ms": fwd_ms,
+        "plain_ms": fwd_plain_ms,
+        "bound_ms": fwd_bound_ms,
+        "bound_by": fwd_bound_by,
+        "library_ms": None,
+    }, {
+        "name": "render_bwd",
+        "route": "cuda",
+        "source": "nerf_fewshot_tpu_torch/csrc/train_pe.cu",
+        "replaces": "nerf_fewshot_tpu/render/kernels.py:292",
+        "launches": bwd_launches,
+        "max_abs_err": bwd_err,
+        "ms": bwd_ms,
+        "plain_ms": bwd_plain_ms,
+        "bound_ms": bwd_bound_ms,
+        "bound_by": bwd_bound_by,
+        "library_ms": None,
+    }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -1,8 +1,10 @@
-// Forward inline-PE NeRF render for Hopper (sm_90a), exact fp32.
+// Forward NeRF render for Hopper (sm_90a), exact fp32, in two builds.
 //
-// Replaces: nerf_fewshot_tpu/render/kernels.py:_fwd_pe_kernel (the Pallas
-// TPU kernel behind fused_render_fwd_pe), same function:
-//   x      = [raw | sin(c + raw.e2) | feats | 0-pad]     (per point)
+// Replaces: nerf_fewshot_tpu/render/kernels.py:_fwd_pe_kernel (:251, the
+// Pallas TPU kernel behind fused_render_fwd_pe; INLINE_PE = true) and
+// :_fwd_kernel (:139, the forward of fused_render from a pre-encoded x;
+// INLINE_PE = false). Both compute:
+//   x      = [raw | sin(c + raw.e2) | feats | 0-pad]  or the given (N, D) x
 //   h      = relu(x.w0 + b0), then L1 x relu(h.wh[l] + bh[l])
 //   out    = h.wout[:, :4] + bout[:4];  rgb = sigmoid(out[0:3]), sigma = out[3]
 //   dists  = [dz, 1e10] * |d|;  om = exp(-relu(sigma)*dists) + 1e-10
@@ -16,9 +18,10 @@
 //
 // Bound: ~0.97 MFLOP per point at the baseline widths (x_dim 90, 8x256 trunk:
 // 2*(90*256 + 7*256*256 + 256*4)), i.e. ~1.0 TFLOP per 128x128x64 view,
-// against ~6 MB of input and output per 2048-ray chunk: compute-bound. The
-// honest peak for an exact-fp32 kernel is the FP32 CUDA-core rate (67
-// TFLOP/s on an H100 SXM), not the TF32 tensor cores.
+// against ~6 MB of input and output per 2048-ray chunk (~100 MB with a
+// pre-encoded 128-wide x): compute-bound. The honest peak for an exact-fp32
+// kernel is the FP32 CUDA-core rate (67 TFLOP/s on an H100 SXM), not the
+// TF32 tensor cores.
 //
 // Design (simple first; the fast kernel is later work):
 //   * one CTA of 256 threads (8 warps) per ray; the ray's S points run in
@@ -36,8 +39,8 @@
 //     the current one is consumed;
 //   * sigma and rgb of all S points stay in shared memory; warp 0 then
 //     composites the ray with a shuffle scan.
-// The launcher returns cudaGetLastError() (or the first failing call), and
-// the Python wrapper raises when it is not cudaSuccess.
+// The launchers return cudaGetLastError() (or the first failing call), and
+// the Python wrappers raise when it is not cudaSuccess.
 
 #include <cuda_runtime.h>
 
@@ -118,9 +121,9 @@ __device__ __forceinline__ void dense_relu(const float* __restrict__ in_t,
   }
 }
 
-template <int H>
+template <int H, bool INLINE_PE>
 __global__ void __launch_bounds__(kThreads, 1)
-fwd_pe_kernel(const float* __restrict__ raw, const float* __restrict__ feats,
+fwd_kernel(const float* __restrict__ raw, const float* __restrict__ feats,
               const float* __restrict__ z, const float* __restrict__ dnorm,
               const float* __restrict__ e2, const float* __restrict__ c,
               const float* __restrict__ w0, const float* __restrict__ b0,
@@ -148,7 +151,9 @@ fwd_pe_kernel(const float* __restrict__ raw, const float* __restrict__ feats,
       const int p = idx % kTileP;
       const int q = s0 + p;
       float v = 0.f;
-      if (q < S) {
+      if (q < S && !INLINE_PE) {
+        v = raw[(static_cast<size_t>(ray) * S + q) * D + k];  // the given x
+      } else if (q < S) {
         const size_t n = static_cast<size_t>(ray) * S + q;
         const float* r = raw + n * n_raw;
         if (k < n_raw) {
@@ -248,7 +253,7 @@ fwd_pe_kernel(const float* __restrict__ raw, const float* __restrict__ feats,
   }
 }
 
-template <int H>
+template <int H, bool INLINE_PE>
 cudaError_t launch(const float* raw, const float* feats, const float* z, const float* dnorm,
                    const float* e2, const float* c, const float* w0, const float* b0,
                    const float* wh, const float* bh, const float* wout, const float* bout,
@@ -258,18 +263,39 @@ cudaError_t launch(const float* raw, const float* feats, const float* z, const f
   const int rows = D > H ? D : H;
   const size_t smem = sizeof(float) * (2 * static_cast<size_t>(rows) * kLd +
                                        static_cast<size_t>(kKT) * H + 4 * static_cast<size_t>(S));
-  cudaError_t err = cudaFuncSetAttribute(fwd_pe_kernel<H>,
+  cudaError_t err = cudaFuncSetAttribute(fwd_kernel<H, INLINE_PE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  fwd_pe_kernel<H><<<R, kThreads, smem, stream>>>(raw, feats, z, dnorm, e2, c, w0, b0, wh, bh,
-                                                  wout, bout, rgb, depth, acc, weights, S, n_raw,
-                                                  n_phase, Fd, D, L1, white_bkgd);
+  fwd_kernel<H, INLINE_PE><<<R, kThreads, smem, stream>>>(
+      raw, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout, rgb, depth, acc, weights, S, n_raw,
+      n_phase, Fd, D, L1, white_bkgd);
   return cudaGetLastError();
+}
+
+template <bool INLINE_PE>
+int dispatch(const float* raw, const float* feats, const float* z, const float* dnorm,
+             const float* e2, const float* c, const float* w0, const float* b0, const float* wh,
+             const float* bh, const float* wout, const float* bout, float* rgb, float* depth,
+             float* acc, float* weights, int R, int S, int n_raw, int n_phase, int Fd, int D,
+             int H, int L1, int white_bkgd, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H == 256)
+    return launch<256, INLINE_PE>(raw, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout, rgb,
+                                  depth, acc, weights, R, S, n_raw, n_phase, Fd, D, L1,
+                                  white_bkgd, st);
+  if (H == 128)
+    return launch<128, INLINE_PE>(raw, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout, rgb,
+                                  depth, acc, weights, R, S, n_raw, n_phase, Fd, D, L1,
+                                  white_bkgd, st);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
+// Kernel 2: the inline-PE render from the thin (R*S, n_raw) raw block.
 extern "C" int nerf_fwd_pe(const float* raw, const float* feats, const float* z,
                            const float* dnorm, const float* e2, const float* c,
                            const float* w0, const float* b0, const float* wh, const float* bh,
@@ -277,16 +303,19 @@ extern "C" int nerf_fwd_pe(const float* raw, const float* feats, const float* z,
                            float* acc, float* weights, int R, int S, int n_raw, int n_phase,
                            int Fd, int D, int H, int L1, int white_bkgd, int device,
                            void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return err;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H == 256)
-    return launch<256>(raw, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout, rgb, depth, acc,
-                       weights, R, S, n_raw, n_phase, Fd, D, L1, white_bkgd, st);
-  if (H == 128)
-    return launch<128>(raw, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout, rgb, depth, acc,
-                       weights, R, S, n_raw, n_phase, Fd, D, L1, white_bkgd, st);
-  return cudaErrorInvalidValue;
+  return dispatch<true>(raw, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout, rgb, depth, acc,
+                        weights, R, S, n_raw, n_phase, Fd, D, H, L1, white_bkgd, device, stream);
+}
+
+// Kernel 4: the render from a pre-encoded (R*S, D) x.
+extern "C" int nerf_fwd_x(const float* x, const float* z, const float* dnorm, const float* w0,
+                          const float* b0, const float* wh, const float* bh, const float* wout,
+                          const float* bout, float* rgb, float* depth, float* acc,
+                          float* weights, int R, int S, int D, int H, int L1, int white_bkgd,
+                          int device, void* stream) {
+  return dispatch<false>(x, nullptr, z, dnorm, nullptr, nullptr, w0, b0, wh, bh, wout, bout, rgb,
+                         depth, acc, weights, R, S, 0, 0, 0, D, H, L1, white_bkgd, device,
+                         stream);
 }
 
 extern "C" const char* nerf_cuda_error_string(int err) {

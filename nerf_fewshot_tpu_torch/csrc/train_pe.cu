@@ -1,52 +1,60 @@
-// Fused NeRF training objective for Hopper (sm_90a), exact fp32: forward,
-// masked loss and the analytic backward to every packed weight, in one call.
+// Fused NeRF training objective and render VJP for Hopper (sm_90a), exact
+// fp32: the analytic backward to every packed weight, in one call each.
 //
 // Replaces: nerf_fewshot_tpu/render/train_kernel.py:_train_pe_kernel (:343,
 // inline PE, INLINE_PE = true) and :_train_kernel (:320, pre-encoded x,
-// INLINE_PE = false); both run the body _objective_body (:65):
+// INLINE_PE = false), both running the body _objective_body (:65), entry
+// nerf_train_objective; and nerf_fewshot_tpu/render/kernels.py:_bwd_kernel
+// (:292, the custom VJP of fused_render), entry nerf_render_bwd.
 //   x      = [raw | sin(c + raw.e2) | feats | 0]  or the given (N, D) x
 //   h_1    = relu(x.w0 + b0), h_{i+1} = relu(h_i.wh[i-1] + bh[i-1]), i < L
 //   out    = h_L.wout[:, :4] + bout[:4];  rgb_s = sigmoid(out[0:3]), sigma = out[3]
 //   om     = exp(-relu(sigma)*dists) + 1e-10, T = exp(cumsum(log om) - log om)
 //   w      = (1 - exp(-relu(sigma)*dists)) * T      (dists: [dz, 1e10] * |d|)
 //   rgb    = sum w*rgb_s (+ 1 - acc if white_bkgd)
-//   loss   = sum_r mask*|rgb - tgt|^2*inv_denom
+// The objective:
+//   loss   = rgb_c*inv_denom * sum_r mask*|rgb - tgt|^2
 //            [+ (3*reg/S)*inv_denom * sum_r mask*sum_s w^2]
 //            [+ 3*depth*inv_denom * sum_r mask*|sum_s w*z - tgt_depth|]
-// and the gradients of loss with respect to (w0, b0, wh, bh, wout, bout),
-// from the analytic backward of _objective_body:
-//   g_rgb  = 2*err*inv_denom, g_acc = -sum g_rgb (white_bkgd),
+//   g_rgb  = 2*rgb_c*err*inv_denom, g_acc = -sum g_rgb (white_bkgd),
 //   dL/dw  = rgb_s.g_rgb + g_acc [+ 2*reg_scale*mask*w] [+ d_scale*sign*mask*z]
+// The render VJP takes the cotangents (g_rgb, g_depth, g_acc, g_weights) of
+// (rgb, depth, acc, weights) instead, with g_acc -= sum g_rgb (white_bkgd):
+//   dL/dw  = rgb_s.g_rgb + g_acc + g_depth*z + g_weights
+// Both then run:
 //   s_after= sum_{t>s} dL/dw_t * w_t          (strict suffix sum, fp32 scan)
 //   d_alpha= dL/dw*T - s_after/om, d_sigma = d_alpha*(1-alpha)*dists*[sigma>0]
 //   head cotangent g_out = [w*g_rgb*rgb_s*(1-rgb_s), d_sigma], then the
 //   ReLU-gated chain delta_i = (delta_{i+1}.W^T) * [h_i > 0], and
-//   dW = A^T.delta, db = sum delta over all R*S points.
+//   dW = A^T.delta, db = sum delta over all R*S points; the render VJP also
+//   gives dx = delta_1.w0^T.
 //
 // Bound: at the baseline widths (x_dim 90, 8x256 trunk) the forward is
 // 2*(90*256 + 7*256^2 + 4*256) = 0.97 MFLOP per point, the backward chain
 // 2*(4*256 + 7*256^2) = 0.92 MFLOP and the dW products 0.97 MFLOP: 2.85 MFLOP
-// per point, 93 GFLOP for a 512-ray x 64-sample step, against ~5 MB of inputs
-// and outputs: bound by operations, at the FP32 CUDA-core rate (67 TFLOP/s on
-// an H100 SXM); the exact-fp32 contract rules out the TF32 tensor cores.
+// per point, 93 GFLOP for a 512-ray x 64-sample step (the render VJP adds dx,
+// 2*256*90 = 0.05 MFLOP per point), against ~5 MB of inputs and outputs
+// (~35 MB with a 128-wide x and dx): bound by operations, at the FP32
+// CUDA-core rate (67 TFLOP/s on an H100 SXM); the exact-fp32 contract rules
+// out the TF32 tensor cores.
 //
-// Design (simple first): the TPU kernel stashes every layer's activations of
+// Design (simple first): the TPU kernels stash every layer's activations of
 // a ray tile in VMEM, ~640 KB per 64-sample ray at 256 wide, far beyond an
-// SM's 227 KB. So the call is split into seven grid launches on one stream
-// (six for a one-layer trunk, which has no wh), with the activations and
-// cotangents in a global scratch buffer that the caller allocates once per
-// shape:
-//   1. wh_transpose: wh[l]^T, the backward chain's weights;
+// SM's 227 KB. So a call is split into grid launches on one stream, with
+// the activations and cotangents in a global scratch buffer that the caller
+// allocates once and grows:
+//   1. wh_transpose: wh[l]^T, the backward chain's weights (none for a
+//      one-layer trunk);
 //   2. train_fwd: one 256-thread CTA per 64-point tile (points of any ray):
 //      builds x (inline PE: unfused multiply-add phases, accurate sinf),
 //      runs the trunk with fwd_pe.cu's 8x8 register-tiled fp32 FMA layers
 //      (activations transposed in shared memory) and writes each layer's
 //      activations A_i (feature-major, [K][Np]) and the 4 head outputs;
-//   3. train_composite: one warp per ray: sigmoid, log-space compositing with
-//      an fp32 shuffle prefix scan, the loss partial of the ray, then the
-//      suffix sum s_after as an fp32 shuffle scan run from the last sample
-//      (never a difference of prefix sums, which cancels when om ~ 1e-10), and
-//      the head cotangent g_out;
+//   3. train_composite (objective) or render_composite (VJP): one warp per
+//      ray: sigmoid, log-space compositing with an fp32 shuffle prefix scan,
+//      the ray's loss partial (objective), then the suffix sum s_after as an
+//      fp32 shuffle scan run from the last sample (never a difference of
+//      prefix sums, which cancels when om ~ 1e-10), and the head cotangent;
 //   4. train_bwd: per 64-point tile, delta_L from g_out and wout, then the
 //      L-1 gated products with wh^T, each delta written to scratch;
 //   5. train_dw: every dW_l = A_l^T.delta_l and db_l = sum delta_l as one
@@ -54,10 +62,12 @@
 //      axis is split in P fixed parts, each written to its own partial;
 //   6. train_finalize: the P partials of each gradient are summed in a fixed
 //      order;
-//   7. loss_sum: the per-ray losses are summed in a fixed order by one CTA.
-// No atomics: two runs of a step agree bit for bit.
-// The launcher returns cudaGetLastError() (or the first failing call), and
-// the Python wrapper raises when it is not cudaSuccess.
+//   7. objective: loss_sum, the per-ray losses summed in a fixed order by
+//      one CTA; render VJP (when dx is asked for): render_dx, dx = delta_1.w0^T
+//      as 64x64 output tiles, 4x4 per thread.
+// No atomics: two runs of a call agree bit for bit.
+// The launchers return cudaGetLastError() (or the first failing call), and
+// the Python wrappers raise when it is not cudaSuccess.
 
 #include <cuda_runtime.h>
 
@@ -274,32 +284,33 @@ train_fwd_kernel(const float* __restrict__ in, const float* __restrict__ feats,
   out4[static_cast<size_t>(o) * Np + n0 + p] = s + __ldg(bout + o);
 }
 
-// One warp per ray: compositing, the ray's loss partial and the head
-// cotangent g_out ([4][Np]: d pre-sigmoid rgb, d sigma).
-__global__ void __launch_bounds__(32)
-train_composite_kernel(const float* __restrict__ out4, const float* __restrict__ z,
-                       const float* __restrict__ dnorm, const float* __restrict__ tgt,
-                       const float* __restrict__ mask, const float* __restrict__ inv_denom_p,
-                       const float* __restrict__ tgt_depth, float* __restrict__ gout,
-                       float* __restrict__ loss_r, int S, int Np, int white_bkgd, float reg_c,
-                       float depth_c) {
-  extern __shared__ float4 csm4[];
-  float* sw = reinterpret_cast<float*>(csm4);
-  float* sT = sw + S;
-  float* som = sT + S;
-  float* salpha = som + S;
-  float* sdist = salpha + S;
-  float* ssig = sdist + S;
-  float* srgb = ssig + S;  // 3*S
-  const int ray = blockIdx.x;
+// Per-ray compositing state of one warp, in dynamic shared memory (9*S
+// floats): weights, transmittances, om, alpha, dists, raw sigma, sigmoid rgb.
+struct RaySmem {
+  float *w, *T, *om, *alpha, *dist, *sig, *rgb;
+};
+
+__device__ __forceinline__ RaySmem ray_smem(float* base, int S) {
+  RaySmem m;
+  m.w = base;
+  m.T = m.w + S;
+  m.om = m.T + S;
+  m.alpha = m.om + S;
+  m.dist = m.alpha + S;
+  m.sig = m.dist + S;
+  m.rgb = m.sig + S;  // 3*S
+  return m;
+}
+
+// Forward compositing of one ray by one warp: the log-space transmittance
+// by an inclusive fp32 prefix scan. Fills m and returns, in every lane,
+// sums = {sum w*r, sum w*g, sum w*b, sum w*z, sum w, sum w^2}.
+__device__ __forceinline__ void composite_forward(const float* __restrict__ out4,
+                                                  const float* __restrict__ zr, float dn,
+                                                  size_t nb, int Np, int S, RaySmem m,
+                                                  float sums[6]) {
   const int lane = threadIdx.x;
   const unsigned full = 0xffffffffu;
-  const float dn = dnorm[ray];
-  const float* zr = z + static_cast<size_t>(ray) * S;
-  const size_t nb = static_cast<size_t>(ray) * S;
-  const float inv_denom = *inv_denom_p;
-
-  // forward: log-space transmittance by an inclusive fp32 prefix scan
   float carry = 0.f;
   float r0 = 0.f, r1 = 0.f, r2 = 0.f, dep = 0.f, accw = 0.f, wsq = 0.f;
   for (int base = 0; base < S; base += 32) {
@@ -329,15 +340,15 @@ train_composite_kernel(const float* __restrict__ out4, const float* __restrict__
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch)
         rs[ch] = 1.f / (1.f + expf(-out4[static_cast<size_t>(ch) * Np + nb + i]));
-      sw[i] = w;
-      sT[i] = T;
-      som[i] = om;
-      salpha[i] = alpha;
-      sdist[i] = dist;
-      ssig[i] = sig;
-      srgb[3 * i + 0] = rs[0];
-      srgb[3 * i + 1] = rs[1];
-      srgb[3 * i + 2] = rs[2];
+      m.w[i] = w;
+      m.T[i] = T;
+      m.om[i] = om;
+      m.alpha[i] = alpha;
+      m.dist[i] = dist;
+      m.sig[i] = sig;
+      m.rgb[3 * i + 0] = rs[0];
+      m.rgb[3 * i + 1] = rs[1];
+      m.rgb[3 * i + 2] = rs[2];
       r0 = fmaf(w, rs[0], r0);
       r1 = fmaf(w, rs[1], r1);
       r2 = fmaf(w, rs[2], r2);
@@ -355,43 +366,38 @@ train_composite_kernel(const float* __restrict__ out4, const float* __restrict__
     accw += __shfl_xor_sync(full, accw, off);
     wsq += __shfl_xor_sync(full, wsq, off);
   }
+  sums[0] = r0;
+  sums[1] = r1;
+  sums[2] = r2;
+  sums[3] = dep;
+  sums[4] = accw;
+  sums[5] = wsq;
+}
 
-  // loss partial and the scalars of the backward
-  const float m = mask[ray];
-  const float bg = white_bkgd ? 1.f - accw : 0.f;
-  const float e0 = (r0 + bg - tgt[3 * ray + 0]) * m;
-  const float e1 = (r1 + bg - tgt[3 * ray + 1]) * m;
-  const float e2r = (r2 + bg - tgt[3 * ray + 2]) * m;
-  float loss = (e0 * e0 + e1 * e1 + e2r * e2r) * inv_denom;
-  const float g0 = 2.f * e0 * inv_denom;
-  const float g1 = 2.f * e1 * inv_denom;
-  const float g2 = 2.f * e2r * inv_denom;
-  const float g_acc = white_bkgd ? -(g0 + g1 + g2) : 0.f;
-  float reg_coef = 0.f;
-  if (reg_c != 0.f) {
-    const float reg_scale = reg_c * inv_denom;
-    loss += wsq * m * reg_scale;
-    reg_coef = 2.f * reg_scale * m;
-  }
-  float depth_coef = 0.f;
-  if (tgt_depth != nullptr) {
-    const float d_scale = depth_c * inv_denom;
-    const float diff = dep - tgt_depth[ray];
-    loss += fabsf(diff) * m * d_scale;
-    const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
-    depth_coef = d_scale * sgn * m;
-  }
-
-  // backward: strict suffix sums s_after by an fp32 scan from the last sample
-  carry = 0.f;
+// Backward compositing of one ray by one warp, from
+//   dL/dw_i = rgb_s_i.g + g_acc [+ reg_coef*w_i] [+ depth_coef*z_i] [+ gw_i]:
+// the strict suffix sums s_after by an fp32 scan from the last sample (never
+// a difference of prefix sums, which cancels when om ~ 1e-10), then the head
+// cotangent gout ([4][Np]: d pre-sigmoid rgb, d sigma).
+__device__ __forceinline__ void composite_backward(const float* __restrict__ zr, size_t nb,
+                                                   int Np, int S, RaySmem m, float g0, float g1,
+                                                   float g2, float g_acc, bool use_reg,
+                                                   float reg_coef, bool use_depth,
+                                                   float depth_coef,
+                                                   const float* __restrict__ gw,
+                                                   float* __restrict__ gout) {
+  const int lane = threadIdx.x;
+  const unsigned full = 0xffffffffu;
+  float carry = 0.f;
   for (int base = ((S - 1) / 32) * 32; base >= 0; base -= 32) {
     const int i = base + lane;
     float dLdw = 0.f, q = 0.f;
     if (i < S) {
-      const float w = sw[i];
-      dLdw = srgb[3 * i + 0] * g0 + srgb[3 * i + 1] * g1 + srgb[3 * i + 2] * g2 + g_acc;
-      if (reg_c != 0.f) dLdw += reg_coef * w;
-      if (tgt_depth != nullptr) dLdw += depth_coef * zr[i];
+      const float w = m.w[i];
+      dLdw = m.rgb[3 * i + 0] * g0 + m.rgb[3 * i + 1] * g1 + m.rgb[3 * i + 2] * g2 + g_acc;
+      if (use_reg) dLdw += reg_coef * w;
+      if (use_depth) dLdw += depth_coef * zr[i];
+      if (gw != nullptr) dLdw += gw[i];
       q = dLdw * w;
     }
     float incl = q;  // sum of q over lanes >= this one
@@ -405,19 +411,93 @@ train_composite_kernel(const float* __restrict__ out4, const float* __restrict__
     after += carry;
     carry += __shfl_sync(full, incl, 0);
     if (i < S) {
-      const float d_alpha = dLdw * sT[i] - after / som[i];
-      const float d_sigma = ssig[i] > 0.f ? d_alpha * (1.f - salpha[i]) * sdist[i] : 0.f;
+      const float d_alpha = dLdw * m.T[i] - after / m.om[i];
+      const float d_sigma = m.sig[i] > 0.f ? d_alpha * (1.f - m.alpha[i]) * m.dist[i] : 0.f;
       gout[3 * static_cast<size_t>(Np) + nb + i] = d_sigma;
-      const float w = sw[i];
+      const float w = m.w[i];
       const float gs[3] = {g0, g1, g2};
 #pragma unroll
       for (int ch = 0; ch < 3; ++ch) {
-        const float rs = srgb[3 * i + ch];
+        const float rs = m.rgb[3 * i + ch];
         gout[static_cast<size_t>(ch) * Np + nb + i] = w * gs[ch] * rs * (1.f - rs);
       }
     }
   }
-  if (lane == 0) loss_r[ray] = loss;
+}
+
+// One warp per ray: compositing, the ray's loss partial and the head
+// cotangent g_out of the training objective.
+__global__ void __launch_bounds__(32)
+train_composite_kernel(const float* __restrict__ out4, const float* __restrict__ z,
+                       const float* __restrict__ dnorm, const float* __restrict__ tgt,
+                       const float* __restrict__ mask, const float* __restrict__ inv_denom_p,
+                       const float* __restrict__ tgt_depth, float* __restrict__ gout,
+                       float* __restrict__ loss_r, int S, int Np, int white_bkgd, float rgb_c,
+                       float reg_c, float depth_c) {
+  extern __shared__ float4 csm4[];
+  const RaySmem m = ray_smem(reinterpret_cast<float*>(csm4), S);
+  const int ray = blockIdx.x;
+  const float* zr = z + static_cast<size_t>(ray) * S;
+  const size_t nb = static_cast<size_t>(ray) * S;
+  const float inv_denom = *inv_denom_p;
+  float sums[6];
+  composite_forward(out4, zr, dnorm[ray], nb, Np, S, m, sums);
+  const float accw = sums[4];
+
+  // loss partial and the scalars of the backward
+  const float m_r = mask[ray];
+  const float bg = white_bkgd ? 1.f - accw : 0.f;
+  const float e0 = (sums[0] + bg - tgt[3 * ray + 0]) * m_r;
+  const float e1 = (sums[1] + bg - tgt[3 * ray + 1]) * m_r;
+  const float e2r = (sums[2] + bg - tgt[3 * ray + 2]) * m_r;
+  const float rgb_scale = rgb_c * inv_denom;
+  float loss = (e0 * e0 + e1 * e1 + e2r * e2r) * rgb_scale;
+  const float g0 = 2.f * e0 * rgb_scale;
+  const float g1 = 2.f * e1 * rgb_scale;
+  const float g2 = 2.f * e2r * rgb_scale;
+  const float g_acc = white_bkgd ? -(g0 + g1 + g2) : 0.f;
+  float reg_coef = 0.f;
+  if (reg_c != 0.f) {
+    const float reg_scale = reg_c * inv_denom;
+    loss += sums[5] * m_r * reg_scale;
+    reg_coef = 2.f * reg_scale * m_r;
+  }
+  float depth_coef = 0.f;
+  if (tgt_depth != nullptr) {
+    const float d_scale = depth_c * inv_denom;
+    const float diff = sums[3] - tgt_depth[ray];
+    loss += fabsf(diff) * m_r * d_scale;
+    const float sgn = diff > 0.f ? 1.f : (diff < 0.f ? -1.f : 0.f);
+    depth_coef = d_scale * sgn * m_r;
+  }
+  composite_backward(zr, nb, Np, S, m, g0, g1, g2, g_acc, reg_c != 0.f, reg_coef,
+                     tgt_depth != nullptr, depth_coef, nullptr, gout);
+  if (threadIdx.x == 0) loss_r[ray] = loss;
+}
+
+// One warp per ray: the backward compositing of the differentiable render
+// from the external cotangents (g_rgb (R,3), g_depth (R,1), g_acc (R,1),
+// g_weights (R,S)); a white background adds -sum g_rgb into g_acc.
+__global__ void __launch_bounds__(32)
+render_composite_kernel(const float* __restrict__ out4, const float* __restrict__ z,
+                        const float* __restrict__ dnorm, const float* __restrict__ g_rgb,
+                        const float* __restrict__ g_depth, const float* __restrict__ g_acc,
+                        const float* __restrict__ g_weights, float* __restrict__ gout, int S,
+                        int Np, int white_bkgd) {
+  extern __shared__ float4 csm4[];
+  const RaySmem m = ray_smem(reinterpret_cast<float*>(csm4), S);
+  const int ray = blockIdx.x;
+  const float* zr = z + static_cast<size_t>(ray) * S;
+  const size_t nb = static_cast<size_t>(ray) * S;
+  float sums[6];
+  composite_forward(out4, zr, dnorm[ray], nb, Np, S, m, sums);
+  const float g0 = g_rgb[3 * ray + 0];
+  const float g1 = g_rgb[3 * ray + 1];
+  const float g2 = g_rgb[3 * ray + 2];
+  float ga = g_acc[ray];
+  if (white_bkgd) ga -= g0 + g1 + g2;
+  composite_backward(zr, nb, Np, S, m, g0, g1, g2, ga, false, 0.f, true, g_depth[ray],
+                     g_weights + nb, gout);
 }
 
 // Backward chain of one 64-point tile: delta_L = (g_out.wout[:, :4]^T) *
@@ -580,57 +660,65 @@ loss_sum_kernel(const float* __restrict__ loss_r, float* __restrict__ loss, int 
   if (threadIdx.x == 0) loss[0] = red[0];
 }
 
-template <int H, bool INLINE_PE>
-cudaError_t launch(const float* in, const float* feats, const float* z, const float* dnorm,
-                   const float* tgt, const float* mask, const float* inv_denom,
-                   const float* tgt_depth, const float* e2, const float* c, const float* w0,
-                   const float* b0, const float* wh, const float* bh, const float* wout,
-                   const float* bout, float* loss, float* grads, float* scratch, int R, int S,
-                   int n_raw, int n_phase, int Fd, int D, int L1, int white_bkgd, float reg_c,
-                   float depth_c, cudaStream_t stream) {
-  const Layout s = make_layout(R, S, D, H, L1);
-  float* act = scratch + s.act;
-  float* gbuf = scratch + s.gbuf;
-  float* gout = scratch + s.gout;
-  float* out4 = scratch + s.out4;
-  float* loss_r = scratch + s.loss_r;
-  float* whT = scratch + s.whT;
-  float* part = scratch + s.part;
-  const int tiles = s.Np / kTileP;
-  const int rows = D > H ? D : H;
-  const size_t tile_smem =
-      sizeof(float) * (2 * static_cast<size_t>(rows) * kLd + static_cast<size_t>(kKT) * H);
-  cudaError_t err;
+// The input cotangent of the differentiable render: dx[n][k] = sum_j
+// delta_1[j][n] * w0[k][j], (N, H) x (H, D), with delta_1 the ReLU-gated
+// cotangent of the first layer (gbuf rows 0..H-1, [H][Np]). 64 points x 64
+// input columns per CTA, 4x4 outputs per thread, fp32 FMAs.
+__global__ void __launch_bounds__(256)
+render_dx_kernel(const float* __restrict__ delta1, const float* __restrict__ w0,
+                 float* __restrict__ dx, int N, int Np, int D, int H) {
+  __shared__ __align__(16) float Gs[kBN][kBLd];  // [j][point]
+  __shared__ __align__(16) float Ws[kBN][kBLd];  // [j][input column]
+  const int n0 = blockIdx.x * kBT;
+  const int k0 = blockIdx.y * kBT;
+  const int tid = threadIdx.x;
+  const int ty = tid >> 4, tx = tid & 15;
 
-  if (L1 > 0) {
-    wh_transpose_kernel<<<dim3(H / 32, H / 32, L1), dim3(32, 8), 0, stream>>>(wh, whT, H);
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int j0 = 0; j0 < H; j0 += kBN) {
+    for (int e = tid; e < kBT * kBN; e += 256) {
+      const int p = e % kBT, jg = e / kBT;  // neighbouring threads: neighbouring points
+      Gs[jg][p] = delta1[static_cast<size_t>(j0 + jg) * Np + n0 + p];
+      const int jw = e % kBN, kk = e / kBN;  // neighbouring threads: neighbouring j
+      Ws[jw][kk] = k0 + kk < D ? w0[static_cast<size_t>(k0 + kk) * H + j0 + jw] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll 8
+    for (int j = 0; j < kBN; ++j) {
+      const float4 g = *reinterpret_cast<const float4*>(&Gs[j][ty * 4]);
+      const float4 w = *reinterpret_cast<const float4*>(&Ws[j][tx * 4]);
+      const float gv[4] = {g.x, g.y, g.z, g.w};
+      const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(gv[i], wv[c], acc[i][c]);
+    }
+    __syncthreads();
   }
 
-  err = cudaFuncSetAttribute(train_fwd_kernel<H, INLINE_PE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(tile_smem));
-  if (err != cudaSuccess) return err;
-  train_fwd_kernel<H, INLINE_PE><<<tiles, kThreads, tile_smem, stream>>>(
-      in, feats, e2, c, w0, b0, wh, bh, wout, bout, act, out4, s.N, s.Np, n_raw, n_phase, Fd, D,
-      L1);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int n = n0 + ty * 4 + i;
+    if (n >= N) continue;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int k = k0 + tx * 4 + c;
+      if (k < D) dx[static_cast<size_t>(n) * D + k] = acc[i][c];
+    }
+  }
+}
 
-  const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(S);
-  err = cudaFuncSetAttribute(train_composite_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(comp_smem));
-  if (err != cudaSuccess) return err;
-  train_composite_kernel<<<R, 32, comp_smem, stream>>>(out4, z, dnorm, tgt, mask, inv_denom,
-                                                       tgt_depth, gout, loss_r, S, s.Np,
-                                                       white_bkgd, reg_c, depth_c);
-
-  const size_t bwd_smem =
-      sizeof(float) * (2 * static_cast<size_t>(H) * kLd + static_cast<size_t>(kKT) * H);
-  err = cudaFuncSetAttribute(train_bwd_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(bwd_smem));
-  if (err != cudaSuccess) return err;
-  train_bwd_kernel<H><<<tiles, kThreads, bwd_smem, stream>>>(gout, wout, whT, act, gbuf, s.N,
-                                                            s.Np, D, L1);
-
-  // dW jobs: layer 0, the L1 hidden layers, the head
+// Every dW = A^T.delta and db = sum delta (layer 0, the L1 hidden layers,
+// the head) as one launch over fixed point-axis parts, then the fixed-order
+// sum of the parts into grads.
+void launch_dw(const Layout& s, const float* act, const float* gbuf, const float* gout,
+               float* part, float* grads, int D, int H, int L1, cudaStream_t stream) {
   DwJobs jobs;
   jobs.n = 0;
   int total_tiles = 0;
@@ -664,7 +752,84 @@ cudaError_t launch(const float* in, const float* feats, const float* z, const fl
   train_dw_kernel<<<dim3(total_tiles, s.P), 256, 0, stream>>>(jobs, part, s.N, s.Np, Fp, s.chunk);
   train_finalize_kernel<<<static_cast<unsigned>((s.F + 255) / 256), 256, 0, stream>>>(
       part, grads, s.F, Fp, s.P);
-  loss_sum_kernel<<<1, 256, 0, stream>>>(loss_r, loss, R);
+}
+
+// The recompute of the trunk: wh^T for the backward chain, then every
+// layer's activations and the 4 head outputs of each 64-point tile.
+template <int H, bool INLINE_PE>
+cudaError_t launch_forward(const Layout& s, const float* in, const float* feats, const float* e2,
+                           const float* c, const float* w0, const float* b0, const float* wh,
+                           const float* bh, const float* wout, const float* bout, float* act,
+                           float* out4, float* whT, int n_raw, int n_phase, int Fd, int D, int L1,
+                           cudaStream_t stream) {
+  if (L1 > 0) {
+    wh_transpose_kernel<<<dim3(H / 32, H / 32, L1), dim3(32, 8), 0, stream>>>(wh, whT, H);
+  }
+  const int rows = D > H ? D : H;
+  const size_t tile_smem =
+      sizeof(float) * (2 * static_cast<size_t>(rows) * kLd + static_cast<size_t>(kKT) * H);
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<H, INLINE_PE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(tile_smem));
+  if (err != cudaSuccess) return err;
+  train_fwd_kernel<H, INLINE_PE><<<s.Np / kTileP, kThreads, tile_smem, stream>>>(
+      in, feats, e2, c, w0, b0, wh, bh, wout, bout, act, out4, s.N, s.Np, n_raw, n_phase, Fd, D,
+      L1);
+  return cudaSuccess;
+}
+
+// The backward chain of each 64-point tile, from the head cotangent gout.
+template <int H>
+cudaError_t launch_backward(const Layout& s, const float* gout, const float* wout,
+                            const float* whT, const float* act, float* gbuf, int D, int L1,
+                            cudaStream_t stream) {
+  const size_t bwd_smem =
+      sizeof(float) * (2 * static_cast<size_t>(H) * kLd + static_cast<size_t>(kKT) * H);
+  cudaError_t err = cudaFuncSetAttribute(train_bwd_kernel<H>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(bwd_smem));
+  if (err != cudaSuccess) return err;
+  train_bwd_kernel<H><<<s.Np / kTileP, kThreads, bwd_smem, stream>>>(gout, wout, whT, act, gbuf,
+                                                                     s.N, s.Np, D, L1);
+  return cudaSuccess;
+}
+
+struct Scratch {
+  float *act, *gbuf, *gout, *out4, *loss_r, *whT, *part;
+};
+
+Scratch carve(const Layout& s, float* scratch) {
+  return Scratch{scratch + s.act,    scratch + s.gbuf, scratch + s.gout, scratch + s.out4,
+                 scratch + s.loss_r, scratch + s.whT,  scratch + s.part};
+}
+
+template <int H, bool INLINE_PE>
+cudaError_t launch(const float* in, const float* feats, const float* z, const float* dnorm,
+                   const float* tgt, const float* mask, const float* inv_denom,
+                   const float* tgt_depth, const float* e2, const float* c, const float* w0,
+                   const float* b0, const float* wh, const float* bh, const float* wout,
+                   const float* bout, float* loss, float* grads, float* scratch, int R, int S,
+                   int n_raw, int n_phase, int Fd, int D, int L1, int white_bkgd, float rgb_c,
+                   float reg_c, float depth_c, cudaStream_t stream) {
+  const Layout s = make_layout(R, S, D, H, L1);
+  const Scratch b = carve(s, scratch);
+  cudaError_t err = launch_forward<H, INLINE_PE>(s, in, feats, e2, c, w0, b0, wh, bh, wout, bout,
+                                                 b.act, b.out4, b.whT, n_raw, n_phase, Fd, D, L1,
+                                                 stream);
+  if (err != cudaSuccess) return err;
+
+  const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(S);
+  err = cudaFuncSetAttribute(train_composite_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(comp_smem));
+  if (err != cudaSuccess) return err;
+  train_composite_kernel<<<R, 32, comp_smem, stream>>>(b.out4, z, dnorm, tgt, mask, inv_denom,
+                                                       tgt_depth, b.gout, b.loss_r, S, s.Np,
+                                                       white_bkgd, rgb_c, reg_c, depth_c);
+
+  err = launch_backward<H>(s, b.gout, wout, b.whT, b.act, b.gbuf, D, L1, stream);
+  if (err != cudaSuccess) return err;
+  launch_dw(s, b.act, b.gbuf, b.gout, b.part, grads, D, H, L1, stream);
+  loss_sum_kernel<<<1, 256, 0, stream>>>(b.loss_r, loss, R);
   return cudaGetLastError();
 }
 
@@ -675,15 +840,51 @@ cudaError_t dispatch(int inline_pe, const float* in, const float* feats, const f
                      const float* c, const float* w0, const float* b0, const float* wh,
                      const float* bh, const float* wout, const float* bout, float* loss,
                      float* grads, float* scratch, int R, int S, int n_raw, int n_phase, int Fd,
-                     int D, int L1, int white_bkgd, float reg_c, float depth_c,
+                     int D, int L1, int white_bkgd, float rgb_c, float reg_c, float depth_c,
                      cudaStream_t st) {
   if (inline_pe)
     return launch<H, true>(in, feats, z, dnorm, tgt, mask, inv_denom, tgt_depth, e2, c, w0, b0,
                            wh, bh, wout, bout, loss, grads, scratch, R, S, n_raw, n_phase, Fd, D,
-                           L1, white_bkgd, reg_c, depth_c, st);
+                           L1, white_bkgd, rgb_c, reg_c, depth_c, st);
   return launch<H, false>(in, feats, z, dnorm, tgt, mask, inv_denom, tgt_depth, e2, c, w0, b0,
                           wh, bh, wout, bout, loss, grads, scratch, R, S, n_raw, n_phase, Fd, D,
-                          L1, white_bkgd, reg_c, depth_c, st);
+                          L1, white_bkgd, rgb_c, reg_c, depth_c, st);
+}
+
+// Kernel 3: the VJP of the render from a pre-encoded x. Recomputes the
+// forward, composites backward from the external cotangents, runs the
+// backward chain and the dW products, and (dx != nullptr) the input
+// cotangent.
+template <int H>
+cudaError_t launch_render_bwd(const float* x, const float* z, const float* dnorm,
+                              const float* w0, const float* b0, const float* wh,
+                              const float* bh, const float* wout, const float* bout,
+                              const float* g_rgb, const float* g_depth, const float* g_acc,
+                              const float* g_weights, float* dx, float* grads, float* scratch,
+                              int R, int S, int D, int L1, int white_bkgd, cudaStream_t stream) {
+  const Layout s = make_layout(R, S, D, H, L1);
+  const Scratch b = carve(s, scratch);
+  cudaError_t err = launch_forward<H, false>(s, x, nullptr, nullptr, nullptr, w0, b0, wh, bh,
+                                             wout, bout, b.act, b.out4, b.whT, 0, 0, 0, D, L1,
+                                             stream);
+  if (err != cudaSuccess) return err;
+
+  const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(S);
+  err = cudaFuncSetAttribute(render_composite_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(comp_smem));
+  if (err != cudaSuccess) return err;
+  render_composite_kernel<<<R, 32, comp_smem, stream>>>(b.out4, z, dnorm, g_rgb, g_depth, g_acc,
+                                                        g_weights, b.gout, S, s.Np, white_bkgd);
+
+  err = launch_backward<H>(s, b.gout, wout, b.whT, b.act, b.gbuf, D, L1, stream);
+  if (err != cudaSuccess) return err;
+  launch_dw(s, b.act, b.gbuf, b.gout, b.part, grads, D, H, L1, stream);
+  if (dx != nullptr) {
+    render_dx_kernel<<<dim3(s.Np / kBT, (D + kBT - 1) / kBT), 256, 0, stream>>>(b.gbuf, w0, dx,
+                                                                                s.N, s.Np, D, H);
+  }
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -701,8 +902,8 @@ extern "C" int nerf_train_objective(const float* in, const float* feats, const f
                                     const float* wout, const float* bout, float* loss,
                                     float* grads, float* scratch, int R, int S, int n_raw,
                                     int n_phase, int Fd, int D, int H, int L1, int inline_pe,
-                                    int white_bkgd, float reg_c, float depth_c, int device,
-                                    void* stream) {
+                                    int white_bkgd, float rgb_c, float reg_c, float depth_c,
+                                    int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   if (L1 + 2 > kMaxJobs) return cudaErrorInvalidValue;
@@ -710,11 +911,30 @@ extern "C" int nerf_train_objective(const float* in, const float* feats, const f
   if (H == 256)
     return dispatch<256>(inline_pe, in, feats, z, dnorm, tgt, mask, inv_denom, tgt_depth, e2, c,
                          w0, b0, wh, bh, wout, bout, loss, grads, scratch, R, S, n_raw, n_phase,
-                         Fd, D, L1, white_bkgd, reg_c, depth_c, st);
+                         Fd, D, L1, white_bkgd, rgb_c, reg_c, depth_c, st);
   if (H == 128)
     return dispatch<128>(inline_pe, in, feats, z, dnorm, tgt, mask, inv_denom, tgt_depth, e2, c,
                          w0, b0, wh, bh, wout, bout, loss, grads, scratch, R, S, n_raw, n_phase,
-                         Fd, D, L1, white_bkgd, reg_c, depth_c, st);
+                         Fd, D, L1, white_bkgd, rgb_c, reg_c, depth_c, st);
+  return cudaErrorInvalidValue;
+}
+
+extern "C" int nerf_render_bwd(const float* x, const float* z, const float* dnorm,
+                               const float* w0, const float* b0, const float* wh, const float* bh,
+                               const float* wout, const float* bout, const float* g_rgb,
+                               const float* g_depth, const float* g_acc, const float* g_weights,
+                               float* dx, float* grads, float* scratch, int R, int S, int D, int H,
+                               int L1, int white_bkgd, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return err;
+  if (L1 + 2 > kMaxJobs) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (H == 256)
+    return launch_render_bwd<256>(x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth, g_acc,
+                                  g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd, st);
+  if (H == 128)
+    return launch_render_bwd<128>(x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth, g_acc,
+                                  g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd, st);
   return cudaErrorInvalidValue;
 }
 

@@ -1,17 +1,26 @@
-"""The forward inline-PE render kernel and its host glue (counterpart of
-``nerf_fewshot_tpu/render/kernels.py``: ``pe_layout``, ``_raw_block``,
-``pack_params`` and ``fused_render_fwd_pe`` around ``_fwd_pe_kernel``).
+"""The forward render kernels, the render VJP kernel and their host glue
+(counterpart of ``nerf_fewshot_tpu/render/kernels.py``: ``pe_layout``,
+``_raw_block``, ``pack_params``, ``fused_render_fwd_pe`` around
+``_fwd_pe_kernel``, and ``fused_render`` around ``_fwd_kernel`` with its
+custom VJP around ``_bwd_kernel``).
 
-``fused_render_fwd_pe`` launches the CUDA kernel of ``csrc/fwd_pe.cu`` on
-CUDA tensors and runs ``fused_render_fwd_pe_reference``, the plain PyTorch
-version of the same arithmetic, on CPU tensors. There is no other route:
-a CUDA tensor on a card that is not sm_90 raises.
+Every wrapper launches its CUDA kernel on CUDA tensors and runs its plain
+PyTorch version on CPU tensors; there is no other route: a CUDA tensor on a
+card that is not sm_90 raises, any other device raises.
+- ``fused_render_fwd_pe``: ``csrc/fwd_pe.cu:nerf_fwd_pe`` (kernel 2) /
+  ``fused_render_fwd_pe_reference``;
+- ``fused_render_fwd``: ``csrc/fwd_pe.cu:nerf_fwd_x`` (kernel 4) /
+  ``fused_render_reference``;
+- ``fused_render_bwd``: ``csrc/train_pe.cu:nerf_render_bwd`` (kernel 3) /
+  ``fused_render_bwd_reference``;
+- ``fused_render``: the differentiable render (``_FusedRender``), kernel 4
+  forward and kernel 3 backward.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +33,11 @@ KERNEL_WIDTHS = (128, 256)  # trunk widths the CUDA kernel is built for
 MAX_SAMPLES = 1024  # per-ray sigma/rgb scratch of the kernel lives in smem
 # csrc/fwd_pe.cu:nerf_fwd_pe(16 pointers, 10 ints, stream)
 FWD_PE_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# csrc/fwd_pe.cu:nerf_fwd_x(13 pointers, 7 ints, stream)
+FWD_X_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# csrc/train_pe.cu:nerf_render_bwd(16 pointers, 7 ints, stream)
+RENDER_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+MAX_LAYERS = 15  # trunk layers the backward kernels take (train_pe.cu kMaxJobs - 1)
 
 Packed = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -143,16 +157,37 @@ def _pe_input(raw, feats, e2, c, width: int) -> torch.Tensor:
     return x
 
 
-def _composite(sigma: torch.Tensor, z: torch.Tensor, dnorm: torch.Tensor) -> torch.Tensor:
-    """Compositing weights in log space, as the kernel computes them:
-    ``om = exp(-relu(sigma)*dists) + 1e-10``, ``T = exp(cumsum(log om) -
-    log om)``, ``w = (1 - exp(-relu(sigma)*dists)) * T``."""
+def _composite_terms(sigma: torch.Tensor, z: torch.Tensor, dnorm: torch.Tensor):
+    """Compositing in log space, as the kernels compute it:
+    ``ealpha = exp(-relu(sigma)*dists)``, ``om = ealpha + 1e-10``,
+    ``T = exp(cumsum(log om) - log om)``, ``w = (1 - ealpha) * T``.
+    Returns ``(ealpha, om, dists, T, w)``, each (R, S)."""
     R = sigma.shape[0]
     dists = torch.cat([z[:, 1:] - z[:, :-1], z.new_full((R, 1), 1e10)], dim=1) * dnorm
     ealpha = torch.exp(-torch.relu(sigma) * dists)
-    logs = torch.log(ealpha + 1e-10)
+    om = ealpha + 1e-10
+    logs = torch.log(om)
     trans = torch.exp(torch.cumsum(logs, dim=1) - logs)
-    return (1.0 - ealpha) * trans
+    return ealpha, om, dists, trans, (1.0 - ealpha) * trans
+
+
+def _composite(sigma: torch.Tensor, z: torch.Tensor, dnorm: torch.Tensor) -> torch.Tensor:
+    """The compositing weights (R, S) of ``_composite_terms``."""
+    return _composite_terms(sigma, z, dnorm)[-1]
+
+
+def _trunk(x: torch.Tensor, packed: Packed):
+    """The ReLU trunk and the packed head's 4 live columns: ``(out4 (N, 4),
+    acts)``, ``acts[l]`` the input of layer ``l`` (``acts[0] = x``) and
+    ``acts[-1]`` the last hidden layer."""
+    w0, b0, wh, bh, wout, bout = packed
+    acts = [x]
+    h = torch.relu(x @ w0 + b0)
+    for layer in range(wh.shape[0]):
+        acts.append(h)
+        h = torch.relu(h @ wh[layer] + bh[layer])
+    acts.append(h)
+    return h @ wout[:, :4] + bout[:, :4], acts
 
 
 def _check_compute_dtype(compute_dtype: str) -> None:
@@ -165,22 +200,15 @@ def _check_compute_dtype(compute_dtype: str) -> None:
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
 
 
-def fused_render_fwd_pe_reference(
-    raw, feats, z, dnorm, e2, c, packed: Packed, white_bkgd: bool = False,
-    compute_dtype: str = "float32", use_feats: bool = False,
-):
-    """Plain PyTorch version of the kernel, on any device: the same
-    inputs, the same arithmetic, sums in PyTorch's order. Matmuls must
+def fused_render_reference(x, z, dnorm, packed: Packed, white_bkgd: bool = False,
+                           compute_dtype: str = "float32"):
+    """Plain PyTorch version of kernel 4 (the body of ``_fwd_kernel``), on
+    any device: the render from a pre-encoded (R*S, D) ``x``. Matmuls must
     run in fp32 (``torch.backends.cuda.matmul.allow_tf32`` False, the
     default). Returns rgb (R,3), depth (R,1), acc (R,1), weights (R,S)."""
     _check_compute_dtype(compute_dtype)
-    w0, b0, wh, bh, wout, bout = packed
     R, S = z.shape
-    x = _pe_input(raw, feats if use_feats else None, e2, c, w0.shape[0])
-    h = torch.relu(x @ w0 + b0)
-    for layer in range(wh.shape[0]):
-        h = torch.relu(h @ wh[layer] + bh[layer])
-    out = h @ wout[:, :4] + bout[:, :4]
+    out, _ = _trunk(x, packed)
     rgb_s = torch.sigmoid(out[:, 0:3]).reshape(R, S, 3)
     weights = _composite(out[:, 3].reshape(R, S), z, dnorm)
     rgb = torch.sum(weights[..., None] * rgb_s, dim=1)
@@ -191,15 +219,117 @@ def fused_render_fwd_pe_reference(
     return rgb, depth, acc, weights
 
 
-def _kernel_fn():
-    lib, _ = cuda_build.load("fwd_pe")
-    fn = lib.nerf_fwd_pe
+def fused_render_fwd_pe_reference(
+    raw, feats, z, dnorm, e2, c, packed: Packed, white_bkgd: bool = False,
+    compute_dtype: str = "float32", use_feats: bool = False,
+):
+    """Plain PyTorch version of kernel 2, on any device: the same inputs,
+    the same arithmetic, sums in PyTorch's order. Returns rgb (R,3), depth
+    (R,1), acc (R,1), weights (R,S)."""
+    x = _pe_input(raw, feats if use_feats else None, e2, c, packed[0].shape[0])
+    return fused_render_reference(x, z, dnorm, packed, white_bkgd, compute_dtype)
+
+
+def fused_render_bwd_reference(
+    x, z, dnorm, packed: Packed, g_rgb, g_depth, g_acc, g_weights, white_bkgd: bool = False,
+    compute_dtype: str = "float32", need_dx: bool = True,
+):
+    """Plain PyTorch version of kernel 3 (the body of ``_bwd_kernel``), on
+    any device, written out analytically as the kernel computes it: the
+    forward recomputed from ``x``; ``g_acc -= sum g_rgb`` for a white
+    background; ``dL/dw = rgb_s.g_rgb + g_depth*z + g_acc + g_weights``;
+    the exclusive suffix sum ``s_after``, a scan from the last sample;
+    ``d_alpha = dL/dw*T - s_after/om``; ``d_sigma`` gated by sigma > 0; the
+    sigmoid head; the ReLU-gated chain. Returns ``(dx (R*S, D) or None,
+    (dw0, db0, dwh, dbh, dwout, dbout))``."""
+    _check_compute_dtype(compute_dtype)
+    w0, b0, wh, bh, wout, bout = packed
+    R, S = z.shape
+    N = R * S
+    out, acts = _trunk(x, packed)
+    rgb_s = torch.sigmoid(out[:, 0:3]).reshape(R, S, 3)
+    sigma = out[:, 3].reshape(R, S)
+    ealpha, om, dists, trans, weights = _composite_terms(sigma, z, dnorm)
+    if white_bkgd:
+        g_acc = g_acc - torch.sum(g_rgb, dim=1, keepdim=True)
+    dldw = torch.sum(rgb_s * g_rgb[:, None, :], dim=2) + g_depth * z + g_acc + g_weights
+    q = dldw * weights
+    incl_after = torch.flip(torch.cumsum(torch.flip(q, [1]), dim=1), [1])  # sum over t >= s
+    s_after = torch.cat([incl_after[:, 1:], torch.zeros_like(q[:, :1])], dim=1)
+    d_alpha = dldw * trans - s_after / om
+    d_sigma = d_alpha * ealpha * dists * (sigma > 0.0).to(z.dtype)
+    d_pre_rgb = weights[..., None] * g_rgb[:, None, :] * rgb_s * (1.0 - rgb_s)
+    g_out = torch.cat([d_pre_rgb.reshape(N, 3), d_sigma.reshape(N, 1)], dim=1)
+
+    dwout = torch.zeros_like(wout)
+    dwout[:, :4] = acts[-1].T @ g_out
+    dbout = torch.zeros_like(bout)
+    dbout[:, :4] = torch.sum(g_out, dim=0, keepdim=True)
+    g_h = g_out @ wout[:, :4].T
+    dwh, dbh = torch.zeros_like(wh), torch.zeros_like(bh)
+    for layer in range(wh.shape[0] - 1, -1, -1):
+        g_h = g_h * (acts[layer + 2] > 0.0).to(z.dtype)
+        dwh[layer] = acts[layer + 1].T @ g_h
+        dbh[layer] = torch.sum(g_h, dim=0)
+        g_h = g_h @ wh[layer].T
+    g_h = g_h * (acts[1] > 0.0).to(z.dtype)
+    dw0 = acts[0].T @ g_h
+    db0 = torch.sum(g_h, dim=0, keepdim=True)
+    dx = g_h @ w0.T if need_dx else None
+    return dx, (dw0, db0, dwh, dbh, dwout, dbout)
+
+
+def _lib_fn(source: str, name: str, argtypes):
+    """Build (once) and load ``csrc/<source>.cu``; the C function ``name``
+    with its argtypes set."""
+    lib, _ = cuda_build.load(source)
+    fn = getattr(lib, name)
     if fn.argtypes is None:
-        fn.argtypes = FWD_PE_ARGTYPES
+        fn.argtypes = argtypes
         fn.restype = ctypes.c_int
         lib.nerf_cuda_error_string.argtypes = [ctypes.c_int]
         lib.nerf_cuda_error_string.restype = ctypes.c_char_p
     return lib, fn
+
+
+def _raise_on(err: int, lib, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"{what} kernel launch failed: CUDA error {err} "
+            f"({lib.nerf_cuda_error_string(err).decode()})")
+
+
+# The backward kernels' activation/cotangent scratch: one buffer per
+# device, grown to the largest call seen and reused by every later call on
+# that device (calls are ordered on the current stream, so reuse is safe
+# there).
+_SCRATCH: Dict[torch.device, torch.Tensor] = {}
+
+
+def _scratch(lib, device: torch.device, R: int, S: int, D: int, H: int, L1: int) -> torch.Tensor:
+    """The scratch ``csrc/train_pe.cu`` needs for R x S points of a D-wide
+    input through an L1+1-layer, H-wide trunk."""
+    size = lib.nerf_train_scratch_floats
+    if size.argtypes is None:
+        size.argtypes = [ctypes.c_int] * 5
+        size.restype = ctypes.c_ulonglong
+    n_floats = size(R, S, D, H, L1)
+    buf = _SCRATCH.get(device)
+    if buf is None or buf.numel() < n_floats:
+        _SCRATCH.pop(device, None)
+        buf = torch.empty(n_floats, dtype=torch.float32, device=device)
+        _SCRATCH[device] = buf
+    return buf
+
+
+def _split_grads(flat: torch.Tensor, packed: Packed) -> Packed:
+    """The backward kernels' flat gradient buffer as views shaped like
+    ``packed``."""
+    out, off = [], 0
+    for p in packed:
+        out.append(flat[off:off + p.numel()].view(p.shape))
+        off += p.numel()
+    return tuple(out)
 
 
 def _expect(t: torch.Tensor, name: str, shape, device: torch.device,
@@ -279,19 +409,134 @@ def fused_render_fwd_pe(
     depth = torch.empty((R, 1), dtype=torch.float32, device=device)
     acc = torch.empty((R, 1), dtype=torch.float32, device=device)
     weights = torch.empty((R, S), dtype=torch.float32, device=device)
-    lib, fn = _kernel_fn()
+    lib, fn = _lib_fn("fwd_pe", "nerf_fwd_pe", FWD_PE_ARGTYPES)
     feats_ptr = feats.data_ptr() if use_feats else None
     ptrs = [t.data_ptr() for t in (z, dnorm, e2, c, w0, b0, wh, bh, wout, bout,
                                    rgb, depth, acc, weights)]
     err = fn(raw.data_ptr(), feats_ptr, *ptrs, R, S, n_raw, n_phase, Fd, D, H, L1,
              int(white_bkgd), device.index, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"fwd_pe kernel launch failed: CUDA error {err} "
-            f"({lib.nerf_cuda_error_string(err).decode()})"
-        )
+    _raise_on(err, lib, "fwd_pe")
     fused_render_fwd_pe.launches += 1
     return rgb, depth, acc, weights
 
 
 fused_render_fwd_pe.launches = 0
+
+
+def _check_x_render(x, z, dnorm, packed: Packed, caller: str):
+    """The wrappers' checks of a render from a pre-encoded ``x`` on a card:
+    shapes, widths, dtype and contiguity. Returns ``(R, S, D, H, L1)``."""
+    device = x.device
+    _check_card(device, caller)
+    w0, b0, wh, bh, wout, bout = packed
+    R, S = z.shape
+    D, H = w0.shape
+    L1 = wh.shape[0]
+    if H not in KERNEL_WIDTHS:
+        raise ValueError(f"{caller}: trunk width {H} not in {KERNEL_WIDTHS}")
+    if D % D_PAD or D > 2 * D_PAD:
+        raise ValueError(f"{caller}: x width {D} must be {D_PAD} or {2 * D_PAD}")
+    if not (1 <= S <= MAX_SAMPLES) or R < 1:
+        raise ValueError(f"{caller}: need R >= 1 and 1 <= S <= {MAX_SAMPLES}; got {R}, {S}")
+    if L1 + 1 > MAX_LAYERS:
+        raise ValueError(f"{caller}: at most {MAX_LAYERS} trunk layers; got {L1 + 1}")
+    for t, name, shape in ((x, "x", (R * S, D)), (z, "z", (R, S)), (dnorm, "dnorm", (R, 1)),
+                           (w0, "w0", (D, H)), (b0, "b0", (1, H)), (wh, "wh", (L1, H, H)),
+                           (bh, "bh", (L1, H)), (wout, "wout", (H, OUT_PAD)),
+                           (bout, "bout", (1, OUT_PAD))):
+        _expect(t, name, shape, device, caller)
+    return R, S, D, H, L1
+
+
+def fused_render_fwd(x, z, dnorm, packed: Packed, white_bkgd: bool = False,
+                     compute_dtype: str = "float32"):
+    """The render of kernel 4 from a pre-encoded (R*S, D) ``x``
+    (``encode_points``, D 128 or 256) with ``pack_params(d_pad=D)`` weights:
+    ``(rgb (R,3), depth (R,1), acc (R,1), weights (R,S))``. CPU tensors run
+    ``fused_render_reference``; CUDA tensors launch ``nerf_fwd_x`` and count
+    one in ``fused_render_fwd.launches``."""
+    _check_compute_dtype(compute_dtype)
+    if x.device.type == "cpu":
+        return fused_render_reference(x, z, dnorm, packed, white_bkgd, compute_dtype)
+    R, S, D, H, L1 = _check_x_render(x, z, dnorm, packed, "fused_render_fwd")
+    device = x.device
+    outs = [torch.empty(shape, dtype=torch.float32, device=device)
+            for shape in ((R, 3), (R, 1), (R, 1), (R, S))]
+    lib, fn = _lib_fn("fwd_pe", "nerf_fwd_x", FWD_X_ARGTYPES)
+    err = fn(*(t.data_ptr() for t in (x, z, dnorm, *packed, *outs)), R, S, D, H, L1,
+             int(white_bkgd), device.index, torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, lib, "fwd_x")
+    fused_render_fwd.launches += 1
+    return tuple(outs)
+
+
+fused_render_fwd.launches = 0
+
+
+def fused_render_bwd(x, z, dnorm, packed: Packed, g_rgb, g_depth, g_acc, g_weights,
+                     white_bkgd: bool = False, compute_dtype: str = "float32",
+                     need_dx: bool = True):
+    """The VJP of ``fused_render_fwd`` (kernel 3): from the cotangents
+    ``g_rgb (R,3), g_depth (R,1), g_acc (R,1), g_weights (R,S)`` of its four
+    outputs, ``(dx (R*S, D) or None, (dw0, db0, dwh, dbh, dwout, dbout))``;
+    ``dx`` only with ``need_dx``. CPU tensors run
+    ``fused_render_bwd_reference``; CUDA tensors launch ``nerf_render_bwd``
+    and count one in ``fused_render_bwd.launches``."""
+    _check_compute_dtype(compute_dtype)
+    cot = tuple(g.contiguous() for g in (g_rgb, g_depth, g_acc, g_weights))
+    if x.device.type == "cpu":
+        return fused_render_bwd_reference(x, z, dnorm, packed, *cot, white_bkgd, compute_dtype,
+                                          need_dx)
+    caller = "fused_render_bwd"
+    R, S, D, H, L1 = _check_x_render(x, z, dnorm, packed, caller)
+    device = x.device
+    for t, name, shape in zip(cot, ("g_rgb", "g_depth", "g_acc", "g_weights"),
+                              ((R, 3), (R, 1), (R, 1), (R, S))):
+        _expect(t, name, shape, device, caller)
+    lib, fn = _lib_fn("train_pe", "nerf_render_bwd", RENDER_BWD_ARGTYPES)
+    scratch = _scratch(lib, device, R, S, D, H, L1)
+    grads = torch.empty(sum(p.numel() for p in packed), dtype=torch.float32, device=device)
+    dx = torch.empty((R * S, D), dtype=torch.float32, device=device) if need_dx else None
+    ptrs = [t.data_ptr() for t in (x, z, dnorm, *packed, *cot)]
+    err = fn(*ptrs, None if dx is None else dx.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
+             R, S, D, H, L1, int(white_bkgd), device.index,
+             torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, lib, "render_bwd")
+    fused_render_bwd.launches += 1
+    return dx, _split_grads(grads, packed)
+
+
+fused_render_bwd.launches = 0
+
+
+class _FusedRender(torch.autograd.Function):
+    """The differentiable render of ``x`` and the six packed tensors:
+    forward ``fused_render_fwd`` (kernel 4); backward ``fused_render_bwd``
+    (kernel 3), which recomputes the forward from the saved inputs, as the
+    JAX rule does. ``z`` and ``dnorm`` get no gradient (the JAX rule returns
+    zero cotangents for them), and ``dx`` is computed only when ``x``
+    requires it."""
+
+    @staticmethod
+    def forward(ctx, x, z, dnorm, opts, *packed):
+        ctx.save_for_backward(x, z, dnorm, *packed)
+        ctx.opts = opts
+        return fused_render_fwd(x, z, dnorm, packed, **opts)
+
+    @staticmethod
+    def backward(ctx, g_rgb, g_depth, g_acc, g_weights):
+        x, z, dnorm, *packed = ctx.saved_tensors
+        dx, dpacked = fused_render_bwd(x, z, dnorm, tuple(packed), g_rgb, g_depth, g_acc,
+                                       g_weights, need_dx=ctx.needs_input_grad[0], **ctx.opts)
+        return (dx, None, None, None, *dpacked)
+
+
+def fused_render(x, z, dnorm, packed: Packed, white_bkgd: bool = False,
+                 compute_dtype: str = "float32"):
+    """Differentiable fused MLP + alpha-composite render of a pre-encoded
+    (R*S, D) ``x``: ``(rgb (R,3), depth (R,1), acc (R,1), weights (R,S))``,
+    differentiable in ``x`` and the packed weights (``pack_params`` is
+    differentiable, so gradients reach the ``NeRFMLP`` parameters)."""
+    _check_compute_dtype(compute_dtype)
+    opts = dict(white_bkgd=white_bkgd, compute_dtype=compute_dtype)
+    return _FusedRender.apply(x, z.contiguous(), dnorm.contiguous(), opts, *packed)

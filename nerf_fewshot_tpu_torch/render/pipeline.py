@@ -2,8 +2,7 @@
 (counterpart of ``nerf_fewshot_tpu/render/pipeline.py``, the XLA path).
 
 The fused path (``render.fused``) and the training kernel are held against
-this one. Hierarchical sampling, sigma noise and per-point features come
-with later slices.
+this one. Sigma noise and per-point features come with later slices.
 """
 
 from __future__ import annotations
@@ -14,7 +13,7 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from nerf_fewshot_tpu_torch.ops.composite import RenderOutputs, volume_render
-from nerf_fewshot_tpu_torch.ops.sampling import sample_along_rays
+from nerf_fewshot_tpu_torch.ops.sampling import hierarchical_sample, sample_along_rays
 
 # model_fn(pts (N,3), dirs (N,3)) -> (rgb (N,3), sigma (N,1))
 ModelFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
@@ -40,19 +39,33 @@ def render_rays(
     rays_d: torch.Tensor,
     settings: RenderSettings,
     uniforms: Optional[torch.Tensor] = None,
+    importance_uniforms: Optional[torch.Tensor] = None,
 ) -> RenderOutputs:
     """Render (R, 3) rays. With ``settings.perturb`` the (R, n_samples)
-    ``uniforms`` jitter the stratified samples; without them (or without
-    ``perturb``) the samples are deterministic, as the JAX path with
-    ``key=None``."""
-    if settings.n_importance > 0:
-        raise NotImplementedError("hierarchical sampling is not ported yet")
+    ``uniforms`` jitter the stratified samples and the (R, n_importance)
+    ``importance_uniforms`` draw the hierarchical samples; without them (or
+    without ``perturb``) both are deterministic, as the JAX path with
+    ``key=None``. With ``settings.n_importance`` the fine pass re-renders the
+    merged samples with the same model, from the coarse weights under
+    stop-gradient, and its outputs are returned."""
     if settings.noise_std > 0.0:
         raise NotImplementedError("sigma noise is not ported yet")
     pts, z_vals = sample_along_rays(
         rays_o, rays_d, settings.near, settings.far, settings.n_samples,
         uniforms=uniforms if settings.perturb else None, lindisp=settings.lindisp,
     )
+    out = _render_points(model_fn, pts, z_vals, rays_d, settings)
+    if settings.n_importance <= 0:
+        return out
+    pts, z_vals = hierarchical_sample(
+        rays_o, rays_d, z_vals, out.weights.detach(), settings.n_importance,
+        uniforms=importance_uniforms if settings.perturb else None,
+    )
+    return _render_points(model_fn, pts, z_vals, rays_d, settings)
+
+
+def _render_points(model_fn: ModelFn, pts, z_vals, rays_d, settings: RenderSettings):
+    """Evaluate the model at the (R, S, 3) points and composite them."""
     R, S, _ = pts.shape
     dirs = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
     rgb, sigma = model_fn(pts.reshape(-1, 3), dirs)

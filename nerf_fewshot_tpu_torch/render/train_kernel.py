@@ -23,12 +23,12 @@ from typing import Callable, Dict, Mapping, Optional, Tuple, Union
 import torch
 from torch import nn
 
-from nerf_fewshot_tpu_torch.ops.sampling import sample_along_rays
-from nerf_fewshot_tpu_torch.render import cuda_build
+from nerf_fewshot_tpu_torch.ops.sampling import hierarchical_sample, sample_along_rays
 from nerf_fewshot_tpu_torch.render.fused import encode_points
 from nerf_fewshot_tpu_torch.render.kernels import (
     D_PAD,
     KERNEL_WIDTHS,
+    MAX_LAYERS,
     MAX_SAMPLES,
     OUT_PAD,
     Packed,
@@ -36,41 +36,44 @@ from nerf_fewshot_tpu_torch.render.kernels import (
     _check_compute_dtype,
     _composite,
     _expect,
+    _lib_fn,
     _pe_input,
+    _raise_on,
     _raw_block,
+    _scratch,
+    _split_grads,
+    _trunk,
+    fused_render_fwd,
+    fused_render_fwd_pe,
     pack_params,
     pe_layout,
 )
 from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings
 
-# csrc/train_pe.cu:nerf_train_objective(19 pointers, 10 ints, 2 floats, int, stream)
+# csrc/train_pe.cu:nerf_train_objective(19 pointers, 10 ints, 3 floats, int, stream)
 TRAIN_ARGTYPES = (
-    [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10 + [ctypes.c_float] * 2
+    [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
     + [ctypes.c_int, ctypes.c_void_p]
 )
 CALLER = "fused_train_objective"
 
 
 def _objective_loss(x, z, dnorm, tgt, mask, inv_denom, packed: Packed, white_bkgd,
-                    reg_weight, depth_weight, tgt_depth) -> torch.Tensor:
+                    rgb_weight, reg_weight, depth_weight, tgt_depth) -> torch.Tensor:
     """``_objective_body``'s forward and loss, from the (N, D) input ``x``:
     the trunk and packed head, sigmoid rgb, log-space compositing (1e10 far
-    delta, 1e-10 epsilon), the masked squared error scaled by ``inv_denom``,
-    the w^2 term at ``3*r/S * inv_denom`` and the depth term at
-    ``3*d * inv_denom``."""
-    w0, b0, wh, bh, wout, bout = packed
+    delta, 1e-10 epsilon), the masked squared error scaled by
+    ``rgb_weight * inv_denom``, the w^2 term at ``3*r/S * inv_denom`` and
+    the depth term at ``3*d * inv_denom``."""
     R, S = z.shape
-    h = torch.relu(x @ w0 + b0)
-    for layer in range(wh.shape[0]):
-        h = torch.relu(h @ wh[layer] + bh[layer])
-    out = h @ wout[:, :4] + bout[:, :4]
+    out, _ = _trunk(x, packed)
     rgb_s = torch.sigmoid(out[:, 0:3]).reshape(R, S, 3)
     weights = _composite(out[:, 3].reshape(R, S), z, dnorm)
     rgb_map = torch.sum(weights[..., None] * rgb_s, dim=1)
     if white_bkgd:
         rgb_map = rgb_map + (1.0 - torch.sum(weights, dim=1, keepdim=True))
     err = (rgb_map - tgt) * mask
-    loss = torch.sum(err * err) * inv_denom
+    loss = torch.sum(err * err) * (rgb_weight * inv_denom)
     if reg_weight:
         wsq = torch.sum(weights * weights, dim=1, keepdim=True)
         loss = loss + torch.sum(wsq * mask) * ((3.0 * reg_weight / S) * inv_denom)
@@ -82,9 +85,9 @@ def _objective_loss(x, z, dnorm, tgt, mask, inv_denom, packed: Packed, white_bkg
 
 def fused_train_objective_reference(
     raw_or_x, feats, z, dnorm, tgt, mask, inv_denom, e2, c, packed: Packed, *,
-    white_bkgd: bool = False, inline_pe: bool = True, reg_weight: float = 0.0,
-    depth_weight: float = 0.0, tgt_depth: Optional[torch.Tensor] = None,
-    compute_dtype: str = "float32",
+    white_bkgd: bool = False, inline_pe: bool = True, rgb_weight: float = 1.0,
+    reg_weight: float = 0.0, depth_weight: float = 0.0,
+    tgt_depth: Optional[torch.Tensor] = None, compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, Packed]:
     """Plain PyTorch version of the kernel, on any device: the kernel's
     forward arithmetic (exact PE phases, ``sin(phase + pi/2)`` for cos,
@@ -100,45 +103,17 @@ def fused_train_objective_reference(
         else:
             x = raw_or_x
         loss = _objective_loss(x, z, dnorm, tgt, mask, inv_denom, leaves, white_bkgd,
-                               reg_weight, depth_weight, tgt_depth)
+                               rgb_weight, reg_weight, depth_weight, tgt_depth)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     dpacked = tuple(torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads))
     return loss.detach(), dpacked
 
 
-def _kernel_fn():
-    lib, _ = cuda_build.load("train_pe")
-    fn = lib.nerf_train_objective
-    if fn.argtypes is None:
-        fn.argtypes = TRAIN_ARGTYPES
-        fn.restype = ctypes.c_int
-        lib.nerf_train_scratch_floats.argtypes = [ctypes.c_int] * 5
-        lib.nerf_train_scratch_floats.restype = ctypes.c_ulonglong
-        lib.nerf_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.nerf_cuda_error_string.restype = ctypes.c_char_p
-    return lib, fn
-
-
-# The kernel's activation/cotangent scratch: one buffer per device, grown
-# to the largest call seen and reused by every later call on that device
-# (calls are ordered on the current stream, so reuse is safe there).
-_SCRATCH: Dict[torch.device, torch.Tensor] = {}
-
-
-def _scratch(device: torch.device, n_floats: int) -> torch.Tensor:
-    buf = _SCRATCH.get(device)
-    if buf is None or buf.numel() < n_floats:
-        _SCRATCH.pop(device, None)
-        buf = torch.empty(n_floats, dtype=torch.float32, device=device)
-        _SCRATCH[device] = buf
-    return buf
-
-
 def fused_train_objective(
     raw_or_x, feats, z, dnorm, tgt, mask, inv_denom, e2, c, packed: Packed, *,
-    white_bkgd: bool = False, inline_pe: bool = True, reg_weight: float = 0.0,
-    depth_weight: float = 0.0, tgt_depth: Optional[torch.Tensor] = None,
-    compute_dtype: str = "float32",
+    white_bkgd: bool = False, inline_pe: bool = True, rgb_weight: float = 1.0,
+    reg_weight: float = 0.0, depth_weight: float = 0.0,
+    tgt_depth: Optional[torch.Tensor] = None, compute_dtype: str = "float32",
 ) -> Tuple[torch.Tensor, Packed]:
     """``(loss (), dpacked)`` of the training objective over R rays x S samples.
 
@@ -152,8 +127,9 @@ def fused_train_objective(
     ``fused_train_objective.launches["train_pe" or "train_x"]``.
     """
     _check_compute_dtype(compute_dtype)
-    kw = dict(white_bkgd=white_bkgd, inline_pe=inline_pe, reg_weight=reg_weight,
-              depth_weight=depth_weight, tgt_depth=tgt_depth, compute_dtype=compute_dtype)
+    kw = dict(white_bkgd=white_bkgd, inline_pe=inline_pe, rgb_weight=rgb_weight,
+              reg_weight=reg_weight, depth_weight=depth_weight, tgt_depth=tgt_depth,
+              compute_dtype=compute_dtype)
     if raw_or_x.device.type == "cpu":
         return fused_train_objective_reference(
             raw_or_x, feats, z, dnorm, tgt, mask, inv_denom, e2, c, packed, **kw)
@@ -167,8 +143,8 @@ def fused_train_objective(
         raise ValueError(f"{CALLER}: trunk width {H} not in {KERNEL_WIDTHS}")
     if not (1 <= S <= MAX_SAMPLES) or R < 1:
         raise ValueError(f"{CALLER}: need R >= 1 and 1 <= S <= {MAX_SAMPLES}; got {R}, {S}")
-    if L1 + 2 > 16:
-        raise ValueError(f"{CALLER}: at most 15 trunk layers; got {L1 + 1}")
+    if L1 + 1 > MAX_LAYERS:
+        raise ValueError(f"{CALLER}: at most {MAX_LAYERS} trunk layers; got {L1 + 1}")
     if inline_pe:
         n_raw, n_phase = raw_or_x.shape[1], e2.shape[1]
         Fd = 0 if feats is None else feats.shape[1]
@@ -200,8 +176,8 @@ def fused_train_objective(
     _expect(wout, "wout", (H, OUT_PAD), device, CALLER)
     _expect(bout, "bout", (1, OUT_PAD), device, CALLER)
 
-    lib, fn = _kernel_fn()
-    scratch = _scratch(device, lib.nerf_train_scratch_floats(R, S, D, H, L1))
+    lib, fn = _lib_fn("train_pe", "nerf_train_objective", TRAIN_ARGTYPES)
+    scratch = _scratch(lib, device, R, S, D, H, L1)
     loss = torch.empty(1, dtype=torch.float32, device=device)
     grads = torch.empty(sum(p.numel() for p in packed), dtype=torch.float32, device=device)
     opt = lambda t: None if t is None else t.data_ptr()
@@ -211,18 +187,11 @@ def fused_train_objective(
             *(p.data_ptr() for p in packed), loss.data_ptr(), grads.data_ptr(),
             scratch.data_ptr()]
     err = fn(*ptrs, R, S, n_raw, n_phase, Fd, D, H, L1, int(inline_pe), int(white_bkgd),
-             float(3.0 * reg_weight / S), float(3.0 * depth_weight), device.index,
-             torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(
-            f"train_pe kernel launch failed: CUDA error {err} "
-            f"({lib.nerf_cuda_error_string(err).decode()})")
+             float(rgb_weight), float(3.0 * reg_weight / S), float(3.0 * depth_weight),
+             device.index, torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(err, lib, "train_pe")
     fused_train_objective.launches["train_pe" if inline_pe else "train_x"] += 1
-    dpacked, off = [], 0
-    for p in packed:
-        dpacked.append(grads[off:off + p.numel()].view(p.shape))
-        off += p.numel()
-    return loss.reshape(()), tuple(dpacked)
+    return loss.reshape(()), _split_grads(grads, packed)
 
 
 fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
@@ -246,6 +215,32 @@ class _TrainObjective(torch.autograd.Function):
         return (None,) * 10 + tuple(grad_out * d for d in ctx.saved_tensors)
 
 
+@torch.no_grad()
+def _coarse_weights(params, pts, rays_d, z, dnorm, settings, pos_freq, dir_freq, num_layers,
+                    hidden_dim, use_viewdirs, compute_dtype, inline_pe, point_features_fn):
+    """The hierarchical coarse pass: the compositing weights (R, S) of the
+    stratified samples, through kernel 2 (``inline_pe``) or kernel 4, with no
+    gradient (the sampling distribution is stop-gradient)."""
+    feats = None
+    if point_features_fn is not None:
+        feats = point_features_fn(pts.reshape(-1, 3)).contiguous()
+    if inline_pe:
+        perm, e2, c, x_dim = pe_layout(pos_freq, dir_freq, use_viewdirs,
+                                       0 if feats is None else feats.shape[1])
+        packed = pack_params(params, num_layers, hidden_dim,
+                             d_pad=-(-x_dim // D_PAD) * D_PAD, row_perm=perm)
+        out = fused_render_fwd_pe(
+            _raw_block(pts, rays_d, use_viewdirs), feats, z.contiguous(), dnorm,
+            torch.as_tensor(e2, device=z.device), torch.as_tensor(c, device=z.device), packed,
+            settings.white_bkgd, compute_dtype, use_feats=feats is not None)
+    else:
+        x = encode_points(pts, rays_d, pos_freq, dir_freq, use_viewdirs, feats).contiguous()
+        packed = pack_params(params, num_layers, hidden_dim, d_pad=x.shape[-1])
+        out = fused_render_fwd(x, z.contiguous(), dnorm, packed, settings.white_bkgd,
+                               compute_dtype)
+    return out[3]
+
+
 def train_objective_inputs(
     params: Mapping[str, torch.Tensor],
     rays_o: torch.Tensor,
@@ -266,15 +261,16 @@ def train_objective_inputs(
     depth_weight: float = 0.0,
     target_depth: Optional[torch.Tensor] = None,
     point_features_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    rgb_weight: float = 1.0,
+    importance_uniforms: Optional[torch.Tensor] = None,
 ):
-    """The host glue of ``fused_train_loss_grad``: sampling, the kernel's
-    input block and ``pack_params`` of ``params`` (differentiable when they
-    require grad). Returns ``(args, opts)`` for
+    """The host glue of ``fused_train_loss_grad``: sampling (with
+    ``settings.n_importance``, the coarse pass and the importance samples),
+    the kernel's input block and ``pack_params`` of ``params``
+    (differentiable when they require grad). Returns ``(args, opts)`` for
     ``fused_train_objective(*args, **opts)``."""
     if settings.noise_std != 0.0:
         raise ValueError("fused_train_loss_grad: sigma noise is not supported by the kernel")
-    if settings.n_importance > 0:
-        raise NotImplementedError("fused_train_loss_grad: hierarchical sampling is not ported yet")
     tgt_depth = None
     if depth_weight > 0.0 and target_depth is not None:
         tgt_depth = target_depth.reshape(-1, 1).contiguous()
@@ -284,10 +280,17 @@ def train_objective_inputs(
         rays_o, rays_d, settings.near, settings.far, settings.n_samples,
         uniforms=uniforms if settings.perturb else None, lindisp=settings.lindisp,
     )
+    dnorm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    if settings.n_importance > 0:
+        weights_c = _coarse_weights(params, pts, rays_d, z, dnorm, settings, pos_freq, dir_freq,
+                                    num_layers, hidden_dim, use_viewdirs, compute_dtype,
+                                    inline_pe, point_features_fn)
+        pts, z = hierarchical_sample(
+            rays_o, rays_d, z, weights_c, settings.n_importance,
+            uniforms=importance_uniforms if settings.perturb else None)
     feats = None
     if point_features_fn is not None:
         feats = point_features_fn(pts.reshape(-1, 3)).contiguous()
-    dnorm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     denom = torch.sum(mask) if denom_rays is None else torch.as_tensor(
         denom_rays, dtype=rays_o.dtype, device=rays_o.device)
     inv_denom = (1.0 / (3.0 * torch.clamp(denom, min=1.0))).reshape(1)
@@ -305,8 +308,9 @@ def train_objective_inputs(
         e2 = c = feats = None
     args = (inp, feats, z.contiguous(), dnorm, target.contiguous(),
             mask.reshape(-1, 1).to(rays_o.dtype).contiguous(), inv_denom, e2, c, packed)
-    opts = dict(white_bkgd=settings.white_bkgd, inline_pe=inline_pe, reg_weight=reg_weight,
-                depth_weight=depth_weight, tgt_depth=tgt_depth, compute_dtype=compute_dtype)
+    opts = dict(white_bkgd=settings.white_bkgd, inline_pe=inline_pe, rgb_weight=rgb_weight,
+                reg_weight=reg_weight, depth_weight=depth_weight, tgt_depth=tgt_depth,
+                compute_dtype=compute_dtype)
     return args, opts
 
 
@@ -330,6 +334,8 @@ def fused_train_loss_grad(
     depth_weight: float = 0.0,
     target_depth: Optional[torch.Tensor] = None,
     point_features_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    rgb_weight: float = 1.0,
+    importance_uniforms: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(masked-MSE loss, parameter gradients by name) in one kernel call.
 
@@ -337,9 +343,15 @@ def fused_train_loss_grad(
     ``uniforms`` (R, n_samples) jitter the stratified samples when
     ``settings.perturb``; without them the samples are the bin edges, as the
     JAX function does without a key. ``denom_rays`` overrides the
-    normalizer (default: the local sum of ``mask``); ``depth_weight`` counts
-    only with ``target_depth``. ``point_features_fn(pts (N, 3)) -> (N, Fd)``
-    appends per-point features to the MLP input.
+    normalizer (default: the local sum of ``mask``); ``rgb_weight`` scales
+    the rgb term (``loss.rgb_weight``); ``depth_weight`` counts only with
+    ``target_depth``. ``point_features_fn(pts (N, 3)) -> (N, Fd)`` appends
+    per-point features to the MLP input. With ``settings.n_importance`` a
+    forward-only coarse pass (kernel 2 with ``inline_pe``, else kernel 4)
+    gives the weights the importance samples are drawn from, with the
+    (R, n_importance) ``importance_uniforms`` when ``settings.perturb`` (the
+    evenly spaced ``linspace(0, 1)`` without them); the objective then runs
+    over the merged, sorted ``n_samples + n_importance`` depths.
     """
     if isinstance(model_or_state, nn.Module):
         params = dict(model_or_state.named_parameters())
@@ -348,7 +360,8 @@ def fused_train_loss_grad(
     args, opts = train_objective_inputs(
         params, rays_o, rays_d, target, mask, settings, pos_freq, dir_freq, num_layers,
         hidden_dim, use_viewdirs, compute_dtype, uniforms, denom_rays, inline_pe,
-        reg_weight, depth_weight, target_depth, point_features_fn)
+        reg_weight, depth_weight, target_depth, point_features_fn, rgb_weight,
+        importance_uniforms)
     *inputs, packed = args
     loss = _TrainObjective.apply(*inputs, opts, *packed)
     names = list(params)

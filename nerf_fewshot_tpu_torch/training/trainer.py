@@ -2,17 +2,22 @@
 ``nerf_fewshot_tpu/training/trainer.py:Trainer``).
 
 Each step gathers a minibatch of packed ``[o|d|rgb]`` rows, draws the
-stratified-jitter uniforms from the trainer's ``torch.Generator`` and takes
-one optimizer step. On the kernel path (``_use_fused``) the loss and every
-gradient come from ``fused_train_loss_grad``, which launches the CUDA
-training kernel on a card and runs its plain version on the CPU; the plain
-path is ``render_rays`` + ``nerf_loss`` + autograd, taken with
-``rendering.backend: xla``, or on the CPU for a config the kernels cannot
-take (on a card such a config raises). Minibatch permutations come from
-``np.random.default_rng(cfg.seed)`` exactly as in the JAX trainer, so both
-draw the same batches. Eval renders every view through
-``fused_render_rays(forward_only=True)``. LPIPS, DINO conditioning, LoRA,
-hierarchical sampling and the module architecture come with later slices
+stratified-jitter uniforms (and, with ``rendering.n_importance``, the
+importance uniforms) from the trainer's ``torch.Generator`` and takes one
+optimizer step. On the kernel path the loss and every gradient come from
+``fused_train_loss_grad``, which launches the CUDA training kernel on a
+card and runs its plain version on the CPU; the plain path is
+``render_rays`` + ``nerf_loss`` + autograd. Which path a config takes
+follows the JAX trainer: ``rendering.backend: xla``, or under ``auto`` a
+config the JAX kernels do not take (a width that is not a multiple of 128,
+sigma noise), trains on the plain path on every device. A config the JAX
+kernels take but the port has no CUDA build for (a width of 384 or 512)
+raises on a card, and trains on the plain path only on the CPU or with
+``backend: xla``. The path taken is in ``kernel_path``. Minibatch
+permutations come from ``np.random.default_rng(cfg.seed)`` exactly as in
+the JAX trainer, so both draw the same batches. Eval renders every view
+through ``fused_render_rays(forward_only=True)`` on the kernel path. LPIPS,
+DINO conditioning, LoRA and the module architecture come with later slices
 and raise until then.
 """
 
@@ -21,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -104,6 +109,9 @@ class Trainer:
         self.best_psnr = 0.0
         # consecutive epochs the dead-sigma probe reported acc == 0
         self.dead_sigma_epochs = 0
+        # "kernel" or "plain" and why, set by every choice of the path
+        self.kernel_path: Optional[str] = None
+        self.kernel_path_reason: Optional[str] = None
         self.last_step_losses = np.zeros(0)  # per-step losses of the last epoch
         self._phase_data: Dict[int, PhaseData] = {}
         self._np_rng = np.random.default_rng(cfg.seed)
@@ -121,55 +129,82 @@ class Trainer:
         """Take the weights of a JAX ``NeRFMLP`` param tree (numpy leaves)."""
         self.model.load_state_dict(nerf_mlp_from_jax(params))
 
-    def _kernel_ineligible_reason(self) -> Optional[str]:
-        """Why the kernels cannot run this config (None = eligible)."""
+    def _jax_ineligible_reason(self) -> Optional[str]:
+        """Why the JAX package's kernels would not take this config (its
+        ``Trainer._kernel_ineligible_reason``, word for word)."""
         cfg = self.cfg
-        if cfg.nerf.hidden_dim not in KERNEL_WIDTHS:
-            return f"hidden_dim={cfg.nerf.hidden_dim} not in {KERNEL_WIDTHS}"
+        if cfg.nerf.hidden_dim % 128 != 0:
+            return f"hidden_dim={cfg.nerf.hidden_dim} not 128-lane aligned"
         if not (cfg.strict_reference_behavior or cfg.rendering.noise_std == 0.0):
             return "sigma noise_std != 0 is not implemented in the kernels"
         return None
 
+    def _port_gap_reason(self) -> Optional[str]:
+        """Why the port's kernels cannot take a config the JAX kernels take."""
+        if self.cfg.nerf.hidden_dim not in KERNEL_WIDTHS:
+            return (f"hidden_dim={self.cfg.nerf.hidden_dim} has no CUDA build "
+                    f"(the kernels are built for {KERNEL_WIDTHS})")
+        return None
+
     def _use_fused(self) -> bool:
-        """Whether training steps and eval renders go through the kernels
+        """Whether training steps and renders go through the kernels
         (``fused_train_loss_grad``, ``fused_render_rays``): the CUDA kernels
-        on a card, their plain versions on the CPU. ``rendering.backend:
-        xla`` selects the plain path. A config the kernels cannot take
-        raises with ``backend: fused``, and on a card with any backend but
-        ``xla``; only on the CPU does ``auto`` give it the plain path."""
+        on a card, their plain versions on the CPU. Records the choice in
+        ``kernel_path`` ("kernel" or "plain") and ``kernel_path_reason``.
+
+        ``backend: xla`` takes the plain path. A config the JAX kernels do
+        not take takes it too under ``auto``, on every device, as the JAX
+        trainer does, and raises under ``fused``. A config only the port's
+        kernels cannot take raises under ``fused``, and on a card under
+        ``auto``: the JAX package would run its kernel there."""
         backend = self.cfg.rendering.backend
+        where = self.device.type
+        jax_reason, gap = self._jax_ineligible_reason(), self._port_gap_reason()
         if backend == "xla":
-            return False
-        reason = self._kernel_ineligible_reason()
-        if reason is not None and (backend == "fused" or self.device.type != "cpu"):
-            raise ValueError(
-                f"rendering.backend={backend} rejected on {self.device.type}: {reason} "
-                f"(backend: xla trains and renders on the plain path)")
+            reason = "rendering.backend: xla"
+        elif jax_reason is not None:
+            if backend == "fused":
+                raise ValueError(f"rendering.backend=fused rejected on {where}: {jax_reason}")
+            reason = jax_reason
+        elif gap is not None:
+            if backend == "fused" or where != "cpu":
+                raise ValueError(
+                    f"rendering.backend={backend} rejected on {where}: {gap} "
+                    f"(backend: xla trains and renders on the plain path)")
+            reason = gap
+        else:
+            reason = None
+        self.kernel_path = "kernel" if reason is None else "plain"
+        self.kernel_path_reason = reason
         return reason is None
 
     def _ray_render_fn(self, settings: RenderSettings, forward_only: bool = False):
-        """(rays_o, rays_d) -> RenderOutputs on the configured backend."""
-        if not forward_only:
-            raise NotImplementedError("training renders are not ported yet")
+        """``(rays_o, rays_d, uniforms=None, importance_uniforms=None) ->
+        RenderOutputs`` on the configured path. ``forward_only``: the eval
+        render, under no-grad (the inline-PE forward kernel on the kernel
+        path); otherwise differentiable in the model's parameters (the fused
+        ``fused_render`` on the kernel path, autograd on the plain one)."""
         cfg = self.cfg
-        state = self.model.state_dict()
         if self._use_fused():
+            params = (self.model.state_dict() if forward_only
+                      else dict(self.model.named_parameters()))
 
-            def fn(ro, rd) -> RenderOutputs:
+            def fn(ro, rd, uniforms=None, importance_uniforms=None) -> RenderOutputs:
                 return fused_render_rays(
-                    state, ro, rd, settings,
+                    params, ro, rd, settings,
                     pos_freq=cfg.nerf.pos_freq, dir_freq=cfg.nerf.dir_freq,
                     num_layers=cfg.nerf.num_layers, hidden_dim=cfg.nerf.hidden_dim,
                     use_viewdirs=cfg.nerf.use_viewdirs,
                     compute_dtype=cfg.rendering.compute_dtype,
-                    forward_only=True, device=self.device,
+                    forward_only=forward_only, device=self.device,
+                    uniforms=uniforms, importance_uniforms=importance_uniforms,
                 )
 
             return fn
 
-        def fn(ro, rd) -> RenderOutputs:
-            with torch.no_grad():
-                return render_rays(self.model, ro, rd, settings)
+        def fn(ro, rd, uniforms=None, importance_uniforms=None) -> RenderOutputs:
+            with torch.set_grad_enabled(torch.is_grad_enabled() and not forward_only):
+                return render_rays(self.model, ro, rd, settings, uniforms, importance_uniforms)
 
         return fn
 
@@ -223,7 +258,8 @@ class Trainer:
 
     # ------------------------------------------------------------- train step
 
-    def _kernel_loss_grad(self, ro, rd, tgt, mask, settings, uniforms) -> torch.Tensor:
+    def _kernel_loss_grad(self, ro, rd, tgt, mask, settings, uniforms,
+                          importance_uniforms) -> torch.Tensor:
         """One step's loss; its gradients land in the parameters' ``.grad``."""
         cfg = self.cfg
         loss, grads = fused_train_loss_grad(
@@ -231,16 +267,18 @@ class Trainer:
             pos_freq=cfg.nerf.pos_freq, dir_freq=cfg.nerf.dir_freq,
             num_layers=cfg.nerf.num_layers, hidden_dim=cfg.nerf.hidden_dim,
             use_viewdirs=cfg.nerf.use_viewdirs, compute_dtype=cfg.rendering.compute_dtype,
-            uniforms=uniforms,
+            uniforms=uniforms, importance_uniforms=importance_uniforms,
+            rgb_weight=float(cfg.loss.rgb_weight),
             reg_weight=0.0 if cfg.strict_reference_behavior else float(cfg.loss.reg_weight),
         )
         for name, p in self.model.named_parameters():
             p.grad = grads[name]
         return loss
 
-    def _plain_loss_grad(self, ro, rd, tgt, mask, settings, uniforms) -> torch.Tensor:
+    def _plain_loss_grad(self, ro, rd, tgt, mask, settings, uniforms,
+                         importance_uniforms) -> torch.Tensor:
         cfg = self.cfg
-        out = render_rays(self.model, ro, rd, settings, uniforms=uniforms)
+        out = self._ray_render_fn(settings)(ro, rd, uniforms, importance_uniforms)
         losses = nerf_loss(
             out.rgb, tgt, cfg.loss,
             weights=None if cfg.strict_reference_behavior else out.weights, mask=mask,
@@ -284,12 +322,15 @@ class Trainer:
             view_packed = torch.cat([pd.rays_o[v], pd.rays_d[v], pd.targets[v]], dim=1)
             for b in range(n_batches):
                 row = view_packed[idxs_t[v, b]]
-                uniforms = None
+                uniforms = importance = None
                 if settings.perturb:
                     uniforms = torch.rand((B, p.n_samples), generator=self._generator,
                                           device=self.device)
+                    if settings.n_importance > 0:
+                        importance = torch.rand((B, settings.n_importance),
+                                                generator=self._generator, device=self.device)
                 losses.append(step(row[:, 0:3], row[:, 3:6], row[:, 6:9], masks_t[v, b],
-                                   settings, uniforms))
+                                   settings, uniforms, importance))
                 self.optimizer.step()
         self.last_step_losses = torch.stack(losses).cpu().numpy()
         return float(np.mean(self.last_step_losses))
@@ -385,11 +426,12 @@ class Trainer:
 
     # ------------------------------------------------------------------ train
 
-    def fit(self, epochs: Optional[int] = None) -> Dict[str, float]:
+    def fit(self, epochs: Optional[int] = None) -> Dict[str, Any]:
         """Train from ``self.epoch`` to ``epochs`` (default ``cfg.epochs``):
-        rays/s and the loss in the log every epoch, the dead-sigma probe,
-        eval with image dumps and ``best.ckpt`` every ``val_freq`` epochs,
-        ``epoch_N.ckpt`` every ``save_freq``."""
+        rays/s, the loss and ``kernel_path`` in the log every epoch, the
+        dead-sigma probe, eval with image dumps and ``best.ckpt`` every
+        ``val_freq`` epochs, ``epoch_N.ckpt`` every ``save_freq``. Returns
+        the last eval's metrics with ``kernel_path`` and its reason."""
         cfg = self.cfg
         epochs = epochs if epochs is not None else cfg.epochs
         metrics: Dict[str, float] = {}
@@ -402,7 +444,8 @@ class Trainer:
                 self.n_views * pd.rays_o.shape[1], time.perf_counter() - t0
             )
             self.logger.log({"epoch": epoch, "train_loss": loss, "lr": self.lr_at(epoch),
-                             "rays_per_sec": rate})
+                             "rays_per_sec": rate, "kernel_path": self.kernel_path,
+                             "kernel_path_reason": self.kernel_path_reason})
             if self.dead_sigma_probe() <= 0.0:
                 self.dead_sigma_epochs += 1
                 print(
@@ -425,7 +468,8 @@ class Trainer:
                     self.save(os.path.join(cfg.output.save_dir, "best.ckpt"))
             if (epoch + 1) % cfg.output.save_freq == 0:
                 self.save(os.path.join(cfg.output.save_dir, f"epoch_{epoch + 1}.ckpt"))
-        return metrics
+        return {**metrics, "kernel_path": self.kernel_path,
+                "kernel_path_reason": self.kernel_path_reason}
 
     # ------------------------------------------------------------- checkpoint
 

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain PyTorch versions, on the card: the
-inline-PE render kernel (``csrc/fwd_pe.cu``) and the training objective
-(``csrc/train_pe.cu``, inline PE and pre-encoded x).
+inline-PE render kernel and the render from a pre-encoded x
+(``csrc/fwd_pe.cu``, kernels 2 and 4), the training objective and the
+render VJP (``csrc/train_pe.cu``, kernels 1, 5 and 3), and the paths that
+run them.
 
 Marked ``cuda``: each test skips unless an sm_90 card is present (decided
 inside the test, never at collection). On the card, run without the JAX
@@ -15,7 +17,8 @@ The training objective: loss to rel 1e-5, the six packed gradients as one
 vector to rel 1e-4 (fp32 sums in other orders through a 2-9 layer chain),
 and to rel 2e-2 at sigma_bias 5.0, where the backward divides by
 transmittances at the 1e-10 floor (the JAX package's gate, render/verify.py
-GRAD_REL_TOL).
+GRAD_REL_TOL). The render VJP: dx and the six packed gradients as one
+vector, with the same two tolerances.
 """
 
 import numpy as np
@@ -210,25 +213,230 @@ def test_train_epoch_on_the_card_matches_the_cpu(h100, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("backend", ["auto", "fused"])
-def test_trainer_on_the_card_refuses_configs_the_kernels_cannot_take(h100, backend):
-    """A trunk width the kernels do not take raises on the card in
-    ``train_epoch`` and in eval, with ``auto`` as with ``fused``: no step
-    or view falls back to the plain path and no kernel is launched."""
+@pytest.mark.parametrize("width,backend", [(64, "auto"), (64, "fused"), (384, "auto"),
+                                           (384, "fused")])
+def test_trainer_on_the_card_refuses_configs_the_kernels_cannot_take(h100, width, backend):
+    """As the JAX trainer: width 64, which the JAX kernels do not take,
+    trains on the plain path under ``auto`` (no kernel launched,
+    ``kernel_path`` "plain" with the JAX reason) and raises under ``fused``.
+    Width 384, which the JAX kernels take and the port has no CUDA build
+    for, raises on the card in ``train_epoch`` and in eval under both: no
+    step or view falls back to the plain path."""
     from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
     cfg = config_from_dict({
-        "data": {"resolution": 16}, "nerf_model": {"hidden_dim": 64, "num_layers": 2},
+        "data": {"resolution": 16}, "nerf_model": {"hidden_dim": width, "num_layers": 2},
         "training": {"phases": [{"start": 0, "H": 16, "n_samples": 16, "batch_size": 64}]},
         "rendering": {"chunk_size": 64, "backend": backend},
     })
     data = make_scene_dataset(lego_like_scene(), 1, img_size=16, gt_samples=16, device="cpu")
     tr = Trainer(cfg, data, data, device=h100)
-    before = dict(tt.fused_train_objective.launches)
-    with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda"):
-        tr.train_epoch(0)
-    with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda"):
-        tr.render_views(data.poses[:1])
-    assert tt.fused_train_objective.launches == before
+    before = (dict(tt.fused_train_objective.launches), tk.fused_render_fwd_pe.launches)
+    if width == 64 and backend == "auto":
+        assert np.isfinite(tr.train_epoch(0))
+        assert np.isfinite(tr.render_views(data.poses[:1])[0]).all()
+        assert (tr.kernel_path, tr.kernel_path_reason) == ("plain",
+                                                           "hidden_dim=64 not 128-lane aligned")
+    else:
+        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda"):
+            tr.train_epoch(0)
+        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda"):
+            tr.render_views(data.poses[:1])
+    assert (dict(tt.fused_train_objective.launches), tk.fused_render_fwd_pe.launches) == before
+
+
+RENDER_CASES = {
+    "plain": {},
+    "white": dict(white_bkgd=True),
+    "feats": dict(feat_dim=64),
+    "sigma_bias_5": dict(sigma_bias=5.0),
+}
+
+
+def _render_inputs(R, S, H, L, device, seed=0, **case):
+    import chip_smoke
+
+    rng = np.random.default_rng(seed)
+    args, _ = chip_smoke.random_render_args(rng, R, S, H, L, device, **case)
+    return args, chip_smoke.random_cotangents(rng, R, S, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [32, 64, 128])
+@pytest.mark.parametrize("H,L", [(256, 8), (128, 3)])
+@pytest.mark.parametrize("case", sorted(RENDER_CASES))
+def test_fwd_x_kernel_matches_plain(h100, S, H, L, case):
+    kw = dict(RENDER_CASES[case])
+    white = kw.pop("white_bkgd", False)
+    (x, z, dnorm, packed), _ = _render_inputs(37, S, H, L, h100, **kw)
+    before = tk.fused_render_fwd.launches
+    got = tk.fused_render_fwd(x, z, dnorm, packed, white_bkgd=white)
+    torch.cuda.synchronize()
+    assert tk.fused_render_fwd.launches == before + 1
+    want = tk.fused_render_reference(x, z, dnorm, packed, white_bkgd=white)
+    for g, w, name in zip(got, want, ("rgb", "depth", "acc", "weights")):
+        assert torch.isfinite(g).all(), name
+        err = (g - w).abs().max().item()
+        assert err <= TOL[name], (name, err)
+
+
+def _check_vjp(got, want, tol):
+    flat = lambda dx, dp: torch.cat([t.reshape(-1).double() for t in (dx, *dp)])
+    g, w = flat(*got), flat(*want)
+    assert torch.isfinite(g).all()
+    assert w.norm().item() > 1e-6
+    rel = ((g - w).norm() / w.norm()).item()
+    assert rel <= tol, rel
+    for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
+        assert a.shape == b.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [32, 64, 128])
+@pytest.mark.parametrize("H,L", [(256, 8), (128, 3)])
+@pytest.mark.parametrize("case", sorted(RENDER_CASES))
+def test_render_bwd_kernel_matches_plain(h100, S, H, L, case):
+    kw = dict(RENDER_CASES[case])
+    white = kw.pop("white_bkgd", False)
+    (x, z, dnorm, packed), cot = _render_inputs(37, S, H, L, h100, **kw)
+    before = tk.fused_render_bwd.launches
+    got = tk.fused_render_bwd(x, z, dnorm, packed, *cot, white_bkgd=white)
+    torch.cuda.synchronize()
+    assert tk.fused_render_bwd.launches == before + 1
+    want = tk.fused_render_bwd_reference(x, z, dnorm, packed, *cot, white_bkgd=white)
+    _check_vjp(got, want, 2e-2 if case == "sigma_bias_5" else 1e-4)
+    # without dx: the same packed gradients, bit for bit, and no dx
+    dx, dpacked = tk.fused_render_bwd(x, z, dnorm, packed, *cot, white_bkgd=white,
+                                      need_dx=False)
+    assert dx is None
+    for a, b in zip(dpacked, got[1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,S", [(300, 64), (512, 64)])
+def test_render_bwd_kernel_is_deterministic(h100, R, S):
+    """Above 8192 points the dW products split the point axis in parts,
+    summed in a fixed order: two calls agree bit for bit."""
+    (x, z, dnorm, packed), cot = _render_inputs(R, S, 256, 8, h100)
+    a = tk.fused_render_bwd(x, z, dnorm, packed, *cot)
+    b = tk.fused_render_bwd(x, z, dnorm, packed, *cot)
+    torch.cuda.synchronize()
+    for p, q in zip((a[0], *a[1]), (b[0], *b[1])):
+        assert torch.equal(p, q)
+    _check_vjp(a, tk.fused_render_bwd_reference(x, z, dnorm, packed, *cot), 1e-4)
+
+
+@pytest.mark.cuda
+def test_render_wrappers_check_their_inputs(h100):
+    (x, z, dnorm, packed), cot = _render_inputs(4, 32, 128, 2, h100)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        tk.fused_render_fwd(x.double(), z, dnorm, packed)
+    with pytest.raises(ValueError, match="x has shape"):
+        tk.fused_render_fwd(x[:, :96].contiguous(), z, dnorm, packed)
+    with pytest.raises(ValueError, match="x width 96"):
+        tk.fused_render_fwd(x[:, :96].contiguous(), z, dnorm,
+                            (packed[0][:96].contiguous(), *packed[1:]))
+    with pytest.raises(ValueError, match="shape"):
+        tk.fused_render_bwd(x, z, dnorm, packed, cot[0][:-1], *cot[1:])
+    with pytest.raises(ValueError, match="on cpu|on cuda"):
+        tk.fused_render_bwd(x, z, dnorm, packed, cot[0].cpu(), *cot[1:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white_bkgd", [False, True])
+def test_fused_render_launches_kernels_4_and_3_and_matches_autograd(h100, white_bkgd):
+    """``fused_render`` on CUDA tensors: one kernel-4 launch forward, one
+    kernel-3 launch backward; the gradients of x and of the packed weights
+    equal autograd's through the plain version (as one vector, rel 1e-4)."""
+    (x, z, dnorm, packed), cot = _render_inputs(64, 64, 256, 8, h100)
+    before = (tk.fused_render_fwd.launches, tk.fused_render_bwd.launches)
+    leaves = [x.clone().requires_grad_(True)] + [p.clone().requires_grad_(True) for p in packed]
+    outs = tk.fused_render(leaves[0], z, dnorm, tuple(leaves[1:]), white_bkgd=white_bkgd)
+    torch.autograd.backward(outs, cot)
+    torch.cuda.synchronize()
+    assert (tk.fused_render_fwd.launches, tk.fused_render_bwd.launches) == (
+        before[0] + 1, before[1] + 1)
+    ref = [t.detach().clone().requires_grad_(True) for t in leaves]
+    want = tk.fused_render_reference(ref[0], z, dnorm, tuple(ref[1:]), white_bkgd=white_bkgd)
+    torch.autograd.backward(want, cot)
+    for g, w, name in zip(outs, want, ("rgb", "depth", "acc", "weights")):
+        assert (g - w).abs().max().item() <= TOL[name], name
+    _check_vjp((leaves[0].grad, [t.grad for t in leaves[1:]]),
+               (ref[0].grad, [t.grad for t in ref[1:]]), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_importance", [0, 32])
+def test_differentiable_fused_render_rays_on_the_card_matches_the_cpu(h100, n_importance):
+    """``fused_render_rays(forward_only=False)`` of a NeRFMLP, perturbed, with
+    an rgb + w^2 + depth + acc loss: outputs and parameter gradients on the
+    card against the CPU's plain versions (gradients as one vector, rel
+    1e-4); kernel 4 runs once per pass, kernel 3 once."""
+    from nerf_fewshot_tpu_torch.models.mlp import NeRFMLP
+    from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
+    from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings
+
+    rng = np.random.default_rng(3)
+    R, S = 128, 32
+    d = rng.standard_normal((R, 3))
+    d[:, 2] = -np.abs(d[:, 2]) - 1.0
+    data = [np.broadcast_to([0.0, 0.0, 4.0], (R, 3)), d, rng.uniform(0, 1, (R, 3)),
+            rng.uniform(0, 1, (R, S)), rng.uniform(0, 1, (R, max(n_importance, 1)))]
+    settings = RenderSettings(n_samples=S, n_importance=n_importance, perturb=True)
+    results = []
+    for device in (h100, torch.device("cpu")):
+        model = NeRFMLP(10, 4, True, hidden_dim=256, num_layers=8, sigma_bias_init=0.1,
+                        generator=torch.Generator().manual_seed(0)).to(device)
+        ro, rd, tgt, u, ui = (torch.tensor(np.asarray(a, np.float32), device=device)
+                              for a in data)
+        before = (tk.fused_render_fwd.launches, tk.fused_render_bwd.launches)
+        out = fused_render_rays(dict(model.named_parameters()), ro, rd, settings, 10, 4, 8, 256,
+                                device=device, uniforms=u, importance_uniforms=ui)
+        loss = (torch.mean((out.rgb - tgt) ** 2) + 0.01 * torch.mean(out.weights ** 2)
+                + 1e-3 * torch.mean(torch.abs(out.depth - 4.0)) + 1e-3 * torch.mean(out.acc))
+        loss.backward()
+        launches = (tk.fused_render_fwd.launches - before[0],
+                    tk.fused_render_bwd.launches - before[1])
+        assert launches == ((2 if n_importance else 1, 1) if device.type == "cuda" else (0, 0))
+        results.append((loss.item(), torch.cat([p.grad.reshape(-1).double().cpu()
+                                                for p in model.parameters()])))
+    (lg, gg), (lc, gc) = results
+    assert abs(lg - lc) <= 1e-4 * abs(lc)
+    assert ((gg - gc).norm() / gc.norm()).item() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_hierarchical_train_epoch_on_the_card_matches_the_cpu(h100, monkeypatch):
+    """A hierarchical config trains on the card through kernel 2 (the coarse
+    pass) and kernel 1 (the objective over the merged samples), each once
+    per step, and gives the CPU trainer's per-step losses (jitter off)."""
+    from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    orig = Trainer._render_settings
+    monkeypatch.setattr(Trainer, "_render_settings", lambda self, n, training: orig(self, n, False))
+    cfg = config_from_dict({
+        "data": {"resolution": 24}, "nerf_model": {"sigma_bias": 0.1},
+        "training": {"phases": [{"start": 0, "H": 24, "n_samples": 32, "batch_size": 192}]},
+        "rendering": {"chunk_size": 256, "n_importance": 32},
+    })
+    data = make_scene_dataset(lego_like_scene(), 2, img_size=24, gt_samples=64, device="cpu")
+    gpu = Trainer(cfg, data, data, device=h100)
+    cpu = Trainer(cfg, data, data, device="cpu")
+    before = (tt.fused_train_objective.launches["train_pe"], tk.fused_render_fwd_pe.launches)
+    got, want = gpu.train_epoch(0), cpu.train_epoch(0)
+    np.testing.assert_allclose(gpu.last_step_losses, cpu.last_step_losses, rtol=1e-4)
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    steps = len(gpu.last_step_losses)
+    assert (tt.fused_train_objective.launches["train_pe"] - before[0],
+            tk.fused_render_fwd_pe.launches - before[1]) == (steps, steps)
+    assert gpu.kernel_path == "kernel"
+    # the hierarchical eval render (kernel 2 for both passes) at equal weights
+    cpu.model.load_state_dict({k: v.cpu() for k, v in gpu.model.state_dict().items()})
+    g, c = gpu.render_views(data.poses[:1]), cpu.render_views(data.poses[:1])
+    for a, b, name in zip(g, c, ("rgb", "depth", "acc")):
+        np.testing.assert_allclose(a, b, rtol=0, atol=TOL[name], err_msg=name)

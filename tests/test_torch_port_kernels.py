@@ -184,17 +184,20 @@ def test_fused_render_rays_forward_only_matches_jax(white_bkgd):
 
 
 def test_fused_render_rays_refuses_unported_modes():
+    """Sigma noise (which the JAX fused backend refuses too) and bfloat16
+    raise in both modes; the differentiable and hierarchical modes are
+    ported (tests/test_torch_port_render_grad.py,
+    tests/test_torch_port_hierarchical.py)."""
     state = nerf_mlp_from_jax(_params())
     ro, rd = torch.zeros((8, 3)), torch.ones((8, 3))
     kw = dict(pos_freq=10, dir_freq=4, num_layers=N_LAYERS, hidden_dim=HIDDEN, device="cpu")
-    with pytest.raises(NotImplementedError, match="forward_only=False"):
-        fused_render_rays(state, ro, rd, RenderSettings(n_samples=8), **kw)
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        fused_render_rays(state, ro, rd, RenderSettings(n_samples=8, n_importance=8),
-                          forward_only=True, **kw)
-    with pytest.raises(ValueError, match="noise"):
-        fused_render_rays(state, ro, rd, RenderSettings(n_samples=8, noise_std=1.0),
-                          forward_only=True, **kw)
+    for forward_only in (True, False):
+        with pytest.raises(ValueError, match="noise"):
+            fused_render_rays(state, ro, rd, RenderSettings(n_samples=8, noise_std=1.0),
+                              forward_only=forward_only, **kw)
+        with pytest.raises(NotImplementedError, match="bfloat16"):
+            fused_render_rays(state, ro, rd, RenderSettings(n_samples=8, n_importance=8),
+                              forward_only=forward_only, compute_dtype="bfloat16", **kw)
 
 
 def test_ctypes_signature_matches_the_cuda_launcher():

@@ -212,9 +212,6 @@ def test_objective_function_scales_by_the_cotangent_and_reaches_the_module():
 def test_train_objective_refuses_what_is_not_ported():
     state = {k: v for k, v in nerf_mlp_from_jax(_jax_params()).items()}
     ro, rd, tgt = torch.zeros(4, 3), torch.ones(4, 3), torch.zeros(4, 3)
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        tt.fused_train_loss_grad(state, ro, rd, tgt, torch.ones(4),
-                                 RenderSettings(n_samples=8, n_importance=8), 10, 4, 3, 128)
     with pytest.raises(ValueError, match="noise"):
         tt.fused_train_loss_grad(state, ro, rd, tgt, torch.ones(4),
                                  RenderSettings(n_samples=8, noise_std=1.0), 10, 4, 3, 128)

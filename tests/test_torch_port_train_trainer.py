@@ -131,6 +131,60 @@ def test_train_epoch_matches_jax_trainer(scene, monkeypatch, backend):
     assert ptr.dead_sigma_probe() > 0
 
 
+@pytest.mark.parametrize("backend", ["auto", "xla"])
+def test_rgb_weight_matches_the_jax_cpu_trainer(scene, monkeypatch, backend):
+    """``loss.rgb_weight`` 0.5: the JAX trainer on the CPU trains on XLA,
+    which applies the weight (its TPU kernel path would not); the port
+    applies it on the kernel path (the objective's ``rgb_c``, ``auto``) as on
+    the plain one (``xla``). Epoch losses within rtol 1e-4 and the parameter
+    change within the bounds of ``test_train_epoch_matches_jax_trainer``."""
+    _no_jitter(monkeypatch, jax_trainer_mod.Trainer)
+    _no_jitter(monkeypatch, Trainer)
+    train, test = scene
+    jtr = jax_trainer_mod.Trainer(_config(jcfg, loss={"rgb_weight": 0.5}), train, test)
+    assert not jtr._kernel_eligible()  # no TPU: XLA
+    ptr = Trainer(_config(tcfg, loss={"rgb_weight": 0.5}, rendering={"backend": backend}),
+                  _port_data(train), _port_data(test), device="cpu")
+    assert ptr._use_fused() == (backend == "auto")
+    ptr.load_jax_params(jax.tree_util.tree_map(np.asarray, jtr.params))
+    start = {k: v.clone() for k, v in ptr.model.state_dict().items()}
+    for epoch in (0, 1):
+        np.testing.assert_allclose(ptr.train_epoch(epoch), jtr.train_epoch(epoch), rtol=1e-4)
+    _updates_close(ptr, start, jtr.params)
+
+
+def test_rgb_weight_scales_the_kernel_objective():
+    """The objective at rgb_weight w is w times the one at 1 (no other
+    term), loss and gradients."""
+    train = jax_make_scene(jax_scene(), 1, img_size=8, gt_samples=16)
+    ptr = Trainer(_config(tcfg), _port_data(train), device="cpu")
+    pd = ptr.phase_data(0)
+    ro, rd, tgt = pd.rays_o[0][:16], pd.rays_d[0][:16], pd.targets[0][:16]
+    settings = ptr._render_settings(8, training=False)
+    out = {}
+    for w in (1.0, 0.5):
+        out[w] = tt.fused_train_loss_grad(ptr.model, ro, rd, tgt, torch.ones(16), settings,
+                                          10, 4, 3, 128, rgb_weight=w)
+    np.testing.assert_allclose(float(out[0.5][0]), 0.5 * float(out[1.0][0]), rtol=1e-6)
+    for k, g in out[0.5][1].items():
+        torch.testing.assert_close(g, 0.5 * out[1.0][1][k], rtol=1e-5, atol=1e-9)
+
+
+@pytest.mark.parametrize("name", ["HIERARCHICAL_CONFIG", "SMOKE_CONFIG"])
+def test_chip_smoke_config_dicts_are_the_yaml_files(name):
+    """The card has no yaml: chip_smoke carries these configs as literal
+    dicts, held equal to the files here."""
+    import os
+
+    import chip_smoke
+    import yaml
+
+    path = {"HIERARCHICAL_CONFIG": "hierarchical.yaml", "SMOKE_CONFIG": "smoke.yaml"}[name]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    with open(os.path.join(root, "experiments", path)) as f:
+        assert getattr(chip_smoke, name) == yaml.safe_load(f)
+
+
 def test_kernel_path_launches_nothing_on_the_cpu(scene):
     """On the CPU the train step runs the kernel's plain version."""
     train, test = scene
@@ -175,37 +229,50 @@ def test_save_png_writes_the_pixels_the_jax_package_writes(tmp_path):
 
 
 def _unfit_config(unfit, backend):
-    """The tiny config made unfit for the kernels: a trunk width they do
-    not take, or sigma noise (outside the strict reference behavior)."""
+    """The tiny config made unfit for the kernels: a trunk width the JAX
+    kernels do not take (64), sigma noise (outside the strict reference
+    behavior), or a width the JAX kernels take and the port has no CUDA
+    build for (384)."""
     raw = _config(tcfg).raw
     over = {"narrow": {"nerf_model": {**raw["nerf_model"], "hidden_dim": 64}},
             "noisy": {"strict_reference_behavior": False,
-                      "rendering": {**raw["rendering"], "noise_std": 1.0}}}[unfit]
+                      "rendering": {**raw["rendering"], "noise_std": 1.0}},
+            "wide": {"nerf_model": {**raw["nerf_model"], "hidden_dim": 384}}}[unfit]
     d = {**raw, **over}
     d["rendering"] = {**d["rendering"], "backend": backend}
     return tcfg.config_from_dict(d)
 
 
-@pytest.mark.parametrize("unfit", ["narrow", "noisy"])
+@pytest.mark.parametrize("unfit", ["narrow", "noisy", "wide"])
 @pytest.mark.parametrize("backend", ["auto", "fused", "xla"])
 def test_configs_the_kernels_cannot_take(scene, unfit, backend):
-    """No quiet fallback on a card: a config the kernels cannot take
-    raises in ``train_epoch`` with ``backend: fused``, and on a card with
-    any backend but ``xla`` (checked with the trainer's device set to
-    cuda: the choice raises before any tensor is made). Only ``xla``, or
-    ``auto`` on the CPU, takes the plain path."""
+    """The path follows the JAX trainer. A config the JAX kernels do not
+    take (``narrow``, ``noisy``) trains on the plain path under ``auto`` on
+    every device, with the JAX trainer's reason in ``kernel_path_reason``,
+    and raises under ``fused``. A config only the port's kernels cannot
+    take (``wide``) raises under ``fused``, and on a card under ``auto``
+    too (checked with the trainer's device set to cuda: the choice raises
+    before any tensor is made); only the CPU or ``xla`` take the plain path
+    for it."""
     train, _ = scene
     ptr = Trainer(_unfit_config(unfit, backend), _port_data(train), device="cpu")
+    jax_reason = {"narrow": "hidden_dim=64 not 128-lane aligned",
+                  "noisy": "sigma noise_std != 0 is not implemented in the kernels",
+                  "wide": None}[unfit]
     if backend == "fused":
         with pytest.raises(ValueError, match="backend=fused rejected on cpu"):
             ptr.train_epoch(0)
     else:
         assert ptr._use_fused() is False
-        if unfit == "narrow":
+        assert ptr.kernel_path == "plain"
+        if backend == "auto" and jax_reason:
+            assert ptr.kernel_path_reason == jax_reason
+        if unfit != "noisy":
             assert np.isfinite(ptr.train_epoch(0))
     ptr.device = torch.device("cuda", 0)
-    if backend == "xla":
+    if backend == "xla" or (backend == "auto" and jax_reason):
         assert ptr._use_fused() is False
+        assert ptr.kernel_path == "plain"
     else:
         with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda"):
             ptr._use_fused()
@@ -237,13 +304,16 @@ def test_fit_writes_logs_images_and_checkpoints_and_load_restores(scene, tmp_pat
     ptr = Trainer(cfg, _port_data(train), _port_data(test), device="cpu",
                   log_path=str(tmp_path / "log.jsonl"))
     metrics = ptr.fit()
-    assert set(metrics) == {"psnr", "ssim"} and np.isfinite(metrics["psnr"])
+    assert set(metrics) == {"psnr", "ssim", "kernel_path", "kernel_path_reason"}
+    assert np.isfinite(metrics["psnr"])
+    assert (metrics["kernel_path"], metrics["kernel_path_reason"]) == ("kernel", None)
     assert ptr.epoch == 1 and ptr.best_psnr >= metrics["psnr"]
 
     lines = [json.loads(x) for x in (tmp_path / "log.jsonl").read_text().splitlines()]
     train_lines = [x for x in lines if "train_loss" in x]
     assert [x["epoch"] for x in train_lines] == [0, 1]
     assert all(x["rays_per_sec"] > 0 and x["lr"] == 5e-4 for x in train_lines)
+    assert all(x["kernel_path"] == "kernel" for x in train_lines)
     assert [x["epoch"] for x in lines if "psnr" in x] == [0, 1]
 
     for epoch in (0, 1):
@@ -279,8 +349,5 @@ def test_trainer_refuses_unported_training_options(scene):
     ptr.train_epoch(0)
     with pytest.raises(NotImplementedError, match="LoRA"):
         ptr.train_epoch(1)
-    with pytest.raises(NotImplementedError, match="hierarchical"):
-        Trainer(_config(tcfg, rendering={"n_importance": 8}), _port_data(train),
-                device="cpu").train_epoch(0)
     with pytest.raises(NotImplementedError, match="wandb"):
         Trainer(_config(tcfg, output={"use_wandb": True}), _port_data(train), device="cpu")

@@ -9,8 +9,8 @@ its seconds:
 1. device: the card's name, capability and ``nvidia-smi`` power limit;
 2. build: nvcc builds every kernel of the paths (``csrc/fwd_pe.cu``: kernels
    2 and 4; ``csrc/train_pe.cu``: kernels 1, 5 and 3), one process per
-   source, all started together, and prints ptxas' register and
-   shared-memory lines;
+   source, all started together, and prints ptxas' register, shared-memory
+   and spill lines;
 3. kernel vs plain: the inline-PE render kernel (kernel 2) against its plain
    PyTorch version on the card, at the main path's shape (2048 rays x 64
    samples, 8x256 trunk, the baseline's random init from its seed) and at
@@ -22,7 +22,10 @@ its seconds:
    baseline's init, inline PE); at 512x64 with a white background, a masked
    tail, the w^2 and depth terms and 64-wide features; the pre-encoded-x
    build (kernel 5); sigma_bias 5.0. CUDA-event times of the kernel and the
-   plain version at each phase shape;
+   plain version at each phase shape; the device time of each grid launch
+   at 512x64 (``torch.profiler``); the error of the kernel and of the fp32
+   plain version against a float64 run of the plain version from the same
+   fp32 encoded input (a report);
 5. render kernel 4 vs plain: the render from a pre-encoded x at the main
    path's shape (a 2048x64 eval chunk, x 128 wide, the baseline's init) and
    at S = 128, white background, 64-wide features (x 256 wide); times and
@@ -30,8 +33,8 @@ its seconds:
 6. render VJP kernel 3 vs plain: at 512x64 (the baseline's phase-2 batch,
    its init, standard-normal cotangents on all four outputs), two calls bit
    for bit, then a white background with 64-wide features, S = 128 and
-   sigma_bias 5.0; dx and the six packed gradients as one vector; times and
-   bound;
+   sigma_bias 5.0; dx and the six packed gradients as one vector; times,
+   bound, each grid launch's device time and the float64 comparison;
 7. differentiable render steps: the baseline ``NeRFMLP`` from its seed
    takes 30 Adam steps (512 rays x 64 samples of the 128x128 views, a loss
    on rgb, weights, depth and acc) through
@@ -149,8 +152,12 @@ SMOKE_CONFIG = {
     "output": {"save_dir": "results/smoke", "val_freq": 5, "save_freq": 10},
 }
 
-# H100 SXM published peaks (dense): FP32 on the CUDA cores, HBM3 bandwidth.
+# H100 SXM published peaks (dense): FP32 on the CUDA cores, TF32 on the
+# tensor cores, HBM3 bandwidth. Kernels 1, 5 and 3 run their trunk products
+# as 3xTF32 (three TF32 products each), so their bound is 3 * FLOPs at the
+# TF32 rate; kernels 2 and 4 are exact fp32 on the CUDA cores.
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 # Kernel vs plain: fp32 sums in another order (the kernel: k-ordered FMAs;
 # cuBLAS: its blocked order); depth sums w*z with z up to 6.
@@ -196,6 +203,29 @@ def cuda_ms(fn, iters, warmup=2):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bounds(flops, nbytes, tensor_cores):
+    """``(bound_ms, bound_by, rate)``: the larger of the operations at the
+    peak of the units that run them (3xTF32 on the tensor cores, or fp32 on
+    the CUDA cores) and the bytes at the HBM rate."""
+    ops_s = 3.0 * flops / TF32_FLOPS if tensor_cores else flops / FP32_FLOPS
+    bytes_s = nbytes / HBM_BYTES_PER_S
+    rate = "3xTF32 at 495 TFLOP/s" if tensor_cores else "fp32 at 67 TFLOP/s"
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes", rate
+
+
+def f64_report(name, got, plain, exact):
+    """Rel error of the kernel's and of the fp32 plain version's flat result
+    (loss and gradients, or dx and gradients) against the float64 run (for
+    the objective, ``tools/f64_cases.py:objective_f64``: from the fp32
+    encoded input, since at pos_freq 10 the PE phases reach ~2^9 rad, where
+    a float64 PE would move x by more than the trunk's rounding does)."""
+    flat = lambda ts: torch.cat([t.reshape(-1).double() for t in ts if t is not None])
+    e = flat(exact)
+    rel = lambda r: ((flat(r) - e).norm() / e.norm()).item()
+    print(f"  {name} vs a float64 run of the plain version: kernel rel {rel(got):.2e}, fp32 plain "
+          f"version rel {rel(plain):.2e}", flush=True)
 
 
 def fwd_pe_cost(args, use_feats):
@@ -430,7 +460,7 @@ def main_path_train_args(trainer, phase_idx, device, inline_pe=True, seed=0):
 
 # Device-time groups of the profiled runs, by kernel name (first match).
 KERNEL_GROUPS = ("train_fwd", "train_bwd", "train_dw", "train_composite", "render_composite",
-                 "render_dx", "train_finalize", "loss_sum", "wh_transpose", "fwd_kernel")
+                 "render_dx", "train_finalize", "loss_sum", "weight_split", "fwd_kernel")
 
 
 def trace(run, with_cpu):
@@ -491,6 +521,16 @@ def trace_epoch(trainer, epoch, with_cpu):
         return len(trainer.last_step_losses)
 
     return trace(run, with_cpu)
+
+
+def print_launch_times(label, fn, calls=10):
+    """Device ms per call of each grid launch that ``fn()`` makes (``trace``
+    over ``calls`` calls, the CUDA activity only)."""
+    fn()
+    t = trace(lambda: len([fn() for _ in range(calls)]), with_cpu=False)
+    print(f"  {label}, device ms per call by grid launch: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(t["parts"].items(), key=lambda kv: -kv[1]))
+        + f", sum {sum(t['parts'].values()):.3f}", flush=True)
 
 
 def print_trace(label, t, untraced_ms):
@@ -941,6 +981,7 @@ def main():
     from nerf_fewshot_tpu_torch.render import cuda_build
     from nerf_fewshot_tpu_torch.render import kernels as tk
     from nerf_fewshot_tpu_torch.render import train_kernel as tt
+    from nerf_fewshot_tpu_torch.tools.f64_cases import objective_f64, to_f64
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.metrics import psnr
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
@@ -1002,8 +1043,7 @@ def main():
         kernel_ms = cuda_ms(lambda: tk.fused_render_fwd_pe(*args), iters=20)
         plain_ms = cuda_ms(lambda: tk.fused_render_fwd_pe_reference(*args), iters=10)
         flops, nbytes = fwd_pe_cost(args, use_feats=False)
-        bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-        bound_by = "operations" if flops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
+        bound_ms, bound_by, _ = bounds(flops, nbytes, tensor_cores=False)
         print(f"  main path: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
               f"{bound_ms:.3f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, "
               f"{nbytes / 1e6:.2f} MB); kernel at {flops / kernel_ms / 1e9:.2f} TFLOP/s",
@@ -1044,13 +1084,21 @@ def main():
             k_ms = cuda_ms(lambda: tt.fused_train_objective(*a, **o), iters=20)
             p_ms = cuda_ms(lambda: tt.fused_train_objective_reference(*a, **o), iters=5)
             flops, nbytes = train_cost(a, o)
-            b_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-            b_by = "operations" if flops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
-            train_ms[(name, i)] = (k_ms, p_ms, b_ms, b_by)
+            b_ms, b_by, _ = bounds(flops, nbytes, tensor_cores=True)
+            b32_ms, _, _ = bounds(flops, nbytes, tensor_cores=False)
+            train_ms[(name, i)] = (k_ms, p_ms, b_ms, b_by, b32_ms)
             R, S = a[2].shape
             print(f"  {name} phase {i} {R}x{S}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-                  f"{b_ms:.3f} ms by {b_by} ({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.2f} MB); "
-                  f"kernel at {flops / k_ms / 1e9:.2f} TFLOP/s", flush=True)
+                  f"{b_ms:.3f} ms by {b_by} as 3xTF32 ({b32_ms:.3f} ms at the fp32 CUDA-core "
+                  f"peak; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
+                  f"{flops / k_ms / 1e9:.2f} TFLOP/s", flush=True)
+        a, o = timing[("train_pe", len(cfg.phases) - 1)]
+        R, S = a[2].shape
+        print_launch_times(f"train_pe {R}x{S}", lambda: tt.fused_train_objective(*a, **o))
+        exact = objective_f64(a, o)
+        f64_report(f"train_pe {R}x{S}", (lambda r: (r[0], *r[1]))(tt.fused_train_objective(*a, **o)),
+                   (lambda r: (r[0], *r[1]))(tt.fused_train_objective_reference(*a, **o)),
+                   (exact[0], *exact[1]))
 
     with phase("render kernel 4 vs plain"):
         fx_args = main_path_fwd_x_args(trainer, test.poses[0], device)
@@ -1067,8 +1115,7 @@ def main():
         fwd_ms = cuda_ms(lambda: tk.fused_render_fwd(*fx_args), iters=20)
         fwd_plain_ms = cuda_ms(lambda: tk.fused_render_reference(*fx_args), iters=10)
         flops, nbytes = render_cost(fx_args, 90, backward=False)
-        fwd_bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-        fwd_bound_by = "operations" if flops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
+        fwd_bound_ms, fwd_bound_by, _ = bounds(flops, nbytes, tensor_cores=False)
         print(f"  main path: kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, bound "
               f"{fwd_bound_ms:.3f} ms by {fwd_bound_by} ({flops / 1e9:.1f} GFLOP on the 90 real "
               f"input columns, {nbytes / 1e6:.2f} MB); kernel at "
@@ -1100,11 +1147,17 @@ def main():
         bwd_ms = cuda_ms(lambda: tk.fused_render_bwd(*bw_args, *bw_cot), iters=20)
         bwd_plain_ms = cuda_ms(lambda: tk.fused_render_bwd_reference(*bw_args, *bw_cot), iters=5)
         flops, nbytes = render_cost(bw_args, 90, backward=True)
-        bwd_bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
-        bwd_bound_by = "operations" if flops / FP32_FLOPS >= nbytes / HBM_BYTES_PER_S else "bytes"
+        bwd_bound_ms, bwd_bound_by, _ = bounds(flops, nbytes, tensor_cores=True)
+        bwd_bound32_ms, _, _ = bounds(flops, nbytes, tensor_cores=False)
         print(f"  main path: kernel {bwd_ms:.3f} ms, plain {bwd_plain_ms:.3f} ms, bound "
-              f"{bwd_bound_ms:.3f} ms by {bwd_bound_by} ({flops / 1e9:.1f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB); kernel at {flops / bwd_ms / 1e9:.2f} TFLOP/s", flush=True)
+              f"{bwd_bound_ms:.3f} ms by {bwd_bound_by} as 3xTF32 ({bwd_bound32_ms:.3f} ms at the "
+              f"fp32 CUDA-core peak; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.2f} MB); kernel at "
+              f"{flops / bwd_ms / 1e9:.2f} TFLOP/s", flush=True)
+        print_launch_times("kernel 3 512x64", lambda: tk.fused_render_bwd(*bw_args, *bw_cot))
+        exact = tk.fused_render_bwd_reference(*to_f64(bw_args), *to_f64(bw_cot))
+        f64_report("kernel 3 at 512x64", (lambda r: (r[0], *r[1]))(got),
+                   (lambda r: (r[0], *r[1]))(tk.fused_render_bwd_reference(*bw_args, *bw_cot)),
+                   (exact[0], *exact[1]))
 
     with phase("differentiable render steps"):
         fwd_launches, bwd_launches = run_render_steps(cfg, trainer, device, tk)
@@ -1181,12 +1234,14 @@ def main():
     last = len(cfg.phases) - 1
 
     def train_row(name, cu_line, launches):
-        k_ms, p_ms, b_ms, b_by = train_ms[(name, last)]
+        k_ms, p_ms, b_ms, b_by, b32_ms = train_ms[(name, last)]
         return {"name": name, "route": "cuda",
                 "source": "nerf_fewshot_tpu_torch/csrc/train_pe.cu",
                 "replaces": f"nerf_fewshot_tpu/render/train_kernel.py:{cu_line}",
                 "launches": launches, "max_abs_err": train_err[name], "ms": k_ms,
-                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+                "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "bound_rate": "3xTF32 at 495 TFLOP/s", "bound_fp32_ms": b32_ms,
+                "library_ms": None}
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1200,6 +1255,7 @@ def main():
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
+        "bound_rate": "fp32 at 67 TFLOP/s",
         "library_ms": None,
     }, train_row("train_pe", 343, train_launches),
         train_row("train_x", 320, x_launches + x_launches_hier), {
@@ -1213,6 +1269,7 @@ def main():
         "plain_ms": fwd_plain_ms,
         "bound_ms": fwd_bound_ms,
         "bound_by": fwd_bound_by,
+        "bound_rate": "fp32 at 67 TFLOP/s",
         "library_ms": None,
     }, {
         "name": "render_bwd",
@@ -1225,6 +1282,8 @@ def main():
         "plain_ms": bwd_plain_ms,
         "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by,
+        "bound_rate": "3xTF32 at 495 TFLOP/s",
+        "bound_fp32_ms": bwd_bound32_ms,
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

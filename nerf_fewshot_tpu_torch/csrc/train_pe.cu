@@ -1,5 +1,6 @@
-// Fused NeRF training objective and render VJP for Hopper (sm_90a), exact
-// fp32: the analytic backward to every packed weight, in one call each.
+// Fused NeRF training objective and render VJP for Hopper (sm_90a): the
+// analytic backward to every packed weight, in one call each, the trunk's
+// products on the tensor cores as 3xTF32.
 //
 // Replaces: nerf_fewshot_tpu/render/train_kernel.py:_train_pe_kernel (:343,
 // inline PE, INLINE_PE = true) and :_train_kernel (:320, pre-encoded x,
@@ -29,26 +30,50 @@
 //   dW = A^T.delta, db = sum delta over all R*S points; the render VJP also
 //   gives dx = delta_1.w0^T.
 //
+// Numerics. The trunk's products (the forward layers, the backward chain,
+// the dW products and dx) run as 3xTF32 on the tensor cores (mma.sync
+// m16n8k8 .tf32, fp32 accumulation): each fp32 operand is cut into two TF32
+// halves, hi = rna(v) and lo = rna(v - hi), which keep ~22 of its 24 bits,
+// and a product is a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (a_lo.b_lo, ~2^-22 of
+// it, is dropped). The weights are split once per call with
+// cvt.rna.tf32.f32; activations and cotangents as their fragments are read,
+// by the same rounding in integer operations. The tensor cores round their
+// fp32 accumulation toward zero, so a long mma chain drifts one way: the
+// products of every two k-steps (16 terms, a chain of 6 mma) accumulate in
+// their own registers and are added to the running sum with
+// round-to-nearest FADDs. The gradients are then as close to a float64 run
+// as the fp32 plain version's (median rel ~3e-6 on 37-ray cases), and far
+// finer than the TPU kernels' one bf16 pass per product. Near a ReLU gate
+// no fp32-accurate route is exact: on a few hundred rays one gate that two
+// routes round to different sides moves the gradient vector by ~1e-3, and
+// which inputs show it depends on the order of the sums (PERF.md).
+// Exact fp32 on the CUDA
+// cores, as before: the PE phases (unfused multiply-adds, accurate sinf),
+// the log-space transmittance prefix scan, the suffix sum s_after, the
+// 4-column head and the seed of the backward chain, and the bias sums.
+//
 // Bound: at the baseline widths (x_dim 90, 8x256 trunk) the forward is
 // 2*(90*256 + 7*256^2 + 4*256) = 0.97 MFLOP per point, the backward chain
 // 2*(4*256 + 7*256^2) = 0.92 MFLOP and the dW products 0.97 MFLOP: 2.85 MFLOP
 // per point, 93 GFLOP for a 512-ray x 64-sample step (the render VJP adds dx,
 // 2*256*90 = 0.05 MFLOP per point), against ~5 MB of inputs and outputs
-// (~35 MB with a 128-wide x and dx): bound by operations, at the FP32
-// CUDA-core rate (67 TFLOP/s on an H100 SXM); the exact-fp32 contract rules
-// out the TF32 tensor cores.
+// (~35 MB with a 128-wide x and dx): bound by operations. As 3xTF32 each
+// product is three TF32 products: 3*93 GFLOP at the 495 TFLOP/s TF32 peak of
+// an H100 SXM is 0.57 ms. That peak needs wgmma; mma.sync reaches about two
+// thirds of it (chip_smoke.py's tensor-core probe measures the rate).
 //
-// Design (simple first): the TPU kernels stash every layer's activations of
-// a ray tile in VMEM, ~640 KB per 64-sample ray at 256 wide, far beyond an
-// SM's 227 KB. So a call is split into grid launches on one stream, with
-// the activations and cotangents in a global scratch buffer that the caller
-// allocates once and grows:
-//   1. wh_transpose: wh[l]^T, the backward chain's weights (none for a
-//      one-layer trunk);
+// Design: the TPU kernels stash every layer's activations of a ray tile in
+// VMEM, ~640 KB per 64-sample ray at 256 wide, far beyond an SM's 227 KB. So
+// a call is split into grid launches on one stream, with the activations and
+// cotangents in a global scratch buffer that the caller allocates once and
+// grows:
+//   1. weight_split: the TF32 halves of w0, wh and wh^T (the backward
+//      chain's weights);
 //   2. train_fwd: one 256-thread CTA per 64-point tile (points of any ray):
-//      builds x (inline PE: unfused multiply-add phases, accurate sinf),
-//      runs the trunk with fwd_pe.cu's 8x8 register-tiled fp32 FMA layers
-//      (activations transposed in shared memory) and writes each layer's
+//      builds x (inline PE), then runs each layer in place on the tile
+//      (feature-major in shared memory) with dense_tc: 2x4 warps of 32
+//      points x H/4 columns, the weight halves streamed through two cp.async
+//      stages of 32 rows with one barrier per stage; writes each layer's
 //      activations A_i (feature-major, [K][Np]) and the 4 head outputs;
 //   3. train_composite (objective) or render_composite (VJP): one warp per
 //      ray: sigmoid, log-space compositing with an fp32 shuffle prefix scan,
@@ -56,39 +81,64 @@
 //      fp32 shuffle scan run from the last sample (never a difference of
 //      prefix sums, which cancels when om ~ 1e-10), and the head cotangent;
 //   4. train_bwd: per 64-point tile, delta_L from g_out and wout, then the
-//      L-1 gated products with wh^T, each delta written to scratch;
+//      L-1 gated products with wh^T through dense_tc, each delta written to
+//      scratch;
 //   5. train_dw: every dW_l = A_l^T.delta_l and db_l = sum delta_l as one
-//      launch of 64x64 output tiles (4x4 per thread, fp32 FMAs); the point
-//      axis is split in P fixed parts, each written to its own partial;
+//      launch of 128x128 output tiles, each CTA reducing its part of the
+//      point axis through a ring of three cp.async stages of 32 points (act
+//      and gbuf are feature-major, so both operands are contiguous along the
+//      reduction, as mma.sync's .row.col layout wants); the point axis is
+//      split in P fixed parts, each written to its own partial;
 //   6. train_finalize: the P partials of each gradient are summed in a fixed
 //      order;
 //   7. objective: loss_sum, the per-ray losses summed in a fixed order by
 //      one CTA; render VJP (when dx is asked for): render_dx, dx = delta_1.w0^T
-//      as 64x64 output tiles, 4x4 per thread.
-// No atomics: two runs of a call agree bit for bit.
+//      as 64x64 output tiles on the tensor cores.
+// Fragments (mma.sync m16n8k8 .row.col tf32, g = lane/4, t = lane%4): A
+// (16x8) a0 (g,t) a1 (g+8,t) a2 (g,t+4) a3 (g+8,t+4); B (8x8) b0 (k=t,n=g)
+// b1 (k=t+4,n=g); C (16x8) c0 (g,2t) c1 (g,2t+1) c2 (g+8,2t) c3 (g+8,2t+1).
+// They are read from shared memory with 32-bit loads; every row stride is
+// padded so that a warp's 8x4 lane pattern hits 32 distinct banks.
+// No atomic operations on the device: two runs of a call agree bit for bit.
 // The launchers return cudaGetLastError() (or the first failing call), and
 // the Python wrappers raise when it is not cudaSuccess.
 
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstddef>
+#include <cstdint>
 
 namespace {
 
 constexpr int kThreads = 256;    // 8 warps
-constexpr int kTileP = 64;       // points per tile: 8 per warp
-constexpr int kLd = kTileP + 4;  // activation row stride in shared memory
-constexpr int kKT = 16;          // weight rows per shared slice
+constexpr int kTileP = 64;       // points per trunk tile
+constexpr int kLd = kTileP + 4;  // activation row stride in shared memory (4 mod 32)
+constexpr int kKT = 32;          // weight rows per cp.async stage of a layer
 constexpr int kOutPad = 128;     // packed head columns [r, g, b, sigma, 0...]
 constexpr int kHead = 4;         // live head columns
 constexpr float kFar = 1e10f;
 constexpr float kEps = 1e-10f;
-constexpr int kBT = 64;          // dW output tile edge
-constexpr int kBN = 32;          // points per dW shared-memory stage
-constexpr int kBLd = kBT + 4;
+constexpr int kDwT = 128;             // dW output tile edge (rows k and columns j)
+constexpr int kBN = 32;               // points per dW cp.async stage
+constexpr int kDwLd = kBN + 4;        // dW operand row stride (4 mod 32)
+constexpr int kDwStage = 2 * kDwT * kDwLd;  // floats of one dW stage (A and G)
+constexpr int kDwStages = 3;          // dW cp.async ring depth
+constexpr int kDxP = 64;              // dx tile: points
+constexpr int kDxK = 64;              // dx tile: input columns
+constexpr int kDxJ = 32;              // dx reduction stage (trunk columns)
+constexpr int kDxLdD = kDxP + 8;      // delta_1 stage row stride (8 mod 32)
+constexpr int kDxLdW = kDxJ + 4;      // w0 stage row stride (4 mod 32)
+constexpr int kDxStage = kDxJ * kDxLdD + 2 * kDxK * kDxLdW;
+constexpr int kMaxD = 256;       // widest padded input
+constexpr int kMaxS = 1024;      // samples per ray: the composite's 9*S floats stay < 48 KB
+constexpr int kDwSmem = static_cast<int>(sizeof(float)) * kDwStages * kDwStage;
+constexpr int kDxSmem = static_cast<int>(sizeof(float)) * 2 * kDxStage;
 constexpr int kMaxParts = 8;     // split of the point axis in the dW products
 constexpr int kPartRows = 4096;  // points per part before a further split
 constexpr int kMaxJobs = 16;     // dW products in one launch (layers + head)
+static_assert(kKT % 16 == 0 && kBN % 16 == 0 && kDxJ % 16 == 0,
+              "each stage is an even number of k-steps: the products are promoted every two");
 
 size_t round_up(size_t a, size_t b) { return (a + b - 1) / b * b; }
 
@@ -96,7 +146,7 @@ size_t round_up(size_t a, size_t b) { return (a + b - 1) / b * b; }
 struct Layout {
   int N, Np, L, P, chunk;
   size_t F;  // floats of the six packed gradients, flattened
-  size_t act, gbuf, gout, out4, loss_r, whT, part, total;  // scratch offsets
+  size_t act, gbuf, gout, out4, loss_r, wsplit, part, total;  // scratch offsets
 };
 
 Layout make_layout(int R, int S, int D, int H, int L1) {
@@ -116,104 +166,328 @@ Layout make_layout(int R, int S, int D, int H, int L1) {
   s.gout = off;   off += round_up(kHead * np, 64);
   s.out4 = off;   off += round_up(kHead * np, 64);
   s.loss_r = off; off += round_up(R, 64);
-  s.whT = off;    off += round_up(static_cast<size_t>(L1) * H * H, 64);
+  // TF32 halves: w0 hi, lo (D*H each), then wh hi, lo and wh^T hi, lo (L1*H*H each)
+  s.wsplit = off; off += round_up(2 * (static_cast<size_t>(D) * H + 2 * static_cast<size_t>(L1) * H * H), 64);
   s.part = off;   off += static_cast<size_t>(s.P) * round_up(s.F, 64);
   s.total = off;
   return s;
 }
 
-// One dense layer on a 64-point tile, fp32 FMAs on the CUDA cores:
-// acc[p][col] = sum_k in_t[k][p] * W[k][col], W (K, H) row-major in global
-// memory, streamed through a 16-row shared slice. The epilogue is
-//   forward (!BWD): out = relu(acc + bias);
-//   backward (BWD): out = acc where gate[col][n] > 0, else 0;
-// it writes out_t[col][p] in shared memory and dst[col*Np + n0 + p] in global.
-template <int H, bool BWD>
-__device__ __forceinline__ void dense(const float* __restrict__ in_t, float* __restrict__ out_t,
-                                      const float* __restrict__ W,
-                                      const float* __restrict__ bias, int K,
-                                      float* __restrict__ wsl, float* __restrict__ dst,
-                                      const float* __restrict__ gate, int Np, int n0) {
-  constexpr int NC = H / 32;                  // columns per lane
-  constexpr int V4 = kKT * H / 4 / kThreads;  // float4 per thread per slice
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int p0 = (tid >> 5) * 8;
+// ---- tensor-core primitives ----
 
-  float acc[8][NC];
-#pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
 
-  const float4* W4 = reinterpret_cast<const float4*>(W);
-  float4 stage[V4];
-#pragma unroll
-  for (int v = 0; v < V4; ++v) stage[v] = __ldg(W4 + tid + v * kThreads);
+// v ~ hi + lo to ~2^-22 relative (v - hi is exact in fp32), by
+// cvt.rna.tf32.f32: the weights' split, once per call.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
 
-  for (int k0 = 0; k0 < K; k0 += kKT) {
-    __syncthreads();  // the previous slice is consumed and in_t is written
-    float4* wsl4 = reinterpret_cast<float4*>(wsl);
-#pragma unroll
-    for (int v = 0; v < V4; ++v) wsl4[tid + v * kThreads] = stage[v];
-    __syncthreads();
-    if (k0 + kKT < K) {
-      const float4* next = W4 + static_cast<size_t>(k0 + kKT) * (H / 4);
-#pragma unroll
-      for (int v = 0; v < V4; ++v) stage[v] = __ldg(next + tid + v * kThreads);
-    }
-#pragma unroll
-    for (int kk = 0; kk < kKT; ++kk) {
-      const float* hrow = in_t + (k0 + kk) * kLd + p0;
-      const float4 ha = *reinterpret_cast<const float4*>(hrow);
-      const float4 hb = *reinterpret_cast<const float4*>(hrow + 4);
-      const float h[8] = {ha.x, ha.y, ha.z, ha.w, hb.x, hb.y, hb.z, hb.w};
-      float w[NC];
-#pragma unroll
-      for (int j = 0; j < NC; ++j) w[j] = wsl[kk * H + lane + 32 * j];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < NC; ++j) acc[i][j] = fmaf(h[i], w[j], acc[i][j]);
-    }
-  }
+// The same split of a finite v in two integer operations per half: adding
+// half of the 13 dropped bits to the magnitude and clearing them rounds to
+// nearest, ties away from zero, as cvt.rna.tf32.f32 does (whose SASS adds an
+// Inf/NaN test). Used for the operands split on the fly.
+__device__ __forceinline__ uint32_t rna_bits(uint32_t b) { return (b + 0x1000u) & 0xffffe000u; }
+__device__ __forceinline__ void split_fast(float v, uint32_t& hi, uint32_t& lo) {
+  hi = rna_bits(__float_as_uint(v));
+  lo = rna_bits(__float_as_uint(v - __uint_as_float(hi)));
+}
 
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// part += a.b for one k-step of 8 over an MT x NT block of m16n8 tiles, as
+// 3xTF32. The block is taken JG n-tiles at a time, in
+// three passes each, the small terms first (a_lo.b_hi, a_hi.b_lo,
+// a_hi.b_hi), so that no mma waits on one issued just before it.
+// bfrag(j, hi, lo) loads the B fragment of n-tile j.
+template <int JG, int MT, int NT, class BFrag>
+__device__ __forceinline__ void mma3_step(float (&part)[MT][NT][4], const uint32_t (&ahi)[MT][4],
+                                          const uint32_t (&alo)[MT][4], BFrag bfrag) {
+  static_assert(NT % JG == 0, "n-tiles in groups");
 #pragma unroll
-  for (int j = 0; j < NC; ++j) {
-    const int col = lane + 32 * j;
-    float v[8];
-    if (BWD) {
-      const float* g = gate + static_cast<size_t>(col) * Np + n0 + p0;
-      const float4 ga = *reinterpret_cast<const float4*>(g);
-      const float4 gb = *reinterpret_cast<const float4*>(g + 4);
-      const float gv[8] = {ga.x, ga.y, ga.z, ga.w, gb.x, gb.y, gb.z, gb.w};
+  for (int j0 = 0; j0 < NT; j0 += JG) {
+    uint32_t bhi[JG][2], blo[JG][2];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = gv[i] > 0.f ? acc[i][j] : 0.f;
-    } else {
-      const float b = __ldg(bias + col);
+    for (int j = 0; j < JG; ++j) bfrag(j0 + j, bhi[j], blo[j]);
 #pragma unroll
-      for (int i = 0; i < 8; ++i) v[i] = fmaxf(acc[i][j] + b, 0.f);
-    }
-    const float4 lo = make_float4(v[0], v[1], v[2], v[3]);
-    const float4 hi = make_float4(v[4], v[5], v[6], v[7]);
-    *reinterpret_cast<float4*>(out_t + col * kLd + p0) = lo;
-    *reinterpret_cast<float4*>(out_t + col * kLd + p0 + 4) = hi;
-    float* d = dst + static_cast<size_t>(col) * Np + n0 + p0;
-    *reinterpret_cast<float4*>(d) = lo;
-    *reinterpret_cast<float4*>(d + 4) = hi;
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < JG; ++j) mma_tf32(part[i][j0 + j], alo[i], bhi[j]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < JG; ++j) mma_tf32(part[i][j0 + j], ahi[i], blo[j]);
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int j = 0; j < JG; ++j) mma_tf32(part[i][j0 + j], ahi[i], bhi[j]);
   }
 }
 
-// whT[l][j][k] = wh[l][k][j], 32x32 tiles through shared memory.
-__global__ void wh_transpose_kernel(const float* __restrict__ wh, float* __restrict__ whT, int H) {
-  __shared__ float t[32][33];
-  const size_t base = static_cast<size_t>(blockIdx.z) * H * H;
-  const int bx = blockIdx.x * 32, by = blockIdx.y * 32;
-  for (int r = threadIdx.y; r < 32; r += blockDim.y)
-    t[r][threadIdx.x] = wh[base + static_cast<size_t>(by + r) * H + bx + threadIdx.x];
+// The tensor cores accumulate in fp32 but round toward zero, so a long
+// chain of mma into one accumulator drifts by up to an ulp of the running
+// sum per mma, always the same way. The products of every two k-steps
+// therefore accumulate in their own block (a chain of 3 x 2 mma), which is
+// added to the running sum with round-to-nearest FADDs, and zeroed.
+template <int MT, int NT>
+__device__ __forceinline__ void promote(float (&acc)[MT][NT][4], float (&part)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[i][j][e] = __fadd_rn(acc[i][j][e], part[i][j][e]);
+        part[i][j][e] = 0.f;
+      }
+}
+
+template <int MT, int NT>
+__device__ __forceinline__ void zero_block(float (&d)[MT][NT][4]) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[i][j][e] = 0.f;
+}
+
+// The A fragment of a 16x8 tile whose element (m, k) is at p[m*ld + k]
+// (row-major) in fp32, split into its TF32 halves.
+__device__ __forceinline__ void load_a_mmajor_split(const float* p, int ld, int g, int t,
+                                                    uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float* q = p + g * ld + t;
+  split_fast(q[0], hi[0], lo[0]);
+  split_fast(q[8 * ld], hi[1], lo[1]);
+  split_fast(q[4], hi[2], lo[2]);
+  split_fast(q[8 * ld + 4], hi[3], lo[3]);
+}
+
+// The A fragment of a 16x8 tile whose element (m, k) is at p[k*ld + m]
+// (feature-major) in fp32, split into its TF32 halves.
+__device__ __forceinline__ void load_a_kmajor_split(const float* p, int ld, int g, int t,
+                                                    uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float* q = p + t * ld + g;
+  split_fast(q[0], hi[0], lo[0]);
+  split_fast(q[8], hi[1], lo[1]);
+  split_fast(q[4 * ld], hi[2], lo[2]);
+  split_fast(q[4 * ld + 8], hi[3], lo[3]);
+}
+
+// 16 bytes global -> shared, bypassing L1; bytes < 16 zero-fills the rest.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Warp layout of a layer's kTileP x H output tile: 2 x 4 warps of 32
+// points (MT m16 tiles) by H/4 columns (NT n8 tiles); and its weight stages.
+template <int H>
+struct Dense {
+  static constexpr int MT = kTileP / 2 / 16;
+  static constexpr int NT = H / 4 / 8;
+  static constexpr int kLdw = H + 8;          // weight stage row stride (8 mod 32)
+  static constexpr int kHalf = kKT * kLdw;    // floats of one half of a stage
+  static constexpr int kSmem = 2 * 2 * kHalf; // two stages of hi and lo
+  // dynamic shared memory of train_fwd (at most, x up to kMaxD wide) and train_bwd
+  static constexpr int kFwdSmem = static_cast<int>(sizeof(float)) * (kMaxD * kLd + kSmem);
+  static constexpr int kBwdSmem = static_cast<int>(sizeof(float)) * (H * kLd + kSmem);
+  static constexpr int kChunks = 2 * kKT * H / 4;  // 16-byte copies per stage
+  static_assert(kChunks % kThreads == 0, "stage copies per thread");
+};
+
+// Rows k0 .. k0+kKT-1 of both halves of W (K, H) into a stage; rows past K
+// are zero-filled.
+template <int H>
+__device__ __forceinline__ void load_w_stage(float* st, const float* __restrict__ whi,
+                                             const float* __restrict__ wlo, int k0, int K) {
+  using S = Dense<H>;
+#pragma unroll
+  for (int v = 0; v < S::kChunks / kThreads; ++v) {
+    const int c = threadIdx.x + v * kThreads;
+    const int half = c / (S::kChunks / 2);
+    const int r = (c % (S::kChunks / 2)) / (H / 4);
+    const int q = c % (H / 4);
+    const bool in = k0 + r < K;
+    cp_async16(st + half * S::kHalf + r * S::kLdw + q * 4,
+               in ? (half ? wlo : whi) + static_cast<size_t>(k0 + r) * H + q * 4 : whi,
+               in ? 16 : 0);
+  }
+}
+
+// One dense layer of a kTileP-point tile on the tensor cores, 3xTF32, in
+// place: t[col][p] <- f(sum_k t[k][p] * W[k][col]), W given by its TF32
+// halves (K, H) row-major in global memory, streamed through two cp.async
+// stages of kKT rows: stage s+1 is requested right after the barrier that
+// ends every warp's use of its buffer, and lands while stage s is consumed.
+// The input is split into TF32 halves as its fragments are read; it is read
+// only before the barrier after the loop, so the output overwrites it. The
+// epilogue is
+//   forward (!BWD): out = relu(acc + bias);
+//   backward (BWD): out = acc where gate[col][n] > 0, else 0;
+// it writes t[col][p] in shared memory and dst[col*Np + n0 + p] in global.
+template <int H, bool BWD>
+__device__ void dense_tc(float* __restrict__ t_sm, const float* __restrict__ whi,
+                         const float* __restrict__ wlo, const float* __restrict__ bias, int K,
+                         float* __restrict__ wst, float* __restrict__ dst,
+                         const float* __restrict__ gate, int Np, int n0) {
+  using S = Dense<H>;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int pm = (warp >> 2) * S::MT * 16;  // the warp's first point
+  const int cn = (warp & 3) * S::NT * 8;    // the warp's first column
+
+  float acc[S::MT][S::NT][4], part[S::MT][S::NT][4];
+  zero_block(acc);
+  zero_block(part);
+
+  const int n_stages = (K + kKT - 1) / kKT;
+  load_w_stage<H>(wst, whi, wlo, 0, K);
+  cp_async_commit();
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage s has landed; stage s-1 and the input writes are done
+    if (s + 1 < n_stages) {
+      load_w_stage<H>(wst + ((s + 1) & 1) * 2 * S::kHalf, whi, wlo, (s + 1) * kKT, K);
+      cp_async_commit();
+    }
+    const float* ws = wst + (s & 1) * 2 * S::kHalf + cn + g;
+#pragma unroll
+    for (int kk = 0; kk < kKT; kk += 8) {
+      if (kk > 0 && s * kKT + kk >= K) break;  // K is a multiple of 16, not always of kKT
+      uint32_t ahi[S::MT][4], alo[S::MT][4];
+#pragma unroll
+      for (int i = 0; i < S::MT; ++i)
+        load_a_kmajor_split(t_sm + (s * kKT + kk) * kLd + pm + i * 16, kLd, g, t, ahi[i], alo[i]);
+      const float* wk = ws + (kk + t) * S::kLdw;
+      auto bfrag = [&](int j, uint32_t(&bh)[2], uint32_t(&bl)[2]) {
+        const float* b = wk + j * 8;
+        bh[0] = __float_as_uint(b[0]);
+        bh[1] = __float_as_uint(b[4 * S::kLdw]);
+        bl[0] = __float_as_uint(b[S::kHalf]);
+        bl[1] = __float_as_uint(b[S::kHalf + 4 * S::kLdw]);
+      };
+      mma3_step<4>(part, ahi, alo, bfrag);
+      if (kk & 8) promote(acc, part);
+    }
+  }
+  __syncthreads();  // every warp is done reading the input
+
+#pragma unroll
+  for (int j = 0; j < S::NT; ++j) {
+    const int col = cn + j * 8 + 2 * t;
+    const float b0 = BWD ? 0.f : __ldg(bias + col);
+    const float b1 = BWD ? 0.f : __ldg(bias + col + 1);
+#pragma unroll
+    for (int i = 0; i < S::MT; ++i) {
+      const int p = pm + i * 16 + g;
+      float v[4] = {acc[i][j][0], acc[i][j][1], acc[i][j][2], acc[i][j][3]};
+      if (!BWD) {
+        v[0] = fmaxf(v[0] + b0, 0.f);
+        v[1] = fmaxf(v[1] + b1, 0.f);
+        v[2] = fmaxf(v[2] + b0, 0.f);
+        v[3] = fmaxf(v[3] + b1, 0.f);
+      }
+      t_sm[col * kLd + p] = v[0];
+      t_sm[(col + 1) * kLd + p] = v[1];
+      t_sm[col * kLd + p + 8] = v[2];
+      t_sm[(col + 1) * kLd + p + 8] = v[3];
+    }
+  }
   __syncthreads();
-  for (int r = threadIdx.y; r < 32; r += blockDim.y)
-    whT[base + static_cast<size_t>(bx + r) * H + by + threadIdx.x] = t[threadIdx.x][r];
+  // the tile to global memory in 16-byte rows (and the backward's ReLU gate)
+  for (int e = threadIdx.x; e < H * (kTileP / 4); e += kThreads) {
+    const int col = e / (kTileP / 4);
+    const int p = (e % (kTileP / 4)) * 4;
+    float4* o = reinterpret_cast<float4*>(t_sm + col * kLd + p);
+    float4 v = *o;
+    if (BWD) {
+      const float4 gt =
+          *reinterpret_cast<const float4*>(gate + static_cast<size_t>(col) * Np + n0 + p);
+      v.x = gt.x > 0.f ? v.x : 0.f;
+      v.y = gt.y > 0.f ? v.y : 0.f;
+      v.z = gt.z > 0.f ? v.z : 0.f;
+      v.w = gt.w > 0.f ? v.w : 0.f;
+      *o = v;
+    }
+    *reinterpret_cast<float4*>(dst + static_cast<size_t>(col) * Np + n0 + p) = v;
+  }
+}
+
+// The TF32 halves the products read, once per call: w0 (z = 0) and wh[z-1]
+// as given, and wh[z-1]^T for the backward chain (32x32 tiles through
+// shared memory).
+__global__ void weight_split_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
+                                    float* __restrict__ w0hi, float* __restrict__ w0lo,
+                                    float* __restrict__ whhi, float* __restrict__ whlo,
+                                    float* __restrict__ whThi, float* __restrict__ whTlo, int D,
+                                    int H) {
+  __shared__ float tile[32][33];
+  const int bx = blockIdx.x * 32, by = blockIdx.y * 32;
+  const int tx = threadIdx.x;
+  uint32_t hi, lo;
+  if (blockIdx.z == 0) {
+    for (int r = threadIdx.y; r < 32; r += blockDim.y) {
+      if (by + r >= D) break;
+      const size_t i = static_cast<size_t>(by + r) * H + bx + tx;
+      split_tf32(w0[i], hi, lo);
+      w0hi[i] = __uint_as_float(hi);
+      w0lo[i] = __uint_as_float(lo);
+    }
+    return;
+  }
+  if (by >= H) return;  // uniform over the block
+  const size_t base = static_cast<size_t>(blockIdx.z - 1) * H * H;
+  for (int r = threadIdx.y; r < 32; r += blockDim.y) {
+    const size_t i = base + static_cast<size_t>(by + r) * H + bx + tx;
+    const float v = wh[i];
+    split_tf32(v, hi, lo);
+    whhi[i] = __uint_as_float(hi);
+    whlo[i] = __uint_as_float(lo);
+    tile[r][tx] = v;
+  }
+  __syncthreads();
+  for (int r = threadIdx.y; r < 32; r += blockDim.y) {
+    const size_t i = base + static_cast<size_t>(bx + r) * H + by + tx;
+    split_tf32(tile[tx][r], hi, lo);
+    whThi[i] = __uint_as_float(hi);
+    whTlo[i] = __uint_as_float(lo);
+  }
+}
+
+// Pointers into the TF32 halves of the scratch.
+struct WSplit {
+  float *w0hi, *w0lo, *whhi, *whlo, *whThi, *whTlo;
+};
+
+WSplit wsplit_at(float* base, int D, int H, int L1) {
+  const size_t dh = static_cast<size_t>(D) * H, hh = static_cast<size_t>(L1) * H * H;
+  WSplit w;
+  w.w0hi = base;
+  w.w0lo = w.w0hi + dh;
+  w.whhi = w.w0lo + dh;
+  w.whlo = w.whhi + hh;
+  w.whThi = w.whlo + hh;
+  w.whTlo = w.whThi + hh;
+  return w;
 }
 
 // Forward trunk of one 64-point tile; A_0 = x and every A_i go to act
@@ -221,18 +495,16 @@ __global__ void wh_transpose_kernel(const float* __restrict__ wh, float* __restr
 template <int H, bool INLINE_PE>
 __global__ void __launch_bounds__(kThreads, 1)
 train_fwd_kernel(const float* __restrict__ in, const float* __restrict__ feats,
-                 const float* __restrict__ e2, const float* __restrict__ c,
-                 const float* __restrict__ w0, const float* __restrict__ b0,
-                 const float* __restrict__ wh, const float* __restrict__ bh,
+                 const float* __restrict__ e2, const float* __restrict__ c, const WSplit ws,
+                 const float* __restrict__ b0, const float* __restrict__ bh,
                  const float* __restrict__ wout, const float* __restrict__ bout,
                  float* __restrict__ act, float* __restrict__ out4, int N, int Np, int n_raw,
                  int n_phase, int Fd, int D, int L1) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int rows = D > H ? D : H;
-  float* act0 = smem;
-  float* act1 = act0 + rows * kLd;
-  float* wsl = act1 + rows * kLd;
+  float* tile = smem;  // [rows][kLd], each layer in place
+  float* wst = tile + rows * kLd;
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kTileP;
 
@@ -258,30 +530,27 @@ train_fwd_kernel(const float* __restrict__ in, const float* __restrict__ feats,
         v = in[static_cast<size_t>(n) * D + k];
       }
     }
-    act0[k * kLd + p] = v;
+    tile[k * kLd + p] = v;
     act[static_cast<size_t>(k) * Np + n] = v;
   }
 
-  dense<H, false>(act0, act1, w0, b0, D, wsl, act + static_cast<size_t>(D) * Np, nullptr, Np, n0);
-  float* cur = act1;
-  float* other = act0;
-  for (int l = 0; l < L1; ++l) {
-    dense<H, false>(cur, other, wh + static_cast<size_t>(l) * H * H,
-                    bh + static_cast<size_t>(l) * H, H, wsl,
-                    act + (static_cast<size_t>(D) + static_cast<size_t>(l + 1) * H) * Np,
-                    nullptr, Np, n0);
-    float* t = cur;
-    cur = other;
-    other = t;
+  for (int l = 0; l <= L1; ++l) {  // layer 0 reads x (D wide), the others H wide
+    const size_t off = static_cast<size_t>(l > 0 ? l - 1 : 0) * H * H;
+    dense_tc<H, false>(tile, l ? ws.whhi + off : ws.w0hi, l ? ws.whlo + off : ws.w0lo,
+                       l ? bh + static_cast<size_t>(l - 1) * H : b0, l ? H : D, wst,
+                       act + (static_cast<size_t>(D) + static_cast<size_t>(l) * H) * Np, nullptr,
+                       Np, n0);
   }
   __syncthreads();
 
-  // head: thread -> (point, output column)
-  const int p = tid >> 2;
-  const int o = tid & 3;
-  float s = 0.f;
-  for (int k = 0; k < H; ++k) s = fmaf(cur[k * kLd + p], __ldg(wout + k * kOutPad + o), s);
-  out4[static_cast<size_t>(o) * Np + n0 + p] = s + __ldg(bout + o);
+  // head, exact fp32: thread -> (point, output column)
+  for (int e = tid; e < kTileP * kHead; e += kThreads) {
+    const int p = e >> 2;
+    const int o = e & 3;
+    float acc = 0.f;
+    for (int k = 0; k < H; ++k) acc = fmaf(tile[k * kLd + p], __ldg(wout + k * kOutPad + o), acc);
+    out4[static_cast<size_t>(o) * Np + n0 + p] = acc + __ldg(bout + o);
+  }
 }
 
 // Per-ray compositing state of one warp, in dynamic shared memory (9*S
@@ -501,18 +770,18 @@ render_composite_kernel(const float* __restrict__ out4, const float* __restrict_
 }
 
 // Backward chain of one 64-point tile: delta_L = (g_out.wout[:, :4]^T) *
-// [A_L > 0], then delta_i = (delta_{i+1}.wh[i-1]^T) * [A_i > 0]; each delta
-// goes to gbuf ([L*H][Np], delta_i at row (i-1)*H).
+// [A_L > 0] (exact fp32), then delta_i = (delta_{i+1}.wh[i-1]^T) * [A_i > 0]
+// on the tensor cores; each delta goes to gbuf ([L*H][Np], delta_i at row
+// (i-1)*H).
 template <int H>
 __global__ void __launch_bounds__(kThreads, 1)
-train_bwd_kernel(const float* __restrict__ gout, const float* __restrict__ wout,
-                 const float* __restrict__ whT, const float* __restrict__ act,
-                 float* __restrict__ gbuf, int N, int Np, int D, int L1) {
+train_bwd_kernel(const float* __restrict__ gout, const float* __restrict__ wout, const WSplit ws,
+                 const float* __restrict__ act, float* __restrict__ gbuf, int N, int Np, int D,
+                 int L1) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* d0 = smem;
-  float* d1 = d0 + H * kLd;
-  float* wsl = d1 + H * kLd;
+  float* tile = smem;  // [H][kLd], each layer in place
+  float* wst = tile + H * kLd;
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kTileP;
   const float* hL = act + (static_cast<size_t>(D) + static_cast<size_t>(L1) * H) * Np;
@@ -531,20 +800,16 @@ train_bwd_kernel(const float* __restrict__ gout, const float* __restrict__ wout,
       s = fmaf(gout[3 * static_cast<size_t>(Np) + n], __ldg(wk + 3), s);
       v = hL[static_cast<size_t>(k) * Np + n] > 0.f ? s : 0.f;
     }
-    d0[k * kLd + p] = v;
+    tile[k * kLd + p] = v;
     dL[static_cast<size_t>(k) * Np + n] = v;
   }
 
-  float* cur = d0;
-  float* other = d1;
   for (int l = L1 - 1; l >= 0; --l) {
     // delta_{l+1} = (delta_{l+2} . wh[l]^T) * [A_{l+1} > 0]
-    dense<H, true>(cur, other, whT + static_cast<size_t>(l) * H * H, nullptr, H, wsl,
-                   gbuf + static_cast<size_t>(l) * H * Np,
-                   act + (static_cast<size_t>(D) + static_cast<size_t>(l) * H) * Np, Np, n0);
-    float* t = cur;
-    cur = other;
-    other = t;
+    const size_t off = static_cast<size_t>(l) * H * H;
+    dense_tc<H, true>(tile, ws.whThi + off, ws.whTlo + off, nullptr, H, wst,
+                      gbuf + static_cast<size_t>(l) * H * Np,
+                      act + (static_cast<size_t>(D) + static_cast<size_t>(l) * H) * Np, Np, n0);
   }
 }
 
@@ -561,78 +826,124 @@ struct DwJobs {
   int n;
 };
 
-__global__ void __launch_bounds__(256)
-train_dw_kernel(const DwJobs jobs, float* __restrict__ part, int N, int Np, size_t Fp,
+// One 128x128 tile (rows k, columns j) of a dW product over one part of
+// the point axis, on the tensor cores: 2x4 warps of 64x32, the operands'
+// 32-point stages through a ring of kDwStages cp.async buffers (both are
+// feature-major, so a stage is 128 rows of 32 contiguous points each), one
+// barrier per stage. Rows past K and columns past Jreal are zero-filled; so
+// are points past the part's end. The CTAs of the tile row k0 = 0 also sum
+// db from the G fragments.
+__global__ void __launch_bounds__(kThreads, 1)
+train_dw_kernel(const DwJobs jobs, float* __restrict__ partial, int N, int Np, size_t Fp,
                 int chunk) {
-  __shared__ __align__(16) float As[kBN][kBLd];
-  __shared__ __align__(16) float Gs[kBN][kBLd];
-  int t = blockIdx.x;
+  extern __shared__ float4 dsm4[];
+  float* sm = reinterpret_cast<float*>(dsm4);
+  int tile = blockIdx.x;
   int jb = 0;
-  while (jb + 1 < jobs.n && t >= jobs.job[jb].tiles) {
-    t -= jobs.job[jb].tiles;
+  while (jb + 1 < jobs.n && tile >= jobs.job[jb].tiles) {
+    tile -= jobs.job[jb].tiles;
     ++jb;
   }
   const DwJob& jd = jobs.job[jb];
-  const int tiles_j = (jd.J + kBT - 1) / kBT;
-  const int k0 = (t / tiles_j) * kBT;
-  const int j0 = (t % tiles_j) * kBT;
+  const int tiles_j = (jd.J + kDwT - 1) / kDwT;
+  const int k0 = (tile / tiles_j) * kDwT;
+  const int j0 = (tile % tiles_j) * kDwT;
   const int nb = blockIdx.y * chunk;
   const int ne = min(N, nb + chunk);
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;
+  const bool live = j0 + wn * 32 < jd.Jreal;  // else the warp's G rows are all padding
+  const bool sum_db = k0 == 0 && wm == 0;
 
-  float acc[4][4];
+  float acc[4][4][4], part[4][4][4];
   float gsum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  zero_block(acc);
+  zero_block(part);
 
-  if (j0 < jd.Jreal) {
-    for (int n = nb; n < ne; n += kBN) {
-      for (int e = tid; e < kBT * kBN; e += 256) {
-        const int r = e / kBN;
-        const int q = e % kBN;
-        const bool in_n = n + q < ne;
-        As[q][r] = (k0 + r < jd.K && in_n) ? jd.A[static_cast<size_t>(k0 + r) * Np + n + q] : 0.f;
-        Gs[q][r] = (j0 + r < jd.Jreal && in_n) ? jd.G[static_cast<size_t>(j0 + r) * Np + n + q] : 0.f;
+  auto load = [&](int s) {
+    float* st = sm + (s % kDwStages) * kDwStage;
+    const int n = nb + s * kBN;
+    constexpr int kRowChunks = kBN / 4;
+#pragma unroll
+    for (int v = 0; v < 2 * kDwT * kRowChunks / kThreads; ++v) {
+      const int c = threadIdx.x + v * kThreads;
+      const int op = c / (kDwT * kRowChunks);  // 0: A, 1: G
+      const int r = (c / kRowChunks) % kDwT;
+      const int q = c % kRowChunks;
+      const int np = n + q * 4;
+      int bytes = 4 * min(max(ne - np, 0), 4);
+      const float* src;
+      if (op == 0) {
+        if (k0 + r >= jd.K) bytes = 0;
+        src = jd.A + static_cast<size_t>(k0 + r) * Np + np;
+      } else {
+        if (j0 + r >= jd.Jreal) bytes = 0;
+        src = jd.G + static_cast<size_t>(j0 + r) * Np + np;
       }
-      __syncthreads();
-#pragma unroll 8
-      for (int q = 0; q < kBN; ++q) {
-        const float4 a = *reinterpret_cast<const float4*>(&As[q][ty * 4]);
-        const float4 g = *reinterpret_cast<const float4*>(&Gs[q][tx * 4]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float gv[4] = {g.x, g.y, g.z, g.w};
+      cp_async16(st + (op * kDwT + r) * kDwLd + q * 4, bytes ? src : jd.A, bytes);
+    }
+    cp_async_commit();
+  };
+
+  const int n_stages = ne > nb ? (ne - nb + kBN - 1) / kBN : 0;
+  for (int s = 0; s < kDwStages - 1 && s < n_stages; ++s) load(s);
+  for (int s = 0; s < n_stages; ++s) {
+    // stage s has landed once at most the stages after it are pending
+    if (s + kDwStages - 2 < n_stages) {
+      cp_async_wait<kDwStages - 2>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // stage s is visible; every warp is done with stage s-1
+    if (s + kDwStages - 1 < n_stages) load(s + kDwStages - 1);  // into stage s-1's buffer
+    const float* As = sm + (s % kDwStages) * kDwStage + wm * 64 * kDwLd;
+    const float* Gs = sm + (s % kDwStages) * kDwStage + (kDwT + wn * 32) * kDwLd;
+    if (live) {
+#pragma unroll
+      for (int kk = 0; kk < kBN; kk += 8) {
+        uint32_t ahi[4][4], alo[4][4];
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], gv[j], acc[i][j]);
-        if (ty == 0) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) gsum[j] += gv[j];
-        }
+          load_a_mmajor_split(As + i * 16 * kDwLd + kk, kDwLd, g, t, ahi[i], alo[i]);
+        auto bfrag = [&](int j, uint32_t(&bh)[2], uint32_t(&bl)[2]) {
+          const float* b = Gs + (j * 8 + g) * kDwLd + kk + t;
+          const float v0 = b[0], v1 = b[4];
+          if (sum_db) gsum[j] += v0 + v1;  // db from the same fp32 values
+          split_fast(v0, bh[0], bl[0]);
+          split_fast(v1, bh[1], bl[1]);
+        };
+        mma3_step<2>(part, ahi, alo, bfrag);
+        if (kk & 8) promote(acc, part);
       }
-      __syncthreads();
     }
   }
 
-  float* out = part + blockIdx.y * Fp;
+  float* out = partial + blockIdx.y * Fp;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= jd.K) continue;
+  for (int j = 0; j < 4; ++j) {
+    const int col = j0 + wn * 32 + j * 8 + 2 * t;
+    if (col >= jd.J) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = j0 + tx * 4 + j;
-      if (col < jd.J) out[jd.out + static_cast<size_t>(k) * jd.J + col] = acc[i][j];
+    for (int i = 0; i < 4; ++i) {
+      const int k = k0 + wm * 64 + i * 16 + g;
+      if (k < jd.K)
+        *reinterpret_cast<float2*>(out + jd.out + static_cast<size_t>(k) * jd.J + col) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (k + 8 < jd.K)
+        *reinterpret_cast<float2*>(out + jd.out + static_cast<size_t>(k + 8) * jd.J + col) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
     }
   }
-  if (k0 == 0 && ty == 0) {
+  if (sum_db) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int col = j0 + tx * 4 + j;
-      if (col < jd.J) out[jd.db + col] = gsum[j];
+      float v = gsum[j];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      const int col = j0 + wn * 32 + j * 8 + g;
+      if (t == 0 && col < jd.J) out[jd.db + col] = v;
     }
   }
 }
@@ -662,54 +973,98 @@ loss_sum_kernel(const float* __restrict__ loss_r, float* __restrict__ loss, int 
 
 // The input cotangent of the differentiable render: dx[n][k] = sum_j
 // delta_1[j][n] * w0[k][j], (N, H) x (H, D), with delta_1 the ReLU-gated
-// cotangent of the first layer (gbuf rows 0..H-1, [H][Np]). 64 points x 64
-// input columns per CTA, 4x4 outputs per thread, fp32 FMAs.
-__global__ void __launch_bounds__(256)
-render_dx_kernel(const float* __restrict__ delta1, const float* __restrict__ w0,
-                 float* __restrict__ dx, int N, int Np, int D, int H) {
-  __shared__ __align__(16) float Gs[kBN][kBLd];  // [j][point]
-  __shared__ __align__(16) float Ws[kBN][kBLd];  // [j][input column]
-  const int n0 = blockIdx.x * kBT;
-  const int k0 = blockIdx.y * kBT;
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4, tx = tid & 15;
+// cotangent of the first layer (gbuf rows 0..H-1, [H][Np]), on the tensor
+// cores: 64 points x 64 input columns per CTA, 2x4 warps of 32x16, the
+// reduction over j in cp.async stages of 32 (delta_1 split on the fly, the
+// halves of w0 from weight_split).
+__global__ void __launch_bounds__(kThreads, 1)
+render_dx_kernel(const float* __restrict__ delta1, const float* __restrict__ w0hi,
+                 const float* __restrict__ w0lo, float* __restrict__ dx, int N, int Np, int D,
+                 int H) {
+  extern __shared__ float4 xsm4[];
+  float* sm = reinterpret_cast<float*>(xsm4);
+  const int n0 = blockIdx.x * kDxP;
+  const int k0 = blockIdx.y * kDxK;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int pm = (warp >> 2) * 32;  // the warp's first point
+  const int kn = (warp & 3) * 16;   // the warp's first input column
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  float acc[2][2][4], part[2][2][4];
+  zero_block(acc);
+  zero_block(part);
 
-  for (int j0 = 0; j0 < H; j0 += kBN) {
-    for (int e = tid; e < kBT * kBN; e += 256) {
-      const int p = e % kBT, jg = e / kBT;  // neighbouring threads: neighbouring points
-      Gs[jg][p] = delta1[static_cast<size_t>(j0 + jg) * Np + n0 + p];
-      const int jw = e % kBN, kk = e / kBN;  // neighbouring threads: neighbouring j
-      Ws[jw][kk] = k0 + kk < D ? w0[static_cast<size_t>(k0 + kk) * H + j0 + jw] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int j = 0; j < kBN; ++j) {
-      const float4 g = *reinterpret_cast<const float4*>(&Gs[j][ty * 4]);
-      const float4 w = *reinterpret_cast<const float4*>(&Ws[j][tx * 4]);
-      const float gv[4] = {g.x, g.y, g.z, g.w};
-      const float wv[4] = {w.x, w.y, w.z, w.w};
+  // a stage: delta_1[j0 .. j0+31][n0 .. n0+63], then the hi and lo halves of
+  // w0[k0 .. k0+63][j0 .. j0+31] (rows past D zero-filled)
+  auto load = [&](float* st, int j0) {
+    constexpr int kDChunks = kDxJ * kDxP / 4;        // 512
+    constexpr int kWChunks = kDxK * kDxJ / 4;        // 512 per half
+    constexpr int kAll = kDChunks + 2 * kWChunks;
+    static_assert(kAll % kThreads == 0, "dx stage copies per thread");
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) acc[i][c] = fmaf(gv[i], wv[c], acc[i][c]);
+    for (int v = 0; v < kAll / kThreads; ++v) {
+      const int c = threadIdx.x + v * kThreads;
+      if (c < kDChunks) {
+        const int r = c / (kDxP / 4), q = c % (kDxP / 4);
+        cp_async16(st + r * kDxLdD + q * 4,
+                   delta1 + static_cast<size_t>(j0 + r) * Np + n0 + q * 4, 16);
+      } else {
+        const int c2 = c - kDChunks;
+        const int half = c2 / kWChunks;
+        const int r = (c2 % kWChunks) / (kDxJ / 4), q = c2 % (kDxJ / 4);
+        const bool in = k0 + r < D;
+        const float* src = (half ? w0lo : w0hi) + static_cast<size_t>(k0 + r) * H + j0 + q * 4;
+        cp_async16(st + kDxJ * kDxLdD + (half * kDxK + r) * kDxLdW + q * 4, in ? src : w0hi,
+                   in ? 16 : 0);
+      }
     }
-    __syncthreads();
+  };
+
+  const int n_stages = H / kDxJ;
+  load(sm, 0);
+  cp_async_commit();
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage s has landed; every warp is done with stage s-1
+    if (s + 1 < n_stages) {
+      load(sm + ((s + 1) & 1) * kDxStage, (s + 1) * kDxJ);
+      cp_async_commit();
+    }
+    const float* Ds = sm + (s & 1) * kDxStage;
+    const float* Wh = Ds + kDxJ * kDxLdD;
+    const float* Wl = Wh + kDxK * kDxLdW;
+#pragma unroll
+    for (int jj = 0; jj < kDxJ; jj += 8) {
+      uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        load_a_kmajor_split(Ds + jj * kDxLdD + pm + i * 16, kDxLdD, g, t, ahi[i], alo[i]);
+      auto bfrag = [&](int j, uint32_t(&bh)[2], uint32_t(&bl)[2]) {
+        const int o = (kn + j * 8 + g) * kDxLdW + jj + t;
+        bh[0] = __float_as_uint(Wh[o]);
+        bh[1] = __float_as_uint(Wh[o + 4]);
+        bl[0] = __float_as_uint(Wl[o]);
+        bl[1] = __float_as_uint(Wl[o + 4]);
+      };
+      mma3_step<2>(part, ahi, alo, bfrag);
+      if (jj & 8) promote(acc, part);
+    }
   }
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int n = n0 + ty * 4 + i;
-    if (n >= N) continue;
+  for (int i = 0; i < 2; ++i) {
+    const int n = n0 + pm + i * 16 + g;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const int k = k0 + tx * 4 + c;
-      if (k < D) dx[static_cast<size_t>(n) * D + k] = acc[i][c];
+    for (int j = 0; j < 2; ++j) {
+      const int k = k0 + kn + j * 8 + 2 * t;
+      if (k >= D) continue;
+      if (n < N)
+        *reinterpret_cast<float2*>(dx + static_cast<size_t>(n) * D + k) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (n + 8 < N)
+        *reinterpret_cast<float2*>(dx + static_cast<size_t>(n + 8) * D + k) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
     }
   }
 }
@@ -729,7 +1084,7 @@ void launch_dw(const Layout& s, const float* act, const float* gbuf, const float
     j.K = K;
     j.J = J;
     j.Jreal = Jreal;
-    j.tiles = ((K + kBT - 1) / kBT) * ((J + kBT - 1) / kBT);
+    j.tiles = ((K + kDwT - 1) / kDwT) * ((J + kDwT - 1) / kDwT);
     j.out = out;
     j.db = db;
     total_tiles += j.tiles;
@@ -749,58 +1104,77 @@ void launch_dw(const Layout& s, const float* act, const float* gbuf, const float
   add(act + (static_cast<size_t>(D) + static_cast<size_t>(L1) * H) * np, gout, H, kOutPad, kHead,
       off_wout, off_bout);
   const size_t Fp = round_up(s.F, 64);
-  train_dw_kernel<<<dim3(total_tiles, s.P), 256, 0, stream>>>(jobs, part, s.N, s.Np, Fp, s.chunk);
+  train_dw_kernel<<<dim3(total_tiles, s.P), kThreads, kDwSmem, stream>>>(jobs, part, s.N, s.Np,
+                                                                          Fp, s.chunk);
   train_finalize_kernel<<<static_cast<unsigned>((s.F + 255) / 256), 256, 0, stream>>>(
       part, grads, s.F, Fp, s.P);
 }
 
-// The recompute of the trunk: wh^T for the backward chain, then every
+// The recompute of the trunk: the TF32 halves of the weights, then every
 // layer's activations and the 4 head outputs of each 64-point tile.
 template <int H, bool INLINE_PE>
-cudaError_t launch_forward(const Layout& s, const float* in, const float* feats, const float* e2,
-                           const float* c, const float* w0, const float* b0, const float* wh,
-                           const float* bh, const float* wout, const float* bout, float* act,
-                           float* out4, float* whT, int n_raw, int n_phase, int Fd, int D, int L1,
-                           cudaStream_t stream) {
-  if (L1 > 0) {
-    wh_transpose_kernel<<<dim3(H / 32, H / 32, L1), dim3(32, 8), 0, stream>>>(wh, whT, H);
-  }
+void launch_forward(const Layout& s, const float* in, const float* feats, const float* e2,
+                    const float* c, const float* w0, const float* b0, const float* wh,
+                    const float* bh, const float* wout, const float* bout, float* act, float* out4,
+                    const WSplit& ws, int n_raw, int n_phase, int Fd, int D, int L1,
+                    cudaStream_t stream) {
   const int rows = D > H ? D : H;
+  weight_split_kernel<<<dim3(H / 32, (rows + 31) / 32, 1 + L1), dim3(32, 8), 0, stream>>>(
+      w0, wh, ws.w0hi, ws.w0lo, ws.whhi, ws.whlo, ws.whThi, ws.whTlo, D, H);
   const size_t tile_smem =
-      sizeof(float) * (2 * static_cast<size_t>(rows) * kLd + static_cast<size_t>(kKT) * H);
-  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<H, INLINE_PE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(tile_smem));
-  if (err != cudaSuccess) return err;
+      sizeof(float) * (static_cast<size_t>(rows) * kLd + Dense<H>::kSmem);
   train_fwd_kernel<H, INLINE_PE><<<s.Np / kTileP, kThreads, tile_smem, stream>>>(
-      in, feats, e2, c, w0, b0, wh, bh, wout, bout, act, out4, s.N, s.Np, n_raw, n_phase, Fd, D,
-      L1);
-  return cudaSuccess;
+      in, feats, e2, c, ws, b0, bh, wout, bout, act, out4, s.N, s.Np, n_raw, n_phase, Fd, D, L1);
 }
 
 // The backward chain of each 64-point tile, from the head cotangent gout.
 template <int H>
-cudaError_t launch_backward(const Layout& s, const float* gout, const float* wout,
-                            const float* whT, const float* act, float* gbuf, int D, int L1,
-                            cudaStream_t stream) {
-  const size_t bwd_smem =
-      sizeof(float) * (2 * static_cast<size_t>(H) * kLd + static_cast<size_t>(kKT) * H);
-  cudaError_t err = cudaFuncSetAttribute(train_bwd_kernel<H>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(bwd_smem));
-  if (err != cudaSuccess) return err;
-  train_bwd_kernel<H><<<s.Np / kTileP, kThreads, bwd_smem, stream>>>(gout, wout, whT, act, gbuf,
-                                                                     s.N, s.Np, D, L1);
-  return cudaSuccess;
+void launch_backward(const Layout& s, const float* gout, const float* wout, const WSplit& ws,
+                     const float* act, float* gbuf, int D, int L1, cudaStream_t stream) {
+  train_bwd_kernel<H><<<s.Np / kTileP, kThreads, Dense<H>::kBwdSmem, stream>>>(
+      gout, wout, ws, act, gbuf, s.N, s.Np, D, L1);
 }
 
 struct Scratch {
-  float *act, *gbuf, *gout, *out4, *loss_r, *whT, *part;
+  float *act, *gbuf, *gout, *out4, *loss_r, *part;
+  WSplit ws;
 };
 
-Scratch carve(const Layout& s, float* scratch) {
+Scratch carve(const Layout& s, float* scratch, int D, int H, int L1) {
   return Scratch{scratch + s.act,    scratch + s.gbuf, scratch + s.gout, scratch + s.out4,
-                 scratch + s.loss_r, scratch + s.whT,  scratch + s.part};
+                 scratch + s.loss_r, scratch + s.part, wsplit_at(scratch + s.wsplit, D, H, L1)};
+}
+
+// The shapes the launches take: every K and N a multiple of the tiles'
+// edges, and S samples within the composite's shared memory.
+bool shapes_ok(int S, int D, int H, int L1) {
+  return S >= 1 && S <= kMaxS && D > 0 && D % 16 == 0 && D <= kMaxD && (H == 128 || H == 256) &&
+         L1 >= 0 && L1 + 2 <= kMaxJobs;
+}
+
+// The launches above 48 KB of dynamic shared memory need the limit raised,
+// which is a host call; it is made once per device and width, for the most
+// any call of that width asks for.
+template <int H>
+cudaError_t raise_smem_limits() {
+  const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<H, true>, a, Dense<H>::kFwdSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(train_fwd_kernel<H, false>, a, Dense<H>::kFwdSmem);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(train_bwd_kernel<H>, a, Dense<H>::kBwdSmem);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(train_dw_kernel, a, kDwSmem);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(render_dx_kernel, a, kDxSmem);
+  return err;
+}
+
+cudaError_t smem_limits_once(int device, int H) {
+  static std::atomic<unsigned long long> done[2];  // a bit per device, for H = 128 and 256
+  std::atomic<unsigned long long>& d = done[H == 256];
+  const unsigned long long bit = 1ull << (device & 63);
+  if (d.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  const cudaError_t err = H == 256 ? raise_smem_limits<256>() : raise_smem_limits<128>();
+  if (err == cudaSuccess) d.fetch_or(bit, std::memory_order_release);
+  return err;
 }
 
 template <int H, bool INLINE_PE>
@@ -812,22 +1186,16 @@ cudaError_t launch(const float* in, const float* feats, const float* z, const fl
                    int n_raw, int n_phase, int Fd, int D, int L1, int white_bkgd, float rgb_c,
                    float reg_c, float depth_c, cudaStream_t stream) {
   const Layout s = make_layout(R, S, D, H, L1);
-  const Scratch b = carve(s, scratch);
-  cudaError_t err = launch_forward<H, INLINE_PE>(s, in, feats, e2, c, w0, b0, wh, bh, wout, bout,
-                                                 b.act, b.out4, b.whT, n_raw, n_phase, Fd, D, L1,
-                                                 stream);
-  if (err != cudaSuccess) return err;
+  const Scratch b = carve(s, scratch, D, H, L1);
+  launch_forward<H, INLINE_PE>(s, in, feats, e2, c, w0, b0, wh, bh, wout, bout, b.act, b.out4,
+                               b.ws, n_raw, n_phase, Fd, D, L1, stream);
 
-  const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(S);
-  err = cudaFuncSetAttribute(train_composite_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(comp_smem));
-  if (err != cudaSuccess) return err;
+  const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(S);  // < 48 KB
   train_composite_kernel<<<R, 32, comp_smem, stream>>>(b.out4, z, dnorm, tgt, mask, inv_denom,
                                                        tgt_depth, b.gout, b.loss_r, S, s.Np,
                                                        white_bkgd, rgb_c, reg_c, depth_c);
 
-  err = launch_backward<H>(s, b.gout, wout, b.whT, b.act, b.gbuf, D, L1, stream);
-  if (err != cudaSuccess) return err;
+  launch_backward<H>(s, b.gout, wout, b.ws, b.act, b.gbuf, D, L1, stream);
   launch_dw(s, b.act, b.gbuf, b.gout, b.part, grads, D, H, L1, stream);
   loss_sum_kernel<<<1, 256, 0, stream>>>(b.loss_r, loss, R);
   return cudaGetLastError();
@@ -863,26 +1231,19 @@ cudaError_t launch_render_bwd(const float* x, const float* z, const float* dnorm
                               const float* g_weights, float* dx, float* grads, float* scratch,
                               int R, int S, int D, int L1, int white_bkgd, cudaStream_t stream) {
   const Layout s = make_layout(R, S, D, H, L1);
-  const Scratch b = carve(s, scratch);
-  cudaError_t err = launch_forward<H, false>(s, x, nullptr, nullptr, nullptr, w0, b0, wh, bh,
-                                             wout, bout, b.act, b.out4, b.whT, 0, 0, 0, D, L1,
-                                             stream);
-  if (err != cudaSuccess) return err;
+  const Scratch b = carve(s, scratch, D, H, L1);
+  launch_forward<H, false>(s, x, nullptr, nullptr, nullptr, w0, b0, wh, bh, wout, bout, b.act,
+                           b.out4, b.ws, 0, 0, 0, D, L1, stream);
 
-  const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(S);
-  err = cudaFuncSetAttribute(render_composite_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(comp_smem));
-  if (err != cudaSuccess) return err;
+  const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(S);  // < 48 KB
   render_composite_kernel<<<R, 32, comp_smem, stream>>>(b.out4, z, dnorm, g_rgb, g_depth, g_acc,
                                                         g_weights, b.gout, S, s.Np, white_bkgd);
 
-  err = launch_backward<H>(s, b.gout, wout, b.whT, b.act, b.gbuf, D, L1, stream);
-  if (err != cudaSuccess) return err;
+  launch_backward<H>(s, b.gout, wout, b.ws, b.act, b.gbuf, D, L1, stream);
   launch_dw(s, b.act, b.gbuf, b.gout, b.part, grads, D, H, L1, stream);
   if (dx != nullptr) {
-    render_dx_kernel<<<dim3(s.Np / kBT, (D + kBT - 1) / kBT), 256, 0, stream>>>(b.gbuf, w0, dx,
-                                                                                s.N, s.Np, D, H);
+    render_dx_kernel<<<dim3(s.Np / kDxP, (D + kDxK - 1) / kDxK), kThreads, kDxSmem, stream>>>(
+        b.gbuf, b.ws.w0hi, b.ws.w0lo, dx, s.N, s.Np, D, H);
   }
   return cudaGetLastError();
 }
@@ -906,17 +1267,17 @@ extern "C" int nerf_train_objective(const float* in, const float* feats, const f
                                     int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (L1 + 2 > kMaxJobs) return cudaErrorInvalidValue;
+  if (!shapes_ok(S, D, H, L1)) return cudaErrorInvalidValue;
+  err = smem_limits_once(device, H);
+  if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H == 256)
     return dispatch<256>(inline_pe, in, feats, z, dnorm, tgt, mask, inv_denom, tgt_depth, e2, c,
                          w0, b0, wh, bh, wout, bout, loss, grads, scratch, R, S, n_raw, n_phase,
                          Fd, D, L1, white_bkgd, rgb_c, reg_c, depth_c, st);
-  if (H == 128)
-    return dispatch<128>(inline_pe, in, feats, z, dnorm, tgt, mask, inv_denom, tgt_depth, e2, c,
-                         w0, b0, wh, bh, wout, bout, loss, grads, scratch, R, S, n_raw, n_phase,
-                         Fd, D, L1, white_bkgd, rgb_c, reg_c, depth_c, st);
-  return cudaErrorInvalidValue;
+  return dispatch<128>(inline_pe, in, feats, z, dnorm, tgt, mask, inv_denom, tgt_depth, e2, c,
+                       w0, b0, wh, bh, wout, bout, loss, grads, scratch, R, S, n_raw, n_phase,
+                       Fd, D, L1, white_bkgd, rgb_c, reg_c, depth_c, st);
 }
 
 extern "C" int nerf_render_bwd(const float* x, const float* z, const float* dnorm,
@@ -927,15 +1288,15 @@ extern "C" int nerf_render_bwd(const float* x, const float* z, const float* dnor
                                int L1, int white_bkgd, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (L1 + 2 > kMaxJobs) return cudaErrorInvalidValue;
+  if (!shapes_ok(S, D, H, L1)) return cudaErrorInvalidValue;
+  err = smem_limits_once(device, H);
+  if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H == 256)
     return launch_render_bwd<256>(x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth, g_acc,
                                   g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd, st);
-  if (H == 128)
-    return launch_render_bwd<128>(x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth, g_acc,
-                                  g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd, st);
-  return cudaErrorInvalidValue;
+  return launch_render_bwd<128>(x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth, g_acc,
+                                g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd, st);
 }
 
 extern "C" const char* nerf_cuda_error_string(int err) {

@@ -191,10 +191,16 @@ def _trunk(x: torch.Tensor, packed: Packed):
 
 
 def _check_compute_dtype(compute_dtype: str) -> None:
+    """``float32`` and ``highest`` run the same kernels: the render forward
+    (kernels 2 and 4) in exact fp32 on the CUDA cores; the objective and the
+    render VJP (kernels 1, 5 and 3) with their trunk products as 3xTF32 on
+    the tensor cores (``csrc/train_pe.cu``), the PE phases and both
+    compositing scans in exact fp32. ``bfloat16`` is not ported."""
     if compute_dtype == "bfloat16":
         raise NotImplementedError(
             "compute_dtype='bfloat16' is not ported yet; 'float32' and "
-            "'highest' both run exact fp32"
+            "'highest' both run the fp32 kernels (trunk products of the "
+            "objective and the render VJP as 3xTF32)"
         )
     if compute_dtype not in ("float32", "highest"):
         raise ValueError(f"unknown compute_dtype {compute_dtype!r}")

@@ -134,8 +134,9 @@ class RenderingConfig:
     # 'fused' = the inline-PE kernel (functional arch, noise_std 0);
     # 'xla' = the plain pipeline; 'auto' picks fused when eligible.
     backend: str = "auto"
-    # Matmul precision inside the fused kernel: 'float32' and 'highest' are
-    # both exact fp32 in the port; 'bfloat16' is not ported yet and raises.
+    # Matmul precision inside the fused kernels: 'float32' and 'highest' are
+    # the same in the port (exact fp32 render forward; the objective's and
+    # the render VJP's trunk products as 3xTF32); 'bfloat16' raises.
     compute_dtype: str = "float32"
 
 

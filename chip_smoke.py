@@ -66,11 +66,29 @@ its seconds:
    coarse pass, kernel 5) against the inline-PE step;
 12. repair check: ``experiments/smoke.yaml`` (width 64) trains a phase-0
    epoch on the plain path under ``backend: auto`` and says so in
-   ``kernel_path``; under ``fused`` it raises, and width 384 raises too.
+   ``kernel_path``; under ``fused`` it raises, and width 384 raises too;
+13. DINO kernel widths: kernel 1 at 512x64 and kernel 2 at a 1024x64 eval
+   chunk, pos_freq 12, with 64 and 128 features (inputs padded to D 176
+   and 240), against their plain versions; times and bounds;
+14. DINO slices: ``experiments/dino_nerf.yaml``, ``multiscale.yaml`` and
+   ``lora.yaml`` read by the port's own YAML reader at full width (ViT-B/14
+   12x768 extractor on the card, 8x256 trunk): feature maps (5, 9, 9, 64)
+   or (5, 9, 9, 128); eval at init (kernel 2 with train view 0's features,
+   one launch per chunk); epochs 0, 50, 100, 101 (``lora.yaml``: 0), every
+   step launching kernel 1 once; epoch 0 against a ``backend: xla`` trainer
+   (rel 1e-4); PSNR must rise; the trained views against the plain
+   pipeline; both kernels against their plain versions at the trainer's
+   shapes; the feature sampler's time; one ``dino_nerf`` phase-2 epoch
+   traced;
+15. CLI: ``python -m nerf_fewshot_tpu_torch.cli train --config
+   experiments/dino_nerf.yaml --synthetic --epochs 2`` as a subprocess
+   must exit 0, write ``final.ckpt`` and print the summary JSON with the
+   kernel path.
 
 Any failure raises and exits non-zero. On success the last three lines are
 the ``nvidia-smi`` name/power-limit line, a JSON line with the kernels'
-numbers, and ``{"ok": true, "device": {...}}``.
+numbers (the five kernels, then kernels 1 and 2 at the DINO widths), and
+``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -181,6 +199,15 @@ KERNELS = ("fwd_pe", "train_pe")  # the sources, one nvcc each
 # one epoch of each phase and one more at 32x32 and at 128x128: the first
 # epoch's steps include the first use (module loading) of every CUDA kernel
 TRAIN_EPOCHS = (0, 1, 50, 100, 101)
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# The DINO experiment files, read by the port's own YAML reader; the
+# single- and multi-scale ones train at DINO_EPOCHS (one epoch of each phase
+# and one more at 128x128), lora.yaml one epoch. Per extractor: the feature
+# width Fd and the kernels' padded input width D at pos_freq 12
+# (6 + 96 + Fd columns, to a multiple of 16).
+DINO_CONFIGS = ("dino_nerf.yaml", "multiscale.yaml", "lora.yaml")
+DINO_EPOCHS = (0, 50, 100, 101)
+DINO_WIDTHS = {"single_scale": (64, 176), "multi_scale": (128, 240)}
 
 
 @contextmanager
@@ -245,12 +272,13 @@ def fwd_pe_cost(args, use_feats):
     return flops, nbytes
 
 
-def random_fwd_pe_args(rng, R, S, H, L, feat_dim, device):
+def random_fwd_pe_args(rng, R, S, H, L, feat_dim, device, pos_freq=10, d_pad=None):
     """Random inputs of the given shape: torch-default-bounded weights,
-    points in the scene box, depths in [2, 6]."""
+    points in the scene box, depths in [2, 6]; the input padded to ``d_pad``
+    (default: a multiple of 128)."""
     from nerf_fewshot_tpu_torch.render import kernels as tk
 
-    perm, e2, c, x_dim = tk.pe_layout(10, 4, True, feat_dim)
+    perm, e2, c, x_dim = tk.pe_layout(pos_freq, 4, True, feat_dim)
 
     def u(fan_in, *shape):
         return torch.tensor((rng.uniform(-1, 1, shape) / np.sqrt(fan_in)).astype(np.float32))
@@ -261,7 +289,7 @@ def random_fwd_pe_args(rng, R, S, H, L, feat_dim, device):
         state[f"trunk.{i}.bias"] = u(H, H)
     state.update({"rgb_head.weight": u(H, 3, H), "rgb_head.bias": u(H, 3),
                   "sigma_head.weight": u(H, 1, H), "sigma_head.bias": torch.full((1,), 0.1)})
-    packed = tk.pack_params(state, L, H, d_pad=-(-x_dim // 128) * 128, row_perm=perm)
+    packed = tk.pack_params(state, L, H, d_pad=d_pad or -(-x_dim // 128) * 128, row_perm=perm)
     pts = torch.tensor(rng.uniform(-1.5, 1.5, (R, S, 3)).astype(np.float32))
     rd = torch.tensor(rng.standard_normal((R, 3)).astype(np.float32))
     z = torch.tensor(np.sort(rng.uniform(2.0, 6.0, (R, S)), axis=-1).astype(np.float32))
@@ -291,17 +319,19 @@ def random_state(rng, x_dim, H, L, sigma_bias):
 
 def random_train_args(rng, R, S, H, L, device, *, feat_dim=0, sigma_bias=0.1,
                       white_bkgd=False, ragged=0, reg_weight=0.0, depth_weight=0.0,
-                      inline_pe=True):
+                      inline_pe=True, pos_freq=10):
     """Random inputs of the train kernel as ``fused_train_loss_grad`` builds
     them: random weights (``random_state``), rays from (0, 0, 4) into the
     scene volume, jittered samples in [2, 6], uniform rgb targets, the last
     ``ragged`` rays masked out, depth targets in [2.5, 5.5] when
-    ``depth_weight``, features ``tanh(pts @ W)`` when ``feat_dim``.
-    Returns ``(args, opts)`` for ``fused_train_objective(*args, **opts)``."""
+    ``depth_weight``, features ``tanh(pts @ W)`` when ``feat_dim``, PE at
+    ``pos_freq``. Returns ``(args, opts)`` for
+    ``fused_train_objective(*args, **opts)``."""
     from nerf_fewshot_tpu_torch.render import train_kernel as tt
     from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings
 
-    state = {k: v.to(device) for k, v in random_state(rng, 90 + feat_dim, H, L, sigma_bias).items()}
+    x_dim = 6 * pos_freq + 30 + feat_dim
+    state = {k: v.to(device) for k, v in random_state(rng, x_dim, H, L, sigma_bias).items()}
     on = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     d = rng.standard_normal((R, 3))
     d[:, 2] = -np.abs(d[:, 2]) - 1.0
@@ -314,22 +344,22 @@ def random_train_args(rng, R, S, H, L, device, *, feat_dim=0, sigma_bias=0.1,
     settings = RenderSettings(near=2.0, far=6.0, n_samples=S, perturb=True, white_bkgd=white_bkgd)
     return tt.train_objective_inputs(
         state, on(np.broadcast_to([0.0, 0.0, 4.0], (R, 3))), on(d), on(rng.uniform(0, 1, (R, 3))),
-        on(mask), settings, 10, 4, L, H, uniforms=on(rng.uniform(0, 1, (R, S))),
+        on(mask), settings, pos_freq, 4, L, H, uniforms=on(rng.uniform(0, 1, (R, S))),
         inline_pe=inline_pe, reg_weight=reg_weight, depth_weight=depth_weight,
         target_depth=on(rng.uniform(2.5, 5.5, R)) if depth_weight else None, point_features_fn=pf)
 
 
-def random_render_args(rng, R, S, H, L, device, *, feat_dim=0, sigma_bias=0.1):
+def random_render_args(rng, R, S, H, L, device, *, feat_dim=0, sigma_bias=0.1, pos_freq=10):
     """Random inputs of kernels 4 and 3 as ``fused_render_rays`` builds them:
     random weights (``random_state``), rays from (0, 0, 4) into the scene
-    volume, jittered samples in [2, 6], ``x = encode_points(...)`` (128 wide,
-    256 with 64-wide features ``tanh(pts @ W)``). Returns ``(x, z, dnorm,
-    packed)`` and the unpadded input width."""
+    volume, jittered samples in [2, 6], ``x = encode_points(...)`` at
+    ``pos_freq`` (128 wide at 10, 256 with 64-wide features ``tanh(pts @
+    W)``). Returns ``(x, z, dnorm, packed)`` and the unpadded input width."""
     from nerf_fewshot_tpu_torch.ops.sampling import sample_along_rays
     from nerf_fewshot_tpu_torch.render import kernels as tk
     from nerf_fewshot_tpu_torch.render.fused import encode_points
 
-    x_dim = 90 + feat_dim
+    x_dim = 6 * pos_freq + 30 + feat_dim
     state = {k: v.to(device) for k, v in random_state(rng, x_dim, H, L, sigma_bias).items()}
     on = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     d = rng.standard_normal((R, 3))
@@ -340,7 +370,7 @@ def random_render_args(rng, R, S, H, L, device, *, feat_dim=0, sigma_bias=0.1):
     feats = None
     if feat_dim:
         feats = torch.tanh(pts.reshape(-1, 3) @ on(rng.standard_normal((3, feat_dim))))
-    x = encode_points(pts, rd, 10, 4, True, feats).contiguous()
+    x = encode_points(pts, rd, pos_freq, 4, True, feats).contiguous()
     packed = tk.pack_params(state, L, H, d_pad=x.shape[1])
     return (x, z.contiguous(), torch.linalg.norm(rd, dim=-1, keepdim=True), packed), x_dim
 
@@ -440,7 +470,8 @@ def compare_train(name, got, want, grad_tol):
 def main_path_train_args(trainer, phase_idx, device, inline_pe=True, seed=0):
     """One training step of the trainer at a phase's shape, as
     ``train_epoch`` builds it: a batch of train-view-0 rays, the phase's
-    samples per ray with jitter uniforms, the trainer's weights."""
+    samples per ray with jitter uniforms, the trainer's weights and, with
+    DINO conditioning, train view 0's feature sampler."""
     from nerf_fewshot_tpu_torch.render import train_kernel as tt
 
     cfg = trainer.cfg
@@ -455,7 +486,8 @@ def main_path_train_args(trainer, phase_idx, device, inline_pe=True, seed=0):
         state, pd.rays_o[0][idx], pd.rays_d[0][idx], pd.targets[0][idx],
         torch.ones(B, device=device), trainer._render_settings(p.n_samples, training=True),
         cfg.nerf.pos_freq, cfg.nerf.dir_freq, cfg.nerf.num_layers, cfg.nerf.hidden_dim,
-        uniforms=torch.rand((B, p.n_samples), generator=g, device=device), inline_pe=inline_pe)
+        uniforms=torch.rand((B, p.n_samples), generator=g, device=device), inline_pe=inline_pe,
+        point_features_fn=trainer.feature_sampler(0))
 
 
 # Device-time groups of the profiled runs, by kernel name (first match).
@@ -545,7 +577,7 @@ def print_trace(label, t, untraced_ms):
 
 
 def eval_chunk(trainer, pose, device):
-    """The first 2048-ray chunk of a 128x128 test view and its deterministic
+    """The first eval chunk (``rendering.chunk_size`` rays) of a test view and its deterministic
     samples, as ``fused_render_rays`` makes them: ``(rd, pts, z)``."""
     from nerf_fewshot_tpu_torch.ops.rays import get_rays
     from nerf_fewshot_tpu_torch.ops.sampling import sample_along_rays
@@ -562,15 +594,19 @@ def eval_chunk(trainer, pose, device):
 
 def main_path_fwd_pe_args(trainer, pose, device):
     """An eval chunk exactly as ``fused_render_rays(forward_only=True)``
-    hands it to kernel 2, with the trainer's weights."""
+    hands it to kernel 2, with the trainer's weights (and, with DINO
+    conditioning, the features of train view 0's map at its points)."""
     from nerf_fewshot_tpu_torch.render import kernels as tk
 
     cfg = trainer.cfg
     rd, pts, z = eval_chunk(trainer, pose, device)
-    perm, e2, c, x_dim = tk.pe_layout(cfg.nerf.pos_freq, cfg.nerf.dir_freq, True, 0)
+    pf = trainer.feature_sampler(0)
+    feats = None if pf is None else pf(pts.reshape(-1, 3)).contiguous()
+    perm, e2, c, x_dim = tk.pe_layout(cfg.nerf.pos_freq, cfg.nerf.dir_freq, True,
+                                      0 if feats is None else feats.shape[1])
     packed = tk.pack_params(trainer.model.state_dict(), cfg.nerf.num_layers,
-                            cfg.nerf.hidden_dim, d_pad=-(-x_dim // 128) * 128, row_perm=perm)
-    return (tk._raw_block(pts, rd, True), None, z, torch.linalg.norm(rd, dim=-1, keepdim=True),
+                            cfg.nerf.hidden_dim, d_pad=tk.pe_width(x_dim), row_perm=perm)
+    return (tk._raw_block(pts, rd, True), feats, z, torch.linalg.norm(rd, dim=-1, keepdim=True),
             torch.as_tensor(e2, device=device), torch.as_tensor(c, device=device), packed)
 
 
@@ -839,7 +875,7 @@ def run_hierarchical_slice(train, test, device, tk, tt):
     ``fused_train_loss_grad(inline_pe=False)`` step (kernel 4 as the coarse
     pass, kernel 5 as the objective) against the inline-PE step. Returns the
     launches of kernel 5 in this run."""
-    from nerf_fewshot_tpu_torch.render.kernels import _raw_block, pack_params, pe_layout
+    from nerf_fewshot_tpu_torch.render.kernels import _raw_block, pack_params, pe_layout, pe_width
     from nerf_fewshot_tpu_torch.ops.sampling import sample_along_rays
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
@@ -916,7 +952,7 @@ def run_hierarchical_slice(train, test, device, tk, tt):
     coarse = (_raw_block(pts, rd, True), None, z.contiguous(),
               torch.linalg.norm(rd, dim=-1, keepdim=True), torch.as_tensor(e2, device=device),
               torch.as_tensor(c, device=device),
-              pack_params(state, n.num_layers, n.hidden_dim, d_pad=128, row_perm=perm))
+              pack_params(state, n.num_layers, n.hidden_dim, d_pad=pe_width(x_dim), row_perm=perm))
     k2_ms = cuda_ms(lambda: tk.fused_render_fwd_pe(*coarse), iters=20)
     print(f"  kernel ms at the step's shapes: kernel 1 over {B} x {a[2].shape[1]} merged samples "
           f"{k1_ms:.3f}, kernel 2 as the coarse pass over {B} x {p.n_samples} {k2_ms:.3f}",
@@ -971,6 +1007,218 @@ def run_repair_check(train, device, tk, tt):
             print(f"  {label}: raises ({err})", flush=True)
         else:
             raise RuntimeError(f"{label} trained on the card")
+
+
+def run_dino_kernel_widths(device, tk, tt):
+    """Kernel 1 at 512x64 and kernel 2 at a 1024x64 eval chunk, pos_freq 12,
+    with 64 and 128 features (D 176 and 240), random inputs, against their
+    plain versions at the existing gates; CUDA-event times and bounds.
+    Returns ``{(kernel, D): (max_abs_err, ms, plain_ms, bound_ms, bound_by,
+    bound32_ms)}``."""
+    rng = np.random.default_rng(12)
+    rows = {}
+    for fd, d in DINO_WIDTHS.values():
+        cases = ((f"512x64 white, 9 masked, reg, depth, Fd {fd}",
+                  dict(white_bkgd=True, ragged=9, reg_weight=0.01, depth_weight=0.1)),
+                 (f"512x64 Fd {fd}", {}))
+        err = 0.0
+        for label, kw in cases:
+            a, o = random_train_args(rng, 512, 64, 256, 8, device, feat_dim=fd, pos_freq=12, **kw)
+            if a[-1][0].shape[0] != d:
+                raise RuntimeError(f"Fd {fd}: the train kernel's input is {a[-1][0].shape[0]} wide")
+            err = max(err, compare_train(
+                f"kernel 1 pos_freq 12, D {d}, {label}", tt.fused_train_objective(*a, **o),
+                tt.fused_train_objective_reference(*a, **o), TRAIN_GRAD_TOL))
+        k_ms = cuda_ms(lambda: tt.fused_train_objective(*a, **o), iters=20)
+        p_ms = cuda_ms(lambda: tt.fused_train_objective_reference(*a, **o), iters=5)
+        flops, nbytes = train_cost(a, o)
+        b_ms, b_by, _ = bounds(flops, nbytes, tensor_cores=True)
+        b32_ms, _, _ = bounds(flops, nbytes, tensor_cores=False)
+        rows[("train_pe", d)] = (err, k_ms, p_ms, b_ms, b_by, b32_ms)
+        print(f"  kernel 1 512x64 D {d}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms by {b_by} as 3xTF32 (share {b_ms / k_ms:.1%}; {b32_ms:.3f} ms fp32; "
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+
+        args = random_fwd_pe_args(rng, 1024, 64, 256, 8, fd, device, pos_freq=12,
+                                  d_pad=tk.pe_width(6 + 96 + fd))
+        if args[-1][0].shape[0] != d:
+            raise RuntimeError(f"Fd {fd}: kernel 2's input is {args[-1][0].shape[0]} wide")
+        err = 0.0
+        for white in (False, True):
+            kw = dict(white_bkgd=white, use_feats=True)
+            err = max(err, compare(f"kernel 2 pos_freq 12, D {d}, 1024x64 white_bkgd={white}",
+                                   tk.fused_render_fwd_pe(*args, **kw),
+                                   tk.fused_render_fwd_pe_reference(*args, **kw)))
+        k_ms = cuda_ms(lambda: tk.fused_render_fwd_pe(*args, use_feats=True), iters=20)
+        p_ms = cuda_ms(lambda: tk.fused_render_fwd_pe_reference(*args, use_feats=True), iters=10)
+        flops, nbytes = fwd_pe_cost(args, use_feats=True)
+        b_ms, b_by, _ = bounds(flops, nbytes, tensor_cores=False)
+        rows[("fwd_pe", d)] = (err, k_ms, p_ms, b_ms, b_by, None)
+        print(f"  kernel 2 1024x64 D {d}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+              f"{b_ms:.3f} ms by {b_by} fp32 (share {b_ms / k_ms:.1%}; {flops / 1e9:.1f} GFLOP, "
+              f"{nbytes / 1e6:.2f} MB)", flush=True)
+    return rows
+
+
+def run_dino_slice(name, train, test, device, tk, tt):
+    """``experiments/<name>`` through the port's ``load_config`` at full
+    width: the extractor (ViT-B/14, 12x768) on the card, one feature map per
+    training view; ``evaluate`` at init (kernel 2 with train view 0's
+    features, one launch per chunk); ``train_epoch`` at DINO_EPOCHS (one for
+    lora.yaml), every step launching kernel 1 once with the view's
+    features; epoch 0's per-step losses against a ``backend: xla`` trainer
+    from the same seed, batches and features; PSNR after training above
+    PSNR at init; the views against the plain pipeline with the trained
+    weights; kernel 1 and kernel 2 against their plain versions at the
+    trainer's own step and eval-chunk shapes. Returns a dict of the
+    numbers."""
+    from nerf_fewshot_tpu_torch.cli import _precompute_features
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict, load_config
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    cfg = load_config(os.path.join(ROOT, "experiments", name))
+    fd, d = DINO_WIDTHS[cfg.dino.model_type]
+    widths = (cfg.nerf.hidden_dim, cfg.nerf.num_layers, cfg.nerf.pos_freq, cfg.dino.output_dim,
+              cfg.data.resolution, cfg.data.num_views, cfg.rendering.chunk_size)
+    if widths != (256, 8, 12, fd, 128, N_TRAIN_VIEWS, 1024):
+        raise RuntimeError(f"{name}: widths {widths}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = _precompute_features(cfg, train, device)
+    extract_s = time.perf_counter() - t0
+    lora = cfg.dino.lora_rank if cfg.dino.use_lora else 0
+    print(f"  {name}: {cfg.dino.model_type} extractor, ViT-B/14 12x768, LoRA rank {lora} -> "
+          f"feature maps {tuple(feats.shape)} in {extract_s:.2f} s (build and {train.n_views} "
+          f"views)", flush=True)
+    if feats.shape != (N_TRAIN_VIEWS, 9, 9, fd) or not np.isfinite(feats).all():
+        raise RuntimeError(f"{name}: feature maps {feats.shape}")
+
+    ktr = Trainer(cfg, train, test, device=device, dino_features=feats)
+    pcfg = config_from_dict({**cfg.raw, "rendering": {**cfg.raw["rendering"], "backend": "xla"}})
+    ptr = Trainer(pcfg, train, test, device=device, dino_features=feats)
+    if not (ktr._use_fused() and ktr.kernel_path == "kernel") or ptr._use_fused():
+        raise RuntimeError(f"{name}: paths {ktr.kernel_path}, {ptr.kernel_path}")
+    n_chunks = -(-N_TEST_VIEWS * cfg.data.resolution ** 2 // cfg.rendering.chunk_size)
+    tk.fused_render_fwd_pe.launches = 0
+    psnr0 = ktr.evaluate()["psnr"]
+    if tk.fused_render_fwd_pe.launches != n_chunks:
+        raise RuntimeError(f"{name}: eval {tk.fused_render_fwd_pe.launches} launches, "
+                           f"{n_chunks} chunks")
+    epochs = DINO_EPOCHS if name != "lora.yaml" else DINO_EPOCHS[:1]
+    for e in epochs:
+        ktr.phase_data(ktr._phase_index(e))
+
+    tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+    steps, losses0, step_ms = 0, None, None
+    for e in epochs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = ktr.train_epoch(e)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n = len(ktr.last_step_losses)
+        steps += n
+        losses0 = ktr.last_step_losses.copy() if e == 0 else losses0
+        p = cfg.phase_for_epoch(e)
+        pd = ktr.phase_data(ktr._phase_index(e))
+        step_ms = sec / n * 1e3
+        print(f"  {name} epoch {e} ({pd.H}x{pd.W}, {min(p.batch_size, pd.rays_o.shape[1])} rays x "
+              f"{p.n_samples} samples per step): loss {loss:.6f}, {n} steps, {sec:.3f} s, "
+              f"{step_ms:.3f} ms/step, {ktr.n_views * pd.rays_o.shape[1] / sec:.0f} rays/s",
+              flush=True)
+        if not np.isfinite(ktr.last_step_losses).all():
+            raise RuntimeError(f"{name} epoch {e}: non-finite losses")
+    launches = tt.fused_train_objective.launches["train_pe"]
+    print(f"  {name} launches: kernel 1 {launches} for {steps} steps", flush=True)
+    if launches != steps:
+        raise RuntimeError(f"{name}: {launches} kernel-1 launches for {steps} steps")
+
+    ptr.train_epoch(0)
+    rel = np.abs(ptr.last_step_losses / losses0 - 1.0).max()
+    print(f"  {name} epoch 0 vs the backend: xla trainer: per-step max rel {rel:.2e} "
+          f"(tol {TRAIN_LOSS_RTOL:.0e})", flush=True)
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"{name}: epoch 0 kernel and plain trainers differ by rel {rel}")
+
+    tk.fused_render_fwd_pe.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    after = ktr.evaluate()
+    eval_s = time.perf_counter() - t0
+    eval_launches = tk.fused_render_fwd_pe.launches
+    print(f"  {name} evaluate: psnr {psnr0:.4f} dB at init, {after['psnr']:.4f} dB after "
+          f"{steps} steps, ssim {after['ssim']:.5f}, {eval_s / N_TEST_VIEWS * 1e3:.2f} ms/view, "
+          f"{eval_launches} launches for {n_chunks} chunks", flush=True)
+    if eval_launches != n_chunks:
+        raise RuntimeError(f"{name}: eval launched kernel 2 {eval_launches} times")
+    if name != "lora.yaml" and not after["psnr"] > psnr0:
+        raise RuntimeError(f"{name}: psnr after training {after['psnr']} <= at init {psnr0}")
+
+    ptr.model.load_state_dict(ktr.model.state_dict())
+    got, want = ktr.render_views(test.poses), ptr.render_views(test.poses)
+    errs = {out: float(np.abs(g - w).max()) for g, w, out in zip(got, want, ("rgb", "depth", "acc"))}
+    print(f"  {name} views vs the plain pipeline (trained weights): max abs err " + ", ".join(
+        f"{k} {v:.3e} (tol {TOL[k]:.0e})" for k, v in errs.items()), flush=True)
+    if not all(np.isfinite(g).all() for g in got) or any(v > TOL[k] for k, v in errs.items()):
+        raise RuntimeError(f"{name}: kernel-rendered views disagree with the plain pipeline {errs}")
+
+    # the kernels against their plain versions at the trainer's own shapes
+    out = dict(launches=launches, eval_launches=eval_launches, step_ms=step_ms, fd=fd, d=d,
+               psnr0=psnr0, psnr=after["psnr"], extract_s=extract_s)
+    last = len(cfg.phases) - 1
+    a, o = main_path_train_args(ktr, last, device)
+    if a[-1][0].shape[0] != d or a[1].shape[1] != fd:
+        raise RuntimeError(f"{name}: kernel 1 ran at D {a[-1][0].shape[0]}")
+    R, S = a[2].shape
+    out["train_err"] = compare_train(f"{name} kernel 1 at the step's {R}x{S}, D {d}",
+                                     tt.fused_train_objective(*a, **o),
+                                     tt.fused_train_objective_reference(*a, **o), TRAIN_GRAD_TOL)
+    out["train_ms"] = cuda_ms(lambda: tt.fused_train_objective(*a, **o), iters=20)
+    args = main_path_fwd_pe_args(ktr, test.poses[0], device)
+    out["fwd_err"] = compare(f"{name} kernel 2 at the eval chunk {args[2].shape[0]}x"
+                             f"{args[2].shape[1]}, D {args[-1][0].shape[0]}",
+                             tk.fused_render_fwd_pe(*args, use_feats=True),
+                             tk.fused_render_fwd_pe_reference(*args, use_feats=True))
+    pts = torch.rand((R * S, 3), device=device) * 3.0 - 1.5
+    pf = ktr.feature_sampler(0)
+    out["sampler_ms"] = cuda_ms(lambda: pf(pts), iters=20)
+    print(f"  {name} at the step's shape: kernel 1 {out['train_ms']:.3f} ms, feature sampling of "
+          f"{R * S} points {out['sampler_ms']:.3f} ms (CUDA events)", flush=True)
+    if name == "dino_nerf.yaml":
+        epoch = DINO_EPOCHS[-1]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ktr.train_epoch(epoch)
+        torch.cuda.synchronize()
+        untraced_ms = (time.perf_counter() - t0) * 1e3
+        for with_cpu in (False, True):
+            print_trace(f"{name} epoch {epoch} traced ({'CPU+CUDA' if with_cpu else 'CUDA only'})",
+                        trace_epoch(ktr, epoch, with_cpu), untraced_ms)
+    return out
+
+
+def run_cli(tmp):
+    """``python -m nerf_fewshot_tpu_torch.cli train --config
+    experiments/dino_nerf.yaml --synthetic --epochs 2`` in a fresh process
+    (its ``save_dir`` is relative: the run's working directory is ``tmp``):
+    exit 0, ``final.ckpt`` written, the summary JSON with the kernel path."""
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    cmd = [sys.executable, "-m", "nerf_fewshot_tpu_torch.cli", "train", "--config",
+           os.path.join(ROOT, "experiments", "dino_nerf.yaml"), "--synthetic", "--epochs", "2"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True, timeout=600)
+    sec = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(f"the CLI exited {proc.returncode}:\n{proc.stdout}\n{proc.stderr}")
+    summary = json.loads(proc.stdout.strip().splitlines()[-1])
+    print(f"  cli train dino_nerf.yaml --synthetic --epochs 2: exit 0 in {sec:.2f} s; summary "
+          f"{json.dumps(summary)}", flush=True)
+    if set(summary) - {"dead_sigma_epochs"} != {"final_metrics", "best_psnr"}:
+        raise RuntimeError(f"the CLI's summary keys {sorted(summary)}")
+    if summary["final_metrics"].get("kernel_path") != "kernel":
+        raise RuntimeError("the CLI did not train on the kernel path")
+    if not os.path.exists(os.path.join(tmp, "results", "dino_nerf_lego", "final.ckpt")):
+        raise RuntimeError("the CLI wrote no final.ckpt")
 
 
 def main():
@@ -1231,6 +1479,21 @@ def main():
     with phase("repair check"):
         run_repair_check(train, device, tk, tt)
 
+    with phase("DINO kernel widths"):
+        dino_rows = run_dino_kernel_widths(device, tk, tt)
+
+    dino = {}
+    for name in DINO_CONFIGS:
+        with phase(f"DINO slice {name}"):
+            dino[name] = run_dino_slice(name, train, test, device, tk, tt)
+
+    with phase("CLI"):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+        try:
+            run_cli(tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
     last = len(cfg.phases) - 1
 
     def train_row(name, cu_line, launches):
@@ -1242,6 +1505,30 @@ def main():
                 "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                 "bound_rate": "3xTF32 at 495 TFLOP/s", "bound_fp32_ms": b32_ms,
                 "library_ms": None}
+
+    def dino_row(kernel, d, names):
+        err, k_ms, p_ms, b_ms, b_by, b32_ms = dino_rows[(kernel, d)]
+        train = kernel == "train_pe"
+        row = {"name": f"{kernel}_dino_d{d}", "route": "cuda",
+               "source": f"nerf_fewshot_tpu_torch/csrc/{kernel}.cu",
+               "replaces": ("nerf_fewshot_tpu/render/train_kernel.py:343" if train
+                            else "nerf_fewshot_tpu/render/kernels.py:251"),
+               "shape": "512x64" if train else "1024x64", "configs": list(names),
+               "launches": sum(dino[n]["launches" if train else "eval_launches"] for n in names),
+               "max_abs_err": max([err] + [dino[n]["train_err" if train else "fwd_err"]
+                                           for n in names]),
+               "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_rate": "3xTF32 at 495 TFLOP/s" if train else "fp32 at 67 TFLOP/s",
+               "library_ms": None}
+        if train:
+            row["bound_fp32_ms"] = b32_ms
+            row["ms_at_the_step_shape"] = {n: dino[n]["train_ms"] for n in names}
+        return row
+
+    single = [n for n in DINO_CONFIGS if dino[n]["d"] == 176]
+    multi = [n for n in DINO_CONFIGS if dino[n]["d"] == 240]
+    dino_kernel_rows = [dino_row("train_pe", 176, single), dino_row("train_pe", 240, multi),
+                        dino_row("fwd_pe", 176, single), dino_row("fwd_pe", 240, multi)]
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1285,7 +1572,7 @@ def main():
         "bound_rate": "3xTF32 at 495 TFLOP/s",
         "bound_fp32_ms": bwd_bound32_ms,
         "library_ms": None,
-    }]}))
+    }, *dino_kernel_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

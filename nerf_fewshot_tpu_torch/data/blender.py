@@ -38,6 +38,12 @@ class BlenderDataset:
         a = rgba[..., 3:4]
         return rgba[..., :3] * a + (1.0 - a)
 
+    def few_shot(self, num_views: int) -> "BlenderDataset":
+        """The first ``num_views`` views (the reference's first-k slice)."""
+        return dataclasses.replace(
+            self, images=self.images[:num_views], poses=self.poses[:num_views]
+        )
+
 
 def load_blender(
     basedir: str,

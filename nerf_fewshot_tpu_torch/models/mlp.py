@@ -1,10 +1,10 @@
 """The functional-stack NeRF MLP (counterpart of
 ``nerf_fewshot_tpu/models/mlp.py:NeRFMLP``).
 
-Input per point: ``[PE(pos)] (+ [PE(dir)] if use_viewdirs)``; an n-layer
-ReLU trunk; an rgb (sigmoid) head and a raw (pre-ReLU) sigma head. DINO
-features, skip connections and trunk LoRA come with later slices and are
-refused here.
+Input per point: ``[PE(pos)] (+ [PE(dir)] if use_viewdirs) (+ [feats] if
+dino_dim > 0)``, features last; an n-layer ReLU trunk; an rgb (sigmoid)
+head and a raw (pre-ReLU) sigma head. Skip connections and trunk LoRA come
+with a later slice and are refused here.
 """
 
 from __future__ import annotations
@@ -20,7 +20,8 @@ from nerf_fewshot_tpu_torch.ops.encoding import positional_encoding, posenc_outp
 
 
 class NeRFMLP(nn.Module):
-    """``forward(pts (N,3), dirs (N,3)) -> (rgb (N,3), sigma (N,1))``.
+    """``forward(pts (N,3), dirs (N,3), dino (N,dino_dim)) -> (rgb (N,3),
+    sigma (N,1))``.
 
     ``sigma_bias_init`` sets the sigma-head bias to a constant (a live
     start: a negative random bias can leave relu(sigma) zero everywhere).
@@ -42,8 +43,6 @@ class NeRFMLP(nn.Module):
         generator: Optional[torch.Generator] = None,
     ):
         super().__init__()
-        if dino_dim > 0:
-            raise NotImplementedError("NeRFMLP: dino_dim > 0 is not ported yet")
         if tuple(skip_layers):
             raise NotImplementedError("NeRFMLP: skip_layers are not ported yet")
         if lora_rank > 0:
@@ -51,7 +50,8 @@ class NeRFMLP(nn.Module):
         self.pos_freq = pos_freq
         self.dir_freq = dir_freq
         self.use_viewdirs = use_viewdirs
-        in_dim = posenc_output_dim(3, pos_freq)
+        self.dino_dim = dino_dim
+        in_dim = posenc_output_dim(3, pos_freq) + dino_dim
         if use_viewdirs:
             in_dim += posenc_output_dim(3, dir_freq)
         dims = [in_dim] + [hidden_dim] * num_layers
@@ -62,13 +62,18 @@ class NeRFMLP(nn.Module):
         self.rgb_head = torch_dense(hidden_dim, 3, generator)
 
     def forward(
-        self, pts: torch.Tensor, dirs: Optional[torch.Tensor] = None
+        self, pts: torch.Tensor, dirs: Optional[torch.Tensor] = None,
+        dino: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         parts = [positional_encoding(pts, self.pos_freq)]
         if self.use_viewdirs:
             if dirs is None:
                 raise ValueError("use_viewdirs=True requires dirs")
             parts.append(positional_encoding(dirs, self.dir_freq))
+        if self.dino_dim > 0:
+            if dino is None:
+                raise ValueError(f"dino_dim={self.dino_dim} requires dino features")
+            parts.append(dino)
         h = torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0]
         for layer in self.trunk:
             h = torch.relu(layer(h))

@@ -1,8 +1,9 @@
-"""Pinhole ray generation (counterpart of ``nerf_fewshot_tpu/ops/rays.py``;
-the 3D->2D projections come with feature conditioning).
+"""Pinhole ray generation and 3D->2D projection (counterpart of
+``nerf_fewshot_tpu/ops/rays.py``).
 
 OpenGL camera: looks down ``-z``, image ``y`` flipped, ``c2w`` 4x4
-camera-to-world.
+camera-to-world. The two projections reproduce the reference's own
+conventions, quirks included (see each docstring).
 """
 
 from __future__ import annotations
@@ -33,3 +34,36 @@ def get_rays(
     rays_d = dirs @ c2w[:3, :3].T
     rays_o = c2w[:3, 3].expand(rays_d.shape)
     return rays_o, rays_d
+
+
+def project_points_to_image(
+    points: torch.Tensor, c2w: torch.Tensor, focal: float, H: int, W: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """World points (N, 3) -> ``(points_2d (N, 2) in [-1, 1], depth (N,),
+    valid (N,) bool)`` through the inverse of ``c2w``, with ``+z`` as the
+    optical axis and no image-space y flip, ``valid = z > 0``: the
+    reference projection, whose convention differs from ``get_rays`` (points
+    in front of the camera get ``z < 0`` and ``valid`` False); reproduced,
+    not fixed. The inverse is ``torch.linalg.inv_ex``, which does not
+    synchronize with the device."""
+    w2c = torch.linalg.inv_ex(c2w)[0]
+    homo = torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
+    cam = homo @ w2c.T
+    z = cam[..., 2]
+    x = cam[..., 0] / (z + 1e-8) * focal + W / 2
+    y = cam[..., 1] / (z + 1e-8) * focal + H / 2
+    return torch.stack([(x / W) * 2.0 - 1.0, (y / H) * 2.0 - 1.0], dim=-1), z, z > 0
+
+
+def project_points_script(
+    points: torch.Tensor, c2w: torch.Tensor, focal: float, H: int, W: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The standalone scripts' projection, another convention:
+    ``cam = (p - t) @ R.T`` (the camera-to-world rotation applied forward,
+    no inverse), ``+z`` optical axis, division by z with no epsilon, no
+    validity mask. Returns ``(points_2d (N, 2), z (N,))``."""
+    cam = (points - c2w[:3, 3]) @ c2w[:3, :3].T
+    z = cam[..., 2]
+    x = cam[..., 0] / z * focal + W / 2
+    y = cam[..., 1] / z * focal + H / 2
+    return torch.stack([(x / W) * 2.0 - 1.0, (y / H) * 2.0 - 1.0], dim=-1), z

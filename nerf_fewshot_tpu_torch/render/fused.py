@@ -22,6 +22,7 @@ from nerf_fewshot_tpu_torch.render.kernels import (
     fused_render_fwd_pe,
     pack_params,
     pe_layout,
+    pe_width,
 )
 from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings
 
@@ -105,7 +106,7 @@ def fused_render_rays(
             perm, e2, c, x_dim = pe_layout(pos_freq, dir_freq, use_viewdirs,
                                            0 if feats is None else feats.shape[1])
             packed = pack_params(state, num_layers, hidden_dim,
-                                 d_pad=-(-x_dim // D_PAD) * D_PAD, row_perm=perm)
+                                 d_pad=pe_width(x_dim), row_perm=perm)
             rgb, depth, acc, weights = fused_render_fwd_pe(
                 _raw_block(pts, rays_d, use_viewdirs),
                 None if feats is None else feats.contiguous(), z.contiguous(), dnorm,

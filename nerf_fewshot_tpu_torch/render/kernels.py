@@ -27,7 +27,9 @@ import torch
 
 from nerf_fewshot_tpu_torch.render import cuda_build
 
-D_PAD = 128  # input-feature rows of w0 are padded to a multiple of this
+D_PAD = 128  # the pre-encoded x (kernels 4, 3, 5) is 128 or 256 wide
+PE_ALIGN = 16  # the inline-PE kernels (1, 2) take any width that is a multiple of 16
+MAX_PE_WIDTH = 256  # ... up to this one (csrc kMaxD)
 OUT_PAD = 128  # packed head columns: [r, g, b, sigma, 0...]
 KERNEL_WIDTHS = (128, 256)  # trunk widths the CUDA kernel is built for
 MAX_SAMPLES = 1024  # per-ray sigma/rgb scratch of the kernel lives in smem
@@ -82,6 +84,15 @@ def pe_layout(pos_freq: int, dir_freq: int, use_viewdirs: bool, feat_dim: int):
     canon_feat = canon_dir + (3 * (2 * Dq + 1) if use_viewdirs else 0)
     perm += [canon_feat + k for k in range(feat_dim)]
     return np.asarray(perm, np.int64), E2, C, n_raw + n_phase + feat_dim
+
+
+def pe_width(x_dim: int) -> int:
+    """The padded width D of the inline-PE kernels' input for ``x_dim``
+    live columns: the next multiple of ``PE_ALIGN`` (176 for the 166
+    columns of pos_freq 12 with 64-wide features, 240 for 230 with 128).
+    The JAX package pads to a multiple of 128; the pad rows of ``w0`` and
+    columns of x are zero either way, so the result is the same."""
+    return -(-x_dim // PE_ALIGN) * PE_ALIGN
 
 
 def _raw_block(pts: torch.Tensor, rays_d: torch.Tensor, use_viewdirs: bool) -> torch.Tensor:
@@ -390,7 +401,7 @@ def fused_render_fwd_pe(
     Fd = feats.shape[1] if use_feats else 0
     if H not in KERNEL_WIDTHS:
         raise ValueError(f"fused_render_fwd_pe: trunk width {H} not in {KERNEL_WIDTHS}")
-    if D % 16 or D > 256 or n_raw + n_phase + Fd > D:
+    if D % PE_ALIGN or D > MAX_PE_WIDTH or n_raw + n_phase + Fd > D:
         raise ValueError(
             f"fused_render_fwd_pe: input width {n_raw}+{n_phase}+{Fd} needs "
             f"d_pad >= it, a multiple of 16 and <= 256; got {D}"

@@ -2,7 +2,7 @@
 (counterpart of ``nerf_fewshot_tpu/render/pipeline.py``, the XLA path).
 
 The fused path (``render.fused``) and the training kernel are held against
-this one. Sigma noise and per-point features come with later slices.
+this one. Sigma noise comes with a later slice.
 """
 
 from __future__ import annotations
@@ -15,8 +15,10 @@ import torch
 from nerf_fewshot_tpu_torch.ops.composite import RenderOutputs, volume_render
 from nerf_fewshot_tpu_torch.ops.sampling import hierarchical_sample, sample_along_rays
 
-# model_fn(pts (N,3), dirs (N,3)) -> (rgb (N,3), sigma (N,1))
-ModelFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
+# model_fn(pts (N,3), dirs (N,3)[, feats (N,Fd)]) -> (rgb (N,3), sigma (N,1))
+ModelFn = Callable[..., Tuple[torch.Tensor, torch.Tensor]]
+# point_features_fn(pts (N,3)) -> (N, Fd) conditioning features
+PointFeaturesFn = Callable[[torch.Tensor], torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,8 +42,10 @@ def render_rays(
     settings: RenderSettings,
     uniforms: Optional[torch.Tensor] = None,
     importance_uniforms: Optional[torch.Tensor] = None,
+    point_features_fn: Optional[PointFeaturesFn] = None,
 ) -> RenderOutputs:
-    """Render (R, 3) rays. With ``settings.perturb`` the (R, n_samples)
+    """Render (R, 3) rays. ``point_features_fn`` gives each sample point's
+    features, the model's third input. With ``settings.perturb`` the (R, n_samples)
     ``uniforms`` jitter the stratified samples and the (R, n_importance)
     ``importance_uniforms`` draw the hierarchical samples; without them (or
     without ``perturb``) both are deterministic, as the JAX path with
@@ -54,21 +58,26 @@ def render_rays(
         rays_o, rays_d, settings.near, settings.far, settings.n_samples,
         uniforms=uniforms if settings.perturb else None, lindisp=settings.lindisp,
     )
-    out = _render_points(model_fn, pts, z_vals, rays_d, settings)
+    out = _render_points(model_fn, pts, z_vals, rays_d, settings, point_features_fn)
     if settings.n_importance <= 0:
         return out
     pts, z_vals = hierarchical_sample(
         rays_o, rays_d, z_vals, out.weights.detach(), settings.n_importance,
         uniforms=importance_uniforms if settings.perturb else None,
     )
-    return _render_points(model_fn, pts, z_vals, rays_d, settings)
+    return _render_points(model_fn, pts, z_vals, rays_d, settings, point_features_fn)
 
 
-def _render_points(model_fn: ModelFn, pts, z_vals, rays_d, settings: RenderSettings):
+def _render_points(model_fn: ModelFn, pts, z_vals, rays_d, settings: RenderSettings,
+                   point_features_fn: Optional[PointFeaturesFn] = None):
     """Evaluate the model at the (R, S, 3) points and composite them."""
     R, S, _ = pts.shape
     dirs = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
-    rgb, sigma = model_fn(pts.reshape(-1, 3), dirs)
+    pts_flat = pts.reshape(-1, 3)
+    if point_features_fn is None:
+        rgb, sigma = model_fn(pts_flat, dirs)
+    else:
+        rgb, sigma = model_fn(pts_flat, dirs, point_features_fn(pts_flat))
     return volume_render(
         rgb.reshape(R, S, 3), sigma.reshape(R, S), z_vals, rays_d,
         white_bkgd=settings.white_bkgd,

@@ -26,11 +26,12 @@ from torch import nn
 from nerf_fewshot_tpu_torch.ops.sampling import hierarchical_sample, sample_along_rays
 from nerf_fewshot_tpu_torch.render.fused import encode_points
 from nerf_fewshot_tpu_torch.render.kernels import (
-    D_PAD,
     KERNEL_WIDTHS,
     MAX_LAYERS,
+    MAX_PE_WIDTH,
     MAX_SAMPLES,
     OUT_PAD,
+    PE_ALIGN,
     Packed,
     _check_card,
     _check_compute_dtype,
@@ -47,6 +48,7 @@ from nerf_fewshot_tpu_torch.render.kernels import (
     fused_render_fwd_pe,
     pack_params,
     pe_layout,
+    pe_width,
 )
 from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings
 
@@ -148,7 +150,7 @@ def fused_train_objective(
     if inline_pe:
         n_raw, n_phase = raw_or_x.shape[1], e2.shape[1]
         Fd = 0 if feats is None else feats.shape[1]
-        if D % 16 or D > 256 or n_raw + n_phase + Fd > D:
+        if D % PE_ALIGN or D > MAX_PE_WIDTH or n_raw + n_phase + Fd > D:
             raise ValueError(
                 f"{CALLER}: input width {n_raw}+{n_phase}+{Fd} needs d_pad >= it, "
                 f"a multiple of 16 and <= 256; got {D}")
@@ -228,7 +230,7 @@ def _coarse_weights(params, pts, rays_d, z, dnorm, settings, pos_freq, dir_freq,
         perm, e2, c, x_dim = pe_layout(pos_freq, dir_freq, use_viewdirs,
                                        0 if feats is None else feats.shape[1])
         packed = pack_params(params, num_layers, hidden_dim,
-                             d_pad=-(-x_dim // D_PAD) * D_PAD, row_perm=perm)
+                             d_pad=pe_width(x_dim), row_perm=perm)
         out = fused_render_fwd_pe(
             _raw_block(pts, rays_d, use_viewdirs), feats, z.contiguous(), dnorm,
             torch.as_tensor(e2, device=z.device), torch.as_tensor(c, device=z.device), packed,
@@ -298,7 +300,7 @@ def train_objective_inputs(
         feat_dim = 0 if feats is None else feats.shape[1]
         perm, e2, c, x_dim = pe_layout(pos_freq, dir_freq, use_viewdirs, feat_dim)
         packed = pack_params(params, num_layers, hidden_dim,
-                             d_pad=-(-x_dim // D_PAD) * D_PAD, row_perm=perm)
+                             d_pad=pe_width(x_dim), row_perm=perm)
         inp = _raw_block(pts, rays_d, use_viewdirs)
         e2 = torch.as_tensor(e2, device=rays_o.device)
         c = torch.as_tensor(c, device=rays_o.device)

@@ -3,8 +3,10 @@
 ``config_from_dict`` normalisation of the reference YAML layouts, the same
 validation.
 
-``yaml`` is imported inside ``load_config`` only, so the port runs where
-PyYAML is absent; ``config_from_dict`` takes an already parsed dict.
+``load_config`` reads the YAML with the port's own reader
+(``utils/yaml_subset.py``, ``yaml.safe_load``'s typing of every scalar),
+so configs load where PyYAML is absent; ``config_from_dict`` takes an
+already parsed dict.
 """
 
 from __future__ import annotations
@@ -474,7 +476,7 @@ def validate_config(cfg: Config) -> Config:
 
 
 def load_config(path: str) -> Config:
-    import yaml
+    from nerf_fewshot_tpu_torch.utils.yaml_subset import safe_load
 
     with open(path) as f:
-        return validate_config(config_from_dict(yaml.safe_load(f)))
+        return validate_config(config_from_dict(safe_load(f.read())))

@@ -16,9 +16,17 @@ raises on a card, and trains on the plain path only on the CPU or with
 ``backend: xla``. The path taken is in ``kernel_path``. Minibatch
 permutations come from ``np.random.default_rng(cfg.seed)`` exactly as in
 the JAX trainer, so both draw the same batches. Eval renders every view
-through ``fused_render_rays(forward_only=True)`` on the kernel path. LPIPS,
-DINO conditioning, LoRA and the module architecture come with later slices
-and raise until then.
+through ``fused_render_rays(forward_only=True)`` on the kernel path.
+
+DINO conditioning takes the per-view feature maps ``dino_features``
+(V, Hp, Wp, Fd), computed once before training and held constant (no
+gradient reaches them, as in the reference). Each step's points are
+projected into its view and sampled from that view's map
+(``feature_sampler``); eval and the dead-sigma probe use train view 0's
+map and pose for every pose, the reference's quirk. On the kernel path the
+features enter kernel 1 and kernel 2 as their ``feats`` input. LPIPS, trunk
+LoRA and the module architecture come with later slices and raise until
+then.
 """
 
 from __future__ import annotations
@@ -36,10 +44,15 @@ from nerf_fewshot_tpu_torch.data.blender import BlenderDataset
 from nerf_fewshot_tpu_torch.device import DeviceLike, resolve_device
 from nerf_fewshot_tpu_torch.models.mlp import NeRFMLP, nerf_mlp_from_jax
 from nerf_fewshot_tpu_torch.ops.composite import RenderOutputs
-from nerf_fewshot_tpu_torch.ops.rays import get_rays
+from nerf_fewshot_tpu_torch.ops.interp import grid_sample
+from nerf_fewshot_tpu_torch.ops.rays import (
+    get_rays,
+    project_points_script,
+    project_points_to_image,
+)
 from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
-from nerf_fewshot_tpu_torch.render.kernels import KERNEL_WIDTHS
-from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings, render_rays
+from nerf_fewshot_tpu_torch.render.kernels import KERNEL_WIDTHS, MAX_PE_WIDTH, pe_layout
+from nerf_fewshot_tpu_torch.render.pipeline import PointFeaturesFn, RenderSettings, render_rays
 from nerf_fewshot_tpu_torch.render.train_kernel import fused_train_loss_grad
 from nerf_fewshot_tpu_torch.training.config import Config
 from nerf_fewshot_tpu_torch.training.losses import nerf_loss
@@ -50,6 +63,30 @@ from nerf_fewshot_tpu_torch.utils.logging import JSONLLogger, save_png
 from nerf_fewshot_tpu_torch.utils.profiling import RateMeter
 
 ChunkFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def _feature_sampler(feat_map: torch.Tensor, pose: torch.Tensor, focal: float, H: int, W: int,
+                     align_corners: bool = False, invalid_fill: str = "zeros",
+                     projection: str = "reference") -> PointFeaturesFn:
+    """Per-point conditioning: project (N, 3) points into the view of
+    ``pose`` and sample ``feat_map`` (Hp, Wp, Fd) there bilinearly.
+    ``projection='reference'`` is the proper-inverse projection with its
+    validity mask, ``'script'`` the standalone scripts' forward-rotation one
+    (no mask). ``invalid_fill='mean'`` replaces the features of invalid
+    projections by the mean over all sampled features, the zero-filled
+    invalid ones included: the multiscale trainer's quirk, reproduced."""
+
+    def fn(pts: torch.Tensor) -> torch.Tensor:
+        if projection == "script":
+            pts2d, _ = project_points_script(pts, pose, focal, H, W)
+            return grid_sample(feat_map, pts2d, align_corners=align_corners)
+        pts2d, _, valid = project_points_to_image(pts, pose, focal, H, W)
+        f = grid_sample(feat_map, pts2d, align_corners=align_corners)
+        if invalid_fill == "mean":
+            f = torch.where(valid[:, None], f, torch.mean(f, dim=0, keepdim=True))
+        return f
+
+    return fn
 
 
 @dataclasses.dataclass
@@ -74,11 +111,10 @@ class Trainer:
         test_data: Optional[BlenderDataset] = None,
         device: DeviceLike = None,
         log_path: Optional[str] = None,
+        dino_features: Optional[np.ndarray] = None,  # (V, Hp, Wp, Fd)
     ):
         if cfg.nerf.arch != "functional":
             raise NotImplementedError(f"arch={cfg.nerf.arch!r} is not ported yet")
-        if cfg.dino.use_dino:
-            raise NotImplementedError("DINO feature conditioning is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.train_data = train_data
@@ -87,12 +123,19 @@ class Trainer:
         self.targets_full = np.asarray(train_data.white_composited(), np.float32)  # (V,H,W,3)
         self.poses = np.asarray(train_data.poses, np.float32)
         self.n_views = train_data.n_views
+        self._poses_t = torch.as_tensor(self.poses, device=self.device)
+        # as the JAX trainer: conditioning needs the config's flag and the maps
+        self.use_dino = cfg.dino.use_dino and dino_features is not None
+        self.dino_features = (
+            torch.as_tensor(np.asarray(dino_features, np.float32), device=self.device)
+            if self.use_dino else None)
 
         generator = torch.Generator().manual_seed(cfg.seed)
         self.model = NeRFMLP(
             pos_freq=cfg.nerf.pos_freq,
             dir_freq=cfg.nerf.dir_freq,
             use_viewdirs=cfg.nerf.use_viewdirs,
+            dino_dim=cfg.dino.output_dim if self.use_dino else 0,
             hidden_dim=cfg.nerf.hidden_dim,
             num_layers=cfg.nerf.num_layers,
             skip_layers=tuple(cfg.nerf.skip_layers),
@@ -126,8 +169,20 @@ class Trainer:
     # ------------------------------------------------------------------ model
 
     def load_jax_params(self, params: Mapping) -> None:
-        """Take the weights of a JAX ``NeRFMLP`` param tree (numpy leaves)."""
+        """Take the weights of a JAX ``NeRFMLP`` param tree (numpy leaves),
+        with or without its DINO input rows."""
         self.model.load_state_dict(nerf_mlp_from_jax(params))
+
+    def feature_sampler(self, view: int) -> Optional[PointFeaturesFn]:
+        """Train view ``view``'s conditioning closure (``_feature_sampler``
+        with the DINO config's conventions and the full-resolution
+        intrinsics), or None without conditioning."""
+        if not self.use_dino:
+            return None
+        d = self.cfg.dino
+        return _feature_sampler(
+            self.dino_features[view], self._poses_t[view], self.focal, self.H, self.W,
+            align_corners=d.align_corners, invalid_fill=d.invalid_fill, projection=d.projection)
 
     def _jax_ineligible_reason(self) -> Optional[str]:
         """Why the JAX package's kernels would not take this config (its
@@ -141,9 +196,15 @@ class Trainer:
 
     def _port_gap_reason(self) -> Optional[str]:
         """Why the port's kernels cannot take a config the JAX kernels take."""
-        if self.cfg.nerf.hidden_dim not in KERNEL_WIDTHS:
-            return (f"hidden_dim={self.cfg.nerf.hidden_dim} has no CUDA build "
+        n = self.cfg.nerf
+        if n.hidden_dim not in KERNEL_WIDTHS:
+            return (f"hidden_dim={n.hidden_dim} has no CUDA build "
                     f"(the kernels are built for {KERNEL_WIDTHS})")
+        feat_dim = self.cfg.dino.output_dim if self.use_dino else 0
+        x_dim = pe_layout(n.pos_freq, n.dir_freq, n.use_viewdirs, feat_dim)[3]
+        if x_dim > MAX_PE_WIDTH:
+            return (f"the MLP input is {x_dim} wide; the CUDA kernels take at most "
+                    f"{MAX_PE_WIDTH}")
         return None
 
     def _use_fused(self) -> bool:
@@ -178,12 +239,14 @@ class Trainer:
         self.kernel_path_reason = reason
         return reason is None
 
-    def _ray_render_fn(self, settings: RenderSettings, forward_only: bool = False):
+    def _ray_render_fn(self, settings: RenderSettings, forward_only: bool = False,
+                       pf: Optional[PointFeaturesFn] = None):
         """``(rays_o, rays_d, uniforms=None, importance_uniforms=None) ->
-        RenderOutputs`` on the configured path. ``forward_only``: the eval
-        render, under no-grad (the inline-PE forward kernel on the kernel
-        path); otherwise differentiable in the model's parameters (the fused
-        ``fused_render`` on the kernel path, autograd on the plain one)."""
+        RenderOutputs`` on the configured path, conditioned on ``pf``'s
+        features. ``forward_only``: the eval render, under no-grad (the
+        inline-PE forward kernel on the kernel path); otherwise
+        differentiable in the model's parameters (the fused ``fused_render``
+        on the kernel path, autograd on the plain one)."""
         cfg = self.cfg
         if self._use_fused():
             params = (self.model.state_dict() if forward_only
@@ -198,13 +261,15 @@ class Trainer:
                     compute_dtype=cfg.rendering.compute_dtype,
                     forward_only=forward_only, device=self.device,
                     uniforms=uniforms, importance_uniforms=importance_uniforms,
+                    point_features_fn=pf,
                 )
 
             return fn
 
         def fn(ro, rd, uniforms=None, importance_uniforms=None) -> RenderOutputs:
             with torch.set_grad_enabled(torch.is_grad_enabled() and not forward_only):
-                return render_rays(self.model, ro, rd, settings, uniforms, importance_uniforms)
+                return render_rays(self.model, ro, rd, settings, uniforms, importance_uniforms,
+                                   point_features_fn=pf)
 
         return fn
 
@@ -259,7 +324,7 @@ class Trainer:
     # ------------------------------------------------------------- train step
 
     def _kernel_loss_grad(self, ro, rd, tgt, mask, settings, uniforms,
-                          importance_uniforms) -> torch.Tensor:
+                          importance_uniforms, pf=None) -> torch.Tensor:
         """One step's loss; its gradients land in the parameters' ``.grad``."""
         cfg = self.cfg
         loss, grads = fused_train_loss_grad(
@@ -268,7 +333,7 @@ class Trainer:
             num_layers=cfg.nerf.num_layers, hidden_dim=cfg.nerf.hidden_dim,
             use_viewdirs=cfg.nerf.use_viewdirs, compute_dtype=cfg.rendering.compute_dtype,
             uniforms=uniforms, importance_uniforms=importance_uniforms,
-            rgb_weight=float(cfg.loss.rgb_weight),
+            point_features_fn=pf, rgb_weight=float(cfg.loss.rgb_weight),
             reg_weight=0.0 if cfg.strict_reference_behavior else float(cfg.loss.reg_weight),
         )
         for name, p in self.model.named_parameters():
@@ -276,9 +341,9 @@ class Trainer:
         return loss
 
     def _plain_loss_grad(self, ro, rd, tgt, mask, settings, uniforms,
-                         importance_uniforms) -> torch.Tensor:
+                         importance_uniforms, pf=None) -> torch.Tensor:
         cfg = self.cfg
-        out = self._ray_render_fn(settings)(ro, rd, uniforms, importance_uniforms)
+        out = self._ray_render_fn(settings, pf=pf)(ro, rd, uniforms, importance_uniforms)
         losses = nerf_loss(
             out.rgb, tgt, cfg.loss,
             weights=None if cfg.strict_reference_behavior else out.weights, mask=mask,
@@ -319,6 +384,7 @@ class Trainer:
         step = self._kernel_loss_grad if self._use_fused() else self._plain_loss_grad
         losses = []
         for v in range(V):
+            pf = self.feature_sampler(v)  # the view's map and pose (JAX trainer.py:608-613)
             view_packed = torch.cat([pd.rays_o[v], pd.rays_d[v], pd.targets[v]], dim=1)
             for b in range(n_batches):
                 row = view_packed[idxs_t[v, b]]
@@ -330,7 +396,7 @@ class Trainer:
                         importance = torch.rand((B, settings.n_importance),
                                                 generator=self._generator, device=self.device)
                 losses.append(step(row[:, 0:3], row[:, 3:6], row[:, 6:9], masks_t[v, b],
-                                   settings, uniforms, importance))
+                                   settings, uniforms, importance, pf))
                 self.optimizer.step()
         self.last_step_losses = torch.stack(losses).cpu().numpy()
         return float(np.mean(self.last_step_losses))
@@ -357,9 +423,11 @@ class Trainer:
     # ------------------------------------------------------------------- eval
 
     def _eval_chunk_fn(self, n_samples: int) -> ChunkFn:
-        """Per-chunk eval renderer: (ro, rd) -> (rgb, depth, acc)."""
+        """Per-chunk eval renderer: (ro, rd) -> (rgb, depth, acc), conditioned
+        on train view 0's features whatever the pose (the reference's eval
+        quirk)."""
         render = self._ray_render_fn(self._render_settings(n_samples, training=False),
-                                     forward_only=True)
+                                     forward_only=True, pf=self.feature_sampler(0))
 
         def chunk(ro, rd):
             out = render(ro, rd)

@@ -1,14 +1,17 @@
 """Structured training logs and PNG image dumps (counterpart of
 ``nerf_fewshot_tpu/utils/logging.py``).
 
-A JSONL sink (one dict per line); the CSV sink (a log path ending in
-``.csv``) and the wandb mirror are not ported and raise. PNGs are written with
+A JSONL sink (one dict per line), or a CSV sink when the log path ends in
+``.csv`` (the header from the first record's sorted keys, one row per
+record, numbers as floats, keys the header lacks left out); the wandb
+mirror is not ported and raises. PNGs are written with
 ``zlib`` and ``struct`` from the standard library: the card machine has no
 PIL.
 """
 
 from __future__ import annotations
 
+import csv
 import json
 import os
 import struct
@@ -25,18 +28,29 @@ class JSONLLogger:
                  config: Optional[Dict] = None):
         if use_wandb:
             raise NotImplementedError("the wandb mirror is not ported; use the JSONL sink")
-        if path and path.endswith(".csv"):
-            raise NotImplementedError("the CSV sink is not ported; use a .jsonl log path")
         self.path = path
         self._fh = None
+        self._csv = None
+        self._csv_fields: Optional[list] = None
         if path:
             os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
-            self._fh = open(path, "a")
+            is_csv = path.endswith(".csv")
+            self._fh = open(path, "a", newline="" if is_csv else None)
+            if is_csv:
+                self._csv = csv.writer(self._fh)
 
     def log(self, record: Dict[str, Any]) -> None:
         record = dict(record)
         record.setdefault("time", time.time())
-        if self._fh:
+        if self._csv is not None:
+            if self._csv_fields is None:
+                self._csv_fields = sorted(record)
+                self._csv.writerow(self._csv_fields)
+            self._csv.writerow(
+                [float(record[k]) if isinstance(record.get(k), (int, float))
+                 else record.get(k, "") for k in self._csv_fields])
+            self._fh.flush()
+        elif self._fh:
             self._fh.write(json.dumps(record, default=float) + "\n")
             self._fh.flush()
 
@@ -44,6 +58,7 @@ class JSONLLogger:
         if self._fh:
             self._fh.close()
             self._fh = None
+            self._csv = None
 
 
 def _png_chunk(tag: bytes, data: bytes) -> bytes:

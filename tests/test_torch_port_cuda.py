@@ -457,3 +457,59 @@ def test_hierarchical_train_epoch_on_the_card_matches_the_cpu(h100, monkeypatch)
     g, c = gpu.render_views(data.poses[:1]), cpu.render_views(data.poses[:1])
     for a, b, name in zip(g, c, ("rgb", "depth", "acc")):
         np.testing.assert_allclose(a, b, rtol=0, atol=TOL[name], err_msg=name)
+
+
+DINO_WIDTHS = [(64, 176), (128, 240)]  # features, padded input width at pos_freq 12
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white_bkgd", [False, True])
+@pytest.mark.parametrize("feat_dim,D", DINO_WIDTHS)
+def test_fwd_pe_kernel_at_the_dino_widths(h100, feat_dim, D, white_bkgd):
+    """Kernel 2 on a 1024 x 64 eval chunk (the DINO configs' chunk_size) at
+    pos_freq 12, its input padded to a multiple of 16 as the port's glue
+    pads it (10 zero columns)."""
+    import chip_smoke
+
+    args = chip_smoke.random_fwd_pe_args(np.random.default_rng(3), 1024, 64, 256, 8, feat_dim,
+                                         h100, pos_freq=12, d_pad=tk.pe_width(102 + feat_dim))
+    assert args[-1][0].shape[0] == D
+    got = tk.fused_render_fwd_pe(*args, white_bkgd=white_bkgd, use_feats=True)
+    want = tk.fused_render_fwd_pe_reference(*args, white_bkgd=white_bkgd, use_feats=True)
+    for g, w, name in zip(got, want, ("rgb", "depth", "acc", "weights")):
+        assert torch.isfinite(g).all(), name
+        err = (g - w).abs().max().item()
+        assert err <= TOL[name], (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "white_masked_reg_depth"])
+@pytest.mark.parametrize("feat_dim,D", DINO_WIDTHS)
+def test_train_kernel_at_the_dino_widths(h100, feat_dim, D, case):
+    """Kernel 1 at 512 x 64 and pos_freq 12 with the DINO feature widths;
+    two calls bit-equal."""
+    kw = {} if case == "plain" else dict(white_bkgd=True, ragged=9, reg_weight=0.01,
+                                         depth_weight=0.1)
+    args, opts = _train_inputs(512, 64, 256, 8, h100, feat_dim=feat_dim, pos_freq=12, **kw)
+    assert args[-1][0].shape[0] == D
+    a = tt.fused_train_objective(*args, **opts)
+    b = tt.fused_train_objective(*args, **opts)
+    torch.cuda.synchronize()
+    assert torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    _check_train(a, tt.fused_train_objective_reference(*args, **opts), 1e-4)
+    # the pad rows of w0 (past the 102 + feat_dim live columns) get no gradient
+    assert torch.count_nonzero(a[1][0][102 + feat_dim:]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("feat_dim", [64, 128])
+def test_render_bwd_kernel_dx_at_the_dino_widths(h100, feat_dim):
+    """Kernel 3 with dx on the pre-encoded x of pos_freq 12 and the DINO
+    feature widths (x 256 wide, 90 or 26 zero columns): dx and the packed
+    gradients against the plain version; dx of the pad columns is 0."""
+    (x, z, dnorm, packed), cot = _render_inputs(512, 64, 256, 8, h100, feat_dim=feat_dim,
+                                                pos_freq=12)
+    assert x.shape[1] == 256
+    got = tk.fused_render_bwd(x, z, dnorm, packed, *cot)
+    _check_vjp(got, tk.fused_render_bwd_reference(x, z, dnorm, packed, *cot), 1e-4)
+    assert torch.count_nonzero(got[0][:, 102 + feat_dim:]) == 0

@@ -17,7 +17,6 @@ ALLOWED_TOP = {"torch", "numpy", "nerf_fewshot_tpu_torch", "__future__"}
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "yaml", "PIL", "nerf_fewshot_tpu"}
 # the only lazy imports of a forbidden module: (file, function, module)
 LAZY_ALLOWED = {
-    ("training/config.py", "load_config", "yaml"),
     ("data/blender.py", "load_blender", "PIL"),
 }
 

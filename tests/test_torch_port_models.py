@@ -62,7 +62,8 @@ def test_nerf_mlp_from_jax_refuses_lora_trees():
         nerf_mlp_from_jax(params)
 
 
-@pytest.mark.parametrize("kwargs", [{"dino_dim": 64}, {"skip_layers": (1,)}, {"lora_rank": 4}])
+@pytest.mark.parametrize("kwargs", [{"dino_dim": 64, "lora_rank": 4}, {"skip_layers": (1,)},
+                                    {"lora_rank": 4}])
 def test_nerf_mlp_refuses_unported_options(kwargs):
     with pytest.raises(NotImplementedError):
         NeRFMLP(hidden_dim=128, num_layers=3, **kwargs)

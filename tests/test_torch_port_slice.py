@@ -182,7 +182,7 @@ def test_trainer_init_is_seeded_and_refuses_unported_work(scene):
     assert torch.all(a.model.sigma_head.bias == 0.1)
     raw = _slice_config(tcfg).raw
     for unported in ({"nerf_model": {**raw["nerf_model"], "lora_rank": 4}},
-                     {"model": {"use_dino": True}}):
+                     {"nerf_model": {**raw["nerf_model"], "arch": "module"}}):
         with pytest.raises(NotImplementedError):
             Trainer(tcfg.config_from_dict({**raw, **unported}), _port_data(train), device="cpu")
     with pytest.raises(ValueError, match="backend=fused"):

@@ -291,8 +291,16 @@ def test_logger_and_rate_meter_match_jax(tmp_path):
     assert pt.read_text() == pj.read_text()
     with pytest.raises(NotImplementedError):
         JSONLLogger(use_wandb=True)
-    with pytest.raises(NotImplementedError, match="CSV"):
-        JSONLLogger(str(tmp_path / "t.csv"))
+    # the CSV sink: the header from the first record, the same rows
+    cj, ct = tmp_path / "j.csv", tmp_path / "t.csv"
+    jl, tl = jlogging.JSONLLogger(str(cj)), JSONLLogger(str(ct))
+    for r in recs + [{"epoch": 1, "psnr": 9.5, "time": 3.0}]:
+        jl.log(r)
+        tl.log(r)
+    jl.close()
+    tl.close()
+    assert ct.read_text() == cj.read_text()
+    assert ct.read_text().splitlines()[0] == "epoch,time,train_loss"
     m = RateMeter(alpha=0.5)
     assert m.update(100, 2.0) == 50.0 and m.update(100, 1.0) == 75.0
 

@@ -11,11 +11,13 @@ its seconds:
    2 and 4; ``csrc/train_pe.cu``: kernels 1, 5 and 3), one process per
    source, all started together, and prints ptxas' register, shared-memory
    and spill lines;
-3. kernel vs plain: the inline-PE render kernel (kernel 2) against its plain
-   PyTorch version on the card, at the main path's shape (2048 rays x 64
-   samples, 8x256 trunk, the baseline's random init from its seed) and at
-   S = 48 / 192, white background and 64-wide point features; CUDA-event
-   times of both at the main path's shape;
+3. kernel vs plain: the inline-PE render kernel (kernel 2: trunk products
+   as 3xTF32 wgmma) against its plain PyTorch version on the card, at the
+   main path's shape (2048 rays x 64 samples, 8x256 trunk, the baseline's
+   random init from its seed), two calls bit for bit, and at S = 48 / 192,
+   white background and 64-wide point features; CUDA-event times of both at
+   the main path's shape, its bound, and the device time of each of its
+   grid launches (weight split, trunk, composite);
 4. train kernel vs plain: the training-objective kernel (loss and all six
    packed gradients) against its plain version at the three phase shapes
    of the schedule (1024x32, 1024x48, 512x64 rays x samples, 8x256, the
@@ -27,9 +29,9 @@ its seconds:
    plain version against a float64 run of the plain version from the same
    fp32 encoded input (a report);
 5. render kernel 4 vs plain: the render from a pre-encoded x at the main
-   path's shape (a 2048x64 eval chunk, x 128 wide, the baseline's init) and
-   at S = 128, white background, 64-wide features (x 256 wide); times and
-   bound;
+   path's shape (a 2048x64 eval chunk, x 128 wide, the baseline's init), two
+   calls bit for bit, and at S = 128, white background, 64-wide features (x
+   256 wide); times, bound and the device time of each grid launch;
 6. render VJP kernel 3 vs plain: at 512x64 (the baseline's phase-2 batch,
    its init, standard-normal cotangents on all four outputs), two calls bit
    for bit, then a white background with 64-wide features, S = 128 and
@@ -171,14 +173,14 @@ SMOKE_CONFIG = {
 }
 
 # H100 SXM published peaks (dense): FP32 on the CUDA cores, TF32 on the
-# tensor cores, HBM3 bandwidth. Kernels 1, 5 and 3 run their trunk products
-# as 3xTF32 (three TF32 products each), so their bound is 3 * FLOPs at the
-# TF32 rate; kernels 2 and 4 are exact fp32 on the CUDA cores.
+# tensor cores, HBM3 bandwidth. All five kernels run their trunk products as
+# 3xTF32 (three TF32 products each), so their bound is 3 * FLOPs at the TF32
+# rate; the bound at the fp32 CUDA-core rate is printed beside it.
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
-# Kernel vs plain: fp32 sums in another order (the kernel: k-ordered FMAs;
-# cuBLAS: its blocked order); depth sums w*z with z up to 6.
+# Kernel vs plain: the kernel's 3xTF32 trunk products (~2^-22 off each) and
+# fp32 sums in another order than cuBLAS's; depth sums w*z with z up to 6.
 TOL = {"rgb": 1e-4, "depth": 1e-3, "acc": 1e-4, "weights": 1e-4}
 # Train kernel vs plain: loss rel 1e-5; the six packed gradients as one
 # vector rel 1e-4, and 2e-2 at sigma_bias 5.0, where the backward divides by
@@ -492,7 +494,8 @@ def main_path_train_args(trainer, phase_idx, device, inline_pe=True, seed=0):
 
 # Device-time groups of the profiled runs, by kernel name (first match).
 KERNEL_GROUPS = ("train_fwd", "train_bwd", "train_dw", "train_composite", "render_composite",
-                 "render_dx", "train_finalize", "loss_sum", "weight_split", "fwd_kernel")
+                 "render_dx", "train_finalize", "loss_sum", "weight_split", "fwd_split",
+                 "fwd_trunk", "fwd_composite")
 
 
 def trace(run, with_cpu):
@@ -623,6 +626,14 @@ def main_path_fwd_x_args(trainer, pose, device):
     packed = tk.pack_params(trainer.model.state_dict(), cfg.nerf.num_layers,
                             cfg.nerf.hidden_dim, d_pad=x.shape[1])
     return x, z, torch.linalg.norm(rd, dim=-1, keepdim=True), packed
+
+
+def check_bit_equal(name, got, again):
+    """Raises unless two calls on the same inputs gave the same bits."""
+    torch.cuda.synchronize()
+    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+        raise RuntimeError(f"{name}: two calls on the same inputs differ")
+    print(f"  {name}: two calls agree bit for bit", flush=True)
 
 
 def compare(name, got, want):
@@ -1052,11 +1063,12 @@ def run_dino_kernel_widths(device, tk, tt):
         k_ms = cuda_ms(lambda: tk.fused_render_fwd_pe(*args, use_feats=True), iters=20)
         p_ms = cuda_ms(lambda: tk.fused_render_fwd_pe_reference(*args, use_feats=True), iters=10)
         flops, nbytes = fwd_pe_cost(args, use_feats=True)
-        b_ms, b_by, _ = bounds(flops, nbytes, tensor_cores=False)
-        rows[("fwd_pe", d)] = (err, k_ms, p_ms, b_ms, b_by, None)
+        b_ms, b_by, _ = bounds(flops, nbytes, tensor_cores=True)
+        b32_ms, _, _ = bounds(flops, nbytes, tensor_cores=False)
+        rows[("fwd_pe", d)] = (err, k_ms, p_ms, b_ms, b_by, b32_ms)
         print(f"  kernel 2 1024x64 D {d}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-              f"{b_ms:.3f} ms by {b_by} fp32 (share {b_ms / k_ms:.1%}; {flops / 1e9:.1f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB)", flush=True)
+              f"{b_ms:.3f} ms by {b_by} as 3xTF32 (share {b_ms / k_ms:.1%}; {b32_ms:.3f} ms fp32; "
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
     return rows
 
 
@@ -1279,8 +1291,9 @@ def main():
 
     with phase("kernel vs plain"):
         args = main_path_fwd_pe_args(trainer, test.poses[0], device)
-        max_err = compare("main path 2048x64, 8x256",
-                          tk.fused_render_fwd_pe(*args), tk.fused_render_fwd_pe_reference(*args))
+        got = tk.fused_render_fwd_pe(*args)
+        check_bit_equal("kernel 2", got, tk.fused_render_fwd_pe(*args))
+        max_err = compare("main path 2048x64, 8x256", got, tk.fused_render_fwd_pe_reference(*args))
         rng = np.random.default_rng(cfg.seed)
         for S, white, fd in ((48, False, 0), (192, False, 0), (64, True, 0), (64, False, 64)):
             a = random_fwd_pe_args(rng, 2048, S, 256, 8, fd, device)
@@ -1291,11 +1304,14 @@ def main():
         kernel_ms = cuda_ms(lambda: tk.fused_render_fwd_pe(*args), iters=20)
         plain_ms = cuda_ms(lambda: tk.fused_render_fwd_pe_reference(*args), iters=10)
         flops, nbytes = fwd_pe_cost(args, use_feats=False)
-        bound_ms, bound_by, _ = bounds(flops, nbytes, tensor_cores=False)
+        bound_ms, bound_by, _ = bounds(flops, nbytes, tensor_cores=True)
+        bound32_ms, _, _ = bounds(flops, nbytes, tensor_cores=False)
         print(f"  main path: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-              f"{bound_ms:.3f} ms by {bound_by} ({flops / 1e9:.1f} GFLOP, "
+              f"{bound_ms:.3f} ms by {bound_by} as 3xTF32 (share {bound_ms / kernel_ms:.1%}; "
+              f"{bound32_ms:.3f} ms at the fp32 CUDA-core peak; {flops / 1e9:.1f} GFLOP, "
               f"{nbytes / 1e6:.2f} MB); kernel at {flops / kernel_ms / 1e9:.2f} TFLOP/s",
               flush=True)
+        print_launch_times("kernel 2 2048x64", lambda: tk.fused_render_fwd_pe(*args))
 
     with phase("train kernel vs plain"):
         train_err = {"train_pe": 0.0, "train_x": 0.0}
@@ -1350,8 +1366,10 @@ def main():
 
     with phase("render kernel 4 vs plain"):
         fx_args = main_path_fwd_x_args(trainer, test.poses[0], device)
-        fwd_err = compare("main path 2048x64, 8x256, x 128 wide",
-                          tk.fused_render_fwd(*fx_args), tk.fused_render_reference(*fx_args))
+        got = tk.fused_render_fwd(*fx_args)
+        check_bit_equal("kernel 4", got, tk.fused_render_fwd(*fx_args))
+        fwd_err = compare("main path 2048x64, 8x256, x 128 wide", got,
+                          tk.fused_render_reference(*fx_args))
         rng = np.random.default_rng(cfg.seed)
         for S, white, fd in ((128, False, 0), (64, True, 0), (64, False, 64)):
             a, _ = random_render_args(rng, 2048, S, 256, 8, device, feat_dim=fd)
@@ -1363,11 +1381,14 @@ def main():
         fwd_ms = cuda_ms(lambda: tk.fused_render_fwd(*fx_args), iters=20)
         fwd_plain_ms = cuda_ms(lambda: tk.fused_render_reference(*fx_args), iters=10)
         flops, nbytes = render_cost(fx_args, 90, backward=False)
-        fwd_bound_ms, fwd_bound_by, _ = bounds(flops, nbytes, tensor_cores=False)
+        fwd_bound_ms, fwd_bound_by, _ = bounds(flops, nbytes, tensor_cores=True)
+        fwd_bound32_ms, _, _ = bounds(flops, nbytes, tensor_cores=False)
         print(f"  main path: kernel {fwd_ms:.3f} ms, plain {fwd_plain_ms:.3f} ms, bound "
-              f"{fwd_bound_ms:.3f} ms by {fwd_bound_by} ({flops / 1e9:.1f} GFLOP on the 90 real "
-              f"input columns, {nbytes / 1e6:.2f} MB); kernel at "
-              f"{flops / fwd_ms / 1e9:.2f} TFLOP/s", flush=True)
+              f"{fwd_bound_ms:.3f} ms by {fwd_bound_by} as 3xTF32 (share "
+              f"{fwd_bound_ms / fwd_ms:.1%}; {fwd_bound32_ms:.3f} ms at the fp32 CUDA-core peak; "
+              f"{flops / 1e9:.1f} GFLOP on the 90 real input columns, {nbytes / 1e6:.2f} MB); "
+              f"kernel at {flops / fwd_ms / 1e9:.2f} TFLOP/s", flush=True)
+        print_launch_times("kernel 4 2048x64", lambda: tk.fused_render_fwd(*fx_args))
 
     with phase("render VJP kernel 3 vs plain"):
         (bw_args, bw_cot) = main_path_render_bwd_args(trainer, device)
@@ -1518,10 +1539,9 @@ def main():
                "max_abs_err": max([err] + [dino[n]["train_err" if train else "fwd_err"]
                                            for n in names]),
                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-               "bound_rate": "3xTF32 at 495 TFLOP/s" if train else "fp32 at 67 TFLOP/s",
+               "bound_rate": "3xTF32 at 495 TFLOP/s", "bound_fp32_ms": b32_ms,
                "library_ms": None}
         if train:
-            row["bound_fp32_ms"] = b32_ms
             row["ms_at_the_step_shape"] = {n: dino[n]["train_ms"] for n in names}
         return row
 
@@ -1542,7 +1562,8 @@ def main():
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
-        "bound_rate": "fp32 at 67 TFLOP/s",
+        "bound_rate": "3xTF32 at 495 TFLOP/s",
+        "bound_fp32_ms": bound32_ms,
         "library_ms": None,
     }, train_row("train_pe", 343, train_launches),
         train_row("train_x", 320, x_launches + x_launches_hier), {
@@ -1556,7 +1577,8 @@ def main():
         "plain_ms": fwd_plain_ms,
         "bound_ms": fwd_bound_ms,
         "bound_by": fwd_bound_by,
-        "bound_rate": "fp32 at 67 TFLOP/s",
+        "bound_rate": "3xTF32 at 495 TFLOP/s",
+        "bound_fp32_ms": fwd_bound32_ms,
         "library_ms": None,
     }, {
         "name": "render_bwd",

@@ -33,10 +33,10 @@ MAX_PE_WIDTH = 256  # ... up to this one (csrc kMaxD)
 OUT_PAD = 128  # packed head columns: [r, g, b, sigma, 0...]
 KERNEL_WIDTHS = (128, 256)  # trunk widths the CUDA kernel is built for
 MAX_SAMPLES = 1024  # per-ray sigma/rgb scratch of the kernel lives in smem
-# csrc/fwd_pe.cu:nerf_fwd_pe(16 pointers, 10 ints, stream)
-FWD_PE_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-# csrc/fwd_pe.cu:nerf_fwd_x(13 pointers, 7 ints, stream)
-FWD_X_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# csrc/fwd_pe.cu:nerf_fwd_pe(17 pointers (the last the scratch), 10 ints, stream)
+FWD_PE_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+# csrc/fwd_pe.cu:nerf_fwd_x(14 pointers (the last the scratch), 7 ints, stream)
+FWD_X_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 # csrc/train_pe.cu:nerf_render_bwd(16 pointers, 7 ints, stream)
 RENDER_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 MAX_LAYERS = 15  # trunk layers the backward kernels take (train_pe.cu kMaxJobs - 1)
@@ -202,10 +202,10 @@ def _trunk(x: torch.Tensor, packed: Packed):
 
 
 def _check_compute_dtype(compute_dtype: str) -> None:
-    """``float32`` and ``highest`` run the same kernels: the render forward
-    (kernels 2 and 4) in exact fp32 on the CUDA cores; the objective and the
-    render VJP (kernels 1, 5 and 3) with their trunk products as 3xTF32 on
-    the tensor cores (``csrc/train_pe.cu``), the PE phases and both
+    """``float32`` and ``highest`` run the same kernels, all five with their
+    trunk products as 3xTF32 on the tensor cores (``csrc/fwd_pe.cu`` for the
+    render forward, kernels 2 and 4; ``csrc/train_pe.cu`` for the objective
+    and the render VJP, kernels 1, 5 and 3), the PE phases, the head and the
     compositing scans in exact fp32. ``bfloat16`` is not ported."""
     if compute_dtype == "bfloat16":
         raise NotImplementedError(
@@ -316,26 +316,30 @@ def _raise_on(err: int, lib, what: str) -> None:
             f"({lib.nerf_cuda_error_string(err).decode()})")
 
 
-# The backward kernels' activation/cotangent scratch: one buffer per
-# device, grown to the largest call seen and reused by every later call on
-# that device (calls are ordered on the current stream, so reuse is safe
+# The kernels' scratch (the backward kernels' activations and cotangents;
+# the render forward's weight halves and head outputs): one buffer per
+# device and source, grown to the largest call seen and reused by every
+# later call (calls are ordered on the current stream, so reuse is safe
 # there).
-_SCRATCH: Dict[torch.device, torch.Tensor] = {}
+_SCRATCH: Dict[Tuple[torch.device, str], torch.Tensor] = {}
 
 
-def _scratch(lib, device: torch.device, R: int, S: int, D: int, H: int, L1: int) -> torch.Tensor:
-    """The scratch ``csrc/train_pe.cu`` needs for R x S points of a D-wide
+def _scratch(lib, device: torch.device, R: int, S: int, D: int, H: int, L1: int,
+             source: str = "train_pe") -> torch.Tensor:
+    """The scratch ``csrc/<source>.cu`` needs for R x S points of a D-wide
     input through an L1+1-layer, H-wide trunk."""
-    size = lib.nerf_train_scratch_floats
+    size = getattr(lib, "nerf_fwd_scratch_floats" if source == "fwd_pe"
+                   else "nerf_train_scratch_floats")
     if size.argtypes is None:
         size.argtypes = [ctypes.c_int] * 5
         size.restype = ctypes.c_ulonglong
     n_floats = size(R, S, D, H, L1)
-    buf = _SCRATCH.get(device)
+    key = (device, source)
+    buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < n_floats:
-        _SCRATCH.pop(device, None)
+        _SCRATCH.pop(key, None)
         buf = torch.empty(n_floats, dtype=torch.float32, device=device)
-        _SCRATCH[device] = buf
+        _SCRATCH[key] = buf
     return buf
 
 
@@ -427,9 +431,10 @@ def fused_render_fwd_pe(
     acc = torch.empty((R, 1), dtype=torch.float32, device=device)
     weights = torch.empty((R, S), dtype=torch.float32, device=device)
     lib, fn = _lib_fn("fwd_pe", "nerf_fwd_pe", FWD_PE_ARGTYPES)
+    scratch = _scratch(lib, device, R, S, D, H, L1, source="fwd_pe")
     feats_ptr = feats.data_ptr() if use_feats else None
     ptrs = [t.data_ptr() for t in (z, dnorm, e2, c, w0, b0, wh, bh, wout, bout,
-                                   rgb, depth, acc, weights)]
+                                   rgb, depth, acc, weights, scratch)]
     err = fn(raw.data_ptr(), feats_ptr, *ptrs, R, S, n_raw, n_phase, Fd, D, H, L1,
              int(white_bkgd), device.index, torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, lib, "fwd_pe")
@@ -480,7 +485,8 @@ def fused_render_fwd(x, z, dnorm, packed: Packed, white_bkgd: bool = False,
     outs = [torch.empty(shape, dtype=torch.float32, device=device)
             for shape in ((R, 3), (R, 1), (R, 1), (R, S))]
     lib, fn = _lib_fn("fwd_pe", "nerf_fwd_x", FWD_X_ARGTYPES)
-    err = fn(*(t.data_ptr() for t in (x, z, dnorm, *packed, *outs)), R, S, D, H, L1,
+    scratch = _scratch(lib, device, R, S, D, H, L1, source="fwd_pe")
+    err = fn(*(t.data_ptr() for t in (x, z, dnorm, *packed, *outs, scratch)), R, S, D, H, L1,
              int(white_bkgd), device.index, torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, lib, "fwd_x")
     fused_render_fwd.launches += 1

@@ -137,8 +137,8 @@ class RenderingConfig:
     # 'xla' = the plain pipeline; 'auto' picks fused when eligible.
     backend: str = "auto"
     # Matmul precision inside the fused kernels: 'float32' and 'highest' are
-    # the same in the port (exact fp32 render forward; the objective's and
-    # the render VJP's trunk products as 3xTF32); 'bfloat16' raises.
+    # the same in the port (every kernel's trunk products as 3xTF32, the PE
+    # phases, head and compositing in exact fp32); 'bfloat16' raises.
     compute_dtype: str = "float32"
 
 

@@ -10,10 +10,10 @@ conftest (the card machine has no jax):
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Tolerance: the render kernels (2, 4) sum the fp32 trunk products in k order
-with FMAs, cuBLAS in its own blocked order; with the PE phases and sinf
-identical to ~1 ulp, rgb/acc/weights agree to 1e-4 and depth (up to 6) to
-1e-3. The training objective (kernels 1, 5), whose trunk products run as
+Tolerance: the render kernels (2, 4) take their trunk products as 3xTF32
+on the tensor cores (~2^-22 off each, ~fp32 accuracy) and sum them in
+another order than cuBLAS; with the PE phases and sinf identical to ~1 ulp,
+rgb/acc/weights agree to 1e-4 and depth (up to 6) to 1e-3. The training objective (kernels 1, 5), whose trunk products run as
 3xTF32 on the tensor cores (~fp32 accuracy): loss to rel 1e-5, the six
 packed gradients as one vector to rel 1e-4 (sums in other orders through a
 2-9 layer chain),
@@ -65,6 +65,64 @@ def test_fwd_pe_kernel_matches_plain(h100, S, H, L, white_bkgd, feat_dim):
     assert tk.fused_render_fwd_pe.launches == before + 1
     want = tk.fused_render_fwd_pe_reference(*args, white_bkgd=white_bkgd, use_feats=use_feats)
     for g, w, name in zip(got, want, ("rgb", "depth", "acc", "weights")):
+        assert torch.isfinite(g).all(), name
+        err = (g - w).abs().max().item()
+        assert err <= TOL[name], (name, err)
+
+
+def _fwd_case(kernel, R, S, H, L, feat_dim, device, seed=0):
+    """Random inputs of kernel 2 (inline PE, the input padded to a multiple of
+    16 as the port's glue pads it) or kernel 4 (a pre-encoded x, 128 wide, or
+    256 with features), and the (kernel, plain version) pair."""
+    import chip_smoke
+
+    rng = np.random.default_rng(seed)
+    if kernel == 2:
+        args = chip_smoke.random_fwd_pe_args(rng, R, S, H, L, feat_dim, device,
+                                             d_pad=tk.pe_width(90 + feat_dim))
+        kw = dict(use_feats=feat_dim > 0)
+        return (args, kw, tk.fused_render_fwd_pe, tk.fused_render_fwd_pe_reference)
+    args, _ = chip_smoke.random_render_args(rng, R, S, H, L, device, feat_dim=feat_dim)
+    return args, {}, tk.fused_render_fwd, tk.fused_render_reference
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [2, 4])
+def test_fwd_kernels_are_deterministic(h100, kernel):
+    """Kernels 2 and 4 on a 2048 x 64 eval chunk: two calls agree bit for bit
+    (no atomics; each tile's sums in a fixed order)."""
+    args, kw, fn, _ = _fwd_case(kernel, 2048, 64, 256, 8, 0, h100)
+    a = fn(*args, **kw)
+    b = fn(*args, **kw)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+FWD_CASES = {
+    # R*S = 1776 points: the last 64-point tile of the trunk is ragged
+    "k2_ragged_white_feats": (2, 37, 48, 256, 8, 64, True),
+    "k4_ragged_white_feats_x256_h128": (4, 37, 48, 128, 3, 64, True),
+    "k2_max_samples": (2, 3, tk.MAX_SAMPLES, 256, 8, 0, False),
+    "k4_max_samples": (4, 3, tk.MAX_SAMPLES, 256, 8, 0, False),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FWD_CASES))
+def test_fwd_kernels_at_the_edges(h100, case):
+    """Kernels 2 and 4 where the point tiles and the compositing meet their
+    edges: R*S not a multiple of the tile (with a white background and
+    features; kernel 4 with a 256-wide x through an H 128 trunk) and S =
+    MAX_SAMPLES; against their plain versions at the view tolerances."""
+    kernel, R, S, H, L, feat_dim, white = FWD_CASES[case]
+    args, kw, fn, ref = _fwd_case(kernel, R, S, H, L, feat_dim, h100)
+    if kernel == 4:
+        assert args[0].shape[1] == (256 if feat_dim else 128)
+    got = fn(*args, white_bkgd=white, **kw)
+    torch.cuda.synchronize()
+    want = ref(*args, white_bkgd=white, **kw)
+    for g, w, name in zip(got, want, ("rgb", "depth", "acc", "weights")):
+        assert g.shape == w.shape, name
         assert torch.isfinite(g).all(), name
         err = (g - w).abs().max().item()
         assert err <= TOL[name], (name, err)

@@ -1,7 +1,8 @@
-"""CPU rehearsal of the numerics of ``csrc/train_pe.cu``: the trunk products
-of the training objective (kernels 1 and 5) and of the render VJP (kernel 3)
-run there as 3xTF32 on the tensor cores. This file emulates that split in
-plain torch and holds the emulated objective and VJP against the exact fp32
+"""CPU rehearsal of the numerics of ``csrc/train_pe.cu`` and ``csrc/fwd_pe.cu``:
+the trunk products of the training objective (kernels 1 and 5), of the
+render VJP (kernel 3) and of the render forward (kernels 2 and 4) run there
+as 3xTF32 on the tensor cores. This file emulates that split in plain torch
+and holds the emulated objective, VJP and render against the exact fp32
 plain versions at the gates the card tests use.
 
 The emulation: TF32 rounding as ``cvt.rna.tf32.f32`` does it (round to
@@ -10,19 +11,24 @@ operations on the fp32 bits; each operand cut into hi = rna(v) and
 lo = rna(v - hi); a product as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi, summed in
 fp32 in that order. It replaces every trunk product of
 ``fused_train_objective_reference`` (the forward layers, and through autograd
-the backward chain and the dW products) and of ``fused_render_bwd_reference``
-(the same, and dx). The products with the head's four live columns (the
-head, the seed of the backward chain and dW of the head) stay exact: the
-kernel runs the first two in exact fp32 on the CUDA cores; the third, 0.4 %
-of the dW work, it runs as 3xTF32, which this emulation leaves out. The
-emulation does not model the tensor cores' accumulation order or rounding
-(the kernel adds the products of every two k-steps into the running sum
-with round-to-nearest FADDs). Nothing in the package uses it.
+the backward chain and the dW products), of ``fused_render_bwd_reference``
+(the same, and dx) and of ``fused_render_fwd_pe_reference`` /
+``fused_render_reference`` (the forward layers). The products with the
+head's four live columns (the head, the seed of the backward chain and dW
+of the head) stay exact: the kernels run the first two in exact fp32 on the
+CUDA cores; the third, 0.4 % of the dW work, kernels 1, 5 and 3 run as
+3xTF32, which this emulation leaves out. The emulation does not model the
+tensor cores' accumulation order or rounding (the kernels add the products
+of every two k-steps (``train_pe.cu``) or of every 32-row weight stage
+(``fwd_pe.cu``) into the running sum with round-to-nearest FADDs). Nothing
+in the package uses it.
 
 Gates (the card's): loss rel 1e-5; the six packed gradients (and dx) as one
 vector rel 1e-4, and 2e-2 at sigma_bias 5.0, where the backward divides by
-transmittances at the 1e-10 floor. Full width: 8x256 trunk, pos_freq 10,
-dir_freq 4, on a few hundred points.
+transmittances at the 1e-10 floor; the render's rgb, acc and weights 1e-4
+and depth 1e-3 (max abs). Full width: 8x256 trunk, pos_freq 10, dir_freq 4,
+on a few hundred points; the render also at pos_freq 12 with 64-wide
+features (D 176) and from a 128-wide encoded x.
 """
 
 import numpy as np
@@ -162,3 +168,44 @@ def test_emulated_render_vjp_meets_the_card_gates(case):
     assert norm > 1e-6
     assert rel <= tol, rel
     assert rel > 0.0
+
+
+FORWARD_CASES = {
+    # kernel 2 at the baseline widths (D 96), white background
+    "k2_baseline_white": (2, dict(pos_freq=10, feat_dim=0), True),
+    # kernel 2 at a DINO config's widths: pos_freq 12, 64 features, D 176
+    "k2_dino_d176": (2, dict(pos_freq=12, feat_dim=64), False),
+    # kernel 4 from the 128-wide encoded x of pos_freq 10
+    "k4_x128": (4, {}, False),
+}
+RENDER_TOL = {"rgb": 1e-4, "depth": 1e-3, "acc": 1e-4, "weights": 1e-4}
+
+
+@pytest.mark.parametrize("case", sorted(FORWARD_CASES))
+def test_emulated_render_forward_meets_the_card_gates(case):
+    import chip_smoke
+
+    kernel, kw, white = FORWARD_CASES[case]
+    rng = np.random.default_rng(0)
+    if kernel == 2:
+        x_dim = 6 + 6 * kw["pos_freq"] + 24 + kw["feat_dim"]
+        args = chip_smoke.random_fwd_pe_args(rng, R, S, H, L, kw["feat_dim"], "cpu",
+                                             pos_freq=kw["pos_freq"], d_pad=tk.pe_width(x_dim))
+        assert args[-1][0].shape[0] == (96 if kw["feat_dim"] == 0 else 176)
+        opts = dict(white_bkgd=white, use_feats=kw["feat_dim"] > 0)
+        ref = tk.fused_render_fwd_pe_reference
+    else:
+        args, _ = chip_smoke.random_render_args(rng, R, S, H, L, "cpu")
+        assert args[0].shape[1] == 128
+        opts = dict(white_bkgd=white)
+        ref = tk.fused_render_reference
+    want = ref(*args, **opts)
+    with Emulate3xTF32():
+        got = ref(*args, **opts)
+    worst = 0.0
+    for g, w, name in zip(got, want, ("rgb", "depth", "acc", "weights")):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        err = (g - w).abs().max().item()
+        assert err <= RENDER_TOL[name], (name, err)
+        worst = max(worst, err)
+    assert worst > 0.0  # the emulation did change the products

@@ -82,15 +82,37 @@ its seconds:
    pipeline; both kernels against their plain versions at the trainer's
    shapes; the feature sampler's time; one ``dino_nerf`` phase-2 epoch
    traced;
-15. CLI: ``python -m nerf_fewshot_tpu_torch.cli train --config
+15. LoRA trunk kernel width: kernel 1 at 512x64 and 1024x64 and kernel 2
+   at a 1024x64 eval chunk at the trunk-LoRA config's input (pos_freq 10,
+   view directions, 64 features: D 160), against their plain versions;
+   times and bounds;
+16. LoRA trunk slice: ``experiments/lora_nerf_trunk.yaml`` read by the
+   port's reader (8x256 trunk, rank-4 LoRA on every layer, the ViT-B/14
+   extractor on the card), trained with ``sigma_bias: 0.1`` (the file as it
+   stands starts dead at seed 0, which is reported): epochs 0, 50, 51, 52,
+   100 through kernel 1 with the merged weights, the freeze at 51 (base and
+   heads bit-equal after it, every ``lora_b`` moved), epoch 0 against a
+   ``backend: xla`` twin and the freeze as the first call of a kernel and an
+   ``xla`` trainer (rel 1e-4), eval through kernel 2 (PSNR must rise), the
+   views against the plain pipeline, both kernels at the trainer's shapes,
+   one phase-2 epoch traced;
+17. reference checkpoint: the trained LoRA weights written in the
+   reference's PyTorch layout (``.pth``) and loaded into a fresh trainer,
+   whose views through kernel 2 must equal the first trainer's;
+18. module and skip slice: ``multiscale.yaml`` with ``arch: module``
+   (``NeRFWithDINO``) and ``baseline.yaml`` with ``skip_layers: [4]`` take
+   the plain path with the JAX trainer's reason and launch no kernel, raise
+   under ``backend: fused``; the module config trains two epochs and its
+   PSNR must rise;
+19. CLI: ``python -m nerf_fewshot_tpu_torch.cli train --config
    experiments/dino_nerf.yaml --synthetic --epochs 2`` as a subprocess
    must exit 0, write ``final.ckpt`` and print the summary JSON with the
    kernel path.
 
 Any failure raises and exits non-zero. On success the last three lines are
 the ``nvidia-smi`` name/power-limit line, a JSON line with the kernels'
-numbers (the five kernels, then kernels 1 and 2 at the DINO widths), and
-``{"ok": true, "device": {...}}``.
+numbers (the five kernels, kernels 1 and 2 at the DINO widths, then at the
+trunk-LoRA width), and ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -210,6 +232,15 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 DINO_CONFIGS = ("dino_nerf.yaml", "multiscale.yaml", "lora.yaml")
 DINO_EPOCHS = (0, 50, 100, 101)
 DINO_WIDTHS = {"single_scale": (64, 176), "multi_scale": (128, 240)}
+# The trunk-LoRA slice: experiments/lora_nerf_trunk.yaml at the epochs of the
+# full model (0, 50), the freeze (51: a fresh optimizer over the LoRA pairs),
+# one more (52) and phase 2 (100); its feature width and the kernels' padded
+# input width (6 + 84 + 64 live columns at pos_freq 10, to a multiple of 16).
+LORA_TRUNK_CONFIG = "lora_nerf_trunk.yaml"
+LORA_EPOCHS = (0, 50, 51, 52, 100)
+LORA_WIDTH = (64, 160)
+# arch: module (multiscale.yaml) trains one epoch of each of its first two phases
+MODULE_EPOCHS = (0, 50)
 
 
 @contextmanager
@@ -489,7 +520,7 @@ def main_path_train_args(trainer, phase_idx, device, inline_pe=True, seed=0):
         torch.ones(B, device=device), trainer._render_settings(p.n_samples, training=True),
         cfg.nerf.pos_freq, cfg.nerf.dir_freq, cfg.nerf.num_layers, cfg.nerf.hidden_dim,
         uniforms=torch.rand((B, p.n_samples), generator=g, device=device), inline_pe=inline_pe,
-        point_features_fn=trainer.feature_sampler(0))
+        point_features_fn=trainer.feature_sampler(0), lora_alpha=cfg.nerf.lora_alpha)
 
 
 # Device-time groups of the profiled runs, by kernel name (first match).
@@ -608,7 +639,8 @@ def main_path_fwd_pe_args(trainer, pose, device):
     perm, e2, c, x_dim = tk.pe_layout(cfg.nerf.pos_freq, cfg.nerf.dir_freq, True,
                                       0 if feats is None else feats.shape[1])
     packed = tk.pack_params(trainer.model.state_dict(), cfg.nerf.num_layers,
-                            cfg.nerf.hidden_dim, d_pad=tk.pe_width(x_dim), row_perm=perm)
+                            cfg.nerf.hidden_dim, d_pad=tk.pe_width(x_dim), row_perm=perm,
+                            lora_alpha=cfg.nerf.lora_alpha)
     return (tk._raw_block(pts, rd, True), feats, z, torch.linalg.norm(rd, dim=-1, keepdim=True),
             torch.as_tensor(e2, device=device), torch.as_tensor(c, device=device), packed)
 
@@ -1209,6 +1241,352 @@ def run_dino_slice(name, train, test, device, tk, tt):
     return out
 
 
+def run_lora_kernel_width(device, tk, tt):
+    """Kernel 1 at 512x64 and 1024x64 and kernel 2 at a 1024x64 eval chunk
+    at the trunk-LoRA config's input width (pos_freq 10, view directions,
+    64 features: 154 live columns, padded to D 160), random inputs,
+    against their plain versions at the existing gates; CUDA-event times
+    and bounds. Returns ``{kernel: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, bound32_ms, extra)}``."""
+    rng = np.random.default_rng(160)
+    fd, d = LORA_WIDTH
+    rows, err = {}, 0.0
+    train_ms = {}
+    for R, label, kw in ((512, "white, 9 masked, reg, depth", dict(
+            white_bkgd=True, ragged=9, reg_weight=0.01, depth_weight=0.1)),
+            (1024, "", {}), (512, "", {})):
+        a, o = random_train_args(rng, R, 64, 256, 8, device, feat_dim=fd, **kw)
+        if a[-1][0].shape[0] != d:
+            raise RuntimeError(f"the train kernel's input is {a[-1][0].shape[0]} wide, not {d}")
+        err = max(err, compare_train(f"kernel 1 D {d}, {R}x64 {label}".rstrip(),
+                                     tt.fused_train_objective(*a, **o),
+                                     tt.fused_train_objective_reference(*a, **o), TRAIN_GRAD_TOL))
+        if not label:
+            k_ms = cuda_ms(lambda: tt.fused_train_objective(*a, **o), iters=20)
+            p_ms = cuda_ms(lambda: tt.fused_train_objective_reference(*a, **o), iters=5)
+            flops, nbytes = train_cost(a, o)
+            b_ms, b_by, _ = bounds(flops, nbytes, tensor_cores=True)
+            b32_ms, _, _ = bounds(flops, nbytes, tensor_cores=False)
+            train_ms[R] = (k_ms, p_ms, b_ms, b_by, b32_ms)
+            print(f"  kernel 1 {R}x64 D {d}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+                  f"{b_ms:.3f} ms by {b_by} as 3xTF32 (share {b_ms / k_ms:.1%}; {b32_ms:.3f} ms "
+                  f"fp32; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+    rows["train_pe"] = (err, *train_ms[512], {"ms_at_1024x64": train_ms[1024][0],
+                                              "plain_ms_at_1024x64": train_ms[1024][1],
+                                              "bound_ms_at_1024x64": train_ms[1024][2]})
+
+    args = random_fwd_pe_args(rng, 1024, 64, 256, 8, fd, device, pos_freq=10,
+                              d_pad=tk.pe_width(90 + fd))
+    if args[-1][0].shape[0] != d:
+        raise RuntimeError(f"kernel 2's input is {args[-1][0].shape[0]} wide, not {d}")
+    err = 0.0
+    for white in (False, True):
+        kw = dict(white_bkgd=white, use_feats=True)
+        err = max(err, compare(f"kernel 2 D {d}, 1024x64 white_bkgd={white}",
+                               tk.fused_render_fwd_pe(*args, **kw),
+                               tk.fused_render_fwd_pe_reference(*args, **kw)))
+    k_ms = cuda_ms(lambda: tk.fused_render_fwd_pe(*args, use_feats=True), iters=20)
+    p_ms = cuda_ms(lambda: tk.fused_render_fwd_pe_reference(*args, use_feats=True), iters=10)
+    flops, nbytes = fwd_pe_cost(args, use_feats=True)
+    b_ms, b_by, _ = bounds(flops, nbytes, tensor_cores=True)
+    b32_ms, _, _ = bounds(flops, nbytes, tensor_cores=False)
+    rows["fwd_pe"] = (err, k_ms, p_ms, b_ms, b_by, b32_ms, {})
+    print(f"  kernel 2 1024x64 D {d}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+          f"{b_ms:.3f} ms by {b_by} as 3xTF32 (share {b_ms / k_ms:.1%}; {b32_ms:.3f} ms fp32; "
+          f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.2f} MB)", flush=True)
+    return rows
+
+
+def lora_trunk_configs():
+    """``experiments/lora_nerf_trunk.yaml`` through the port's ``load_config``
+    as it stands, and the config the slice trains: the same with
+    ``nerf_model.sigma_bias: 0.1``, the repo's live start (the file has no
+    sigma bias, and its seed-0 init sits in the zero-gradient dead basin:
+    the slice reports the probe of the file as it stands)."""
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict, load_config
+
+    cfg = load_config(os.path.join(ROOT, "experiments", LORA_TRUNK_CONFIG))
+    n, o, d = cfg.nerf, cfg.optimizer, cfg.dino
+    widths = (n.hidden_dim, n.num_layers, n.pos_freq, n.use_viewdirs, n.lora_rank, n.lora_alpha,
+              d.model_type, d.output_dim, o.lora_only_after_epoch, cfg.data.resolution,
+              cfg.rendering.chunk_size, n.sigma_bias)
+    if widths != (256, 8, 10, True, 4, 16.0, "single_scale", LORA_WIDTH[0], 51, 128, 2048, None):
+        raise RuntimeError(f"{LORA_TRUNK_CONFIG}: widths {widths}")
+    live = config_from_dict({**cfg.raw, "nerf_model": {**cfg.raw["nerf_model"],
+                                                       "sigma_bias": 0.1}})
+    return cfg, live
+
+
+def run_lora_trunk_slice(train, test, device, tk, tt):
+    """``lora_nerf_trunk.yaml`` at full width (8x256 trunk with rank-4 LoRA
+    on every layer, 64-wide single-scale features of the ViT-B/14 extractor
+    on the card, D 160): eval at init (kernel 2 with the merged weights);
+    ``train_epoch`` at LORA_EPOCHS, every step launching kernel 1 once, the
+    freeze at epoch 51 (a fresh optimizer over the LoRA pairs: every base
+    weight and head bit-equal after it, every ``lora_b`` moved); epoch 0
+    against a ``backend: xla`` twin; the freeze taken by a kernel trainer
+    and an ``xla`` trainer that both start at epoch 51; PSNR rising; the
+    trained views against the plain pipeline; kernels 1 and 2 against their
+    plain versions at the trainer's step and eval-chunk shapes; one
+    phase-2 epoch traced. Returns a dict of the numbers and the trainer."""
+    from nerf_fewshot_tpu_torch.cli import _precompute_features
+    from nerf_fewshot_tpu_torch.models.lora import lora_label_fn
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    as_is, cfg = lora_trunk_configs()
+    fd, d = LORA_WIDTH
+    if tk.pe_width(tk.pe_layout(10, 4, True, fd)[3]) != d:
+        raise RuntimeError("the LoRA config's input is not padded to D 160")
+    feats = _precompute_features(cfg, train, device)
+    if feats.shape != (N_TRAIN_VIEWS, 9, 9, fd) or not np.isfinite(feats).all():
+        raise RuntimeError(f"feature maps {feats.shape}")
+    probe = Trainer(as_is, train, test, device=device, dino_features=feats).dead_sigma_probe()
+    print(f"  {LORA_TRUNK_CONFIG} as it stands (no sigma_bias, seed {as_is.seed}): dead-sigma "
+          f"probe at init {probe:.3e}; the slice trains it with nerf_model.sigma_bias: 0.1",
+          flush=True)
+
+    ktr = Trainer(cfg, train, test, device=device, dino_features=feats)
+    xla = lambda c: config_from_dict({**c.raw, "rendering": {**c.raw["rendering"],
+                                                             "backend": "xla"}})
+    ptr = Trainer(xla(cfg), train, test, device=device, dino_features=feats)
+    if not (ktr._use_fused() and ktr.kernel_path == "kernel") or ptr._use_fused():
+        raise RuntimeError(f"paths {ktr.kernel_path}, {ptr.kernel_path}")
+    n_chunks = -(-N_TEST_VIEWS * cfg.data.resolution ** 2 // cfg.rendering.chunk_size)
+    tk.fused_render_fwd_pe.launches = 0
+    psnr0 = ktr.evaluate()["psnr"]
+    if tk.fused_render_fwd_pe.launches != n_chunks:
+        raise RuntimeError(f"eval {tk.fused_render_fwd_pe.launches} launches, {n_chunks} chunks")
+    for e in LORA_EPOCHS:
+        ktr.phase_data(ktr._phase_index(e))
+
+    boundary = cfg.optimizer.lora_only_after_epoch
+    frozen = lambda tr: {k: v.clone() for k, v in tr.model.state_dict().items()
+                         if lora_label_fn(k) == "base"}
+
+    def check_frozen(tr, before, label):
+        state = tr.model.state_dict()
+        moved = [k for k, v in before.items() if not torch.equal(state[k], v)]
+        if moved:
+            raise RuntimeError(f"{label}: base or head parameters moved after the freeze: {moved}")
+
+    tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+    steps, out = 0, {}
+    for e in LORA_EPOCHS:
+        if e == boundary:
+            before = frozen(ktr)
+            lora_b = {k: v.clone() for k, v in ktr.model.state_dict().items()
+                      if k.endswith("lora_b")}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = ktr.train_epoch(e)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        n = len(ktr.last_step_losses)
+        steps += n
+        if e == 0:
+            out["losses0"] = ktr.last_step_losses.copy()
+        p = cfg.phase_for_epoch(e)
+        pd = ktr.phase_data(ktr._phase_index(e))
+        out["step_ms"] = sec / n * 1e3
+        n_opt = sum(len(g["params"]) for g in ktr.optimizer.param_groups)
+        print(f"  epoch {e} ({pd.H}x{pd.W}, {min(p.batch_size, pd.rays_o.shape[1])} rays x "
+              f"{p.n_samples} samples per step): loss {loss:.6f}, {n} steps, {sec:.3f} s, "
+              f"{out['step_ms']:.3f} ms/step, optimizer over {n_opt} tensors", flush=True)
+        if not np.isfinite(ktr.last_step_losses).all():
+            raise RuntimeError(f"epoch {e}: non-finite losses")
+        if e == boundary + 1:
+            check_frozen(ktr, before, f"epochs {boundary}-{e}")
+            still = [k for k, v in lora_b.items() if torch.equal(ktr.model.state_dict()[k], v)]
+            if still:
+                raise RuntimeError(f"lora_b did not move across the freeze: {still}")
+            print(f"  freeze: {len(before)} base and head tensors bit-equal across epochs "
+                  f"{boundary}-{e}, all {len(lora_b)} lora_b moved", flush=True)
+    out["launches"] = tt.fused_train_objective.launches["train_pe"]
+    print(f"  launches: kernel 1 {out['launches']} for {steps} steps", flush=True)
+    if out["launches"] != steps:
+        raise RuntimeError(f"{out['launches']} kernel-1 launches for {steps} steps")
+    check_frozen(ktr, before, f"epochs {boundary}-{LORA_EPOCHS[-1]}")
+
+    ptr.train_epoch(0)
+    rel = np.abs(ptr.last_step_losses / out["losses0"] - 1.0).max()
+    print(f"  epoch 0 vs the backend: xla twin: per-step max rel {rel:.2e} "
+          f"(tol {TRAIN_LOSS_RTOL:.0e})", flush=True)
+    if not rel <= TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"epoch 0: kernel and plain trainers differ by rel {rel}")
+    twins = [Trainer(c, train, test, device=device, dino_features=feats) for c in (cfg, xla(cfg))]
+    inits = [frozen(t) for t in twins]
+    for t in twins:
+        t.train_epoch(boundary)
+    rel = np.abs(twins[1].last_step_losses / twins[0].last_step_losses - 1.0).max()
+    print(f"  the freeze as the first call (epoch {boundary}, {len(twins[0].last_step_losses)} "
+          f"steps), kernel trainer vs xla trainer: per-step max rel {rel:.2e} "
+          f"(tol {TRAIN_LOSS_RTOL:.0e})", flush=True)
+    if not (rel <= TRAIN_LOSS_RTOL and all(t._lora_only_active for t in twins)):
+        raise RuntimeError(f"the freeze: kernel and plain trainers differ by rel {rel}")
+    for t, init in zip(twins, inits):
+        check_frozen(t, init, f"epoch {boundary} as the first call")
+    del twins
+
+    tk.fused_render_fwd_pe.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    after = ktr.evaluate()
+    eval_s = time.perf_counter() - t0
+    out["eval_launches"] = tk.fused_render_fwd_pe.launches
+    print(f"  evaluate: psnr {psnr0:.4f} dB at init, {after['psnr']:.4f} dB after {steps} steps, "
+          f"ssim {after['ssim']:.5f}, {eval_s / N_TEST_VIEWS * 1e3:.2f} ms/view, "
+          f"{out['eval_launches']} launches for {n_chunks} chunks", flush=True)
+    if out["eval_launches"] != n_chunks:
+        raise RuntimeError(f"eval launched kernel 2 {out['eval_launches']} times")
+    if not after["psnr"] > psnr0:
+        raise RuntimeError(f"psnr after training {after['psnr']} <= at init {psnr0}")
+
+    ptr.model.load_state_dict(ktr.model.state_dict())
+    got, want = ktr.render_views(test.poses), ptr.render_views(test.poses)
+    errs = {o: float(np.abs(g - w).max()) for g, w, o in zip(got, want, ("rgb", "depth", "acc"))}
+    print("  views vs the plain pipeline (trained weights): max abs err " + ", ".join(
+        f"{k} {v:.3e} (tol {TOL[k]:.0e})" for k, v in errs.items()), flush=True)
+    if not all(np.isfinite(g).all() for g in got) or any(v > TOL[k] for k, v in errs.items()):
+        raise RuntimeError(f"kernel-rendered views disagree with the plain pipeline {errs}")
+
+    a, o = main_path_train_args(ktr, len(cfg.phases) - 1, device)
+    R, S = a[2].shape
+    if a[-1][0].shape[0] != d:
+        raise RuntimeError(f"kernel 1 ran at D {a[-1][0].shape[0]}")
+    out["train_err"] = compare_train(f"kernel 1 at the step's {R}x{S}, D {d}, merged weights",
+                                     tt.fused_train_objective(*a, **o),
+                                     tt.fused_train_objective_reference(*a, **o), TRAIN_GRAD_TOL)
+    out["train_ms"] = cuda_ms(lambda: tt.fused_train_objective(*a, **o), iters=20)
+    args = main_path_fwd_pe_args(ktr, test.poses[0], device)
+    out["fwd_err"] = compare(f"kernel 2 at the eval chunk {args[2].shape[0]}x{args[2].shape[1]}, "
+                             f"D {args[-1][0].shape[0]}, merged weights",
+                             tk.fused_render_fwd_pe(*args, use_feats=True),
+                             tk.fused_render_fwd_pe_reference(*args, use_feats=True))
+    out["fwd_ms"] = cuda_ms(lambda: tk.fused_render_fwd_pe(*args, use_feats=True), iters=20)
+    print(f"  at the trainer's shapes: kernel 1 {R}x{S} {out['train_ms']:.3f} ms, kernel 2 "
+          f"{args[2].shape[0]}x{args[2].shape[1]} {out['fwd_ms']:.3f} ms (CUDA events)",
+          flush=True)
+    epoch = LORA_EPOCHS[-1] + 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ktr.train_epoch(epoch)
+    torch.cuda.synchronize()
+    untraced_ms = (time.perf_counter() - t0) * 1e3
+    print_trace(f"epoch {epoch} traced (CUDA only)", trace_epoch(ktr, epoch, False), untraced_ms)
+    out.update(psnr0=psnr0, psnr=after["psnr"], trainer=ktr, cfg=cfg, feats=feats, epoch=epoch)
+    return out
+
+
+def run_reference_checkpoint(lora, train, test, device, tk, tmp):
+    """The trained LoRA trainer's weights written as a reference PyTorch
+    checkpoint (``layers.{i}.original`` / ``lora_A`` / ``lora_B``,
+    ``sigma_out``, ``rgb_out`` under ``nerf_model_state_dict``), loaded into
+    a fresh ``Trainer(device="cuda")``: its views through kernel 2 equal the
+    first trainer's, bit for bit or within the view tolerances."""
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    ktr, cfg = lora["trainer"], lora["cfg"]
+    state = {k: v.detach().cpu() for k, v in ktr.model.state_dict().items()}
+    sd = {}
+    for i in range(cfg.nerf.num_layers):
+        for p in ("weight", "bias"):
+            sd[f"layers.{i}.original.{p}"] = state[f"trunk.{i}.base.{p}"]
+        sd[f"layers.{i}.lora_A.weight"] = state[f"trunk.{i}.lora_a"].T.contiguous()
+        sd[f"layers.{i}.lora_B.weight"] = state[f"trunk.{i}.lora_b"].T.contiguous()
+    for ours, ref in (("sigma_head", "sigma_out"), ("rgb_head", "rgb_out")):
+        for p in ("weight", "bias"):
+            sd[f"{ref}.{p}"] = state[f"{ours}.{p}"]
+    path = os.path.join(tmp, "reference.pth")
+    torch.save({"nerf_model_state_dict": sd, "epoch": lora["epoch"]}, path)
+    fresh = Trainer(cfg, train, test, device=device, dino_features=lora["feats"])
+    fresh.load(path)
+    if fresh.epoch != lora["epoch"] + 1:
+        raise RuntimeError(f"the loaded trainer is at epoch {fresh.epoch}")
+    poses = test.poses[:2]
+    tk.fused_render_fwd_pe.launches = 0
+    got = fresh.render_views(poses)
+    n_chunks = -(-len(poses) * cfg.data.resolution ** 2 // cfg.rendering.chunk_size)
+    if tk.fused_render_fwd_pe.launches != n_chunks or fresh.kernel_path != "kernel":
+        raise RuntimeError(f"the loaded trainer's views: {tk.fused_render_fwd_pe.launches} "
+                           f"kernel-2 launches for {n_chunks} chunks")
+    want = ktr.render_views(poses)
+    equal = all(np.array_equal(g, w) for g, w in zip(got, want))
+    errs = {o: float(np.abs(g - w).max()) for g, w, o in zip(got, want, ("rgb", "depth", "acc"))}
+    print(f"  {path.rsplit(os.sep, 1)[-1]} ({len(sd)} tensors, epoch {lora['epoch']}) into a "
+          f"fresh trainer: epoch {fresh.epoch}, views through kernel 2 "
+          f"{'bit-equal' if equal else 'max abs err ' + str(errs)} to the trainer that wrote it",
+          flush=True)
+    if not equal and any(v > TOL[k] for k, v in errs.items()):
+        raise RuntimeError(f"the reference checkpoint renders differently: {errs}")
+
+
+def run_module_and_skip_slice(train, test, device, tk, tt):
+    """``multiscale.yaml`` with ``nerf_model.arch: module`` (the reference's
+    train_multiscale.py surface: ``NeRFWithDINO``, 128-wide multi-scale
+    features, ``invalid_fill: mean``, the full-resolution focal) and
+    ``baseline.yaml`` with ``skip_layers: [4]`` on the card: the plain path
+    with the JAX trainer's reason, no kernel launched, ``backend: fused``
+    raising; the module config trains at MODULE_EPOCHS and evaluates (PSNR
+    above init), the skip config trains one epoch."""
+    from nerf_fewshot_tpu_torch.cli import _precompute_features
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict, load_config
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    raw = load_config(os.path.join(ROOT, "experiments", "multiscale.yaml")).raw
+    module = config_from_dict({**raw, "nerf_model": {**raw["nerf_model"], "arch": "module"}})
+    skip = config_from_dict({**BASELINE_CONFIG, "nerf_model": {
+        **BASELINE_CONFIG["nerf_model"], "skip_layers": [4]}})
+    fused = lambda c: config_from_dict({**c.raw, "rendering": {**c.raw["rendering"],
+                                                               "backend": "fused"}})
+    d = module.dino
+    if (d.output_dim, d.invalid_fill, module.focal_scaling) != (128, "mean", False):
+        raise RuntimeError(f"module config: {d.output_dim}, {d.invalid_fill}, "
+                           f"{module.focal_scaling}")
+    feats = _precompute_features(module, train, device)
+    reasons = {"module": "arch=module (NeRFWithDINO) has no kernel packing",
+               "skip": ("skip_layers=[4] — the fused kernels require a uniform trunk "
+                        "(pack_params assumes hidden→hidden layers)")}
+    tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+    for k in (tk.fused_render_fwd_pe, tk.fused_render_fwd, tk.fused_render_bwd):
+        k.launches = 0
+    for name, cfg in (("module", module), ("skip", skip)):
+        tr = Trainer(cfg, train, test, device=device, dino_features=feats)
+        if tr._use_fused() or (tr.kernel_path, tr.kernel_path_reason) != ("plain", reasons[name]):
+            raise RuntimeError(f"{name}: path {tr.kernel_path} ({tr.kernel_path_reason})")
+        psnr0 = tr.evaluate()["psnr"] if name == "module" else None
+        for e in MODULE_EPOCHS if name == "module" else (0,):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = tr.train_epoch(e)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            n = len(tr.last_step_losses)
+            p = cfg.phase_for_epoch(e)
+            print(f"  {name} epoch {e} ({p.H}x{p.W}, {p.n_samples} samples): loss {loss:.6f}, "
+                  f"{n} steps, {sec:.3f} s, {sec / n * 1e3:.3f} ms/step, kernel_path "
+                  f"{tr.kernel_path} ({tr.kernel_path_reason})", flush=True)
+            if not np.isfinite(tr.last_step_losses).all():
+                raise RuntimeError(f"{name} epoch {e}: non-finite losses")
+        if name == "module":
+            after = tr.evaluate()
+            print(f"  module evaluate: psnr {psnr0:.4f} dB at init, {after['psnr']:.4f} dB "
+                  f"after, ssim {after['ssim']:.5f}", flush=True)
+            if not (np.isfinite(after["ssim"]) and after["psnr"] > psnr0):
+                raise RuntimeError(f"module: psnr {after['psnr']} after, {psnr0} at init")
+        try:
+            Trainer(fused(cfg), train, device=device, dino_features=feats).train_epoch(0)
+        except ValueError as err:
+            print(f"  {name}, backend fused: raises ({err})", flush=True)
+        else:
+            raise RuntimeError(f"{name} trained under backend: fused")
+    counts = (tt.fused_train_objective.launches, tk.fused_render_fwd_pe.launches,
+              tk.fused_render_fwd.launches, tk.fused_render_bwd.launches)
+    print(f"  kernel launches on these paths: {counts}", flush=True)
+    if counts != ({"train_pe": 0, "train_x": 0}, 0, 0, 0):
+        raise RuntimeError(f"the plain path launched a kernel: {counts}")
+
+
 def run_cli(tmp):
     """``python -m nerf_fewshot_tpu_torch.cli train --config
     experiments/dino_nerf.yaml --synthetic --epochs 2`` in a fresh process
@@ -1508,6 +1886,23 @@ def main():
         with phase(f"DINO slice {name}"):
             dino[name] = run_dino_slice(name, train, test, device, tk, tt)
 
+    with phase("LoRA trunk kernel width"):
+        lora_rows = run_lora_kernel_width(device, tk, tt)
+
+    with phase(f"LoRA trunk slice {LORA_TRUNK_CONFIG}"):
+        lora = run_lora_trunk_slice(train, test, device, tk, tt)
+
+    with phase("reference checkpoint"):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_pth_")
+        try:
+            run_reference_checkpoint(lora, train, test, device, tk, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        del lora["trainer"]
+
+    with phase("module and skip slice"):
+        run_module_and_skip_slice(train, test, device, tk, tt)
+
     with phase("CLI"):
         tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
         try:
@@ -1549,6 +1944,25 @@ def main():
     multi = [n for n in DINO_CONFIGS if dino[n]["d"] == 240]
     dino_kernel_rows = [dino_row("train_pe", 176, single), dino_row("train_pe", 240, multi),
                         dino_row("fwd_pe", 176, single), dino_row("fwd_pe", 240, multi)]
+
+    def lora_row(kernel):
+        err, k_ms, p_ms, b_ms, b_by, b32_ms, extra = lora_rows[kernel]
+        train = kernel == "train_pe"
+        row = {"name": f"{kernel}_lora_d{LORA_WIDTH[1]}", "route": "cuda",
+               "source": f"nerf_fewshot_tpu_torch/csrc/{kernel}.cu",
+               "replaces": ("nerf_fewshot_tpu/render/train_kernel.py:343" if train
+                            else "nerf_fewshot_tpu/render/kernels.py:251"),
+               "shape": "512x64" if train else "1024x64", "configs": [LORA_TRUNK_CONFIG],
+               "launches": lora["launches" if train else "eval_launches"],
+               "max_abs_err": max(err, lora["train_err" if train else "fwd_err"]),
+               "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+               "bound_rate": "3xTF32 at 495 TFLOP/s", "bound_fp32_ms": b32_ms,
+               "library_ms": None, **extra}
+        if train:
+            row["ms_at_the_step_shape"] = {LORA_TRUNK_CONFIG: lora["train_ms"]}
+        else:
+            row["ms_at_the_eval_chunk_2048x64"] = lora["fwd_ms"]
+        return row
 
     print(smi)
     print(json.dumps({"kernels": [{
@@ -1594,7 +2008,7 @@ def main():
         "bound_rate": "3xTF32 at 495 TFLOP/s",
         "bound_fp32_ms": bwd_bound32_ms,
         "library_ms": None,
-    }, *dino_kernel_rows]}))
+    }, *dino_kernel_rows, lora_row("train_pe"), lora_row("fwd_pe")]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

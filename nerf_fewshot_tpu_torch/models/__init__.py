@@ -6,20 +6,34 @@ from nerf_fewshot_tpu_torch.models.dino import (
     build_feature_extractor,
     dino_extractor_from_jax,
 )
-from nerf_fewshot_tpu_torch.models.lora import LoRADense, torch_dense
-from nerf_fewshot_tpu_torch.models.mlp import NeRFMLP, nerf_mlp_from_jax
+from nerf_fewshot_tpu_torch.models.fusion import NeRFDINOFusion
+from nerf_fewshot_tpu_torch.models.lora import LoRADense, lora_label_fn, torch_dense
+from nerf_fewshot_tpu_torch.models.mlp import (
+    ColorMLP,
+    DensityMLP,
+    NeRFMLP,
+    NeRFWithDINO,
+    nerf_mlp_from_jax,
+    nerf_with_dino_from_jax,
+)
 from nerf_fewshot_tpu_torch.models.vit import DINOv2ViT, ViTConfig, vit_from_jax
 
 __all__ = [
+    "ColorMLP",
     "DINOv2ViT",
+    "DensityMLP",
     "LoRADense",
     "MultiScaleDINOFeatures",
+    "NeRFDINOFusion",
     "NeRFMLP",
+    "NeRFWithDINO",
     "SpatialDINOFeatures",
     "ViTConfig",
     "build_feature_extractor",
     "dino_extractor_from_jax",
+    "lora_label_fn",
     "nerf_mlp_from_jax",
+    "nerf_with_dino_from_jax",
     "torch_dense",
     "vit_from_jax",
 ]

@@ -1,7 +1,7 @@
 """torch-default ``nn.Linear`` initialisation from an explicit generator,
-and the LoRA adapter (counterpart of ``TorchDense`` / ``torch_linear_init``
-/ ``LoRADense`` in ``nerf_fewshot_tpu/models/lora.py``; ``lora_label_fn``
-comes with trunk LoRA).
+the LoRA adapter and the LoRA/base labels (counterpart of ``TorchDense`` /
+``torch_linear_init`` / ``LoRADense`` / ``lora_label_fn`` in
+``nerf_fewshot_tpu/models/lora.py``).
 
 ``nn.Linear``'s default init is ``kaiming_uniform(a=sqrt(5))`` on the
 weight, which reduces to ``U(-1/sqrt(fan_in), +1/sqrt(fan_in))``, and the
@@ -15,6 +15,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 
@@ -62,9 +63,10 @@ class LoRADense(nn.Module):
 
     ``lora_a`` (in, r) is ``kaiming_uniform(a=sqrt(5))``, i.e.
     ``U(-1/sqrt(in), +1/sqrt(in))``, and ``lora_b`` (r, out) starts at zero,
-    both in the JAX layout. The dropout is active in training mode only
-    (the JAX module's ``deterministic=False``). ``rank`` 0 is the plain
-    base layer."""
+    both in the JAX layout. ``forward(x, deterministic)`` follows the JAX
+    module: the dropout is off when ``deterministic`` is True and on when it
+    is False; left ``None``, it is on in training mode only. ``rank`` 0 is
+    the plain base layer."""
 
     def __init__(self, in_features: int, out_features: int, rank: int = 0,
                  alpha: float = 16.0, dropout_rate: float = 0.1,
@@ -77,10 +79,22 @@ class LoRADense(nn.Module):
             a = torch.empty(in_features, rank).uniform_(-bound, bound, generator=generator)
             self.lora_a = nn.Parameter(a)
             self.lora_b = nn.Parameter(torch.zeros(rank, out_features))
-            self.dropout = nn.Dropout(dropout_rate)
+            self.dropout_rate = dropout_rate
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, deterministic: Optional[bool] = None) -> torch.Tensor:
         base = self.base(x)
         if self.rank <= 0:
             return base
-        return base + (self.alpha / self.rank) * (self.dropout(x @ self.lora_a) @ self.lora_b)
+        h = x @ self.lora_a
+        if deterministic is None:
+            deterministic = not self.training
+        if not deterministic:
+            h = F.dropout(h, self.dropout_rate, training=True)
+        return base + (self.alpha / self.rank) * (h @ self.lora_b)
+
+
+def lora_label_fn(name: str) -> str:
+    """``'lora'`` for a parameter whose name contains "lora", else
+    ``'base'`` (the reference's ``'lora' in name`` filter): the heads and
+    every base weight are ``base`` and freeze in the LoRA-only phase."""
+    return "lora" if "lora" in name else "base"

@@ -72,6 +72,7 @@ def fused_render_rays(
     uniforms: Optional[torch.Tensor] = None,
     importance_uniforms: Optional[torch.Tensor] = None,
     point_features_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    lora_alpha: float = 16.0,
 ) -> RenderOutputs:
     """Render (R, 3) rays of a NeRFMLP (``params``: its state dict, or its
     named parameters to differentiate) through the render kernels on
@@ -89,7 +90,8 @@ def fused_render_rays(
     coarse and a fine pass with the same weights, the importance samples
     drawn from the coarse weights under stop-gradient.
     ``point_features_fn(pts (N, 3)) -> (N, Fd)`` appends per-point features
-    to the MLP input."""
+    to the MLP input. LoRA trunk layers are merged with ``lora_alpha``
+    (``pack_params``)."""
     if settings.noise_std != 0.0:
         raise ValueError("fused backend: sigma noise is not supported")
     dev = resolve_device(device)
@@ -106,7 +108,7 @@ def fused_render_rays(
             perm, e2, c, x_dim = pe_layout(pos_freq, dir_freq, use_viewdirs,
                                            0 if feats is None else feats.shape[1])
             packed = pack_params(state, num_layers, hidden_dim,
-                                 d_pad=pe_width(x_dim), row_perm=perm)
+                                 d_pad=pe_width(x_dim), row_perm=perm, lora_alpha=lora_alpha)
             rgb, depth, acc, weights = fused_render_fwd_pe(
                 _raw_block(pts, rays_d, use_viewdirs),
                 None if feats is None else feats.contiguous(), z.contiguous(), dnorm,
@@ -116,7 +118,8 @@ def fused_render_rays(
             )
         else:
             x = encode_points(pts, rays_d, pos_freq, dir_freq, use_viewdirs, feats).contiguous()
-            packed = pack_params(state, num_layers, hidden_dim, d_pad=x.shape[-1])
+            packed = pack_params(state, num_layers, hidden_dim, d_pad=x.shape[-1],
+                                 lora_alpha=lora_alpha)
             rgb, depth, acc, weights = fused_render(
                 x, z, dnorm, packed, white_bkgd=settings.white_bkgd, compute_dtype=compute_dtype)
         return RenderOutputs(rgb=rgb, depth=depth[:, 0], acc=acc[:, 0], weights=weights)

@@ -105,36 +105,54 @@ def _raw_block(pts: torch.Tensor, rays_d: torch.Tensor, use_viewdirs: bool) -> t
     return torch.cat(blocks, dim=-1).contiguous()
 
 
+def _trunk_layer(state: Mapping[str, torch.Tensor], i: int, lora_alpha: float):
+    """Trunk layer ``i``'s (in, out) kernel and bias. A LoRA layer
+    (``trunk.{i}.base``, ``lora_a`` (in, r), ``lora_b`` (r, out)) is merged
+    into ``W + (lora_alpha / r) * A @ B``; the product is taken as r exact
+    fp32 outer products summed on the CUDA cores, so no TF32 setting of
+    cuBLAS reaches it."""
+    if f"trunk.{i}.base.weight" not in state:
+        return state[f"trunk.{i}.weight"].T, state[f"trunk.{i}.bias"]
+    a, b = state[f"trunk.{i}.lora_a"], state[f"trunk.{i}.lora_b"]
+    ab = torch.sum(a[:, :, None] * b[None, :, :], dim=1)
+    return (state[f"trunk.{i}.base.weight"].T + (lora_alpha / a.shape[1]) * ab,
+            state[f"trunk.{i}.base.bias"])
+
+
 def pack_params(
     state: Mapping[str, torch.Tensor],
     num_layers: int,
     hidden_dim: int,
     d_pad: int = D_PAD,
     row_perm: Optional[Sequence[int]] = None,
+    lora_alpha: float = 16.0,
 ) -> Packed:
     """A NeRFMLP state dict -> the kernel's ``(w0 (d_pad,H), b0 (1,H),
     wh (L-1,H,H), bh (L-1,H), wout (H,128), bout (1,128))``, weights laid
     out (in, out). ``row_perm`` reorders the first layer's input rows
-    (``pe_layout``) before the zero padding."""
-    k0 = state["trunk.0.weight"].T
+    (``pe_layout``) before the zero padding. LoRA trunk layers are merged
+    (``_trunk_layer``); gradients reach ``lora_a`` and ``lora_b`` through
+    the merge by autograd. A trunk with skip layers is refused."""
+    k0, bias0 = _trunk_layer(state, 0, lora_alpha)
     if row_perm is not None:
         k0 = k0[torch.as_tensor(np.asarray(row_perm), dtype=torch.long, device=k0.device)]
     if k0.shape[0] > d_pad:
         raise ValueError(f"pack_params: {k0.shape[0]} input rows exceed d_pad={d_pad}")
     w0 = k0.new_zeros((d_pad, hidden_dim))
     w0[: k0.shape[0]] = k0
-    b0 = state["trunk.0.bias"][None]
+    b0 = bias0[None]
 
     whs, bhs = [], []
     for i in range(1, num_layers):
-        k = state[f"trunk.{i}.weight"].T
+        k, b = _trunk_layer(state, i, lora_alpha)
         if k.shape != (hidden_dim, hidden_dim):
             raise ValueError(
                 f"pack_params requires a uniform {hidden_dim}x{hidden_dim} trunk; "
-                f"trunk.{i} has (in, out) shape {tuple(k.shape)}"
+                f"trunk.{i} has (in, out) shape {tuple(k.shape)} (skip connections are "
+                f"not supported by the fused kernels)"
             )
         whs.append(k)
-        bhs.append(state[f"trunk.{i}.bias"])
+        bhs.append(b)
     wh = torch.stack(whs) if whs else k0.new_zeros((0, hidden_dim, hidden_dim))
     bh = torch.stack(bhs) if bhs else k0.new_zeros((0, hidden_dim))
 

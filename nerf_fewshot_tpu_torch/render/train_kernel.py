@@ -219,7 +219,8 @@ class _TrainObjective(torch.autograd.Function):
 
 @torch.no_grad()
 def _coarse_weights(params, pts, rays_d, z, dnorm, settings, pos_freq, dir_freq, num_layers,
-                    hidden_dim, use_viewdirs, compute_dtype, inline_pe, point_features_fn):
+                    hidden_dim, use_viewdirs, compute_dtype, inline_pe, point_features_fn,
+                    lora_alpha):
     """The hierarchical coarse pass: the compositing weights (R, S) of the
     stratified samples, through kernel 2 (``inline_pe``) or kernel 4, with no
     gradient (the sampling distribution is stop-gradient)."""
@@ -230,14 +231,15 @@ def _coarse_weights(params, pts, rays_d, z, dnorm, settings, pos_freq, dir_freq,
         perm, e2, c, x_dim = pe_layout(pos_freq, dir_freq, use_viewdirs,
                                        0 if feats is None else feats.shape[1])
         packed = pack_params(params, num_layers, hidden_dim,
-                             d_pad=pe_width(x_dim), row_perm=perm)
+                             d_pad=pe_width(x_dim), row_perm=perm, lora_alpha=lora_alpha)
         out = fused_render_fwd_pe(
             _raw_block(pts, rays_d, use_viewdirs), feats, z.contiguous(), dnorm,
             torch.as_tensor(e2, device=z.device), torch.as_tensor(c, device=z.device), packed,
             settings.white_bkgd, compute_dtype, use_feats=feats is not None)
     else:
         x = encode_points(pts, rays_d, pos_freq, dir_freq, use_viewdirs, feats).contiguous()
-        packed = pack_params(params, num_layers, hidden_dim, d_pad=x.shape[-1])
+        packed = pack_params(params, num_layers, hidden_dim, d_pad=x.shape[-1],
+                             lora_alpha=lora_alpha)
         out = fused_render_fwd(x, z.contiguous(), dnorm, packed, settings.white_bkgd,
                                compute_dtype)
     return out[3]
@@ -265,6 +267,7 @@ def train_objective_inputs(
     point_features_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     rgb_weight: float = 1.0,
     importance_uniforms: Optional[torch.Tensor] = None,
+    lora_alpha: float = 16.0,
 ):
     """The host glue of ``fused_train_loss_grad``: sampling (with
     ``settings.n_importance``, the coarse pass and the importance samples),
@@ -286,7 +289,7 @@ def train_objective_inputs(
     if settings.n_importance > 0:
         weights_c = _coarse_weights(params, pts, rays_d, z, dnorm, settings, pos_freq, dir_freq,
                                     num_layers, hidden_dim, use_viewdirs, compute_dtype,
-                                    inline_pe, point_features_fn)
+                                    inline_pe, point_features_fn, lora_alpha)
         pts, z = hierarchical_sample(
             rays_o, rays_d, z, weights_c, settings.n_importance,
             uniforms=importance_uniforms if settings.perturb else None)
@@ -300,13 +303,14 @@ def train_objective_inputs(
         feat_dim = 0 if feats is None else feats.shape[1]
         perm, e2, c, x_dim = pe_layout(pos_freq, dir_freq, use_viewdirs, feat_dim)
         packed = pack_params(params, num_layers, hidden_dim,
-                             d_pad=pe_width(x_dim), row_perm=perm)
+                             d_pad=pe_width(x_dim), row_perm=perm, lora_alpha=lora_alpha)
         inp = _raw_block(pts, rays_d, use_viewdirs)
         e2 = torch.as_tensor(e2, device=rays_o.device)
         c = torch.as_tensor(c, device=rays_o.device)
     else:
         inp = encode_points(pts, rays_d, pos_freq, dir_freq, use_viewdirs, feats).contiguous()
-        packed = pack_params(params, num_layers, hidden_dim, d_pad=inp.shape[-1])
+        packed = pack_params(params, num_layers, hidden_dim, d_pad=inp.shape[-1],
+                             lora_alpha=lora_alpha)
         e2 = c = feats = None
     args = (inp, feats, z.contiguous(), dnorm, target.contiguous(),
             mask.reshape(-1, 1).to(rays_o.dtype).contiguous(), inv_denom, e2, c, packed)
@@ -338,6 +342,7 @@ def fused_train_loss_grad(
     point_features_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     rgb_weight: float = 1.0,
     importance_uniforms: Optional[torch.Tensor] = None,
+    lora_alpha: float = 16.0,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(masked-MSE loss, parameter gradients by name) in one kernel call.
 
@@ -353,7 +358,9 @@ def fused_train_loss_grad(
     gives the weights the importance samples are drawn from, with the
     (R, n_importance) ``importance_uniforms`` when ``settings.perturb`` (the
     evenly spaced ``linspace(0, 1)`` without them); the objective then runs
-    over the merged, sorted ``n_samples + n_importance`` depths.
+    over the merged, sorted ``n_samples + n_importance`` depths. LoRA trunk
+    layers are merged with ``lora_alpha`` (``pack_params``), and their
+    gradients come back under ``lora_a`` / ``lora_b``.
     """
     if isinstance(model_or_state, nn.Module):
         params = dict(model_or_state.named_parameters())
@@ -363,7 +370,7 @@ def fused_train_loss_grad(
         params, rays_o, rays_d, target, mask, settings, pos_freq, dir_freq, num_layers,
         hidden_dim, use_viewdirs, compute_dtype, uniforms, denom_rays, inline_pe,
         reg_weight, depth_weight, target_depth, point_features_fn, rgb_weight,
-        importance_uniforms)
+        importance_uniforms, lora_alpha)
     *inputs, packed = args
     loss = _TrainObjective.apply(*inputs, opts, *packed)
     names = list(params)

@@ -13,14 +13,20 @@
   with no epsilon (``torch.nn.utils.clip_grad_norm_`` adds 1e-6).
 * The learning rate is a per-epoch MultiStep schedule set through
   ``set_learning_rate``.
+* ``lora_only`` is the JAX package's ``optax.multi_transform`` with
+  ``set_to_zero`` on the ``base`` labels (``lora_label_fn``): the
+  optimizer holds the ``lora`` parameters alone, so the clip and the
+  weight decay act on them only, the base parameters and heads never move,
+  and Adam's moments and step count start fresh.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Sequence
+from typing import Iterable, Sequence, Tuple, Union
 
 import torch
 
+from nerf_fewshot_tpu_torch.models.lora import lora_label_fn
 from nerf_fewshot_tpu_torch.training.config import OptimizerConfig
 
 
@@ -51,18 +57,32 @@ def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> Non
 
 
 def make_optimizer(
-    cfg: OptimizerConfig, params: Iterable[torch.nn.Parameter], lora_only: bool = False
+    cfg: OptimizerConfig,
+    params: Iterable[Union[torch.nn.Parameter, Tuple[str, torch.nn.Parameter]]],
+    lora_only: bool = False,
 ) -> torch.optim.Optimizer:
-    """The configured optimizer over ``params``, with the global-norm clip
-    registered as a step pre-hook when ``cfg.grad_clip > 0``."""
-    if lora_only:
-        raise NotImplementedError("lora_only optimizers need LoRA, which is not ported yet")
+    """The configured optimizer over ``params`` (parameters, or ``(name,
+    parameter)`` pairs as ``named_parameters()`` gives them), with the
+    global-norm clip registered as a step pre-hook when ``cfg.grad_clip >
+    0``. ``lora_only`` keeps the parameters whose name ``lora_label_fn``
+    labels ``lora`` and needs the names."""
     params = list(params)
+    named = [p for p in params if isinstance(p, tuple)]
+    if lora_only:
+        if len(named) != len(params):
+            raise TypeError("make_optimizer(lora_only=True) labels parameters by name: "
+                            "pass named_parameters()")
+        params = [p for name, p in named if lora_label_fn(name) == "lora"]
+    else:
+        params = [p[1] if isinstance(p, tuple) else p for p in params]
+    # one group even when it is empty: a model without LoRA layers then
+    # freezes whole, as set_to_zero on every leaf does
+    groups = [{"params": params}]
     kw = dict(lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
     if cfg.kind == "adam":
-        opt = torch.optim.Adam(params, **kw)
+        opt = torch.optim.Adam(groups, **kw)
     elif cfg.kind == "adamw":
-        opt = torch.optim.AdamW(params, **kw)
+        opt = torch.optim.AdamW(groups, **kw)
     else:
         raise ValueError(f"unknown optimizer kind: {cfg.kind}")
     if cfg.grad_clip > 0:

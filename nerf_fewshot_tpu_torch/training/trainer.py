@@ -9,11 +9,11 @@ optimizer step. On the kernel path the loss and every gradient come from
 card and runs its plain version on the CPU; the plain path is
 ``render_rays`` + ``nerf_loss`` + autograd. Which path a config takes
 follows the JAX trainer: ``rendering.backend: xla``, or under ``auto`` a
-config the JAX kernels do not take (a width that is not a multiple of 128,
-sigma noise), trains on the plain path on every device. A config the JAX
-kernels take but the port has no CUDA build for (a width of 384 or 512)
-raises on a card, and trains on the plain path only on the CPU or with
-``backend: xla``. The path taken is in ``kernel_path``. Minibatch
+config the JAX kernels do not take (``arch: module``, skip layers, a width
+that is not a multiple of 128, sigma noise), trains on the plain path on
+every device. A config the JAX kernels take but the port has no CUDA build
+for (a width of 384 or 512) raises on a card, and trains on the plain path
+only on the CPU or with ``backend: xla``. The path taken is in ``kernel_path``. Minibatch
 permutations come from ``np.random.default_rng(cfg.seed)`` exactly as in
 the JAX trainer, so both draw the same batches. Eval renders every view
 through ``fused_render_rays(forward_only=True)`` on the kernel path.
@@ -24,9 +24,15 @@ gradient reaches them, as in the reference). Each step's points are
 projected into its view and sampled from that view's map
 (``feature_sampler``); eval and the dead-sigma probe use train view 0's
 map and pose for every pose, the reference's quirk. On the kernel path the
-features enter kernel 1 and kernel 2 as their ``feats`` input. LPIPS, trunk
-LoRA and the module architecture come with later slices and raise until
-then.
+features enter kernel 1 and kernel 2 as their ``feats`` input.
+
+``arch: module`` trains ``NeRFWithDINO`` on the plain path. Trunk LoRA
+(``nerf_model.lora_rank``) runs through the kernels with the LoRA pairs
+merged into the trunk weights (``pack_params``), and
+``optimizer.lora_only_after_epoch`` swaps in a fresh optimizer over the
+LoRA parameters alone at that epoch, once (the two-phase freeze).
+``load`` of a ``.pth`` / ``.pt`` file imports a reference PyTorch
+checkpoint (``load_torch``). LPIPS comes with a later slice.
 """
 
 from __future__ import annotations
@@ -42,7 +48,12 @@ import torch.nn.functional as F
 
 from nerf_fewshot_tpu_torch.data.blender import BlenderDataset
 from nerf_fewshot_tpu_torch.device import DeviceLike, resolve_device
-from nerf_fewshot_tpu_torch.models.mlp import NeRFMLP, nerf_mlp_from_jax
+from nerf_fewshot_tpu_torch.models.mlp import (
+    NeRFMLP,
+    NeRFWithDINO,
+    nerf_mlp_from_jax,
+    nerf_with_dino_from_jax,
+)
 from nerf_fewshot_tpu_torch.ops.composite import RenderOutputs
 from nerf_fewshot_tpu_torch.ops.interp import grid_sample
 from nerf_fewshot_tpu_torch.ops.rays import (
@@ -61,6 +72,12 @@ from nerf_fewshot_tpu_torch.training.optim import make_optimizer, multistep_lr, 
 from nerf_fewshot_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
 from nerf_fewshot_tpu_torch.utils.logging import JSONLLogger, save_png
 from nerf_fewshot_tpu_torch.utils.profiling import RateMeter
+from nerf_fewshot_tpu_torch.utils.torch_import import (
+    import_nerf_mlp_state_dict,
+    import_nerf_with_dino_state_dict,
+    load_torch_checkpoint,
+    model_state_dict,
+)
 
 ChunkFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
@@ -113,8 +130,6 @@ class Trainer:
         log_path: Optional[str] = None,
         dino_features: Optional[np.ndarray] = None,  # (V, Hp, Wp, Fd)
     ):
-        if cfg.nerf.arch != "functional":
-            raise NotImplementedError(f"arch={cfg.nerf.arch!r} is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.train_data = train_data
@@ -131,23 +146,33 @@ class Trainer:
             if self.use_dino else None)
 
         generator = torch.Generator().manual_seed(cfg.seed)
-        self.model = NeRFMLP(
-            pos_freq=cfg.nerf.pos_freq,
-            dir_freq=cfg.nerf.dir_freq,
-            use_viewdirs=cfg.nerf.use_viewdirs,
-            dino_dim=cfg.dino.output_dim if self.use_dino else 0,
-            hidden_dim=cfg.nerf.hidden_dim,
-            num_layers=cfg.nerf.num_layers,
-            skip_layers=tuple(cfg.nerf.skip_layers),
-            lora_rank=cfg.nerf.lora_rank,
-            sigma_bias_init=cfg.nerf.sigma_bias,
-            generator=generator,
-        ).to(self.device)
+        n = cfg.nerf
+        if n.arch == "module":
+            self.model = NeRFWithDINO(
+                pos_freq=n.pos_freq, dir_freq=n.dir_freq, dino_dim=cfg.dino.output_dim,
+                hidden_dim=n.hidden_dim, num_density_layers=n.num_layers, generator=generator,
+            ).to(self.device)
+        else:
+            self.model = NeRFMLP(
+                pos_freq=n.pos_freq,
+                dir_freq=n.dir_freq,
+                use_viewdirs=n.use_viewdirs,
+                dino_dim=cfg.dino.output_dim if self.use_dino else 0,
+                hidden_dim=n.hidden_dim,
+                num_layers=n.num_layers,
+                skip_layers=tuple(n.skip_layers),
+                lora_rank=n.lora_rank,
+                lora_alpha=n.lora_alpha,
+                sigma_bias_init=n.sigma_bias,
+                generator=generator,
+            ).to(self.device)
 
         self.lr_at = multistep_lr(
             cfg.optimizer.lr, cfg.optimizer.lr_milestones, cfg.optimizer.lr_gamma
         )
-        self.optimizer = make_optimizer(cfg.optimizer, self.model.parameters())
+        self.optimizer = make_optimizer(cfg.optimizer, self.model.named_parameters())
+        # the two-phase freeze has swapped in the LoRA-only optimizer
+        self._lora_only_active = False
         self.epoch = 0
         self.best_psnr = 0.0
         # consecutive epochs the dead-sigma probe reported acc == 0
@@ -169,9 +194,11 @@ class Trainer:
     # ------------------------------------------------------------------ model
 
     def load_jax_params(self, params: Mapping) -> None:
-        """Take the weights of a JAX ``NeRFMLP`` param tree (numpy leaves),
-        with or without its DINO input rows."""
-        self.model.load_state_dict(nerf_mlp_from_jax(params))
+        """Take the weights of a JAX param tree (numpy leaves) of the
+        configured architecture: ``NeRFMLP`` (with or without its DINO input
+        rows, dense or LoRA trunk) or ``NeRFWithDINO``."""
+        from_jax = nerf_with_dino_from_jax if self.cfg.nerf.arch == "module" else nerf_mlp_from_jax
+        self.model.load_state_dict(from_jax(params))
 
     def feature_sampler(self, view: int) -> Optional[PointFeaturesFn]:
         """Train view ``view``'s conditioning closure (``_feature_sampler``
@@ -188,6 +215,14 @@ class Trainer:
         """Why the JAX package's kernels would not take this config (its
         ``Trainer._kernel_ineligible_reason``, word for word)."""
         cfg = self.cfg
+        if cfg.nerf.arch == "module":
+            return "arch=module (NeRFWithDINO) has no kernel packing"
+        if cfg.nerf.skip_layers:
+            return (
+                f"skip_layers={list(cfg.nerf.skip_layers)} — the fused "
+                "kernels require a uniform trunk (pack_params assumes "
+                "hidden→hidden layers)"
+            )
         if cfg.nerf.hidden_dim % 128 != 0:
             return f"hidden_dim={cfg.nerf.hidden_dim} not 128-lane aligned"
         if not (cfg.strict_reference_behavior or cfg.rendering.noise_std == 0.0):
@@ -261,7 +296,7 @@ class Trainer:
                     compute_dtype=cfg.rendering.compute_dtype,
                     forward_only=forward_only, device=self.device,
                     uniforms=uniforms, importance_uniforms=importance_uniforms,
-                    point_features_fn=pf,
+                    point_features_fn=pf, lora_alpha=cfg.nerf.lora_alpha,
                 )
 
             return fn
@@ -335,6 +370,7 @@ class Trainer:
             uniforms=uniforms, importance_uniforms=importance_uniforms,
             point_features_fn=pf, rgb_weight=float(cfg.loss.rgb_weight),
             reg_weight=0.0 if cfg.strict_reference_behavior else float(cfg.loss.reg_weight),
+            lora_alpha=cfg.nerf.lora_alpha,
         )
         for name, p in self.model.named_parameters():
             p.grad = grads[name]
@@ -348,7 +384,7 @@ class Trainer:
             out.rgb, tgt, cfg.loss,
             weights=None if cfg.strict_reference_behavior else out.weights, mask=mask,
         )
-        self.optimizer.zero_grad(set_to_none=True)
+        self.model.zero_grad(set_to_none=True)
         losses["total"].backward()
         return losses["total"].detach()
 
@@ -361,8 +397,12 @@ class Trainer:
         p = cfg.phases[phase_idx]
         pd = self.phase_data(phase_idx)
         boundary = cfg.optimizer.lora_only_after_epoch
-        if boundary and epoch >= boundary:
-            make_optimizer(cfg.optimizer, self.model.parameters(), lora_only=True)
+        if boundary and epoch >= boundary and not self._lora_only_active:
+            # the two-phase freeze (JAX trainer.py:567-575): a fresh
+            # optimizer over the LoRA parameters alone, once
+            self.optimizer = make_optimizer(cfg.optimizer, self.model.named_parameters(),
+                                            lora_only=True)
+            self._lora_only_active = True
         set_learning_rate(self.optimizer, self.lr_at(epoch))
 
         n_rays = pd.rays_o.shape[1]
@@ -544,16 +584,55 @@ class Trainer:
     def save(self, path: str) -> None:
         save_checkpoint(
             path,
-            {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict()},
+            {"model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(),
+             "lora_only": self._lora_only_active},
             metadata={"epoch": self.epoch, "best_psnr": self.best_psnr, "config": self.cfg.raw},
         )
 
     def load(self, path: str) -> None:
         """Restore the model, the optimizer state and (from the metadata)
-        the next epoch and the best PSNR."""
+        the next epoch and the best PSNR; a ``.pth`` / ``.pt`` path is a
+        reference PyTorch checkpoint (``load_torch``).
+
+        An optimizer state from one side of the two-phase freeze does not
+        load into a trainer on the other side: the JAX trainer's restore
+        fails there too (the LoRA-only state has another structure), so
+        this raises."""
+        if path.endswith((".pth", ".pt")):
+            self.load_torch(path)
+            return
         tree, meta = restore_checkpoint(path, map_location=self.device)
+        saved_lora_only = bool(tree.get("lora_only", False))
+        if saved_lora_only != self._lora_only_active:
+            side = lambda lora_only: "LoRA-only" if lora_only else "full"
+            raise ValueError(
+                f"{path} holds the {side(saved_lora_only)} optimizer state of one side of the "
+                f"two-phase freeze (optimizer.lora_only_after_epoch="
+                f"{self.cfg.optimizer.lora_only_after_epoch}); this trainer's optimizer is the "
+                f"{side(self._lora_only_active)} one. The JAX trainer cannot resume across the "
+                f"freeze either; resume from a checkpoint saved on this trainer's side of it")
         self.model.load_state_dict(tree["model"])
         self.optimizer.load_state_dict(tree["optimizer"])
         if meta:
             self.epoch = int(meta.get("epoch", 0)) + 1
             self.best_psnr = float(meta.get("best_psnr", 0.0))
+
+    def load_torch(self, path: str) -> None:
+        """Import a reference PyTorch checkpoint: the NeRF state dict under
+        ``nerf_model_state_dict``, ``nerf_state_dict`` or bare, mapped by
+        ``utils/torch_import.py``; entries it does not match keep their
+        values. The optimizer starts afresh (of the kind this trainer holds
+        now), and the epoch follows the file's ``epoch`` + 1 when it has
+        one."""
+        ckpt = load_torch_checkpoint(path)
+        sd = model_state_dict(ckpt)
+        importer = (import_nerf_with_dino_state_dict if self.cfg.nerf.arch == "module"
+                    else import_nerf_mlp_state_dict)
+        self.model.load_state_dict(importer(self.model.state_dict(), sd))
+        self.optimizer = make_optimizer(self.cfg.optimizer, self.model.named_parameters(),
+                                        lora_only=self._lora_only_active)
+        if isinstance(ckpt, dict) and "epoch" in ckpt:
+            try:
+                self.epoch = int(ckpt["epoch"]) + 1
+            except (TypeError, ValueError):
+                pass

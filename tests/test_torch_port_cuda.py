@@ -571,3 +571,89 @@ def test_render_bwd_kernel_dx_at_the_dino_widths(h100, feat_dim):
     got = tk.fused_render_bwd(x, z, dnorm, packed, *cot)
     _check_vjp(got, tk.fused_render_bwd_reference(x, z, dnorm, packed, *cot), 1e-4)
     assert torch.count_nonzero(got[0][:, 102 + feat_dim:]) == 0
+
+
+LORA_D = 160  # pos_freq 10, view directions, 64 features: 154 live columns
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white_bkgd", [False, True])
+def test_fwd_pe_kernel_at_the_lora_trunk_width(h100, white_bkgd):
+    """Kernel 2 on a 1024 x 64 chunk at ``lora_nerf_trunk.yaml``'s input
+    width (D 160, six zero columns); two calls bit-equal."""
+    import chip_smoke
+
+    args = chip_smoke.random_fwd_pe_args(np.random.default_rng(5), 1024, 64, 256, 8, 64, h100,
+                                         pos_freq=10, d_pad=tk.pe_width(90 + 64))
+    assert args[-1][0].shape[0] == LORA_D
+    got = tk.fused_render_fwd_pe(*args, white_bkgd=white_bkgd, use_feats=True)
+    again = tk.fused_render_fwd_pe(*args, white_bkgd=white_bkgd, use_feats=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = tk.fused_render_fwd_pe_reference(*args, white_bkgd=white_bkgd, use_feats=True)
+    for g, w, name in zip(got, want, ("rgb", "depth", "acc", "weights")):
+        assert torch.isfinite(g).all(), name
+        err = (g - w).abs().max().item()
+        assert err <= TOL[name], (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [512, 1024])
+@pytest.mark.parametrize("case", ["plain", "white_masked_reg_depth"])
+def test_train_kernel_at_the_lora_trunk_width(h100, R, case):
+    """Kernel 1 at R x 64 and D 160 against its plain version; the pad rows
+    of w0 get no gradient."""
+    kw = {} if case == "plain" else dict(white_bkgd=True, ragged=9, reg_weight=0.01,
+                                         depth_weight=0.1)
+    args, opts = _train_inputs(R, 64, 256, 8, h100, feat_dim=64, **kw)
+    assert args[-1][0].shape[0] == LORA_D
+    got = tt.fused_train_objective(*args, **opts)
+    _check_train(got, tt.fused_train_objective_reference(*args, **opts), 1e-4)
+    assert torch.count_nonzero(got[1][0][154:]) == 0
+
+
+@pytest.mark.cuda
+def test_lora_trainer_on_the_card_matches_its_xla_twin(h100):
+    """A trunk-LoRA trainer (rank 4, 64-wide features: D 160) through
+    kernels 1 and 2 against a ``backend: xla`` trainer from the same seed on
+    the card: per-step losses of epoch 0 and of the freeze (epoch 1) within
+    rel 1e-4; one kernel-1 launch per step; base and heads bit-equal across
+    the freeze; the views of the trained weights within the view
+    tolerances."""
+    from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
+    from nerf_fewshot_tpu_torch.models.lora import lora_label_fn
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    def cfg(backend):
+        return config_from_dict({
+            "data": {"resolution": 28},
+            "model": {"use_dino": True, "dino_model_type": "single_scale"},
+            "nerf_model": {"sigma_bias": 0.1, "lora_rank": 4, "lora_alpha": 16},
+            "training": {"phases": [{"start": 0, "end": 1, "H": 14, "n_samples": 32,
+                                     "batch_size": 98},
+                                    {"start": 1, "H": 28, "n_samples": 48, "batch_size": 256}]},
+            "optimizer": {"lora_only_after_epoch": 1},
+            "rendering": {"chunk_size": 392, "backend": backend},
+        })
+
+    data = make_scene_dataset(lego_like_scene(), 2, img_size=28, gt_samples=64, device="cpu")
+    feats = np.random.default_rng(4).standard_normal((2, 3, 3, 64)).astype(np.float32)
+    gpu, twin = (Trainer(cfg(b), data, data, device=h100, dino_features=feats)
+                 for b in ("auto", "xla"))
+    before = tt.fused_train_objective.launches["train_pe"]
+    for epoch in (0, 1):
+        if epoch == 1:
+            frozen = {k: v.clone() for k, v in gpu.model.state_dict().items()
+                      if lora_label_fn(k) == "base"}
+        gpu.train_epoch(epoch)
+        twin.train_epoch(epoch)
+        np.testing.assert_allclose(gpu.last_step_losses, twin.last_step_losses, rtol=1e-4)
+    assert gpu.kernel_path == "kernel" and gpu._lora_only_active
+    assert tt.fused_train_objective.launches["train_pe"] - before == 2 * 2 + 2 * 4
+    state = gpu.model.state_dict()
+    assert all(torch.equal(state[k], v) for k, v in frozen.items())
+    twin.model.load_state_dict(state)
+    for g, w, name in zip(gpu.render_views(data.poses[:1]), twin.render_views(data.poses[:1]),
+                          ("rgb", "depth", "acc")):
+        np.testing.assert_allclose(g, w, rtol=0, atol=TOL[name], err_msg=name)

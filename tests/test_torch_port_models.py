@@ -57,16 +57,34 @@ def test_nerf_mlp_from_jax_transposes_every_kernel():
 
 
 def test_nerf_mlp_from_jax_refuses_lora_trees():
+    """LoRA trees are ported now: each trunk layer maps to ``base`` (kernel
+    transposed) and its ``lora_a`` (in, r) / ``lora_b`` (r, out) pair kept in
+    the JAX layout; a layer that is neither dense nor LoRA is refused."""
     _, params = _jax_params(True, None, lora_rank=4)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        nerf_mlp_from_jax(params)
+    state = nerf_mlp_from_jax(params)
+    np.testing.assert_array_equal(state["trunk.1.base.weight"].numpy(),
+                                  params["trunk_1"]["base"]["kernel"].T)
+    np.testing.assert_array_equal(state["trunk.2.lora_a"].numpy(), params["trunk_2"]["lora_a"])
+    assert state["trunk.0.lora_b"].shape == (4, 128)
+    NeRFMLP(use_viewdirs=True, hidden_dim=128, num_layers=3, lora_rank=4).load_state_dict(state)
+    with pytest.raises(ValueError, match="neither"):
+        nerf_mlp_from_jax({**params, "trunk_0": {"scale": params["rgb_head"]["bias"]}})
 
 
 @pytest.mark.parametrize("kwargs", [{"dino_dim": 64, "lora_rank": 4}, {"skip_layers": (1,)},
                                     {"lora_rank": 4}])
 def test_nerf_mlp_refuses_unported_options(kwargs):
-    with pytest.raises(NotImplementedError):
-        NeRFMLP(hidden_dim=128, num_layers=3, **kwargs)
+    """Trunk LoRA and skip layers are ported now: the options the port
+    refused before build the JAX module's parameter shapes."""
+    jm = JaxNeRFMLP(pos_freq=10, dir_freq=4, use_viewdirs=True, hidden_dim=128, num_layers=3,
+                    **kwargs)
+    ins = [jnp.zeros((1, 3)), jnp.zeros((1, 3))] + ([jnp.zeros((1, 64))] if "dino_dim" in kwargs
+                                                    else [])
+    params = jax.tree_util.tree_map(np.asarray, jm.init(jax.random.key(0), *ins)["params"])
+    model = NeRFMLP(use_viewdirs=True, hidden_dim=128, num_layers=3, **kwargs)
+    want = nerf_mlp_from_jax(params)
+    assert {k: tuple(v.shape) for k, v in model.state_dict().items()} == {
+        k: tuple(v.shape) for k, v in want.items()}
 
 
 def test_torch_default_init_from_generator():

@@ -181,10 +181,16 @@ def test_trainer_init_is_seeded_and_refuses_unported_work(scene):
         assert torch.equal(va, vb), k
     assert torch.all(a.model.sigma_head.bias == 0.1)
     raw = _slice_config(tcfg).raw
-    for unported in ({"nerf_model": {**raw["nerf_model"], "lora_rank": 4}},
-                     {"nerf_model": {**raw["nerf_model"], "arch": "module"}}):
-        with pytest.raises(NotImplementedError):
-            Trainer(tcfg.config_from_dict({**raw, **unported}), _port_data(train), device="cpu")
+    # trunk LoRA and the module stack are ported now: they build, seeded
+    for ported in ({"nerf_model": {**raw["nerf_model"], "lora_rank": 4}},
+                   {"nerf_model": {**raw["nerf_model"], "arch": "module"}}):
+        c, d = (Trainer(tcfg.config_from_dict({**raw, **ported}), _port_data(train), device="cpu")
+                for _ in range(2))
+        assert all(torch.equal(va, vb) for va, vb in zip(c.model.state_dict().values(),
+                                                          d.model.state_dict().values()))
+    wandb = {**raw, "output": {**raw.get("output", {}), "use_wandb": True}}
+    with pytest.raises(NotImplementedError):
+        Trainer(tcfg.config_from_dict(wandb), _port_data(train), device="cpu")
     with pytest.raises(ValueError, match="backend=fused"):
         cfg = tcfg.config_from_dict({**_slice_config(tcfg).raw,
                                      "nerf_model": {"hidden_dim": 64, "num_layers": 2},

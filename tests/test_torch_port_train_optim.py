@@ -92,8 +92,10 @@ def test_make_optimizer_matches_jax(x64, kind, wd, clip):
 
 
 def test_optimizer_refuses_lora_only_and_unknown_kinds():
+    """``lora_only`` is ported now and labels parameters by name: it
+    refuses parameters that come without their names."""
     p = [torch.nn.Parameter(torch.zeros(2))]
-    with pytest.raises(NotImplementedError, match="LoRA"):
+    with pytest.raises(TypeError, match="named_parameters"):
         toptim.make_optimizer(tcfg.OptimizerConfig(), p, lora_only=True)
     with pytest.raises(ValueError, match="unknown optimizer kind"):
         toptim.make_optimizer(tcfg.OptimizerConfig(kind="sgd"), p)

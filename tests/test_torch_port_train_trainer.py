@@ -352,10 +352,5 @@ def test_fit_writes_logs_images_and_checkpoints_and_load_restores(scene, tmp_pat
 
 def test_trainer_refuses_unported_training_options(scene):
     train, test = scene
-    lora = _config(tcfg, optimizer={"lora_only_after_epoch": 1})
-    ptr = Trainer(lora, _port_data(train), device="cpu")
-    ptr.train_epoch(0)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        ptr.train_epoch(1)
     with pytest.raises(NotImplementedError, match="wandb"):
         Trainer(_config(tcfg, output={"use_wandb": True}), _port_data(train), device="cpu")

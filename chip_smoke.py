@@ -104,7 +104,29 @@ its seconds:
    the plain path with the JAX trainer's reason and launch no kernel, raise
    under ``backend: fused``; the module config trains two epochs and its
    PSNR must rise;
-19. CLI: ``python -m nerf_fewshot_tpu_torch.cli train --config
+19. script kernel widths: the five kernels at the script recipes' input
+   (pos_freq 10 and the 768 channels of the ViT-B/16 patch embedding, random
+   inputs): kernel 1 at D 832 (no view directions) and 864 at 1024x32 and
+   4096x64 (and a white, masked, reg and depth case), kernel 2 at D 832
+   and 864 on a 2048x64 chunk, kernels 4, 3 and 5 from a 896-wide x at
+   512x64; every second call bit for bit, the pad rows' gradients zero,
+   the existing gates; times, bounds on the live columns (831 / 858),
+   shares;
+20. script slice: ``script_baseline_live.yaml``, ``script_projection.yaml``
+   and ``script_lora.yaml`` read by the port's reader, on the patch-embed
+   extractor's (5, 14, 14, 768) maps computed on the card: a file whose
+   seed-0 init is dead as it stands trains with ``sigma_bias: 0.1``, which
+   is printed; one epoch of each phase (``script_lora`` 0, 50, 51, 52
+   across its freeze, base and heads bit-equal after it), 5 full-image
+   steps each through kernel 1 (launches = steps), epoch 0 against a
+   ``backend: xla`` twin (rel 1e-4), eval through kernel 2 (one launch per
+   chunk), PSNR rising, the trained views against the plain pipeline, both
+   kernels and the 768-channel feature sampler at the trainer's shapes;
+   one 64x64 epoch of ``script_projection`` traced, then a differentiable
+   render step (kernels 4 and 3) and an ``inline_pe=False`` step (kernel
+   5) on its 896-wide x; ``script_baseline.yaml`` (no sigma bias) through
+   ``fit`` for 6 epochs, its ``dead_sigma_epochs`` reported, not gated;
+21. CLI: ``python -m nerf_fewshot_tpu_torch.cli train --config
    experiments/dino_nerf.yaml --synthetic --epochs 2`` as a subprocess
    must exit 0, write ``final.ckpt`` and print the summary JSON with the
    kernel path.
@@ -112,7 +134,8 @@ its seconds:
 Any failure raises and exits non-zero. On success the last three lines are
 the ``nvidia-smi`` name/power-limit line, a JSON line with the kernels'
 numbers (the five kernels, kernels 1 and 2 at the DINO widths, then at the
-trunk-LoRA width), and ``{"ok": true, "device": {...}}``.
+trunk-LoRA width, then the five at the script recipes' widths), and
+``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -241,6 +264,21 @@ LORA_EPOCHS = (0, 50, 51, 52, 100)
 LORA_WIDTH = (64, 160)
 # arch: module (multiscale.yaml) trains one epoch of each of its first two phases
 MODULE_EPOCHS = (0, 50)
+# The script recipes (experiments/script_*.yaml): the 768 channels of the
+# ViT-B/16 patch embedding at pos_freq 10; per view-direction flag the live
+# input columns and the kernels' padded input width (63 or 90 PE columns + 768,
+# to a multiple of 16); kernels 3, 4 and 5 take the encoded x, 896 wide. The
+# slice trains one epoch of each phase (script_lora: across its freeze at 51),
+# 5 full-image steps each, and script_baseline.yaml (no sigma bias) for
+# SCRIPT_DEAD_EPOCHS epochs, reporting its dead-sigma count.
+SCRIPT_FD = 768
+SCRIPT_WIDTHS = {False: (831, 832), True: (858, 864)}
+SCRIPT_X = 896
+SCRIPT_EPOCHS = {"script_baseline_live.yaml": (0, 50, 100),
+                 "script_projection.yaml": (0, 50, 100),
+                 "script_lora.yaml": (0, 50, 51, 52)}
+SCRIPT_TRACED = "script_projection.yaml"  # its 64x64 x 64-sample epoch is traced
+SCRIPT_DEAD_CONFIG, SCRIPT_DEAD_EPOCHS = "script_baseline.yaml", 6
 
 
 @contextmanager
@@ -305,13 +343,14 @@ def fwd_pe_cost(args, use_feats):
     return flops, nbytes
 
 
-def random_fwd_pe_args(rng, R, S, H, L, feat_dim, device, pos_freq=10, d_pad=None):
+def random_fwd_pe_args(rng, R, S, H, L, feat_dim, device, pos_freq=10, d_pad=None,
+                       use_viewdirs=True):
     """Random inputs of the given shape: torch-default-bounded weights,
     points in the scene box, depths in [2, 6]; the input padded to ``d_pad``
     (default: a multiple of 128)."""
     from nerf_fewshot_tpu_torch.render import kernels as tk
 
-    perm, e2, c, x_dim = tk.pe_layout(pos_freq, 4, True, feat_dim)
+    perm, e2, c, x_dim = tk.pe_layout(pos_freq, 4, use_viewdirs, feat_dim)
 
     def u(fan_in, *shape):
         return torch.tensor((rng.uniform(-1, 1, shape) / np.sqrt(fan_in)).astype(np.float32))
@@ -329,7 +368,7 @@ def random_fwd_pe_args(rng, R, S, H, L, feat_dim, device, pos_freq=10, d_pad=Non
     feats = (torch.tensor(rng.standard_normal((R * S, feat_dim)).astype(np.float32))
              if feat_dim else None)
     on = lambda t: None if t is None else t.to(device)
-    return (on(tk._raw_block(pts, rd, True)), on(feats), on(z),
+    return (on(tk._raw_block(pts, rd, use_viewdirs)), on(feats), on(z),
             on(torch.linalg.norm(rd, dim=-1, keepdim=True)), on(torch.tensor(e2)),
             on(torch.tensor(c)), tuple(p.to(device) for p in packed))
 
@@ -352,18 +391,19 @@ def random_state(rng, x_dim, H, L, sigma_bias):
 
 def random_train_args(rng, R, S, H, L, device, *, feat_dim=0, sigma_bias=0.1,
                       white_bkgd=False, ragged=0, reg_weight=0.0, depth_weight=0.0,
-                      inline_pe=True, pos_freq=10):
+                      inline_pe=True, pos_freq=10, use_viewdirs=True):
     """Random inputs of the train kernel as ``fused_train_loss_grad`` builds
     them: random weights (``random_state``), rays from (0, 0, 4) into the
     scene volume, jittered samples in [2, 6], uniform rgb targets, the last
     ``ragged`` rays masked out, depth targets in [2.5, 5.5] when
     ``depth_weight``, features ``tanh(pts @ W)`` when ``feat_dim``, PE at
-    ``pos_freq``. Returns ``(args, opts)`` for
+    ``pos_freq`` (with view directions at dir_freq 4 unless not
+    ``use_viewdirs``). Returns ``(args, opts)`` for
     ``fused_train_objective(*args, **opts)``."""
     from nerf_fewshot_tpu_torch.render import train_kernel as tt
     from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings
 
-    x_dim = 6 * pos_freq + 30 + feat_dim
+    x_dim = 6 * pos_freq + (30 if use_viewdirs else 3) + feat_dim
     state = {k: v.to(device) for k, v in random_state(rng, x_dim, H, L, sigma_bias).items()}
     on = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
     d = rng.standard_normal((R, 3))
@@ -377,8 +417,9 @@ def random_train_args(rng, R, S, H, L, device, *, feat_dim=0, sigma_bias=0.1,
     settings = RenderSettings(near=2.0, far=6.0, n_samples=S, perturb=True, white_bkgd=white_bkgd)
     return tt.train_objective_inputs(
         state, on(np.broadcast_to([0.0, 0.0, 4.0], (R, 3))), on(d), on(rng.uniform(0, 1, (R, 3))),
-        on(mask), settings, pos_freq, 4, L, H, uniforms=on(rng.uniform(0, 1, (R, S))),
-        inline_pe=inline_pe, reg_weight=reg_weight, depth_weight=depth_weight,
+        on(mask), settings, pos_freq, 4, L, H, use_viewdirs=use_viewdirs,
+        uniforms=on(rng.uniform(0, 1, (R, S))), inline_pe=inline_pe, reg_weight=reg_weight,
+        depth_weight=depth_weight,
         target_depth=on(rng.uniform(2.5, 5.5, R)) if depth_weight else None, point_features_fn=pf)
 
 
@@ -457,18 +498,19 @@ def compare_vjp(name, got, want, tol):
     return max_err
 
 
-def train_cost(args, opts):
+def train_cost(args, opts, x_dim=None):
     """(FLOPs, bytes) the objective needs on these inputs: the forward trunk
-    and head over the unpadded input width, the backward chain (head, then
-    the hidden layers; no input gradient), the dW products; each input
-    read once, each output written once."""
+    and head over the unpadded input width (inline PE; a pre-encoded x
+    counts its whole width unless ``x_dim`` gives its live columns), the
+    backward chain (head, then the hidden layers; no input gradient), the
+    dW products; each input read once, each output written once."""
     inp, feats, z, dnorm, tgt, mask, inv_denom, e2, c, packed = args
     w0, b0, wh, bh, wout, bout = packed
     n_points = z.numel()
     H, L1 = w0.shape[1], wh.shape[0]
     if opts["inline_pe"]:
         x_dim = inp.shape[1] + e2.shape[1] + (0 if feats is None else feats.shape[1])
-    else:
+    elif x_dim is None:
         x_dim = inp.shape[1]
     fwd = x_dim * H + L1 * H * H + H * 4
     bwd = H * 4 + L1 * H * H
@@ -519,6 +561,7 @@ def main_path_train_args(trainer, phase_idx, device, inline_pe=True, seed=0):
         state, pd.rays_o[0][idx], pd.rays_d[0][idx], pd.targets[0][idx],
         torch.ones(B, device=device), trainer._render_settings(p.n_samples, training=True),
         cfg.nerf.pos_freq, cfg.nerf.dir_freq, cfg.nerf.num_layers, cfg.nerf.hidden_dim,
+        use_viewdirs=cfg.nerf.use_viewdirs,
         uniforms=torch.rand((B, p.n_samples), generator=g, device=device), inline_pe=inline_pe,
         point_features_fn=trainer.feature_sampler(0), lora_alpha=cfg.nerf.lora_alpha)
 
@@ -636,12 +679,14 @@ def main_path_fwd_pe_args(trainer, pose, device):
     rd, pts, z = eval_chunk(trainer, pose, device)
     pf = trainer.feature_sampler(0)
     feats = None if pf is None else pf(pts.reshape(-1, 3)).contiguous()
-    perm, e2, c, x_dim = tk.pe_layout(cfg.nerf.pos_freq, cfg.nerf.dir_freq, True,
+    viewdirs = cfg.nerf.use_viewdirs
+    perm, e2, c, x_dim = tk.pe_layout(cfg.nerf.pos_freq, cfg.nerf.dir_freq, viewdirs,
                                       0 if feats is None else feats.shape[1])
     packed = tk.pack_params(trainer.model.state_dict(), cfg.nerf.num_layers,
                             cfg.nerf.hidden_dim, d_pad=tk.pe_width(x_dim), row_perm=perm,
                             lora_alpha=cfg.nerf.lora_alpha)
-    return (tk._raw_block(pts, rd, True), feats, z, torch.linalg.norm(rd, dim=-1, keepdim=True),
+    return (tk._raw_block(pts, rd, viewdirs), feats, z,
+            torch.linalg.norm(rd, dim=-1, keepdim=True),
             torch.as_tensor(e2, device=device), torch.as_tensor(c, device=device), packed)
 
 
@@ -1478,6 +1523,370 @@ def run_lora_trunk_slice(train, test, device, tk, tt):
     return out
 
 
+def timed(label, kernel_fn, plain_fn, flops, nbytes, iters=10, plain_iters=3):
+    """CUDA-event times of a kernel and its plain version, the 3xTF32 bound
+    of ``flops`` / ``nbytes`` and its share, printed. Returns ``(ms,
+    plain_ms, bound_ms, bound_by, bound32_ms)``."""
+    k_ms = cuda_ms(kernel_fn, iters=iters)
+    p_ms = cuda_ms(plain_fn, iters=plain_iters)
+    b_ms, b_by, _ = bounds(flops, nbytes, tensor_cores=True)
+    b32_ms, _, _ = bounds(flops, nbytes, tensor_cores=False)
+    print(f"  {label}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} "
+          f"as 3xTF32 (share {b_ms / k_ms:.1%}; {b32_ms:.3f} ms fp32; {flops / 1e9:.1f} GFLOP, "
+          f"{nbytes / 1e6:.2f} MB)", flush=True)
+    return k_ms, p_ms, b_ms, b_by, b32_ms
+
+
+def flat_objective(r):
+    return (r[0], *r[1])
+
+
+def run_script_kernel_widths(device, tk, tt):
+    """The five kernels at the script recipes' widths, random inputs with
+    768-wide features, against their plain versions at the existing gates:
+    kernel 1 at D 832 and 864 (1024x32 and 4096x64, the recipes' 32x32 and
+    64x64 full-image steps), kernel 2 at D 832 and 864 (a 2048x64 eval
+    chunk), kernels 4, 3 and 5 from a 896-wide x (512x64); second calls bit
+    for bit; CUDA-event times, bounds on the live columns (831 / 858) and
+    shares. Returns ``{row name: (max_abs_err, ms, plain_ms, bound_ms,
+    bound_by, bound32_ms, extra)}``."""
+    rng = np.random.default_rng(SCRIPT_FD)
+    rows = {}
+    for viewdirs, (x_dim, d) in SCRIPT_WIDTHS.items():
+        err, times = 0.0, {}
+        for R, S, kw in ((1024, 32, {}), (4096, 64, {}),
+                         (1024, 32, dict(white_bkgd=True, ragged=9, reg_weight=0.01,
+                                         depth_weight=0.1))):
+            a, o = random_train_args(rng, R, S, 256, 8, device, feat_dim=SCRIPT_FD,
+                                     use_viewdirs=viewdirs, **kw)
+            if a[-1][0].shape[0] != d:
+                raise RuntimeError(f"kernel 1's input is {a[-1][0].shape[0]} wide, not {d}")
+            label = f"kernel 1 D {d}, {R}x{S}" + (" white, 9 masked, reg, depth" if kw else "")
+            got = tt.fused_train_objective(*a, **o)
+            check_bit_equal(label, flat_objective(got),
+                            flat_objective(tt.fused_train_objective(*a, **o)))
+            err = max(err, compare_train(label, got, tt.fused_train_objective_reference(*a, **o),
+                                         TRAIN_GRAD_TOL))
+            if torch.count_nonzero(got[1][0][x_dim:]):
+                raise RuntimeError(f"{label}: the pad rows of w0 got a gradient")
+            if not kw:
+                times[(R, S)] = timed(f"kernel 1 {R}x{S} D {d}",
+                                      lambda: tt.fused_train_objective(*a, **o),
+                                      lambda: tt.fused_train_objective_reference(*a, **o),
+                                      *train_cost(a, o), iters=10 if R == 1024 else 5,
+                                      plain_iters=3 if R == 1024 else 2)
+            del got
+        small = times[(1024, 32)]
+        rows[f"train_pe_script_d{d}"] = (err, *times[(4096, 64)], {
+            "shape": "4096x64", "ms_at_1024x32": small[0], "plain_ms_at_1024x32": small[1],
+            "bound_ms_at_1024x32": small[2]})
+
+        args = random_fwd_pe_args(rng, 2048, 64, 256, 8, SCRIPT_FD, device, d_pad=d,
+                                  use_viewdirs=viewdirs)
+        err = 0.0
+        for white in (False, True):
+            kw = dict(white_bkgd=white, use_feats=True)
+            got = tk.fused_render_fwd_pe(*args, **kw)
+            check_bit_equal(f"kernel 2 D {d}, 2048x64 white_bkgd={white}", got,
+                            tk.fused_render_fwd_pe(*args, **kw))
+            err = max(err, compare(f"kernel 2 D {d}, 2048x64 white_bkgd={white}", got,
+                                   tk.fused_render_fwd_pe_reference(*args, **kw)))
+        rows[f"fwd_pe_script_d{d}"] = (err, *timed(
+            f"kernel 2 2048x64 D {d}", lambda: tk.fused_render_fwd_pe(*args, use_feats=True),
+            lambda: tk.fused_render_fwd_pe_reference(*args, use_feats=True),
+            *fwd_pe_cost(args, use_feats=True), iters=20, plain_iters=5), {"shape": "2048x64"})
+
+    (x, z, dnorm, packed), x_dim = random_render_args(rng, 512, 64, 256, 8, device,
+                                                      feat_dim=SCRIPT_FD)
+    if x.shape[1] != SCRIPT_X or x_dim != SCRIPT_WIDTHS[True][0]:
+        raise RuntimeError(f"the encoded x is {x.shape[1]} wide ({x_dim} live)")
+    fx = (x, z, dnorm, packed)
+    got = tk.fused_render_fwd(*fx)
+    check_bit_equal(f"kernel 4 x {SCRIPT_X}, 512x64", got, tk.fused_render_fwd(*fx))
+    err = compare(f"kernel 4 x {SCRIPT_X}, 512x64", got, tk.fused_render_reference(*fx))
+    rows[f"fwd_d{SCRIPT_X}"] = (err, *timed(
+        f"kernel 4 512x64 x {SCRIPT_X}", lambda: tk.fused_render_fwd(*fx),
+        lambda: tk.fused_render_reference(*fx), *render_cost(fx, x_dim, backward=False),
+        iters=20, plain_iters=5), {"shape": "512x64"})
+
+    cot = random_cotangents(rng, 512, 64, device)
+    got = tk.fused_render_bwd(*fx, *cot)
+    check_bit_equal(f"kernel 3 x {SCRIPT_X}, 512x64", (got[0], *got[1]),
+                    (lambda r: (r[0], *r[1]))(tk.fused_render_bwd(*fx, *cot)))
+    err = compare_vjp(f"kernel 3 x {SCRIPT_X}, 512x64", got,
+                      tk.fused_render_bwd_reference(*fx, *cot), TRAIN_GRAD_TOL)
+    if torch.count_nonzero(got[0][:, x_dim:]) or torch.count_nonzero(got[1][0][x_dim:]):
+        raise RuntimeError("kernel 3: the pad columns of x got a cotangent or w0 a gradient")
+    rows[f"render_bwd_d{SCRIPT_X}"] = (err, *timed(
+        f"kernel 3 512x64 x {SCRIPT_X}", lambda: tk.fused_render_bwd(*fx, *cot),
+        lambda: tk.fused_render_bwd_reference(*fx, *cot), *render_cost(fx, x_dim, backward=True),
+        iters=10, plain_iters=3), {"shape": "512x64"})
+
+    a, o = random_train_args(rng, 512, 64, 256, 8, device, feat_dim=SCRIPT_FD, inline_pe=False)
+    if a[0].shape[1] != SCRIPT_X:
+        raise RuntimeError(f"kernel 5's x is {a[0].shape[1]} wide")
+    got = tt.fused_train_objective(*a, **o)
+    check_bit_equal(f"kernel 5 x {SCRIPT_X}, 512x64", flat_objective(got),
+                    flat_objective(tt.fused_train_objective(*a, **o)))
+    err = compare_train(f"kernel 5 x {SCRIPT_X}, 512x64", got,
+                        tt.fused_train_objective_reference(*a, **o), TRAIN_GRAD_TOL)
+    rows[f"train_d{SCRIPT_X}"] = (err, *timed(
+        f"kernel 5 512x64 x {SCRIPT_X}", lambda: tt.fused_train_objective(*a, **o),
+        lambda: tt.fused_train_objective_reference(*a, **o), *train_cost(a, o, x_dim=x_dim),
+        iters=10, plain_iters=3), {"shape": "512x64"})
+    return rows
+
+
+def run_x_width_steps(trainer, device, tk, tt):
+    """On a script trainer with view directions (its MLP input encoded 896
+    wide): one differentiable render step through ``fused_render_rays(
+    forward_only=False)`` (kernel 4, then kernel 3 for the gradients) and
+    one ``fused_train_loss_grad(inline_pe=False)`` step (kernel 5), on 512
+    rays of train view 0 at the last phase's samples with that view's
+    features; each kernel launched once, the two losses (the same masked
+    MSE) within rel 1e-4. Returns the launches by kernel."""
+    from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
+
+    cfg, n = trainer.cfg, trainer.cfg.nerf
+    last = len(cfg.phases) - 1
+    pd = trainer.phase_data(last)
+    idx = torch.arange(512, device=device) * (pd.rays_o.shape[1] // 512)
+    ro, rd, tgt = pd.rays_o[0][idx], pd.rays_d[0][idx], pd.targets[0][idx]
+    settings = trainer._render_settings(cfg.phases[last].n_samples, training=False)
+    pf = trainer.feature_sampler(0)
+    before = (tk.fused_render_fwd.launches, tk.fused_render_bwd.launches,
+              tt.fused_train_objective.launches["train_x"])
+    params = dict(trainer.model.named_parameters())
+    out = fused_render_rays(params, ro, rd, settings, n.pos_freq, n.dir_freq, n.num_layers,
+                            n.hidden_dim, use_viewdirs=n.use_viewdirs, device=device,
+                            point_features_fn=pf, lora_alpha=n.lora_alpha)
+    loss4 = torch.mean((out.rgb - tgt) ** 2)
+    grads = torch.autograd.grad(loss4, list(params.values()))
+    loss5, _ = tt.fused_train_loss_grad(
+        trainer.model, ro, rd, tgt, torch.ones(512, device=device), settings, n.pos_freq,
+        n.dir_freq, n.num_layers, n.hidden_dim, use_viewdirs=n.use_viewdirs, inline_pe=False,
+        point_features_fn=pf, lora_alpha=n.lora_alpha)
+    torch.cuda.synchronize()
+    launches = {"fwd": tk.fused_render_fwd.launches - before[0],
+                "render_bwd": tk.fused_render_bwd.launches - before[1],
+                "train_x": tt.fused_train_objective.launches["train_x"] - before[2]}
+    rel = abs(loss4.item() / loss5.item() - 1.0)
+    print(f"  x {SCRIPT_X} wide, 512x{settings.n_samples}: a differentiable render step (kernels "
+          f"4 and 3) and an inline_pe=False step (kernel 5): launches {launches}, losses "
+          f"{loss4.item():.6e} / {loss5.item():.6e} (rel {rel:.2e}, tol {TRAIN_LOSS_RTOL:.0e})",
+          flush=True)
+    if launches != {"fwd": 1, "render_bwd": 1, "train_x": 1} or not rel <= TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"the x-input kernels at {SCRIPT_X}: launches {launches}, rel {rel}")
+    if not all(torch.isfinite(g).all() for g in grads):
+        raise RuntimeError("kernel 3's gradients are not finite")
+    return launches
+
+
+def script_config(name):
+    """``experiments/<name>`` through the port's ``load_config`` as it
+    stands, its widths checked: the 8x256 trunk at pos_freq 10, the
+    patch-embedding features (768, the scripts' projection with
+    ``align_corners``), 5 views at 128x128, full-image steps, 2048-ray eval
+    chunks."""
+    from nerf_fewshot_tpu_torch.training.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "experiments", name))
+    n, d = cfg.nerf, cfg.dino
+    widths = (n.hidden_dim, n.num_layers, n.pos_freq, d.model_type, d.output_dim, d.projection,
+              d.align_corners, cfg.data.resolution, cfg.data.num_views, cfg.rendering.chunk_size)
+    if widths != (256, 8, 10, "patch_embed", SCRIPT_FD, "script", True, 128, N_TRAIN_VIEWS, 2048):
+        raise RuntimeError(f"{name}: widths {widths}")
+    if any(p.batch_size != p.H * p.W for p in cfg.phases):
+        raise RuntimeError(f"{name}: not full-image steps")
+    return cfg
+
+
+def run_script_slice(train, test, device, tk, tt):
+    """The script recipes at full width on the synthetic scene, each file
+    read by the port's ``load_config``: the patch-embedding extractor on the
+    card (one (14, 14, 768) map per view); for each of SCRIPT_EPOCHS' files,
+    eval at init through kernel 2 (one launch per 2048-ray chunk),
+    ``train_epoch`` at its epochs (one launch of kernel 1 per full-image
+    step; ``script_lora``'s base weights and heads bit-equal across the
+    freeze, every ``lora_b`` moved), epoch 0 against a ``backend: xla``
+    twin (rel 1e-4), PSNR rising, the trained views against the plain
+    pipeline, kernels 1 and 2 and the feature sampler at the trainer's
+    shapes; one 64x64 epoch traced; then ``script_baseline.yaml`` (no sigma
+    bias) through ``fit`` for SCRIPT_DEAD_EPOCHS epochs, its dead-sigma
+    epochs reported, not gated. Returns a dict of the numbers per file."""
+    from nerf_fewshot_tpu_torch.cli import _precompute_features
+    from nerf_fewshot_tpu_torch.models.lora import lora_label_fn
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    cfgs = {name: script_config(name) for name in (*SCRIPT_EPOCHS, SCRIPT_DEAD_CONFIG)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = _precompute_features(cfgs[SCRIPT_DEAD_CONFIG], train, device)
+    extract_s = time.perf_counter() - t0
+    print(f"  patch_embed extractor (224x224 PIL-free preprocessing, ViT-B/16 conv 3->768) -> "
+          f"feature maps {tuple(feats.shape)} in {extract_s:.2f} s (build and {train.n_views} "
+          f"views)", flush=True)
+    if feats.shape != (N_TRAIN_VIEWS, 14, 14, SCRIPT_FD) or not np.isfinite(feats).all():
+        raise RuntimeError(f"feature maps {feats.shape}")
+    xla = lambda c: config_from_dict({**c.raw, "rendering": {**c.raw["rendering"],
+                                                             "backend": "xla"}})
+    any_cfg = cfgs[SCRIPT_DEAD_CONFIG]
+    n_chunks = -(-N_TEST_VIEWS * any_cfg.data.resolution ** 2 // any_cfg.rendering.chunk_size)
+    base = lambda tr: {k: v.clone() for k, v in tr.model.state_dict().items()
+                       if lora_label_fn(k) == "base"}
+    results = {}
+    for name, epochs in SCRIPT_EPOCHS.items():
+        cfg = cfgs[name]
+        x_dim, d = SCRIPT_WIDTHS[cfg.nerf.use_viewdirs]
+        ktr = Trainer(cfg, train, test, device=device, dino_features=feats)
+        probe = ktr.dead_sigma_probe()
+        if probe <= 0.0:
+            # the file's seed-0 init sits in the zero-gradient dead basin
+            # (no sigma bias): train its live variant, as script_baseline_live
+            # is to script_baseline, and say so
+            cfg = config_from_dict({**cfg.raw, "nerf_model": {**cfg.raw["nerf_model"],
+                                                              "sigma_bias": 0.1}})
+            ktr = Trainer(cfg, train, test, device=device, dino_features=feats)
+        print(f"  {name}: dead-sigma probe at init {probe:.3e} as the file stands; trained with "
+              f"nerf_model.sigma_bias {cfg.nerf.sigma_bias}", flush=True)
+        ptr = Trainer(xla(cfg), train, test, device=device, dino_features=feats)
+        if not (ktr._use_fused() and ktr.kernel_path == "kernel") or ptr._use_fused():
+            raise RuntimeError(f"{name}: paths {ktr.kernel_path}, {ptr.kernel_path}")
+        tk.fused_render_fwd_pe.launches = 0
+        psnr0 = ktr.evaluate()["psnr"]
+        if tk.fused_render_fwd_pe.launches != n_chunks:
+            raise RuntimeError(f"{name}: eval {tk.fused_render_fwd_pe.launches} launches, "
+                               f"{n_chunks} chunks")
+        for e in epochs:
+            ktr.phase_data(ktr._phase_index(e))
+        boundary = cfg.optimizer.lora_only_after_epoch
+        tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+        steps, out = 0, dict(d=d, psnr0=psnr0, extract_s=extract_s, probe_as_is=probe,
+                             sigma_bias=cfg.nerf.sigma_bias)
+        for e in epochs:
+            if e == boundary:
+                before = base(ktr)
+                lora_b = {k: v.clone() for k, v in ktr.model.state_dict().items()
+                          if k.endswith("lora_b")}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = ktr.train_epoch(e)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            n = len(ktr.last_step_losses)
+            steps += n
+            if e == 0:
+                losses0 = ktr.last_step_losses.copy()
+            p, pd = cfg.phase_for_epoch(e), ktr.phase_data(ktr._phase_index(e))
+            out["step_ms"] = sec / n * 1e3
+            print(f"  {name} epoch {e} ({pd.H}x{pd.W}, {min(p.batch_size, pd.rays_o.shape[1])} "
+                  f"rays x {p.n_samples} samples per step, D {d}): loss {loss:.6f}, {n} steps, "
+                  f"{sec:.3f} s, {out['step_ms']:.3f} ms/step", flush=True)
+            if not np.isfinite(ktr.last_step_losses).all():
+                raise RuntimeError(f"{name} epoch {e}: non-finite losses")
+            if boundary is not None and e == boundary + 1:
+                state = ktr.model.state_dict()
+                moved = [k for k, v in before.items() if not torch.equal(state[k], v)]
+                still = [k for k, v in lora_b.items() if torch.equal(state[k], v)]
+                if moved or still or not ktr._lora_only_active:
+                    raise RuntimeError(f"{name}: across the freeze base moved {moved}, "
+                                       f"lora_b still {still}")
+                print(f"  {name} freeze: {len(before)} base and head tensors bit-equal across "
+                      f"epochs {boundary}-{e}, all {len(lora_b)} lora_b moved", flush=True)
+        out["launches"] = tt.fused_train_objective.launches["train_pe"]
+        print(f"  {name} launches: kernel 1 {out['launches']} for {steps} steps", flush=True)
+        if out["launches"] != steps:
+            raise RuntimeError(f"{name}: {out['launches']} kernel-1 launches for {steps} steps")
+
+        ptr.train_epoch(0)
+        rel = np.abs(ptr.last_step_losses / losses0 - 1.0).max()
+        print(f"  {name} epoch 0 vs the backend: xla twin: per-step max rel {rel:.2e} "
+              f"(tol {TRAIN_LOSS_RTOL:.0e})", flush=True)
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise RuntimeError(f"{name}: epoch 0 kernel and plain trainers differ by rel {rel}")
+
+        tk.fused_render_fwd_pe.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        after = ktr.evaluate()
+        eval_s = time.perf_counter() - t0
+        out.update(eval_launches=tk.fused_render_fwd_pe.launches, psnr=after["psnr"])
+        print(f"  {name} evaluate: psnr {psnr0:.4f} dB at init, {after['psnr']:.4f} dB after "
+              f"{steps} steps, ssim {after['ssim']:.5f}, {eval_s / N_TEST_VIEWS * 1e3:.2f} "
+              f"ms/view, {out['eval_launches']} launches for {n_chunks} chunks", flush=True)
+        if out["eval_launches"] != n_chunks:
+            raise RuntimeError(f"{name}: eval launched kernel 2 {out['eval_launches']} times")
+        if not after["psnr"] > psnr0:
+            raise RuntimeError(f"{name}: psnr after training {after['psnr']} <= at init {psnr0}")
+
+        ptr.model.load_state_dict(ktr.model.state_dict())
+        got, want = ktr.render_views(test.poses), ptr.render_views(test.poses)
+        errs = {o: float(np.abs(g - w).max())
+                for g, w, o in zip(got, want, ("rgb", "depth", "acc"))}
+        print(f"  {name} views vs the plain pipeline (trained weights): max abs err " + ", ".join(
+            f"{k} {v:.3e} (tol {TOL[k]:.0e})" for k, v in errs.items()), flush=True)
+        if not all(np.isfinite(g).all() for g in got) or any(v > TOL[k] for k, v in errs.items()):
+            raise RuntimeError(f"{name}: kernel-rendered views disagree with the plain pipeline "
+                               f"{errs}")
+        del ptr, got, want
+
+        a, o = main_path_train_args(ktr, len(cfg.phases) - 1, device)
+        R, S = a[2].shape
+        if a[-1][0].shape[0] != d or a[1].shape[1] != SCRIPT_FD:
+            raise RuntimeError(f"{name}: kernel 1 ran at D {a[-1][0].shape[0]}")
+        out["train_err"] = compare_train(f"{name} kernel 1 at the step's {R}x{S}, D {d}",
+                                         tt.fused_train_objective(*a, **o),
+                                         tt.fused_train_objective_reference(*a, **o),
+                                         TRAIN_GRAD_TOL)
+        out["train_ms"] = cuda_ms(lambda: tt.fused_train_objective(*a, **o), iters=5)
+        args = main_path_fwd_pe_args(ktr, test.poses[0], device)
+        out["fwd_err"] = compare(f"{name} kernel 2 at the eval chunk {args[2].shape[0]}x"
+                                 f"{args[2].shape[1]}, D {args[-1][0].shape[0]}",
+                                 tk.fused_render_fwd_pe(*args, use_feats=True),
+                                 tk.fused_render_fwd_pe_reference(*args, use_feats=True))
+        out["fwd_ms"] = cuda_ms(lambda: tk.fused_render_fwd_pe(*args, use_feats=True), iters=20)
+        pts = torch.rand((R * S, 3), device=device) * 3.0 - 1.5
+        pf = ktr.feature_sampler(0)
+        out["sampler_ms"] = cuda_ms(lambda: pf(pts), iters=10)
+        print(f"  {name} at the trainer's shapes: kernel 1 {R}x{S} {out['train_ms']:.3f} ms, "
+              f"kernel 2 {args[2].shape[0]}x{args[2].shape[1]} {out['fwd_ms']:.3f} ms, feature "
+              f"sampling of {R * S} points x {SCRIPT_FD} channels {out['sampler_ms']:.3f} ms "
+              f"(CUDA events)", flush=True)
+        del a, o, args
+        if name == SCRIPT_TRACED:
+            epoch = epochs[-1] + 1
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ktr.train_epoch(epoch)
+            torch.cuda.synchronize()
+            untraced_ms = (time.perf_counter() - t0) * 1e3
+            for with_cpu in (False, True):
+                print_trace(f"{name} epoch {epoch} traced "
+                            f"({'CPU+CUDA' if with_cpu else 'CUDA only'})",
+                            trace_epoch(ktr, epoch, with_cpu), untraced_ms)
+            out["x_launches"] = run_x_width_steps(ktr, device, tk, tt)
+        results[name] = out
+        del ktr
+        torch.cuda.empty_cache()
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_script_")
+    try:
+        cfg = cfgs[SCRIPT_DEAD_CONFIG]
+        cfg = config_from_dict({**cfg.raw, "output": {**cfg.raw["output"], "save_dir": tmp}})
+        dtr = Trainer(cfg, train, test, device=device, dino_features=feats)
+        probe = dtr.dead_sigma_probe()
+        dtr.fit(SCRIPT_DEAD_EPOCHS)
+        print(f"  {SCRIPT_DEAD_CONFIG} (no sigma bias, seed {cfg.seed}): probe at init "
+              f"{probe:.3e}; after {SCRIPT_DEAD_EPOCHS} epochs through {dtr.kernel_path} "
+              f"dead_sigma_epochs {dtr.dead_sigma_epochs}, probe {dtr.dead_sigma_probe():.3e} "
+              f"(reported, not gated)", flush=True)
+        results[SCRIPT_DEAD_CONFIG] = dict(dead_sigma_epochs=dtr.dead_sigma_epochs)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return results
+
+
 def run_reference_checkpoint(lora, train, test, device, tk, tmp):
     """The trained LoRA trainer's weights written as a reference PyTorch
     checkpoint (``layers.{i}.original`` / ``lora_A`` / ``lora_B``,
@@ -1648,7 +2057,7 @@ def main():
         for name, info in zip(KERNELS, infos):
             print(f"  {name}: {info.seconds:.2f} s -> {info.path}", flush=True)
             for line in info.compiler_log.splitlines():
-                if "Used" in line or "Compiling entry" in line or "spill" in line:
+                if any(w in line for w in ("Used", "Compiling entry", "spill", "serializ")):
                     print(f"  {line.strip()}", flush=True)
 
     cfg = config_from_dict(BASELINE_CONFIG)
@@ -1903,6 +2312,12 @@ def main():
     with phase("module and skip slice"):
         run_module_and_skip_slice(train, test, device, tk, tt)
 
+    with phase("script kernel widths"):
+        script_rows = run_script_kernel_widths(device, tk, tt)
+
+    with phase("script slice"):
+        script = run_script_slice(train, test, device, tk, tt)
+
     with phase("CLI"):
         tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
         try:
@@ -1964,6 +2379,32 @@ def main():
             row["ms_at_the_eval_chunk_2048x64"] = lora["fwd_ms"]
         return row
 
+    def script_row(name, kernel, replaces, configs, launches):
+        err, k_ms, p_ms, b_ms, b_by, b32_ms, extra = script_rows[name]
+        return {"name": name, "route": "cuda",
+                "source": f"nerf_fewshot_tpu_torch/csrc/{kernel}.cu",
+                "replaces": f"nerf_fewshot_tpu/render/{replaces}", "configs": configs,
+                "launches": launches, "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "bound_rate": "3xTF32 at 495 TFLOP/s",
+                "bound_fp32_ms": b32_ms, "library_ms": None, **extra}
+
+    by_width = {d: [n for n in SCRIPT_EPOCHS if script[n]["d"] == d]
+                for _, d in SCRIPT_WIDTHS.values()}
+    x_launches_script = script[SCRIPT_TRACED]["x_launches"]
+    script_kernel_rows = [
+        *(script_row(f"train_pe_script_d{d}", "train_pe", "train_kernel.py:343", names,
+                     sum(script[n]["launches"] for n in names))
+          for d, names in by_width.items()),
+        *(script_row(f"fwd_pe_script_d{d}", "fwd_pe", "kernels.py:251", names,
+                     sum(script[n]["eval_launches"] for n in names))
+          for d, names in by_width.items()),
+        script_row(f"render_bwd_d{SCRIPT_X}", "train_pe", "kernels.py:292", [SCRIPT_TRACED],
+                   x_launches_script["render_bwd"]),
+        script_row(f"fwd_d{SCRIPT_X}", "fwd_pe", "kernels.py:139", [SCRIPT_TRACED],
+                   x_launches_script["fwd"]),
+        script_row(f"train_d{SCRIPT_X}", "train_pe", "train_kernel.py:320", [SCRIPT_TRACED],
+                   x_launches_script["train_x"])]
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fwd_pe",
@@ -2008,7 +2449,7 @@ def main():
         "bound_rate": "3xTF32 at 495 TFLOP/s",
         "bound_fp32_ms": bwd_bound32_ms,
         "library_ms": None,
-    }, *dino_kernel_rows, lora_row("train_pe"), lora_row("fwd_pe")]}))
+    }, *dino_kernel_rows, lora_row("train_pe"), lora_row("fwd_pe"), *script_kernel_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -15,9 +15,15 @@ the summary JSON (``final_metrics``, ``best_psnr``, and
 ``--device`` (default ``cuda``) is the counterpart of the JAX CLI's
 ``NERF_TPU_PLATFORM``; a CUDA request without a card raises.
 
+``--wandb`` sets ``output.use_wandb``: the log is mirrored to a wandb run
+when the package imports and its run starts, else the JSONL/CSV sink
+trains alone, as in the JAX package. Every ``dino.model_type`` that
+conditions training on a feature grid is ported (``single_scale``,
+``multi_scale`` and the standalone scripts' ``patch_embed``).
+
 Not ported yet, and refused with the ROADMAP item that brings them:
-``--data-parallel``, ``--multihost``, ``--wandb``, ``evaluate`` and
-``bench-scaling``.
+``--data-parallel``, ``--multihost``, ``evaluate``, ``bench-scaling`` and
+``dino.model_type: dino_lora`` (the offline token dumper).
 """
 
 from __future__ import annotations
@@ -87,12 +93,12 @@ def cmd_train(args) -> None:
 
     if args.data_parallel or args.multihost:
         _not_ported("--data-parallel / --multihost", "data parallelism")
-    if args.wandb:
-        _not_ported("--wandb", "the wandb mirror, with the host glue")
     device = resolve_device(args.device)
     cfg = load_config(args.config)
     if args.epochs is not None:
         cfg = dataclasses.replace(cfg, epochs=args.epochs)
+    if args.wandb:
+        cfg = dataclasses.replace(cfg, output=dataclasses.replace(cfg.output, use_wandb=True))
 
     train_data, test_data = _load_datasets(cfg, args.synthetic, device)
     dino_features = _precompute_features(cfg, train_data, device)
@@ -160,7 +166,10 @@ def main(argv=None) -> None:
     p_train.add_argument("--nan-guard", action="store_true",
                          help="autograd anomaly mode: raise at the op whose backward "
                               "made a NaN")
-    p_train.add_argument("--wandb", action="store_true", help="not ported yet")
+    p_train.add_argument("--wandb", action="store_true",
+                         help="mirror training/eval records to a wandb run when the wandb "
+                              "package imports and its run starts (else the log file alone); "
+                              "same as output.use_wandb: true")
     p_train.set_defaults(fn=cmd_train)
 
     p_eval = sub.add_parser("evaluate", help="not ported yet")

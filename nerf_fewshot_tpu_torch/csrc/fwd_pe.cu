@@ -54,7 +54,7 @@
 //      warpgroups, 168 registers a thread at launch).
 //      Warps 0-7 are two consumer warpgroups; both take all 64 points, and
 //      warpgroup g the output columns [g*H/2, (g+1)*H/2). The activation
-//      tile (64 points x K, point-major fp32, row stride K + 8) stays in
+//      tile (64 points x H, point-major fp32, row stride H + 8) stays in
 //      shared memory: per k-step each thread loads its A fragment (rows
 //      16w+lane/4 and +8, two adjacent columns), splits it into TF32 halves
 //      and issues wgmma m64n(H/2)k8 with A from registers and B (a weight
@@ -62,11 +62,16 @@
 //      loaded and split while the stage's chain runs on the tensor cores,
 //      and the chain's sum is promoted once it is done. After a layer's
 //      last stage both warpgroups meet at a named barrier, write
-//      relu(acc + b) over the tile in place and meet again. The
-//      point-major input build reads point features and the pre-encoded x
-//      coalesced. The head (exact fp32, wout's live columns staged in
-//      shared memory once per CTA) writes the four raw outputs to scratch
-//      ([4][Np]).
+//      relu(acc + b) over the tile in place and meet again. Layer 0's input
+//      is built point-major (the PE phases, point features or the
+//      pre-encoded x read coalesced): up to H columns into the tile, before
+//      the layer; a wider one (STAGED, up to kMaxD = 896 columns, more than
+//      the tile holds beside the ring) is never held whole, each 32-column
+//      stage built into one of two small stage buffers, the next one while
+//      the current chain runs on the tensor cores. The sums are the same
+//      either way, in the same order. The head
+//      (exact fp32, wout's live columns staged in shared memory once per
+//      CTA) writes the four raw outputs to scratch ([4][Np]).
 //   3. fwd_composite: one warp per ray (8 rays per CTA): sigmoid, the
 //      log-space scan and the sums, written to rgb, depth, acc, weights.
 // Fragments (wgmma m64nNk8 .tf32, warp w of the warpgroup, g = lane/4,
@@ -90,10 +95,11 @@ constexpr int kConsumers = 128 * kWarpgroups;
 constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
 constexpr int kStageK = 32;         // input rows per weight stage (128 bytes of k)
 constexpr int kRingBytes = 128 * 1024;
-constexpr int kActPad = 8;          // activation row stride K + 8 (8 mod 32)
+constexpr int kActPad = 8;          // activation row stride H + 8 (8 mod 32)
+constexpr int kXLd = kStageK + kActPad;  // row stride of a layer-0 input stage (8 mod 32)
 constexpr int kOutPad = 128;        // packed head columns [r, g, b, sigma, 0...]
 constexpr int kHead = 4;            // live head columns
-constexpr int kMaxD = 256;          // widest padded input
+constexpr int kMaxD = 896;          // widest padded input (7 x 128: the script recipes' 858)
 constexpr int kRaysPerCta = 8;      // composite: one warp per ray
 constexpr int kProducerRegs = 40;   // setmaxnreg: the producer warpgroup gives registers
 constexpr int kConsumerRegs = 232;  // to the consumer warpgroups
@@ -318,25 +324,26 @@ struct Trunk {
   static_assert(NS >= 2, "at least two stages");
 };
 
-// Dynamic shared memory: the stage ring (1024-byte aligned), the activation
-// tile, the mbarriers.
+// Dynamic shared memory, whatever D: the stage ring (1024-byte aligned),
+// the activation tile, two layer-0 input stages, wout's live columns, the
+// mbarriers.
 template <int H>
-size_t trunk_smem(int D) {
-  const int kalloc = D > H ? D : H;
+constexpr size_t trunk_smem() {
   return 1024 + kRingBytes +
-         sizeof(float) * (static_cast<size_t>(kTileP) * (kalloc + kActPad) + H * kHead) +
+         sizeof(float) * (static_cast<size_t>(kTileP) * (H + kActPad + 2 * kXLd) + H * kHead) +
          2 * Trunk<H>::NS * sizeof(uint64_t);
 }
+static_assert(trunk_smem<256>() <= 232448, "fwd_trunk's shared memory fits a block");
 
 // The two consumer warpgroups of fwd_trunk_kernel.
-template <int H, bool INLINE_PE>
+template <int H, bool INLINE_PE, bool STAGED>
 __device__ __forceinline__ void fwd_trunk_consumer(
     const float* __restrict__ in, const float* __restrict__ feats, const float* __restrict__ e2,
     const float* __restrict__ c, const float* __restrict__ b0, const float* __restrict__ bh,
     const float* __restrict__ wout, const float* __restrict__ bout, float* __restrict__ out4,
     int N, int Np, int tiles, int n_raw, int n_phase, int Fd, int D, int L1,
-    uint32_t ring, float* __restrict__ act, int ld, float* __restrict__ whead, uint32_t full0,
-    uint32_t empty0) {
+    uint32_t ring, float* __restrict__ act, float* __restrict__ xbuf, float* __restrict__ whead,
+    uint32_t full0, uint32_t empty0) {
   using T = Trunk<H>;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -344,6 +351,7 @@ __device__ __forceinline__ void fwd_trunk_consumer(
   const int g = lane >> 2, t = lane & 3;
   const int r0 = 16 * (warp & 3) + g;             // fragment rows r0, r0 + 8
   const int c0 = wg * T::NW;
+  constexpr int ld = H + kActPad;
   float acc[T::NR], part[T::NR];
 #pragma unroll
   for (int i = 0; i < T::NR; ++i) part[i] = 0.f;
@@ -354,50 +362,58 @@ __device__ __forceinline__ void fwd_trunk_consumer(
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int n0 = tile * kTileP;
-    // layer 0's input, point-major (reads along each point's row)
-    for (int idx = tid; idx < kTileP * D; idx += kConsumers) {
-      const int p = idx / D;
-      const int k = idx - p * D;
-      const int n = n0 + p;
-      float v = 0.f;
-      if (n < N) {
-        if (INLINE_PE) {
-          const float* r = in + static_cast<size_t>(n) * n_raw;
-          if (k < n_raw) {
-            v = r[k];
-          } else if (k < n_raw + n_phase) {
-            const int col = k - n_raw;
-            float a = c[col];
-            for (int d = 0; d < n_raw; ++d)
-              a = __fadd_rn(a, __fmul_rn(r[d], e2[d * n_phase + col]));
-            v = sinf(a);
-          } else if (k < n_raw + n_phase + Fd) {
-            v = feats[static_cast<size_t>(n) * Fd + (k - n_raw - n_phase)];
+    // columns [32*sl, +32) of layer 0's input to dst[p*ldd + j], point-major
+    // (reads along each point's row); columns past D are 0
+    auto build_x = [&](int sl, float* dst, int ldd) {
+      for (int idx = tid; idx < kTileP * kStageK; idx += kConsumers) {
+        const int p = idx / kStageK;
+        const int j = idx % kStageK;
+        const int k = sl * kStageK + j;
+        const int n = n0 + p;
+        float v = 0.f;
+        if (n < N && k < D) {
+          if (INLINE_PE) {
+            const float* r = in + static_cast<size_t>(n) * n_raw;
+            if (k < n_raw) {
+              v = r[k];
+            } else if (k < n_raw + n_phase) {
+              const int col = k - n_raw;
+              float a = c[col];
+              for (int d = 0; d < n_raw; ++d)
+                a = __fadd_rn(a, __fmul_rn(r[d], e2[d * n_phase + col]));
+              v = sinf(a);
+            } else if (k < n_raw + n_phase + Fd) {
+              v = feats[static_cast<size_t>(n) * Fd + (k - n_raw - n_phase)];
+            }
+          } else {
+            v = in[static_cast<size_t>(n) * D + k];
           }
-        } else {
-          v = in[static_cast<size_t>(n) * D + k];
         }
+        dst[p * ldd + j] = v;
       }
-      act[p * ld + k] = v;
-    }
-    consumers_sync();
+    };
+    auto xstage = [&](int sl) { return xbuf + (sl & 1) * kTileP * kXLd; };
 
     for (int l = 0; l <= L1; ++l) {
       const int K = l ? H : D;
       const int nst = (K + kStageK - 1) / kStageK;
 #pragma unroll
       for (int i = 0; i < T::NR; ++i) acc[i] = 0.f;
-      // A fragments of stage sl's k-steps, split into TF32 halves; K is a
+      // A fragments of stage sl's k-steps, split into TF32 halves, from the
+      // tile or (a STAGED layer 0) from the stage's input buffer; K is a
       // multiple of 16, so a stage has 2 or 4 live k-steps.
+      const bool from_tile = !STAGED || l > 0;
       auto load_a = [&](int sl, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4]) {
         const int kbase = sl * kStageK;
         const int live = K - kbase >= kStageK ? 4 : 2;
+        const float* src = from_tile ? act + kbase : xstage(sl);
+        const int sld = from_tile ? ld : kXLd;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           if (q < live) {
-            const float* a0p = act + r0 * ld + kbase + 8 * q + 2 * t;
+            const float* a0p = src + r0 * sld + 8 * q + 2 * t;
             const float2 u = *reinterpret_cast<const float2*>(a0p);
-            const float2 w = *reinterpret_cast<const float2*>(a0p + 8 * ld);
+            const float2 w = *reinterpret_cast<const float2*>(a0p + 8 * sld);
             split_fast(u.x, ahi[q][0], alo[q][0]);
             split_fast(w.x, ahi[q][1], alo[q][1]);
             split_fast(u.y, ahi[q][2], alo[q][2]);
@@ -425,7 +441,13 @@ __device__ __forceinline__ void fwd_trunk_consumer(
           }
         }
         wgmma_commit();
-        if (sl + 1 < nst) load_a(sl + 1, nhi, nlo);
+        if (sl + 1 < nst) {
+          if (!from_tile) {  // its buffer was last read by load_a(sl - 1), before the last sync
+            build_x(sl + 1, xstage(sl + 1), kXLd);
+            consumers_sync();
+          }
+          load_a(sl + 1, nhi, nlo);
+        }
         wgmma_wait_all();
         fence_regs(part);
         __syncwarp();
@@ -435,6 +457,13 @@ __device__ __forceinline__ void fwd_trunk_consumer(
         ++it;
       };
       uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
+      if (l == 0) {  // the first stage, or the whole input into the tile
+        if (STAGED)
+          build_x(0, xstage(0), kXLd);
+        else
+          for (int sl = 0; sl < nst; ++sl) build_x(sl, act + sl * kStageK, ld);
+        consumers_sync();
+      }
       load_a(0, h0, l0);
       for (int sl = 0; sl < nst; sl += 2) {
         stage(sl, h0, l0, h1, l1);
@@ -468,7 +497,7 @@ __device__ __forceinline__ void fwd_trunk_consumer(
   }
 }
 
-template <int H, bool INLINE_PE>
+template <int H, bool INLINE_PE, bool STAGED>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_trunk_kernel(const float* __restrict__ in, const float* __restrict__ feats,
                  const float* __restrict__ e2, const float* __restrict__ c,
@@ -481,10 +510,9 @@ fwd_trunk_kernel(const float* __restrict__ in, const float* __restrict__ feats,
   const uint32_t raw_addr = smem_u32(smem_raw);
   uint8_t* base = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
   const uint32_t ring = smem_u32(base);
-  const int kalloc = D > H ? D : H;
-  const int ld = kalloc + kActPad;
-  float* act = reinterpret_cast<float*>(base + kRingBytes);
-  float* whead = act + kTileP * ld;  // (H, 4): wout's live columns
+  float* act = reinterpret_cast<float*>(base + kRingBytes);  // (64, H + 8)
+  float* xbuf = act + kTileP * (H + kActPad);  // two (64, 40) layer-0 input stages
+  float* whead = xbuf + 2 * kTileP * kXLd;     // (H, 4): wout's live columns
   uint64_t* bars = reinterpret_cast<uint64_t*>(whead + H * kHead);
   const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + T::NS);
 
@@ -520,9 +548,9 @@ fwd_trunk_kernel(const float* __restrict__ in, const float* __restrict__ feats,
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    fwd_trunk_consumer<H, INLINE_PE>(in, feats, e2, c, b0, bh, wout, bout, out4, N, Np, tiles,
-                                     n_raw, n_phase, Fd, D, L1, ring, act, ld, whead, full0,
-                                     empty0);
+    fwd_trunk_consumer<H, INLINE_PE, STAGED>(in, feats, e2, c, b0, bh, wout, bout, out4, N, Np,
+                                             tiles, n_raw, n_phase, Fd, D, L1, ring, act, xbuf,
+                                             whead, full0, empty0);
   }
 }
 
@@ -607,15 +635,18 @@ cudaError_t launch(const float* in, const float* feats, const float* z, const fl
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  const size_t smem = trunk_smem<H>(D);
-  err = cudaFuncSetAttribute(fwd_trunk_kernel<H, INLINE_PE>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  constexpr size_t smem = trunk_smem<H>();
+  // an input wider than the activation tile streams through the stage buffers
+  const auto trunk =
+      D > H ? fwd_trunk_kernel<H, INLINE_PE, true> : fwd_trunk_kernel<H, INLINE_PE, false>;
+  err = cudaFuncSetAttribute(trunk, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
   const int grid = lay.tiles < sms ? lay.tiles : sms;  // persistent CTAs
-  fwd_trunk_kernel<H, INLINE_PE><<<grid, kThreads, smem, st>>>(
+  trunk<<<grid, kThreads, smem, st>>>(
       in, feats, e2, c, wsplit, b0, bh, wout, bout, out4, lay.N, lay.Np, lay.tiles, n_raw,
       n_phase, Fd, D, L1);
   err = cudaGetLastError();

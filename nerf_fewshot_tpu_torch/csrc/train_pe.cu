@@ -70,11 +70,15 @@
 //   1. weight_split: the TF32 halves of w0, wh and wh^T (the backward
 //      chain's weights);
 //   2. train_fwd: one 256-thread CTA per 64-point tile (points of any ray):
-//      builds x (inline PE), then runs each layer in place on the tile
-//      (feature-major in shared memory) with dense_tc: 2x4 warps of 32
-//      points x H/4 columns, the weight halves streamed through two cp.async
-//      stages of 32 rows with one barrier per stage; writes each layer's
-//      activations A_i (feature-major, [K][Np]) and the 4 head outputs;
+//      builds x (inline PE) into the scratch as A_0 (feature-major, [D][Np]),
+//      then runs each layer with dense_tc: 2x4 warps of 32 points x H/4
+//      columns, the weight halves streamed through two cp.async stages of
+//      32 rows with one barrier per stage. Layer 0 streams its input too, 32
+//      rows of x per stage beside the weights, so no D-wide tile is held in
+//      shared memory (an input up to kMaxD = 896 wide fits beside the H-row
+//      tile); layers >= 1 run in place on the H-row tile (feature-major in
+//      shared memory). Writes each layer's activations A_i ([H][Np]) and the
+//      4 head outputs;
 //   3. train_composite (objective) or render_composite (VJP): one warp per
 //      ray: sigmoid, log-space compositing with an fp32 shuffle prefix scan,
 //      the ray's loss partial (objective), then the suffix sum s_after as an
@@ -130,7 +134,7 @@ constexpr int kDxJ = 32;              // dx reduction stage (trunk columns)
 constexpr int kDxLdD = kDxP + 8;      // delta_1 stage row stride (8 mod 32)
 constexpr int kDxLdW = kDxJ + 4;      // w0 stage row stride (4 mod 32)
 constexpr int kDxStage = kDxJ * kDxLdD + 2 * kDxK * kDxLdW;
-constexpr int kMaxD = 256;       // widest padded input
+constexpr int kMaxD = 896;       // widest padded input (7 x 128: the script recipes' 858)
 constexpr int kMaxS = 1024;      // samples per ray: the composite's 9*S floats stay < 48 KB
 constexpr int kDwSmem = static_cast<int>(sizeof(float)) * kDwStages * kDwStage;
 constexpr int kDxSmem = static_cast<int>(sizeof(float)) * 2 * kDxStage;
@@ -306,11 +310,13 @@ struct Dense {
   static constexpr int kLdw = H + 8;          // weight stage row stride (8 mod 32)
   static constexpr int kHalf = kKT * kLdw;    // floats of one half of a stage
   static constexpr int kSmem = 2 * 2 * kHalf; // two stages of hi and lo
-  // dynamic shared memory of train_fwd (at most, x up to kMaxD wide) and train_bwd
-  static constexpr int kFwdSmem = static_cast<int>(sizeof(float)) * (kMaxD * kLd + kSmem);
+  static constexpr int kXSmem = 2 * kKT * kLd;  // two stages of layer 0's input rows
+  // dynamic shared memory of train_fwd (any D: layer 0 streams x) and train_bwd
+  static constexpr int kFwdSmem = static_cast<int>(sizeof(float)) * (H * kLd + kSmem + kXSmem);
   static constexpr int kBwdSmem = static_cast<int>(sizeof(float)) * (H * kLd + kSmem);
   static constexpr int kChunks = 2 * kKT * H / 4;  // 16-byte copies per stage
   static_assert(kChunks % kThreads == 0, "stage copies per thread");
+  static_assert(kFwdSmem <= 232448, "train_fwd's tile and stages fit a block's shared memory");
 };
 
 // Rows k0 .. k0+kKT-1 of both halves of W (K, H) into a stage; rows past K
@@ -332,14 +338,33 @@ __device__ __forceinline__ void load_w_stage(float* st, const float* __restrict_
   }
 }
 
-// One dense layer of a kTileP-point tile on the tensor cores, 3xTF32, in
-// place: t[col][p] <- f(sum_k t[k][p] * W[k][col]), W given by its TF32
-// halves (K, H) row-major in global memory, streamed through two cp.async
-// stages of kKT rows: stage s+1 is requested right after the barrier that
-// ends every warp's use of its buffer, and lands while stage s is consumed.
-// The input is split into TF32 halves as its fragments are read; it is read
-// only before the barrier after the loop, so the output overwrites it. The
-// epilogue is
+// Rows k0 .. k0+kKT-1 of a feature-major input x ([K][Np] in global memory)
+// at the tile's kTileP points from n0 into an input stage; rows past K are
+// zero-filled.
+__device__ __forceinline__ void load_x_stage(float* st, const float* __restrict__ x, int k0,
+                                             int K, int Np, int n0) {
+  constexpr int kRowChunks = kTileP / 4;
+  static_assert(kKT * kRowChunks % kThreads == 0, "input stage copies per thread");
+#pragma unroll
+  for (int v = 0; v < kKT * kRowChunks / kThreads; ++v) {
+    const int c = threadIdx.x + v * kThreads;
+    const int r = c / kRowChunks, q = c % kRowChunks;
+    const bool in = k0 + r < K;
+    cp_async16(st + r * kLd + q * 4, in ? x + static_cast<size_t>(k0 + r) * Np + n0 + q * 4 : x,
+               in ? 16 : 0);
+  }
+}
+
+// One dense layer of a kTileP-point tile on the tensor cores, 3xTF32:
+// t[col][p] <- f(sum_k in[k][p] * W[k][col]), W given by its TF32 halves
+// (K, H) row-major in global memory, streamed through two cp.async stages
+// of kKT rows: stage s+1 is requested right after the barrier that ends
+// every warp's use of its buffer, and lands while stage s is consumed. The
+// input is the tile itself (x_g null: in place, read only before the barrier
+// after the loop, so the output overwrites it) or, for layer 0, x_g: its
+// kKT rows of each stage are streamed beside the weights into x_st, so that
+// the sums are those of the in-place layer, in the same order. The input is
+// split into TF32 halves as its fragments are read. The epilogue is
 //   forward (!BWD): out = relu(acc + bias);
 //   backward (BWD): out = acc where gate[col][n] > 0, else 0;
 // it writes t[col][p] in shared memory and dst[col*Np + n0 + p] in global.
@@ -347,7 +372,9 @@ template <int H, bool BWD>
 __device__ void dense_tc(float* __restrict__ t_sm, const float* __restrict__ whi,
                          const float* __restrict__ wlo, const float* __restrict__ bias, int K,
                          float* __restrict__ wst, float* __restrict__ dst,
-                         const float* __restrict__ gate, int Np, int n0) {
+                         const float* __restrict__ gate, int Np, int n0,
+                         const float* __restrict__ x_g = nullptr,
+                         float* __restrict__ x_st = nullptr) {
   using S = Dense<H>;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
@@ -361,14 +388,19 @@ __device__ void dense_tc(float* __restrict__ t_sm, const float* __restrict__ whi
 
   const int n_stages = (K + kKT - 1) / kKT;
   load_w_stage<H>(wst, whi, wlo, 0, K);
+  if (x_g != nullptr) load_x_stage(x_st, x_g, 0, K, Np, n0);
   cp_async_commit();
   for (int s = 0; s < n_stages; ++s) {
     cp_async_wait<0>();
     __syncthreads();  // stage s has landed; stage s-1 and the input writes are done
     if (s + 1 < n_stages) {
       load_w_stage<H>(wst + ((s + 1) & 1) * 2 * S::kHalf, whi, wlo, (s + 1) * kKT, K);
+      if (x_g != nullptr)
+        load_x_stage(x_st + ((s + 1) & 1) * kKT * kLd, x_g, (s + 1) * kKT, K, Np, n0);
       cp_async_commit();
     }
+    // the stage's kKT input rows: streamed (layer 0) or rows s*kKT.. of the tile
+    const float* a_st = x_g != nullptr ? x_st + (s & 1) * kKT * kLd : t_sm + s * kKT * kLd;
     const float* ws = wst + (s & 1) * 2 * S::kHalf + cn + g;
 #pragma unroll
     for (int kk = 0; kk < kKT; kk += 8) {
@@ -376,7 +408,7 @@ __device__ void dense_tc(float* __restrict__ t_sm, const float* __restrict__ whi
       uint32_t ahi[S::MT][4], alo[S::MT][4];
 #pragma unroll
       for (int i = 0; i < S::MT; ++i)
-        load_a_kmajor_split(t_sm + (s * kKT + kk) * kLd + pm + i * 16, kLd, g, t, ahi[i], alo[i]);
+        load_a_kmajor_split(a_st + kk * kLd + pm + i * 16, kLd, g, t, ahi[i], alo[i]);
       const float* wk = ws + (kk + t) * S::kLdw;
       auto bfrag = [&](int j, uint32_t(&bh)[2], uint32_t(&bl)[2]) {
         const float* b = wk + j * 8;
@@ -491,7 +523,8 @@ WSplit wsplit_at(float* base, int D, int H, int L1) {
 }
 
 // Forward trunk of one 64-point tile; A_0 = x and every A_i go to act
-// ([D + L*H][Np]), the 4 raw head outputs to out4 ([4][Np]).
+// ([D + L*H][Np]), the 4 raw head outputs to out4 ([4][Np]). Layer 0 reads
+// x back from act, one 32-row stage at a time.
 template <int H, bool INLINE_PE>
 __global__ void __launch_bounds__(kThreads, 1)
 train_fwd_kernel(const float* __restrict__ in, const float* __restrict__ feats,
@@ -502,9 +535,9 @@ train_fwd_kernel(const float* __restrict__ in, const float* __restrict__ feats,
                  int n_phase, int Fd, int D, int L1) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int rows = D > H ? D : H;
-  float* tile = smem;  // [rows][kLd], each layer in place
-  float* wst = tile + rows * kLd;
+  float* tile = smem;  // [H][kLd], each layer's output (layers >= 1 in place)
+  float* wst = tile + H * kLd;
+  float* xst = wst + Dense<H>::kSmem;  // layer 0's input stages
   const int tid = threadIdx.x;
   const int n0 = blockIdx.x * kTileP;
 
@@ -530,16 +563,16 @@ train_fwd_kernel(const float* __restrict__ in, const float* __restrict__ feats,
         v = in[static_cast<size_t>(n) * D + k];
       }
     }
-    tile[k * kLd + p] = v;
     act[static_cast<size_t>(k) * Np + n] = v;
   }
+  __syncthreads();  // x is in act before layer 0's stages copy it back
 
-  for (int l = 0; l <= L1; ++l) {  // layer 0 reads x (D wide), the others H wide
+  for (int l = 0; l <= L1; ++l) {  // layer 0 streams x (D wide) from act, the others H wide
     const size_t off = static_cast<size_t>(l > 0 ? l - 1 : 0) * H * H;
     dense_tc<H, false>(tile, l ? ws.whhi + off : ws.w0hi, l ? ws.whlo + off : ws.w0lo,
                        l ? bh + static_cast<size_t>(l - 1) * H : b0, l ? H : D, wst,
                        act + (static_cast<size_t>(D) + static_cast<size_t>(l) * H) * Np, nullptr,
-                       Np, n0);
+                       Np, n0, l ? nullptr : act, xst);
   }
   __syncthreads();
 
@@ -1121,9 +1154,7 @@ void launch_forward(const Layout& s, const float* in, const float* feats, const 
   const int rows = D > H ? D : H;
   weight_split_kernel<<<dim3(H / 32, (rows + 31) / 32, 1 + L1), dim3(32, 8), 0, stream>>>(
       w0, wh, ws.w0hi, ws.w0lo, ws.whhi, ws.whlo, ws.whThi, ws.whTlo, D, H);
-  const size_t tile_smem =
-      sizeof(float) * (static_cast<size_t>(rows) * kLd + Dense<H>::kSmem);
-  train_fwd_kernel<H, INLINE_PE><<<s.Np / kTileP, kThreads, tile_smem, stream>>>(
+  train_fwd_kernel<H, INLINE_PE><<<s.Np / kTileP, kThreads, Dense<H>::kFwdSmem, stream>>>(
       in, feats, e2, c, ws, b0, bh, wout, bout, act, out4, s.N, s.Np, n_raw, n_phase, Fd, D, L1);
 }
 

@@ -1,9 +1,10 @@
-"""Spatial and multi-scale DINO feature extractors (counterpart of
-``nerf_fewshot_tpu/models/dino.py``: ``TorchMHA``, ``SpatialDINOFeatures``,
-``MultiScaleDINOFeatures``, ``build_feature_extractor``).
+"""Spatial and multi-scale DINO feature extractors and the standalone
+scripts' patch embedding (counterpart of ``nerf_fewshot_tpu/models/dino.py``:
+``TorchMHA``, ``SpatialDINOFeatures``, ``MultiScaleDINOFeatures``,
+``build_feature_extractor``).
 
-Both map one (H, W, 3) image in [0, 1] to a feature grid, ImageNet
-normalization inside:
+Each maps one (H, W, 3) image in [0, 1] to a feature grid. The first two
+normalize it as ImageNet images inside:
 
 * ``SpatialDINOFeatures``: the backbone's patch tokens (CLS dropped) plus a
   learnable spatial position embedding, projected 768+64 -> 256 -> 128 ->
@@ -14,6 +15,9 @@ normalization inside:
   768 -> 256 -> 128 and self-attended by one shared 8-head attention, the
   coarser grids resized bilinearly to the finest, concatenated and
   projected 384 -> 256 -> ``output_dim`` (128): (Hp, Wp, 128).
+* ``PatchEmbedFeatures`` (``patch_embed``): the scripts' transform to a
+  224x224 input (``preprocess_vit_b16_input``) and torchvision ViT-B/16's
+  patch-embedding conv alone: (14, 14, 768).
 
 The trainer runs an extractor once per training view before training and
 conditions on the maps as constants. ``dino_extractor_from_jax`` carries a
@@ -33,7 +37,11 @@ from nerf_fewshot_tpu_torch.models.lora import torch_dense
 from nerf_fewshot_tpu_torch.models.vit import (
     DINOv2ViT,
     ViTConfig,
+    ViTPatchEmbed,
+    find_torchvision_vit_b16_weights,
+    load_torchvision_patch_embed,
     normalize_image,
+    preprocess_vit_b16_input,
     state_dict_from_jax,
 )
 from nerf_fewshot_tpu_torch.ops.interp import resize_bilinear
@@ -124,24 +132,44 @@ class MultiScaleDINOFeatures(nn.Module):
         return self.final_proj1(h)
 
 
+class PatchEmbedFeatures(ViTPatchEmbed):
+    """The standalone scripts' extractor (``patch_embed``): an (H, W, 3)
+    [0, 1] image through ``preprocess_vit_b16_input`` (uint8, Pillow's
+    bilinear resize to 224x224, mean/std 0.5) and the ViT-B/16
+    patch-embedding conv: (14, 14, 768). Its state dict is
+    ``ViTPatchEmbed``'s."""
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        return super().forward(preprocess_vit_b16_input(image))
+
+
 def build_feature_extractor(dino_cfg, image_size: int, vit: Optional[ViTConfig] = None,
                             seed: int = 0, device: DeviceLike = None) -> nn.Module:
     """The configured extractor in eval mode on ``device`` (default
     ``cuda``), its parameters drawn from ``torch.Generator().manual_seed(seed)``
     with the JAX package's init distributions. ``model(image01 (H, W, 3))``
-    gives the feature grid. ``single_scale`` and ``multi_scale`` are
-    ported; ``dino_lora`` (the offline token dumper) and ``patch_embed``
-    (the standalone scripts' ViT-B/16 conv) raise."""
-    if dino_cfg.model_type in ("dino_lora", "patch_embed"):
+    gives the feature grid. ``single_scale``, ``multi_scale`` and
+    ``patch_embed`` (the standalone scripts' ViT-B/16 conv, whose weights are
+    read from a torchvision checkpoint already on disk when
+    ``find_torchvision_vit_b16_weights`` finds one) are ported;
+    ``dino_lora`` (the offline token dumper) raises."""
+    if dino_cfg.model_type == "dino_lora":
         raise NotImplementedError(
-            f"dino.model_type={dino_cfg.model_type!r} is not ported yet (ROADMAP queue 1: "
-            + ("the dino_lora token dumper and the HF import)" if dino_cfg.model_type == "dino_lora"
-               else "the patch_embed / script recipes with a PIL-free preprocessor)"))
+            "dino.model_type='dino_lora' is not ported yet (ROADMAP queue 1: the dino_lora "
+            "token dumper and the HF import)")
     dev = resolve_device(device)
+    generator = torch.Generator().manual_seed(seed)
+    if dino_cfg.model_type == "patch_embed":
+        model = PatchEmbedFeatures(generator=generator)
+        path = find_torchvision_vit_b16_weights()
+        if path is not None:
+            load_torchvision_patch_embed(
+                model, torch.load(path, map_location="cpu", weights_only=True))
+            print(f"[dino] loaded vit_b_16 patch-embed weights from {path}")
+        return model.to(dev).eval()
     if vit is None:
         vit = ViTConfig(lora_rank=dino_cfg.lora_rank if dino_cfg.use_lora else 0,
                         lora_alpha=dino_cfg.lora_alpha)
-    generator = torch.Generator().manual_seed(seed)
     if dino_cfg.model_type == "multi_scale":
         model = MultiScaleDINOFeatures(vit=vit, generator=generator)
     else:

@@ -27,9 +27,15 @@ import torch
 
 from nerf_fewshot_tpu_torch.render import cuda_build
 
-D_PAD = 128  # the pre-encoded x (kernels 4, 3, 5) is 128 or 256 wide
-PE_ALIGN = 16  # the inline-PE kernels (1, 2) take any width that is a multiple of 16
-MAX_PE_WIDTH = 256  # ... up to this one (csrc kMaxD)
+# Input widths. The pre-encoded x of kernels 3, 4 and 5 is any multiple of
+# D_PAD (``encode_points`` pads to one, as the JAX kernels do), which keeps
+# the 64-column dx tiles of kernel 3 whole; the inline-PE input of kernels 1
+# and 2 is padded to a multiple of PE_ALIGN (``pe_width``). All five take
+# up to MAX_INPUT_WIDTH columns (csrc kMaxD in both sources): 7 x 128, the
+# script recipes' 831 / 858 live columns (D 832 / 864 inline, 896 encoded).
+D_PAD = 128
+PE_ALIGN = 16
+MAX_INPUT_WIDTH = 896
 OUT_PAD = 128  # packed head columns: [r, g, b, sigma, 0...]
 KERNEL_WIDTHS = (128, 256)  # trunk widths the CUDA kernel is built for
 MAX_SAMPLES = 1024  # per-ray sigma/rgb scratch of the kernel lives in smem
@@ -423,10 +429,10 @@ def fused_render_fwd_pe(
     Fd = feats.shape[1] if use_feats else 0
     if H not in KERNEL_WIDTHS:
         raise ValueError(f"fused_render_fwd_pe: trunk width {H} not in {KERNEL_WIDTHS}")
-    if D % PE_ALIGN or D > MAX_PE_WIDTH or n_raw + n_phase + Fd > D:
+    if D % PE_ALIGN or D > MAX_INPUT_WIDTH or n_raw + n_phase + Fd > D:
         raise ValueError(
             f"fused_render_fwd_pe: input width {n_raw}+{n_phase}+{Fd} needs "
-            f"d_pad >= it, a multiple of 16 and <= 256; got {D}"
+            f"d_pad >= it, a multiple of {PE_ALIGN} and <= {MAX_INPUT_WIDTH}; got {D}"
         )
     if not (1 <= S <= MAX_SAMPLES) or R < 1:
         raise ValueError(f"fused_render_fwd_pe: need R >= 1 and 1 <= S <= {MAX_SAMPLES}; got {R}, {S}")
@@ -474,8 +480,9 @@ def _check_x_render(x, z, dnorm, packed: Packed, caller: str):
     L1 = wh.shape[0]
     if H not in KERNEL_WIDTHS:
         raise ValueError(f"{caller}: trunk width {H} not in {KERNEL_WIDTHS}")
-    if D % D_PAD or D > 2 * D_PAD:
-        raise ValueError(f"{caller}: x width {D} must be {D_PAD} or {2 * D_PAD}")
+    if D % D_PAD or D > MAX_INPUT_WIDTH:
+        raise ValueError(f"{caller}: x width {D} must be a multiple of {D_PAD} "
+                         f"and <= {MAX_INPUT_WIDTH}")
     if not (1 <= S <= MAX_SAMPLES) or R < 1:
         raise ValueError(f"{caller}: need R >= 1 and 1 <= S <= {MAX_SAMPLES}; got {R}, {S}")
     if L1 + 1 > MAX_LAYERS:
@@ -491,7 +498,7 @@ def _check_x_render(x, z, dnorm, packed: Packed, caller: str):
 def fused_render_fwd(x, z, dnorm, packed: Packed, white_bkgd: bool = False,
                      compute_dtype: str = "float32"):
     """The render of kernel 4 from a pre-encoded (R*S, D) ``x``
-    (``encode_points``, D 128 or 256) with ``pack_params(d_pad=D)`` weights:
+    (``encode_points``, D a multiple of 128 up to 896) with ``pack_params(d_pad=D)`` weights:
     ``(rgb (R,3), depth (R,1), acc (R,1), weights (R,S))``. CPU tensors run
     ``fused_render_reference``; CUDA tensors launch ``nerf_fwd_x`` and count
     one in ``fused_render_fwd.launches``."""

@@ -28,7 +28,8 @@ from nerf_fewshot_tpu_torch.render.fused import encode_points
 from nerf_fewshot_tpu_torch.render.kernels import (
     KERNEL_WIDTHS,
     MAX_LAYERS,
-    MAX_PE_WIDTH,
+    D_PAD,
+    MAX_INPUT_WIDTH,
     MAX_SAMPLES,
     OUT_PAD,
     PE_ALIGN,
@@ -150,10 +151,10 @@ def fused_train_objective(
     if inline_pe:
         n_raw, n_phase = raw_or_x.shape[1], e2.shape[1]
         Fd = 0 if feats is None else feats.shape[1]
-        if D % PE_ALIGN or D > MAX_PE_WIDTH or n_raw + n_phase + Fd > D:
+        if D % PE_ALIGN or D > MAX_INPUT_WIDTH or n_raw + n_phase + Fd > D:
             raise ValueError(
                 f"{CALLER}: input width {n_raw}+{n_phase}+{Fd} needs d_pad >= it, "
-                f"a multiple of 16 and <= 256; got {D}")
+                f"a multiple of {PE_ALIGN} and <= {MAX_INPUT_WIDTH}; got {D}")
         _expect(raw_or_x, "raw", (R * S, n_raw), device, CALLER)
         if feats is not None:
             _expect(feats, "feats", (R * S, Fd), device, CALLER)
@@ -161,8 +162,9 @@ def fused_train_objective(
         _expect(c, "c", (1, n_phase), device, CALLER)
     else:
         n_raw = n_phase = Fd = 0
-        if D % 16 or D > 256:
-            raise ValueError(f"{CALLER}: x width {D} must be a multiple of 16 and <= 256")
+        if D % D_PAD or D > MAX_INPUT_WIDTH:
+            raise ValueError(f"{CALLER}: x width {D} must be a multiple of {D_PAD} "
+                             f"and <= {MAX_INPUT_WIDTH}")
         _expect(raw_or_x, "x", (R * S, D), device, CALLER)
     _expect(z, "z", (R, S), device, CALLER)
     _expect(dnorm, "dnorm", (R, 1), device, CALLER)

@@ -12,8 +12,9 @@ follows the JAX trainer: ``rendering.backend: xla``, or under ``auto`` a
 config the JAX kernels do not take (``arch: module``, skip layers, a width
 that is not a multiple of 128, sigma noise), trains on the plain path on
 every device. A config the JAX kernels take but the port has no CUDA build
-for (a width of 384 or 512) raises on a card, and trains on the plain path
-only on the CPU or with ``backend: xla``. The path taken is in ``kernel_path``. Minibatch
+for (a width of 384 or 512, an MLP input wider than 896 columns) raises on
+a card, and trains on the plain path only on the CPU or with ``backend:
+xla``. The path taken is in ``kernel_path``. Minibatch
 permutations come from ``np.random.default_rng(cfg.seed)`` exactly as in
 the JAX trainer, so both draw the same batches. Eval renders every view
 through ``fused_render_rays(forward_only=True)`` on the kernel path.
@@ -62,7 +63,12 @@ from nerf_fewshot_tpu_torch.ops.rays import (
     project_points_to_image,
 )
 from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
-from nerf_fewshot_tpu_torch.render.kernels import KERNEL_WIDTHS, MAX_PE_WIDTH, pe_layout
+from nerf_fewshot_tpu_torch.render.kernels import (
+    KERNEL_WIDTHS,
+    MAX_INPUT_WIDTH,
+    pe_layout,
+    pe_width,
+)
 from nerf_fewshot_tpu_torch.render.pipeline import PointFeaturesFn, RenderSettings, render_rays
 from nerf_fewshot_tpu_torch.render.train_kernel import fused_train_loss_grad
 from nerf_fewshot_tpu_torch.training.config import Config
@@ -237,9 +243,9 @@ class Trainer:
                     f"(the kernels are built for {KERNEL_WIDTHS})")
         feat_dim = self.cfg.dino.output_dim if self.use_dino else 0
         x_dim = pe_layout(n.pos_freq, n.dir_freq, n.use_viewdirs, feat_dim)[3]
-        if x_dim > MAX_PE_WIDTH:
+        if pe_width(x_dim) > MAX_INPUT_WIDTH:
             return (f"the MLP input is {x_dim} wide; the CUDA kernels take at most "
-                    f"{MAX_PE_WIDTH}")
+                    f"{MAX_INPUT_WIDTH}")
         return None
 
     def _use_fused(self) -> bool:

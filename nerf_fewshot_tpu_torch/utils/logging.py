@@ -3,10 +3,11 @@
 
 A JSONL sink (one dict per line), or a CSV sink when the log path ends in
 ``.csv`` (the header from the first record's sorted keys, one row per
-record, numbers as floats, keys the header lacks left out); the wandb
-mirror is not ported and raises. PNGs are written with
-``zlib`` and ``struct`` from the standard library: the card machine has no
-PIL.
+record, numbers as floats, keys the header lacks left out), mirrored to
+a wandb run under ``use_wandb`` when the ``wandb`` package imports and its
+run starts (else the file sink alone, as in the JAX package). PNGs are
+written with ``zlib`` and ``struct`` from the standard library: the card
+machine has no PIL.
 """
 
 from __future__ import annotations
@@ -26,8 +27,6 @@ class JSONLLogger:
     def __init__(self, path: Optional[str] = None, use_wandb: bool = False,
                  wandb_project: str = "nerf-fewshot-tpu", run_name: str = "run",
                  config: Optional[Dict] = None):
-        if use_wandb:
-            raise NotImplementedError("the wandb mirror is not ported; use the JSONL sink")
         self.path = path
         self._fh = None
         self._csv = None
@@ -38,6 +37,15 @@ class JSONLLogger:
             self._fh = open(path, "a", newline="" if is_csv else None)
             if is_csv:
                 self._csv = csv.writer(self._fh)
+        self._wandb = None
+        if use_wandb:
+            try:
+                import wandb
+
+                self._wandb = wandb.init(project=wandb_project, name=run_name,
+                                         config=config or {})
+            except Exception:  # no package or no credentials: the file sink alone
+                self._wandb = None
 
     def log(self, record: Dict[str, Any]) -> None:
         record = dict(record)
@@ -53,12 +61,17 @@ class JSONLLogger:
         elif self._fh:
             self._fh.write(json.dumps(record, default=float) + "\n")
             self._fh.flush()
+        if self._wandb is not None:
+            self._wandb.log({k: v for k, v in record.items() if k != "time"})
 
     def close(self) -> None:
         if self._fh:
             self._fh.close()
             self._fh = None
             self._csv = None
+        if self._wandb is not None:
+            self._wandb.finish()
+            self._wandb = None
 
 
 def _png_chunk(tag: bytes, data: bytes) -> bytes:

@@ -147,10 +147,21 @@ def test_extract_features_writes_the_jax_shape(tmp_path, monkeypatch, capsys):
     ["train", "--data-parallel"], ["train", "--multihost"], ["train", "--wandb"],
     ["evaluate"], ["bench-scaling"],
 ], ids=lambda a: a[-1])
-def test_what_is_not_ported_raises_naming_its_roadmap_item(tmp_path, argv):
+def test_what_is_not_ported_raises_naming_its_roadmap_item(tmp_path, argv, capsys):
+    """What is not ported raises, naming its ROADMAP item. ``--wandb`` is
+    ported: as the JAX CLI, it sets ``output.use_wandb``, and without the
+    wandb package the run trains with its JSONL log alone."""
     path = _write_config(tmp_path, "refuse")
     args = argv + (["--config", path, "--synthetic", "--device", "cpu"]
                    if argv[0] == "train" else [])
+    if argv == ["train", "--wandb"]:
+        tcli.main(args + ["--epochs", "1"])
+        assert "final_metrics" in _summary(capsys.readouterr().out)
+        save_dir = tmp_path / "refuse"
+        lines = [json.loads(x) for x in (save_dir / "log.jsonl").read_text().splitlines()]
+        assert [x["epoch"] for x in lines if "train_loss" in x] == [0]
+        assert (save_dir / "final.ckpt").exists()
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         tcli.main(args)
 

@@ -657,3 +657,126 @@ def test_lora_trainer_on_the_card_matches_its_xla_twin(h100):
     for g, w, name in zip(gpu.render_views(data.poses[:1]), twin.render_views(data.poses[:1]),
                           ("rgb", "depth", "acc")):
         np.testing.assert_allclose(g, w, rtol=0, atol=TOL[name], err_msg=name)
+
+
+# The script recipes: pos_freq 10 and 768 patch-embedding features; without
+# view directions 831 live columns (D 832), with them 858 (D 864); the
+# pre-encoded x of kernels 3, 4 and 5 is 896 wide.
+SCRIPT_WIDTHS = [(False, 831, 832), (True, 858, 864)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["plain", "white_masked_reg_depth"])
+@pytest.mark.parametrize("use_viewdirs,x_dim,D", SCRIPT_WIDTHS)
+def test_train_kernel_at_the_script_widths(h100, use_viewdirs, x_dim, D, case):
+    """Kernel 1 at 512 x 64 with 768-wide features (layer 0 streamed from
+    the scratch in 27 stages of 32 rows): launched once, two calls bit-equal,
+    against its plain version at the objective's gates; the pad rows of w0
+    get no gradient."""
+    kw = {} if case == "plain" else dict(white_bkgd=True, ragged=9, reg_weight=0.01,
+                                         depth_weight=0.1)
+    args, opts = _train_inputs(512, 64, 256, 8, h100, feat_dim=768, use_viewdirs=use_viewdirs,
+                               **kw)
+    assert args[-1][0].shape[0] == D
+    before = tt.fused_train_objective.launches["train_pe"]
+    a = tt.fused_train_objective(*args, **opts)
+    b = tt.fused_train_objective(*args, **opts)
+    torch.cuda.synchronize()
+    assert tt.fused_train_objective.launches["train_pe"] == before + 2
+    assert torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+    _check_train(a, tt.fused_train_objective_reference(*args, **opts), 1e-4)
+    assert torch.count_nonzero(a[1][0][x_dim:]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("white_bkgd", [False, True])
+@pytest.mark.parametrize("use_viewdirs,x_dim,D", SCRIPT_WIDTHS)
+def test_fwd_pe_kernel_at_the_script_widths(h100, use_viewdirs, x_dim, D, white_bkgd):
+    """Kernel 2 on a 2048 x 64 eval chunk with 768-wide features (each
+    32-column stage of layer 0's input built just before its products):
+    two calls bit-equal, the plain version's outputs at the view
+    tolerances."""
+    import chip_smoke
+
+    args = chip_smoke.random_fwd_pe_args(np.random.default_rng(9), 2048, 64, 256, 8, 768, h100,
+                                         d_pad=tk.pe_width(x_dim), use_viewdirs=use_viewdirs)
+    assert args[-1][0].shape[0] == D
+    got = tk.fused_render_fwd_pe(*args, white_bkgd=white_bkgd, use_feats=True)
+    again = tk.fused_render_fwd_pe(*args, white_bkgd=white_bkgd, use_feats=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    want = tk.fused_render_fwd_pe_reference(*args, white_bkgd=white_bkgd, use_feats=True)
+    for g, w, name in zip(got, want, ("rgb", "depth", "acc", "weights")):
+        assert torch.isfinite(g).all(), name
+        err = (g - w).abs().max().item()
+        assert err <= TOL[name], (name, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [1, 2])
+def test_script_width_kernels_at_a_ragged_shape(h100, kernel):
+    """Kernels 1 and 2 at D 864 on 37 rays x 48 samples (1,776 points: the
+    last 64-point tile ragged), white background and, for kernel 1, a masked
+    tail: against their plain versions; kernel 1's pad rows get no
+    gradient."""
+    import chip_smoke
+
+    if kernel == 1:
+        args, opts = _train_inputs(37, 48, 256, 8, h100, feat_dim=768, white_bkgd=True, ragged=5)
+        assert args[-1][0].shape[0] == 864
+        got = tt.fused_train_objective(*args, **opts)
+        _check_train(got, tt.fused_train_objective_reference(*args, **opts), 1e-4)
+        assert torch.count_nonzero(got[1][0][858:]) == 0
+        return
+    args = chip_smoke.random_fwd_pe_args(np.random.default_rng(10), 37, 48, 256, 8, 768, h100,
+                                         d_pad=864)
+    got = tk.fused_render_fwd_pe(*args, white_bkgd=True, use_feats=True)
+    want = tk.fused_render_fwd_pe_reference(*args, white_bkgd=True, use_feats=True)
+    for g, w, name in zip(got, want, ("rgb", "depth", "acc", "weights")):
+        assert g.shape == w.shape and torch.isfinite(g).all(), name
+        assert (g - w).abs().max().item() <= TOL[name], name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [3, 4, 5])
+def test_x_kernels_at_896(h100, kernel):
+    """Kernels 3, 4 and 5 on a pre-encoded x 896 wide (858 live columns: pos
+    freq 10, view directions, 768 features) at 512 x 64: launched once per
+    call, two calls bit-equal, against their plain versions at the existing
+    gates; the pad columns of dx (kernel 3) and the pad rows of w0's
+    gradient (kernels 3 and 5) are zero."""
+    if kernel == 5:
+        args, opts = _train_inputs(512, 64, 256, 8, h100, feat_dim=768, inline_pe=False)
+        assert args[0].shape[1] == 896
+        before = tt.fused_train_objective.launches["train_x"]
+        a = tt.fused_train_objective(*args, **opts)
+        b = tt.fused_train_objective(*args, **opts)
+        torch.cuda.synchronize()
+        assert tt.fused_train_objective.launches["train_x"] == before + 2
+        assert torch.equal(a[0], b[0]) and all(torch.equal(x, y) for x, y in zip(a[1], b[1]))
+        _check_train(a, tt.fused_train_objective_reference(*args, **opts), 1e-4)
+        assert torch.count_nonzero(a[1][0][858:]) == 0
+        return
+    (x, z, dnorm, packed), cot = _render_inputs(512, 64, 256, 8, h100, feat_dim=768)
+    assert x.shape[1] == 896
+    if kernel == 4:
+        before = tk.fused_render_fwd.launches
+        got = tk.fused_render_fwd(x, z, dnorm, packed)
+        again = tk.fused_render_fwd(x, z, dnorm, packed)
+        torch.cuda.synchronize()
+        assert tk.fused_render_fwd.launches == before + 2
+        assert all(torch.equal(p, q) for p, q in zip(got, again))
+        want = tk.fused_render_reference(x, z, dnorm, packed)
+        for g, w, name in zip(got, want, ("rgb", "depth", "acc", "weights")):
+            assert torch.isfinite(g).all(), name
+            assert (g - w).abs().max().item() <= TOL[name], name
+        return
+    before = tk.fused_render_bwd.launches
+    got = tk.fused_render_bwd(x, z, dnorm, packed, *cot)
+    again = tk.fused_render_bwd(x, z, dnorm, packed, *cot)
+    torch.cuda.synchronize()
+    assert tk.fused_render_bwd.launches == before + 2
+    assert all(torch.equal(p, q) for p, q in zip((got[0], *got[1]), (again[0], *again[1])))
+    _check_vjp(got, tk.fused_render_bwd_reference(x, z, dnorm, packed, *cot), 1e-4)
+    assert torch.count_nonzero(got[0][:, 858:]) == 0
+    assert torch.count_nonzero(got[1][0][858:]) == 0

@@ -249,7 +249,8 @@ def test_multiscale_backbone_gets_no_gradient():
 
 def test_build_feature_extractor_shapes_init_and_refusals():
     """Full-width defaults (ViT-B/14, LoRA rank 16 when asked), seeded from
-    the config's seed, eval mode; the token dumper and patch_embed raise."""
+    the config's seed, eval mode; ``patch_embed`` builds the scripts'
+    ViT-B/16 patch embedding, seeded too; the token dumper raises."""
     cfg = tcfg.config_from_dict({"model": {"use_dino": True, "dino_model_type": "single_scale"},
                                  "dino_model": {"use_lora": True, "lora_rank": 16}})
     m = tdino.build_feature_extractor(cfg.dino, 128, seed=3, device="cpu")
@@ -261,10 +262,14 @@ def test_build_feature_extractor_shapes_init_and_refusals():
     pos = m.backbone.pos_embed
     assert pos.shape == (1 + 37 * 37, 768) and pos.abs().max() <= 0.04 + 1e-7
     assert 0.9 < m.spatial_pos_embed.std().item() < 1.1
-    for kind in ("dino_lora", "patch_embed"):
-        c = tcfg.config_from_dict({"model": {"use_dino": True, "dino_model_type": kind}})
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdino.build_feature_extractor(c.dino, 128, device="cpu")
+    c = tcfg.config_from_dict({"model": {"use_dino": True, "dino_model_type": "patch_embed"}})
+    pe = [tdino.build_feature_extractor(c.dino, 128, seed=3, device="cpu") for _ in range(2)]
+    assert not pe[0].training and pe[0].conv_proj.weight.shape == (768, 3, 16, 16)
+    assert torch.equal(pe[0].conv_proj.weight, pe[1].conv_proj.weight)
+    assert pe[0](torch.rand(128, 128, 3)).shape == (14, 14, 768)
+    c = tcfg.config_from_dict({"model": {"use_dino": True, "dino_model_type": "dino_lora"}})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdino.build_feature_extractor(c.dino, 128, device="cpu")
 
 
 @pytest.mark.parametrize("projection", ["reference", "script"])

@@ -188,9 +188,12 @@ def test_trainer_init_is_seeded_and_refuses_unported_work(scene):
                 for _ in range(2))
         assert all(torch.equal(va, vb) for va, vb in zip(c.model.state_dict().values(),
                                                           d.model.state_dict().values()))
+    # use_wandb builds too: without the wandb package the log file alone, as the JAX logger
     wandb = {**raw, "output": {**raw.get("output", {}), "use_wandb": True}}
-    with pytest.raises(NotImplementedError):
-        Trainer(tcfg.config_from_dict(wandb), _port_data(train), device="cpu")
+    w = Trainer(tcfg.config_from_dict(wandb), _port_data(train), device="cpu")
+    assert w.cfg.output.use_wandb and w.logger._wandb is None
+    assert all(torch.equal(va, vb) for va, vb in zip(a.model.state_dict().values(),
+                                                      w.model.state_dict().values()))
     with pytest.raises(ValueError, match="backend=fused"):
         cfg = tcfg.config_from_dict({**_slice_config(tcfg).raw,
                                      "nerf_model": {"hidden_dim": 64, "num_layers": 2},

@@ -28,7 +28,9 @@ vector rel 1e-4, and 2e-2 at sigma_bias 5.0, where the backward divides by
 transmittances at the 1e-10 floor; the render's rgb, acc and weights 1e-4
 and depth 1e-3 (max abs). Full width: 8x256 trunk, pos_freq 10, dir_freq 4,
 on a few hundred points; the render also at pos_freq 12 with 64-wide
-features (D 176) and from a 128-wide encoded x.
+features (D 176) and from a 128-wide encoded x; the objective and the render
+at the script recipes' width (pos_freq 10, view directions, 768 features:
+D 864), where layer 0 sums 858 terms and is a third of the forward's work.
 """
 
 import numpy as np
@@ -129,6 +131,8 @@ OBJECTIVE_CASES = {
                                           depth_weight=0.1, feat_dim=64), 1e-4),
     "x_input": (dict(inline_pe=False), 1e-4),
     "sigma_bias_5": (dict(sigma_bias=5.0), 2e-2),
+    # kernel 1 at the script recipes' width: 90 + 768 columns, D 864
+    "script_feats_d864": (dict(feat_dim=768), 1e-4),
 }
 
 
@@ -138,6 +142,7 @@ def test_emulated_objective_meets_the_card_gates(case):
 
     kw, grad_tol = OBJECTIVE_CASES[case]
     args, opts = chip_smoke.random_train_args(np.random.default_rng(0), R, S, H, L, "cpu", **kw)
+    assert args[-1][0].shape[0] == tk.pe_width(90 + kw.get("feat_dim", 0)) or not opts["inline_pe"]
     want_loss, want = tt.fused_train_objective_reference(*args, **opts)
     with Emulate3xTF32():
         got_loss, got = tt.fused_train_objective_reference(*args, **opts)
@@ -172,9 +177,11 @@ def test_emulated_render_vjp_meets_the_card_gates(case):
 
 FORWARD_CASES = {
     # kernel 2 at the baseline widths (D 96), white background
-    "k2_baseline_white": (2, dict(pos_freq=10, feat_dim=0), True),
+    "k2_baseline_white": (2, dict(pos_freq=10, feat_dim=0, d=96), True),
     # kernel 2 at a DINO config's widths: pos_freq 12, 64 features, D 176
-    "k2_dino_d176": (2, dict(pos_freq=12, feat_dim=64), False),
+    "k2_dino_d176": (2, dict(pos_freq=12, feat_dim=64, d=176), False),
+    # kernel 2 at the script recipes' width: pos_freq 10, 768 features, D 864
+    "k2_script_d864": (2, dict(pos_freq=10, feat_dim=768, d=864), False),
     # kernel 4 from the 128-wide encoded x of pos_freq 10
     "k4_x128": (4, {}, False),
 }
@@ -191,7 +198,7 @@ def test_emulated_render_forward_meets_the_card_gates(case):
         x_dim = 6 + 6 * kw["pos_freq"] + 24 + kw["feat_dim"]
         args = chip_smoke.random_fwd_pe_args(rng, R, S, H, L, kw["feat_dim"], "cpu",
                                              pos_freq=kw["pos_freq"], d_pad=tk.pe_width(x_dim))
-        assert args[-1][0].shape[0] == (96 if kw["feat_dim"] == 0 else 176)
+        assert args[-1][0].shape[0] == kw["d"]
         opts = dict(white_bkgd=white, use_feats=kw["feat_dim"] > 0)
         ref = tk.fused_render_fwd_pe_reference
     else:

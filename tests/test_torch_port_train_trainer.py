@@ -289,8 +289,17 @@ def test_logger_and_rate_meter_match_jax(tmp_path):
     jl.close()
     tl.close()
     assert pt.read_text() == pj.read_text()
-    with pytest.raises(NotImplementedError):
-        JSONLLogger(use_wandb=True)
+    # use_wandb without the wandb package: the file sink alone, as the JAX logger
+    pj, pt = tmp_path / "jw.jsonl", tmp_path / "tw.jsonl"
+    jl = jlogging.JSONLLogger(str(pj), use_wandb=True, run_name="w", config={"a": 1})
+    tl = JSONLLogger(str(pt), use_wandb=True, run_name="w", config={"a": 1})
+    assert jl._wandb is None and tl._wandb is None
+    for r in recs:
+        jl.log(r)
+        tl.log(r)
+    jl.close()
+    tl.close()
+    assert pt.read_text() == pj.read_text()
     # the CSV sink: the header from the first record, the same rows
     cj, ct = tmp_path / "j.csv", tmp_path / "t.csv"
     jl, tl = jlogging.JSONLLogger(str(cj)), JSONLLogger(str(ct))
@@ -350,7 +359,25 @@ def test_fit_writes_logs_images_and_checkpoints_and_load_restores(scene, tmp_pat
             assert torch.equal(v, sb["state"][k][name]), (k, name)
 
 
-def test_trainer_refuses_unported_training_options(scene):
+def test_trainer_refuses_unported_training_options(scene, tmp_path):
+    """``output.use_wandb: true`` is no longer refused: without the wandb
+    package the port's trainer, as the JAX one, trains with its JSONL sink
+    alone, and writes the JAX trainer's records (epoch by epoch, every key
+    of the JAX train record; the eval records' PSNR and SSIM)."""
     train, test = scene
-    with pytest.raises(NotImplementedError, match="wandb"):
-        Trainer(_config(tcfg, output={"use_wandb": True}), _port_data(train), device="cpu")
+    logs = {}
+    for side, mod in (("jax", jcfg), ("port", tcfg)):
+        cfg = _config(mod, save_dir=str(tmp_path / side), output={"use_wandb": True})
+        path = str(tmp_path / f"{side}.jsonl")
+        if side == "jax":
+            tr = jax_trainer_mod.Trainer(cfg, train, test, log_path=path)
+        else:
+            tr = Trainer(cfg, _port_data(train), _port_data(test), device="cpu", log_path=path)
+        assert tr.cfg.output.use_wandb and tr.logger._wandb is None
+        tr.fit()
+        logs[side] = [json.loads(x) for x in (tmp_path / f"{side}.jsonl").read_text().splitlines()]
+    assert len(logs["port"]) == len(logs["jax"]) == 4
+    for want, got in zip(logs["jax"], logs["port"]):
+        assert got["epoch"] == want["epoch"]
+        keys = set(want) if "train_loss" in want else {"psnr", "ssim"}
+        assert keys <= set(got), (sorted(want), sorted(got))

@@ -55,24 +55,36 @@ its seconds:
    kernel once, PSNR must rise above its value at init, and a trainer on
    the plain path (``backend: xla``) from the same seed must give the same
    per-step losses over epoch 0;
-10. train step breakdown: one phase-2 epoch untraced, then under
+10. evaluate baseline.yaml: the trained trainer's checkpoint through
+   ``cli evaluate --config experiments/baseline.yaml --synthetic`` in this
+   process on the card: ``evaluation.json`` with the JAX harness's keys
+   (PSNR, SSIM, LPIPS with ``lpips_pretrained: false`` and its backend, 8
+   novel views, depth statistics of 3 views, both smoothness analyses) and
+   its PNGs; kernel 2 once per chunk of each ``render_views`` stream (8
+   test, 8 orbit, 3 depth views: 152 launches); the checkpoint through a
+   ``backend: xla`` trainer's harness (orbit and depth views within the
+   view tolerances, depth means within 1e-3, PSNR within 1e-3 dB); LPIPS
+   of the 8 test views on the card against the CPU (rel 1e-4, cuDNN's TF32
+   off; the reading with it on printed, not gated); ms per evaluated view
+   (render and LPIPS apart), per orbit view, the call's wall time;
+11. train step breakdown: one phase-2 epoch untraced, then under
    ``torch.profiler`` with the CUDA activity only (the device's busy share
    of the epoch, the stream synchronizations per step) and with the CPU
    activity too (device time per step by part: the kernel's launches,
    Adam, the rest);
-11. hierarchical train slice: ``experiments/hierarchical.yaml`` (a literal
+12. hierarchical train slice: ``experiments/hierarchical.yaml`` (a literal
    dict) trains at the same epochs (every step: kernel 2 as the coarse
    pass, kernel 1 over the merged 96 / 112 / 128 samples), PSNR must rise;
    eval runs kernel 2 for both passes; kernel times at the step's shapes;
    one ``fused_train_loss_grad(inline_pe=False)`` step (kernel 4 as the
    coarse pass, kernel 5) against the inline-PE step;
-12. repair check: ``experiments/smoke.yaml`` (width 64) trains a phase-0
+13. repair check: ``experiments/smoke.yaml`` (width 64) trains a phase-0
    epoch on the plain path under ``backend: auto`` and says so in
    ``kernel_path``; under ``fused`` it raises, and width 384 raises too;
-13. DINO kernel widths: kernel 1 at 512x64 and kernel 2 at a 1024x64 eval
+14. DINO kernel widths: kernel 1 at 512x64 and kernel 2 at a 1024x64 eval
    chunk, pos_freq 12, with 64 and 128 features (inputs padded to D 176
    and 240), against their plain versions; times and bounds;
-14. DINO slices: ``experiments/dino_nerf.yaml``, ``multiscale.yaml`` and
+15. DINO slices: ``experiments/dino_nerf.yaml``, ``multiscale.yaml`` and
    ``lora.yaml`` read by the port's own YAML reader at full width (ViT-B/14
    12x768 extractor on the card, 8x256 trunk): feature maps (5, 9, 9, 64)
    or (5, 9, 9, 128); eval at init (kernel 2 with train view 0's features,
@@ -82,11 +94,14 @@ its seconds:
    pipeline; both kernels against their plain versions at the trainer's
    shapes; the feature sampler's time; one ``dino_nerf`` phase-2 epoch
    traced;
-15. LoRA trunk kernel width: kernel 1 at 512x64 and 1024x64 and kernel 2
+16. evaluate dino_nerf.yaml, right after the ``dino_nerf.yaml`` slice: the
+   same for its trained trainer (features from the extractor on the card,
+   1024-ray chunks: 304 launches; the 5x5 feature-consistency matrix);
+17. LoRA trunk kernel width: kernel 1 at 512x64 and 1024x64 and kernel 2
    at a 1024x64 eval chunk at the trunk-LoRA config's input (pos_freq 10,
    view directions, 64 features: D 160), against their plain versions;
    times and bounds;
-16. LoRA trunk slice: ``experiments/lora_nerf_trunk.yaml`` read by the
+18. LoRA trunk slice: ``experiments/lora_nerf_trunk.yaml`` read by the
    port's reader (8x256 trunk, rank-4 LoRA on every layer, the ViT-B/14
    extractor on the card), trained with ``sigma_bias: 0.1`` (the file as it
    stands starts dead at seed 0, which is reported): epochs 0, 50, 51, 52,
@@ -96,15 +111,15 @@ its seconds:
    ``xla`` trainer (rel 1e-4), eval through kernel 2 (PSNR must rise), the
    views against the plain pipeline, both kernels at the trainer's shapes,
    one phase-2 epoch traced;
-17. reference checkpoint: the trained LoRA weights written in the
+19. reference checkpoint: the trained LoRA weights written in the
    reference's PyTorch layout (``.pth``) and loaded into a fresh trainer,
    whose views through kernel 2 must equal the first trainer's;
-18. module and skip slice: ``multiscale.yaml`` with ``arch: module``
+20. module and skip slice: ``multiscale.yaml`` with ``arch: module``
    (``NeRFWithDINO``) and ``baseline.yaml`` with ``skip_layers: [4]`` take
    the plain path with the JAX trainer's reason and launch no kernel, raise
    under ``backend: fused``; the module config trains two epochs and its
    PSNR must rise;
-19. script kernel widths: the five kernels at the script recipes' input
+21. script kernel widths: the five kernels at the script recipes' input
    (pos_freq 10 and the 768 channels of the ViT-B/16 patch embedding, random
    inputs): kernel 1 at D 832 (no view directions) and 864 at 1024x32 and
    4096x64 (and a white, masked, reg and depth case), kernel 2 at D 832
@@ -112,7 +127,7 @@ its seconds:
    512x64; every second call bit for bit, the pad rows' gradients zero,
    the existing gates; times, bounds on the live columns (831 / 858),
    shares;
-20. script slice: ``script_baseline_live.yaml``, ``script_projection.yaml``
+22. script slice: ``script_baseline_live.yaml``, ``script_projection.yaml``
    and ``script_lora.yaml`` read by the port's reader, on the patch-embed
    extractor's (5, 14, 14, 768) maps computed on the card: a file whose
    seed-0 init is dead as it stands trains with ``sigma_bias: 0.1``, which
@@ -126,7 +141,7 @@ its seconds:
    render step (kernels 4 and 3) and an ``inline_pe=False`` step (kernel
    5) on its 896-wide x; ``script_baseline.yaml`` (no sigma bias) through
    ``fit`` for 6 epochs, its ``dead_sigma_epochs`` reported, not gated;
-21. CLI: ``python -m nerf_fewshot_tpu_torch.cli train --config
+23. CLI: ``python -m nerf_fewshot_tpu_torch.cli train --config
    experiments/dino_nerf.yaml --synthetic --epochs 2`` as a subprocess
    must exit 0, write ``final.ckpt`` and print the summary JSON with the
    kernel path.
@@ -242,6 +257,13 @@ RENDER_STEPS_TRACED = 10  # fused steps per profiled window
 # samples by ~1e-6, so the two losses differ by up to about 1e-4 rel.
 INLINE_PE_LOSS_RTOL = 1e-3
 N_TEST_VIEWS, N_TRAIN_VIEWS = 8, 5
+# cli evaluate: the orbit and the depth views it renders beside the test views
+N_ORBIT, N_DEPTH_VIEWS = 8, 3
+# LPIPS on the card (cuDNN convs, TF32 cleared) vs the CPU: fp32 sums in other
+# orders, within 1.6e-7 rel on an NVIDIA H100 80GB HBM3 (700 W); with cuDNN's
+# TF32 on the same pairs read 4.4-4.8e-5 off, inside 1e-4, so the gate sits at
+# 1e-5 to see that trap.
+LPIPS_RTOL = 1e-5
 KERNELS = ("fwd_pe", "train_pe")  # the sources, one nvcc each
 # one epoch of each phase and one more at 32x32 and at 128x128: the first
 # epoch's steps include the first use (module loading) of every CUDA kernel
@@ -713,6 +735,14 @@ def check_bit_equal(name, got, again):
     print(f"  {name}: two calls agree bit for bit", flush=True)
 
 
+def eval_ms(trainer):
+    """The last ``evaluate()``'s render and LPIPS legs per view: the render
+    rate stays a render number."""
+    sec = trainer.eval_seconds
+    return (f"render {sec['render'] / sec['views'] * 1e3:.2f} ms/view (LPIPS "
+            f"{sec['lpips'] / sec['views'] * 1e3:.2f} ms/view apart)")
+
+
 def compare(name, got, want):
     """Max abs error of each output; raises past its tolerance."""
     errs = {}
@@ -732,7 +762,8 @@ def run_train_slice(cfg, train, test, device, tmp, psnr_init, tt):
     """Train the baseline through the kernel (``train_epoch`` at
     ``TRAIN_EPOCHS``, then ``fit`` for two more epochs with eval and
     checkpoints into ``tmp``), check it against a plain-path trainer from
-    the same seed, and return the launches of (train_pe, train_x)."""
+    the same seed, and return the launches of (train_pe, train_x) and the
+    trained trainer."""
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
@@ -810,7 +841,152 @@ def run_train_slice(cfg, train, test, device, tmp, psnr_init, tt):
         if e == TRAIN_EPOCHS[0] and not rel.max() <= TRAIN_LOSS_RTOL:
             raise RuntimeError(f"epoch {e}: kernel and plain trainers differ by rel {rel.max()} "
                                f"(tol {TRAIN_LOSS_RTOL})")
-    return counts["train_pe"], counts["train_x"]
+    return counts["train_pe"], counts["train_x"], ktr
+
+
+def lpips_card_vs_cpu(label, pairs):
+    """LPIPS of ``pairs`` ((H, W, 3) [0, 1] images) on the card, exact fp32
+    (the metric clears cuDNN's TF32 for its convs), against the CPU: rel
+    ``LPIPS_RTOL``. One more reading with cuDNN's TF32 left on, printed
+    beside it and not gated."""
+    from nerf_fewshot_tpu_torch.training.lpips import LPIPS, lpips_distance
+
+    card, cpu = LPIPS(device="cuda"), LPIPS(device="cpu")
+    got = np.array([card(p, t) for p, t in pairs])
+    want = np.array([cpu(p, t) for p, t in pairs])
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = np.array([float(lpips_distance(card.params, *(
+            torch.as_tensor(x, device="cuda") * 2.0 - 1.0 for x in pair))) for pair in pairs])
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+    rel, rel_tf32 = (float(np.max(np.abs(v / want - 1.0))) for v in (got, tf32))
+    print(f"  {label} LPIPS of {len(pairs)} pairs, card vs CPU: max rel {rel:.2e} (tol "
+          f"{LPIPS_RTOL:.0e}); with cuDNN's TF32 left on: max rel {rel_tf32:.2e} (not gated); "
+          f"card values {np.round(got, 6).tolist()}", flush=True)
+    if not (np.isfinite(got).all() and rel <= LPIPS_RTOL):
+        raise RuntimeError(f"{label}: LPIPS on the card differs from the CPU by rel {rel}")
+
+
+def run_evaluate_phase(name, trainer, train, test, device, tk, smi, tmp):
+    """``cli evaluate --config experiments/<name> --checkpoint <trainer's
+    checkpoint> --synthetic`` in this process on the card (its default
+    device): ``evaluation.json`` with the JAX harness's keys and its PNGs;
+    kernel 2 launched once per chunk of each ``render_views`` call's
+    stream (N_TEST_VIEWS test, N_ORBIT orbit and N_DEPTH_VIEWS depth
+    views); the checkpoint through a ``backend: xla`` trainer's harness:
+    the orbit and depth views within TOL, the depth means within 1e-3 and
+    PSNR within 1e-3 dB; LPIPS on the card against the CPU; the ms per
+    evaluated view (render and LPIPS apart), per orbit view and the wall
+    time of the call. Returns kernel 2's launches in the call."""
+    import contextlib
+    import io
+
+    from nerf_fewshot_tpu_torch import cli as tcli
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.evaluate import (comprehensive_evaluation,
+                                                          generate_orbit_poses)
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    cfg = trainer.cfg
+    ckpt, out_dir = os.path.join(tmp, "trained.ckpt"), os.path.join(tmp, "evaluation")
+    trainer.save(ckpt)
+    chunk, per = cfg.rendering.chunk_size, cfg.data.resolution ** 2
+    want_launches = sum(-(-v * per // chunk) for v in (N_TEST_VIEWS, N_ORBIT, N_DEPTH_VIEWS))
+    stdout = io.StringIO()
+    tk.fused_render_fwd_pe.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        tcli.main(["evaluate", "--config", os.path.join(ROOT, "experiments", name),
+                   "--checkpoint", ckpt, "--synthetic", "--output", out_dir])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = tk.fused_render_fwd_pe.launches
+    lines = stdout.getvalue().splitlines()
+    for line in lines[:-1]:
+        print(f"  {line}", flush=True)
+    with open(os.path.join(out_dir, "evaluation.json")) as f:
+        res = json.load(f)
+    if json.loads(lines[-1]) != res:
+        raise RuntimeError(f"{name}: the printed results differ from evaluation.json")
+    print(f"  cli evaluate {name}: {wall:.2f} s, kernel 2 {launches} launches for "
+          f"{want_launches} chunks ({N_TEST_VIEWS} test, {N_ORBIT} orbit, {N_DEPTH_VIEWS} depth "
+          f"views of {per} rays in {chunk}-ray chunks)", flush=True)
+    if launches != want_launches:
+        raise RuntimeError(f"{name}: evaluate launched kernel 2 {launches} times")
+
+    m = res["metrics"]
+    if (list(res) != ["metrics", "novel_views", "feature_3d_consistency", "depth", "smoothness",
+                      "raw_feature_smoothness"]
+            or list(m) != ["psnr", "ssim", "lpips", "lpips_pretrained", "lpips_backend"]
+            or m["lpips_pretrained"] is not False or m["lpips_backend"] != "torch-random-vgg"
+            or not all(np.isfinite(m[k]) for k in ("psnr", "ssim", "lpips"))
+            or res["novel_views"] != N_ORBIT or len(res["depth"]["per_view"]) != N_DEPTH_VIEWS
+            or set(res["smoothness"]) != {"sigma_smoothness", "rgb_smoothness"}
+            or res["raw_feature_smoothness"].get("available") is not trainer.use_dino):
+        raise RuntimeError(f"{name}: evaluation.json {json.dumps(res)[:2000]}")
+    consistency = res["feature_3d_consistency"]
+    if trainer.use_dino:
+        sim = np.asarray(consistency["matrix"])
+        if (sim.shape != (N_TRAIN_VIEWS, N_TRAIN_VIEWS) or not np.all(np.diag(sim) == 1.0)
+                or not np.isfinite(sim).all()):
+            raise RuntimeError(f"{name}: consistency matrix {sim}")
+    elif consistency != {"available": False}:
+        raise RuntimeError(f"{name}: feature_3d_consistency {consistency}")
+    pngs = ([f"novel_{i:02d}.png" for i in range(N_ORBIT)]
+            + [f"depth_{k}_{i}.png" for k in ("view", "hist_view") for i in range(N_DEPTH_VIEWS)]
+            + [f"{k}_{i}.png" for k in ("render", "gt") for i in range(5)]
+            + (["consistency_matrix.png"] if trainer.use_dino else []))
+    if sorted(os.listdir(out_dir)) != sorted(pngs + ["evaluation.json"]) or not all(
+            os.path.getsize(os.path.join(out_dir, p)) > 0 for p in pngs):
+        raise RuntimeError(f"{name}: the PNGs written are {sorted(os.listdir(out_dir))}")
+    print(f"  {name}: psnr {m['psnr']:.4f} dB, ssim {m['ssim']:.5f}, lpips {m['lpips']:.6f} "
+          f"({m['lpips_backend']}); depth means " + ", ".join(
+              f"{v['depth_mean']:.4f}" for v in res["depth"]["per_view"]) + "; smoothness "
+          + json.dumps(res["smoothness"]) + "; raw feature smoothness "
+          + json.dumps(res["raw_feature_smoothness"]) + f"; {len(pngs)} PNGs", flush=True)
+
+    feats = None if trainer.dino_features is None else trainer.dino_features.cpu().numpy()
+    plain = Trainer(config_from_dict({**cfg.raw, "rendering": {**cfg.raw["rendering"],
+                                                               "backend": "xla"}}),
+                    train, test, device=device, dino_features=feats)
+    plain.load(ckpt)
+    if plain._use_fused():
+        raise RuntimeError("backend: xla still selects the kernel")
+    tk.fused_render_fwd_pe.launches = 0
+    pres = comprehensive_evaluation(plain, os.path.join(tmp, "plain"), n_orbit=N_ORBIT)
+    if tk.fused_render_fwd_pe.launches:
+        raise RuntimeError("the plain harness launched kernel 2")
+    orbit = list(generate_orbit_poses(N_ORBIT))
+    for label, poses in (("orbit", orbit), ("depth", test.poses[:N_DEPTH_VIEWS])):
+        got, want = trainer.render_views(poses), plain.render_views(poses)
+        errs = {k: float(np.abs(g - w).max()) for g, w, k in zip(got, want, ("rgb", "depth", "acc"))}
+        print(f"  {name} {label} views vs the plain pipeline: max abs err " + ", ".join(
+            f"{k} {v:.3e} (tol {TOL[k]:.0e})" for k, v in errs.items()), flush=True)
+        if not all(np.isfinite(g).all() for g in got) or any(v > TOL[k] for k, v in errs.items()):
+            raise RuntimeError(f"{name}: {label} views disagree with the plain pipeline {errs}")
+    dpsnr = abs(m["psnr"] - pres["metrics"]["psnr"])
+    dmean = max(abs(a["depth_mean"] - b["depth_mean"])
+                for a, b in zip(res["depth"]["per_view"], pres["depth"]["per_view"]))
+    print(f"  {name} harness vs the plain pipeline's: psnr {dpsnr:.2e} dB apart (tol 1e-3), "
+          f"depth means {dmean:.2e} apart (tol 1e-3), lpips {m['lpips']:.6f} vs "
+          f"{pres['metrics']['lpips']:.6f}", flush=True)
+    if not (dpsnr <= 1e-3 and dmean <= 1e-3):
+        raise RuntimeError(f"{name}: the harness differs from the plain pipeline's")
+
+    lpips_card_vs_cpu(name, list(zip(trainer.render_views(test.poses)[0],
+                                     test.white_composited())))
+    trainer.evaluate()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.render_views(orbit)
+    orbit_ms = (time.perf_counter() - t0) / N_ORBIT * 1e3
+    print(f"  {name} evaluate of {trainer.eval_seconds['views']} views: {eval_ms(trainer)}; "
+          f"orbit {orbit_ms:.2f} ms/view; the whole cli evaluate call {wall:.2f} s; {smi}",
+          flush=True)
+    return launches
 
 
 def main_path_render_bwd_args(trainer, device, seed=0):
@@ -1007,11 +1183,9 @@ def run_hierarchical_slice(train, test, device, tk, tt):
     if counts != (steps, steps):
         raise RuntimeError(f"launches {counts} for {steps} steps")
     tk.fused_render_fwd_pe.launches = 0
-    t0 = time.perf_counter()
     after = tr.evaluate()
-    sec = time.perf_counter() - t0
     print(f"  evaluate: psnr {psnr0:.4f} dB at init, {after['psnr']:.4f} dB after {steps} steps, "
-          f"ssim {after['ssim']:.5f}, {sec / N_TEST_VIEWS * 1e3:.2f} ms/view, "
+          f"ssim {after['ssim']:.5f}, {eval_ms(tr)}, "
           f"{tk.fused_render_fwd_pe.launches} launches for {n_chunks} chunks", flush=True)
     if tk.fused_render_fwd_pe.launches != 2 * n_chunks:
         raise RuntimeError("eval: not two kernel-2 launches per chunk")
@@ -1230,13 +1404,10 @@ def run_dino_slice(name, train, test, device, tk, tt):
         raise RuntimeError(f"{name}: epoch 0 kernel and plain trainers differ by rel {rel}")
 
     tk.fused_render_fwd_pe.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     after = ktr.evaluate()
-    eval_s = time.perf_counter() - t0
     eval_launches = tk.fused_render_fwd_pe.launches
     print(f"  {name} evaluate: psnr {psnr0:.4f} dB at init, {after['psnr']:.4f} dB after "
-          f"{steps} steps, ssim {after['ssim']:.5f}, {eval_s / N_TEST_VIEWS * 1e3:.2f} ms/view, "
+          f"{steps} steps, ssim {after['ssim']:.5f}, {eval_ms(ktr)}, "
           f"{eval_launches} launches for {n_chunks} chunks", flush=True)
     if eval_launches != n_chunks:
         raise RuntimeError(f"{name}: eval launched kernel 2 {eval_launches} times")
@@ -1253,7 +1424,7 @@ def run_dino_slice(name, train, test, device, tk, tt):
 
     # the kernels against their plain versions at the trainer's own shapes
     out = dict(launches=launches, eval_launches=eval_launches, step_ms=step_ms, fd=fd, d=d,
-               psnr0=psnr0, psnr=after["psnr"], extract_s=extract_s)
+               psnr0=psnr0, psnr=after["psnr"], extract_s=extract_s, trainer=ktr)
     last = len(cfg.phases) - 1
     a, o = main_path_train_args(ktr, last, device)
     if a[-1][0].shape[0] != d or a[1].shape[1] != fd:
@@ -1474,13 +1645,10 @@ def run_lora_trunk_slice(train, test, device, tk, tt):
     del twins
 
     tk.fused_render_fwd_pe.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     after = ktr.evaluate()
-    eval_s = time.perf_counter() - t0
     out["eval_launches"] = tk.fused_render_fwd_pe.launches
     print(f"  evaluate: psnr {psnr0:.4f} dB at init, {after['psnr']:.4f} dB after {steps} steps, "
-          f"ssim {after['ssim']:.5f}, {eval_s / N_TEST_VIEWS * 1e3:.2f} ms/view, "
+          f"ssim {after['ssim']:.5f}, {eval_ms(ktr)}, "
           f"{out['eval_launches']} launches for {n_chunks} chunks", flush=True)
     if out["eval_launches"] != n_chunks:
         raise RuntimeError(f"eval launched kernel 2 {out['eval_launches']} times")
@@ -1807,14 +1975,11 @@ def run_script_slice(train, test, device, tk, tt):
             raise RuntimeError(f"{name}: epoch 0 kernel and plain trainers differ by rel {rel}")
 
         tk.fused_render_fwd_pe.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         after = ktr.evaluate()
-        eval_s = time.perf_counter() - t0
         out.update(eval_launches=tk.fused_render_fwd_pe.launches, psnr=after["psnr"])
         print(f"  {name} evaluate: psnr {psnr0:.4f} dB at init, {after['psnr']:.4f} dB after "
-              f"{steps} steps, ssim {after['ssim']:.5f}, {eval_s / N_TEST_VIEWS * 1e3:.2f} "
-              f"ms/view, {out['eval_launches']} launches for {n_chunks} chunks", flush=True)
+              f"{steps} steps, ssim {after['ssim']:.5f}, {eval_ms(ktr)}, "
+              f"{out['eval_launches']} launches for {n_chunks} chunks", flush=True)
         if out["eval_launches"] != n_chunks:
             raise RuntimeError(f"{name}: eval launched kernel 2 {out['eval_launches']} times")
         if not after["psnr"] > psnr0:
@@ -2221,15 +2386,12 @@ def main():
     with phase("slice"):
         trainer.render_views(test.poses[:1])  # warm the host path
         tk.fused_render_fwd_pe.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         metrics = trainer.evaluate()
-        seconds = time.perf_counter() - t0
         launches = tk.fused_render_fwd_pe.launches
         n_rays = N_TEST_VIEWS * res * res
         n_chunks = -(-n_rays // cfg.rendering.chunk_size)
         print(f"  evaluate: psnr {metrics['psnr']:.4f} dB, ssim {metrics['ssim']:.5f}, "
-              f"{n_rays / seconds:.0f} rays/s, {seconds / N_TEST_VIEWS * 1e3:.2f} ms/view, "
+              f"{n_rays / trainer.eval_seconds['render']:.0f} rays/s, {eval_ms(trainer)}, "
               f"{launches} launches for {n_chunks} chunks", flush=True)
         if launches != n_chunks:
             raise RuntimeError(f"{launches} kernel launches for {n_chunks} chunks")
@@ -2262,10 +2424,19 @@ def main():
     with phase("train slice"):
         tmp = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
-            train_launches, x_launches = run_train_slice(
+            train_launches, x_launches, trained = run_train_slice(
                 cfg, train, test, device, tmp, metrics["psnr"], tt)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+
+    with phase("evaluate baseline.yaml"):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+        try:
+            eval_launches = {"baseline.yaml": run_evaluate_phase(
+                "baseline.yaml", trained, train, test, device, tk, smi, tmp)}
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        del trained
 
     with phase("train step breakdown"):
         epoch = TRAIN_EPOCHS[-1]
@@ -2294,6 +2465,15 @@ def main():
     for name in DINO_CONFIGS:
         with phase(f"DINO slice {name}"):
             dino[name] = run_dino_slice(name, train, test, device, tk, tt)
+        if name == "dino_nerf.yaml":
+            with phase(f"evaluate {name}"):
+                tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+                try:
+                    eval_launches[name] = run_evaluate_phase(
+                        name, dino[name]["trainer"], train, test, device, tk, smi, tmp)
+                finally:
+                    shutil.rmtree(tmp, ignore_errors=True)
+        del dino[name]["trainer"]
 
     with phase("LoRA trunk kernel width"):
         lora_rows = run_lora_kernel_width(device, tk, tt)
@@ -2345,7 +2525,8 @@ def main():
                "replaces": ("nerf_fewshot_tpu/render/train_kernel.py:343" if train
                             else "nerf_fewshot_tpu/render/kernels.py:251"),
                "shape": "512x64" if train else "1024x64", "configs": list(names),
-               "launches": sum(dino[n]["launches" if train else "eval_launches"] for n in names),
+               "launches": sum(dino[n]["launches" if train else "eval_launches"] for n in names)
+               + (0 if train else sum(eval_launches.get(n, 0) for n in names)),
                "max_abs_err": max([err] + [dino[n]["train_err" if train else "fwd_err"]
                                            for n in names]),
                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -2353,6 +2534,10 @@ def main():
                "library_ms": None}
         if train:
             row["ms_at_the_step_shape"] = {n: dino[n]["train_ms"] for n in names}
+        else:
+            row["configs"] += [f"cli evaluate {n}" for n in names if n in eval_launches]
+            row["launches_cli_evaluate"] = {n: eval_launches[n] for n in names
+                                            if n in eval_launches}
         return row
 
     single = [n for n in DINO_CONFIGS if dino[n]["d"] == 176]
@@ -2411,7 +2596,9 @@ def main():
         "route": "cuda",
         "source": "nerf_fewshot_tpu_torch/csrc/fwd_pe.cu",
         "replaces": "nerf_fewshot_tpu/render/kernels.py:251",
-        "launches": launches,
+        "configs": ["baseline.yaml", "cli evaluate baseline.yaml"],
+        "launches": launches + eval_launches["baseline.yaml"],
+        "launches_cli_evaluate": {"baseline.yaml": eval_launches["baseline.yaml"]},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -3,6 +3,8 @@
 
     python -m nerf_fewshot_tpu_torch.cli train --config experiments/dino_nerf.yaml \
         [--epochs N] [--resume CKPT] [--synthetic] [--nan-guard] [--profile DIR] [--device cpu]
+    python -m nerf_fewshot_tpu_torch.cli evaluate --config ... --checkpoint CKPT \
+        [--output DIR] [--n-orbit N] [--synthetic] [--device cpu]
     python -m nerf_fewshot_tpu_torch.cli extract-features --config ... [--output F.npz]
 
 ``train`` reads the experiment YAML with the port's own reader (no PyYAML
@@ -15,6 +17,12 @@ the summary JSON (``final_metrics``, ``best_psnr``, and
 ``--device`` (default ``cuda``) is the counterpart of the JAX CLI's
 ``NERF_TPU_PLATFORM``; a CUDA request without a card raises.
 
+``evaluate`` builds the trainer as ``train`` does, loads ``--checkpoint``
+(the port's own ``.ckpt``, a JAX package msgpack ``.ckpt`` or a reference
+``.pth``) and runs the analysis harness (``training/evaluate.py``) into
+``--output`` (default ``<save_dir>/evaluation``): the metric line
+``[eval] PSNR ... SSIM ... LPIPS ... [backend]``, then the results JSON.
+
 ``--wandb`` sets ``output.use_wandb``: the log is mirrored to a wandb run
 when the package imports and its run starts, else the JSONL/CSV sink
 trains alone, as in the JAX package. Every ``dino.model_type`` that
@@ -22,7 +30,7 @@ conditions training on a feature grid is ported (``single_scale``,
 ``multi_scale`` and the standalone scripts' ``patch_embed``).
 
 Not ported yet, and refused with the ROADMAP item that brings them:
-``--data-parallel``, ``--multihost``, ``evaluate``, ``bench-scaling`` and
+``--data-parallel``, ``--multihost``, ``bench-scaling`` and
 ``dino.model_type: dino_lora`` (the offline token dumper).
 """
 
@@ -130,6 +138,30 @@ def cmd_train(args) -> None:
     print(json.dumps(summary))
 
 
+def cmd_evaluate(args) -> None:
+    from nerf_fewshot_tpu_torch.training.config import load_config
+    from nerf_fewshot_tpu_torch.training.evaluate import comprehensive_evaluation
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    train_data, test_data = _load_datasets(cfg, args.synthetic, device)
+    dino_features = _precompute_features(cfg, train_data, device)
+    trainer = Trainer(cfg, train_data, test_data, device=device, dino_features=dino_features)
+    trainer.load(args.checkpoint)
+    out_dir = args.output or os.path.join(cfg.output.save_dir, "evaluation")
+    results = comprehensive_evaluation(trainer, out_dir, n_orbit=args.n_orbit)
+    m = results.get("metrics", {})
+    if "lpips" in m:
+        caveat = ("" if m.get("lpips_pretrained") else
+                  " — random-VGG features: NOT comparable to the reference's "
+                  "pretrained-VGG scale (~0.53, reference train.py:99-101)")
+        print(f"[eval] PSNR {m.get('psnr', float('nan')):.2f}  "
+              f"SSIM {m.get('ssim', float('nan')):.3f}  "
+              f"LPIPS {m['lpips']:.4f} [{m.get('lpips_backend', 'unknown')}{caveat}]")
+    print(json.dumps(results, default=float))
+
+
 def cmd_extract_features(args) -> None:
     """The configured extractor's feature grids of the training views to an
     ``.npz`` (key ``features``, (V, Hp, Wp, Fd))."""
@@ -172,8 +204,13 @@ def main(argv=None) -> None:
                               "same as output.use_wandb: true")
     p_train.set_defaults(fn=cmd_train)
 
-    p_eval = sub.add_parser("evaluate", help="not ported yet")
-    p_eval.set_defaults(fn=lambda a: _not_ported("evaluate", "LPIPS and the evaluate harness"))
+    p_eval = sub.add_parser("evaluate", help="checkpoint analysis harness")
+    p_eval.add_argument("--config", required=True)
+    p_eval.add_argument("--checkpoint", required=True)
+    p_eval.add_argument("--output", default=None)
+    p_eval.add_argument("--n-orbit", type=int, default=8)
+    p_eval.add_argument("--synthetic", action="store_true")
+    p_eval.set_defaults(fn=cmd_evaluate)
 
     p_feat = sub.add_parser("extract-features", help="precompute per-view DINO feature maps")
     p_feat.add_argument("--config", required=True)
@@ -184,7 +221,7 @@ def main(argv=None) -> None:
     p_scale = sub.add_parser("bench-scaling", help="not ported yet")
     p_scale.set_defaults(fn=lambda a: _not_ported("bench-scaling", "the bench"))
 
-    for p in (p_train, p_feat):
+    for p in (p_train, p_eval, p_feat):
         p.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu; a CUDA request without a card raises")
 

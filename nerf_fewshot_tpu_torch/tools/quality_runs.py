@@ -1,6 +1,6 @@
 """Train experiment configs end to end through the port's command line and
-report their quality band: best PSNR, SSIM at the best PSNR, wall time and
-dead-sigma epochs.
+report their quality band: best PSNR, SSIM and LPIPS (with its
+``lpips_backend``) at the best PSNR, wall time and dead-sigma epochs.
 
     python nerf_fewshot_tpu_torch/tools/quality_runs.py --out chiprun_out/quality.jsonl \
         [--configs baseline.yaml dino_nerf.yaml multiscale.yaml] [--epochs N] [--seed S] \
@@ -20,7 +20,8 @@ pipeline and autograd instead of the kernels, to tell the kernels' numerics
 from a recipe's own dynamics. A
 config with ``log_format: "csv"`` runs as a copy with the JSONL sink: the
 CSV sink keeps only the first record's columns, so its eval rows carry no
-PSNR. From the run's ``log.jsonl`` it takes every eval record's PSNR and SSIM;
+PSNR. From the run's ``log.jsonl`` it takes every eval record's PSNR, SSIM
+and LPIPS;
 from its summary JSON the final metrics and ``dead_sigma_epochs``. One JSON
 line per config is appended to ``--out`` and printed, after a line with
 the card's ``nvidia-smi`` name and power limit.
@@ -79,12 +80,13 @@ def run(name: str, epochs, device: str, seed=None, backend=None) -> dict:
         "epochs": epochs if epochs is not None else cfg.epochs,
         "wall_s": wall, "best_psnr": summary["best_psnr"],
         "best_epoch": best.get("epoch"), "ssim_at_best": best.get("ssim"),
+        "lpips_at_best": best.get("lpips"), "lpips_backend": best.get("lpips_backend"),
         "final_metrics": summary["final_metrics"],
         "dead_sigma_epochs": summary.get("dead_sigma_epochs", 0),
         "dead_sigma_records": sum(1 for r in recs if r.get("dead_sigma")),
         "last_train_loss": train[-1]["train_loss"] if train else None,
         "rays_per_sec_last_epoch": train[-1]["rays_per_sec"] if train else None,
-        "evals": [(r["epoch"], r["psnr"], r["ssim"]) for r in evals],
+        "evals": [(r["epoch"], r["psnr"], r["ssim"], r.get("lpips")) for r in evals],
     }
 
 

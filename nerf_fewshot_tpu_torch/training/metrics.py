@@ -1,9 +1,11 @@
-"""PSNR and SSIM (counterpart of ``psnr`` / ``ssim`` in
-``nerf_fewshot_tpu/training/metrics.py``; LPIPS comes later).
+"""PSNR, SSIM and LPIPS (counterpart of
+``nerf_fewshot_tpu/training/metrics.py``).
 
 SSIM uses torchmetrics' defaults: 11x11 gaussian window, sigma 1.5,
 k1 0.01, k2 0.03. The window is applied as an explicit separable sum in
-fp32, so no convolution runs in TF32 on a GPU.
+fp32, so no convolution runs in TF32 on a GPU. ``LPIPSMetric`` is the
+third metric of the reference's triple (LPIPS(VGG), inputs scaled to
+[-1, 1]).
 """
 
 from __future__ import annotations
@@ -11,6 +13,9 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from nerf_fewshot_tpu_torch.device import DeviceLike, resolve_device
+from nerf_fewshot_tpu_torch.training.lpips import LPIPS
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor, data_range: Optional[float] = 1.0) -> torch.Tensor:
@@ -66,3 +71,37 @@ def ssim(
     num = (2 * mu_p * mu_t + c1) * (2 * cov + c2)
     den = (mu_p ** 2 + mu_t ** 2 + c1) * (var_p + var_t + c2)
     return torch.mean(num / den)
+
+
+class LPIPSMetric:
+    """LPIPS(VGG) on [0, 1] images, (H, W, 3) arrays or tensors.
+
+    Takes the ``lpips`` package's ``LPIPS(net='vgg')`` when it imports
+    (the published pretrained numbers), as the JAX class does; otherwise
+    the port's ``training/lpips.py``: pretrained when VGG16 weights are on
+    disk, else the seeded-random VGG with uniform heads, whose values live
+    on another scale than the published pretrained-VGG ones.
+    ``pretrained`` and ``backend`` (``torch-lpips``,
+    ``torch-pretrained-vgg`` or ``torch-random-vgg``) say which ran."""
+
+    def __init__(self, device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self._lpips_package_model = None
+        try:
+            import lpips as lpips_package
+
+            self._lpips_package_model = lpips_package.LPIPS(net="vgg").to(self.device)
+            self.pretrained = True
+            self.backend = "torch-lpips"
+        except ImportError:
+            self._model = LPIPS(device=self.device)
+            self.pretrained = self._model.pretrained
+            self.backend = "torch-pretrained-vgg" if self.pretrained else "torch-random-vgg"
+
+    @torch.no_grad()
+    def __call__(self, pred, target) -> float:
+        if self._lpips_package_model is None:
+            return self._model(pred, target)
+        p, t = (torch.as_tensor(x, dtype=torch.float32, device=self.device)
+                .permute(2, 0, 1)[None] * 2 - 1 for x in (pred, target))
+        return float(self._lpips_package_model(p, t).item())

@@ -33,7 +33,9 @@ merged into the trunk weights (``pack_params``), and
 ``optimizer.lora_only_after_epoch`` swaps in a fresh optimizer over the
 LoRA parameters alone at that epoch, once (the two-phase freeze).
 ``load`` of a ``.pth`` / ``.pt`` file imports a reference PyTorch
-checkpoint (``load_torch``). LPIPS comes with a later slice.
+checkpoint (``load_torch``), of a JAX package ``.ckpt`` (flax msgpack) its
+params and Adam state (``load_jax_checkpoint``). ``evaluate`` returns the
+JAX trainer's metric triple: PSNR, SSIM and LPIPS(VGG) with its provenance.
 """
 
 from __future__ import annotations
@@ -73,9 +75,14 @@ from nerf_fewshot_tpu_torch.render.pipeline import PointFeaturesFn, RenderSettin
 from nerf_fewshot_tpu_torch.render.train_kernel import fused_train_loss_grad
 from nerf_fewshot_tpu_torch.training.config import Config
 from nerf_fewshot_tpu_torch.training.losses import nerf_loss
-from nerf_fewshot_tpu_torch.training.metrics import psnr, ssim
+from nerf_fewshot_tpu_torch.training.metrics import LPIPSMetric, psnr, ssim
 from nerf_fewshot_tpu_torch.training.optim import make_optimizer, multistep_lr, set_learning_rate
-from nerf_fewshot_tpu_torch.utils.checkpoint import restore_checkpoint, save_checkpoint
+from nerf_fewshot_tpu_torch.utils.checkpoint import (
+    checkpoint_format,
+    restore_checkpoint,
+    restore_msgpack_checkpoint,
+    save_checkpoint,
+)
 from nerf_fewshot_tpu_torch.utils.logging import JSONLLogger, save_png
 from nerf_fewshot_tpu_torch.utils.profiling import RateMeter
 from nerf_fewshot_tpu_torch.utils.torch_import import (
@@ -195,6 +202,9 @@ class Trainer:
             path=log_path, run_name=cfg.name, config=cfg.raw,
             use_wandb=cfg.output.use_wandb, wandb_project=cfg.output.wandb_project,
         )
+        self.lpips = LPIPSMetric(self.device)
+        # seconds of the last evaluate(): the render and the LPIPS leg apart
+        self.eval_seconds: Dict[str, float] = {}
         self.rate_meter = RateMeter()
 
     # ------------------------------------------------------------------ model
@@ -519,24 +529,38 @@ class Trainer:
         acc = torch.cat([o[2] for o in outs])[:n].reshape(V, self.H, self.W)
         return rgb.cpu().numpy(), depth.cpu().numpy(), acc.cpu().numpy()
 
-    def evaluate(self, max_views: Optional[int] = None, dump_dir: Optional[str] = None) -> Dict[str, float]:
-        """Full-resolution eval on the test split: mean PSNR and SSIM; with
-        ``dump_dir``, the first five views' renders and targets as PNGs."""
+    def evaluate(self, max_views: Optional[int] = None, dump_dir: Optional[str] = None) -> Dict[str, Any]:
+        """Full-resolution eval on the test split: mean PSNR, SSIM and LPIPS,
+        with ``lpips_pretrained`` and ``lpips_backend`` saying which LPIPS
+        ran; with ``dump_dir``, the first five views' renders and targets as
+        PNGs. ``eval_seconds`` keeps the render's and the LPIPS leg's
+        seconds."""
         if self.test_data is None:
             return {}
         n = self.test_data.n_views if max_views is None else min(max_views, self.test_data.n_views)
         targets = self.test_data.white_composited()
+        t0 = time.perf_counter()
         rendered, _, _ = self.render_views([self.test_data.poses[i] for i in range(n)])
-        all_psnr, all_ssim = [], []
+        t_render = time.perf_counter() - t0
+        all_psnr, all_ssim, all_lpips, t_lpips = [], [], [], 0.0
         for i in range(n):
             pred = torch.as_tensor(rendered[i], device=self.device)
             tgt = torch.as_tensor(np.asarray(targets[i], np.float32), device=self.device)
             all_psnr.append(float(psnr(pred, tgt)))
             all_ssim.append(float(ssim(pred, tgt)))
+            t1 = time.perf_counter()
+            all_lpips.append(self.lpips(pred, tgt))  # a float: synchronized
+            t_lpips += time.perf_counter() - t1
             if dump_dir is not None and i < 5:
                 save_png(os.path.join(dump_dir, f"render_{i}.png"), np.clip(rendered[i], 0, 1))
                 save_png(os.path.join(dump_dir, f"gt_{i}.png"), np.asarray(targets[i]))
-        return {"psnr": float(np.mean(all_psnr)), "ssim": float(np.mean(all_ssim))}
+        self.eval_seconds = {"views": n, "render": t_render, "lpips": t_lpips}
+        return {"psnr": float(np.mean(all_psnr)), "ssim": float(np.mean(all_ssim)),
+                "lpips": float(np.mean(all_lpips)),
+                # a random-VGG LPIPS is a valid distance on another scale than
+                # the reference's pretrained-VGG numbers: say which one ran
+                "lpips_pretrained": bool(self.lpips.pretrained),
+                "lpips_backend": str(self.lpips.backend)}
 
     # ------------------------------------------------------------------ train
 
@@ -595,20 +619,10 @@ class Trainer:
             metadata={"epoch": self.epoch, "best_psnr": self.best_psnr, "config": self.cfg.raw},
         )
 
-    def load(self, path: str) -> None:
-        """Restore the model, the optimizer state and (from the metadata)
-        the next epoch and the best PSNR; a ``.pth`` / ``.pt`` path is a
-        reference PyTorch checkpoint (``load_torch``).
-
-        An optimizer state from one side of the two-phase freeze does not
+    def _check_freeze_side(self, path: str, saved_lora_only: bool) -> None:
+        """An optimizer state from one side of the two-phase freeze does not
         load into a trainer on the other side: the JAX trainer's restore
-        fails there too (the LoRA-only state has another structure), so
-        this raises."""
-        if path.endswith((".pth", ".pt")):
-            self.load_torch(path)
-            return
-        tree, meta = restore_checkpoint(path, map_location=self.device)
-        saved_lora_only = bool(tree.get("lora_only", False))
+        fails there too (the LoRA-only state has another structure)."""
         if saved_lora_only != self._lora_only_active:
             side = lambda lora_only: "LoRA-only" if lora_only else "full"
             raise ValueError(
@@ -617,11 +631,80 @@ class Trainer:
                 f"{self.cfg.optimizer.lora_only_after_epoch}); this trainer's optimizer is the "
                 f"{side(self._lora_only_active)} one. The JAX trainer cannot resume across the "
                 f"freeze either; resume from a checkpoint saved on this trainer's side of it")
-        self.model.load_state_dict(tree["model"])
-        self.optimizer.load_state_dict(tree["optimizer"])
+
+    def _restore_meta(self, meta: Optional[Dict]) -> None:
         if meta:
             self.epoch = int(meta.get("epoch", 0)) + 1
             self.best_psnr = float(meta.get("best_psnr", 0.0))
+
+    def load(self, path: str) -> None:
+        """Restore the model, the optimizer state and (from the metadata)
+        the next epoch and the best PSNR. A ``.pth`` / ``.pt`` path is a
+        reference PyTorch checkpoint (``load_torch``); any other is told by
+        its first bytes: the port's ``torch.save`` zip or a JAX package
+        msgpack checkpoint (``load_jax_checkpoint``). Either raises when its
+        optimizer state is from the other side of the two-phase freeze."""
+        if path.endswith((".pth", ".pt")):
+            self.load_torch(path)
+            return
+        if checkpoint_format(path) == "msgpack":
+            self.load_jax_checkpoint(path)
+            return
+        tree, meta = restore_checkpoint(path, map_location=self.device)
+        self._check_freeze_side(path, bool(tree.get("lora_only", False)))
+        self.model.load_state_dict(tree["model"])
+        self.optimizer.load_state_dict(tree["optimizer"])
+        self._restore_meta(meta)
+
+    def load_jax_checkpoint(self, path: str) -> None:
+        """Load a JAX package checkpoint (``Trainer.save`` there: flax
+        msgpack of ``{params, opt_state}``, the JSON sidecar): the params
+        through ``load_jax_params``, the Adam state into this trainer's
+        optimizer, the epoch and best PSNR from the sidecar.
+
+        The optimizer state is the JAX ``make_optimizer`` chain:
+        ``inject_hyperparams`` (``count``, ``hyperparams/learning_rate``)
+        around a chain holding one ``scale_by_adam`` state (``count``,
+        ``mu``, ``nu``), or after the freeze that chain under
+        ``multi_transform``'s ``lora`` mask (masked leaves stored as empty
+        maps). A state of another layout raises and names it: the optimizer
+        is never re-initialized in its place."""
+        tree, meta = restore_msgpack_checkpoint(path)
+        opt = tree.get("opt_state")
+        lora_only = isinstance(opt, dict) and "inner_states" in opt
+        self._check_freeze_side(path, lora_only)
+        inject = opt["inner_states"]["lora"]["inner_state"] if lora_only else opt
+        chain = inject.get("inner_state") if isinstance(inject, dict) else None
+        adam = [s for s in chain.values() if isinstance(s, dict) and {"count", "mu", "nu"} <= set(s)
+                ] if isinstance(chain, dict) else []
+        if len(adam) != 1 or "learning_rate" not in inject.get("hyperparams", {}):
+            raise ValueError(
+                f"{path}: its opt_state is not the JAX make_optimizer chain the port maps "
+                f"(inject_hyperparams around one scale_by_adam state, optionally under the "
+                f"lora_only multi_transform); top-level keys "
+                f"{sorted(opt) if isinstance(opt, dict) else type(opt).__name__}")
+        params = tree["params"]
+        self.load_jax_params(params)
+
+        def unmasked(moment, like):  # masked leaves are empty maps: zeros of the param
+            if isinstance(like, dict):
+                return {k: unmasked(moment.get(k, {}), v) for k, v in like.items()}
+            return moment if isinstance(moment, np.ndarray) else np.zeros_like(like)
+
+        from_jax = nerf_with_dino_from_jax if self.cfg.nerf.arch == "module" else nerf_mlp_from_jax
+        mu = from_jax(unmasked(adam[0]["mu"], params))
+        nu = from_jax(unmasked(adam[0]["nu"], params))
+        names = {id(p): n for n, p in self.model.named_parameters()}
+        sd = self.optimizer.state_dict()
+        step = float(np.asarray(adam[0]["count"]))
+        sd["state"] = {}
+        for i, p in enumerate(self.optimizer.param_groups[0]["params"]):
+            n = names[id(p)]
+            sd["state"][i] = {"step": torch.tensor(step), "exp_avg": mu[n], "exp_avg_sq": nu[n]}
+        for g in sd["param_groups"]:
+            g["lr"] = float(np.asarray(inject["hyperparams"]["learning_rate"]))
+        self.optimizer.load_state_dict(sd)
+        self._restore_meta(meta)
 
     def load_torch(self, path: str) -> None:
         """Import a reference PyTorch checkpoint: the NeRF state dict under

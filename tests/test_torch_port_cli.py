@@ -1,8 +1,8 @@
 """The port's command line (``nerf_fewshot_tpu_torch/cli.py``) against the
 JAX package's, on the CPU (``--device cpu``) and cut-down configs written
 into ``tmp_path``: the summary JSON's keys, ``final.ckpt``, the CSV log,
-``--resume``, ``--profile``, ``--nan-guard``, ``extract-features`` and the
-refusals of what is not ported.
+``--resume``, ``--profile``, ``--nan-guard``, ``extract-features``,
+``evaluate`` and the refusals of what is not ported.
 
 The DINO configs run the full-width ViT-B/14 extractor on 28x28 views (2x2
 patches); the NeRF trunks are 2 x 128.
@@ -61,8 +61,9 @@ def _summary(out):
 
 def test_train_summary_keys_equal_the_jax_clis(tmp_path, monkeypatch, capsys):
     """The same config through both CLIs: the same top-level summary keys;
-    the port's ``final_metrics`` adds ``kernel_path`` (LPIPS is not ported:
-    the JAX run's ``lpips*`` keys are absent)."""
+    the port's ``final_metrics`` has the JAX run's keys (``psnr``, ``ssim``
+    and ``lpips``, ``lpips_pretrained``, ``lpips_backend``) plus
+    ``kernel_path`` and ``kernel_path_reason``."""
     from nerf_fewshot_tpu import cli as jcli
 
     monkeypatch.setenv("NERF_TPU_JAX_CACHE", str(tmp_path / "jax_cache"))
@@ -72,7 +73,12 @@ def test_train_summary_keys_equal_the_jax_clis(tmp_path, monkeypatch, capsys):
     tcli.main(["train", "--config", path, "--synthetic", "--device", "cpu"])
     got = _summary(capsys.readouterr().out)
     assert set(got) == set(want) == {"final_metrics", "best_psnr"}
-    assert {"psnr", "ssim"} <= set(got["final_metrics"]) & set(want["final_metrics"])
+    assert set(want["final_metrics"]) == {"psnr", "ssim", "lpips", "lpips_pretrained",
+                                          "lpips_backend"}
+    assert set(got["final_metrics"]) == set(want["final_metrics"]) | {"kernel_path",
+                                                                      "kernel_path_reason"}
+    assert got["final_metrics"]["lpips_pretrained"] is want["final_metrics"]["lpips_pretrained"]
+    assert got["final_metrics"]["lpips_backend"] == "torch-random-vgg"
     assert got["final_metrics"]["kernel_path"] == "kernel"
     assert got["best_psnr"] == max(got["best_psnr"], got["final_metrics"]["psnr"])
     assert os.path.exists(tmp_path / "plain" / "final.ckpt")
@@ -150,7 +156,9 @@ def test_extract_features_writes_the_jax_shape(tmp_path, monkeypatch, capsys):
 def test_what_is_not_ported_raises_naming_its_roadmap_item(tmp_path, argv, capsys):
     """What is not ported raises, naming its ROADMAP item. ``--wandb`` is
     ported: as the JAX CLI, it sets ``output.use_wandb``, and without the
-    wandb package the run trains with its JSONL log alone."""
+    wandb package the run trains with its JSONL log alone. ``evaluate`` is
+    ported: on the run's ``final.ckpt`` it writes ``evaluation.json`` with
+    the JAX harness's keys."""
     path = _write_config(tmp_path, "refuse")
     args = argv + (["--config", path, "--synthetic", "--device", "cpu"]
                    if argv[0] == "train" else [])
@@ -161,6 +169,19 @@ def test_what_is_not_ported_raises_naming_its_roadmap_item(tmp_path, argv, capsy
         lines = [json.loads(x) for x in (save_dir / "log.jsonl").read_text().splitlines()]
         assert [x["epoch"] for x in lines if "train_loss" in x] == [0]
         assert (save_dir / "final.ckpt").exists()
+        return
+    if argv == ["evaluate"]:
+        tcli.main(["train", "--config", path, "--synthetic", "--device", "cpu", "--epochs", "1"])
+        capsys.readouterr()
+        out_dir = tmp_path / "eval"
+        tcli.main(["evaluate", "--config", path, "--checkpoint",
+                   str(tmp_path / "refuse" / "final.ckpt"), "--synthetic", "--device", "cpu",
+                   "--output", str(out_dir), "--n-orbit", "2"])
+        assert "[eval] PSNR" in capsys.readouterr().out
+        got = json.loads((out_dir / "evaluation.json").read_text())
+        assert list(got) == ["metrics", "novel_views", "feature_3d_consistency", "depth",
+                             "smoothness", "raw_feature_smoothness"]
+        assert (out_dir / "novel_01.png").exists()
         return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         tcli.main(args)

@@ -146,7 +146,8 @@ def test_trainer_render_views_and_evaluate_match_jax(scene, monkeypatch, backend
     """The JAX Trainer through its interpret-mode Pallas kernel vs the
     port's Trainer through the fused path's plain version (``auto``) or
     the plain pipeline (``xla``), same weights. Views within the kernel
-    test's bound; PSNR to 1e-3 dB, SSIM to 1e-4."""
+    test's bound; PSNR to 1e-3 dB, SSIM to 1e-4, LPIPS to rel 1e-4, and
+    the JAX trainer's metric keys."""
     monkeypatch.setattr(jax_trainer_mod, "FORCE_INTERPRET_KERNELS", True)
     train, test = scene
     jtr = jax_trainer_mod.Trainer(_slice_config(jcfg), train, test)
@@ -168,9 +169,12 @@ def test_trainer_render_views_and_evaluate_match_jax(scene, monkeypatch, backend
 
     m_want = jtr.evaluate()
     m_got = ptr.evaluate()
-    assert set(m_got) == {"psnr", "ssim"}
+    assert list(m_got) == list(m_want) == ["psnr", "ssim", "lpips", "lpips_pretrained",
+                                           "lpips_backend"]
     assert abs(m_got["psnr"] - m_want["psnr"]) < 1e-3, (m_got, m_want)
     assert abs(m_got["ssim"] - m_want["ssim"]) < 1e-4, (m_got, m_want)
+    assert abs(m_got["lpips"] / m_want["lpips"] - 1.0) < 1e-4, (m_got, m_want)
+    assert m_got["lpips_pretrained"] is m_want["lpips_pretrained"] is False
 
 
 def test_trainer_init_is_seeded_and_refuses_unported_work(scene):

@@ -321,8 +321,9 @@ def test_fit_writes_logs_images_and_checkpoints_and_load_restores(scene, tmp_pat
     ptr = Trainer(cfg, _port_data(train), _port_data(test), device="cpu",
                   log_path=str(tmp_path / "log.jsonl"))
     metrics = ptr.fit()
-    assert set(metrics) == {"psnr", "ssim", "kernel_path", "kernel_path_reason"}
-    assert np.isfinite(metrics["psnr"])
+    assert set(metrics) == {"psnr", "ssim", "lpips", "lpips_pretrained", "lpips_backend",
+                            "kernel_path", "kernel_path_reason"}
+    assert np.isfinite(metrics["psnr"]) and metrics["lpips"] > 0
     assert (metrics["kernel_path"], metrics["kernel_path_reason"]) == ("kernel", None)
     assert ptr.epoch == 1 and ptr.best_psnr >= metrics["psnr"]
 

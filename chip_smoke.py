@@ -141,18 +141,42 @@ its seconds:
    render step (kernels 4 and 3) and an ``inline_pe=False`` step (kernel
    5) on its 896-wide x; ``script_baseline.yaml`` (no sigma bias) through
    ``fit`` for 6 epochs, its ``dead_sigma_epochs`` reported, not gated;
-23. CLI: ``python -m nerf_fewshot_tpu_torch.cli train --config
+23. pretrained-format DINOv2: a complete ``facebook/dinov2-base`` state
+   dict in HF's key layout (all 12 layers, 1370-row position table),
+   drawn from the seed at init-like scales, saved as ``pytorch_model.bin``
+   in an HF hub snapshot under a temporary ``$HF_HOME``; the
+   ``dino_nerf.yaml`` extractor must print its load line, its maps must
+   differ from the random-init maps (> 1e-4) and equal the same
+   extractor's maps on the CPU (1e-4); the weight file's read time; then
+   the DINO slice's training and eval gates on those maps at epochs 0, 1,
+   50, 100 (kernel 1 every step, kernel 2 every eval chunk, epoch 0
+   against a ``backend: xla`` trainer, PSNR rising);
+24. dino_lora dumper: ``cli extract-features`` in this process on a
+   ``dino_lora`` config (5 views at 128x128, ``--synthetic``) with the same
+   weight file: tokens (5, 256, 768), finite, equal to the CPU port's dump
+   (1e-4), unlike the random-init dump; the extractor's ms per view;
+25. kernel gradient gate: ``render/verify.py``'s ``kernel_gradient_check``
+   at sigma_bias 0.1 and 5.0 must both be ``ok`` (kernel 1 against plain
+   autograd), with their errors printed;
+26. sigma noise: ``baseline.yaml`` with ``strict_reference_behavior:
+   false`` and ``rendering.noise_std: 1.0`` trains epochs 0 and 1 on the
+   plain path with the JAX trainer's reason, launches no kernel, keeps its
+   losses finite; ``backend: fused`` raises;
+27. CLI: ``python -m nerf_fewshot_tpu_torch.cli train --config
    experiments/dino_nerf.yaml --synthetic --epochs 2`` as a subprocess
    must exit 0, write ``final.ckpt`` and print the summary JSON with the
    kernel path.
 
 Any failure raises and exits non-zero. On success the last three lines are
 the ``nvidia-smi`` name/power-limit line, a JSON line with the kernels'
-numbers (the five kernels, kernels 1 and 2 at the DINO widths, then at the
-trunk-LoRA width, then the five at the script recipes' widths), and
+numbers (the five kernels, kernels 1 and 2 at the DINO widths with the
+pretrained-format run's launches, then at the trunk-LoRA width, then the
+five at the script recipes' widths; kernel 1's row counts the gradient
+gate's two launches too), and
 ``{"ok": true, "device": {...}}``.
 """
 
+import io
 import json
 import os
 import shutil
@@ -161,7 +185,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import contextmanager
+from contextlib import contextmanager, redirect_stdout
 
 import numpy as np
 import torch
@@ -301,6 +325,20 @@ SCRIPT_EPOCHS = {"script_baseline_live.yaml": (0, 50, 100),
                  "script_lora.yaml": (0, 50, 51, 52)}
 SCRIPT_TRACED = "script_projection.yaml"  # its 64x64 x 64-sample epoch is traced
 SCRIPT_DEAD_CONFIG, SCRIPT_DEAD_EPOCHS = "script_baseline.yaml", 6
+# The pretrained-format DINOv2 phase: dino_nerf.yaml on the maps of a
+# seeded ViT-B/14 state dict in HF's layout, saved as an HF hub snapshot
+# under a temporary $HF_HOME, trained at these epochs (phase 0 twice, then
+# the 64x64 and 128x128 phases). The dino_lora dumper writes DUMP_VIEWS
+# views' tokens (V, 256, 768) at 128x128 with the same weight file.
+# Card vs CPU for the maps and the dumped tokens: the fp32 ViT's sums in
+# other orders (TF32 cleared), ~1e-6 on LayerNorm-scale values.
+PRETRAINED_LABEL = "dino_nerf.yaml pretrained-format"
+PRETRAINED_EPOCHS = (0, 1, 50, 100)
+DUMP_VIEWS = 5
+CARD_CPU_ATOL = 1e-4
+LOAD_LINE = "[dino] loaded pretrained backbone weights from "
+NOISE_REASON = "sigma noise_std != 0 is not implemented in the kernels"
+NOISE_EPOCHS = (0, 1)
 
 
 @contextmanager
@@ -409,6 +447,41 @@ def random_state(rng, x_dim, H, L, sigma_bias):
                   "sigma_head.weight": u(H, 1, H),
                   "sigma_head.bias": torch.full((1,), float(sigma_bias))})
     return state
+
+
+def hf_dinov2_state_dict(rng, hidden=768, layers=12, mlp=3072, patch=14, side=37):
+    """A complete HuggingFace ``Dinov2Model`` state dict (``facebook/dinov2-base``'s
+    key names and shapes at the default widths) at init-like scales from
+    ``rng``: ``cls_token`` (1, 1, E), ``mask_token``, ``position_embeddings``
+    (1, 1 + side^2, E), the patch conv (E, 3, p, p), per layer the q/k/v,
+    output, fc1 and fc2 linears (weights N(0, 0.02^2), biases N(0, 0.01^2)),
+    layer scales near 0.1 and LayerNorms near 1; the final ``layernorm``."""
+    def t(shape, scale, offset=0.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale + offset).astype(np.float32))
+
+    sd = {"embeddings.cls_token": t((1, 1, hidden), 0.02),
+          "embeddings.mask_token": t((1, hidden), 0.02),
+          "embeddings.position_embeddings": t((1, 1 + side * side, hidden), 0.02),
+          "embeddings.patch_embeddings.projection.weight": t((hidden, 3, patch, patch), 0.02),
+          "embeddings.patch_embeddings.projection.bias": t((hidden,), 0.01)}
+    linears = {"attention.attention.query": (hidden, hidden),
+               "attention.attention.key": (hidden, hidden),
+               "attention.attention.value": (hidden, hidden),
+               "attention.output.dense": (hidden, hidden),
+               "mlp.fc1": (mlp, hidden), "mlp.fc2": (hidden, mlp)}
+    for i in range(layers):
+        p = f"encoder.layer.{i}."
+        for name, shape in linears.items():
+            sd[p + name + ".weight"] = t(shape, 0.02)
+            sd[p + name + ".bias"] = t(shape[:1], 0.01)
+        for name in ("norm1", "norm2"):
+            sd[p + name + ".weight"] = t((hidden,), 0.1, 1.0)
+            sd[p + name + ".bias"] = t((hidden,), 0.01)
+        sd[p + "layer_scale1.lambda1"] = t((hidden,), 0.02, 0.1)
+        sd[p + "layer_scale2.lambda1"] = t((hidden,), 0.02, 0.1)
+    sd["layernorm.weight"] = t((hidden,), 0.1, 1.0)
+    sd["layernorm.bias"] = t((hidden,), 0.01)
+    return sd
 
 
 def random_train_args(rng, R, S, H, L, device, *, feat_dim=0, sigma_bias=0.1,
@@ -1323,36 +1396,44 @@ def run_dino_kernel_widths(device, tk, tt):
     return rows
 
 
-def run_dino_slice(name, train, test, device, tk, tt):
+def run_dino_slice(name, train, test, device, tk, tt, feats=None, epochs=None, label=None):
     """``experiments/<name>`` through the port's ``load_config`` at full
     width: the extractor (ViT-B/14, 12x768) on the card, one feature map per
-    training view; ``evaluate`` at init (kernel 2 with train view 0's
-    features, one launch per chunk); ``train_epoch`` at DINO_EPOCHS (one for
-    lora.yaml), every step launching kernel 1 once with the view's
-    features; epoch 0's per-step losses against a ``backend: xla`` trainer
-    from the same seed, batches and features; PSNR after training above
-    PSNR at init; the views against the plain pipeline with the trained
-    weights; kernel 1 and kernel 2 against their plain versions at the
-    trainer's own step and eval-chunk shapes. Returns a dict of the
+    training view (or the given ``feats``); ``evaluate`` at init (kernel 2
+    with train view 0's features, one launch per chunk); ``train_epoch`` at
+    ``epochs`` (default DINO_EPOCHS, one for lora.yaml), every step
+    launching kernel 1 once with the view's features; epoch 0's per-step
+    losses against a ``backend: xla`` trainer from the same seed, batches
+    and features; PSNR after training above PSNR at init; the views against
+    the plain pipeline with the trained weights; kernel 1 and kernel 2
+    against their plain versions at the trainer's own step and eval-chunk
+    shapes; for the default ``dino_nerf.yaml`` run, one traced epoch.
+    ``label`` names the run in the output. Returns a dict of the
     numbers."""
     from nerf_fewshot_tpu_torch.cli import _precompute_features
     from nerf_fewshot_tpu_torch.training.config import config_from_dict, load_config
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
     cfg = load_config(os.path.join(ROOT, "experiments", name))
+    traced = name == "dino_nerf.yaml" and epochs is None
+    if epochs is None:
+        epochs = DINO_EPOCHS if name != "lora.yaml" else DINO_EPOCHS[:1]
+    name = label or name
     fd, d = DINO_WIDTHS[cfg.dino.model_type]
     widths = (cfg.nerf.hidden_dim, cfg.nerf.num_layers, cfg.nerf.pos_freq, cfg.dino.output_dim,
               cfg.data.resolution, cfg.data.num_views, cfg.rendering.chunk_size)
     if widths != (256, 8, 12, fd, 128, N_TRAIN_VIEWS, 1024):
         raise RuntimeError(f"{name}: widths {widths}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    feats = _precompute_features(cfg, train, device)
-    extract_s = time.perf_counter() - t0
-    lora = cfg.dino.lora_rank if cfg.dino.use_lora else 0
-    print(f"  {name}: {cfg.dino.model_type} extractor, ViT-B/14 12x768, LoRA rank {lora} -> "
-          f"feature maps {tuple(feats.shape)} in {extract_s:.2f} s (build and {train.n_views} "
-          f"views)", flush=True)
+    extract_s = None
+    if feats is None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = _precompute_features(cfg, train, device)
+        extract_s = time.perf_counter() - t0
+        lora = cfg.dino.lora_rank if cfg.dino.use_lora else 0
+        print(f"  {name}: {cfg.dino.model_type} extractor, ViT-B/14 12x768, LoRA rank {lora} -> "
+              f"feature maps {tuple(feats.shape)} in {extract_s:.2f} s (build and "
+              f"{train.n_views} views)", flush=True)
     if feats.shape != (N_TRAIN_VIEWS, 9, 9, fd) or not np.isfinite(feats).all():
         raise RuntimeError(f"{name}: feature maps {feats.shape}")
 
@@ -1367,7 +1448,6 @@ def run_dino_slice(name, train, test, device, tk, tt):
     if tk.fused_render_fwd_pe.launches != n_chunks:
         raise RuntimeError(f"{name}: eval {tk.fused_render_fwd_pe.launches} launches, "
                            f"{n_chunks} chunks")
-    epochs = DINO_EPOCHS if name != "lora.yaml" else DINO_EPOCHS[:1]
     for e in epochs:
         ktr.phase_data(ktr._phase_index(e))
 
@@ -1444,7 +1524,7 @@ def run_dino_slice(name, train, test, device, tk, tt):
     out["sampler_ms"] = cuda_ms(lambda: pf(pts), iters=20)
     print(f"  {name} at the step's shape: kernel 1 {out['train_ms']:.3f} ms, feature sampling of "
           f"{R * S} points {out['sampler_ms']:.3f} ms (CUDA events)", flush=True)
-    if name == "dino_nerf.yaml":
+    if traced:
         epoch = DINO_EPOCHS[-1]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2161,6 +2241,238 @@ def run_module_and_skip_slice(train, test, device, tk, tt):
         raise RuntimeError(f"the plain path launched a kernel: {counts}")
 
 
+@contextmanager
+def hf_home(path):
+    """``$HF_HOME`` set to ``path`` and ``$NERF_DINOV2_WEIGHTS`` cleared inside
+    the block, both restored after it."""
+    saved = {k: os.environ.get(k) for k in ("HF_HOME", "NERF_DINOV2_WEIGHTS")}
+    os.environ["HF_HOME"] = path
+    os.environ.pop("NERF_DINOV2_WEIGHTS", None)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def printed(fn):
+    """``(fn(), what it printed)``; the printed text is echoed."""
+    buf = io.StringIO()
+    with redirect_stdout(buf):
+        out = fn()
+    print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue()
+
+
+def run_pretrained_dino(train, test, device, tk, tt, tmp):
+    """``dino_nerf.yaml`` conditioned on a pretrained-format backbone: a
+    seeded, complete ``facebook/dinov2-base`` state dict (HF key names, all
+    12 layers) saved as ``pytorch_model.bin`` in an HF hub snapshot under
+    ``tmp``; the extractor must print the load line, its maps must differ
+    from the random-init maps by more than 1e-4 and equal the same
+    extractor's maps on the CPU within CARD_CPU_ATOL; then
+    ``run_dino_slice`` on those maps at PRETRAINED_EPOCHS (kernel 1 every
+    step, kernel 2 every eval chunk, epoch 0 against a ``backend: xla``
+    trainer, PSNR rising). Returns (the slice's numbers, the HF_HOME root
+    of the weight file)."""
+    from nerf_fewshot_tpu_torch.cli import _extract, _precompute_features
+    from nerf_fewshot_tpu_torch.models.vit import load_state_dict_file
+    from nerf_fewshot_tpu_torch.training.config import load_config
+
+    cfg = load_config(os.path.join(ROOT, "experiments", "dino_nerf.yaml"))
+    with hf_home(os.path.join(tmp, "no_weights")):
+        random_maps = _precompute_features(cfg, train, device)
+    root = os.path.join(tmp, "hf")
+    snap = os.path.join(root, "hub", "models--facebook--dinov2-base", "snapshots", "seeded")
+    os.makedirs(snap)
+    path = os.path.join(snap, "pytorch_model.bin")
+    t0 = time.perf_counter()
+    torch.save(hf_dinov2_state_dict(np.random.default_rng(cfg.seed)), path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    n_tensors = len(load_state_dict_file(path))
+    load_s = time.perf_counter() - t0
+    print(f"  weight file: {n_tensors} tensors, {os.path.getsize(path) / 1e6:.1f} MB, written in "
+          f"{write_s:.2f} s, read (load_state_dict_file) in {load_s:.3f} s", flush=True)
+    with hf_home(root):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        maps, text = printed(lambda: _precompute_features(cfg, train, device))
+        extract_s = time.perf_counter() - t0
+        cpu_maps, cpu_text = printed(lambda: _extract(cfg, train, torch.device("cpu")))
+    if LOAD_LINE + path not in text or LOAD_LINE + path not in cpu_text:
+        raise RuntimeError("the extractor did not load the weight file")
+    if maps.shape != (N_TRAIN_VIEWS, 9, 9, 64) or not np.isfinite(maps).all():
+        raise RuntimeError(f"pretrained-format maps {maps.shape}")
+    d_random = float(np.abs(maps - random_maps).max())
+    d_cpu = float(np.abs(maps - cpu_maps).max())
+    print(f"  maps {tuple(maps.shape)} in {extract_s:.2f} s (build, load and "
+          f"{train.n_views} views): max abs difference from the random-init maps "
+          f"{d_random:.3e} (must exceed 1e-4), card vs CPU {d_cpu:.3e} "
+          f"(tol {CARD_CPU_ATOL:.0e})", flush=True)
+    if not d_random > 1e-4:
+        raise RuntimeError("the pretrained-format maps equal the random-init ones")
+    if not d_cpu <= CARD_CPU_ATOL:
+        raise RuntimeError(f"pretrained-format maps: card vs CPU {d_cpu}")
+    out = run_dino_slice("dino_nerf.yaml", train, test, device, tk, tt, feats=maps,
+                         epochs=PRETRAINED_EPOCHS, label=PRETRAINED_LABEL)
+    out.update(load_s=load_s, map_err_cpu=d_cpu)
+    return out, root
+
+
+DUMP_CONFIG = """experiment:
+  name: "dino_lora_dump"
+data:
+  resolution: 128
+  num_views: {views}
+model:
+  use_dino: true
+  dino_model_type: "dino_lora"
+output:
+  save_dir: "{save_dir}"
+"""
+
+
+def run_dumper(device, tmp, weights_root):
+    """``cli extract-features`` in process on a ``dino_lora`` config
+    (DUMP_VIEWS views at 128x128, ``--synthetic``) with the weight file
+    under ``weights_root``: the load line, tokens (V, 256, 768), finite,
+    equal to the CPU port's dump within CARD_CPU_ATOL and unlike the
+    random-init dump; the ms per view of the extractor on the card
+    (preprocessing and ViT apart) and, as a report, view 0 of both dumps
+    against the same model in float64 on the card. Returns a dict of the
+    numbers."""
+    from nerf_fewshot_tpu_torch import cli
+    from nerf_fewshot_tpu_torch.models.dino import build_feature_extractor
+    from nerf_fewshot_tpu_torch.models.vit import preprocess_dinov2_processor_input
+    from nerf_fewshot_tpu_torch.training.config import load_config
+
+    path = os.path.join(tmp, "dino_lora_dump.yaml")
+    with open(path, "w") as f:
+        f.write(DUMP_CONFIG.format(views=DUMP_VIEWS, save_dir=os.path.join(tmp, "dump")))
+
+    def dump(where, home, tag):
+        out = os.path.join(tmp, f"{tag}.npz")
+        with hf_home(home):
+            t0 = time.perf_counter()
+            _, text = printed(lambda: cli.main(["extract-features", "--config", path,
+                                                "--synthetic", "--device", where,
+                                                "--output", out]))
+            sec = time.perf_counter() - t0
+        return np.load(out)["features"], text, sec
+
+    card, text, card_s = dump("cuda", weights_root, "card")
+    cpu, cpu_text, cpu_s = dump("cpu", weights_root, "cpu")
+    rand, rand_text, _ = dump("cuda", os.path.join(tmp, "no_weights"), "random")
+    if LOAD_LINE not in text or LOAD_LINE not in cpu_text or LOAD_LINE in rand_text:
+        raise RuntimeError("the dumper's weight discovery misbehaved")
+    if card.shape != (DUMP_VIEWS, 256, 768) or not np.isfinite(card).all():
+        raise RuntimeError(f"dumped tokens {card.shape}")
+    d_cpu = float(np.abs(card - cpu).max())
+    d_random = float(np.abs(card - rand).max())
+
+    cfg = load_config(path)
+    with hf_home(weights_root):
+        model, text = printed(lambda: build_feature_extractor(cfg.dino, cfg.data.resolution,
+                                                              seed=cfg.seed, device=device))
+    if LOAD_LINE not in text:
+        raise RuntimeError("the timed extractor did not load the weight file")
+    train, _ = cli._load_datasets(cfg, True, device)
+    images = [torch.as_tensor(np.asarray(im, np.float32), device=device)
+              for im in train.white_composited()]
+    pre_ms, vit_ms = [], []
+    with torch.no_grad():
+        model(images[0])
+        for im in images:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x = preprocess_dinov2_processor_input(im)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model.backbone(x)
+            torch.cuda.synchronize()
+            pre_ms.append((t1 - t0) * 1e3)
+            vit_ms.append((time.perf_counter() - t1) * 1e3)
+        # a report: view 0's tokens against the same model in float64 on the card
+        exact = model.double().backbone(preprocess_dinov2_processor_input(images[0]).double())
+        exact = exact[1:].cpu().numpy()
+    ms = np.add(pre_ms, vit_ms)
+    print(f"  cli extract-features dino_lora: tokens {tuple(card.shape)}, the call {card_s:.2f} s "
+          f"on the card, {cpu_s:.2f} s on the CPU; card vs CPU max abs {d_cpu:.3e} (tol "
+          f"{CARD_CPU_ATOL:.0e}), vs the random-init dump {d_random:.3e} (must exceed 1e-4); "
+          f"view 0 against float64 on the card: card {np.abs(card[0] - exact).max():.3e}, CPU "
+          f"{np.abs(cpu[0] - exact).max():.3e}; extractor {np.mean(ms):.3f} ms per view on the "
+          f"card (preprocessing {np.mean(pre_ms):.3f}, ViT-B/14 {np.mean(vit_ms):.3f}; "
+          f"{len(ms)} views: {', '.join(f'{m:.3f}' for m in ms)})", flush=True)
+    if not d_cpu <= CARD_CPU_ATOL:
+        raise RuntimeError(f"dumped tokens: card vs CPU {d_cpu}")
+    if not d_random > 1e-4:
+        raise RuntimeError("the dump with the weight file equals the random-init dump")
+    return {"ms_per_view": float(np.mean(ms)), "err_cpu": d_cpu, "call_s": card_s}
+
+
+def run_gradient_gate(tt):
+    """``render/verify.py``'s ``kernel_gradient_check`` at sigma_bias 0.1
+    and 5.0: both ``ok``. Returns kernel 1's launches."""
+    from nerf_fewshot_tpu_torch.render.verify import kernel_gradient_check
+
+    tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+    for sigma_bias in (0.1, 5.0):
+        r = kernel_gradient_check(sigma_bias=sigma_bias)
+        print(f"  kernel_gradient_check(sigma_bias={sigma_bias}): ok {r['ok']}, grad_rel_err "
+              f"{r['grad_rel_err']:.3e}, loss_rel_err {r['loss_rel_err']:.3e}, backend "
+              f"{r['backend']}", flush=True)
+        if not r["ok"]:
+            raise RuntimeError(f"kernel_gradient_check(sigma_bias={sigma_bias}): {r}")
+    launches = tt.fused_train_objective.launches["train_pe"]
+    if launches != 2:
+        raise RuntimeError(f"the gate launched kernel 1 {launches} times")
+    return launches
+
+
+def run_sigma_noise(train, test, device, tk, tt):
+    """``baseline.yaml`` with ``strict_reference_behavior: false`` and
+    ``rendering.noise_std: 1.0`` at NOISE_EPOCHS: the plain path with the
+    JAX trainer's reason, no kernel launched, finite losses; ``backend:
+    fused`` raises."""
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    raw = {**BASELINE_CONFIG, "strict_reference_behavior": False,
+           "rendering": {**BASELINE_CONFIG["rendering"], "noise_std": 1.0}}
+    tr = Trainer(config_from_dict(raw), train, test, device=device)
+    tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+    tk.fused_render_fwd_pe.launches = tk.fused_render_fwd.launches = 0
+    tk.fused_render_bwd.launches = 0
+    for e in NOISE_EPOCHS:
+        t0 = time.perf_counter()
+        loss = tr.train_epoch(e)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        print(f"  noisy epoch {e}: loss {loss:.6f}, {len(tr.last_step_losses)} steps on the "
+              f"{tr.kernel_path} path in {sec:.3f} s", flush=True)
+        if not np.isfinite(tr.last_step_losses).all():
+            raise RuntimeError(f"noisy epoch {e}: non-finite losses")
+    launches = (sum(tt.fused_train_objective.launches.values()) + tk.fused_render_fwd_pe.launches
+                + tk.fused_render_fwd.launches + tk.fused_render_bwd.launches)
+    print(f"  kernel_path {tr.kernel_path!r}, reason {tr.kernel_path_reason!r}, "
+          f"{launches} kernel launches", flush=True)
+    if tr.kernel_path != "plain" or tr.kernel_path_reason != NOISE_REASON or launches:
+        raise RuntimeError("sigma noise did not train on the plain path alone")
+    fused = Trainer(config_from_dict({**raw, "rendering": {**raw["rendering"],
+                                                           "backend": "fused"}}),
+                    train, test, device=device)
+    try:
+        fused.train_epoch(0)
+    except ValueError as e:
+        print(f"  backend: fused raises: {e}", flush=True)
+    else:
+        raise RuntimeError("backend: fused trained with sigma noise")
+
+
 def run_cli(tmp):
     """``python -m nerf_fewshot_tpu_torch.cli train --config
     experiments/dino_nerf.yaml --synthetic --epochs 2`` in a fresh process
@@ -2498,6 +2810,23 @@ def main():
     with phase("script slice"):
         script = run_script_slice(train, test, device, tk, tt)
 
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dinov2_")
+    try:
+        with phase("pretrained-format DINOv2"):
+            dino[PRETRAINED_LABEL], weights_root = run_pretrained_dino(
+                train, test, device, tk, tt, tmp)
+            del dino[PRETRAINED_LABEL]["trainer"]
+        with phase("dino_lora dumper"):
+            run_dumper(device, tmp, weights_root)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    with phase("kernel gradient gate"):
+        gate_launches = run_gradient_gate(tt)
+
+    with phase("sigma noise"):
+        run_sigma_noise(train, test, device, tk, tt)
+
     with phase("CLI"):
         tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
         try:
@@ -2540,8 +2869,8 @@ def main():
                                             if n in eval_launches}
         return row
 
-    single = [n for n in DINO_CONFIGS if dino[n]["d"] == 176]
-    multi = [n for n in DINO_CONFIGS if dino[n]["d"] == 240]
+    single = [n for n in dino if dino[n]["d"] == 176]
+    multi = [n for n in dino if dino[n]["d"] == 240]
     dino_kernel_rows = [dino_row("train_pe", 176, single), dino_row("train_pe", 240, multi),
                         dino_row("fwd_pe", 176, single), dino_row("fwd_pe", 240, multi)]
 
@@ -2607,7 +2936,8 @@ def main():
         "bound_rate": "3xTF32 at 495 TFLOP/s",
         "bound_fp32_ms": bound32_ms,
         "library_ms": None,
-    }, train_row("train_pe", 343, train_launches),
+    }, {**train_row("train_pe", 343, train_launches + gate_launches),
+        "launches_kernel_gradient_check": gate_launches},
         train_row("train_x", 320, x_launches + x_launches_hier), {
         "name": "fwd",
         "route": "cuda",

@@ -5,7 +5,8 @@
         [--epochs N] [--resume CKPT] [--synthetic] [--nan-guard] [--profile DIR] [--device cpu]
     python -m nerf_fewshot_tpu_torch.cli evaluate --config ... --checkpoint CKPT \
         [--output DIR] [--n-orbit N] [--synthetic] [--device cpu]
-    python -m nerf_fewshot_tpu_torch.cli extract-features --config ... [--output F.npz]
+    python -m nerf_fewshot_tpu_torch.cli extract-features --config ... [--output F.npz] \
+        [--synthetic] [--device cpu]
 
 ``train`` reads the experiment YAML with the port's own reader (no PyYAML
 needed), loads the Blender scene or, with ``--synthetic`` or when the scene
@@ -23,6 +24,12 @@ the summary JSON (``final_metrics``, ``best_psnr``, and
 ``--output`` (default ``<save_dir>/evaluation``): the metric line
 ``[eval] PSNR ... SSIM ... LPIPS ... [backend]``, then the results JSON.
 
+``extract-features`` writes the training views' feature grids, or with
+``dino.model_type: dino_lora`` the reference's offline token dump: the
+patch tokens of ``LoRADINO`` on the processor input, CLS dropped, (V, 256,
+768). A DINOv2 backbone takes pretrained weights found on disk
+(``$NERF_DINOV2_WEIGHTS``, then the ``$HF_HOME`` hub cache).
+
 ``--wandb`` sets ``output.use_wandb``: the log is mirrored to a wandb run
 when the package imports and its run starts, else the JSONL/CSV sink
 trains alone, as in the JAX package. Every ``dino.model_type`` that
@@ -30,8 +37,7 @@ conditions training on a feature grid is ported (``single_scale``,
 ``multi_scale`` and the standalone scripts' ``patch_embed``).
 
 Not ported yet, and refused with the ROADMAP item that brings them:
-``--data-parallel``, ``--multihost``, ``bench-scaling`` and
-``dino.model_type: dino_lora`` (the offline token dumper).
+``--data-parallel``, ``--multihost`` and ``bench-scaling``.
 """
 
 from __future__ import annotations
@@ -72,6 +78,21 @@ def _load_datasets(cfg, synthetic: bool, device):
 
 
 @torch.no_grad()
+def _extract(cfg, train_data, device) -> np.ndarray:
+    """The configured extractor over every training view, built from the
+    config's seed (with pretrained weights where they are found on disk):
+    (V, Hp, Wp, Fd) feature maps, or for ``dino_lora`` the (V, 256,
+    hidden) patch tokens, CLS dropped (the reference's ``features[:, 1:]``)."""
+    from nerf_fewshot_tpu_torch.models.dino import build_feature_extractor
+
+    model = build_feature_extractor(cfg.dino, cfg.data.resolution, seed=cfg.seed, device=device)
+    images = np.asarray(train_data.white_composited(), np.float32)
+    feats = [model(torch.as_tensor(images[v], device=device)) for v in range(train_data.n_views)]
+    if cfg.dino.model_type == "dino_lora":
+        feats = [f[1:] for f in feats]
+    return np.stack([f.cpu().numpy() for f in feats])
+
+
 def _precompute_features(cfg, train_data, device) -> Optional[np.ndarray]:
     """Per-view feature maps (V, Hp, Wp, Fd), computed once before training
     (the reference does the same, so its DINO-side LoRA never trains), or
@@ -83,12 +104,7 @@ def _precompute_features(cfg, train_data, device) -> Optional[np.ndarray]:
             "dino.model_type=dino_lora is the offline token dumper "
             "(extract-features); training conditions on a spatial feature "
             "grid — use single_scale/multi_scale/patch_embed")
-    from nerf_fewshot_tpu_torch.models.dino import build_feature_extractor
-
-    model = build_feature_extractor(cfg.dino, cfg.data.resolution, seed=cfg.seed, device=device)
-    images = np.asarray(train_data.white_composited(), np.float32)
-    return np.stack([model(torch.as_tensor(images[v], device=device)).cpu().numpy()
-                     for v in range(train_data.n_views)])
+    return _extract(cfg, train_data, device)
 
 
 def _not_ported(what: str, item: str):
@@ -163,18 +179,18 @@ def cmd_evaluate(args) -> None:
 
 
 def cmd_extract_features(args) -> None:
-    """The configured extractor's feature grids of the training views to an
-    ``.npz`` (key ``features``, (V, Hp, Wp, Fd))."""
+    """The training views' features to an ``.npz`` (key ``features``): the
+    configured extractor's grids (V, Hp, Wp, Fd), or with ``dino.model_type:
+    dino_lora`` the reference's offline dump, ``LoRADINO``'s patch tokens
+    of the processor input with CLS dropped, (V, 256, 768)."""
     from nerf_fewshot_tpu_torch.training.config import load_config
 
     device = resolve_device(args.device)
     cfg = load_config(args.config)
     if not cfg.dino.use_dino:
         raise SystemExit("config has model.use_dino: false — nothing to extract")
-    if cfg.dino.model_type == "dino_lora":
-        _not_ported("dino.model_type=dino_lora", "the dino_lora token dumper and the HF import")
     train_data, _ = _load_datasets(cfg, args.synthetic, device)
-    feats = _precompute_features(cfg, train_data, device)
+    feats = _extract(cfg, train_data, device)
     out = args.output or os.path.join(cfg.output.save_dir, "features.npz")
     os.makedirs(os.path.dirname(os.path.abspath(out)) or ".", exist_ok=True)
     np.savez_compressed(out, features=feats)

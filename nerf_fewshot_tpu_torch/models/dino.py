@@ -1,7 +1,7 @@
 """Spatial and multi-scale DINO feature extractors and the standalone
 scripts' patch embedding (counterpart of ``nerf_fewshot_tpu/models/dino.py``:
 ``TorchMHA``, ``SpatialDINOFeatures``, ``MultiScaleDINOFeatures``,
-``build_feature_extractor``).
+``LoRADINO``, ``_merge_pretrained_backbone``, ``build_feature_extractor``).
 
 Each maps one (H, W, 3) image in [0, 1] to a feature grid. The first two
 normalize it as ImageNet images inside:
@@ -18,10 +18,14 @@ normalize it as ImageNet images inside:
 * ``PatchEmbedFeatures`` (``patch_embed``): the scripts' transform to a
   224x224 input (``preprocess_vit_b16_input``) and torchvision ViT-B/16's
   patch-embedding conv alone: (14, 14, 768).
+* ``LoRADINOTokens`` (``dino_lora``, the offline token dumper of ``cli
+  extract-features``): the processor preprocessing to 224x224 and
+  ``LoRADINO``'s full (1 + 256, 768) token sequence.
 
-The trainer runs an extractor once per training view before training and
-conditions on the maps as constants. ``dino_extractor_from_jax`` carries a
-JAX extractor's param tree across.
+The DINOv2 backbones take pretrained weights found on disk
+(``_merge_pretrained_backbone``). The trainer runs an extractor once per
+training view before training and conditions on the maps as constants.
+``dino_extractor_from_jax`` carries a JAX extractor's param tree across.
 """
 
 from __future__ import annotations
@@ -38,9 +42,13 @@ from nerf_fewshot_tpu_torch.models.vit import (
     DINOv2ViT,
     ViTConfig,
     ViTPatchEmbed,
+    find_dinov2_weights,
     find_torchvision_vit_b16_weights,
+    load_hf_dinov2_weights,
+    load_state_dict_file,
     load_torchvision_patch_embed,
     normalize_image,
+    preprocess_dinov2_processor_input,
     preprocess_vit_b16_input,
     state_dict_from_jax,
 )
@@ -143,42 +151,84 @@ class PatchEmbedFeatures(ViTPatchEmbed):
         return super().forward(preprocess_vit_b16_input(image))
 
 
+class LoRADINO(nn.Module):
+    """The reference's minimal LoRA-DINO (``dino_lora.LoRADINO``): a
+    ``DINOv2ViT`` with LoRA on q/k/v (default rank 4, alpha 16) over the
+    processor output (``preprocess_dinov2_processor_input``), returning
+    the full token sequence, CLS first: (1 + 256, hidden) at 224x224."""
+
+    def __init__(self, vit: ViTConfig = ViTConfig(lora_rank=4),
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.backbone = DINOv2ViT(vit, generator)
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        return self.backbone(pixel_values)
+
+
+class LoRADINOTokens(LoRADINO):
+    """The offline token dumper (``dino_lora``): an (H, W, 3) [0, 1] image
+    through ``preprocess_dinov2_processor_input`` and ``LoRADINO``: the
+    (1 + 256, hidden) tokens, CLS first (the dump site drops it). Its state
+    dict is ``LoRADINO``'s."""
+
+    def forward(self, image: torch.Tensor) -> torch.Tensor:
+        return super().forward(preprocess_dinov2_processor_input(image))
+
+
+def _merge_pretrained_backbone(model: nn.Module, model_name: str) -> bool:
+    """The DINOv2 weight chain: ``find_dinov2_weights`` (``$NERF_DINOV2_WEIGHTS``,
+    then the HF hub cache) and ``load_hf_dinov2_weights`` into
+    ``model.backbone``, in place. False (the seeded random init stays) when
+    nothing is on disk."""
+    path = find_dinov2_weights(model_name)
+    if path is None:
+        return False
+    load_hf_dinov2_weights(model.backbone, load_state_dict_file(path))
+    print(f"[dino] loaded pretrained backbone weights from {path}")
+    return True
+
+
 def build_feature_extractor(dino_cfg, image_size: int, vit: Optional[ViTConfig] = None,
                             seed: int = 0, device: DeviceLike = None) -> nn.Module:
     """The configured extractor in eval mode on ``device`` (default
     ``cuda``), its parameters drawn from ``torch.Generator().manual_seed(seed)``
     with the JAX package's init distributions. ``model(image01 (H, W, 3))``
-    gives the feature grid. ``single_scale``, ``multi_scale`` and
-    ``patch_embed`` (the standalone scripts' ViT-B/16 conv, whose weights are
+    gives the feature grid (``single_scale``, ``multi_scale``, and
+    ``patch_embed``: the standalone scripts' ViT-B/16 conv, whose weights are
     read from a torchvision checkpoint already on disk when
-    ``find_torchvision_vit_b16_weights`` finds one) are ported;
-    ``dino_lora`` (the offline token dumper) raises."""
-    if dino_cfg.model_type == "dino_lora":
-        raise NotImplementedError(
-            "dino.model_type='dino_lora' is not ported yet (ROADMAP queue 1: the dino_lora "
-            "token dumper and the HF import)")
+    ``find_torchvision_vit_b16_weights`` finds one), or for ``dino_lora``
+    (the offline token dumper, ``LoRADINOTokens``: LoRA rank
+    ``dino_cfg.lora_rank``, or 4) the (1 + 256, hidden) token sequence. The
+    DINOv2 backbones take the weights of ``dino_cfg.name`` where
+    ``find_dinov2_weights`` finds them on disk."""
     dev = resolve_device(device)
     generator = torch.Generator().manual_seed(seed)
     if dino_cfg.model_type == "patch_embed":
         model = PatchEmbedFeatures(generator=generator)
         path = find_torchvision_vit_b16_weights()
         if path is not None:
-            load_torchvision_patch_embed(
-                model, torch.load(path, map_location="cpu", weights_only=True))
+            load_torchvision_patch_embed(model, load_state_dict_file(path))
             print(f"[dino] loaded vit_b_16 patch-embed weights from {path}")
         return model.to(dev).eval()
-    if vit is None:
-        vit = ViTConfig(lora_rank=dino_cfg.lora_rank if dino_cfg.use_lora else 0,
-                        lora_alpha=dino_cfg.lora_alpha)
-    if dino_cfg.model_type == "multi_scale":
-        model = MultiScaleDINOFeatures(vit=vit, generator=generator)
+    if dino_cfg.model_type == "dino_lora":
+        rank = dino_cfg.lora_rank if dino_cfg.lora_rank > 0 else 4
+        model = LoRADINOTokens(ViTConfig(lora_rank=rank, lora_alpha=dino_cfg.lora_alpha),
+                               generator=generator)
     else:
-        model = SpatialDINOFeatures(vit=vit, image_size=image_size, generator=generator)
+        if vit is None:
+            vit = ViTConfig(lora_rank=dino_cfg.lora_rank if dino_cfg.use_lora else 0,
+                            lora_alpha=dino_cfg.lora_alpha)
+        if dino_cfg.model_type == "multi_scale":
+            model = MultiScaleDINOFeatures(vit=vit, generator=generator)
+        else:
+            model = SpatialDINOFeatures(vit=vit, image_size=image_size, generator=generator)
+    _merge_pretrained_backbone(model, dino_cfg.name)
     return model.to(dev).eval()
 
 
 def dino_extractor_from_jax(params: Mapping) -> Dict[str, torch.Tensor]:
-    """A JAX ``SpatialDINOFeatures`` / ``MultiScaleDINOFeatures`` param tree
+    """A JAX ``SpatialDINOFeatures`` / ``MultiScaleDINOFeatures`` / ``LoRADINO`` param tree
     (numpy leaves) -> the port extractor's state dict: Dense kernels
     transposed, LayerNorm ``scale`` -> ``weight``, the patch conv kernel to
     (E, 3, p, p); ``lora_a``/``lora_b``, the layerscales, ``cls_token``,

@@ -2,7 +2,8 @@
 (counterpart of ``nerf_fewshot_tpu/render/pipeline.py``, the XLA path).
 
 The fused path (``render.fused``) and the training kernel are held against
-this one. Sigma noise comes with a later slice.
+this one. It is the only path with sigma noise (the kernels refuse it, as
+the JAX kernels do).
 """
 
 from __future__ import annotations
@@ -43,6 +44,9 @@ def render_rays(
     uniforms: Optional[torch.Tensor] = None,
     importance_uniforms: Optional[torch.Tensor] = None,
     point_features_fn: Optional[PointFeaturesFn] = None,
+    normals: Optional[torch.Tensor] = None,
+    fine_normals: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> RenderOutputs:
     """Render (R, 3) rays. ``point_features_fn`` gives each sample point's
     features, the model's third input. With ``settings.perturb`` the (R, n_samples)
@@ -51,26 +55,48 @@ def render_rays(
     without ``perturb``) both are deterministic, as the JAX path with
     ``key=None``. With ``settings.n_importance`` the fine pass re-renders the
     merged samples with the same model, from the coarse weights under
-    stop-gradient, and its outputs are returned."""
-    if settings.noise_std > 0.0:
-        raise NotImplementedError("sigma noise is not ported yet")
+    stop-gradient, and its outputs are returned.
+
+    With ``settings.noise_std > 0`` the density of the coarse pass gets
+    ``noise_std * normals`` (R, n_samples) and that of the fine pass
+    ``noise_std * fine_normals`` (R, n_samples + n_importance): standard
+    normals given by the caller or, where one is not given, drawn from
+    ``generator``; with neither there is no noise, as the JAX path without
+    a key. The four draws are the JAX path's four split keys (strata,
+    noise, importance, fine noise), so a caller can inject its draws."""
     pts, z_vals = sample_along_rays(
         rays_o, rays_d, settings.near, settings.far, settings.n_samples,
         uniforms=uniforms if settings.perturb else None, lindisp=settings.lindisp,
     )
-    out = _render_points(model_fn, pts, z_vals, rays_d, settings, point_features_fn)
+    out = _render_points(model_fn, pts, z_vals, rays_d, settings, point_features_fn,
+                         _normals(normals, settings, z_vals, generator))
     if settings.n_importance <= 0:
         return out
     pts, z_vals = hierarchical_sample(
         rays_o, rays_d, z_vals, out.weights.detach(), settings.n_importance,
         uniforms=importance_uniforms if settings.perturb else None,
     )
-    return _render_points(model_fn, pts, z_vals, rays_d, settings, point_features_fn)
+    return _render_points(model_fn, pts, z_vals, rays_d, settings, point_features_fn,
+                          _normals(fine_normals, settings, z_vals, generator))
+
+
+def _normals(normals: Optional[torch.Tensor], settings: RenderSettings, z_vals: torch.Tensor,
+             generator: Optional[torch.Generator]) -> Optional[torch.Tensor]:
+    """A pass's sigma-noise normals: the given ones, else a draw from
+    ``generator`` of ``z_vals``' shape, else None; None without noise."""
+    if settings.noise_std <= 0.0:
+        return None
+    if normals is None and generator is not None:
+        normals = torch.randn(z_vals.shape, generator=generator, device=z_vals.device,
+                              dtype=z_vals.dtype)
+    return normals
 
 
 def _render_points(model_fn: ModelFn, pts, z_vals, rays_d, settings: RenderSettings,
-                   point_features_fn: Optional[PointFeaturesFn] = None):
-    """Evaluate the model at the (R, S, 3) points and composite them."""
+                   point_features_fn: Optional[PointFeaturesFn] = None,
+                   normals: Optional[torch.Tensor] = None):
+    """Evaluate the model at the (R, S, 3) points and composite them, the
+    density noised by ``settings.noise_std * normals`` where given."""
     R, S, _ = pts.shape
     dirs = rays_d[:, None, :].expand(R, S, 3).reshape(-1, 3)
     pts_flat = pts.reshape(-1, 3)
@@ -80,7 +106,7 @@ def _render_points(model_fn: ModelFn, pts, z_vals, rays_d, settings: RenderSetti
         rgb, sigma = model_fn(pts_flat, dirs, point_features_fn(pts_flat))
     return volume_render(
         rgb.reshape(R, S, 3), sigma.reshape(R, S), z_vals, rays_d,
-        white_bkgd=settings.white_bkgd,
+        noise_std=settings.noise_std, normals=normals, white_bkgd=settings.white_bkgd,
     )
 
 

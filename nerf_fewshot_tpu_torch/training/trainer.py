@@ -7,7 +7,9 @@ importance uniforms) from the trainer's ``torch.Generator`` and takes one
 optimizer step. On the kernel path the loss and every gradient come from
 ``fused_train_loss_grad``, which launches the CUDA training kernel on a
 card and runs its plain version on the CPU; the plain path is
-``render_rays`` + ``nerf_loss`` + autograd. Which path a config takes
+``render_rays`` + ``nerf_loss`` + autograd, with sigma noise (normals from
+the same generator) when training outside the strict reference behavior
+with ``rendering.noise_std``. Which path a config takes
 follows the JAX trainer: ``rendering.backend: xla``, or under ``auto`` a
 config the JAX kernels do not take (``arch: module``, skip layers, a width
 that is not a multiple of 128, sigma noise), trains on the plain path on
@@ -291,13 +293,15 @@ class Trainer:
         return reason is None
 
     def _ray_render_fn(self, settings: RenderSettings, forward_only: bool = False,
-                       pf: Optional[PointFeaturesFn] = None):
+                       pf: Optional[PointFeaturesFn] = None,
+                       generator: Optional[torch.Generator] = None):
         """``(rays_o, rays_d, uniforms=None, importance_uniforms=None) ->
         RenderOutputs`` on the configured path, conditioned on ``pf``'s
         features. ``forward_only``: the eval render, under no-grad (the
         inline-PE forward kernel on the kernel path); otherwise
         differentiable in the model's parameters (the fused ``fused_render``
-        on the kernel path, autograd on the plain one)."""
+        on the kernel path, autograd on the plain one). ``generator`` draws
+        the plain path's sigma-noise normals (the JAX trainer's key)."""
         cfg = self.cfg
         if self._use_fused():
             params = (self.model.state_dict() if forward_only
@@ -320,7 +324,7 @@ class Trainer:
         def fn(ro, rd, uniforms=None, importance_uniforms=None) -> RenderOutputs:
             with torch.set_grad_enabled(torch.is_grad_enabled() and not forward_only):
                 return render_rays(self.model, ro, rd, settings, uniforms, importance_uniforms,
-                                   point_features_fn=pf)
+                                   point_features_fn=pf, generator=generator)
 
         return fn
 
@@ -394,8 +398,13 @@ class Trainer:
 
     def _plain_loss_grad(self, ro, rd, tgt, mask, settings, uniforms,
                          importance_uniforms, pf=None) -> torch.Tensor:
+        """One plain step's loss (``render_rays`` and autograd); its gradients
+        land in ``.grad``. Sigma noise (``settings.noise_std``, set only when
+        training outside the strict reference behavior) draws its normals
+        from the trainer's generator, after the step's uniforms."""
         cfg = self.cfg
-        out = self._ray_render_fn(settings, pf=pf)(ro, rd, uniforms, importance_uniforms)
+        out = self._ray_render_fn(settings, pf=pf, generator=self._generator)(
+            ro, rd, uniforms, importance_uniforms)
         losses = nerf_loss(
             out.rgb, tgt, cfg.loss,
             weights=None if cfg.strict_reference_behavior else out.weights, mask=mask,

@@ -250,7 +250,8 @@ def test_multiscale_backbone_gets_no_gradient():
 def test_build_feature_extractor_shapes_init_and_refusals():
     """Full-width defaults (ViT-B/14, LoRA rank 16 when asked), seeded from
     the config's seed, eval mode; ``patch_embed`` builds the scripts'
-    ViT-B/16 patch embedding, seeded too; the token dumper raises."""
+    ViT-B/16 patch embedding, seeded too; ``dino_lora`` the token dumper,
+    ``LoRADINO`` with rank-4 LoRA on q/k/v, (1 + 256, 768) tokens."""
     cfg = tcfg.config_from_dict({"model": {"use_dino": True, "dino_model_type": "single_scale"},
                                  "dino_model": {"use_lora": True, "lora_rank": 16}})
     m = tdino.build_feature_extractor(cfg.dino, 128, seed=3, device="cpu")
@@ -268,8 +269,13 @@ def test_build_feature_extractor_shapes_init_and_refusals():
     assert torch.equal(pe[0].conv_proj.weight, pe[1].conv_proj.weight)
     assert pe[0](torch.rand(128, 128, 3)).shape == (14, 14, 768)
     c = tcfg.config_from_dict({"model": {"use_dino": True, "dino_model_type": "dino_lora"}})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdino.build_feature_extractor(c.dino, 128, device="cpu")
+    lora = tdino.build_feature_extractor(c.dino, 128, seed=3, device="cpu")
+    assert isinstance(lora, tdino.LoRADINOTokens) and not lora.training
+    att = lora.backbone.blocks[0].attention
+    assert all(getattr(att, p).lora_a.shape == (768, 4) and getattr(att, p).alpha == 16.0
+               for p in ("query", "key", "value"))
+    with torch.no_grad():
+        assert lora(torch.rand(32, 32, 3)).shape == (1 + 256, 768)
 
 
 @pytest.mark.parametrize("projection", ["reference", "script"])

@@ -165,20 +165,37 @@ its seconds:
 27. CLI: ``python -m nerf_fewshot_tpu_torch.cli train --config
    experiments/dino_nerf.yaml --synthetic --epochs 2`` as a subprocess
    must exit 0, write ``final.ckpt`` and print the summary JSON with the
-   kernel path.
+   kernel path;
+28. data parallel: ``baseline.yaml`` at its published widths on the
+   synthetic scene at 128x128 under ``Trainer(mesh=...)``, epochs 0, 1 and
+   50. World 1 on a one-rank NCCL group in this process: per-step losses
+   and parameters bit-equal to a no-mesh trainer's from the same seed
+   (a one-rank all-reduce is a copy), kernel 1 once per step, then its eval
+   with kernel 2 once per chunk. World 2: two spawned ranks on the one card
+   over Gloo: both ranks' losses and parameters bit-equal, epoch 0's
+   per-step losses within rel 1e-4 of world 1's, kernel 1 once per step per
+   rank on half the batch's rays. Printed, not gated: ms per step (no
+   mesh, world 1, world 2) and the two all-reduces' share of a step.
+   Then ``multihost_train_smoke --kernels`` as two Gloo processes on the
+   card (equal losses) and ``cli train --config experiments/dino_nerf.yaml
+   --synthetic --epochs 2 --multihost`` at world 1 (NCCL, the group read
+   from ``MASTER_ADDR`` / ``MASTER_PORT`` / ``WORLD_SIZE`` / ``RANK``) as
+   subprocesses: exit 0, the ``[mesh]`` line, the kernel path.
 
 Any failure raises and exits non-zero. On success the last three lines are
 the ``nvidia-smi`` name/power-limit line, a JSON line with the kernels'
 numbers (the five kernels, kernels 1 and 2 at the DINO widths with the
 pretrained-format run's launches, then at the trunk-LoRA width, then the
 five at the script recipes' widths; kernel 1's row counts the gradient
-gate's two launches too), and
+gate's two launches and the data-parallel phase's, kernel 2's the
+world-1 eval's), and
 ``{"ok": true, "device": {...}}``.
 """
 
 import io
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -339,6 +356,14 @@ CARD_CPU_ATOL = 1e-4
 LOAD_LINE = "[dino] loaded pretrained backbone weights from "
 NOISE_REASON = "sigma noise_std != 0 is not implemented in the kernels"
 NOISE_EPOCHS = (0, 1)
+# Data parallelism: the baseline at its published widths under a mesh.
+# Epochs 0 and 1 (five 1024 x 32 steps each) gate the ranks, epoch 50
+# (twenty 1024 x 48 steps) is timed. World 1 runs on NCCL in this process,
+# world 2 as two spawned ranks on the one card over Gloo (NCCL refuses two
+# ranks on one device). World 2 against world 1: the order of the sums
+# differs, so per-step losses of epoch 0 within rel DP_LOSS_RTOL.
+DP_EPOCHS = (0, 1, 50)
+DP_LOSS_RTOL = 1e-4
 
 
 @contextmanager
@@ -2497,6 +2522,124 @@ def run_cli(tmp):
         raise RuntimeError("the CLI wrote no final.ckpt")
 
 
+def run_data_parallel(device, tk, tmp):
+    """World 1 on NCCL against the no-mesh trainer (bit for bit), its eval
+    (kernel 2 once per chunk), world 2 on Gloo against world 1, then
+    ``multihost_train_smoke --kernels`` as two Gloo processes on the card and
+    ``cli train --multihost`` on ``dino_nerf.yaml`` at world 1 (NCCL, read
+    from the environment). Returns the launches of kernels 1 and 2."""
+    import torch.distributed as dist
+
+    from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
+    from nerf_fewshot_tpu_torch.tools import dp_runs
+
+    plain = dp_runs.dp_run(dp_runs.dp_trainer(BASELINE_CONFIG, device=device), DP_EPOCHS)
+    pmesh.initialize_multihost(f"localhost:{pmesh.free_port()}", 1, 0, device=device)
+    try:
+        mesh = pmesh.make_mesh(device)
+        trainer = dp_runs.dp_trainer(BASELINE_CONFIG, mesh, with_test=True)
+        one = dp_runs.dp_run(trainer, DP_EPOCHS)
+        n_params = sum(p.numel() for p in trainer.model.parameters())
+        one["allreduce_ms"] = dp_runs.allreduce_ms(mesh, n_params)
+        tk.fused_render_fwd_pe.launches = 0
+        metrics = trainer.evaluate()
+        eval_launches = tk.fused_render_fwd_pe.launches
+    finally:
+        dist.destroy_process_group()
+    n_steps = [len(s) for s in one["steps"]]
+    print(f"  world 1 ({mesh.backend}, {mesh.device}): {n_steps} steps at epochs {DP_EPOCHS}, "
+          f"kernel 1 {one['launches']} launches on {sorted(set(one['rays']))} rays; eval psnr "
+          f"{metrics['psnr']:.4f} dB, kernel 2 {eval_launches} launches", flush=True)
+    for e, g, w in zip(DP_EPOCHS, one["steps"], plain["steps"]):
+        if not np.array_equal(g, w):
+            raise RuntimeError(f"world 1 epoch {e}: per-step losses differ from the "
+                               f"no-mesh trainer's (max rel {np.abs(g / w - 1).max():.3e})")
+    if any(not np.array_equal(one["params"][k], v) for k, v in plain["params"].items()):
+        raise RuntimeError("world 1: parameters differ from the no-mesh trainer's")
+    print("  world 1 against no mesh: per-step losses and parameters bit-equal", flush=True)
+    n_chunks = -(-N_TEST_VIEWS * trainer.H * trainer.W // trainer.cfg.rendering.chunk_size)
+    if one["launches"] != sum(n_steps) or eval_launches != n_chunks:
+        raise RuntimeError(f"world 1: kernel 1 {one['launches']} launches for {sum(n_steps)} "
+                           f"steps, kernel 2 {eval_launches} for {n_chunks} chunks")
+    del trainer
+
+    t0 = time.perf_counter()
+    two = pmesh.launch(dp_runs.dp_rank, [device, device], (BASELINE_CONFIG, DP_EPOCHS),
+                       backend="gloo", timeout_s=600)
+    sec = time.perf_counter() - t0
+    for r in (1, 0):
+        for e, g, w in zip(DP_EPOCHS, two[r]["steps"], two[0]["steps"]):
+            if not np.array_equal(g, w):
+                raise RuntimeError(f"world 2: rank {r}'s losses of epoch {e} differ from rank 0's")
+    if any(not np.array_equal(two[1]["params"][k], v) for k, v in two[0]["params"].items()):
+        raise RuntimeError("world 2: the ranks' parameters differ")
+    rel = np.abs(two[0]["steps"][0] / one["steps"][0] - 1).max()
+    print(f"  world 2 (gloo, two ranks on {device}, {sec:.1f} s with start-up): ranks bit-equal in "
+          f"losses and parameters; epoch 0 per step max rel {rel:.3e} to world 1 (tol "
+          f"{DP_LOSS_RTOL:.0e}); kernel 1 {[t['launches'] for t in two]} launches per rank on "
+          f"{sorted(set(two[0]['rays']))} rays", flush=True)
+    if not rel <= DP_LOSS_RTOL:
+        raise RuntimeError(f"world 2 epoch 0: per-step losses differ from world 1 by rel {rel}")
+    half = sorted({r // 2 for r in one["rays"]})
+    for t in two:
+        if t["launches"] != sum(n_steps) or sorted(set(t["rays"])) != half:
+            raise RuntimeError(f"world 2: kernel 1 {t['launches']} launches on "
+                               f"{sorted(set(t['rays']))} rays; want {sum(n_steps)} on {half}")
+    epoch = DP_EPOCHS[-1]
+    print(f"  ms per step at epoch {epoch} (1024 x 48): no mesh {plain['ms_per_step'][-1]:.3f}, "
+          f"world 1 nccl {one['ms_per_step'][-1]:.3f}, world 2 gloo "
+          f"{[round(t['ms_per_step'][-1], 3) for t in two]} per rank (two ranks share the card; "
+          f"gloo's numbers do not represent nccl's)", flush=True)
+    for label, t in (("world 1 nccl", one), ("world 2 gloo rank 0", two[0])):
+        ar = t["allreduce_ms"]
+        share = (ar["count"] + ar["loss_and_grads"]) / t["ms_per_step"][-1]
+        print(f"  {label}: all-reduce of the count {ar['count']:.3f} ms, of the loss and "
+              f"{n_params} gradients {ar['loss_and_grads']:.3f} ms; {share:.1%} of a step",
+              flush=True)
+
+    env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    address = f"localhost:{pmesh.free_port()}"
+    harness = [subprocess.Popen(
+        [sys.executable, "-m", "nerf_fewshot_tpu_torch.parallel.multihost_train_smoke",
+         "--coordinator", address, "--num-processes", "2", "--process-id", str(i),
+         "--device", "cuda", "--backend", "gloo", "--kernels"],
+        cwd=tmp, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for i in range(2)]
+    cli_env = {**env, "MASTER_ADDR": "localhost", "MASTER_PORT": str(pmesh.free_port()),
+               "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0"}
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "nerf_fewshot_tpu_torch.cli", "train", "--config",
+         os.path.join(ROOT, "experiments", "dino_nerf.yaml"), "--synthetic", "--epochs", "2",
+         "--multihost"], cwd=tmp, env=cli_env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    procs = [*harness, cli]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, (out, err) in zip(procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"{p.args[2]} exited {p.returncode}:\n{out}\n{err or ''}")
+    lines = [re.search(r"devices=2 kernel=fused losses=[0-9.,]+", out) for out, _ in outs[:2]]
+    if not all(lines) or lines[0].group(0) != lines[1].group(0):
+        raise RuntimeError(f"multihost_train_smoke: {[o for o, _ in outs[:2]]}")
+    print(f"  multihost_train_smoke --kernels, two gloo processes on the card: exit 0, "
+          f"{lines[0].group(0)} on both", flush=True)
+    out = outs[2][0]
+    mesh_line = "[mesh] data-parallel over 1 devices across 1 processes (nccl)"
+    summary = json.loads(out.strip().splitlines()[-1])
+    if mesh_line not in out or summary["final_metrics"].get("kernel_path") != "kernel":
+        raise RuntimeError(f"cli train --multihost: {out}")
+    if not os.path.exists(os.path.join(tmp, "results", "dino_nerf_lego", "final.ckpt")):
+        raise RuntimeError("cli train --multihost wrote no final.ckpt")
+    print(f"  cli train dino_nerf.yaml --synthetic --epochs 2 --multihost (world 1 from the "
+          f"environment): exit 0, {mesh_line!r}, kernel path, final.ckpt", flush=True)
+    return one["launches"], eval_launches, [t["launches"] for t in two]
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2834,6 +2977,13 @@ def main():
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
+    with phase("data parallel"):
+        tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+        try:
+            dp_train, dp_eval, dp_ranks = run_data_parallel(device, tk, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+
     last = len(cfg.phases) - 1
 
     def train_row(name, cu_line, launches):
@@ -2925,9 +3075,11 @@ def main():
         "route": "cuda",
         "source": "nerf_fewshot_tpu_torch/csrc/fwd_pe.cu",
         "replaces": "nerf_fewshot_tpu/render/kernels.py:251",
-        "configs": ["baseline.yaml", "cli evaluate baseline.yaml"],
-        "launches": launches + eval_launches["baseline.yaml"],
+        "configs": ["baseline.yaml", "cli evaluate baseline.yaml",
+                    "baseline.yaml data parallel"],
+        "launches": launches + eval_launches["baseline.yaml"] + dp_eval,
         "launches_cli_evaluate": {"baseline.yaml": eval_launches["baseline.yaml"]},
+        "launches_data_parallel": {"world 1 nccl eval": dp_eval},
         "max_abs_err": max_err,
         "ms": kernel_ms,
         "plain_ms": plain_ms,
@@ -2936,8 +3088,9 @@ def main():
         "bound_rate": "3xTF32 at 495 TFLOP/s",
         "bound_fp32_ms": bound32_ms,
         "library_ms": None,
-    }, {**train_row("train_pe", 343, train_launches + gate_launches),
-        "launches_kernel_gradient_check": gate_launches},
+    }, {**train_row("train_pe", 343, train_launches + gate_launches + dp_train),
+        "launches_kernel_gradient_check": gate_launches,
+        "launches_data_parallel": {"world 1 nccl": dp_train, "world 2 gloo per rank": dp_ranks}},
         train_row("train_x", 320, x_launches + x_launches_hier), {
         "name": "fwd",
         "route": "cuda",

@@ -1,7 +1,7 @@
 """PyTorch + CUDA port of ``nerf_fewshot_tpu`` for NVIDIA Hopper (sm_90a).
 
 The layers mirror the JAX package (``ops/ models/ render/ data/
-training/ utils/``); each module is a counterpart of the JAX file of the same
+training/ parallel/ utils/``); each module is a counterpart of the JAX file of the same
 name and is held against it by ``tests/test_torch_port_*.py``. The port
 imports torch, numpy and the standard library only.
 

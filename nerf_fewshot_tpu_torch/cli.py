@@ -2,7 +2,8 @@
 ``nerf_fewshot_tpu/cli.py``).
 
     python -m nerf_fewshot_tpu_torch.cli train --config experiments/dino_nerf.yaml \
-        [--epochs N] [--resume CKPT] [--synthetic] [--nan-guard] [--profile DIR] [--device cpu]
+        [--epochs N] [--resume CKPT] [--synthetic] [--nan-guard] [--profile DIR] [--device cpu] \
+        [--data-parallel | --multihost]
     python -m nerf_fewshot_tpu_torch.cli evaluate --config ... --checkpoint CKPT \
         [--output DIR] [--n-orbit N] [--synthetic] [--device cpu]
     python -m nerf_fewshot_tpu_torch.cli extract-features --config ... [--output F.npz] \
@@ -17,6 +18,18 @@ the summary JSON (``final_metrics``, ``best_psnr``, and
 ``dead_sigma_epochs`` when the run ended in the dead-sigma basin).
 ``--device`` (default ``cuda``) is the counterpart of the JAX CLI's
 ``NERF_TPU_PLATFORM``; a CUDA request without a card raises.
+
+``--data-parallel`` trains data parallel over the visible cards, one
+spawned process per card over NCCL (``parallel/mesh.py:launch``); rank 0
+writes the run's files and prints the summary, as the JAX CLI's one process
+does, the other ranks write theirs into a temporary directory. With one
+card (or ``--device cpu``) it trains on that device with no process group,
+as the JAX CLI does with one device. ``--multihost`` joins the process
+group that ``torchrun`` (or the ``MASTER_ADDR`` / ``MASTER_PORT`` /
+``WORLD_SIZE`` / ``RANK`` variables) describes, one process per card (or
+per rank on the CPU over Gloo with ``--device cpu``), and meshes over all
+ranks; every rank runs the whole command, files and summary included, as
+every JAX process does. Both print the ``[mesh]`` line when a mesh is made.
 
 ``evaluate`` builds the trainer as ``train`` does, loads ``--checkpoint``
 (the port's own ``.ckpt``, a JAX package msgpack ``.ckpt`` or a reference
@@ -36,8 +49,8 @@ trains alone, as in the JAX package. Every ``dino.model_type`` that
 conditions training on a feature grid is ported (``single_scale``,
 ``multi_scale`` and the standalone scripts' ``patch_embed``).
 
-Not ported yet, and refused with the ROADMAP item that brings them:
-``--data-parallel``, ``--multihost`` and ``bench-scaling``.
+Not ported, and refused with the ROADMAP item that brings it:
+``bench-scaling``, whose benchmark files are not ported.
 """
 
 from __future__ import annotations
@@ -46,6 +59,7 @@ import argparse
 import dataclasses
 import json
 import os
+import tempfile
 from typing import Optional
 
 import numpy as np
@@ -108,26 +122,28 @@ def _precompute_features(cfg, train_data, device) -> Optional[np.ndarray]:
 
 
 def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet (ROADMAP queue 1: {item})")
+    raise NotImplementedError(f"{what} is not ported (ROADMAP queue 1: {item})")
 
 
-def cmd_train(args) -> None:
+def _train(args, mesh=None, save_dir: Optional[str] = None) -> dict:
+    """``train`` on one device, or on this rank of ``mesh``; ``save_dir``
+    overrides ``output.save_dir``. Returns the summary."""
     from nerf_fewshot_tpu_torch.training.config import load_config
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
-    if args.data_parallel or args.multihost:
-        _not_ported("--data-parallel / --multihost", "data parallelism")
-    device = resolve_device(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     cfg = load_config(args.config)
     if args.epochs is not None:
         cfg = dataclasses.replace(cfg, epochs=args.epochs)
     if args.wandb:
         cfg = dataclasses.replace(cfg, output=dataclasses.replace(cfg.output, use_wandb=True))
+    if save_dir is not None:
+        cfg = dataclasses.replace(cfg, output=dataclasses.replace(cfg.output, save_dir=save_dir))
 
     train_data, test_data = _load_datasets(cfg, args.synthetic, device)
     dino_features = _precompute_features(cfg, train_data, device)
     trainer = Trainer(
-        cfg, train_data, test_data, device=device, dino_features=dino_features,
+        cfg, train_data, test_data, device=device, dino_features=dino_features, mesh=mesh,
         log_path=os.path.join(cfg.output.save_dir,
                               "log.csv" if cfg.output.log_format == "csv" else "log.jsonl"),
     )
@@ -151,6 +167,43 @@ def cmd_train(args) -> None:
     if trainer.dead_sigma_epochs:
         # the run ended inside the zero-gradient collapse basin
         summary["dead_sigma_epochs"] = trainer.dead_sigma_epochs
+    return summary
+
+
+def _train_rank(mesh, args) -> dict:
+    """One rank of ``--data-parallel``: rank 0 writes the run's files, the
+    others (no profile, no wandb run) write theirs into a temporary
+    directory that they remove."""
+    if mesh.rank == 0:
+        return _train(args, mesh)
+    args = argparse.Namespace(**{**vars(args), "profile": None, "wandb": False})
+    with tempfile.TemporaryDirectory(prefix=f"rank{mesh.rank}_") as tmp:
+        return _train(args, mesh, save_dir=tmp)
+
+
+def cmd_train(args) -> None:
+    if args.multihost:
+        import torch.distributed as dist
+
+        from nerf_fewshot_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+
+        initialize_multihost(device=args.device)
+        try:
+            mesh = make_mesh(args.device)
+            print(f"[mesh] data-parallel over {mesh.world_size} devices across "
+                  f"{mesh.world_size} processes ({mesh.backend})")
+            summary = _train(args, mesh)
+        finally:
+            dist.destroy_process_group()
+    elif args.data_parallel and resolve_device(args.device).type == "cuda" \
+            and torch.cuda.device_count() > 1:
+        from nerf_fewshot_tpu_torch.parallel.mesh import launch
+
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        print(f"[mesh] data-parallel over {len(devices)} devices (nccl)")
+        summary = launch(_train_rank, devices, (args,), timeout_s=7 * 24 * 3600)[0]
+    else:
+        summary = _train(args)
     print(json.dumps(summary))
 
 
@@ -207,8 +260,11 @@ def main(argv=None) -> None:
     p_train.add_argument("--resume", default=None)
     p_train.add_argument("--synthetic", action="store_true",
                          help="force the procedural synthetic scene")
-    p_train.add_argument("--data-parallel", action="store_true", help="not ported yet")
-    p_train.add_argument("--multihost", action="store_true", help="not ported yet")
+    p_train.add_argument("--data-parallel", action="store_true",
+                         help="data parallel over the visible cards, one process per card")
+    p_train.add_argument("--multihost", action="store_true",
+                         help="join the torchrun / MASTER_ADDR process group and train data "
+                              "parallel over its ranks")
     p_train.add_argument("--profile", default=None, metavar="DIR",
                          help="write a torch.profiler Chrome trace of training to DIR")
     p_train.add_argument("--nan-guard", action="store_true",
@@ -234,8 +290,9 @@ def main(argv=None) -> None:
     p_feat.add_argument("--synthetic", action="store_true")
     p_feat.set_defaults(fn=cmd_extract_features)
 
-    p_scale = sub.add_parser("bench-scaling", help="not ported yet")
-    p_scale.set_defaults(fn=lambda a: _not_ported("bench-scaling", "the bench"))
+    p_scale = sub.add_parser("bench-scaling", help="not ported")
+    p_scale.set_defaults(fn=lambda a: _not_ported("bench-scaling", "the bench waits for a "
+                                                  "benchmark PR"))
 
     for p in (p_train, p_eval, p_feat):
         p.add_argument("--device", default="cuda",

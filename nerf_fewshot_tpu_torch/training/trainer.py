@@ -1,4 +1,4 @@
-"""The training engine on one device (counterpart of
+"""The training engine, on one device or data parallel (counterpart of
 ``nerf_fewshot_tpu/training/trainer.py:Trainer``).
 
 Each step gathers a minibatch of packed ``[o|d|rgb]`` rows, draws the
@@ -28,6 +28,16 @@ projected into its view and sampled from that view's map
 (``feature_sampler``); eval and the dead-sigma probe use train view 0's
 map and pose for every pose, the reference's quirk. On the kernel path the
 features enter kernel 1 and kernel 2 as their ``feats`` input.
+
+Under a data-parallel ``mesh`` (``parallel/mesh.py``), every rank holds
+the model, draws the same permutations and uniforms and takes a contiguous
+block of each minibatch's rows (the batch padded to a multiple of the world
+size); the step's masked means divide by the batch's valid-ray count, and
+the loss and gradients are summed over the ranks before the optimizer
+step, so every rank takes the same step: the kernel path through
+``parallel/fused_dp.make_dp_fused_loss_grad``, the plain path through
+autograd and one all-reduce. Eval and the dead-sigma probe render on each
+rank alone.
 
 ``arch: module`` trains ``NeRFWithDINO`` on the plain path. Trunk LoRA
 (``nerf_model.lora_rank``) runs through the kernels with the LoRA pairs
@@ -66,6 +76,8 @@ from nerf_fewshot_tpu_torch.ops.rays import (
     project_points_script,
     project_points_to_image,
 )
+from nerf_fewshot_tpu_torch.parallel.fused_dp import make_dp_fused_loss_grad
+from nerf_fewshot_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, process_local_slice
 from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
 from nerf_fewshot_tpu_torch.render.kernels import (
     KERNEL_WIDTHS,
@@ -99,14 +111,18 @@ ChunkFn = Callable[[torch.Tensor, torch.Tensor], Tuple[torch.Tensor, torch.Tenso
 
 def _feature_sampler(feat_map: torch.Tensor, pose: torch.Tensor, focal: float, H: int, W: int,
                      align_corners: bool = False, invalid_fill: str = "zeros",
-                     projection: str = "reference") -> PointFeaturesFn:
+                     projection: str = "reference",
+                     batch_mean: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+                     ) -> PointFeaturesFn:
     """Per-point conditioning: project (N, 3) points into the view of
     ``pose`` and sample ``feat_map`` (Hp, Wp, Fd) there bilinearly.
     ``projection='reference'`` is the proper-inverse projection with its
     validity mask, ``'script'`` the standalone scripts' forward-rotation one
     (no mask). ``invalid_fill='mean'`` replaces the features of invalid
     projections by the mean over all sampled features, the zero-filled
-    invalid ones included: the multiscale trainer's quirk, reproduced."""
+    invalid ones included: the multiscale trainer's quirk, reproduced.
+    ``batch_mean(f) -> (1, Fd)`` takes that mean over the points of every
+    rank when the call sees one rank's shard."""
 
     def fn(pts: torch.Tensor) -> torch.Tensor:
         if projection == "script":
@@ -115,7 +131,8 @@ def _feature_sampler(feat_map: torch.Tensor, pose: torch.Tensor, focal: float, H
         pts2d, _, valid = project_points_to_image(pts, pose, focal, H, W)
         f = grid_sample(feat_map, pts2d, align_corners=align_corners)
         if invalid_fill == "mean":
-            f = torch.where(valid[:, None], f, torch.mean(f, dim=0, keepdim=True))
+            mean = torch.mean(f, dim=0, keepdim=True) if batch_mean is None else batch_mean(f)
+            f = torch.where(valid[:, None], f, mean)
         return f
 
     return fn
@@ -134,7 +151,8 @@ class PhaseData:
 
 class Trainer:
     """Few-shot NeRF trainer on one device (``cuda`` unless the caller
-    passes ``device="cpu"``)."""
+    passes ``device="cpu"``), or on this rank's device of a data-parallel
+    ``mesh``."""
 
     def __init__(
         self,
@@ -144,8 +162,14 @@ class Trainer:
         device: DeviceLike = None,
         log_path: Optional[str] = None,
         dino_features: Optional[np.ndarray] = None,  # (V, Hp, Wp, Fd)
+        mesh: Optional[Mesh] = None,
     ):
         self.cfg = cfg
+        self.mesh = mesh
+        if mesh is not None:
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh rank's device {mesh.device}")
+            device = mesh.device
         self.device = resolve_device(device)
         self.train_data = train_data
         self.test_data = test_data
@@ -218,16 +242,28 @@ class Trainer:
         from_jax = nerf_with_dino_from_jax if self.cfg.nerf.arch == "module" else nerf_mlp_from_jax
         self.model.load_state_dict(from_jax(params))
 
-    def feature_sampler(self, view: int) -> Optional[PointFeaturesFn]:
+    def feature_sampler(self, view: int, global_mean: bool = False) -> Optional[PointFeaturesFn]:
         """Train view ``view``'s conditioning closure (``_feature_sampler``
         with the DINO config's conventions and the full-resolution
-        intrinsics), or None without conditioning."""
+        intrinsics), or None without conditioning. ``global_mean``: under a
+        mesh, ``invalid_fill: mean`` takes the mean over every rank's points
+        (the JAX trainer's plain step does: its mean is over the sharded
+        batch), by one all-reduce per call."""
         if not self.use_dino:
             return None
         d = self.cfg.dino
+        batch_mean = None
+        if global_mean and self.mesh is not None and d.invalid_fill == "mean":
+            mesh = self.mesh
+
+            def batch_mean(f):
+                (total,) = all_reduce_sum(mesh, [torch.sum(f, dim=0, keepdim=True)])
+                return total / (f.shape[0] * mesh.world_size)
+
         return _feature_sampler(
             self.dino_features[view], self._poses_t[view], self.focal, self.H, self.W,
-            align_corners=d.align_corners, invalid_fill=d.invalid_fill, projection=d.projection)
+            align_corners=d.align_corners, invalid_fill=d.invalid_fill, projection=d.projection,
+            batch_mean=batch_mean)
 
     def _jax_ineligible_reason(self) -> Optional[str]:
         """Why the JAX package's kernels would not take this config (its
@@ -293,15 +329,14 @@ class Trainer:
         return reason is None
 
     def _ray_render_fn(self, settings: RenderSettings, forward_only: bool = False,
-                       pf: Optional[PointFeaturesFn] = None,
-                       generator: Optional[torch.Generator] = None):
+                       pf: Optional[PointFeaturesFn] = None):
         """``(rays_o, rays_d, uniforms=None, importance_uniforms=None) ->
         RenderOutputs`` on the configured path, conditioned on ``pf``'s
         features. ``forward_only``: the eval render, under no-grad (the
         inline-PE forward kernel on the kernel path); otherwise
         differentiable in the model's parameters (the fused ``fused_render``
-        on the kernel path, autograd on the plain one). ``generator`` draws
-        the plain path's sigma-noise normals (the JAX trainer's key)."""
+        on the kernel path, autograd on the plain one, which also takes the
+        sigma-noise ``normals`` and ``fine_normals``)."""
         cfg = self.cfg
         if self._use_fused():
             params = (self.model.state_dict() if forward_only
@@ -321,10 +356,12 @@ class Trainer:
 
             return fn
 
-        def fn(ro, rd, uniforms=None, importance_uniforms=None) -> RenderOutputs:
+        def fn(ro, rd, uniforms=None, importance_uniforms=None, normals=None,
+               fine_normals=None) -> RenderOutputs:
             with torch.set_grad_enabled(torch.is_grad_enabled() and not forward_only):
                 return render_rays(self.model, ro, rd, settings, uniforms, importance_uniforms,
-                                   point_features_fn=pf, generator=generator)
+                                   point_features_fn=pf, normals=normals,
+                                   fine_normals=fine_normals)
 
         return fn
 
@@ -378,45 +415,89 @@ class Trainer:
 
     # ------------------------------------------------------------- train step
 
-    def _kernel_loss_grad(self, ro, rd, tgt, mask, settings, uniforms,
-                          importance_uniforms, pf=None) -> torch.Tensor:
-        """One step's loss; its gradients land in the parameters' ``.grad``."""
+    def _kernel_loss_grad(self, ro, rd, tgt, mask, settings, draws, view, dp=None) -> torch.Tensor:
+        """One step's loss on train view ``view``; its gradients land in the
+        parameters' ``.grad``. Under a mesh through ``dp``, the epoch's
+        ``make_dp_fused_loss_grad``, summed over the ranks."""
         cfg = self.cfg
-        loss, grads = fused_train_loss_grad(
-            self.model, ro, rd, tgt, mask, settings,
-            pos_freq=cfg.nerf.pos_freq, dir_freq=cfg.nerf.dir_freq,
-            num_layers=cfg.nerf.num_layers, hidden_dim=cfg.nerf.hidden_dim,
-            use_viewdirs=cfg.nerf.use_viewdirs, compute_dtype=cfg.rendering.compute_dtype,
-            uniforms=uniforms, importance_uniforms=importance_uniforms,
-            point_features_fn=pf, rgb_weight=float(cfg.loss.rgb_weight),
-            reg_weight=0.0 if cfg.strict_reference_behavior else float(cfg.loss.reg_weight),
-            lora_alpha=cfg.nerf.lora_alpha,
-        )
+        if dp is not None:
+            loss, grads = dp(self.model, draws["uniforms"], ro, rd, tgt, mask,
+                             *((view,) if self.use_dino else ()),
+                             importance_uniforms=draws["importance_uniforms"])
+        else:
+            loss, grads = fused_train_loss_grad(
+                self.model, ro, rd, tgt, mask, settings,
+                pos_freq=cfg.nerf.pos_freq, dir_freq=cfg.nerf.dir_freq,
+                num_layers=cfg.nerf.num_layers, hidden_dim=cfg.nerf.hidden_dim,
+                use_viewdirs=cfg.nerf.use_viewdirs, compute_dtype=cfg.rendering.compute_dtype,
+                uniforms=draws["uniforms"], importance_uniforms=draws["importance_uniforms"],
+                point_features_fn=self.feature_sampler(view),
+                rgb_weight=float(cfg.loss.rgb_weight),
+                reg_weight=self._kernel_reg_weight(), lora_alpha=cfg.nerf.lora_alpha,
+            )
         for name, p in self.model.named_parameters():
             p.grad = grads[name]
         return loss
 
-    def _plain_loss_grad(self, ro, rd, tgt, mask, settings, uniforms,
-                         importance_uniforms, pf=None) -> torch.Tensor:
-        """One plain step's loss (``render_rays`` and autograd); its gradients
-        land in ``.grad``. Sigma noise (``settings.noise_std``, set only when
-        training outside the strict reference behavior) draws its normals
-        from the trainer's generator, after the step's uniforms."""
+    def _kernel_reg_weight(self) -> float:
         cfg = self.cfg
-        out = self._ray_render_fn(settings, pf=pf, generator=self._generator)(
-            ro, rd, uniforms, importance_uniforms)
+        return 0.0 if cfg.strict_reference_behavior else float(cfg.loss.reg_weight)
+
+    def _plain_loss_grad(self, ro, rd, tgt, mask, settings, draws, view, denom=None
+                         ) -> torch.Tensor:
+        """One plain step's loss on train view ``view`` (``render_rays`` and
+        autograd); its gradients land in ``.grad``. ``denom``: the batch's
+        valid-ray count when ``mask`` is this rank's shard; the loss and the
+        gradients are then summed over the ranks, in one all-reduce."""
+        cfg = self.cfg
+        pf = self.feature_sampler(view, global_mean=True)
+        out = self._ray_render_fn(settings, pf=pf)(ro, rd, **draws)
         losses = nerf_loss(
             out.rgb, tgt, cfg.loss,
             weights=None if cfg.strict_reference_behavior else out.weights, mask=mask,
+            denom_rays=denom,
         )
         self.model.zero_grad(set_to_none=True)
         losses["total"].backward()
-        return losses["total"].detach()
+        loss = losses["total"].detach()
+        if self.mesh is not None:
+            params = [p for p in self.model.parameters() if p.grad is not None]
+            loss, *grads = all_reduce_sum(self.mesh, [loss, *(p.grad for p in params)])
+            for p, g in zip(params, grads):
+                p.grad = g
+        return loss
+
+    def _draws(self, B: int, n_samples: int,
+               settings: RenderSettings) -> Dict[str, Optional[torch.Tensor]]:
+        """One step's random draws for the whole batch, from the trainer's
+        generator in this order: the stratified-jitter uniforms (B,
+        n_samples) and the importance uniforms (B, n_importance) when
+        ``settings.perturb``; with sigma noise (plain path only) the normals
+        of the coarse and of the fine pass. Every rank of a mesh draws the
+        same, and takes its rows."""
+        g, dev = self._generator, self.device
+        ni = settings.n_importance
+        draws: Dict[str, Optional[torch.Tensor]] = dict.fromkeys(
+            ("uniforms", "importance_uniforms"))
+        if settings.perturb:
+            draws["uniforms"] = torch.rand((B, n_samples), generator=g, device=dev)
+            if ni > 0:
+                draws["importance_uniforms"] = torch.rand((B, ni), generator=g, device=dev)
+        if settings.noise_std > 0.0:
+            draws["normals"] = torch.randn((B, n_samples), generator=g, device=dev)
+            draws["fine_normals"] = (torch.randn((B, n_samples + ni), generator=g, device=dev)
+                                     if ni > 0 else None)
+        return draws
+
+    def _batch_granularity(self) -> int:
+        return 1 if self.mesh is None else self.mesh.world_size
 
     def train_epoch(self, epoch: int) -> float:
         """One epoch over all views: a fresh permutation per view, the
         ragged tail padded with index 0 and mask 0, one optimizer step per
-        minibatch. Returns the mean step loss."""
+        minibatch. Under a mesh the batch is padded to a multiple of the
+        world size and each rank takes its rows of it. Returns the mean step
+        loss."""
         cfg = self.cfg
         phase_idx = self._phase_index(epoch)
         p = cfg.phases[phase_idx]
@@ -432,6 +513,8 @@ class Trainer:
 
         n_rays = pd.rays_o.shape[1]
         B = min(p.batch_size, n_rays)
+        g = self._batch_granularity()
+        B = -(-B // g) * g  # equal shards (JAX trainer.py:581-583)
         n_batches = (n_rays + B - 1) // B
         V = self.n_views
         pad_total = n_batches * B - n_rays
@@ -446,22 +529,31 @@ class Trainer:
         masks_t = torch.as_tensor(masks.reshape(V, n_batches, B), device=self.device)
 
         settings = self._render_settings(p.n_samples, training=True)
-        step = self._kernel_loss_grad if self._use_fused() else self._plain_loss_grad
+        fused = self._use_fused()
+        rows = slice(0, B) if self.mesh is None else process_local_slice(B, self.mesh)
+        dp = None
+        if fused and self.mesh is not None:
+            dp = make_dp_fused_loss_grad(
+                self.mesh, settings, cfg.nerf.pos_freq, cfg.nerf.dir_freq, cfg.nerf.num_layers,
+                cfg.nerf.hidden_dim, use_viewdirs=cfg.nerf.use_viewdirs,
+                lora_alpha=cfg.nerf.lora_alpha, compute_dtype=cfg.rendering.compute_dtype,
+                point_features_builder=self.feature_sampler if self.use_dino else None,
+                reg_weight=self._kernel_reg_weight(), rgb_weight=float(cfg.loss.rgb_weight))
         losses = []
         for v in range(V):
-            pf = self.feature_sampler(v)  # the view's map and pose (JAX trainer.py:608-613)
+            # steps sample view v's map and pose (JAX trainer.py:608-613)
             view_packed = torch.cat([pd.rays_o[v], pd.rays_d[v], pd.targets[v]], dim=1)
             for b in range(n_batches):
-                row = view_packed[idxs_t[v, b]]
-                uniforms = importance = None
-                if settings.perturb:
-                    uniforms = torch.rand((B, p.n_samples), generator=self._generator,
-                                          device=self.device)
-                    if settings.n_importance > 0:
-                        importance = torch.rand((B, settings.n_importance),
-                                                generator=self._generator, device=self.device)
-                losses.append(step(row[:, 0:3], row[:, 3:6], row[:, 6:9], masks_t[v, b],
-                                   settings, uniforms, importance, pf))
+                row = view_packed[idxs_t[v, b, rows]]
+                draws = {k: None if d is None else d[rows]
+                         for k, d in self._draws(B, p.n_samples, settings).items()}
+                mask = masks_t[v, b]
+                args = (row[:, 0:3], row[:, 3:6], row[:, 6:9], mask[rows], settings, draws, v)
+                if fused:
+                    losses.append(self._kernel_loss_grad(*args, dp=dp))
+                else:
+                    denom = None if self.mesh is None else torch.sum(mask)
+                    losses.append(self._plain_loss_grad(*args, denom=denom))
                 self.optimizer.step()
         self.last_step_losses = torch.stack(losses).cpu().numpy()
         return float(np.mean(self.last_step_losses))

@@ -18,7 +18,7 @@ import torch
 from nerf_fewshot_tpu_torch import cli as tcli
 
 
-def _write_config(tmp_path, name, dino=None, log_format="jsonl", epochs=2):
+def _write_config(tmp_path, name, dino=None, log_format="jsonl", epochs=2, val_freq=1):
     model = "  use_dino: false\n" if dino is None else (
         f"  use_dino: true\n  dino_model_type: \"{dino}\"\n")
     text = f"""experiment:
@@ -46,7 +46,7 @@ rendering:
   chunk_size: 392
 output:
   save_dir: "{tmp_path / name}"
-  val_freq: 1
+  val_freq: {val_freq}
   save_freq: 1
   log_format: {log_format}
 """
@@ -153,18 +153,34 @@ def test_extract_features_writes_the_jax_shape(tmp_path, monkeypatch, capsys):
     ["train", "--data-parallel"], ["train", "--multihost"], ["train", "--wandb"],
     ["evaluate"], ["bench-scaling"],
 ], ids=lambda a: a[-1])
-def test_what_is_not_ported_raises_naming_its_roadmap_item(tmp_path, argv, capsys):
+def test_what_is_not_ported_raises_naming_its_roadmap_item(tmp_path, argv, capsys,
+                                                           monkeypatch):
     """What is not ported raises, naming its ROADMAP item. ``--wandb`` is
     ported: as the JAX CLI, it sets ``output.use_wandb``, and without the
-    wandb package the run trains with its JSONL log alone. ``evaluate`` is
+    wandb package the run trains with its JSONL log alone. So are
+    ``--data-parallel``, which on the one CPU device trains with no process
+    group and prints no ``[mesh]`` line (the JAX CLI with one device), and
+    ``--multihost``, here a one-rank Gloo group read from the environment
+    (``tests/test_torch_port_parallel.py`` runs two ranks). ``evaluate`` is
     ported: on the run's ``final.ckpt`` it writes ``evaluation.json`` with
     the JAX harness's keys."""
-    path = _write_config(tmp_path, "refuse")
+    dp = argv[-1] in ("--data-parallel", "--multihost")
+    path = _write_config(tmp_path, "refuse", val_freq=1000 if dp else 1)  # DP: no eval
     args = argv + (["--config", path, "--synthetic", "--device", "cpu"]
                    if argv[0] == "train" else [])
-    if argv == ["train", "--wandb"]:
+    if argv[0] == "train":
+        if argv[1] == "--multihost":
+            from nerf_fewshot_tpu_torch.parallel.mesh import free_port
+
+            for k, v in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", str(free_port())),
+                         ("WORLD_SIZE", "1"), ("RANK", "0")):
+                monkeypatch.setenv(k, v)
         tcli.main(args + ["--epochs", "1"])
-        assert "final_metrics" in _summary(capsys.readouterr().out)
+        out = capsys.readouterr().out
+        assert "final_metrics" in _summary(out)
+        mesh_lines = [x for x in out.splitlines() if x.startswith("[mesh]")]
+        assert mesh_lines == ([] if argv[1] != "--multihost" else
+                              ["[mesh] data-parallel over 1 devices across 1 processes (gloo)"])
         save_dir = tmp_path / "refuse"
         lines = [json.loads(x) for x in (save_dir / "log.jsonl").read_text().splitlines()]
         assert [x["epoch"] for x in lines if "train_loss" in x] == [0]

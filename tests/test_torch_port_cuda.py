@@ -780,3 +780,73 @@ def test_x_kernels_at_896(h100, kernel):
     _check_vjp(got, tk.fused_render_bwd_reference(x, z, dnorm, packed, *cot), 1e-4)
     assert torch.count_nonzero(got[0][:, 858:]) == 0
     assert torch.count_nonzero(got[1][0][858:]) == 0
+
+
+DP_CONFIG = {
+    "data": {"resolution": 24}, "nerf_model": {"sigma_bias": 0.1, "hidden_dim": 128,
+                                               "num_layers": 3},
+    # 144 rays per view in batches of 100 (ragged tail of 56), then 576 in 256s
+    "training": {"phases": [{"start": 0, "end": 1, "H": 12, "n_samples": 32, "batch_size": 100},
+                            {"start": 1, "H": 24, "n_samples": 48, "batch_size": 256}]},
+    "rendering": {"chunk_size": 256},
+}
+
+
+def _dp_train(mesh, device=None):
+    """Epochs 0 and 1 of ``DP_CONFIG`` (jitter on) under ``mesh``, or on
+    ``device`` without one: per-step losses, kernel-1 launches, parameters."""
+    from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    data = make_scene_dataset(lego_like_scene(), 2, img_size=24, gt_samples=64, device="cpu")
+    tr = Trainer(config_from_dict(DP_CONFIG), data, device=device, mesh=mesh)
+    before = tt.fused_train_objective.launches["train_pe"]
+    steps = []
+    for epoch in (0, 1):
+        tr.train_epoch(epoch)
+        steps.append(tr.last_step_losses)
+    return {"steps": steps, "launches": tt.fused_train_objective.launches["train_pe"] - before,
+            "params": {k: v.cpu().numpy() for k, v in tr.model.state_dict().items()}}
+
+
+@pytest.mark.cuda
+def test_dp_world_1_nccl_is_bit_equal_to_no_mesh(h100):
+    """A one-rank NCCL mesh on the card: its all-reduces are copies, so two
+    epochs (jitter on, a masked ragged tail) give the no-mesh trainer's
+    per-step losses and parameters bit for bit; one kernel-1 launch per
+    step."""
+    import torch.distributed as dist
+
+    from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
+
+    want = _dp_train(None, h100)
+    pmesh.initialize_multihost(f"localhost:{pmesh.free_port()}", 1, 0, device=h100)
+    try:
+        mesh = pmesh.make_mesh(h100)
+        assert (mesh.backend, mesh.world_size, mesh.device) == ("nccl", 1, h100)
+        got = _dp_train(mesh)
+    finally:
+        dist.destroy_process_group()
+    for g, w in zip(got["steps"], want["steps"]):
+        assert np.array_equal(g, w)
+    assert all(np.array_equal(got["params"][k], v) for k, v in want["params"].items())
+    n_steps = sum(len(s) for s in want["steps"])
+    assert got["launches"] == want["launches"] == n_steps == 2 * 2 + 2 * 3
+
+
+@pytest.mark.cuda
+def test_dp_world_2_gloo_on_one_card(h100):
+    """Two ranks on ``cuda:0`` over Gloo (NCCL refuses two ranks on one
+    card): per-step losses within rel 1e-4 of the no-mesh trainer (the order
+    of the sums differs), both ranks bit-equal in losses and parameters,
+    one kernel-1 launch per step per rank."""
+    from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
+
+    want = _dp_train(None, h100)
+    two = pmesh.launch(_dp_train, ["cuda:0", "cuda:0"], backend="gloo", timeout_s=600)
+    for e in (0, 1):
+        assert np.array_equal(two[0]["steps"][e], two[1]["steps"][e])
+        np.testing.assert_allclose(two[0]["steps"][e], want["steps"][e], rtol=1e-4)
+    assert all(np.array_equal(two[0]["params"][k], two[1]["params"][k]) for k in want["params"])
+    assert two[0]["launches"] == two[1]["launches"] == want["launches"]

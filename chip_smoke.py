@@ -37,6 +37,19 @@ its seconds:
    for bit, then a white background with 64-wide features, S = 128 and
    sigma_bias 5.0; dx and the six packed gradients as one vector; times,
    bound, each grid launch's device time and the float64 comparison;
+6a. precision routes, kernels vs plain: all five kernels at
+   ``compute_dtype`` ``bfloat16`` (both operands of every product rounded
+   to bf16, one tensor-core pass) and ``highest`` (exact fp32 FFMAs), on
+   the main path's inputs (D 96) and at the DINO width (pos_freq 12, 64
+   features: D 176, a 256-wide x), against their plain versions at the
+   same route (TF32 off): two calls bit for bit, ``ROUTE_TOL``, no further
+   from a float64 run at the route than ``F64_FACTOR`` times the plain
+   version, ``bfloat16`` apart from the ``float32`` route; CUDA-event
+   times and the bound at the route's rate;
+6b. float32 route vs the parent build: with ``$NERF_PARENT_CHECKOUT`` (a
+   checkout of the parent commit), ``tools/route_bits.py`` on both trees:
+   the five kernels' ``float32`` outputs bit-equal on the main path's
+   inputs; without it the phase says it was not checked;
 7. differentiable render steps: the baseline ``NeRFMLP`` from its seed
    takes 30 Adam steps (512 rays x 64 samples of the 128x128 views, a loss
    on rgb, weights, depth and acc) through
@@ -55,6 +68,15 @@ its seconds:
    kernel once, PSNR must rise above its value at init, and a trainer on
    the plain path (``backend: xla``) from the same seed must give the same
    per-step losses over epoch 0;
+9a. precision routes, training: ``baseline.yaml`` with
+   ``rendering.compute_dtype`` ``bfloat16``, then ``highest``, from the
+   same seed, batches and jitter as the train slice: eval at init, epochs
+   0, 1 and 100 through kernel 1 (once per step), eval after (PSNR must
+   rise), two differentiable render steps and one ``inline_pe=False``
+   step at the route; every one of the five kernels launched at the route
+   (counts set to 0 before each); epoch 0's per-step losses within rel
+   1e-4 of the plain trainer's (``highest``) or ``BF16_LOSS_BAND`` of the
+   ``float32`` kernel trainer's (``bfloat16``);
 10. evaluate baseline.yaml: the trained trainer's checkpoint through
    ``cli evaluate --config experiments/baseline.yaml --synthetic`` in this
    process on the card: ``evaluation.json`` with the JAX harness's keys
@@ -186,7 +208,9 @@ Any failure raises and exits non-zero. On success the last three lines are
 the ``nvidia-smi`` name/power-limit line, a JSON line with the kernels'
 numbers (the five kernels, kernels 1 and 2 at the DINO widths with the
 pretrained-format run's launches, then at the trunk-LoRA width, then the
-five at the script recipes' widths; kernel 1's row counts the gradient
+five at the script recipes' widths, then each kernel at ``bfloat16`` and
+at ``highest`` (``<name>_bf16``, ``<name>_highest``: main-path times, the
+route's bound, launches from the route trainings); kernel 1's row counts the gradient
 gate's two launches and the data-parallel phase's, kernel 2's the
 world-1 eval's), and
 ``{"ok": true, "device": {...}}``.
@@ -364,6 +388,37 @@ NOISE_EPOCHS = (0, 1)
 # differs, so per-step losses of epoch 0 within rel DP_LOSS_RTOL.
 DP_EPOCHS = (0, 1, 50)
 DP_LOSS_RTOL = 1e-4
+# The precision routes (render/kernels.py ROUTES) of all five kernels, and
+# the rates their bounds count at: bfloat16 one bf16 tensor-core product per
+# product, highest fp32 FFMAs on the CUDA cores.
+ROUTES = ("bfloat16", "highest")
+ROUTE_RATE = {"bfloat16": (989e12, "bf16 at 989 TFLOP/s"),
+              "highest": (FP32_FLOPS, "fp32 CUDA cores at 67 TFLOP/s")}
+ROUTE_SHORT = {"bfloat16": "bf16", "highest": "highest"}
+# Kernel vs plain at a route. highest: the float32 gates. bfloat16: a bf16
+# rounding that the kernel's and cuBLAS's fp32 sum orders put on two sides
+# of a tie moves an element by 2^-8 of itself, and the backward's suffix
+# sums amplify it (a first card run, NVIDIA H100 80GB HBM3 at 700 W:
+# outputs within 7.4e-5, the objective's loss and gradients rel 1.6e-5,
+# the render VJP rel 5.1e-4 with standard-normal cotangents).
+ROUTE_TOL = {"highest": {**TOL, "grad": TRAIN_GRAD_TOL},
+             "bfloat16": {"rgb": 1e-3, "depth": 1e-2, "acc": 1e-3, "weights": 1e-3,
+                          "grad": 5e-3}}
+# The kernel is no further from a float64 run of the plain version at the
+# same route than the fp32 plain version is, by at most this factor.
+F64_FACTOR = 2.0
+# bfloat16 apart from float32 (a route that ignored the dtype): render
+# outputs by at least ROUTE_APART_OUT, gradients by rel ROUTE_APART_GRAD.
+ROUTE_APART_OUT, ROUTE_APART_GRAD = 1e-5, 1e-4
+# The route trainings: baseline.yaml at each route, epochs 0 and 1 (32x32)
+# and one 128x128 epoch of phase 2; epoch 0's per-step losses against the
+# float32 slice's: highest within rel TRAIN_LOSS_RTOL of the plain
+# (backend: xla) trainer, bfloat16 within rel BF16_LOSS_BAND of the float32
+# kernel trainer (read 3.4e-5 on an NVIDIA H100 80GB
+# HBM3 at 700 W: bf16 products move the init's forward losses by ~1e-5).
+ROUTE_EPOCHS = (0, 1, 100)
+BF16_LOSS_BAND = 1e-3
+ROUTE_RENDER_STEPS = 2
 
 
 @contextmanager
@@ -860,8 +915,8 @@ def run_train_slice(cfg, train, test, device, tmp, psnr_init, tt):
     """Train the baseline through the kernel (``train_epoch`` at
     ``TRAIN_EPOCHS``, then ``fit`` for two more epochs with eval and
     checkpoints into ``tmp``), check it against a plain-path trainer from
-    the same seed, and return the launches of (train_pe, train_x) and the
-    trained trainer."""
+    the same seed, and return the launches of (train_pe, train_x), the
+    trained trainer and epoch 0's per-step losses of both trainers."""
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
@@ -936,10 +991,13 @@ def run_train_slice(cfg, train, test, device, tmp, psnr_init, tt):
         print(f"  plain trainer epoch {e}: loss {loss:.6f}, {sec:.3f} s, "
               f"{sec / len(rel) * 1e3:.3f} ms/step; gap to the kernel trainer: per step max rel "
               f"{rel.max():.2e}, epoch mean rel {mean_rel:.2e}", flush=True)
-        if e == TRAIN_EPOCHS[0] and not rel.max() <= TRAIN_LOSS_RTOL:
-            raise RuntimeError(f"epoch {e}: kernel and plain trainers differ by rel {rel.max()} "
-                               f"(tol {TRAIN_LOSS_RTOL})")
-    return counts["train_pe"], counts["train_x"], ktr
+        if e == TRAIN_EPOCHS[0]:
+            plain0 = ptr.last_step_losses.copy()
+            if not rel.max() <= TRAIN_LOSS_RTOL:
+                raise RuntimeError(f"epoch {e}: kernel and plain trainers differ by rel "
+                                   f"{rel.max()} (tol {TRAIN_LOSS_RTOL})")
+    epoch0 = {"kernel": kernel_losses[TRAIN_EPOCHS[0]], "plain": plain0}
+    return counts["train_pe"], counts["train_x"], ktr, epoch0
 
 
 def lpips_card_vs_cpu(label, pairs):
@@ -1112,7 +1170,7 @@ def main_path_render_bwd_args(trainer, device, seed=0):
     return args, random_cotangents(np.random.default_rng(seed), len(idx), p.n_samples, device)
 
 
-def render_stepper(cfg, pd, device, n_importance, fused):
+def render_stepper(cfg, pd, device, n_importance, fused, compute_dtype="float32"):
     """A function that takes one Adam step of the baseline ``NeRFMLP`` (its
     init from ``cfg.seed``) on a batch of the last phase's shape (512 rays x
     64 jittered samples of the 128x128 views) and returns its loss, a loss
@@ -1150,8 +1208,8 @@ def render_stepper(cfg, pd, device, n_importance, fused):
         if fused:
             out = fused_render_rays(dict(model.named_parameters()), ro, rd, settings,
                                     n.pos_freq, n.dir_freq, n.num_layers, n.hidden_dim,
-                                    n.use_viewdirs, device=device, uniforms=u,
-                                    importance_uniforms=ui)
+                                    n.use_viewdirs, compute_dtype=compute_dtype,
+                                    device=device, uniforms=u, importance_uniforms=ui)
         else:
             out = render_rays(model, ro, rd, settings, u, ui)
         loss = (torch.mean((out.rgb - tgt) ** 2) + 0.01 * torch.mean(out.weights ** 2)
@@ -2640,6 +2698,236 @@ def run_data_parallel(device, tk, tmp):
     return one["launches"], eval_launches, [t["launches"] for t in two]
 
 
+def run_parent_bits():
+    """The float32 route of all five kernels bit-equal to a parent
+    checkout's build (``tools/route_bits.py`` on both trees, each in its
+    own process), when ``$NERF_PARENT_CHECKOUT`` names one; a checkout of
+    the repo alone has no parent, and the phase says so."""
+    parent = os.environ.get("NERF_PARENT_CHECKOUT")
+    if not parent:
+        print("  NERF_PARENT_CHECKOUT is not set: the float32 route is not compared with a "
+              "parent build in this run (nerf_fewshot_tpu_torch/tools/route_bits.py)", flush=True)
+        return
+    tool = os.path.join(ROOT, "nerf_fewshot_tpu_torch", "tools", "route_bits.py")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_bits_")
+    try:
+        files = []
+        for tag, root in (("parent", os.path.abspath(parent)), ("change", ROOT)):
+            files.append(os.path.join(tmp, f"{tag}.pt"))
+            subprocess.run([sys.executable, tool, "--root", root, "--out", files[-1]],
+                           check=True, timeout=900)
+        subprocess.run([sys.executable, tool, "--compare", *files], check=True, timeout=300)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def route_bounds(flops, nbytes, compute_dtype):
+    """``(bound_ms, bound_by, rate)`` of a kernel at a precision route."""
+    rate, label = ROUTE_RATE[compute_dtype]
+    ops_s, bytes_s = flops / rate, nbytes / HBM_BYTES_PER_S
+    return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes", label
+
+
+def route_cases(trainer, test, device):
+    """The five kernels' inputs at the main path's shapes (D 96: a 2048x64
+    eval chunk for kernels 2 and 4, the phase-2 batch of 512x64 for kernels
+    1, 5 and 3) and at the DINO width (pos_freq 12 with 64 features: D 176
+    inline, a 256-wide x), each as ``(kernel, width, run(cd), plain(cd),
+    f64(cd), flops, nbytes)``; ``run`` and ``plain`` return flat tuples
+    (outputs, or dx / the loss and the packed gradients)."""
+    from nerf_fewshot_tpu_torch.render import kernels as tk
+    from nerf_fewshot_tpu_torch.render import train_kernel as tt
+    from nerf_fewshot_tpu_torch.tools.f64_cases import objective_f64, to_f64
+
+    rng = np.random.default_rng(trainer.cfg.seed)
+    last = len(trainer.cfg.phases) - 1
+    cases = []
+
+    def fwd_pe(width, a, use_feats):
+        x32 = lambda: tk._pe_input(a[0], a[1] if use_feats else None, a[4], a[5], a[6][0].shape[0])
+        cases.append((
+            "fwd_pe", width,
+            lambda cd: tk.fused_render_fwd_pe(*a, compute_dtype=cd, use_feats=use_feats),
+            lambda cd: tk.fused_render_fwd_pe_reference(*a, compute_dtype=cd, use_feats=use_feats),
+            lambda cd: tk.fused_render_reference(*to_f64((x32(), *a[2:4], a[6])), compute_dtype=cd),
+            *fwd_pe_cost(a, use_feats)))
+
+    def fwd_x(width, a, x_dim):
+        cases.append(("fwd", width, lambda cd: tk.fused_render_fwd(*a, compute_dtype=cd),
+                      lambda cd: tk.fused_render_reference(*a, compute_dtype=cd),
+                      lambda cd: tk.fused_render_reference(*to_f64(a), compute_dtype=cd),
+                      *render_cost(a, x_dim, backward=False)))
+
+    def render_bwd(width, a, cot, x_dim):
+        cases.append((
+            "render_bwd", width,
+            lambda cd: flat_objective(tk.fused_render_bwd(*a, *cot, compute_dtype=cd)),
+            lambda cd: flat_objective(tk.fused_render_bwd_reference(*a, *cot, compute_dtype=cd)),
+            lambda cd: flat_objective(tk.fused_render_bwd_reference(*to_f64(a), *to_f64(cot),
+                                                                    compute_dtype=cd)),
+            *render_cost(a, x_dim, backward=True)))
+
+    def train(width, a, o, x_dim=None):
+        name = "train_pe" if o["inline_pe"] else "train_x"
+        with_cd = lambda cd: {**o, "compute_dtype": cd}
+        cases.append((
+            name, width, lambda cd: flat_objective(tt.fused_train_objective(*a, **with_cd(cd))),
+            lambda cd: flat_objective(tt.fused_train_objective_reference(*a, **with_cd(cd))),
+            lambda cd: flat_objective(objective_f64(a, with_cd(cd))),
+            *train_cost(a, o, x_dim)))
+
+    fwd_pe("d96", main_path_fwd_pe_args(trainer, test.poses[0], device), False)
+    fwd_x("d96", main_path_fwd_x_args(trainer, test.poses[0], device), 90)
+    bw, cot = main_path_render_bwd_args(trainer, device)
+    render_bwd("d96", bw, cot, 90)
+    train("d96", *main_path_train_args(trainer, last, device))
+    train("d96", *main_path_train_args(trainer, last, device, inline_pe=False), x_dim=90)
+    fwd_pe("d176", random_fwd_pe_args(rng, 1024, 64, 256, 8, 64, device, pos_freq=12,
+                                      d_pad=176), True)
+    a, x_dim = random_render_args(rng, 2048, 64, 256, 8, device, feat_dim=64, pos_freq=12)
+    fwd_x("d176", a, x_dim)
+    a, x_dim = random_render_args(rng, 512, 64, 256, 8, device, feat_dim=64, pos_freq=12)
+    render_bwd("d176", a, random_cotangents(rng, 512, 64, device), x_dim)
+    train("d176", *random_train_args(rng, 512, 64, 256, 8, device, feat_dim=64, pos_freq=12))
+    a, o = random_train_args(rng, 512, 64, 256, 8, device, feat_dim=64, pos_freq=12,
+                             inline_pe=False)
+    train("d176", a, o, x_dim=6 + 72 + 24 + 64)
+    return cases
+
+
+def run_route_kernels(trainer, test, device):
+    """Every kernel at every precision route against its plain version at
+    the same route (TF32 off), on ``route_cases``: two calls bit for bit,
+    the route's tolerance, no further from a float64 run at the route than
+    F64_FACTOR times the plain version's distance, bfloat16 apart from the
+    float32 route; CUDA-event times and the bound at the route's rate.
+    Returns ``{(kernel, width, route): numbers}``."""
+    rows = {}
+    flat = lambda ts: torch.cat([t.reshape(-1).double() for t in ts if t is not None])
+    for kernel, width, run, plain, f64, flops, nbytes in route_cases(trainer, test, device):
+        forward = kernel in ("fwd_pe", "fwd")
+        for cd in ROUTES:
+            label = f"{kernel} {width} {cd}"
+            got, again = run(cd), run(cd)
+            torch.cuda.synchronize()
+            if not all(torch.equal(p, q) for p, q in zip(got, again) if p is not None):
+                raise RuntimeError(f"{label}: two calls on the same inputs differ")
+            if not all(torch.isfinite(t).all() for t in got if t is not None):
+                raise RuntimeError(f"{label}: non-finite output")
+            want, f32, exact = plain(cd), run("float32"), f64(cd)
+            tol = ROUTE_TOL[cd]
+            max_err = (flat(got) - flat(want)).abs().max().item()
+            rel = lambda a, b: ((flat(a) - flat(b)).norm() / flat(b).norm()).item()
+            if forward:
+                errs = {o: (g - w).abs().max().item()
+                        for g, w, o in zip(got, want, ("rgb", "depth", "acc", "weights"))}
+                ok = all(errs[o] <= tol[o] for o in errs)
+                shown = ", ".join(f"{o} {v:.2e} (tol {tol[o]:.0e})" for o, v in errs.items())
+                apart = (flat(got) - flat(f32)).abs().max().item()
+                apart_ok = apart > ROUTE_APART_OUT
+            else:
+                r = rel(got, want)
+                ok = r <= tol["grad"]
+                shown = f"rel {r:.2e} (tol {tol['grad']:.0e})"
+                apart = rel(got, f32)
+                apart_ok = apart > ROUTE_APART_GRAD
+            k64, p64 = rel(got, exact), rel(want, exact)
+            ms = cuda_ms(lambda: run(cd), iters=10)
+            plain_ms = cuda_ms(lambda: plain(cd), iters=3)
+            b_ms, b_by, rate = route_bounds(flops, nbytes, cd)
+            print(f"  {label}: vs plain {shown}, max abs err {max_err:.2e}; bit-equal; vs a "
+                  f"float64 run at the route: kernel rel {k64:.2e}, plain rel {p64:.2e}; "
+                  f"vs the float32 route {apart:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
+                  f"ms, bound {b_ms:.3f} ms by {b_by} ({rate}; share {b_ms / ms:.1%})",
+                  flush=True)
+            if not ok:
+                raise RuntimeError(f"{label}: kernel disagrees with its plain version: {shown}")
+            if not k64 <= F64_FACTOR * p64:
+                raise RuntimeError(f"{label}: kernel rel {k64} from float64, plain {p64} "
+                                   f"(factor {F64_FACTOR})")
+            if cd == "bfloat16" and not apart_ok:
+                raise RuntimeError(f"{label}: bfloat16 reads {apart} from the float32 route")
+            rows[(kernel, width, cd)] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                                             bound_ms=b_ms, bound_by=b_by, bound_rate=rate,
+                                             f64_rel=k64, plain_f64_rel=p64)
+    return rows
+
+
+def run_route_training(cfg, train, test, device, tk, tt, f32_losses):
+    """``baseline.yaml`` at ``rendering.compute_dtype`` bfloat16, then
+    highest, from the float32 slice's seed (same init, batches and jitter):
+    eval at init, ROUTE_EPOCHS through kernel 1 (once per step), eval
+    after (PSNR must rise; kernel 2 once per chunk), ROUTE_RENDER_STEPS
+    differentiable render steps (kernels 4 and 3) and one
+    ``inline_pe=False`` step (kernel 5), all at the route. Epoch 0's
+    per-step losses: highest within rel TRAIN_LOSS_RTOL of the plain
+    trainer's (``f32_losses["plain"]``), bfloat16 within rel BF16_LOSS_BAND
+    of the float32 kernel trainer's. Every count is set to 0 before each
+    route and each of the five kernels must have launched. Returns
+    ``{route: launches}``."""
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    out = {}
+    for cd in ROUTES:
+        rcfg = config_from_dict({**BASELINE_CONFIG, "rendering": {
+            **BASELINE_CONFIG["rendering"], "compute_dtype": cd}})
+        tr = Trainer(rcfg, train, test, device=device)
+        if not tr._use_fused() or tr.kernel_path != "kernel":
+            raise RuntimeError(f"{cd}: kernel_path {tr.kernel_path} ({tr.kernel_path_reason})")
+        for i in range(len(rcfg.phases)):
+            tr.phase_data(i)
+        tk.fused_render_fwd_pe.launches = tk.fused_render_fwd.launches = 0
+        tk.fused_render_bwd.launches = 0
+        tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+        psnr0 = tr.evaluate()["psnr"]
+        steps, losses = 0, {}
+        for e in ROUTE_EPOCHS:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = tr.train_epoch(e)
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            n = len(tr.last_step_losses)
+            steps += n
+            losses[e] = tr.last_step_losses.copy()
+            if not np.isfinite(losses[e]).all():
+                raise RuntimeError(f"{cd} epoch {e}: non-finite losses")
+            print(f"  {cd} epoch {e}: loss {loss:.6f}, {n} steps, {sec / n * 1e3:.3f} ms/step",
+                  flush=True)
+        after = tr.evaluate()["psnr"]
+        ref = f32_losses["plain" if cd == "highest" else "kernel"]
+        gap = float(np.max(np.abs(losses[0] / ref - 1.0)))
+        band = TRAIN_LOSS_RTOL if cd == "highest" else BF16_LOSS_BAND
+        print(f"  {cd}: psnr {psnr0:.4f} dB at init, {after:.4f} dB after; epoch 0 per-step "
+              f"max rel gap to the {'plain (xla)' if cd == 'highest' else 'float32 kernel'} "
+              f"trainer {gap:.2e} (band {band:.0e})", flush=True)
+        if not gap <= band:
+            raise RuntimeError(f"{cd}: epoch 0 losses {gap} from the reference (band {band})")
+        if not after > psnr0:
+            raise RuntimeError(f"{cd}: psnr after training {after} <= at init {psnr0}")
+        pd = tr.phase_data(len(rcfg.phases) - 1)
+        step = render_stepper(rcfg, pd, device, 0, fused=True, compute_dtype=cd)
+        render_losses = [step().item() for _ in range(ROUTE_RENDER_STEPS)]
+        a, o = main_path_train_args(tr, len(rcfg.phases) - 1, device, inline_pe=False)
+        x_loss = tt.fused_train_objective(*a, **{**o, "compute_dtype": cd})[0].item()
+        if not np.isfinite(render_losses + [x_loss]).all():
+            raise RuntimeError(f"{cd}: non-finite render or x-input losses")
+        counts = {"train_pe": tt.fused_train_objective.launches["train_pe"],
+                  "fwd_pe": tk.fused_render_fwd_pe.launches,
+                  "fwd": tk.fused_render_fwd.launches, "render_bwd": tk.fused_render_bwd.launches,
+                  "train_x": tt.fused_train_objective.launches["train_x"]}
+        chunks = 2 * -(-N_TEST_VIEWS * rcfg.data.resolution ** 2 // rcfg.rendering.chunk_size)
+        print(f"  {cd} launches: {counts} for {steps} steps, {chunks} eval chunks, "
+              f"{ROUTE_RENDER_STEPS} render steps, 1 x-input step", flush=True)
+        want = {"train_pe": steps, "fwd_pe": chunks, "fwd": ROUTE_RENDER_STEPS,
+                "render_bwd": ROUTE_RENDER_STEPS, "train_x": 1}
+        if counts != want:
+            raise RuntimeError(f"{cd}: launches {counts}, expected {want}")
+        out[cd] = counts
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2835,6 +3123,12 @@ def main():
                    (lambda r: (r[0], *r[1]))(tk.fused_render_bwd_reference(*bw_args, *bw_cot)),
                    (exact[0], *exact[1]))
 
+    with phase("precision routes: kernels vs plain"):
+        route_rows = run_route_kernels(trainer, test, device)
+
+    with phase("float32 route vs the parent build"):
+        run_parent_bits()
+
     with phase("differentiable render steps"):
         fwd_launches, bwd_launches = run_render_steps(cfg, trainer, device, tk)
 
@@ -2879,10 +3173,13 @@ def main():
     with phase("train slice"):
         tmp = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
-            train_launches, x_launches, trained = run_train_slice(
+            train_launches, x_launches, trained, epoch0 = run_train_slice(
                 cfg, train, test, device, tmp, metrics["psnr"], tt)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
+
+    with phase("precision routes: baseline.yaml training"):
+        route_launches = run_route_training(cfg, train, test, device, tk, tt, epoch0)
 
     with phase("evaluate baseline.yaml"):
         tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
@@ -3069,6 +3366,27 @@ def main():
         script_row(f"train_d{SCRIPT_X}", "train_pe", "train_kernel.py:320", [SCRIPT_TRACED],
                    x_launches_script["train_x"])]
 
+    replaces = {"fwd_pe": ("fwd_pe", "kernels.py:251"), "fwd": ("fwd_pe", "kernels.py:139"),
+                "render_bwd": ("train_pe", "kernels.py:292"),
+                "train_pe": ("train_pe", "train_kernel.py:343"),
+                "train_x": ("train_pe", "train_kernel.py:320")}
+    route_kernel_rows = []
+    for kernel, (source, where) in replaces.items():
+        for cd in ROUTES:
+            main, dino = route_rows[(kernel, "d96", cd)], route_rows[(kernel, "d176", cd)]
+            route_kernel_rows.append({
+                "name": f"{kernel}_{ROUTE_SHORT[cd]}", "route": "cuda",
+                "source": f"nerf_fewshot_tpu_torch/csrc/{source}.cu",
+                "replaces": f"nerf_fewshot_tpu/render/{where}", "compute_dtype": cd,
+                "configs": [f"baseline.yaml compute_dtype {cd}"],
+                "launches": route_launches[cd][kernel],
+                "max_abs_err": max(main["max_abs_err"], dino["max_abs_err"]),
+                "ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "bound_rate": main["bound_rate"],
+                "library_ms": None, "f64_rel": main["f64_rel"],
+                "plain_f64_rel": main["plain_f64_rel"],
+                "at_d176": {k: dino[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}})
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fwd_pe",
@@ -3119,7 +3437,8 @@ def main():
         "bound_rate": "3xTF32 at 495 TFLOP/s",
         "bound_fp32_ms": bwd_bound32_ms,
         "library_ms": None,
-    }, *dino_kernel_rows, lora_row("train_pe"), lora_row("fwd_pe"), *script_kernel_rows]}))
+    }, *dino_kernel_rows, lora_row("train_pe"), lora_row("fwd_pe"), *script_kernel_rows,
+        *route_kernel_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

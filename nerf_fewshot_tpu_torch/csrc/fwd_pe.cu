@@ -77,7 +77,26 @@
 // Fragments (wgmma m64nNk8 .tf32, warp w of the warpgroup, g = lane/4,
 // t = lane%4): A a0 (16w+g, t), a1 (16w+g+8, t), a2 (16w+g, t+4),
 // a3 (16w+g+8, t+4); D d[4j+e] at row 16w+g (+8 for e >= 2), column
-// 8j+2t (+1 for odd e).
+// 8j+2t (+1 for odd e). wgmma m64nNk16 .bf16 packs two columns a register,
+// the lower in the low half: a0 (16w+g, 2t..2t+1), a1 (16w+g+8, 2t..2t+1),
+// a2 (16w+g, 2t+8..2t+9), a3 (16w+g+8, 2t+8..2t+9); D as tf32.
+//
+// Precision routes. The above is the float32 route (ROUTE kTf32x3). The
+// JAX kernels' other compute_dtypes (nerf_fewshot_tpu/render/kernels.py:63
+// _dot) keep the launches, the ring, the producer and the tiles, and change
+// the stage images and the consumers' products:
+//   kBf16 (bfloat16): the stage image is the bf16 rounding (cvt.rn: to
+//   nearest even) of the 32 rows, H rows of 64 bytes in the 64-byte swizzle
+//   (16-byte chunk c of row n at chunk c ^ ((n / 2) % 4)), k in order; the
+//   activations are rounded as their fragments are read, and each stage is
+//   two wgmma m64n(H/2)k16 .bf16 (fp32 accumulation), promoted as above;
+//   the head rounds its operands too (the JAX head is a _dot). Bound: one
+//   bf16 product per product, 127 GFLOP per chunk at 989 TFLOP/s, 0.128 ms;
+//   kFp32 (highest): the stage image is the 32 rows of fp32 weights as they
+//   are ([32][H], row-major), and the consumers run FFMAs on the CUDA cores
+//   over it, each thread owning the outputs its wgmma fragment would hold:
+//   the plain fp32 function up to the order of the sums. Bound: 127 GFLOP
+//   at the 67 TFLOP/s fp32 CUDA-core rate, 1.9 ms.
 // No atomic operations on the device: two runs of a call agree bit for bit.
 // The launchers return cudaGetLastError() (or the first failing call), and
 // the Python wrappers raise when it is not cudaSuccess.
@@ -105,11 +124,16 @@ constexpr int kProducerRegs = 40;   // setmaxnreg: the producer warpgroup gives 
 constexpr int kConsumerRegs = 232;  // to the consumer warpgroups
 constexpr float kFar = 1e10f;
 constexpr float kEps = 1e-10f;
+// Precision routes (render/kernels.py ROUTES)
+constexpr int kTf32x3 = 0;  // compute_dtype float32
+constexpr int kBf16 = 1;    // compute_dtype bfloat16
+constexpr int kFp32 = 2;    // compute_dtype highest
 
 int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // Sizes shared by the launcher and nerf_fwd_scratch_floats; the scratch
-// holds the stage images from offset 0, then the head outputs at out4.
+// holds the stage images from offset 0 (sized for the float32 route's, the
+// largest), then the head outputs at out4.
 struct Layout {
   int N, Np, tiles, stages0, stages;  // stages0: of layer 0; stages: all layers
   size_t out4, total;
@@ -200,6 +224,13 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
          (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
 }
 
+// The same in the 64-byte swizzle (layout type 2): rows of 64 bytes, 8-row
+// groups 512 bytes apart; the start advances 32 bytes per bf16 k-step of 16.
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (static_cast<uint64_t>(2) << 62);
+}
+
 // d (+)= a.b for a 64 x N tile and one k-step of 8: A (64 x 8) from
 // registers, B (8 x N) by descriptor; scale_d = 0 overwrites d.
 __device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], const uint32_t (&a)[4],
@@ -241,6 +272,60 @@ __device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], const uint32_t (
 }
 
 
+// d (+)= a.b for a 64 x N tile and one bf16 k-step of 16: A (64 x 16) from
+// registers, B (16 x N, K-major, not transposed) by descriptor.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t desc_b, int scale_d) {
+  wgmma_m64n64k16_bf16(d, a, desc_b, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  wgmma_m64n128k16_bf16(d, a, desc_b, scale_d);
+}
+
 template <int N>
 __device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
                                            uint64_t desc_b, int scale_d);
@@ -261,6 +346,18 @@ __device__ __forceinline__ uint32_t tf32_rna(float v) {
   return r;
 }
 
+// {lo, hi} rounded to bf16 (to nearest even), packed lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// v rounded to bf16, as an fp32 value.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __uint_as_float(pack_bf16(0.f, v) & 0xffff0000u);
+}
+
 // v ~ hi + lo to ~2^-22 relative (v - hi is exact in fp32) by integer
 // operations: adding half of the 13 dropped bits to the magnitude and
 // clearing them rounds to nearest, ties away from zero, as cvt.rna.tf32.f32
@@ -271,14 +368,26 @@ __device__ __forceinline__ void split_fast(float v, uint32_t& hi, uint32_t& lo) 
   lo = rna_bits(__float_as_uint(v - __uint_as_float(hi)));
 }
 
-// ---- launch 1: the weights' TF32 halves as stage images ----
+// ---- launch 1: the weights' stage images ----
+
+template <int H, int ROUTE>
+struct Trunk {
+  static constexpr int NW = H / kWarpgroups;     // output columns per warpgroup
+  static constexpr int NR = NW / 2;              // accumulator registers per thread
+  // a stage image: [hi | lo] TF32 halves, the bf16 rounding, or the fp32 rows
+  static constexpr int kStageBytes =
+      ROUTE == kTf32x3 ? 2 * H * kStageK * 4 : (ROUTE == kBf16 ? H * kStageK * 2 : H * kStageK * 4);
+  static constexpr int NS = kRingBytes / kStageBytes;      // ring depth
+  static_assert(NS >= 2, "at least two stages");
+};
 
 // Stage `stage` (one 32-row slice of w0 or of one wh layer), columns
 // [32*blockIdx.x, +32): a 32 x 32 tile through shared memory, read along n,
-// written along the k-slots.
+// written along the k-slots (or, kFp32, along n).
+template <int H, int ROUTE>
 __global__ void __launch_bounds__(256)
 fwd_split_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
-                 float* __restrict__ wsplit, int D, int H, int stages0) {
+                 float* __restrict__ wsplit, int D, int stages0) {
   __shared__ float tile[kStageK][33];
   const int stage = blockIdx.y;
   const int nb = blockIdx.x * 32;
@@ -298,10 +407,26 @@ fwd_split_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
   for (int r = ty; r < kStageK; r += 8)
     tile[r][tx] = k0 + r < K ? W[static_cast<size_t>(k0 + r) * H + nb + tx] : 0.f;
   __syncthreads();
+  uint8_t* img_bytes = reinterpret_cast<uint8_t*>(wsplit) +
+                       static_cast<size_t>(stage) * Trunk<H, ROUTE>::kStageBytes;
+  if constexpr (ROUTE == kFp32) {
+    float* img = reinterpret_cast<float*>(img_bytes);
+    for (int r = ty; r < kStageK; r += 8) img[r * H + nb + tx] = tile[r][tx];
+    return;
+  } else if constexpr (ROUTE == kBf16) {
+    // row n's k-slot tx, in 16-byte chunk tx / 8 of its 64 bytes, swizzled
+    uint16_t* img = reinterpret_cast<uint16_t*>(img_bytes);
+    for (int r = ty; r < 32; r += 8) {
+      const int n = nb + r;
+      const int pos = n * kStageK + ((((tx >> 3) ^ ((n >> 1) & 3))) << 3) + (tx & 7);
+      img[pos] = static_cast<uint16_t>(pack_bf16(0.f, tile[tx][r]) >> 16);
+    }
+    return;
+  }
   // k-slot tx of a row holds input row 8*(tx/8) + (j < 4 ? 2j : 2j - 7), j = tx % 8
   const int j = tx & 7;
   const int src = (tx & ~7) + (j < 4 ? 2 * j : 2 * j - 7);
-  float* img = wsplit + static_cast<size_t>(stage) * 2 * H * kStageK;
+  float* img = reinterpret_cast<float*>(img_bytes);
   for (int r = ty; r < 32; r += 8) {
     const int n = nb + r;
     const float v = tile[src][r];
@@ -315,36 +440,29 @@ fwd_split_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
 
 // ---- launch 2: the trunk ----
 
-template <int H>
-struct Trunk {
-  static constexpr int NW = H / kWarpgroups;     // output columns per warpgroup
-  static constexpr int NR = NW / 2;              // accumulator registers per thread
-  static constexpr int kStageBytes = 2 * H * kStageK * 4;  // [hi | lo]
-  static constexpr int NS = kRingBytes / kStageBytes;      // ring depth
-  static_assert(NS >= 2, "at least two stages");
-};
-
 // Dynamic shared memory, whatever D: the stage ring (1024-byte aligned),
 // the activation tile, two layer-0 input stages, wout's live columns, the
 // mbarriers.
-template <int H>
+template <int H, int ROUTE>
 constexpr size_t trunk_smem() {
   return 1024 + kRingBytes +
          sizeof(float) * (static_cast<size_t>(kTileP) * (H + kActPad + 2 * kXLd) + H * kHead) +
-         2 * Trunk<H>::NS * sizeof(uint64_t);
+         2 * Trunk<H, ROUTE>::NS * sizeof(uint64_t);
 }
-static_assert(trunk_smem<256>() <= 232448, "fwd_trunk's shared memory fits a block");
+static_assert(trunk_smem<256, kTf32x3>() <= 232448 && trunk_smem<256, kBf16>() <= 232448 &&
+                  trunk_smem<256, kFp32>() <= 232448 && trunk_smem<128, kBf16>() <= 232448,
+              "fwd_trunk's shared memory fits a block");
 
 // The two consumer warpgroups of fwd_trunk_kernel.
-template <int H, bool INLINE_PE, bool STAGED>
+template <int H, bool INLINE_PE, bool STAGED, int ROUTE>
 __device__ __forceinline__ void fwd_trunk_consumer(
     const float* __restrict__ in, const float* __restrict__ feats, const float* __restrict__ e2,
     const float* __restrict__ c, const float* __restrict__ b0, const float* __restrict__ bh,
     const float* __restrict__ wout, const float* __restrict__ bout, float* __restrict__ out4,
     int N, int Np, int tiles, int n_raw, int n_phase, int Fd, int D, int L1,
-    uint32_t ring, float* __restrict__ act, float* __restrict__ xbuf, float* __restrict__ whead,
-    uint32_t full0, uint32_t empty0) {
-  using T = Trunk<H>;
+    uint32_t ring, const uint8_t* ring_ptr, float* __restrict__ act, float* __restrict__ xbuf,
+    float* __restrict__ whead, uint32_t full0, uint32_t empty0) {
+  using T = Trunk<H, ROUTE>;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2;                       // warpgroup: columns [wg*NW, +NW)
@@ -356,9 +474,13 @@ __device__ __forceinline__ void fwd_trunk_consumer(
 #pragma unroll
   for (int i = 0; i < T::NR; ++i) part[i] = 0.f;
   int it = 0;
-  // the head's four live columns, once per CTA
-  for (int e = tid; e < H * kHead; e += kConsumers)
-    whead[e] = __ldg(wout + (e / kHead) * kOutPad + e % kHead);
+  // the head's four live columns, once per CTA (rounded to bf16 on that route)
+  for (int e = tid; e < H * kHead; e += kConsumers) {
+    if constexpr (ROUTE == kBf16)
+      whead[e] = round_bf16(__ldg(wout + (e / kHead) * kOutPad + e % kHead));
+    else
+      whead[e] = __ldg(wout + (e / kHead) * kOutPad + e % kHead);
+  }
 
   for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int n0 = tile * kTileP;
@@ -399,64 +521,11 @@ __device__ __forceinline__ void fwd_trunk_consumer(
       const int nst = (K + kStageK - 1) / kStageK;
 #pragma unroll
       for (int i = 0; i < T::NR; ++i) acc[i] = 0.f;
-      // A fragments of stage sl's k-steps, split into TF32 halves, from the
-      // tile or (a STAGED layer 0) from the stage's input buffer; K is a
-      // multiple of 16, so a stage has 2 or 4 live k-steps.
       const bool from_tile = !STAGED || l > 0;
-      auto load_a = [&](int sl, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4]) {
-        const int kbase = sl * kStageK;
-        const int live = K - kbase >= kStageK ? 4 : 2;
-        const float* src = from_tile ? act + kbase : xstage(sl);
-        const int sld = from_tile ? ld : kXLd;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (q < live) {
-            const float* a0p = src + r0 * sld + 8 * q + 2 * t;
-            const float2 u = *reinterpret_cast<const float2*>(a0p);
-            const float2 w = *reinterpret_cast<const float2*>(a0p + 8 * sld);
-            split_fast(u.x, ahi[q][0], alo[q][0]);
-            split_fast(w.x, ahi[q][1], alo[q][1]);
-            split_fast(u.y, ahi[q][2], alo[q][2]);
-            split_fast(w.y, ahi[q][3], alo[q][3]);
-          }
-        }
-      };
-      // stage sl from the fragments in (ahi, alo); the next stage's are read
-      // into (nhi, nlo) while the tensor cores run
-      auto stage = [&](int sl, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4],
-                       uint32_t (&nhi)[4][4], uint32_t (&nlo)[4][4]) {
-        const int s = it % T::NS;
-        const int live = K - sl * kStageK >= kStageK ? 4 : 2;
-        mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
-        const uint32_t hi_img = ring + s * T::kStageBytes + c0 * (kStageK * 4);
-        const uint32_t lo_img = hi_img + H * kStageK * 4;
-        fence_regs(part);
-        wgmma_fence();
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (q < live) {
-            wgmma_tf32<T::NW>(part, alo[q], sw128_desc(hi_img + 32 * q), q > 0);
-            wgmma_tf32<T::NW>(part, ahi[q], sw128_desc(lo_img + 32 * q), 1);
-            wgmma_tf32<T::NW>(part, ahi[q], sw128_desc(hi_img + 32 * q), 1);
-          }
-        }
-        wgmma_commit();
-        if (sl + 1 < nst) {
-          if (!from_tile) {  // its buffer was last read by load_a(sl - 1), before the last sync
-            build_x(sl + 1, xstage(sl + 1), kXLd);
-            consumers_sync();
-          }
-          load_a(sl + 1, nhi, nlo);
-        }
-        wgmma_wait_all();
-        fence_regs(part);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
-#pragma unroll
-        for (int i = 0; i < T::NR; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
-        ++it;
-      };
-      uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
+      // the input rows of stage sl, point-major: the tile's or (a STAGED
+      // layer 0) the stage's input buffer
+      auto a_src = [&](int sl) { return from_tile ? act + sl * kStageK : xstage(sl); };
+      const int sld = from_tile ? ld : kXLd;
       if (l == 0) {  // the first stage, or the whole input into the tile
         if (STAGED)
           build_x(0, xstage(0), kXLd);
@@ -464,10 +533,148 @@ __device__ __forceinline__ void fwd_trunk_consumer(
           for (int sl = 0; sl < nst; ++sl) build_x(sl, act + sl * kStageK, ld);
         consumers_sync();
       }
-      load_a(0, h0, l0);
-      for (int sl = 0; sl < nst; sl += 2) {
-        stage(sl, h0, l0, h1, l1);
-        if (sl + 1 < nst) stage(sl + 1, h1, l1, h0, l0);
+      if constexpr (ROUTE == kFp32) {
+        // FFMAs over the stage's fp32 rows; K is a multiple of 16
+        for (int sl = 0; sl < nst; ++sl) {
+          const int s = it % T::NS;
+          const int rows = K - sl * kStageK >= kStageK ? kStageK : 16;
+          mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
+          const float* w = reinterpret_cast<const float*>(ring_ptr + s * T::kStageBytes) + c0 + 2 * t;
+          const float* src = a_src(sl);
+#pragma unroll 4
+          for (int k = 0; k < rows; ++k) {
+            const float a0 = src[r0 * sld + k], a1 = src[(r0 + 8) * sld + k];
+#pragma unroll
+            for (int j = 0; j < T::NW / 8; ++j) {
+              const float2 b = *reinterpret_cast<const float2*>(w + k * H + 8 * j);
+              acc[4 * j] = fmaf(a0, b.x, acc[4 * j]);
+              acc[4 * j + 1] = fmaf(a0, b.y, acc[4 * j + 1]);
+              acc[4 * j + 2] = fmaf(a1, b.x, acc[4 * j + 2]);
+              acc[4 * j + 3] = fmaf(a1, b.y, acc[4 * j + 3]);
+            }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
+          if (sl + 1 < nst && !from_tile) {  // its buffer was last read before the last sync
+            build_x(sl + 1, xstage(sl + 1), kXLd);
+            consumers_sync();
+          }
+          ++it;
+        }
+      } else if constexpr (ROUTE == kBf16) {
+        // A fragments of stage sl's two k-steps of 16, rounded to bf16
+        auto load_a = [&](int sl, uint32_t (&a)[2][4]) {
+          const int live = K - sl * kStageK >= kStageK ? 2 : 1;
+          const float* src = a_src(sl);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            if (q < live) {
+              const float* p = src + r0 * sld + 16 * q + 2 * t;
+              const float2 u = *reinterpret_cast<const float2*>(p);
+              const float2 v = *reinterpret_cast<const float2*>(p + 8);
+              const float2 w = *reinterpret_cast<const float2*>(p + 8 * sld);
+              const float2 x = *reinterpret_cast<const float2*>(p + 8 * sld + 8);
+              a[q][0] = pack_bf16(u.x, u.y);
+              a[q][1] = pack_bf16(w.x, w.y);
+              a[q][2] = pack_bf16(v.x, v.y);
+              a[q][3] = pack_bf16(x.x, x.y);
+            }
+          }
+        };
+        auto stage = [&](int sl, uint32_t (&a)[2][4], uint32_t (&next)[2][4]) {
+          const int s = it % T::NS;
+          const int live = K - sl * kStageK >= kStageK ? 2 : 1;
+          mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
+          const uint32_t img = ring + s * T::kStageBytes + c0 * (kStageK * 2);
+          fence_regs(part);
+          wgmma_fence();
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            if (q < live) wgmma_bf16<T::NW>(part, a[q], sw64_desc(img + 32 * q), q > 0);
+          wgmma_commit();
+          if (sl + 1 < nst) {
+            if (!from_tile) {  // its buffer was last read by load_a(sl - 1), before the last sync
+              build_x(sl + 1, xstage(sl + 1), kXLd);
+              consumers_sync();
+            }
+            load_a(sl + 1, next);
+          }
+          wgmma_wait_all();
+          fence_regs(part);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
+#pragma unroll
+          for (int i = 0; i < T::NR; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+          ++it;
+        };
+        uint32_t a0[2][4], a1[2][4];
+        load_a(0, a0);
+        for (int sl = 0; sl < nst; sl += 2) {
+          stage(sl, a0, a1);
+          if (sl + 1 < nst) stage(sl + 1, a1, a0);
+        }
+      } else {
+        // A fragments of stage sl's k-steps, split into TF32 halves; K is a
+        // multiple of 16, so a stage has 2 or 4 live k-steps.
+        auto load_a = [&](int sl, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4]) {
+          const int kbase = sl * kStageK;
+          const int live = K - kbase >= kStageK ? 4 : 2;
+          const float* src = from_tile ? act + kbase : xstage(sl);
+          const int sld = from_tile ? ld : kXLd;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (q < live) {
+              const float* a0p = src + r0 * sld + 8 * q + 2 * t;
+              const float2 u = *reinterpret_cast<const float2*>(a0p);
+              const float2 w = *reinterpret_cast<const float2*>(a0p + 8 * sld);
+              split_fast(u.x, ahi[q][0], alo[q][0]);
+              split_fast(w.x, ahi[q][1], alo[q][1]);
+              split_fast(u.y, ahi[q][2], alo[q][2]);
+              split_fast(w.y, ahi[q][3], alo[q][3]);
+            }
+          }
+        };
+        // stage sl from the fragments in (ahi, alo); the next stage's are read
+        // into (nhi, nlo) while the tensor cores run
+        auto stage = [&](int sl, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4],
+                         uint32_t (&nhi)[4][4], uint32_t (&nlo)[4][4]) {
+          const int s = it % T::NS;
+          const int live = K - sl * kStageK >= kStageK ? 4 : 2;
+          mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
+          const uint32_t hi_img = ring + s * T::kStageBytes + c0 * (kStageK * 4);
+          const uint32_t lo_img = hi_img + H * kStageK * 4;
+          fence_regs(part);
+          wgmma_fence();
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (q < live) {
+              wgmma_tf32<T::NW>(part, alo[q], sw128_desc(hi_img + 32 * q), q > 0);
+              wgmma_tf32<T::NW>(part, ahi[q], sw128_desc(lo_img + 32 * q), 1);
+              wgmma_tf32<T::NW>(part, ahi[q], sw128_desc(hi_img + 32 * q), 1);
+            }
+          }
+          wgmma_commit();
+          if (sl + 1 < nst) {
+            if (!from_tile) {  // its buffer was last read by load_a(sl - 1), before the last sync
+              build_x(sl + 1, xstage(sl + 1), kXLd);
+              consumers_sync();
+            }
+            load_a(sl + 1, nhi, nlo);
+          }
+          wgmma_wait_all();
+          fence_regs(part);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
+#pragma unroll
+          for (int i = 0; i < T::NR; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+          ++it;
+        };
+        uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
+        load_a(0, h0, l0);
+        for (int sl = 0; sl < nst; sl += 2) {
+          stage(sl, h0, l0, h1, l1);
+          if (sl + 1 < nst) stage(sl + 1, h1, l1, h0, l0);
+        }
       }
       consumers_sync();  // every warp is done reading the layer's input
       const float* bias = l ? bh + static_cast<size_t>(l - 1) * H : b0;
@@ -483,13 +690,19 @@ __device__ __forceinline__ void fwd_trunk_consumer(
       consumers_sync();
     }
 
-    // head, exact fp32: thread -> (point, output column)
+    // head, fp32 FMAs (bf16-rounded operands on that route): thread ->
+    // (point, output column)
     if (tid < kTileP * kHead) {
       const int p = tid >> 2;
       const int o = tid & 3;
       float s = 0.f;
 #pragma unroll 16
-      for (int k = 0; k < H; ++k) s = fmaf(act[p * ld + k], whead[k * kHead + o], s);
+      for (int k = 0; k < H; ++k) {
+        if constexpr (ROUTE == kBf16)
+          s = fmaf(round_bf16(act[p * ld + k]), whead[k * kHead + o], s);
+        else
+          s = fmaf(act[p * ld + k], whead[k * kHead + o], s);
+      }
       s += __ldg(bout + o);
       out4[static_cast<size_t>(o) * Np + n0 + p] = s;
     }
@@ -497,7 +710,7 @@ __device__ __forceinline__ void fwd_trunk_consumer(
   }
 }
 
-template <int H, bool INLINE_PE, bool STAGED>
+template <int H, bool INLINE_PE, bool STAGED, int ROUTE>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_trunk_kernel(const float* __restrict__ in, const float* __restrict__ feats,
                  const float* __restrict__ e2, const float* __restrict__ c,
@@ -505,7 +718,7 @@ fwd_trunk_kernel(const float* __restrict__ in, const float* __restrict__ feats,
                  const float* __restrict__ bh, const float* __restrict__ wout,
                  const float* __restrict__ bout, float* __restrict__ out4, int N, int Np,
                  int tiles, int n_raw, int n_phase, int Fd, int D, int L1) {
-  using T = Trunk<H>;
+  using T = Trunk<H, ROUTE>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_addr = smem_u32(smem_raw);
   uint8_t* base = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
@@ -535,22 +748,22 @@ fwd_trunk_kernel(const float* __restrict__ in, const float* __restrict__ feats,
   if (warp >= kConsumers / 32) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (warp == kConsumers / 32 && lane == 0) {
+      const uint8_t* images = reinterpret_cast<const uint8_t*>(wsplit);
       int it = 0;
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
         for (int st = 0; st < stages; ++st, ++it) {
           const int s = it % T::NS;
           mbar_wait(empty0 + 8 * s, ((it / T::NS) & 1) ^ 1);
           mbar_arrive_expect_tx(full0 + 8 * s, T::kStageBytes);
-          bulk_copy(ring + s * T::kStageBytes,
-                    wsplit + static_cast<size_t>(st) * 2 * H * kStageK, T::kStageBytes,
-                    full0 + 8 * s);
+          bulk_copy(ring + s * T::kStageBytes, images + static_cast<size_t>(st) * T::kStageBytes,
+                    T::kStageBytes, full0 + 8 * s);
         }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    fwd_trunk_consumer<H, INLINE_PE, STAGED>(in, feats, e2, c, b0, bh, wout, bout, out4, N, Np,
-                                             tiles, n_raw, n_phase, Fd, D, L1, ring, act, xbuf,
-                                             whead, full0, empty0);
+    fwd_trunk_consumer<H, INLINE_PE, STAGED, ROUTE>(in, feats, e2, c, b0, bh, wout, bout, out4, N,
+                                                    Np, tiles, n_raw, n_phase, Fd, D, L1, ring,
+                                                    base, act, xbuf, whead, full0, empty0);
   }
 }
 
@@ -621,7 +834,7 @@ fwd_composite_kernel(const float* __restrict__ out4, const float* __restrict__ z
   }
 }
 
-template <int H, bool INLINE_PE>
+template <int H, bool INLINE_PE, int ROUTE>
 cudaError_t launch(const float* in, const float* feats, const float* z, const float* dnorm,
                    const float* e2, const float* c, const float* w0, const float* b0,
                    const float* wh, const float* bh, const float* wout, const float* bout,
@@ -631,14 +844,15 @@ cudaError_t launch(const float* in, const float* feats, const float* z, const fl
   const Layout lay = make_layout(R, S, D, H, L1);
   float* wsplit = scratch;
   float* out4 = scratch + lay.out4;
-  fwd_split_kernel<<<dim3(H / 32, lay.stages), 256, 0, st>>>(w0, wh, wsplit, D, H, lay.stages0);
+  fwd_split_kernel<H, ROUTE><<<dim3(H / 32, lay.stages), 256, 0, st>>>(w0, wh, wsplit, D,
+                                                                       lay.stages0);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  constexpr size_t smem = trunk_smem<H>();
+  constexpr size_t smem = trunk_smem<H, ROUTE>();
   // an input wider than the activation tile streams through the stage buffers
-  const auto trunk =
-      D > H ? fwd_trunk_kernel<H, INLINE_PE, true> : fwd_trunk_kernel<H, INLINE_PE, false>;
+  const auto trunk = D > H ? fwd_trunk_kernel<H, INLINE_PE, true, ROUTE>
+                           : fwd_trunk_kernel<H, INLINE_PE, false, ROUTE>;
   err = cudaFuncSetAttribute(trunk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -657,46 +871,69 @@ cudaError_t launch(const float* in, const float* feats, const float* z, const fl
   return cudaGetLastError();
 }
 
+template <int H, bool INLINE_PE>
+cudaError_t launch_route(int route, const float* in, const float* feats, const float* z,
+                         const float* dnorm, const float* e2, const float* c, const float* w0,
+                         const float* b0, const float* wh, const float* bh, const float* wout,
+                         const float* bout, float* rgb, float* depth, float* acc, float* weights,
+                         float* scratch, int R, int S, int n_raw, int n_phase, int Fd, int D,
+                         int L1, int white_bkgd, int device, cudaStream_t st) {
+  if (route == kBf16)
+    return launch<H, INLINE_PE, kBf16>(in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout,
+                                       rgb, depth, acc, weights, scratch, R, S, n_raw, n_phase,
+                                       Fd, D, L1, white_bkgd, device, st);
+  if (route == kFp32)
+    return launch<H, INLINE_PE, kFp32>(in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout,
+                                       rgb, depth, acc, weights, scratch, R, S, n_raw, n_phase,
+                                       Fd, D, L1, white_bkgd, device, st);
+  return launch<H, INLINE_PE, kTf32x3>(in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout,
+                                       rgb, depth, acc, weights, scratch, R, S, n_raw, n_phase,
+                                       Fd, D, L1, white_bkgd, device, st);
+}
+
 template <bool INLINE_PE>
 int dispatch(const float* in, const float* feats, const float* z, const float* dnorm,
              const float* e2, const float* c, const float* w0, const float* b0, const float* wh,
              const float* bh, const float* wout, const float* bout, float* rgb, float* depth,
              float* acc, float* weights, float* scratch, int R, int S, int n_raw, int n_phase,
-             int Fd, int D, int H, int L1, int white_bkgd, int device, void* stream) {
-  if (D % 16 != 0 || D > kMaxD || R < 1 || S < 1 || L1 < 0) return cudaErrorInvalidValue;
+             int Fd, int D, int H, int L1, int white_bkgd, int route, int device, void* stream) {
+  if (D % 16 != 0 || D > kMaxD || R < 1 || S < 1 || L1 < 0 || route < kTf32x3 || route > kFp32)
+    return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H == 256)
-    return launch<256, INLINE_PE>(in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout, rgb,
-                                  depth, acc, weights, scratch, R, S, n_raw, n_phase, Fd, D, L1,
-                                  white_bkgd, device, st);
+    return launch_route<256, INLINE_PE>(route, in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout,
+                                        bout, rgb, depth, acc, weights, scratch, R, S, n_raw,
+                                        n_phase, Fd, D, L1, white_bkgd, device, st);
   if (H == 128)
-    return launch<128, INLINE_PE>(in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout, rgb,
-                                  depth, acc, weights, scratch, R, S, n_raw, n_phase, Fd, D, L1,
-                                  white_bkgd, device, st);
+    return launch_route<128, INLINE_PE>(route, in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout,
+                                        bout, rgb, depth, acc, weights, scratch, R, S, n_raw,
+                                        n_phase, Fd, D, L1, white_bkgd, device, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Floats of the scratch nerf_fwd_pe and nerf_fwd_x need: the weights' TF32
-// stage images and the four raw head outputs of every point.
+// Floats of the scratch nerf_fwd_pe and nerf_fwd_x need: the weights' stage
+// images (the float32 route's TF32 halves, the largest) and the four raw
+// head outputs of every point.
 extern "C" unsigned long long nerf_fwd_scratch_floats(int R, int S, int D, int H, int L1) {
   return make_layout(R, S, D, H, L1).total;
 }
 
-// Kernel 2: the inline-PE render from the thin (R*S, n_raw) raw block.
+// Kernel 2: the inline-PE render from the thin (R*S, n_raw) raw block;
+// route: the products' precision route (kTf32x3, kBf16, kFp32).
 extern "C" int nerf_fwd_pe(const float* raw, const float* feats, const float* z,
                            const float* dnorm, const float* e2, const float* c,
                            const float* w0, const float* b0, const float* wh, const float* bh,
                            const float* wout, const float* bout, float* rgb, float* depth,
                            float* acc, float* weights, float* scratch, int R, int S, int n_raw,
-                           int n_phase, int Fd, int D, int H, int L1, int white_bkgd, int device,
-                           void* stream) {
+                           int n_phase, int Fd, int D, int H, int L1, int white_bkgd, int route,
+                           int device, void* stream) {
   return dispatch<true>(raw, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout, rgb, depth, acc,
-                        weights, scratch, R, S, n_raw, n_phase, Fd, D, H, L1, white_bkgd, device,
-                        stream);
+                        weights, scratch, R, S, n_raw, n_phase, Fd, D, H, L1, white_bkgd, route,
+                        device, stream);
 }
 
 // Kernel 4: the render from a pre-encoded (R*S, D) x.
@@ -704,9 +941,9 @@ extern "C" int nerf_fwd_x(const float* x, const float* z, const float* dnorm, co
                           const float* b0, const float* wh, const float* bh, const float* wout,
                           const float* bout, float* rgb, float* depth, float* acc,
                           float* weights, float* scratch, int R, int S, int D, int H, int L1,
-                          int white_bkgd, int device, void* stream) {
+                          int white_bkgd, int route, int device, void* stream) {
   return dispatch<false>(x, nullptr, z, dnorm, nullptr, nullptr, w0, b0, wh, bh, wout, bout, rgb,
-                         depth, acc, weights, scratch, R, S, 0, 0, 0, D, H, L1, white_bkgd,
+                         depth, acc, weights, scratch, R, S, 0, 0, 0, D, H, L1, white_bkgd, route,
                          device, stream);
 }
 

@@ -52,7 +52,29 @@
 // the log-space transmittance prefix scan, the suffix sum s_after, the
 // 4-column head and the seed of the backward chain, and the bias sums.
 //
-// Bound: at the baseline widths (x_dim 90, 8x256 trunk) the forward is
+// That is the float32 route (ROUTE kTf32x3). Two more routes compute the
+// JAX kernels' other compute_dtypes (nerf_fewshot_tpu/render/kernels.py:63
+// _dot), with the same tiles, stages and launches; only the products differ:
+//   kBf16 (compute_dtype bfloat16): both operands of every product are
+//   rounded to bf16 (cvt.rn.bf16x2.f32: to nearest even) and multiplied by
+//   mma.sync m16n8k8 .bf16 with fp32 accumulation, one pass; the weights'
+//   images are rounded once per call, activations and cotangents as their
+//   fragments are read. The products of every two k-steps are promoted with
+//   round-to-nearest FADDs, as above. The head rounds its operands too
+//   (the JAX head is a _dot), unless the caller pins it to exact fp32
+//   (head_mode "vpu");
+//   kFp32 (compute_dtype highest): every product as fp32 FFMAs on the CUDA
+//   cores, from the same shared-memory stages (plain fp32 weight images),
+//   each thread owning the outputs an mma fragment would hold: the plain
+//   fp32 function up to the order of the sums. Its sums are ordered for
+//   accuracy, since it is the verification route: the dW products' point
+//   axis in two levels (32-point stages, then the stages), db as
+//   compensated sums, and the transmittance from the exclusive prefix
+//   (composite_forward).
+// The six dW products take their own route (dw_route: the JAX dw_precision
+// pin "highest" runs them as kFp32 under any route).
+//
+// Bound (float32 route): at the baseline widths (x_dim 90, 8x256 trunk) the forward is
 // 2*(90*256 + 7*256^2 + 4*256) = 0.97 MFLOP per point, the backward chain
 // 2*(4*256 + 7*256^2) = 0.92 MFLOP and the dW products 0.97 MFLOP: 2.85 MFLOP
 // per point, 93 GFLOP for a 512-ray x 64-sample step (the render VJP adds dx,
@@ -61,6 +83,9 @@
 // product is three TF32 products: 3*93 GFLOP at the 495 TFLOP/s TF32 peak of
 // an H100 SXM is 0.57 ms. That peak needs wgmma; mma.sync reaches about two
 // thirds of it (chip_smoke.py's tensor-core probe measures the rate).
+// The bfloat16 route does one bf16 product per product: 93 GFLOP at 989
+// TFLOP/s, 0.094 ms; the highest route does them at the 67 TFLOP/s fp32
+// CUDA-core rate, 1.39 ms.
 //
 // Design: the TPU kernels stash every layer's activations of a ray tile in
 // VMEM, ~640 KB per 64-sample ray at 256 wide, far beyond an SM's 227 KB. So
@@ -68,7 +93,7 @@
 // cotangents in a global scratch buffer that the caller allocates once and
 // grows:
 //   1. weight_split: the TF32 halves of w0, wh and wh^T (the backward
-//      chain's weights);
+//      chain's weights), or their bf16 or fp32 images in the hi half;
 //   2. train_fwd: one 256-thread CTA per 64-point tile (points of any ray):
 //      builds x (inline PE) into the scratch as A_0 (feature-major, [D][Np]),
 //      then runs each layer with dense_tc: 2x4 warps of 32 points x H/4
@@ -101,6 +126,8 @@
 // Fragments (mma.sync m16n8k8 .row.col tf32, g = lane/4, t = lane%4): A
 // (16x8) a0 (g,t) a1 (g+8,t) a2 (g,t+4) a3 (g+8,t+4); B (8x8) b0 (k=t,n=g)
 // b1 (k=t+4,n=g); C (16x8) c0 (g,2t) c1 (g,2t+1) c2 (g+8,2t) c3 (g+8,2t+1).
+// The .bf16 shape packs two values a register, the lower k in the low half:
+// A a01 (g, 2t..2t+1) a23 (g+8, 2t..2t+1); B b01 (k=2t..2t+1, n=g); C as tf32.
 // They are read from shared memory with 32-bit loads; every row stride is
 // padded so that a warp's 8x4 lane pattern hits 32 distinct banks.
 // No atomic operations on the device: two runs of a call agree bit for bit.
@@ -123,6 +150,10 @@ constexpr int kOutPad = 128;     // packed head columns [r, g, b, sigma, 0...]
 constexpr int kHead = 4;         // live head columns
 constexpr float kFar = 1e10f;
 constexpr float kEps = 1e-10f;
+// Precision routes (render/kernels.py ROUTES)
+constexpr int kTf32x3 = 0;  // compute_dtype float32
+constexpr int kBf16 = 1;    // compute_dtype bfloat16
+constexpr int kFp32 = 2;    // compute_dtype highest
 constexpr int kDwT = 128;             // dW output tile edge (rows k and columns j)
 constexpr int kBN = 32;               // points per dW cp.async stage
 constexpr int kDwLd = kBN + 4;        // dW operand row stride (4 mod 32)
@@ -200,6 +231,42 @@ __device__ __forceinline__ uint32_t rna_bits(uint32_t b) { return (b + 0x1000u) 
 __device__ __forceinline__ void split_fast(float v, uint32_t& hi, uint32_t& lo) {
   hi = rna_bits(__float_as_uint(v));
   lo = rna_bits(__float_as_uint(v - __uint_as_float(hi)));
+}
+
+// {lo, hi} rounded to bf16 (to nearest even), packed lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// v rounded to bf16, as an fp32 value.
+__device__ __forceinline__ float round_bf16(float v) {
+  return __uint_as_float(pack_bf16(0.f, v) & 0xffff0000u);
+}
+
+// The head's operand: rounded to bf16 on the bfloat16 route, else as is.
+__device__ __forceinline__ float head_in(float v, bool bf16) { return bf16 ? round_bf16(v) : v; }
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5}, {%6}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b));
+}
+
+// part += a.b for one k-step of 8 over an MT x NT block, one bf16 pass;
+// bfrag(j) gives the packed B fragment of n-tile j.
+template <int MT, int NT, class BFrag>
+__device__ __forceinline__ void mma1_step(float (&part)[MT][NT][4], const uint32_t (&a)[MT][2],
+                                          BFrag bfrag) {
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    const uint32_t b = bfrag(j);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) mma_bf16(part[i][j], a[i], b);
+  }
 }
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
@@ -290,6 +357,22 @@ __device__ __forceinline__ void load_a_kmajor_split(const float* p, int ld, int 
   split_fast(q[4 * ld + 8], hi[3], lo[3]);
 }
 
+// The bf16 A fragment of a 16x8 tile at p[m*ld + k] (row-major), rounded.
+__device__ __forceinline__ void load_a_mmajor_bf16(const float* p, int ld, int g, int t,
+                                                   uint32_t (&a)[2]) {
+  const float* q = p + g * ld + 2 * t;
+  a[0] = pack_bf16(q[0], q[1]);
+  a[1] = pack_bf16(q[8 * ld], q[8 * ld + 1]);
+}
+
+// The bf16 A fragment of a 16x8 tile at p[k*ld + m] (feature-major), rounded.
+__device__ __forceinline__ void load_a_kmajor_bf16(const float* p, int ld, int g, int t,
+                                                   uint32_t (&a)[2]) {
+  const float* q = p + 2 * t * ld + g;
+  a[0] = pack_bf16(q[0], q[ld]);
+  a[1] = pack_bf16(q[8], q[ld + 8]);
+}
+
 // 16 bytes global -> shared, bypassing L1; bytes < 16 zero-fills the rest.
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -319,14 +402,15 @@ struct Dense {
   static_assert(kFwdSmem <= 232448, "train_fwd's tile and stages fit a block's shared memory");
 };
 
-// Rows k0 .. k0+kKT-1 of both halves of W (K, H) into a stage; rows past K
-// are zero-filled.
-template <int H>
+// Rows k0 .. k0+kKT-1 of W (K, H) into a stage: both TF32 halves (kHalves
+// 2) or the hi half only (the bf16 and fp32 images); rows past K are
+// zero-filled.
+template <int H, int kHalves>
 __device__ __forceinline__ void load_w_stage(float* st, const float* __restrict__ whi,
                                              const float* __restrict__ wlo, int k0, int K) {
   using S = Dense<H>;
 #pragma unroll
-  for (int v = 0; v < S::kChunks / kThreads; ++v) {
+  for (int v = 0; v < kHalves * S::kChunks / 2 / kThreads; ++v) {
     const int c = threadIdx.x + v * kThreads;
     const int half = c / (S::kChunks / 2);
     const int r = (c % (S::kChunks / 2)) / (H / 4);
@@ -355,20 +439,23 @@ __device__ __forceinline__ void load_x_stage(float* st, const float* __restrict_
   }
 }
 
-// One dense layer of a kTileP-point tile on the tensor cores, 3xTF32:
-// t[col][p] <- f(sum_k in[k][p] * W[k][col]), W given by its TF32 halves
-// (K, H) row-major in global memory, streamed through two cp.async stages
+// One dense layer of a kTileP-point tile on the tensor cores, 3xTF32
+// (ROUTE kTf32x3), one bf16 pass (kBf16) or as fp32 FFMAs on the CUDA
+// cores (kFp32): t[col][p] <- f(sum_k in[k][p] * W[k][col]), W given by its
+// TF32 halves, or its bf16 or fp32 image as whi, (K, H) row-major in global
+// memory, streamed through two cp.async stages
 // of kKT rows: stage s+1 is requested right after the barrier that ends
 // every warp's use of its buffer, and lands while stage s is consumed. The
 // input is the tile itself (x_g null: in place, read only before the barrier
 // after the loop, so the output overwrites it) or, for layer 0, x_g: its
 // kKT rows of each stage are streamed beside the weights into x_st, so that
 // the sums are those of the in-place layer, in the same order. The input is
-// split into TF32 halves as its fragments are read. The epilogue is
+// split into TF32 halves (rounded to bf16) as its fragments are read. The
+// FFMA route's threads own the outputs of the mma fragments. The epilogue is
 //   forward (!BWD): out = relu(acc + bias);
 //   backward (BWD): out = acc where gate[col][n] > 0, else 0;
 // it writes t[col][p] in shared memory and dst[col*Np + n0 + p] in global.
-template <int H, bool BWD>
+template <int H, bool BWD, int ROUTE>
 __device__ void dense_tc(float* __restrict__ t_sm, const float* __restrict__ whi,
                          const float* __restrict__ wlo, const float* __restrict__ bias, int K,
                          float* __restrict__ wst, float* __restrict__ dst,
@@ -386,38 +473,73 @@ __device__ void dense_tc(float* __restrict__ t_sm, const float* __restrict__ whi
   zero_block(acc);
   zero_block(part);
 
+  constexpr int kHalves = ROUTE == kTf32x3 ? 2 : 1;
   const int n_stages = (K + kKT - 1) / kKT;
-  load_w_stage<H>(wst, whi, wlo, 0, K);
+  load_w_stage<H, kHalves>(wst, whi, wlo, 0, K);
   if (x_g != nullptr) load_x_stage(x_st, x_g, 0, K, Np, n0);
   cp_async_commit();
   for (int s = 0; s < n_stages; ++s) {
     cp_async_wait<0>();
     __syncthreads();  // stage s has landed; stage s-1 and the input writes are done
     if (s + 1 < n_stages) {
-      load_w_stage<H>(wst + ((s + 1) & 1) * 2 * S::kHalf, whi, wlo, (s + 1) * kKT, K);
+      load_w_stage<H, kHalves>(wst + ((s + 1) & 1) * 2 * S::kHalf, whi, wlo, (s + 1) * kKT, K);
       if (x_g != nullptr)
         load_x_stage(x_st + ((s + 1) & 1) * kKT * kLd, x_g, (s + 1) * kKT, K, Np, n0);
       cp_async_commit();
     }
     // the stage's kKT input rows: streamed (layer 0) or rows s*kKT.. of the tile
     const float* a_st = x_g != nullptr ? x_st + (s & 1) * kKT * kLd : t_sm + s * kKT * kLd;
+    if constexpr (ROUTE == kFp32) {
+      const float* wrow = wst + (s & 1) * 2 * S::kHalf + cn + 2 * t;
+#pragma unroll 4
+      for (int k = 0; k < kKT; ++k) {
+        if (k == 16 && s * kKT + k >= K) break;  // K is a multiple of 16, not always of kKT
+        float a[S::MT][2];
+#pragma unroll
+        for (int i = 0; i < S::MT; ++i) {
+          a[i][0] = a_st[k * kLd + pm + i * 16 + g];
+          a[i][1] = a_st[k * kLd + pm + i * 16 + g + 8];
+        }
+#pragma unroll
+        for (int j = 0; j < S::NT; ++j) {
+          const float2 b = *reinterpret_cast<const float2*>(wrow + k * S::kLdw + j * 8);
+#pragma unroll
+          for (int i = 0; i < S::MT; ++i) {
+            acc[i][j][0] = fmaf(a[i][0], b.x, acc[i][j][0]);
+            acc[i][j][1] = fmaf(a[i][0], b.y, acc[i][j][1]);
+            acc[i][j][2] = fmaf(a[i][1], b.x, acc[i][j][2]);
+            acc[i][j][3] = fmaf(a[i][1], b.y, acc[i][j][3]);
+          }
+        }
+      }
+      continue;  // the FFMA route has no tensor-core pass
+    }
     const float* ws = wst + (s & 1) * 2 * S::kHalf + cn + g;
 #pragma unroll
     for (int kk = 0; kk < kKT; kk += 8) {
       if (kk > 0 && s * kKT + kk >= K) break;  // K is a multiple of 16, not always of kKT
-      uint32_t ahi[S::MT][4], alo[S::MT][4];
+      if constexpr (ROUTE == kBf16) {
+        uint32_t a[S::MT][2];
 #pragma unroll
-      for (int i = 0; i < S::MT; ++i)
-        load_a_kmajor_split(a_st + kk * kLd + pm + i * 16, kLd, g, t, ahi[i], alo[i]);
-      const float* wk = ws + (kk + t) * S::kLdw;
-      auto bfrag = [&](int j, uint32_t(&bh)[2], uint32_t(&bl)[2]) {
-        const float* b = wk + j * 8;
-        bh[0] = __float_as_uint(b[0]);
-        bh[1] = __float_as_uint(b[4 * S::kLdw]);
-        bl[0] = __float_as_uint(b[S::kHalf]);
-        bl[1] = __float_as_uint(b[S::kHalf + 4 * S::kLdw]);
-      };
-      mma3_step<4>(part, ahi, alo, bfrag);
+        for (int i = 0; i < S::MT; ++i)
+          load_a_kmajor_bf16(a_st + kk * kLd + pm + i * 16, kLd, g, t, a[i]);
+        const float* wk = ws + (kk + 2 * t) * S::kLdw;
+        mma1_step(part, a, [&](int j) { return pack_bf16(wk[j * 8], wk[j * 8 + S::kLdw]); });
+      } else {
+        uint32_t ahi[S::MT][4], alo[S::MT][4];
+#pragma unroll
+        for (int i = 0; i < S::MT; ++i)
+          load_a_kmajor_split(a_st + kk * kLd + pm + i * 16, kLd, g, t, ahi[i], alo[i]);
+        const float* wk = ws + (kk + t) * S::kLdw;
+        auto bfrag = [&](int j, uint32_t(&bh)[2], uint32_t(&bl)[2]) {
+          const float* b = wk + j * 8;
+          bh[0] = __float_as_uint(b[0]);
+          bh[1] = __float_as_uint(b[4 * S::kLdw]);
+          bl[0] = __float_as_uint(b[S::kHalf]);
+          bl[1] = __float_as_uint(b[S::kHalf + 4 * S::kLdw]);
+        };
+        mma3_step<4>(part, ahi, alo, bfrag);
+      }
       if (kk & 8) promote(acc, part);
     }
   }
@@ -464,9 +586,23 @@ __device__ void dense_tc(float* __restrict__ t_sm, const float* __restrict__ whi
   }
 }
 
-// The TF32 halves the products read, once per call: w0 (z = 0) and wh[z-1]
-// as given, and wh[z-1]^T for the backward chain (32x32 tiles through
-// shared memory).
+// The weight images the products read, once per call: w0 (z = 0) and
+// wh[z-1] as given, and wh[z-1]^T for the backward chain (32x32 tiles
+// through shared memory). The float32 route's TF32 halves; the bfloat16
+// route's bf16 roundings and the highest route's fp32 values in the hi half.
+template <int ROUTE>
+__device__ __forceinline__ void weight_image(float v, float* hi, float* lo, size_t i) {
+  if constexpr (ROUTE == kTf32x3) {
+    uint32_t h, l;
+    split_tf32(v, h, l);
+    hi[i] = __uint_as_float(h);
+    lo[i] = __uint_as_float(l);
+  } else {
+    hi[i] = ROUTE == kBf16 ? round_bf16(v) : v;
+  }
+}
+
+template <int ROUTE>
 __global__ void weight_split_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
                                     float* __restrict__ w0hi, float* __restrict__ w0lo,
                                     float* __restrict__ whhi, float* __restrict__ whlo,
@@ -475,14 +611,11 @@ __global__ void weight_split_kernel(const float* __restrict__ w0, const float* _
   __shared__ float tile[32][33];
   const int bx = blockIdx.x * 32, by = blockIdx.y * 32;
   const int tx = threadIdx.x;
-  uint32_t hi, lo;
   if (blockIdx.z == 0) {
     for (int r = threadIdx.y; r < 32; r += blockDim.y) {
       if (by + r >= D) break;
       const size_t i = static_cast<size_t>(by + r) * H + bx + tx;
-      split_tf32(w0[i], hi, lo);
-      w0hi[i] = __uint_as_float(hi);
-      w0lo[i] = __uint_as_float(lo);
+      weight_image<ROUTE>(w0[i], w0hi, w0lo, i);
     }
     return;
   }
@@ -491,17 +624,13 @@ __global__ void weight_split_kernel(const float* __restrict__ w0, const float* _
   for (int r = threadIdx.y; r < 32; r += blockDim.y) {
     const size_t i = base + static_cast<size_t>(by + r) * H + bx + tx;
     const float v = wh[i];
-    split_tf32(v, hi, lo);
-    whhi[i] = __uint_as_float(hi);
-    whlo[i] = __uint_as_float(lo);
+    weight_image<ROUTE>(v, whhi, whlo, i);
     tile[r][tx] = v;
   }
   __syncthreads();
   for (int r = threadIdx.y; r < 32; r += blockDim.y) {
     const size_t i = base + static_cast<size_t>(bx + r) * H + by + tx;
-    split_tf32(tile[tx][r], hi, lo);
-    whThi[i] = __uint_as_float(hi);
-    whTlo[i] = __uint_as_float(lo);
+    weight_image<ROUTE>(tile[tx][r], whThi, whTlo, i);
   }
 }
 
@@ -524,15 +653,16 @@ WSplit wsplit_at(float* base, int D, int H, int L1) {
 
 // Forward trunk of one 64-point tile; A_0 = x and every A_i go to act
 // ([D + L*H][Np]), the 4 raw head outputs to out4 ([4][Np]). Layer 0 reads
-// x back from act, one 32-row stage at a time.
-template <int H, bool INLINE_PE>
+// x back from act, one 32-row stage at a time. head_bf16: the head's
+// operands rounded to bf16.
+template <int H, bool INLINE_PE, int ROUTE>
 __global__ void __launch_bounds__(kThreads, 1)
 train_fwd_kernel(const float* __restrict__ in, const float* __restrict__ feats,
                  const float* __restrict__ e2, const float* __restrict__ c, const WSplit ws,
                  const float* __restrict__ b0, const float* __restrict__ bh,
                  const float* __restrict__ wout, const float* __restrict__ bout,
                  float* __restrict__ act, float* __restrict__ out4, int N, int Np, int n_raw,
-                 int n_phase, int Fd, int D, int L1) {
+                 int n_phase, int Fd, int D, int L1, bool head_bf16) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* tile = smem;  // [H][kLd], each layer's output (layers >= 1 in place)
@@ -569,19 +699,25 @@ train_fwd_kernel(const float* __restrict__ in, const float* __restrict__ feats,
 
   for (int l = 0; l <= L1; ++l) {  // layer 0 streams x (D wide) from act, the others H wide
     const size_t off = static_cast<size_t>(l > 0 ? l - 1 : 0) * H * H;
-    dense_tc<H, false>(tile, l ? ws.whhi + off : ws.w0hi, l ? ws.whlo + off : ws.w0lo,
+    dense_tc<H, false, ROUTE>(tile, l ? ws.whhi + off : ws.w0hi, l ? ws.whlo + off : ws.w0lo,
                        l ? bh + static_cast<size_t>(l - 1) * H : b0, l ? H : D, wst,
                        act + (static_cast<size_t>(D) + static_cast<size_t>(l) * H) * Np, nullptr,
                        Np, n0, l ? nullptr : act, xst);
   }
   __syncthreads();
 
-  // head, exact fp32: thread -> (point, output column)
+  // head, fp32 FMAs (of bf16-rounded operands with head_bf16): thread ->
+  // (point, output column)
   for (int e = tid; e < kTileP * kHead; e += kThreads) {
     const int p = e >> 2;
     const int o = e & 3;
     float acc = 0.f;
-    for (int k = 0; k < H; ++k) acc = fmaf(tile[k * kLd + p], __ldg(wout + k * kOutPad + o), acc);
+    if (head_bf16) {
+      for (int k = 0; k < H; ++k)
+        acc = fmaf(round_bf16(tile[k * kLd + p]), round_bf16(__ldg(wout + k * kOutPad + o)), acc);
+    } else {
+      for (int k = 0; k < H; ++k) acc = fmaf(tile[k * kLd + p], __ldg(wout + k * kOutPad + o), acc);
+    }
     out4[static_cast<size_t>(o) * Np + n0 + p] = acc + __ldg(bout + o);
   }
 }
@@ -605,8 +741,14 @@ __device__ __forceinline__ RaySmem ray_smem(float* base, int S) {
 }
 
 // Forward compositing of one ray by one warp: the log-space transmittance
-// by an inclusive fp32 prefix scan. Fills m and returns, in every lane,
-// sums = {sum w*r, sum w*g, sum w*b, sum w*z, sum w, sum w^2}.
+// by an inclusive fp32 prefix scan, T = exp(incl - log om) as the JAX body
+// computes it; kExclusive (the highest route) takes the exclusive prefix
+// from the scan instead, T = exp(excl), which drops the cancellation of
+// subtracting a large log om (~-23 at the 1e-10 floor) from a sum that
+// holds it: the gradients come 4-5x closer to a float64 run. Fills m and
+// returns, in every lane, sums = {sum w*r, sum w*g, sum w*b, sum w*z, sum w,
+// sum w^2}.
+template <bool kExclusive>
 __device__ __forceinline__ void composite_forward(const float* __restrict__ out4,
                                                   const float* __restrict__ zr, float dn,
                                                   size_t nb, int Np, int S, RaySmem m,
@@ -633,10 +775,13 @@ __device__ __forceinline__ void composite_forward(const float* __restrict__ out4
       const float t = __shfl_up_sync(full, incl, off);
       if (lane >= off) incl += t;
     }
+    float excl = __shfl_up_sync(full, incl, 1);
+    if (lane == 0) excl = 0.f;
+    excl += carry;
     incl += carry;
     carry = __shfl_sync(full, incl, 31);
     if (i < S) {
-      const float T = expf(incl - lg);
+      const float T = kExclusive ? expf(excl) : expf(incl - lg);
       const float w = alpha * T;
       float rs[3];
 #pragma unroll
@@ -729,6 +874,7 @@ __device__ __forceinline__ void composite_backward(const float* __restrict__ zr,
 
 // One warp per ray: compositing, the ray's loss partial and the head
 // cotangent g_out of the training objective.
+template <bool kExclusive>
 __global__ void __launch_bounds__(32)
 train_composite_kernel(const float* __restrict__ out4, const float* __restrict__ z,
                        const float* __restrict__ dnorm, const float* __restrict__ tgt,
@@ -743,7 +889,7 @@ train_composite_kernel(const float* __restrict__ out4, const float* __restrict__
   const size_t nb = static_cast<size_t>(ray) * S;
   const float inv_denom = *inv_denom_p;
   float sums[6];
-  composite_forward(out4, zr, dnorm[ray], nb, Np, S, m, sums);
+  composite_forward<kExclusive>(out4, zr, dnorm[ray], nb, Np, S, m, sums);
   const float accw = sums[4];
 
   // loss partial and the scalars of the backward
@@ -780,6 +926,7 @@ train_composite_kernel(const float* __restrict__ out4, const float* __restrict__
 // One warp per ray: the backward compositing of the differentiable render
 // from the external cotangents (g_rgb (R,3), g_depth (R,1), g_acc (R,1),
 // g_weights (R,S)); a white background adds -sum g_rgb into g_acc.
+template <bool kExclusive>
 __global__ void __launch_bounds__(32)
 render_composite_kernel(const float* __restrict__ out4, const float* __restrict__ z,
                         const float* __restrict__ dnorm, const float* __restrict__ g_rgb,
@@ -792,7 +939,7 @@ render_composite_kernel(const float* __restrict__ out4, const float* __restrict_
   const float* zr = z + static_cast<size_t>(ray) * S;
   const size_t nb = static_cast<size_t>(ray) * S;
   float sums[6];
-  composite_forward(out4, zr, dnorm[ray], nb, Np, S, m, sums);
+  composite_forward<kExclusive>(out4, zr, dnorm[ray], nb, Np, S, m, sums);
   const float g0 = g_rgb[3 * ray + 0];
   const float g1 = g_rgb[3 * ray + 1];
   const float g2 = g_rgb[3 * ray + 2];
@@ -805,12 +952,12 @@ render_composite_kernel(const float* __restrict__ out4, const float* __restrict_
 // Backward chain of one 64-point tile: delta_L = (g_out.wout[:, :4]^T) *
 // [A_L > 0] (exact fp32), then delta_i = (delta_{i+1}.wh[i-1]^T) * [A_i > 0]
 // on the tensor cores; each delta goes to gbuf ([L*H][Np], delta_i at row
-// (i-1)*H).
-template <int H>
+// (i-1)*H). head_bf16: the seed's operands rounded to bf16.
+template <int H, int ROUTE>
 __global__ void __launch_bounds__(kThreads, 1)
 train_bwd_kernel(const float* __restrict__ gout, const float* __restrict__ wout, const WSplit ws,
                  const float* __restrict__ act, float* __restrict__ gbuf, int N, int Np, int D,
-                 int L1) {
+                 int L1, bool head_bf16) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* tile = smem;  // [H][kLd], each layer in place
@@ -827,10 +974,11 @@ train_bwd_kernel(const float* __restrict__ gout, const float* __restrict__ wout,
     float v = 0.f;
     if (n < N) {
       const float* wk = wout + k * kOutPad;
-      float s = gout[n] * __ldg(wk + 0);
-      s = fmaf(gout[static_cast<size_t>(Np) + n], __ldg(wk + 1), s);
-      s = fmaf(gout[2 * static_cast<size_t>(Np) + n], __ldg(wk + 2), s);
-      s = fmaf(gout[3 * static_cast<size_t>(Np) + n], __ldg(wk + 3), s);
+      const bool r = head_bf16;
+      float s = head_in(gout[n], r) * head_in(__ldg(wk + 0), r);
+      s = fmaf(head_in(gout[static_cast<size_t>(Np) + n], r), head_in(__ldg(wk + 1), r), s);
+      s = fmaf(head_in(gout[2 * static_cast<size_t>(Np) + n], r), head_in(__ldg(wk + 2), r), s);
+      s = fmaf(head_in(gout[3 * static_cast<size_t>(Np) + n], r), head_in(__ldg(wk + 3), r), s);
       v = hL[static_cast<size_t>(k) * Np + n] > 0.f ? s : 0.f;
     }
     tile[k * kLd + p] = v;
@@ -840,7 +988,7 @@ train_bwd_kernel(const float* __restrict__ gout, const float* __restrict__ wout,
   for (int l = L1 - 1; l >= 0; --l) {
     // delta_{l+1} = (delta_{l+2} . wh[l]^T) * [A_{l+1} > 0]
     const size_t off = static_cast<size_t>(l) * H * H;
-    dense_tc<H, true>(tile, ws.whThi + off, ws.whTlo + off, nullptr, H, wst,
+    dense_tc<H, true, ROUTE>(tile, ws.whThi + off, ws.whTlo + off, nullptr, H, wst,
                       gbuf + static_cast<size_t>(l) * H * Np,
                       act + (static_cast<size_t>(D) + static_cast<size_t>(l) * H) * Np, Np, n0);
   }
@@ -865,7 +1013,8 @@ struct DwJobs {
 // feature-major, so a stage is 128 rows of 32 contiguous points each), one
 // barrier per stage. Rows past K and columns past Jreal are zero-filled; so
 // are points past the part's end. The CTAs of the tile row k0 = 0 also sum
-// db from the G fragments.
+// db from the G fragments (the fp32 values, whatever the route).
+template <int ROUTE>
 __global__ void __launch_bounds__(kThreads, 1)
 train_dw_kernel(const DwJobs jobs, float* __restrict__ partial, int N, int Np, size_t Fp,
                 int chunk) {
@@ -892,6 +1041,7 @@ train_dw_kernel(const DwJobs jobs, float* __restrict__ partial, int N, int Np, s
 
   float acc[4][4][4], part[4][4][4];
   float gsum[4] = {0.f, 0.f, 0.f, 0.f};
+  float gcomp[4] = {0.f, 0.f, 0.f, 0.f};  // the compensations of the kFp32 route's db sums
   zero_block(acc);
   zero_block(part);
 
@@ -933,7 +1083,61 @@ train_dw_kernel(const DwJobs jobs, float* __restrict__ partial, int N, int Np, s
     if (s + kDwStages - 1 < n_stages) load(s + kDwStages - 1);  // into stage s-1's buffer
     const float* As = sm + (s % kDwStages) * kDwStage + wm * 64 * kDwLd;
     const float* Gs = sm + (s % kDwStages) * kDwStage + (kDwT + wn * 32) * kDwLd;
-    if (live) {
+    if (live && ROUTE == kFp32) {
+      // each stage's 32 products into part, then one round-to-nearest add
+      // per output: the point axis is summed in two levels, not as one
+      // chain of up to kPartRows FMAs
+#pragma unroll 4
+      for (int k = 0; k < kBN; ++k) {
+        float a[4][2], b[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          a[i][0] = As[(i * 16 + g) * kDwLd + k];
+          a[i][1] = As[(i * 16 + g + 8) * kDwLd + k];
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          b[j][0] = Gs[(j * 8 + 2 * t) * kDwLd + k];
+          b[j][1] = Gs[(j * 8 + 2 * t + 1) * kDwLd + k];
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            part[i][j][0] = fmaf(a[i][0], b[j][0], part[i][j][0]);
+            part[i][j][1] = fmaf(a[i][0], b[j][1], part[i][j][1]);
+            part[i][j][2] = fmaf(a[i][1], b[j][0], part[i][j][2]);
+            part[i][j][3] = fmaf(a[i][1], b[j][1], part[i][j][3]);
+          }
+      }
+      promote(acc, part);
+      if (sum_db) {  // db as a compensated (Kahan) sum: a thread adds ~N/4 terms
+#pragma unroll
+        for (int kk = 0; kk < kBN; kk += 8) {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float* b = Gs + (j * 8 + g) * kDwLd + kk + t;
+            const float y = __fsub_rn(__fadd_rn(b[0], b[4]), gcomp[j]);
+            const float sum = __fadd_rn(gsum[j], y);
+            gcomp[j] = __fsub_rn(__fsub_rn(sum, gsum[j]), y);
+            gsum[j] = sum;
+          }
+        }
+      }
+    } else if (live && ROUTE == kBf16) {
+#pragma unroll
+      for (int kk = 0; kk < kBN; kk += 8) {
+        uint32_t a[4][2];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) load_a_mmajor_bf16(As + i * 16 * kDwLd + kk, kDwLd, g, t, a[i]);
+        mma1_step(part, a, [&](int j) {
+          const float2 v = *reinterpret_cast<const float2*>(Gs + (j * 8 + g) * kDwLd + kk + 2 * t);
+          if (sum_db) gsum[j] += v.x + v.y;  // db from the same fp32 values
+          return pack_bf16(v.x, v.y);
+        });
+        if (kk & 8) promote(acc, part);
+      }
+    } else if (live) {
 #pragma unroll
       for (int kk = 0; kk < kBN; kk += 8) {
         uint32_t ahi[4][4], alo[4][4];
@@ -1009,7 +1213,9 @@ loss_sum_kernel(const float* __restrict__ loss_r, float* __restrict__ loss, int 
 // cotangent of the first layer (gbuf rows 0..H-1, [H][Np]), on the tensor
 // cores: 64 points x 64 input columns per CTA, 2x4 warps of 32x16, the
 // reduction over j in cp.async stages of 32 (delta_1 split on the fly, the
-// halves of w0 from weight_split).
+// halves of w0 from weight_split); the bfloat16 and highest routes read
+// w0's image from the hi half, as dense_tc does.
+template <int ROUTE>
 __global__ void __launch_bounds__(kThreads, 1)
 render_dx_kernel(const float* __restrict__ delta1, const float* __restrict__ w0hi,
                  const float* __restrict__ w0lo, float* __restrict__ dx, int N, int Np, int D,
@@ -1033,7 +1239,7 @@ render_dx_kernel(const float* __restrict__ delta1, const float* __restrict__ w0h
   auto load = [&](float* st, int j0) {
     constexpr int kDChunks = kDxJ * kDxP / 4;        // 512
     constexpr int kWChunks = kDxK * kDxJ / 4;        // 512 per half
-    constexpr int kAll = kDChunks + 2 * kWChunks;
+    constexpr int kAll = kDChunks + (ROUTE == kTf32x3 ? 2 : 1) * kWChunks;
     static_assert(kAll % kThreads == 0, "dx stage copies per thread");
 #pragma unroll
     for (int v = 0; v < kAll / kThreads; ++v) {
@@ -1067,21 +1273,55 @@ render_dx_kernel(const float* __restrict__ delta1, const float* __restrict__ w0h
     const float* Ds = sm + (s & 1) * kDxStage;
     const float* Wh = Ds + kDxJ * kDxLdD;
     const float* Wl = Wh + kDxK * kDxLdW;
+    if constexpr (ROUTE == kFp32) {
+#pragma unroll 4
+      for (int jj = 0; jj < kDxJ; ++jj) {
+        float a[2][2], b[2][2];
 #pragma unroll
-    for (int jj = 0; jj < kDxJ; jj += 8) {
-      uint32_t ahi[2][4], alo[2][4];
+        for (int i = 0; i < 2; ++i) {
+          a[i][0] = Ds[jj * kDxLdD + pm + i * 16 + g];
+          a[i][1] = Ds[jj * kDxLdD + pm + i * 16 + g + 8];
+          b[i][0] = Wh[(kn + i * 8 + 2 * t) * kDxLdW + jj];
+          b[i][1] = Wh[(kn + i * 8 + 2 * t + 1) * kDxLdW + jj];
+        }
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
-        load_a_kmajor_split(Ds + jj * kDxLdD + pm + i * 16, kDxLdD, g, t, ahi[i], alo[i]);
-      auto bfrag = [&](int j, uint32_t(&bh)[2], uint32_t(&bl)[2]) {
-        const int o = (kn + j * 8 + g) * kDxLdW + jj + t;
-        bh[0] = __float_as_uint(Wh[o]);
-        bh[1] = __float_as_uint(Wh[o + 4]);
-        bl[0] = __float_as_uint(Wl[o]);
-        bl[1] = __float_as_uint(Wl[o + 4]);
-      };
-      mma3_step<2>(part, ahi, alo, bfrag);
-      if (jj & 8) promote(acc, part);
+        for (int i = 0; i < 2; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            acc[i][j][0] = fmaf(a[i][0], b[j][0], acc[i][j][0]);
+            acc[i][j][1] = fmaf(a[i][0], b[j][1], acc[i][j][1]);
+            acc[i][j][2] = fmaf(a[i][1], b[j][0], acc[i][j][2]);
+            acc[i][j][3] = fmaf(a[i][1], b[j][1], acc[i][j][3]);
+          }
+      }
+    } else {
+#pragma unroll
+      for (int jj = 0; jj < kDxJ; jj += 8) {
+        if constexpr (ROUTE == kBf16) {
+          uint32_t a[2][2];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            load_a_kmajor_bf16(Ds + jj * kDxLdD + pm + i * 16, kDxLdD, g, t, a[i]);
+          mma1_step(part, a, [&](int j) {
+            const int o = (kn + j * 8 + g) * kDxLdW + jj + 2 * t;
+            return pack_bf16(Wh[o], Wh[o + 1]);
+          });
+        } else {
+          uint32_t ahi[2][4], alo[2][4];
+#pragma unroll
+          for (int i = 0; i < 2; ++i)
+            load_a_kmajor_split(Ds + jj * kDxLdD + pm + i * 16, kDxLdD, g, t, ahi[i], alo[i]);
+          auto bfrag = [&](int j, uint32_t(&bh)[2], uint32_t(&bl)[2]) {
+            const int o = (kn + j * 8 + g) * kDxLdW + jj + t;
+            bh[0] = __float_as_uint(Wh[o]);
+            bh[1] = __float_as_uint(Wh[o + 4]);
+            bl[0] = __float_as_uint(Wl[o]);
+            bl[1] = __float_as_uint(Wl[o + 4]);
+          };
+          mma3_step<2>(part, ahi, alo, bfrag);
+        }
+        if (jj & 8) promote(acc, part);
+      }
     }
   }
 
@@ -1103,15 +1343,19 @@ render_dx_kernel(const float* __restrict__ delta1, const float* __restrict__ w0h
 }
 
 // Every dW = A^T.delta and db = sum delta (layer 0, the L1 hidden layers,
-// the head) as one launch over fixed point-axis parts, then the fixed-order
-// sum of the parts into grads.
+// the head) over fixed point-axis parts, then the fixed-order sum of the
+// parts into grads. The layers' products take dw_route, the head's
+// head_route: one launch when they agree, else one per route (into the
+// same partials).
 void launch_dw(const Layout& s, const float* act, const float* gbuf, const float* gout,
-               float* part, float* grads, int D, int H, int L1, cudaStream_t stream) {
-  DwJobs jobs;
-  jobs.n = 0;
-  int total_tiles = 0;
-  auto add = [&](const float* A, const float* G, int K, int J, int Jreal, size_t out, size_t db) {
-    DwJob& j = jobs.job[jobs.n++];
+               float* part, float* grads, int D, int H, int L1, int dw_route, int head_route,
+               cudaStream_t stream) {
+  DwJobs jobs[2];
+  int total_tiles[2] = {0, 0};
+  jobs[0].n = jobs[1].n = 0;
+  auto add = [&](int grp, const float* A, const float* G, int K, int J, int Jreal, size_t out,
+                 size_t db) {
+    DwJob& j = jobs[grp].job[jobs[grp].n++];
     j.A = A;
     j.G = G;
     j.K = K;
@@ -1120,7 +1364,7 @@ void launch_dw(const Layout& s, const float* act, const float* gbuf, const float
     j.tiles = ((K + kDwT - 1) / kDwT) * ((J + kDwT - 1) / kDwT);
     j.out = out;
     j.db = db;
-    total_tiles += j.tiles;
+    total_tiles[grp] += j.tiles;
   };
   const size_t np = s.Np;
   const size_t off_w0 = 0, off_b0 = static_cast<size_t>(D) * H;
@@ -1128,42 +1372,56 @@ void launch_dw(const Layout& s, const float* act, const float* gbuf, const float
   const size_t off_bh = off_wh + static_cast<size_t>(L1) * H * H;
   const size_t off_wout = off_bh + static_cast<size_t>(L1) * H;
   const size_t off_bout = off_wout + static_cast<size_t>(H) * kOutPad;
-  add(act, gbuf, D, H, H, off_w0, off_b0);
+  add(0, act, gbuf, D, H, H, off_w0, off_b0);
   for (int l = 0; l < L1; ++l) {
-    add(act + (static_cast<size_t>(D) + static_cast<size_t>(l) * H) * np,
+    add(0, act + (static_cast<size_t>(D) + static_cast<size_t>(l) * H) * np,
         gbuf + static_cast<size_t>(l + 1) * H * np, H, H, H,
         off_wh + static_cast<size_t>(l) * H * H, off_bh + static_cast<size_t>(l) * H);
   }
-  add(act + (static_cast<size_t>(D) + static_cast<size_t>(L1) * H) * np, gout, H, kOutPad, kHead,
-      off_wout, off_bout);
+  add(head_route == dw_route ? 0 : 1, act + (static_cast<size_t>(D) + static_cast<size_t>(L1) * H) * np,
+      gout, H, kOutPad, kHead, off_wout, off_bout);
   const size_t Fp = round_up(s.F, 64);
-  train_dw_kernel<<<dim3(total_tiles, s.P), kThreads, kDwSmem, stream>>>(jobs, part, s.N, s.Np,
-                                                                          Fp, s.chunk);
+  for (int grp = 0; grp < 2; ++grp) {
+    if (jobs[grp].n == 0) continue;
+    const int route = grp ? head_route : dw_route;
+    const dim3 grid(total_tiles[grp], s.P);
+    if (route == kBf16)
+      train_dw_kernel<kBf16><<<grid, kThreads, kDwSmem, stream>>>(jobs[grp], part, s.N, s.Np, Fp,
+                                                                  s.chunk);
+    else if (route == kFp32)
+      train_dw_kernel<kFp32><<<grid, kThreads, kDwSmem, stream>>>(jobs[grp], part, s.N, s.Np, Fp,
+                                                                  s.chunk);
+    else
+      train_dw_kernel<kTf32x3><<<grid, kThreads, kDwSmem, stream>>>(jobs[grp], part, s.N, s.Np,
+                                                                    Fp, s.chunk);
+  }
   train_finalize_kernel<<<static_cast<unsigned>((s.F + 255) / 256), 256, 0, stream>>>(
       part, grads, s.F, Fp, s.P);
 }
 
-// The recompute of the trunk: the TF32 halves of the weights, then every
-// layer's activations and the 4 head outputs of each 64-point tile.
-template <int H, bool INLINE_PE>
+// The recompute of the trunk: the weights' images, then every layer's
+// activations and the 4 head outputs of each 64-point tile.
+template <int H, bool INLINE_PE, int ROUTE>
 void launch_forward(const Layout& s, const float* in, const float* feats, const float* e2,
                     const float* c, const float* w0, const float* b0, const float* wh,
                     const float* bh, const float* wout, const float* bout, float* act, float* out4,
                     const WSplit& ws, int n_raw, int n_phase, int Fd, int D, int L1,
-                    cudaStream_t stream) {
+                    bool head_bf16, cudaStream_t stream) {
   const int rows = D > H ? D : H;
-  weight_split_kernel<<<dim3(H / 32, (rows + 31) / 32, 1 + L1), dim3(32, 8), 0, stream>>>(
+  weight_split_kernel<ROUTE><<<dim3(H / 32, (rows + 31) / 32, 1 + L1), dim3(32, 8), 0, stream>>>(
       w0, wh, ws.w0hi, ws.w0lo, ws.whhi, ws.whlo, ws.whThi, ws.whTlo, D, H);
-  train_fwd_kernel<H, INLINE_PE><<<s.Np / kTileP, kThreads, Dense<H>::kFwdSmem, stream>>>(
-      in, feats, e2, c, ws, b0, bh, wout, bout, act, out4, s.N, s.Np, n_raw, n_phase, Fd, D, L1);
+  train_fwd_kernel<H, INLINE_PE, ROUTE><<<s.Np / kTileP, kThreads, Dense<H>::kFwdSmem, stream>>>(
+      in, feats, e2, c, ws, b0, bh, wout, bout, act, out4, s.N, s.Np, n_raw, n_phase, Fd, D, L1,
+      head_bf16);
 }
 
 // The backward chain of each 64-point tile, from the head cotangent gout.
-template <int H>
+template <int H, int ROUTE>
 void launch_backward(const Layout& s, const float* gout, const float* wout, const WSplit& ws,
-                     const float* act, float* gbuf, int D, int L1, cudaStream_t stream) {
-  train_bwd_kernel<H><<<s.Np / kTileP, kThreads, Dense<H>::kBwdSmem, stream>>>(
-      gout, wout, ws, act, gbuf, s.N, s.Np, D, L1);
+                     const float* act, float* gbuf, int D, int L1, bool head_bf16,
+                     cudaStream_t stream) {
+  train_bwd_kernel<H, ROUTE><<<s.Np / kTileP, kThreads, Dense<H>::kBwdSmem, stream>>>(
+      gout, wout, ws, act, gbuf, s.N, s.Np, D, L1, head_bf16);
 }
 
 struct Scratch {
@@ -1183,18 +1441,29 @@ bool shapes_ok(int S, int D, int H, int L1) {
          L1 >= 0 && L1 + 2 <= kMaxJobs;
 }
 
+bool route_ok(int route) { return route == kTf32x3 || route == kBf16 || route == kFp32; }
+
 // The launches above 48 KB of dynamic shared memory need the limit raised,
 // which is a host call; it is made once per device and width, for the most
 // any call of that width asks for.
+template <int H, int ROUTE>
+cudaError_t raise_route_smem_limits() {
+  const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
+  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<H, true, ROUTE>, a, Dense<H>::kFwdSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(train_fwd_kernel<H, false, ROUTE>, a, Dense<H>::kFwdSmem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(train_bwd_kernel<H, ROUTE>, a, Dense<H>::kBwdSmem);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(train_dw_kernel<ROUTE>, a, kDwSmem);
+  if (err == cudaSuccess) err = cudaFuncSetAttribute(render_dx_kernel<ROUTE>, a, kDxSmem);
+  return err;
+}
+
 template <int H>
 cudaError_t raise_smem_limits() {
-  const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<H, true>, a, Dense<H>::kFwdSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(train_fwd_kernel<H, false>, a, Dense<H>::kFwdSmem);
-  if (err == cudaSuccess) err = cudaFuncSetAttribute(train_bwd_kernel<H>, a, Dense<H>::kBwdSmem);
-  if (err == cudaSuccess) err = cudaFuncSetAttribute(train_dw_kernel, a, kDwSmem);
-  if (err == cudaSuccess) err = cudaFuncSetAttribute(render_dx_kernel, a, kDxSmem);
+  cudaError_t err = raise_route_smem_limits<H, kTf32x3>();
+  if (err == cudaSuccess) err = raise_route_smem_limits<H, kBf16>();
+  if (err == cudaSuccess) err = raise_route_smem_limits<H, kFp32>();
   return err;
 }
 
@@ -1208,53 +1477,56 @@ cudaError_t smem_limits_once(int device, int H) {
   return err;
 }
 
-template <int H, bool INLINE_PE>
-cudaError_t launch(const float* in, const float* feats, const float* z, const float* dnorm,
-                   const float* tgt, const float* mask, const float* inv_denom,
-                   const float* tgt_depth, const float* e2, const float* c, const float* w0,
-                   const float* b0, const float* wh, const float* bh, const float* wout,
-                   const float* bout, float* loss, float* grads, float* scratch, int R, int S,
-                   int n_raw, int n_phase, int Fd, int D, int L1, int white_bkgd, float rgb_c,
-                   float reg_c, float depth_c, cudaStream_t stream) {
-  const Layout s = make_layout(R, S, D, H, L1);
-  const Scratch b = carve(s, scratch, D, H, L1);
-  launch_forward<H, INLINE_PE>(s, in, feats, e2, c, w0, b0, wh, bh, wout, bout, b.act, b.out4,
-                               b.ws, n_raw, n_phase, Fd, D, L1, stream);
+// The objective's arguments, as nerf_train_objective takes them.
+struct TrainArgs {
+  const float *in, *feats, *z, *dnorm, *tgt, *mask, *inv_denom, *tgt_depth, *e2, *c;
+  const float *w0, *b0, *wh, *bh, *wout, *bout;
+  float *loss, *grads, *scratch;
+  int R, S, n_raw, n_phase, Fd, D, L1, white_bkgd;
+  float rgb_c, reg_c, depth_c;
+  int dw_route, head_vpu;
+};
 
-  const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(S);  // < 48 KB
-  train_composite_kernel<<<R, 32, comp_smem, stream>>>(b.out4, z, dnorm, tgt, mask, inv_denom,
-                                                       tgt_depth, b.gout, b.loss_r, S, s.Np,
-                                                       white_bkgd, rgb_c, reg_c, depth_c);
+// The objective on route ROUTE; the dW products on a.dw_route, the head in
+// exact fp32 with a.head_vpu (its dW then kFp32 too).
+template <int H, bool INLINE_PE, int ROUTE>
+cudaError_t launch(const TrainArgs& a, cudaStream_t stream) {
+  const Layout s = make_layout(a.R, a.S, a.D, H, a.L1);
+  const Scratch b = carve(s, a.scratch, a.D, H, a.L1);
+  const bool head_bf16 = ROUTE == kBf16 && !a.head_vpu;
+  launch_forward<H, INLINE_PE, ROUTE>(s, a.in, a.feats, a.e2, a.c, a.w0, a.b0, a.wh, a.bh,
+                                      a.wout, a.bout, b.act, b.out4, b.ws, a.n_raw, a.n_phase,
+                                      a.Fd, a.D, a.L1, head_bf16, stream);
 
-  launch_backward<H>(s, b.gout, wout, b.ws, b.act, b.gbuf, D, L1, stream);
-  launch_dw(s, b.act, b.gbuf, b.gout, b.part, grads, D, H, L1, stream);
-  loss_sum_kernel<<<1, 256, 0, stream>>>(b.loss_r, loss, R);
+  const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(a.S);  // < 48 KB
+  train_composite_kernel<ROUTE == kFp32><<<a.R, 32, comp_smem, stream>>>(
+      b.out4, a.z, a.dnorm, a.tgt, a.mask, a.inv_denom, a.tgt_depth, b.gout, b.loss_r, a.S, s.Np,
+      a.white_bkgd, a.rgb_c, a.reg_c, a.depth_c);
+
+  launch_backward<H, ROUTE>(s, b.gout, a.wout, b.ws, b.act, b.gbuf, a.D, a.L1, head_bf16, stream);
+  launch_dw(s, b.act, b.gbuf, b.gout, b.part, a.grads, a.D, H, a.L1, a.dw_route,
+            a.head_vpu ? kFp32 : a.dw_route, stream);
+  loss_sum_kernel<<<1, 256, 0, stream>>>(b.loss_r, a.loss, a.R);
   return cudaGetLastError();
 }
 
+template <int H, bool INLINE_PE>
+cudaError_t dispatch_route(int route, const TrainArgs& a, cudaStream_t st) {
+  if (route == kBf16) return launch<H, INLINE_PE, kBf16>(a, st);
+  if (route == kFp32) return launch<H, INLINE_PE, kFp32>(a, st);
+  return launch<H, INLINE_PE, kTf32x3>(a, st);
+}
+
 template <int H>
-cudaError_t dispatch(int inline_pe, const float* in, const float* feats, const float* z,
-                     const float* dnorm, const float* tgt, const float* mask,
-                     const float* inv_denom, const float* tgt_depth, const float* e2,
-                     const float* c, const float* w0, const float* b0, const float* wh,
-                     const float* bh, const float* wout, const float* bout, float* loss,
-                     float* grads, float* scratch, int R, int S, int n_raw, int n_phase, int Fd,
-                     int D, int L1, int white_bkgd, float rgb_c, float reg_c, float depth_c,
-                     cudaStream_t st) {
-  if (inline_pe)
-    return launch<H, true>(in, feats, z, dnorm, tgt, mask, inv_denom, tgt_depth, e2, c, w0, b0,
-                           wh, bh, wout, bout, loss, grads, scratch, R, S, n_raw, n_phase, Fd, D,
-                           L1, white_bkgd, rgb_c, reg_c, depth_c, st);
-  return launch<H, false>(in, feats, z, dnorm, tgt, mask, inv_denom, tgt_depth, e2, c, w0, b0,
-                          wh, bh, wout, bout, loss, grads, scratch, R, S, n_raw, n_phase, Fd, D,
-                          L1, white_bkgd, rgb_c, reg_c, depth_c, st);
+cudaError_t dispatch(int inline_pe, int route, const TrainArgs& a, cudaStream_t st) {
+  return inline_pe ? dispatch_route<H, true>(route, a, st) : dispatch_route<H, false>(route, a, st);
 }
 
 // Kernel 3: the VJP of the render from a pre-encoded x. Recomputes the
 // forward, composites backward from the external cotangents, runs the
 // backward chain and the dW products, and (dx != nullptr) the input
-// cotangent.
-template <int H>
+// cotangent, every product on route ROUTE.
+template <int H, int ROUTE>
 cudaError_t launch_render_bwd(const float* x, const float* z, const float* dnorm,
                               const float* w0, const float* b0, const float* wh,
                               const float* bh, const float* wout, const float* bout,
@@ -1263,29 +1535,54 @@ cudaError_t launch_render_bwd(const float* x, const float* z, const float* dnorm
                               int R, int S, int D, int L1, int white_bkgd, cudaStream_t stream) {
   const Layout s = make_layout(R, S, D, H, L1);
   const Scratch b = carve(s, scratch, D, H, L1);
-  launch_forward<H, false>(s, x, nullptr, nullptr, nullptr, w0, b0, wh, bh, wout, bout, b.act,
-                           b.out4, b.ws, 0, 0, 0, D, L1, stream);
+  constexpr bool head_bf16 = ROUTE == kBf16;
+  launch_forward<H, false, ROUTE>(s, x, nullptr, nullptr, nullptr, w0, b0, wh, bh, wout, bout,
+                                  b.act, b.out4, b.ws, 0, 0, 0, D, L1, head_bf16, stream);
 
   const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(S);  // < 48 KB
-  render_composite_kernel<<<R, 32, comp_smem, stream>>>(b.out4, z, dnorm, g_rgb, g_depth, g_acc,
+  render_composite_kernel<ROUTE == kFp32><<<R, 32, comp_smem, stream>>>(b.out4, z, dnorm, g_rgb, g_depth, g_acc,
                                                         g_weights, b.gout, S, s.Np, white_bkgd);
 
-  launch_backward<H>(s, b.gout, wout, b.ws, b.act, b.gbuf, D, L1, stream);
-  launch_dw(s, b.act, b.gbuf, b.gout, b.part, grads, D, H, L1, stream);
+  launch_backward<H, ROUTE>(s, b.gout, wout, b.ws, b.act, b.gbuf, D, L1, head_bf16, stream);
+  launch_dw(s, b.act, b.gbuf, b.gout, b.part, grads, D, H, L1, ROUTE, ROUTE, stream);
   if (dx != nullptr) {
-    render_dx_kernel<<<dim3(s.Np / kDxP, (D + kDxK - 1) / kDxK), kThreads, kDxSmem, stream>>>(
-        b.gbuf, b.ws.w0hi, b.ws.w0lo, dx, s.N, s.Np, D, H);
+    render_dx_kernel<ROUTE>
+        <<<dim3(s.Np / kDxP, (D + kDxK - 1) / kDxK), kThreads, kDxSmem, stream>>>(
+            b.gbuf, b.ws.w0hi, b.ws.w0lo, dx, s.N, s.Np, D, H);
   }
   return cudaGetLastError();
 }
 
+template <int H>
+cudaError_t render_bwd_route(int route, const float* x, const float* z, const float* dnorm,
+                             const float* w0, const float* b0, const float* wh, const float* bh,
+                             const float* wout, const float* bout, const float* g_rgb,
+                             const float* g_depth, const float* g_acc, const float* g_weights,
+                             float* dx, float* grads, float* scratch, int R, int S, int D, int L1,
+                             int white_bkgd, cudaStream_t st) {
+  if (route == kBf16)
+    return launch_render_bwd<H, kBf16>(x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth,
+                                       g_acc, g_weights, dx, grads, scratch, R, S, D, L1,
+                                       white_bkgd, st);
+  if (route == kFp32)
+    return launch_render_bwd<H, kFp32>(x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth,
+                                       g_acc, g_weights, dx, grads, scratch, R, S, D, L1,
+                                       white_bkgd, st);
+  return launch_render_bwd<H, kTf32x3>(x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth,
+                                       g_acc, g_weights, dx, grads, scratch, R, S, D, L1,
+                                       white_bkgd, st);
+}
+
 }  // namespace
 
-// Floats of scratch one call at these sizes needs.
+// Floats of scratch one call at these sizes needs (the same on every route).
 extern "C" unsigned long long nerf_train_scratch_floats(int R, int S, int D, int H, int L1) {
   return make_layout(R, S, D, H, L1).total;
 }
 
+// route: the products' precision route (kTf32x3, kBf16, kFp32); dw_route:
+// the six dW products'; head_vpu: the head in exact fp32 (the JAX pins
+// dw_precision and head_mode).
 extern "C" int nerf_train_objective(const float* in, const float* feats, const float* z,
                                     const float* dnorm, const float* tgt, const float* mask,
                                     const float* inv_denom, const float* tgt_depth,
@@ -1295,20 +1592,21 @@ extern "C" int nerf_train_objective(const float* in, const float* feats, const f
                                     float* grads, float* scratch, int R, int S, int n_raw,
                                     int n_phase, int Fd, int D, int H, int L1, int inline_pe,
                                     int white_bkgd, float rgb_c, float reg_c, float depth_c,
-                                    int device, void* stream) {
+                                    int route, int dw_route, int head_vpu, int device,
+                                    void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (!shapes_ok(S, D, H, L1)) return cudaErrorInvalidValue;
+  if (!shapes_ok(S, D, H, L1) || !route_ok(route) || !route_ok(dw_route))
+    return cudaErrorInvalidValue;
   err = smem_limits_once(device, H);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H == 256)
-    return dispatch<256>(inline_pe, in, feats, z, dnorm, tgt, mask, inv_denom, tgt_depth, e2, c,
-                         w0, b0, wh, bh, wout, bout, loss, grads, scratch, R, S, n_raw, n_phase,
-                         Fd, D, L1, white_bkgd, rgb_c, reg_c, depth_c, st);
-  return dispatch<128>(inline_pe, in, feats, z, dnorm, tgt, mask, inv_denom, tgt_depth, e2, c,
-                       w0, b0, wh, bh, wout, bout, loss, grads, scratch, R, S, n_raw, n_phase,
-                       Fd, D, L1, white_bkgd, rgb_c, reg_c, depth_c, st);
+  const TrainArgs a{in,   feats, z,     dnorm,   tgt,     mask,   inv_denom, tgt_depth,
+                    e2,   c,     w0,    b0,      wh,      bh,     wout,      bout,
+                    loss, grads, scratch, R,     S,       n_raw,  n_phase,   Fd,
+                    D,    L1,    white_bkgd, rgb_c, reg_c, depth_c, dw_route, head_vpu};
+  if (H == 256) return dispatch<256>(inline_pe, route, a, st);
+  return dispatch<128>(inline_pe, route, a, st);
 }
 
 extern "C" int nerf_render_bwd(const float* x, const float* z, const float* dnorm,
@@ -1316,18 +1614,18 @@ extern "C" int nerf_render_bwd(const float* x, const float* z, const float* dnor
                                const float* wout, const float* bout, const float* g_rgb,
                                const float* g_depth, const float* g_acc, const float* g_weights,
                                float* dx, float* grads, float* scratch, int R, int S, int D, int H,
-                               int L1, int white_bkgd, int device, void* stream) {
+                               int L1, int white_bkgd, int route, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (!shapes_ok(S, D, H, L1)) return cudaErrorInvalidValue;
+  if (!shapes_ok(S, D, H, L1) || !route_ok(route)) return cudaErrorInvalidValue;
   err = smem_limits_once(device, H);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (H == 256)
-    return launch_render_bwd<256>(x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth, g_acc,
-                                  g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd, st);
-  return launch_render_bwd<128>(x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth, g_acc,
-                                g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd, st);
+    return render_bwd_route<256>(route, x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth,
+                                 g_acc, g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd, st);
+  return render_bwd_route<128>(route, x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth,
+                               g_acc, g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd, st);
 }
 
 extern "C" const char* nerf_cuda_error_string(int err) {

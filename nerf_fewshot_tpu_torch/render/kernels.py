@@ -15,6 +15,9 @@ card that is not sm_90 raises, any other device raises.
   ``fused_render_bwd_reference``;
 - ``fused_render``: the differentiable render (``_FusedRender``), kernel 4
   forward and kernel 3 backward.
+Each takes ``compute_dtype`` (``ROUTES``): ``float32``, ``bfloat16`` or
+``highest``, the JAX kernels' precision modes; the kernels take the route as
+an int, the plain versions round as that route rounds (``_dot``).
 """
 
 from __future__ import annotations
@@ -39,12 +42,12 @@ MAX_INPUT_WIDTH = 896
 OUT_PAD = 128  # packed head columns: [r, g, b, sigma, 0...]
 KERNEL_WIDTHS = (128, 256)  # trunk widths the CUDA kernel is built for
 MAX_SAMPLES = 1024  # per-ray sigma/rgb scratch of the kernel lives in smem
-# csrc/fwd_pe.cu:nerf_fwd_pe(17 pointers (the last the scratch), 10 ints, stream)
-FWD_PE_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
-# csrc/fwd_pe.cu:nerf_fwd_x(14 pointers (the last the scratch), 7 ints, stream)
-FWD_X_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-# csrc/train_pe.cu:nerf_render_bwd(16 pointers, 7 ints, stream)
-RENDER_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+# csrc/fwd_pe.cu:nerf_fwd_pe(17 pointers (the last the scratch), 11 ints, stream)
+FWD_PE_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+# csrc/fwd_pe.cu:nerf_fwd_x(14 pointers (the last the scratch), 8 ints, stream)
+FWD_X_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+# csrc/train_pe.cu:nerf_render_bwd(16 pointers, 8 ints, stream)
+RENDER_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 MAX_LAYERS = 15  # trunk layers the backward kernels take (train_pe.cu kMaxJobs - 1)
 
 Packed = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -211,45 +214,67 @@ def _composite(sigma: torch.Tensor, z: torch.Tensor, dnorm: torch.Tensor) -> tor
     return _composite_terms(sigma, z, dnorm)[-1]
 
 
-def _trunk(x: torch.Tensor, packed: Packed):
+# The precision routes of all five kernels, the JAX ``_dot``'s
+# ``compute_dtype`` (``nerf_fewshot_tpu/render/kernels.py:63``), by the
+# route number the C entries take:
+# - ``float32``: the trunk products as 3xTF32 on the tensor cores;
+# - ``bfloat16``: both operands of every product rounded to bf16 (to
+#   nearest even), the products summed in fp32, one tensor-core pass;
+# - ``highest``: every product as exact fp32 FFMAs on the CUDA cores.
+# The PE phases, the compositing scans, the bias adds, the ReLU gates and
+# the sigmoid are exact fp32 in every route.
+ROUTES = {"float32": 0, "bfloat16": 1, "highest": 2}
+
+
+def route_of(compute_dtype: str) -> int:
+    """The C entries' route number of ``compute_dtype``; raises
+    ``ValueError`` for a dtype the JAX kernels do not take."""
+    if compute_dtype not in ROUTES:
+        raise ValueError(f"unknown compute_dtype {compute_dtype!r}; expected one of "
+                         f"{tuple(ROUTES)}")
+    return ROUTES[compute_dtype]
+
+
+def _bf16(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16 (to nearest even) and widened back."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor, compute_dtype: str) -> torch.Tensor:
+    """The JAX ``_dot``: ``a @ b`` with both operands rounded to bf16 under
+    ``bfloat16`` (a bf16 x bf16 product is exact in fp32, so only the order
+    of the sums differs from JAX's), else in the operands' own precision
+    (an fp32 matmul must run without TF32, PyTorch's default)."""
+    if compute_dtype == "bfloat16":
+        return _bf16(a) @ _bf16(b)
+    return a @ b
+
+
+def _trunk(x: torch.Tensor, packed: Packed, compute_dtype: str = "float32",
+           head_dtype: Optional[str] = None):
     """The ReLU trunk and the packed head's 4 live columns: ``(out4 (N, 4),
     acts)``, ``acts[l]`` the input of layer ``l`` (``acts[0] = x``) and
-    ``acts[-1]`` the last hidden layer."""
+    ``acts[-1]`` the last hidden layer. The products follow
+    ``compute_dtype``, the head's ``head_dtype`` (default the same)."""
     w0, b0, wh, bh, wout, bout = packed
     acts = [x]
-    h = torch.relu(x @ w0 + b0)
+    h = torch.relu(_dot(x, w0, compute_dtype) + b0)
     for layer in range(wh.shape[0]):
         acts.append(h)
-        h = torch.relu(h @ wh[layer] + bh[layer])
+        h = torch.relu(_dot(h, wh[layer], compute_dtype) + bh[layer])
     acts.append(h)
-    return h @ wout[:, :4] + bout[:, :4], acts
-
-
-def _check_compute_dtype(compute_dtype: str) -> None:
-    """``float32`` and ``highest`` run the same kernels, all five with their
-    trunk products as 3xTF32 on the tensor cores (``csrc/fwd_pe.cu`` for the
-    render forward, kernels 2 and 4; ``csrc/train_pe.cu`` for the objective
-    and the render VJP, kernels 1, 5 and 3), the PE phases, the head and the
-    compositing scans in exact fp32. ``bfloat16`` is not ported."""
-    if compute_dtype == "bfloat16":
-        raise NotImplementedError(
-            "compute_dtype='bfloat16' is not ported yet; 'float32' and "
-            "'highest' both run the fp32 kernels (trunk products of the "
-            "objective and the render VJP as 3xTF32)"
-        )
-    if compute_dtype not in ("float32", "highest"):
-        raise ValueError(f"unknown compute_dtype {compute_dtype!r}")
+    return _dot(h, wout[:, :4], head_dtype or compute_dtype) + bout[:, :4], acts
 
 
 def fused_render_reference(x, z, dnorm, packed: Packed, white_bkgd: bool = False,
                            compute_dtype: str = "float32"):
     """Plain PyTorch version of kernel 4 (the body of ``_fwd_kernel``), on
-    any device: the render from a pre-encoded (R*S, D) ``x``. Matmuls must
-    run in fp32 (``torch.backends.cuda.matmul.allow_tf32`` False, the
-    default). Returns rgb (R,3), depth (R,1), acc (R,1), weights (R,S)."""
-    _check_compute_dtype(compute_dtype)
+    any device: the render from a pre-encoded (R*S, D) ``x``, its products
+    rounded as ``compute_dtype``'s route rounds them (``_dot``). Returns rgb
+    (R,3), depth (R,1), acc (R,1), weights (R,S)."""
+    route_of(compute_dtype)
     R, S = z.shape
-    out, _ = _trunk(x, packed)
+    out, _ = _trunk(x, packed, compute_dtype)
     rgb_s = torch.sigmoid(out[:, 0:3]).reshape(R, S, 3)
     weights = _composite(out[:, 3].reshape(R, S), z, dnorm)
     rgb = torch.sum(weights[..., None] * rgb_s, dim=1)
@@ -271,23 +296,23 @@ def fused_render_fwd_pe_reference(
     return fused_render_reference(x, z, dnorm, packed, white_bkgd, compute_dtype)
 
 
-def fused_render_bwd_reference(
-    x, z, dnorm, packed: Packed, g_rgb, g_depth, g_acc, g_weights, white_bkgd: bool = False,
-    compute_dtype: str = "float32", need_dx: bool = True,
-):
-    """Plain PyTorch version of kernel 3 (the body of ``_bwd_kernel``), on
-    any device, written out analytically as the kernel computes it: the
-    forward recomputed from ``x``; ``g_acc -= sum g_rgb`` for a white
-    background; ``dL/dw = rgb_s.g_rgb + g_depth*z + g_acc + g_weights``;
-    the exclusive suffix sum ``s_after``, a scan from the last sample;
-    ``d_alpha = dL/dw*T - s_after/om``; ``d_sigma`` gated by sigma > 0; the
-    sigmoid head; the ReLU-gated chain. Returns ``(dx (R*S, D) or None,
-    (dw0, db0, dwh, dbh, dwout, dbout))``."""
-    _check_compute_dtype(compute_dtype)
+def _render_vjp(out, acts, z, dnorm, packed: Packed, g_rgb, g_depth, g_acc, g_weights,
+                white_bkgd: bool, compute_dtype: str, need_dx: bool,
+                dw_dtype: Optional[str] = None, head_dtype: Optional[str] = None):
+    """The analytic VJP of the render from the trunk's ``(out, acts)``
+    (``_trunk``), as the kernels compute it: ``g_acc -= sum g_rgb`` for a
+    white background; ``dL/dw = rgb_s.g_rgb + g_depth*z + g_acc +
+    g_weights``; the exclusive suffix sum ``s_after``, a scan from the last
+    sample; ``d_alpha = dL/dw*T - s_after/om``; ``d_sigma`` gated by sigma >
+    0; the sigmoid head; the ReLU-gated chain. The chain's products and dx
+    follow ``compute_dtype``, the dW products ``dw_dtype`` and the head's
+    two products ``head_dtype`` (default: ``compute_dtype``; the head's dW
+    takes ``head_dtype`` when it is given, as the JAX ``head_mode="vpu"``
+    does). Returns ``(dx or None, (dw0, db0, dwh, dbh, dwout, dbout))``."""
     w0, b0, wh, bh, wout, bout = packed
+    dw_dtype = dw_dtype or compute_dtype
     R, S = z.shape
     N = R * S
-    out, acts = _trunk(x, packed)
     rgb_s = torch.sigmoid(out[:, 0:3]).reshape(R, S, 3)
     sigma = out[:, 3].reshape(R, S)
     ealpha, om, dists, trans, weights = _composite_terms(sigma, z, dnorm)
@@ -303,21 +328,36 @@ def fused_render_bwd_reference(
     g_out = torch.cat([d_pre_rgb.reshape(N, 3), d_sigma.reshape(N, 1)], dim=1)
 
     dwout = torch.zeros_like(wout)
-    dwout[:, :4] = acts[-1].T @ g_out
+    dwout[:, :4] = _dot(acts[-1].T, g_out, head_dtype or dw_dtype)
     dbout = torch.zeros_like(bout)
     dbout[:, :4] = torch.sum(g_out, dim=0, keepdim=True)
-    g_h = g_out @ wout[:, :4].T
+    g_h = _dot(g_out, wout[:, :4].T, head_dtype or compute_dtype)
     dwh, dbh = torch.zeros_like(wh), torch.zeros_like(bh)
     for layer in range(wh.shape[0] - 1, -1, -1):
         g_h = g_h * (acts[layer + 2] > 0.0).to(z.dtype)
-        dwh[layer] = acts[layer + 1].T @ g_h
+        dwh[layer] = _dot(acts[layer + 1].T, g_h, dw_dtype)
         dbh[layer] = torch.sum(g_h, dim=0)
-        g_h = g_h @ wh[layer].T
+        g_h = _dot(g_h, wh[layer].T, compute_dtype)
     g_h = g_h * (acts[1] > 0.0).to(z.dtype)
-    dw0 = acts[0].T @ g_h
+    dw0 = _dot(acts[0].T, g_h, dw_dtype)
     db0 = torch.sum(g_h, dim=0, keepdim=True)
-    dx = g_h @ w0.T if need_dx else None
+    dx = _dot(g_h, w0.T, compute_dtype) if need_dx else None
     return dx, (dw0, db0, dwh, dbh, dwout, dbout)
+
+
+def fused_render_bwd_reference(
+    x, z, dnorm, packed: Packed, g_rgb, g_depth, g_acc, g_weights, white_bkgd: bool = False,
+    compute_dtype: str = "float32", need_dx: bool = True,
+):
+    """Plain PyTorch version of kernel 3 (the body of ``_bwd_kernel``), on
+    any device, written out analytically as the kernel computes it: the
+    forward recomputed from ``x``, then ``_render_vjp``, every product
+    rounded as ``compute_dtype``'s route rounds it (``_dot``). Returns
+    ``(dx (R*S, D) or None, (dw0, db0, dwh, dbh, dwout, dbout))``."""
+    route_of(compute_dtype)
+    out, acts = _trunk(x, packed, compute_dtype)
+    return _render_vjp(out, acts, z, dnorm, packed, g_rgb, g_depth, g_acc, g_weights,
+                       white_bkgd, compute_dtype, need_dx)
 
 
 def _lib_fn(source: str, name: str, argtypes):
@@ -411,9 +451,10 @@ def fused_render_fwd_pe(
     (R*S, Fd) per-point features (``None`` unless ``use_feats``),
     ``packed`` the ``pack_params(row_perm=pe_layout(...)[0])`` weights.
     CPU tensors run the plain version; CUDA tensors launch the kernel and
-    count one in ``fused_render_fwd_pe.launches``.
+    count one in ``fused_render_fwd_pe.launches``; ``compute_dtype`` picks
+    the precision route (``ROUTES``).
     """
-    _check_compute_dtype(compute_dtype)
+    route = route_of(compute_dtype)
     if raw.device.type == "cpu":
         return fused_render_fwd_pe_reference(
             raw, feats, z, dnorm, e2, c, packed, white_bkgd, compute_dtype, use_feats
@@ -460,7 +501,7 @@ def fused_render_fwd_pe(
     ptrs = [t.data_ptr() for t in (z, dnorm, e2, c, w0, b0, wh, bh, wout, bout,
                                    rgb, depth, acc, weights, scratch)]
     err = fn(raw.data_ptr(), feats_ptr, *ptrs, R, S, n_raw, n_phase, Fd, D, H, L1,
-             int(white_bkgd), device.index, torch.cuda.current_stream(device).cuda_stream)
+             int(white_bkgd), route, device.index, torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, lib, "fwd_pe")
     fused_render_fwd_pe.launches += 1
     return rgb, depth, acc, weights
@@ -502,7 +543,7 @@ def fused_render_fwd(x, z, dnorm, packed: Packed, white_bkgd: bool = False,
     ``(rgb (R,3), depth (R,1), acc (R,1), weights (R,S))``. CPU tensors run
     ``fused_render_reference``; CUDA tensors launch ``nerf_fwd_x`` and count
     one in ``fused_render_fwd.launches``."""
-    _check_compute_dtype(compute_dtype)
+    route = route_of(compute_dtype)
     if x.device.type == "cpu":
         return fused_render_reference(x, z, dnorm, packed, white_bkgd, compute_dtype)
     R, S, D, H, L1 = _check_x_render(x, z, dnorm, packed, "fused_render_fwd")
@@ -512,7 +553,7 @@ def fused_render_fwd(x, z, dnorm, packed: Packed, white_bkgd: bool = False,
     lib, fn = _lib_fn("fwd_pe", "nerf_fwd_x", FWD_X_ARGTYPES)
     scratch = _scratch(lib, device, R, S, D, H, L1, source="fwd_pe")
     err = fn(*(t.data_ptr() for t in (x, z, dnorm, *packed, *outs, scratch)), R, S, D, H, L1,
-             int(white_bkgd), device.index, torch.cuda.current_stream(device).cuda_stream)
+             int(white_bkgd), route, device.index, torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, lib, "fwd_x")
     fused_render_fwd.launches += 1
     return tuple(outs)
@@ -530,7 +571,7 @@ def fused_render_bwd(x, z, dnorm, packed: Packed, g_rgb, g_depth, g_acc, g_weigh
     ``dx`` only with ``need_dx``. CPU tensors run
     ``fused_render_bwd_reference``; CUDA tensors launch ``nerf_render_bwd``
     and count one in ``fused_render_bwd.launches``."""
-    _check_compute_dtype(compute_dtype)
+    route = route_of(compute_dtype)
     cot = tuple(g.contiguous() for g in (g_rgb, g_depth, g_acc, g_weights))
     if x.device.type == "cpu":
         return fused_render_bwd_reference(x, z, dnorm, packed, *cot, white_bkgd, compute_dtype,
@@ -547,7 +588,7 @@ def fused_render_bwd(x, z, dnorm, packed: Packed, g_rgb, g_depth, g_acc, g_weigh
     dx = torch.empty((R * S, D), dtype=torch.float32, device=device) if need_dx else None
     ptrs = [t.data_ptr() for t in (x, z, dnorm, *packed, *cot)]
     err = fn(*ptrs, None if dx is None else dx.data_ptr(), grads.data_ptr(), scratch.data_ptr(),
-             R, S, D, H, L1, int(white_bkgd), device.index,
+             R, S, D, H, L1, int(white_bkgd), route, device.index,
              torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, lib, "render_bwd")
     fused_render_bwd.launches += 1
@@ -585,6 +626,6 @@ def fused_render(x, z, dnorm, packed: Packed, white_bkgd: bool = False,
     (R*S, D) ``x``: ``(rgb (R,3), depth (R,1), acc (R,1), weights (R,S))``,
     differentiable in ``x`` and the packed weights (``pack_params`` is
     differentiable, so gradients reach the ``NeRFMLP`` parameters)."""
-    _check_compute_dtype(compute_dtype)
+    route_of(compute_dtype)
     opts = dict(white_bkgd=white_bkgd, compute_dtype=compute_dtype)
     return _FusedRender.apply(x, z.contiguous(), dnorm.contiguous(), opts, *packed)

@@ -35,13 +35,14 @@ from nerf_fewshot_tpu_torch.render.kernels import (
     PE_ALIGN,
     Packed,
     _check_card,
-    _check_compute_dtype,
     _composite,
+    _composite_terms,
     _expect,
     _lib_fn,
     _pe_input,
     _raise_on,
     _raw_block,
+    _render_vjp,
     _scratch,
     _split_grads,
     _trunk,
@@ -50,15 +51,32 @@ from nerf_fewshot_tpu_torch.render.kernels import (
     pack_params,
     pe_layout,
     pe_width,
+    route_of,
 )
 from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings
 
-# csrc/train_pe.cu:nerf_train_objective(19 pointers, 10 ints, 3 floats, int, stream)
+# csrc/train_pe.cu:nerf_train_objective(19 pointers, 10 ints, 3 floats, 4 ints, stream)
 TRAIN_ARGTYPES = (
     [ctypes.c_void_p] * 19 + [ctypes.c_int] * 10 + [ctypes.c_float] * 3
-    + [ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_int] * 4 + [ctypes.c_void_p]
 )
 CALLER = "fused_train_objective"
+HEAD_MODES = ("mxu", "vpu")
+
+
+def _pin_dtypes(compute_dtype: str, dw_precision: Optional[str], head_mode: str):
+    """The JAX entry's two per-product pins as the routes of the six dW
+    products and of the head: ``dw_precision="highest"`` runs the dW
+    products in exact fp32 (``_dot_dw``); ``head_mode="vpu"`` the head's
+    three products (forward, the chain's seed, its dW) in exact fp32,
+    whatever ``compute_dtype`` is. Returns ``(dw_dtype, head_dtype)``, each
+    ``None`` where it follows ``compute_dtype``."""
+    route_of(compute_dtype)
+    if dw_precision not in (None, "highest"):
+        raise ValueError(f"dw_precision must be None or 'highest'; got {dw_precision!r}")
+    if head_mode not in HEAD_MODES:
+        raise ValueError(f"head_mode must be one of {HEAD_MODES}; got {head_mode!r}")
+    return dw_precision, ("highest" if head_mode == "vpu" else None)
 
 
 def _objective_loss(x, z, dnorm, tgt, mask, inv_denom, packed: Packed, white_bkgd,
@@ -86,19 +104,66 @@ def _objective_loss(x, z, dnorm, tgt, mask, inv_denom, packed: Packed, white_bkg
     return loss.reshape(())
 
 
+def _objective_analytic(x, z, dnorm, tgt, mask, inv_denom, packed: Packed, white_bkgd,
+                        rgb_weight, reg_weight, depth_weight, tgt_depth, compute_dtype,
+                        dw_dtype, head_dtype) -> Tuple[torch.Tensor, Packed]:
+    """``_objective_body`` written out as the kernel computes it: the
+    forward and loss of ``_objective_loss``, then the render's analytic VJP
+    (``_render_vjp``) seeded by the loss's cotangents of rgb (``2*err*
+    rgb_weight*inv_denom``), depth (the depth term's sign) and the weights
+    (the w^2 term's ``2*reg_scale*mask*w``). Every product rounds its two
+    operands where the JAX body does (``_dot``), the cotangent operand of
+    each chain and dW product included, which autograd through a bf16 cast
+    would round after the product instead."""
+    R, S = z.shape
+    out, acts = _trunk(x, packed, compute_dtype, head_dtype)
+    weights = _composite_terms(out[:, 3].reshape(R, S), z, dnorm)[-1]
+    rgb_s = torch.sigmoid(out[:, 0:3]).reshape(R, S, 3)
+    rgb_map = torch.sum(weights[..., None] * rgb_s, dim=1)
+    if white_bkgd:
+        rgb_map = rgb_map + (1.0 - torch.sum(weights, dim=1, keepdim=True))
+    err = (rgb_map - tgt) * mask
+    scale = rgb_weight * inv_denom
+    loss = torch.sum(err * err) * scale
+    g_rgb = 2.0 * err * scale
+    g_depth = torch.zeros_like(mask)
+    g_weights = torch.zeros_like(weights)
+    if reg_weight:
+        reg_scale = (3.0 * reg_weight / S) * inv_denom
+        wsq = torch.sum(weights * weights, dim=1, keepdim=True)
+        loss = loss + torch.sum(wsq * mask) * reg_scale
+        g_weights = (2.0 * reg_scale) * mask * weights
+    if tgt_depth is not None:
+        d_scale = 3.0 * depth_weight * inv_denom
+        diff = torch.sum(weights * z, dim=1, keepdim=True) - tgt_depth
+        loss = loss + torch.sum(torch.abs(diff) * mask) * d_scale
+        g_depth = d_scale * torch.sign(diff) * mask
+    _, grads = _render_vjp(out, acts, z, dnorm, packed, g_rgb, g_depth, torch.zeros_like(mask),
+                           g_weights, white_bkgd, compute_dtype, False, dw_dtype, head_dtype)
+    return loss.reshape(()), grads
+
+
 def fused_train_objective_reference(
     raw_or_x, feats, z, dnorm, tgt, mask, inv_denom, e2, c, packed: Packed, *,
     white_bkgd: bool = False, inline_pe: bool = True, rgb_weight: float = 1.0,
     reg_weight: float = 0.0, depth_weight: float = 0.0,
     tgt_depth: Optional[torch.Tensor] = None, compute_dtype: str = "float32",
+    dw_precision: Optional[str] = None, head_mode: str = "mxu",
 ) -> Tuple[torch.Tensor, Packed]:
     """Plain PyTorch version of the kernel, on any device: the kernel's
     forward arithmetic (exact PE phases, ``sin(phase + pi/2)`` for cos,
-    ``cumsum`` for the transmittance), its gradients from
-    ``torch.autograd.grad`` over the packed tensors. Matmuls must run in
-    fp32 (``torch.backends.cuda.matmul.allow_tf32`` False, the default).
-    Returns ``(loss (), dpacked)``."""
-    _check_compute_dtype(compute_dtype)
+    ``cumsum`` for the transmittance). ``bfloat16``, whose products round
+    their operands, takes its gradients from the analytic backward of
+    ``_objective_analytic``; ``float32`` and ``highest`` (pinned or not:
+    every plain product is exact fp32 there, matmuls without TF32, PyTorch's
+    default) from ``torch.autograd.grad`` over the packed tensors. Returns
+    ``(loss (), dpacked)``."""
+    dw_dtype, head_dtype = _pin_dtypes(compute_dtype, dw_precision, head_mode)
+    if compute_dtype == "bfloat16":
+        x = _pe_input(raw_or_x, feats, e2, c, packed[0].shape[0]) if inline_pe else raw_or_x
+        return _objective_analytic(x, z, dnorm, tgt, mask, inv_denom, packed, white_bkgd,
+                                   rgb_weight, reg_weight, depth_weight, tgt_depth,
+                                   compute_dtype, dw_dtype, head_dtype)
     with torch.enable_grad():
         leaves = tuple(p.detach().requires_grad_(True) for p in packed)
         if inline_pe:
@@ -117,6 +182,7 @@ def fused_train_objective(
     white_bkgd: bool = False, inline_pe: bool = True, rgb_weight: float = 1.0,
     reg_weight: float = 0.0, depth_weight: float = 0.0,
     tgt_depth: Optional[torch.Tensor] = None, compute_dtype: str = "float32",
+    dw_precision: Optional[str] = None, head_mode: str = "mxu",
 ) -> Tuple[torch.Tensor, Packed]:
     """``(loss (), dpacked)`` of the training objective over R rays x S samples.
 
@@ -128,11 +194,16 @@ def fused_train_objective(
     ``None`` (no depth term). CPU tensors run the plain version; CUDA
     tensors launch the kernel and count one in
     ``fused_train_objective.launches["train_pe" or "train_x"]``.
+    ``compute_dtype`` picks the precision route of the products (``ROUTES``
+    in ``render/kernels.py``); ``dw_precision="highest"`` runs the six dW
+    products and ``head_mode="vpu"`` the head's products in exact fp32
+    whatever the route (the JAX entry's pins).
     """
-    _check_compute_dtype(compute_dtype)
+    route = route_of(compute_dtype)
+    dw_dtype, head_dtype = _pin_dtypes(compute_dtype, dw_precision, head_mode)
     kw = dict(white_bkgd=white_bkgd, inline_pe=inline_pe, rgb_weight=rgb_weight,
               reg_weight=reg_weight, depth_weight=depth_weight, tgt_depth=tgt_depth,
-              compute_dtype=compute_dtype)
+              compute_dtype=compute_dtype, dw_precision=dw_precision, head_mode=head_mode)
     if raw_or_x.device.type == "cpu":
         return fused_train_objective_reference(
             raw_or_x, feats, z, dnorm, tgt, mask, inv_denom, e2, c, packed, **kw)
@@ -192,6 +263,7 @@ def fused_train_objective(
             scratch.data_ptr()]
     err = fn(*ptrs, R, S, n_raw, n_phase, Fd, D, H, L1, int(inline_pe), int(white_bkgd),
              float(rgb_weight), float(3.0 * reg_weight / S), float(3.0 * depth_weight),
+             route, route_of(dw_dtype or compute_dtype), int(head_dtype is not None),
              device.index, torch.cuda.current_stream(device).cuda_stream)
     _raise_on(err, lib, "train_pe")
     fused_train_objective.launches["train_pe" if inline_pe else "train_x"] += 1
@@ -270,6 +342,8 @@ def train_objective_inputs(
     rgb_weight: float = 1.0,
     importance_uniforms: Optional[torch.Tensor] = None,
     lora_alpha: float = 16.0,
+    dw_precision: Optional[str] = None,
+    head_mode: str = "mxu",
 ):
     """The host glue of ``fused_train_loss_grad``: sampling (with
     ``settings.n_importance``, the coarse pass and the importance samples),
@@ -318,7 +392,7 @@ def train_objective_inputs(
             mask.reshape(-1, 1).to(rays_o.dtype).contiguous(), inv_denom, e2, c, packed)
     opts = dict(white_bkgd=settings.white_bkgd, inline_pe=inline_pe, rgb_weight=rgb_weight,
                 reg_weight=reg_weight, depth_weight=depth_weight, tgt_depth=tgt_depth,
-                compute_dtype=compute_dtype)
+                compute_dtype=compute_dtype, dw_precision=dw_precision, head_mode=head_mode)
     return args, opts
 
 
@@ -345,6 +419,8 @@ def fused_train_loss_grad(
     rgb_weight: float = 1.0,
     importance_uniforms: Optional[torch.Tensor] = None,
     lora_alpha: float = 16.0,
+    dw_precision: Optional[str] = None,
+    head_mode: str = "mxu",
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(masked-MSE loss, parameter gradients by name) in one kernel call.
 
@@ -362,7 +438,10 @@ def fused_train_loss_grad(
     evenly spaced ``linspace(0, 1)`` without them); the objective then runs
     over the merged, sorted ``n_samples + n_importance`` depths. LoRA trunk
     layers are merged with ``lora_alpha`` (``pack_params``), and their
-    gradients come back under ``lora_a`` / ``lora_b``.
+    gradients come back under ``lora_a`` / ``lora_b``. ``compute_dtype``
+    picks the kernels' precision route (``float32``, ``bfloat16``,
+    ``highest``); ``dw_precision="highest"`` and ``head_mode="vpu"`` pin the
+    dW products and the head to exact fp32, as the JAX entry's pins do.
     """
     if isinstance(model_or_state, nn.Module):
         params = dict(model_or_state.named_parameters())
@@ -372,7 +451,7 @@ def fused_train_loss_grad(
         params, rays_o, rays_d, target, mask, settings, pos_freq, dir_freq, num_layers,
         hidden_dim, use_viewdirs, compute_dtype, uniforms, denom_rays, inline_pe,
         reg_weight, depth_weight, target_depth, point_features_fn, rgb_weight,
-        importance_uniforms, lora_alpha)
+        importance_uniforms, lora_alpha, dw_precision, head_mode)
     *inputs, packed = args
     loss = _TrainObjective.apply(*inputs, opts, *packed)
     names = list(params)

@@ -4,7 +4,7 @@ report their quality band: best PSNR, SSIM and LPIPS (with its
 
     python nerf_fewshot_tpu_torch/tools/quality_runs.py --out chiprun_out/quality.jsonl \
         [--configs baseline.yaml dino_nerf.yaml multiscale.yaml] [--epochs N] [--seed S] \
-        [--backend xla] [--device cuda]
+        [--backend xla] [--compute-dtype bfloat16] [--device cuda]
 
 Each config runs as ``python -m nerf_fewshot_tpu_torch.cli train --config
 experiments/<name> --synthetic`` in a fresh process, from a temporary
@@ -17,7 +17,9 @@ set none, so they run at 0): the model init, the minibatch order, the
 jitter and the DINO extractors' init follow it; the scene does not.
 ``--backend xla`` runs a copy with ``rendering.backend: xla``: the plain
 pipeline and autograd instead of the kernels, to tell the kernels' numerics
-from a recipe's own dynamics. A
+from a recipe's own dynamics; ``--compute-dtype`` a copy with
+``rendering.compute_dtype`` set, the kernels' precision route (``bfloat16``:
+one bf16 pass per product, the rounding the TPU runs had). A
 config with ``log_format: "csv"`` runs as a copy with the JSONL sink: the
 CSV sink keeps only the first record's columns, so its eval rows carry no
 PSNR. From the run's ``log.jsonl`` it takes every eval record's PSNR, SSIM
@@ -40,26 +42,30 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def run(name: str, epochs, device: str, seed=None, backend=None) -> dict:
+def run(name: str, epochs, device: str, seed=None, backend=None, compute_dtype=None) -> dict:
     from nerf_fewshot_tpu_torch.training.config import load_config
 
     path = os.path.join(ROOT, "experiments", name)
     cfg = load_config(path)
     env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
     with tempfile.TemporaryDirectory(prefix="quality_") as tmp:
-        if seed is not None or backend is not None or cfg.output.log_format == "csv":
+        if (seed is not None or backend is not None or compute_dtype is not None
+                or cfg.output.log_format == "csv"):
             if seed is not None and "seed" in cfg.raw:
                 raise ValueError(f"{name} sets its own seed")
             with open(path) as f:
                 text = f.read().replace('log_format: "csv"', 'log_format: "jsonl"')
-            if backend is not None:
-                text = text.replace("\nrendering:\n", f"\nrendering:\n  backend: {backend}\n")
+            for key, value in (("backend", backend), ("compute_dtype", compute_dtype)):
+                if value is not None:
+                    text = text.replace("\nrendering:\n", f"\nrendering:\n  {key}: {value}\n")
             path = os.path.join(tmp, name)
             with open(path, "w") as f:
                 f.write(text + ("" if seed is None else f"\nseed: {seed}\n"))
             cfg = load_config(path)
-            if cfg.output.log_format != "jsonl" or backend not in (None, cfg.rendering.backend):
-                raise ValueError(f"{name}: could not switch its log to JSONL or its backend")
+            if (cfg.output.log_format != "jsonl" or backend not in (None, cfg.rendering.backend)
+                    or compute_dtype not in (None, cfg.rendering.compute_dtype)):
+                raise ValueError(f"{name}: could not switch its log to JSONL, its backend or "
+                                 f"its compute_dtype")
         cmd = [sys.executable, "-m", "nerf_fewshot_tpu_torch.cli", "train", "--config", path,
                "--synthetic", "--device", device]
         if epochs is not None:
@@ -77,6 +83,7 @@ def run(name: str, epochs, device: str, seed=None, backend=None) -> dict:
     train = [r for r in recs if "train_loss" in r]
     return {
         "config": name, "seed": cfg.seed, "backend": cfg.rendering.backend,
+        "compute_dtype": cfg.rendering.compute_dtype,
         "epochs": epochs if epochs is not None else cfg.epochs,
         "wall_s": wall, "best_psnr": summary["best_psnr"],
         "best_epoch": best.get("epoch"), "ssim_at_best": best.get("ssim"),
@@ -99,6 +106,9 @@ def main() -> None:
                     help="run each config at this seed (default: the file's, 0)")
     ap.add_argument("--backend", default=None, choices=["auto", "fused", "xla"],
                     help="run each config with this rendering.backend (default: the file's)")
+    ap.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16", "highest"],
+                    help="run each config with this rendering.compute_dtype (default: the "
+                         "file's, float32)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", required=True, help="the JSON-lines file each run appends to")
     args = ap.parse_args()
@@ -110,7 +120,7 @@ def main() -> None:
                              check=True).stdout.strip().splitlines()[0]
         print(smi, flush=True)
     for name in args.configs:
-        rec = run(name, args.epochs, args.device, args.seed, args.backend)
+        rec = run(name, args.epochs, args.device, args.seed, args.backend, args.compute_dtype)
         with open(args.out, "a") as f:
             f.write(json.dumps(rec) + "\n")
         print(json.dumps(rec), flush=True)

@@ -1,0 +1,131 @@
+"""Save the five kernels' ``float32`` outputs on the main path's inputs from
+a given checkout, or compare two such files bit for bit: the check that a
+change to the kernels' sources left the float32 route as it was.
+
+    python nerf_fewshot_tpu_torch/tools/route_bits.py --root DIR --out FILE.pt
+    python nerf_fewshot_tpu_torch/tools/route_bits.py --compare A.pt B.pt
+
+A run imports ``nerf_fewshot_tpu_torch`` and ``chip_smoke`` from ``--root``
+(so one copy of this script drives the port of any checkout that has them;
+run each checkout in its own process, as they share the package's name),
+builds its kernels, and calls each at its default ``compute_dtype`` on the
+inputs ``chip_smoke`` makes for the main path: ``experiments/baseline.yaml``
+at its seed on the synthetic scene (kernel 2 and 4 on a 2048x64 eval chunk,
+kernels 1, 5 and 3 on the phase-2 batch of 512x64), and at the DINO width
+(pos_freq 12, 64 features: D 176 inline, a 256-wide x) from seed 0. The file
+holds the outputs and a digest of the inputs; ``--compare`` fails unless
+both files saw the same inputs and every output tensor is bit-equal.
+"""
+
+from __future__ import annotations
+
+import argparse
+import hashlib
+import os
+import sys
+
+
+def _digest(tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        if t is not None:
+            h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def run(root: str, out: str) -> None:
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+    import torch
+
+    import chip_smoke
+    from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
+    from nerf_fewshot_tpu_torch.render import kernels as tk
+    from nerf_fewshot_tpu_torch.render import train_kernel as tt
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    if not torch.cuda.is_available():
+        raise SystemExit("route_bits: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    device = torch.device("cuda", 0)
+    cfg = config_from_dict(chip_smoke.BASELINE_CONFIG)
+    res = cfg.data.resolution
+    train = make_scene_dataset(lego_like_scene(), 5, img_size=res, seed=cfg.seed, device=device)
+    test = make_scene_dataset(lego_like_scene(), 8, img_size=res, seed=cfg.seed, split="test",
+                              device=device)
+    trainer = Trainer(cfg, train, test, device=device)
+    last = len(cfg.phases) - 1
+    rng = np.random.default_rng(0)
+    flat = lambda r: [r[0], *r[1]]
+    calls = {}
+
+    def add(name, fn, *args, **kw):
+        inputs = [t for a in args for t in (a if isinstance(a, tuple) else (a,))
+                  if torch.is_tensor(t)]
+        calls[name] = (fn, args, kw, _digest(inputs))
+
+    add("fwd_pe_d96", tk.fused_render_fwd_pe, *chip_smoke.main_path_fwd_pe_args(
+        trainer, test.poses[0], device))
+    add("fwd_d96", tk.fused_render_fwd, *chip_smoke.main_path_fwd_x_args(
+        trainer, test.poses[0], device))
+    bw, cot = chip_smoke.main_path_render_bwd_args(trainer, device)
+    add("render_bwd_d96", lambda *a: flat(tk.fused_render_bwd(*a)), *bw, *cot)
+    for name, inline_pe in (("train_pe_d96", True), ("train_x_d96", False)):
+        a, o = chip_smoke.main_path_train_args(trainer, last, device, inline_pe=inline_pe)
+        add(name, lambda *a, **o: flat(tt.fused_train_objective(*a, **o)), *a, **o)
+    a = chip_smoke.random_fwd_pe_args(rng, 1024, 64, 256, 8, 64, device, pos_freq=12, d_pad=176)
+    add("fwd_pe_d176", tk.fused_render_fwd_pe, *a, use_feats=True)
+    a, _ = chip_smoke.random_render_args(rng, 2048, 64, 256, 8, device, feat_dim=64, pos_freq=12)
+    add("fwd_d176", tk.fused_render_fwd, *a)
+    a, _ = chip_smoke.random_render_args(rng, 512, 64, 256, 8, device, feat_dim=64, pos_freq=12)
+    add("render_bwd_d176", lambda *a: flat(tk.fused_render_bwd(*a)), *a,
+        *chip_smoke.random_cotangents(rng, 512, 64, device))
+    for name, inline_pe in (("train_pe_d176", True), ("train_x_d176", False)):
+        a, o = chip_smoke.random_train_args(rng, 512, 64, 256, 8, device, feat_dim=64,
+                                            pos_freq=12, inline_pe=inline_pe)
+        add(name, lambda *a, **o: flat(tt.fused_train_objective(*a, **o)), *a, **o)
+
+    outputs, digests = {}, {}
+    for name, (fn, args, kw, digest) in calls.items():
+        outputs[name] = [t.detach().cpu() for t in fn(*args, **kw) if t is not None]
+        digests[name] = digest
+    torch.cuda.synchronize()
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    torch.save({"root": root, "device": torch.cuda.get_device_name(0), "inputs": digests,
+                "outputs": outputs}, out)
+    print(f"route_bits: {len(outputs)} calls from {root} -> {out}", flush=True)
+
+
+def compare(a_path: str, b_path: str) -> bool:
+    import torch
+
+    a, b = torch.load(a_path), torch.load(b_path)
+    ok = True
+    for name in a["outputs"]:
+        same_in = a["inputs"][name] == b["inputs"].get(name)
+        same = same_in and all(torch.equal(x, y)
+                               for x, y in zip(a["outputs"][name], b["outputs"][name]))
+        ok &= same
+        print(f"  {name}: inputs {'equal' if same_in else 'DIFFER'}, float32 outputs "
+              f"{'bit-equal' if same else 'DIFFER'}", flush=True)
+    return ok
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=".")
+    ap.add_argument("--out")
+    ap.add_argument("--compare", nargs=2)
+    args = ap.parse_args()
+    if args.compare:
+        if not compare(*args.compare):
+            raise SystemExit("route_bits: the float32 outputs differ")
+    elif not args.out:
+        ap.error("a run needs --out")
+    else:
+        run(args.root, args.out)
+
+
+if __name__ == "__main__":
+    main()

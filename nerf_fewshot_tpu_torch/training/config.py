@@ -136,9 +136,10 @@ class RenderingConfig:
     # 'fused' = the inline-PE kernel (functional arch, noise_std 0);
     # 'xla' = the plain pipeline; 'auto' picks fused when eligible.
     backend: str = "auto"
-    # Matmul precision inside the fused kernels: 'float32' and 'highest' are
-    # the same in the port (every kernel's trunk products as 3xTF32, the PE
-    # phases, head and compositing in exact fp32); 'bfloat16' raises.
+    # Matmul precision inside the fused kernels (render/kernels.py ROUTES):
+    # 'float32' the trunk products as 3xTF32 on the tensor cores, 'bfloat16'
+    # both operands of every product rounded to bf16 (the TPU runs' one bf16
+    # pass), 'highest' exact fp32 FFMAs; the plain path ignores it.
     compute_dtype: str = "float32"
 
 

@@ -250,8 +250,74 @@ def test_train_wrapper_checks_its_inputs(h100):
     with pytest.raises(ValueError, match="on cpu|on cuda"):
         tt.fused_train_objective(raw, feats, z, dnorm, tgt, mask.cpu(), inv_denom, e2, c, packed,
                                  **opts)
-    with pytest.raises(NotImplementedError):
-        tt.fused_train_objective(*args, **{**opts, "compute_dtype": "bfloat16"})
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tt.fused_train_objective(*args, **{**opts, "compute_dtype": "float16"})
+    with pytest.raises(ValueError, match="dw_precision"):
+        tt.fused_train_objective(*args, **{**opts, "dw_precision": "default"})
+
+
+# The precision routes' kernel-vs-plain bounds (measured on an NVIDIA H100
+# 80GB HBM3 at 700 W: bfloat16 outputs within 7.4e-5, the render VJP's gradients
+# rel 5.1e-4 with standard-normal cotangents on all four outputs, the
+# objective rel 1.6e-5: a bf16 rounding that the kernel's and cuBLAS's sum
+# orders put on two sides of a tie moves an element by 2^-8 of itself, and
+# the suffix sums amplify it; highest as float32).
+ROUTE_OUT_ATOL = {"bfloat16": 1e-3, "highest": 1e-4}
+ROUTE_GRAD_RTOL = {"bfloat16": 5e-3, "highest": 1e-4}
+
+
+def _route_case(kernel, device):
+    """Random inputs of each kernel at 128 rays x 64 samples, 8x256, and
+    its (call, plain version) at a given route, each returning a flat tuple."""
+    import chip_smoke
+
+    rng = np.random.default_rng(3)
+    if kernel == "fwd_pe":
+        a = chip_smoke.random_fwd_pe_args(rng, 128, 64, 256, 8, 64, device, d_pad=176)
+        return (lambda cd: tk.fused_render_fwd_pe(*a, compute_dtype=cd, use_feats=True),
+                lambda cd: tk.fused_render_fwd_pe_reference(*a, compute_dtype=cd,
+                                                            use_feats=True))
+    if kernel in ("fwd_x", "render_bwd"):
+        a, _ = chip_smoke.random_render_args(rng, 128, 64, 256, 8, device)
+        if kernel == "fwd_x":
+            return (lambda cd: tk.fused_render_fwd(*a, white_bkgd=True, compute_dtype=cd),
+                    lambda cd: tk.fused_render_reference(*a, white_bkgd=True, compute_dtype=cd))
+        cot = chip_smoke.random_cotangents(rng, 128, 64, device)
+        flat = lambda r: (r[0], *r[1])
+        return (lambda cd: flat(tk.fused_render_bwd(*a, *cot, compute_dtype=cd)),
+                lambda cd: flat(tk.fused_render_bwd_reference(*a, *cot, compute_dtype=cd)))
+    a, o = chip_smoke.random_train_args(rng, 128, 64, 256, 8, device, white_bkgd=True, ragged=9,
+                                        reg_weight=0.01, depth_weight=0.1,
+                                        inline_pe=kernel == "train_pe")
+    flat = lambda r: (r[0].reshape(1), *r[1])
+    return (lambda cd: flat(tt.fused_train_objective(*a, **{**o, "compute_dtype": cd})),
+            lambda cd: flat(tt.fused_train_objective_reference(*a, **{**o, "compute_dtype": cd})))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["bfloat16", "highest"])
+@pytest.mark.parametrize("kernel", ["fwd_pe", "fwd_x", "render_bwd", "train_pe", "train_x"])
+def test_every_kernel_at_every_route_matches_plain(h100, kernel, compute_dtype):
+    """Each of the five kernels at ``bfloat16`` and ``highest`` against its
+    plain version at the same route: a second call bit-equal; render
+    outputs within ROUTE_OUT_ATOL, gradient vectors (with the loss) within
+    ROUTE_GRAD_RTOL; ``bfloat16`` apart from the ``float32`` route."""
+    run, plain = _route_case(kernel, h100)
+    got, again, f32 = run(compute_dtype), run(compute_dtype), run("float32")
+    want = plain(compute_dtype)
+    torch.cuda.synchronize()
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert all(torch.isfinite(t).all() for t in got)
+    flat = lambda ts: torch.cat([t.reshape(-1).double() for t in ts])
+    if kernel in ("fwd_pe", "fwd_x"):
+        dist = lambda a, b: max((x - y).abs().max().item() for x, y in zip(a, b))
+        bound, apart = ROUTE_OUT_ATOL[compute_dtype], 1e-5
+    else:
+        dist = lambda a, b: ((flat(a) - flat(b)).norm() / flat(b).norm()).item()
+        bound, apart = ROUTE_GRAD_RTOL[compute_dtype], 1e-4
+    assert dist(got, want) <= bound, dist(got, want)
+    if compute_dtype == "bfloat16":
+        assert dist(got, f32) > apart
 
 
 @pytest.mark.cuda

@@ -148,18 +148,25 @@ def test_fwd_pe_phases_are_exact():
     np.testing.assert_array_equal(got, want)
 
 
-def test_fwd_pe_refuses_bfloat16_and_unknown_dtypes():
+def test_fwd_pe_takes_every_route_and_refuses_unknown_dtypes():
+    """``bfloat16`` runs its plain version (its products' operands rounded
+    to bf16, apart from the fp32 result), ``highest`` the exact fp32
+    function (bit-equal to ``float32``'s plain version on the CPU); an
+    unknown dtype raises. tests/test_torch_port_precision.py holds the
+    routes against the JAX kernels."""
     _, raw, _, z, dnorm, e2, c = _kernel_inputs(2, 4, 0)
     packed = tuple(_t(p) for p in _kernel_inputs(2, 4, 0)[0])
     args = (_t(raw), None, _t(z), _t(dnorm), _t(e2), _t(c), packed)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tk.fused_render_fwd_pe(*args, compute_dtype="bfloat16")
     with pytest.raises(ValueError, match="compute_dtype"):
         tk.fused_render_fwd_pe(*args, compute_dtype="float16")
-    # "highest" is the same exact-fp32 function here
-    for a, b in zip(tk.fused_render_fwd_pe(*args, compute_dtype="highest"),
-                    tk.fused_render_fwd_pe(*args)):
+    f32 = tk.fused_render_fwd_pe(*args)
+    for a, b in zip(tk.fused_render_fwd_pe(*args, compute_dtype="highest"), f32):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
+    bf16 = tk.fused_render_fwd_pe(*args, compute_dtype="bfloat16")
+    for a, b in zip(bf16, tk.fused_render_fwd_pe_reference(*args, compute_dtype="bfloat16")):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert all(torch.isfinite(t).all() for t in bf16)
+    assert (bf16[0] - f32[0]).abs().max() > 1e-5
 
 
 @pytest.mark.parametrize("white_bkgd", [False, True])
@@ -184,20 +191,28 @@ def test_fused_render_rays_forward_only_matches_jax(white_bkgd):
 
 
 def test_fused_render_rays_refuses_unported_modes():
-    """Sigma noise (which the JAX fused backend refuses too) and bfloat16
-    raise in both modes; the differentiable and hierarchical modes are
-    ported (tests/test_torch_port_render_grad.py,
+    """Sigma noise (which the JAX fused backend refuses too) raises in both
+    modes, and so does an unknown ``compute_dtype``; ``bfloat16`` renders
+    in both, hierarchical too, apart from ``float32``. The differentiable
+    and hierarchical modes are ported (tests/test_torch_port_render_grad.py,
     tests/test_torch_port_hierarchical.py)."""
     state = nerf_mlp_from_jax(_params())
-    ro, rd = torch.zeros((8, 3)), torch.ones((8, 3))
+    ro = torch.tensor([[0.0, 0.0, 4.0]]).expand(8, 3).contiguous()
+    rd = torch.tensor((RNG.standard_normal((8, 3)) * 0.3 + [0, 0, -1]).astype(np.float32))
     kw = dict(pos_freq=10, dir_freq=4, num_layers=N_LAYERS, hidden_dim=HIDDEN, device="cpu")
+    hier = RenderSettings(n_samples=8, n_importance=8)
     for forward_only in (True, False):
         with pytest.raises(ValueError, match="noise"):
             fused_render_rays(state, ro, rd, RenderSettings(n_samples=8, noise_std=1.0),
                               forward_only=forward_only, **kw)
-        with pytest.raises(NotImplementedError, match="bfloat16"):
-            fused_render_rays(state, ro, rd, RenderSettings(n_samples=8, n_importance=8),
-                              forward_only=forward_only, compute_dtype="bfloat16", **kw)
+        with pytest.raises(ValueError, match="compute_dtype"):
+            fused_render_rays(state, ro, rd, hier, forward_only=forward_only,
+                              compute_dtype="float16", **kw)
+        outs = {cd: fused_render_rays(state, ro, rd, hier, forward_only=forward_only,
+                                      compute_dtype=cd, **kw)
+                for cd in ("float32", "bfloat16")}
+        assert torch.isfinite(outs["bfloat16"].rgb).all()
+        assert (outs["bfloat16"].rgb - outs["float32"].rgb).abs().max() > 1e-6
 
 
 def test_ctypes_signature_matches_the_cuda_launcher():

@@ -295,8 +295,12 @@ def test_render_kernel_wrappers_refuse_non_cpu_tensors_without_a_kernel():
     tk.fused_render_fwd(*args)
     tk.fused_render_bwd(*args, *map(_t, cot))
     assert (tk.fused_render_fwd.launches, tk.fused_render_bwd.launches) == before
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        tk.fused_render(*args, compute_dtype="bfloat16")
+    with pytest.raises(ValueError, match="compute_dtype"):
+        tk.fused_render(*args, compute_dtype="float16")
+    # bfloat16 runs the plain versions at that route (tests/test_torch_port_precision.py)
+    bf16 = tk.fused_render(*args, compute_dtype="bfloat16")
+    assert all(torch.isfinite(t).all() for t in bf16)
+    assert (tk.fused_render_fwd.launches, tk.fused_render_bwd.launches) == before
 
 
 @pytest.mark.parametrize("source,name,argtypes", [

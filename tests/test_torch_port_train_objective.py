@@ -215,9 +215,21 @@ def test_train_objective_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="noise"):
         tt.fused_train_loss_grad(state, ro, rd, tgt, torch.ones(4),
                                  RenderSettings(n_samples=8, noise_std=1.0), 10, 4, 3, 128)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
+    with pytest.raises(ValueError, match="compute_dtype"):
         tt.fused_train_loss_grad(state, ro, rd, tgt, torch.ones(4), RenderSettings(n_samples=8),
-                                 10, 4, 3, 128, compute_dtype="bfloat16")
+                                 10, 4, 3, 128, compute_dtype="float16")
+    # bfloat16 is ported (tests/test_torch_port_precision.py): finite, and
+    # apart from float32
+    ro = torch.tensor([[0.0, 0.0, 4.0]]).expand(4, 3).contiguous()
+    rd = torch.tensor([[0.1, 0.2, -1.0], [0.0, -0.1, -1.0], [-0.2, 0.1, -1.0], [0.1, 0.0, -1.0]])
+    tgt = torch.full((4, 3), 0.3)
+    out = {cd: tt.fused_train_loss_grad(state, ro, rd, tgt, torch.ones(4),
+                                        RenderSettings(n_samples=8), 10, 4, 3, 128,
+                                        compute_dtype=cd)
+           for cd in ("float32", "bfloat16")}
+    loss, grads = out["bfloat16"]
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads.values())
+    assert abs(float(loss) - float(out["float32"][0])) > 1e-9
 
 
 def test_train_kernel_wrapper_refuses_non_cpu_tensors_without_a_kernel():

@@ -45,11 +45,16 @@ its seconds:
    same route (TF32 off): two calls bit for bit, ``ROUTE_TOL``, no further
    from a float64 run at the route than ``F64_FACTOR`` times the plain
    version, ``bfloat16`` apart from the ``float32`` route; CUDA-event
-   times and the bound at the route's rate;
+   times and the bound at the route's rate; kernels 1 and 3 at D 96 also
+   the device time of each grid launch at each route;
 6b. float32 route vs the parent build: with ``$NERF_PARENT_CHECKOUT`` (a
    checkout of the parent commit), ``tools/route_bits.py`` on both trees:
-   the five kernels' ``float32`` outputs bit-equal on the main path's
-   inputs; without it the phase says it was not checked;
+   kernels 2 and 4's ``float32`` outputs bit-equal on the main path's
+   inputs, kernels 1, 5 and 3 (whose sums the wgmma redesign reorders)
+   reported with their relative difference; then kernels 1, 5 and 3 timed
+   against the parent in alternating pairs (``tools/train_times.py``) at
+   every shape and route of ``PERF.md``'s kernel tables; without it the
+   phase says it was not checked;
 7. differentiable render steps: the baseline ``NeRFMLP`` from its seed
    takes 30 Adam steps (512 rays x 64 samples of the 128x128 views, a loss
    on rgb, weights, depth and acc) through
@@ -743,7 +748,7 @@ def main_path_train_args(trainer, phase_idx, device, inline_pe=True, seed=0):
 
 # Device-time groups of the profiled runs, by kernel name (first match).
 KERNEL_GROUPS = ("train_fwd", "train_bwd", "train_dw", "train_composite", "render_composite",
-                 "render_dx", "train_finalize", "loss_sum", "weight_split", "fwd_split",
+                 "render_dx", "train_finalize", "loss_sum", "weight_image", "fwd_split",
                  "fwd_trunk", "fwd_composite")
 
 
@@ -2698,25 +2703,45 @@ def run_data_parallel(device, tk, tmp):
     return one["launches"], eval_launches, [t["launches"] for t in two]
 
 
+# The kernels whose float32 sums this tree orders differently from its
+# parent's build by design (kernels 1, 5 and 3: the wgmma redesign of the
+# trunk stages); the parent check reports them, and the kernel phases hold
+# them against float64.
+REORDERED_VS_PARENT = ("train_pe", "train_x", "render_bwd")
+
+
 def run_parent_bits():
-    """The float32 route of all five kernels bit-equal to a parent
-    checkout's build (``tools/route_bits.py`` on both trees, each in its
-    own process), when ``$NERF_PARENT_CHECKOUT`` names one; a checkout of
-    the repo alone has no parent, and the phase says so."""
+    """The float32 route of the five kernels against a parent checkout's
+    build, when ``$NERF_PARENT_CHECKOUT`` names one: ``tools/route_bits.py``
+    on both trees (each in its own process), bit-equal but for
+    ``REORDERED_VS_PARENT``, whose relative difference is printed; then
+    kernels 1, 5 and 3 timed in alternating pairs, parent / change / change
+    / parent (``tools/train_times.py``), the pairs and means printed. A
+    checkout of the repo alone has no parent, and the phase says so."""
     parent = os.environ.get("NERF_PARENT_CHECKOUT")
     if not parent:
-        print("  NERF_PARENT_CHECKOUT is not set: the float32 route is not compared with a "
-              "parent build in this run (nerf_fewshot_tpu_torch/tools/route_bits.py)", flush=True)
+        print("  NERF_PARENT_CHECKOUT is not set: the float32 route and the kernel times are not "
+              "compared with a parent build in this run (nerf_fewshot_tpu_torch/tools/"
+              "route_bits.py, train_times.py)", flush=True)
         return
-    tool = os.path.join(ROOT, "nerf_fewshot_tpu_torch", "tools", "route_bits.py")
+    tools = os.path.join(ROOT, "nerf_fewshot_tpu_torch", "tools")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_bits_")
+    roots = (("parent", os.path.abspath(parent)), ("change", ROOT))
     try:
         files = []
-        for tag, root in (("parent", os.path.abspath(parent)), ("change", ROOT)):
+        for tag, root in roots:
             files.append(os.path.join(tmp, f"{tag}.pt"))
-            subprocess.run([sys.executable, tool, "--root", root, "--out", files[-1]],
-                           check=True, timeout=900)
-        subprocess.run([sys.executable, tool, "--compare", *files], check=True, timeout=300)
+            subprocess.run([sys.executable, os.path.join(tools, "route_bits.py"), "--root", root,
+                            "--out", files[-1]], check=True, timeout=900)
+        subprocess.run([sys.executable, os.path.join(tools, "route_bits.py"), "--compare",
+                        *files, "--reordered", *REORDERED_VS_PARENT], check=True, timeout=300)
+        times = os.path.join(tmp, "times.jsonl")
+        for tag, root in (*roots, *roots[::-1]):
+            subprocess.run([sys.executable, os.path.join(tools, "train_times.py"), "--root",
+                            root, "--tag", tag, "--out", times], check=True, timeout=900,
+                           stdout=subprocess.DEVNULL)
+        subprocess.run([sys.executable, os.path.join(tools, "train_times.py"), "--summarize",
+                        times, "--base", "parent", "--change", "change"], check=True, timeout=60)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2847,6 +2872,8 @@ def run_route_kernels(trainer, test, device):
                                    f"(factor {F64_FACTOR})")
             if cd == "bfloat16" and not apart_ok:
                 raise RuntimeError(f"{label}: bfloat16 reads {apart} from the float32 route")
+            if width == "d96" and kernel in ("train_pe", "render_bwd") and cd != "float32":
+                print_launch_times(f"{label}", lambda: run(cd))
             rows[(kernel, width, cd)] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                                              bound_ms=b_ms, bound_by=b_by, bound_rate=rate,
                                              f64_rel=k64, plain_f64_rel=p64)
@@ -3126,7 +3153,7 @@ def main():
     with phase("precision routes: kernels vs plain"):
         route_rows = run_route_kernels(trainer, test, device)
 
-    with phase("float32 route vs the parent build"):
+    with phase("float32 route and kernel times vs the parent build"):
         run_parent_bits()
 
     with phase("differentiable render steps"):

@@ -121,6 +121,20 @@ def _precompute_features(cfg, train_data, device) -> Optional[np.ndarray]:
     return _extract(cfg, train_data, device)
 
 
+def _load_features(path: str, cfg, train_data) -> np.ndarray:
+    """Per-view feature maps (V, Hp, Wp, Fd) from the ``maps`` array of an
+    ``.npz`` (``tools/export_multiscale_maps.py`` writes the JAX package's),
+    in place of the configured extractor's."""
+    if not cfg.dino.use_dino:
+        raise SystemExit(f"--features {path}: the config conditions on no features")
+    maps = np.asarray(np.load(path)["maps"], np.float32)
+    if (maps.ndim != 4 or maps.shape[0] != train_data.n_views
+            or maps.shape[-1] != cfg.dino.output_dim):
+        raise SystemExit(f"--features {path}: maps {maps.shape}, need ({train_data.n_views}, "
+                         f"Hp, Wp, {cfg.dino.output_dim})")
+    return maps
+
+
 def _not_ported(what: str, item: str):
     raise NotImplementedError(f"{what} is not ported (ROADMAP queue 1: {item})")
 
@@ -141,7 +155,10 @@ def _train(args, mesh=None, save_dir: Optional[str] = None) -> dict:
         cfg = dataclasses.replace(cfg, output=dataclasses.replace(cfg.output, save_dir=save_dir))
 
     train_data, test_data = _load_datasets(cfg, args.synthetic, device)
-    dino_features = _precompute_features(cfg, train_data, device)
+    if getattr(args, "features", None):
+        dino_features = _load_features(args.features, cfg, train_data)
+    else:
+        dino_features = _precompute_features(cfg, train_data, device)
     trainer = Trainer(
         cfg, train_data, test_data, device=device, dino_features=dino_features, mesh=mesh,
         log_path=os.path.join(cfg.output.save_dir,
@@ -270,6 +287,9 @@ def main(argv=None) -> None:
     p_train.add_argument("--nan-guard", action="store_true",
                          help="autograd anomaly mode: raise at the op whose backward "
                               "made a NaN")
+    p_train.add_argument("--features", default=None, metavar="NPZ",
+                         help="condition on the per-view feature maps in NPZ's 'maps' "
+                              "array instead of running the configured extractor")
     p_train.add_argument("--wandb", action="store_true",
                          help="mirror training/eval records to a wandb run when the wandb "
                               "package imports and its run starts (else the log file alone); "

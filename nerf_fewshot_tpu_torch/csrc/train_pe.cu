@@ -1,6 +1,6 @@
 // Fused NeRF training objective and render VJP for Hopper (sm_90a): the
 // analytic backward to every packed weight, in one call each, the trunk's
-// products on the tensor cores as 3xTF32.
+// products on the tensor cores through wgmma.
 //
 // Replaces: nerf_fewshot_tpu/render/train_kernel.py:_train_pe_kernel (:343,
 // inline PE, INLINE_PE = true) and :_train_kernel (:320, pre-encoded x,
@@ -30,135 +30,191 @@
 //   dW = A^T.delta, db = sum delta over all R*S points; the render VJP also
 //   gives dx = delta_1.w0^T.
 //
-// Numerics. The trunk's products (the forward layers, the backward chain,
-// the dW products and dx) run as 3xTF32 on the tensor cores (mma.sync
-// m16n8k8 .tf32, fp32 accumulation): each fp32 operand is cut into two TF32
-// halves, hi = rna(v) and lo = rna(v - hi), which keep ~22 of its 24 bits,
-// and a product is a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (a_lo.b_lo, ~2^-22 of
-// it, is dropped). The weights are split once per call with
-// cvt.rna.tf32.f32; activations and cotangents as their fragments are read,
-// by the same rounding in integer operations. The tensor cores round their
-// fp32 accumulation toward zero, so a long mma chain drifts one way: the
-// products of every two k-steps (16 terms, a chain of 6 mma) accumulate in
-// their own registers and are added to the running sum with
-// round-to-nearest FADDs. The gradients are then as close to a float64 run
-// as the fp32 plain version's (median rel ~3e-6 on 37-ray cases), and far
-// finer than the TPU kernels' one bf16 pass per product. Near a ReLU gate
-// no fp32-accurate route is exact: on a few hundred rays one gate that two
-// routes round to different sides moves the gradient vector by ~1e-3, and
-// which inputs show it depends on the order of the sums (PERF.md).
-// Exact fp32 on the CUDA
-// cores, as before: the PE phases (unfused multiply-adds, accurate sinf),
-// the log-space transmittance prefix scan, the suffix sum s_after, the
-// 4-column head and the seed of the backward chain, and the bias sums.
+// Numerics. On the float32 route (ROUTE kTf32x3) the trunk's products (the
+// forward layers, the backward chain and the dW products) run as 3xTF32 on
+// the tensor cores (wgmma .tf32, fp32 accumulation): each fp32 operand is cut
+// into two TF32 halves, hi = rna(v) and lo = rna(v - hi), which keep ~22 of
+// its 24 bits, and a product is a_lo.b_hi + a_hi.b_lo + a_hi.b_hi (a_lo.b_lo,
+// ~2^-22 of it, is dropped). The weights are split once per call with
+// cvt.rna.tf32.f32; activations and cotangents as they are read, by the same
+// rounding in integer operations. The tensor cores round their fp32
+// accumulation toward zero, so the products of each 32 weight rows in the
+// trunk (two ring stages, a chain of 12 wgmma, as kernel 2's stages) and of
+// each 32-point stage of the dW products (12 wgmma) accumulate in their own
+// registers and are added to the running sum with round-to-nearest FADDs.
+// The gradients are then as close to a float64 run as the fp32 plain
+// version's, and far finer than the TPU kernels' one bf16 pass per product.
+// Near a ReLU gate no fp32-accurate route is exact: on a few hundred rays
+// one gate that two routes round to different sides moves the gradient
+// vector by ~1e-3, and which inputs show it depends on
+// the order of the sums (PERF.md). Exact fp32 on the CUDA cores: the PE
+// phases (unfused multiply-adds, accurate sinf), the log-space transmittance
+// prefix scan, the suffix sum s_after, the 4-column head and the seed of the
+// backward chain, and the bias sums.
 //
-// That is the float32 route (ROUTE kTf32x3). Two more routes compute the
-// JAX kernels' other compute_dtypes (nerf_fewshot_tpu/render/kernels.py:63
-// _dot), with the same tiles, stages and launches; only the products differ:
-//   kBf16 (compute_dtype bfloat16): both operands of every product are
-//   rounded to bf16 (cvt.rn.bf16x2.f32: to nearest even) and multiplied by
-//   mma.sync m16n8k8 .bf16 with fp32 accumulation, one pass; the weights'
-//   images are rounded once per call, activations and cotangents as their
-//   fragments are read. The products of every two k-steps are promoted with
-//   round-to-nearest FADDs, as above. The head rounds its operands too
-//   (the JAX head is a _dot), unless the caller pins it to exact fp32
-//   (head_mode "vpu");
+// Two more routes compute the JAX kernels' other compute_dtypes
+// (nerf_fewshot_tpu/render/kernels.py:63 _dot), with the same launches,
+// tiles, rings and producers; only the stage images and the products differ:
+//   kBf16 (compute_dtype bfloat16): both operands of every product rounded
+//   to bf16 (cvt.rn: to nearest even), one wgmma m64nNk16 .bf16 per 16 k
+//   with fp32 accumulation, promoted per stage as above; the weights' images
+//   are rounded once per call, activations and cotangents as they are read.
+//   The head rounds its operands too (the JAX head is a _dot), unless the
+//   caller pins it to exact fp32 (head_mode "vpu");
 //   kFp32 (compute_dtype highest): every product as fp32 FFMAs on the CUDA
-//   cores, from the same shared-memory stages (plain fp32 weight images),
-//   each thread owning the outputs an mma fragment would hold: the plain
-//   fp32 function up to the order of the sums. Its sums are ordered for
-//   accuracy, since it is the verification route: the dW products' point
-//   axis in two levels (32-point stages, then the stages), db as
-//   compensated sums, and the transmittance from the exclusive prefix
-//   (composite_forward).
+//   cores over the same stages (plain fp32 images), each thread owning
+//   outputs of the tile: the plain fp32 function up to the order of the sums.
+//   Its sums are ordered for accuracy, since it is the verification route:
+//   the dW products' point axis in two levels (32-point stages, then the
+//   stages), db as compensated sums, and the transmittance from the
+//   exclusive prefix (composite_forward).
 // The six dW products take their own route (dw_route: the JAX dw_precision
 // pin "highest" runs them as kFp32 under any route).
 //
-// Bound (float32 route): at the baseline widths (x_dim 90, 8x256 trunk) the forward is
-// 2*(90*256 + 7*256^2 + 4*256) = 0.97 MFLOP per point, the backward chain
-// 2*(4*256 + 7*256^2) = 0.92 MFLOP and the dW products 0.97 MFLOP: 2.85 MFLOP
-// per point, 93 GFLOP for a 512-ray x 64-sample step (the render VJP adds dx,
-// 2*256*90 = 0.05 MFLOP per point), against ~5 MB of inputs and outputs
-// (~35 MB with a 128-wide x and dx): bound by operations. As 3xTF32 each
-// product is three TF32 products: 3*93 GFLOP at the 495 TFLOP/s TF32 peak of
-// an H100 SXM is 0.57 ms. That peak needs wgmma; mma.sync reaches about two
-// thirds of it (chip_smoke.py's tensor-core probe measures the rate).
+// Bound (float32 route): at the baseline widths (x_dim 90, 8x256 trunk) the
+// forward is 2*(90*256 + 7*256^2 + 4*256) = 0.97 MFLOP per point, the
+// backward chain 2*(4*256 + 7*256^2) = 0.92 MFLOP and the dW products 0.97
+// MFLOP: 2.85 MFLOP per point, 93 GFLOP for a 512-ray x 64-sample step (the
+// render VJP adds dx, 2*256*90 = 0.05 MFLOP per point), against ~5 MB of
+// inputs and outputs (~35 MB with a 128-wide x and dx): bound by operations.
+// As 3xTF32 each product is three TF32 products: 3*93 GFLOP at the 495
+// TFLOP/s TF32 peak of an H100 SXM is 0.57 ms, a rate only wgmma reaches.
 // The bfloat16 route does one bf16 product per product: 93 GFLOP at 989
 // TFLOP/s, 0.094 ms; the highest route does them at the 67 TFLOP/s fp32
-// CUDA-core rate, 1.39 ms.
+// CUDA-core rate, 1.39 ms. The activations and cotangents the design keeps
+// in global scratch between launches are ~1.1 GB of traffic per such step
+// (written once, read by the backward's gates and twice by the dW tiles),
+// ~0.35 ms at 3.35 TB/s, partly from L2: they, not the products, bound the
+// bfloat16 route.
 //
 // Design: the TPU kernels stash every layer's activations of a ray tile in
 // VMEM, ~640 KB per 64-sample ray at 256 wide, far beyond an SM's 227 KB. So
 // a call is split into grid launches on one stream, with the activations and
 // cotangents in a global scratch buffer that the caller allocates once and
-// grows:
-//   1. weight_split: the TF32 halves of w0, wh and wh^T (the backward
-//      chain's weights), or their bf16 or fp32 images in the hi half;
-//   2. train_fwd: one 256-thread CTA per 64-point tile (points of any ray):
-//      builds x (inline PE) into the scratch as A_0 (feature-major, [D][Np]),
-//      then runs each layer with dense_tc: 2x4 warps of 32 points x H/4
-//      columns, the weight halves streamed through two cp.async stages of
-//      32 rows with one barrier per stage. Layer 0 streams its input too, 32
-//      rows of x per stage beside the weights, so no D-wide tile is held in
-//      shared memory (an input up to kMaxD = 896 wide fits beside the H-row
-//      tile); layers >= 1 run in place on the H-row tile (feature-major in
-//      shared memory). Writes each layer's activations A_i ([H][Np]) and the
-//      4 head outputs;
+// grows. Both hold images: per block of 32 points, every row (feature) as 32
+// contiguous fp32 values (128 bytes), the rows one after the other, the
+// 16-byte chunks of row r swizzled to chunk c ^ (r % 8), which is wgmma's
+// 128-byte K-major swizzle with the points on K; so a dW stage of 128 rows
+// is one contiguous 16 KB bulk copy.
+//   1. weight_image: the weights' stage images, in the order the trunk
+//      kernels stream them: w0 and each wh[l] for the forward, wh[l]^T (the
+//      backward chain's, l from the last layer down). A stage is KS input
+//      rows of a layer (16 on the float32 route, 32 on the others) for all
+//      H output rows, K-major (output row n holds its KS input rows): the
+//      float32 route's [hi | lo] TF32 halves and the bfloat16 route's
+//      rounding are rows of 64 bytes in the 64-byte swizzle (chunk c of row
+//      n at c ^ ((n / 2) % 4)), the TF32 k-slots of each group of 8 ordered
+//      2j, then 2j+1 (slot j < 4 holds input row 2j, slot j >= 4 row
+//      2(j-4)+1) so that a thread's two A-fragment columns t and t+4 are
+//      adjacent in the activation tile; the highest route's are the KS fp32
+//      rows as they are. With dx, w0's own image row-major for render_dx.
+//   2. trunk (forward): persistent CTAs of 384 threads, one per SM, walk
+//      tiles of 64 points of the flattened R*S axis (the last ragged).
+//      Warpgroup 2 is the producer: one thread streams every layer's stage
+//      images, tile after tile, by TMA bulk copies (cp.async.bulk) into a
+//      128 KB ring of stages guarded by full/empty mbarriers (4 stages on
+//      the float32 and highest routes at H 256, 8 on bfloat16; twice as
+//      many at H 128), and the warpgroup hands its registers to the
+//      consumers (setmaxnreg 40 / 232). Warps 0-7 are two consumer
+//      warpgroups; both take all 64 points, warpgroup g the output columns
+//      [g*H/2, (g+1)*H/2). The activation tile (64 points x H, point-major
+//      fp32, row stride H + 8) stays in shared memory: per k-step each
+//      thread loads its A fragment (rows 16w+lane/4 and +8, two adjacent
+//      columns), splits it into TF32 halves (or rounds it to bf16) and
+//      issues wgmma m64n(H/2)k8 (k16) with A from registers and B by
+//      descriptor from the stage (on the float32 route two 16-row stages
+//      make one chain); the next chain's fragments are loaded while the
+//      chain runs, and its sum is promoted when it is done. The highest
+//      route's FFMA threads own 8 columns of 4 or 8 points each instead,
+//      fed by 16-byte loads of both operands. Layer 0's input x is built point-major (the PE phases, point
+//      features or the pre-encoded x) into the tile, or, when wider than H
+//      (up to kMaxD = 896), in 32-column slices through two small buffers,
+//      the next slice while the current chain runs; x goes to the act image
+//      as A_0 as it is built. Each layer's epilogue writes relu(acc + b)
+//      over the tile in place, to the act image (A_i), and the thread's
+//      [A_i > 0] as a bit mask (one bit per accumulator register, H/4 bits a
+//      thread); the head (exact fp32) writes the four raw outputs ([4][Np]);
 //   3. train_composite (objective) or render_composite (VJP): one warp per
 //      ray: sigmoid, log-space compositing with an fp32 shuffle prefix scan,
 //      the ray's loss partial (objective), then the suffix sum s_after as an
 //      fp32 shuffle scan run from the last sample (never a difference of
 //      prefix sums, which cancels when om ~ 1e-10), and the head cotangent;
-//   4. train_bwd: per 64-point tile, delta_L from g_out and wout, then the
-//      L-1 gated products with wh^T through dense_tc, each delta written to
-//      scratch;
+//   4. trunk (backward): the same kernel and ring over the wh^T images: the
+//      seed delta_L = (g_out.wout[:, :4]^T) * [A_L > 0] in exact fp32 in the
+//      accumulators' own layout, then each gated product delta_i =
+//      (delta_{i+1}.wh[i-1]^T) * [A_i > 0], the gate read as the forward's
+//      bit mask of the same thread (the same tile, columns and fragments),
+//      one coalesced load per layer. Each delta_i goes to the gbuf image,
+//      and g_out beside them (for the head's dW);
 //   5. train_dw: every dW_l = A_l^T.delta_l and db_l = sum delta_l as one
-//      launch of 128x128 output tiles, each CTA reducing its part of the
-//      point axis through a ring of three cp.async stages of 32 points (act
-//      and gbuf are feature-major, so both operands are contiguous along the
-//      reduction, as mma.sync's .row.col layout wants); the point axis is
-//      split in P fixed parts, each written to its own partial;
+//      launch of 128x128 output tiles (rows k, columns j), the point axis
+//      split in P fixed parts, each written to its own partial. A CTA of 384
+//      threads: the producer streams, per 32-point block, the tile's 128 A
+//      rows and 128 delta rows (two bulk copies out of the images) into a
+//      ring of 32 KB stages (three on the float32 route, four on the
+//      others); the consumers convert both operands' rows once per stage
+//      into wgmma images (TF32 halves in the 128-byte swizzle, or bf16 in
+//      the 64-byte one; fence.proxy.async before the tensor cores read
+//      them), and warpgroup g runs wgmma m64n128 with A (rows [64g, +64))
+//      and B both by descriptor; db from the same fp32 delta rows. The next
+//      stage is converted while the current chain runs;
 //   6. train_finalize: the P partials of each gradient are summed in a fixed
 //      order;
 //   7. objective: loss_sum, the per-ray losses summed in a fixed order by
-//      one CTA; render VJP (when dx is asked for): render_dx, dx = delta_1.w0^T
-//      as 64x64 output tiles on the tensor cores.
-// Fragments (mma.sync m16n8k8 .row.col tf32, g = lane/4, t = lane%4): A
-// (16x8) a0 (g,t) a1 (g+8,t) a2 (g,t+4) a3 (g+8,t+4); B (8x8) b0 (k=t,n=g)
-// b1 (k=t+4,n=g); C (16x8) c0 (g,2t) c1 (g,2t+1) c2 (g+8,2t) c3 (g+8,2t+1).
-// The .bf16 shape packs two values a register, the lower k in the low half:
-// A a01 (g, 2t..2t+1) a23 (g+8, 2t..2t+1); B b01 (k=2t..2t+1, n=g); C as tf32.
-// They are read from shared memory with 32-bit loads; every row stride is
-// padded so that a warp's 8x4 lane pattern hits 32 distinct banks.
+//      one CTA; render VJP (when dx is asked for): render_dx, dx =
+//      delta_1.w0^T as 64x64 output tiles (mma.sync m16n8k8, cp.async
+//      stages; not redesigned).
+// Shared memory per CTA at H 256 (of 227 KB): trunk 128 KB ring + 66 KB
+// activation tile + 20 KB layer-0 slices + 4 KB head columns = 219 KB; dW
+// 96 KB ring + two 64 KB images of both operands' TF32 halves = 225 KB (128
+// KB + 2 x 16 KB at bfloat16; 128 KB at highest). H 384
+// would need a 98 KB tile and 6 KB of head columns: the ring falls to 96 KB
+// (one 48 KB float32 stage of 16 rows, or 8-row stages), and its wgmma
+// m64n192 keeps 96 + 96 accumulator registers a consumer thread. H 512
+// needs a 130 KB tile, leaving ~70 KB for the ring and slices (8-row stages
+// of 64 KB: one stage), and 128 + 128 accumulator registers, past the 232 a
+// consumer holds: four consumer warpgroups of 128 columns each (or the
+// N-split across a cluster of two CTAs) instead.
+// Fragments (wgmma m64nNk8 .tf32, warp w of the warpgroup, g = lane/4,
+// t = lane%4): A a0 (16w+g, t), a1 (16w+g+8, t), a2 (16w+g, t+4),
+// a3 (16w+g+8, t+4); D d[4j+e] at row 16w+g (+8 for e >= 2), column
+// 8j+2t (+1 for odd e). wgmma m64nNk16 .bf16 packs two columns a register,
+// the lower in the low half: a0 (16w+g, 2t..2t+1), a1 (16w+g+8, 2t..2t+1),
+// a2 (16w+g, 2t+8..2t+9), a3 (16w+g+8, 2t+8..2t+9); D as tf32.
 // No atomic operations on the device: two runs of a call agree bit for bit.
 // The launchers return cudaGetLastError() (or the first failing call), and
 // the Python wrappers raise when it is not cudaSuccess.
 
 #include <cuda_runtime.h>
 
-#include <atomic>
 #include <cstddef>
 #include <cstdint>
 
 namespace {
 
-constexpr int kThreads = 256;    // 8 warps
-constexpr int kTileP = 64;       // points per trunk tile
-constexpr int kLd = kTileP + 4;  // activation row stride in shared memory (4 mod 32)
-constexpr int kKT = 32;          // weight rows per cp.async stage of a layer
-constexpr int kOutPad = 128;     // packed head columns [r, g, b, sigma, 0...]
-constexpr int kHead = 4;         // live head columns
+constexpr int kTileP = 64;             // points per trunk tile (wgmma's M)
+constexpr int kConsumers = 256;        // two consumer warpgroups
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kRingBytes = 128 * 1024;  // the trunk's ring of weight stages
+constexpr int kActPad = 8;             // activation row stride H + 8 (8 mod 32)
+constexpr int kXK = 32;                // layer-0 input columns per slice
+constexpr int kXLd = kXK + kActPad;    // row stride of a slice buffer (8 mod 32)
+constexpr int kBlk = 32;               // points per image block (a 128-byte row)
+constexpr int kProducerRegs = 40;      // setmaxnreg: the producer warpgroup gives registers
+constexpr int kConsumerRegs = 232;     // to the consumer warpgroups
+constexpr int kOutPad = 128;           // packed head columns [r, g, b, sigma, 0...]
+constexpr int kHead = 4;               // live head columns
 constexpr float kFar = 1e10f;
 constexpr float kEps = 1e-10f;
 // Precision routes (render/kernels.py ROUTES)
 constexpr int kTf32x3 = 0;  // compute_dtype float32
 constexpr int kBf16 = 1;    // compute_dtype bfloat16
 constexpr int kFp32 = 2;    // compute_dtype highest
-constexpr int kDwT = 128;             // dW output tile edge (rows k and columns j)
-constexpr int kBN = 32;               // points per dW cp.async stage
-constexpr int kDwLd = kBN + 4;        // dW operand row stride (4 mod 32)
-constexpr int kDwStage = 2 * kDwT * kDwLd;  // floats of one dW stage (A and G)
-constexpr int kDwStages = 3;          // dW cp.async ring depth
+constexpr int kFwd = 0;     // trunk passes
+constexpr int kBwd = 1;
+constexpr int kDwT = 128;                     // dW output tile edge (rows k and columns j)
+constexpr int kDwSlot = 2 * kDwT * kBlk * 4;  // a dW stage: 128 A rows, 128 delta rows
+constexpr int kDxThreads = 256;       // render_dx: 8 warps
 constexpr int kDxP = 64;              // dx tile: points
 constexpr int kDxK = 64;              // dx tile: input columns
 constexpr int kDxJ = 32;              // dx reduction stage (trunk columns)
@@ -167,48 +223,94 @@ constexpr int kDxLdW = kDxJ + 4;      // w0 stage row stride (4 mod 32)
 constexpr int kDxStage = kDxJ * kDxLdD + 2 * kDxK * kDxLdW;
 constexpr int kMaxD = 896;       // widest padded input (7 x 128: the script recipes' 858)
 constexpr int kMaxS = 1024;      // samples per ray: the composite's 9*S floats stay < 48 KB
-constexpr int kDwSmem = static_cast<int>(sizeof(float)) * kDwStages * kDwStage;
 constexpr int kDxSmem = static_cast<int>(sizeof(float)) * 2 * kDxStage;
 constexpr int kMaxParts = 8;     // split of the point axis in the dW products
 constexpr int kPartRows = 4096;  // points per part before a further split
 constexpr int kMaxJobs = 16;     // dW products in one launch (layers + head)
-static_assert(kKT % 16 == 0 && kBN % 16 == 0 && kDxJ % 16 == 0,
-              "each stage is an even number of k-steps: the products are promoted every two");
+constexpr int kMaskWords = 2;    // mask words a thread keeps per layer at H 256
+static_assert(kDxJ % 16 == 0, "render_dx promotes its products every two k-steps");
 
 size_t round_up(size_t a, size_t b) { return (a + b - 1) / b * b; }
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// Sizes shared by the launcher and nerf_train_scratch_floats.
+// A route's trunk stages at width H.
+template <int H, int ROUTE>
+struct Trunk {
+  static constexpr int NW = H / 2;    // output columns per consumer warpgroup
+  static constexpr int NR = NW / 2;   // accumulator registers per thread
+  static constexpr int MW = NR / 32;  // mask words per thread and layer
+  static constexpr int PR = NR / 8;   // FFMA route: points per thread (8 columns each)
+  static constexpr int PL = kTileP / PR;  // and threads per column group
+  static constexpr int KS = ROUTE == kTf32x3 ? 16 : 32;  // input rows per stage
+  // a stage image: [hi | lo] TF32 halves, the bf16 rounding, or the fp32 rows
+  static constexpr int kStageBytes =
+      ROUTE == kTf32x3 ? 2 * H * KS * 4 : (ROUTE == kBf16 ? H * KS * 2 : H * KS * 4);
+  static constexpr int NS = kRingBytes / kStageBytes;  // ring depth
+  // row strides of the activation tile and the layer-0 slices: 8 mod 32
+  // words for the fragments' 8-byte loads, 4 mod 32 for the FFMA route's
+  // 16-byte loads of 8 consecutive points
+  static constexpr int LD = H + (ROUTE == kFp32 ? 4 : kActPad);
+  static constexpr int XLD = ROUTE == kFp32 ? kXK + 4 : kXLd;
+  static_assert(NS >= 4 && MW <= kMaskWords, "a ring of four stages or more");
+};
+
+template <int H, int ROUTE>
+int fwd_stages(int D, int L1) {
+  using T = Trunk<H, ROUTE>;
+  return cdiv(D, T::KS) + L1 * (H / T::KS);
+}
+template <int H, int ROUTE>
+int bwd_stages(int L1) {
+  return L1 * (H / Trunk<H, ROUTE>::KS);
+}
+
+// Sizes shared by the launchers and nerf_train_scratch_floats.
 struct Layout {
-  int N, Np, L, P, chunk;
+  int N, Np, tiles, nblk, L, P, chunk_blk, act_rows, g_rows;
   size_t F;  // floats of the six packed gradients, flattened
-  size_t act, gbuf, gout, out4, loss_r, wsplit, part, total;  // scratch offsets
+  size_t act, gbuf, gout, out4, loss_r, mask, img, w0x, part, total;  // scratch offsets
 };
 
 Layout make_layout(int R, int S, int D, int H, int L1) {
   Layout s;
   s.N = R * S;
-  s.Np = static_cast<int>(round_up(s.N, kTileP));
+  s.tiles = cdiv(s.N, kTileP);
+  s.Np = s.tiles * kTileP;
+  s.nblk = s.Np / kBlk;
   s.L = L1 + 1;
   int P = s.N / kPartRows;
   s.P = P < 1 ? 1 : (P > kMaxParts ? kMaxParts : P);
-  s.chunk = static_cast<int>(round_up((s.N + s.P - 1) / s.P, kBN));
+  s.chunk_blk = cdiv(s.nblk, s.P);
+  s.act_rows = D + s.L * H;  // A_0 = x, then A_1 .. A_L
+  s.g_rows = s.L * H + 8;    // delta_1 .. delta_L, then g_out's 4 rows
   s.F = static_cast<size_t>(D) * H + H + static_cast<size_t>(L1) * H * H +
         static_cast<size_t>(L1) * H + static_cast<size_t>(H) * kOutPad + kOutPad;
-  const size_t np = s.Np;
+  const size_t np = s.Np, h = H, d = D, l1 = L1;
+  // the stage images of the largest route: the float32 route's halves, or
+  // the highest route's 32-row stages when D is not a multiple of 32
+  const size_t img = 2 * h * (d + 2 * l1 * h);
+  const size_t img32 = h * (round_up(d, 32) + 2 * l1 * h);
   size_t off = 0;
-  s.act = off;    off += round_up((static_cast<size_t>(D) + static_cast<size_t>(s.L) * H) * np, 64);
-  s.gbuf = off;   off += round_up(static_cast<size_t>(s.L) * H * np, 64);
-  s.gout = off;   off += round_up(kHead * np, 64);
-  s.out4 = off;   off += round_up(kHead * np, 64);
-  s.loss_r = off; off += round_up(R, 64);
-  // TF32 halves: w0 hi, lo (D*H each), then wh hi, lo and wh^T hi, lo (L1*H*H each)
-  s.wsplit = off; off += round_up(2 * (static_cast<size_t>(D) * H + 2 * static_cast<size_t>(L1) * H * H), 64);
-  s.part = off;   off += static_cast<size_t>(s.P) * round_up(s.F, 64);
+  auto take = [&](size_t floats) {
+    const size_t at = off;
+    off += round_up(floats, 256);  // 1 KB aligned
+    return at;
+  };
+  s.act = take(static_cast<size_t>(s.act_rows) * np);
+  s.gbuf = take(static_cast<size_t>(s.g_rows) * np);
+  s.gout = take(kHead * np);
+  s.out4 = take(kHead * np);
+  s.loss_r = take(R);
+  s.mask = take(static_cast<size_t>(s.tiles) * s.L * kConsumers * kMaskWords);
+  s.img = take(img > img32 ? img : img32);
+  s.w0x = take(2 * d * h);  // w0's image row-major for render_dx: hi, lo
+  s.part = off;
+  off += static_cast<size_t>(s.P) * round_up(s.F, 64);
   s.total = off;
   return s;
 }
 
-// ---- tensor-core primitives ----
+// ---- number formats ----
 
 __device__ __forceinline__ uint32_t tf32_rna(float v) {
   uint32_t r;
@@ -248,6 +350,8 @@ __device__ __forceinline__ float round_bf16(float v) {
 // The head's operand: rounded to bf16 on the bfloat16 route, else as is.
 __device__ __forceinline__ float head_in(float v, bool bf16) { return bf16 ? round_bf16(v) : v; }
 
+// ---- mma.sync primitives (render_dx) ----
+
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[2], uint32_t b) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
@@ -279,10 +383,8 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 }
 
 // part += a.b for one k-step of 8 over an MT x NT block of m16n8 tiles, as
-// 3xTF32. The block is taken JG n-tiles at a time, in
-// three passes each, the small terms first (a_lo.b_hi, a_hi.b_lo,
-// a_hi.b_hi), so that no mma waits on one issued just before it.
-// bfrag(j, hi, lo) loads the B fragment of n-tile j.
+// 3xTF32, JG n-tiles at a time, the small terms first (a_lo.b_hi,
+// a_hi.b_lo, a_hi.b_hi). bfrag(j, hi, lo) loads the B fragment of n-tile j.
 template <int JG, int MT, int NT, class BFrag>
 __device__ __forceinline__ void mma3_step(float (&part)[MT][NT][4], const uint32_t (&ahi)[MT][4],
                                           const uint32_t (&alo)[MT][4], BFrag bfrag) {
@@ -307,11 +409,9 @@ __device__ __forceinline__ void mma3_step(float (&part)[MT][NT][4], const uint32
   }
 }
 
-// The tensor cores accumulate in fp32 but round toward zero, so a long
-// chain of mma into one accumulator drifts by up to an ulp of the running
-// sum per mma, always the same way. The products of every two k-steps
-// therefore accumulate in their own block (a chain of 3 x 2 mma), which is
-// added to the running sum with round-to-nearest FADDs, and zeroed.
+// The products of every two k-steps accumulate in their own block, added
+// to the running sum with round-to-nearest FADDs (the tensor cores round
+// their accumulation toward zero), and zeroed.
 template <int MT, int NT>
 __device__ __forceinline__ void promote(float (&acc)[MT][NT][4], float (&part)[MT][NT][4]) {
 #pragma unroll
@@ -335,17 +435,6 @@ __device__ __forceinline__ void zero_block(float (&d)[MT][NT][4]) {
       for (int e = 0; e < 4; ++e) d[i][j][e] = 0.f;
 }
 
-// The A fragment of a 16x8 tile whose element (m, k) is at p[m*ld + k]
-// (row-major) in fp32, split into its TF32 halves.
-__device__ __forceinline__ void load_a_mmajor_split(const float* p, int ld, int g, int t,
-                                                    uint32_t (&hi)[4], uint32_t (&lo)[4]) {
-  const float* q = p + g * ld + t;
-  split_fast(q[0], hi[0], lo[0]);
-  split_fast(q[8 * ld], hi[1], lo[1]);
-  split_fast(q[4], hi[2], lo[2]);
-  split_fast(q[8 * ld + 4], hi[3], lo[3]);
-}
-
 // The A fragment of a 16x8 tile whose element (m, k) is at p[k*ld + m]
 // (feature-major) in fp32, split into its TF32 halves.
 __device__ __forceinline__ void load_a_kmajor_split(const float* p, int ld, int g, int t,
@@ -355,14 +444,6 @@ __device__ __forceinline__ void load_a_kmajor_split(const float* p, int ld, int 
   split_fast(q[8], hi[1], lo[1]);
   split_fast(q[4 * ld], hi[2], lo[2]);
   split_fast(q[4 * ld + 8], hi[3], lo[3]);
-}
-
-// The bf16 A fragment of a 16x8 tile at p[m*ld + k] (row-major), rounded.
-__device__ __forceinline__ void load_a_mmajor_bf16(const float* p, int ld, int g, int t,
-                                                   uint32_t (&a)[2]) {
-  const float* q = p + g * ld + 2 * t;
-  a[0] = pack_bf16(q[0], q[1]);
-  a[1] = pack_bf16(q[8 * ld], q[8 * ld + 1]);
 }
 
 // The bf16 A fragment of a 16x8 tile at p[k*ld + m] (feature-major), rounded.
@@ -384,342 +465,250 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-// Warp layout of a layer's kTileP x H output tile: 2 x 4 warps of 32
-// points (MT m16 tiles) by H/4 columns (NT n8 tiles); and its weight stages.
-template <int H>
-struct Dense {
-  static constexpr int MT = kTileP / 2 / 16;
-  static constexpr int NT = H / 4 / 8;
-  static constexpr int kLdw = H + 8;          // weight stage row stride (8 mod 32)
-  static constexpr int kHalf = kKT * kLdw;    // floats of one half of a stage
-  static constexpr int kSmem = 2 * 2 * kHalf; // two stages of hi and lo
-  static constexpr int kXSmem = 2 * kKT * kLd;  // two stages of layer 0's input rows
-  // dynamic shared memory of train_fwd (any D: layer 0 streams x) and train_bwd
-  static constexpr int kFwdSmem = static_cast<int>(sizeof(float)) * (H * kLd + kSmem + kXSmem);
-  static constexpr int kBwdSmem = static_cast<int>(sizeof(float)) * (H * kLd + kSmem);
-  static constexpr int kChunks = 2 * kKT * H / 4;  // 16-byte copies per stage
-  static_assert(kChunks % kThreads == 0, "stage copies per thread");
-  static_assert(kFwdSmem <= 232448, "train_fwd's tile and stages fit a block's shared memory");
-};
+// ---- Hopper primitives: mbarriers, bulk copies, wgmma ----
 
-// Rows k0 .. k0+kKT-1 of W (K, H) into a stage: both TF32 halves (kHalves
-// 2) or the hi half only (the bf16 and fp32 images); rows past K are
-// zero-filled.
-template <int H, int kHalves>
-__device__ __forceinline__ void load_w_stage(float* st, const float* __restrict__ whi,
-                                             const float* __restrict__ wlo, int k0, int K) {
-  using S = Dense<H>;
-#pragma unroll
-  for (int v = 0; v < kHalves * S::kChunks / 2 / kThreads; ++v) {
-    const int c = threadIdx.x + v * kThreads;
-    const int half = c / (S::kChunks / 2);
-    const int r = (c % (S::kChunks / 2)) / (H / 4);
-    const int q = c % (H / 4);
-    const bool in = k0 + r < K;
-    cp_async16(st + half * S::kHalf + r * S::kLdw + q * 4,
-               in ? (half ? wlo : whi) + static_cast<size_t>(k0 + r) * H + q * 4 : whi,
-               in ? 16 : 0);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// Waits for the phase of the given parity; a pipeline stalled for ~2^26
+// polls (seconds) traps, so that a fault fails the launch instead of
+// hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0, polls = 0;
+  while (!done) {
+    if (++polls == (1u << 26)) __trap();
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
   }
 }
 
-// Rows k0 .. k0+kKT-1 of a feature-major input x ([K][Np] in global memory)
-// at the tile's kTileP points from n0 into an input stage; rows past K are
-// zero-filled.
-__device__ __forceinline__ void load_x_stage(float* st, const float* __restrict__ x, int k0,
-                                             int K, int Np, int n0) {
-  constexpr int kRowChunks = kTileP / 4;
-  static_assert(kKT * kRowChunks % kThreads == 0, "input stage copies per thread");
-#pragma unroll
-  for (int v = 0; v < kKT * kRowChunks / kThreads; ++v) {
-    const int c = threadIdx.x + v * kThreads;
-    const int r = c / kRowChunks, q = c % kRowChunks;
-    const bool in = k0 + r < K;
-    cp_async16(st + r * kLd + q * 4, in ? x + static_cast<size_t>(k0 + r) * Np + n0 + q * 4 : x,
-               in ? 16 : 0);
-  }
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
 }
 
-// One dense layer of a kTileP-point tile on the tensor cores, 3xTF32
-// (ROUTE kTf32x3), one bf16 pass (kBf16) or as fp32 FFMAs on the CUDA
-// cores (kFp32): t[col][p] <- f(sum_k in[k][p] * W[k][col]), W given by its
-// TF32 halves, or its bf16 or fp32 image as whi, (K, H) row-major in global
-// memory, streamed through two cp.async stages
-// of kKT rows: stage s+1 is requested right after the barrier that ends
-// every warp's use of its buffer, and lands while stage s is consumed. The
-// input is the tile itself (x_g null: in place, read only before the barrier
-// after the loop, so the output overwrites it) or, for layer 0, x_g: its
-// kKT rows of each stage are streamed beside the weights into x_st, so that
-// the sums are those of the in-place layer, in the same order. The input is
-// split into TF32 halves (rounded to bf16) as its fragments are read. The
-// FFMA route's threads own the outputs of the mma fragments. The epilogue is
-//   forward (!BWD): out = relu(acc + bias);
-//   backward (BWD): out = acc where gate[col][n] > 0, else 0;
-// it writes t[col][p] in shared memory and dst[col*Np + n0 + p] in global.
-template <int H, bool BWD, int ROUTE>
-__device__ void dense_tc(float* __restrict__ t_sm, const float* __restrict__ whi,
-                         const float* __restrict__ wlo, const float* __restrict__ bias, int K,
-                         float* __restrict__ wst, float* __restrict__ dst,
-                         const float* __restrict__ gate, int Np, int n0,
-                         const float* __restrict__ x_g = nullptr,
-                         float* __restrict__ x_st = nullptr) {
-  using S = Dense<H>;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int pm = (warp >> 2) * S::MT * 16;  // the warp's first point
-  const int cn = (warp & 3) * S::NT * 8;    // the warp's first column
-
-  float acc[S::MT][S::NT][4], part[S::MT][S::NT][4];
-  zero_block(acc);
-  zero_block(part);
-
-  constexpr int kHalves = ROUTE == kTf32x3 ? 2 : 1;
-  const int n_stages = (K + kKT - 1) / kKT;
-  load_w_stage<H, kHalves>(wst, whi, wlo, 0, K);
-  if (x_g != nullptr) load_x_stage(x_st, x_g, 0, K, Np, n0);
-  cp_async_commit();
-  for (int s = 0; s < n_stages; ++s) {
-    cp_async_wait<0>();
-    __syncthreads();  // stage s has landed; stage s-1 and the input writes are done
-    if (s + 1 < n_stages) {
-      load_w_stage<H, kHalves>(wst + ((s + 1) & 1) * 2 * S::kHalf, whi, wlo, (s + 1) * kKT, K);
-      if (x_g != nullptr)
-        load_x_stage(x_st + ((s + 1) & 1) * kKT * kLd, x_g, (s + 1) * kKT, K, Np, n0);
-      cp_async_commit();
-    }
-    // the stage's kKT input rows: streamed (layer 0) or rows s*kKT.. of the tile
-    const float* a_st = x_g != nullptr ? x_st + (s & 1) * kKT * kLd : t_sm + s * kKT * kLd;
-    if constexpr (ROUTE == kFp32) {
-      const float* wrow = wst + (s & 1) * 2 * S::kHalf + cn + 2 * t;
-#pragma unroll 4
-      for (int k = 0; k < kKT; ++k) {
-        if (k == 16 && s * kKT + k >= K) break;  // K is a multiple of 16, not always of kKT
-        float a[S::MT][2];
-#pragma unroll
-        for (int i = 0; i < S::MT; ++i) {
-          a[i][0] = a_st[k * kLd + pm + i * 16 + g];
-          a[i][1] = a_st[k * kLd + pm + i * 16 + g + 8];
-        }
-#pragma unroll
-        for (int j = 0; j < S::NT; ++j) {
-          const float2 b = *reinterpret_cast<const float2*>(wrow + k * S::kLdw + j * 8);
-#pragma unroll
-          for (int i = 0; i < S::MT; ++i) {
-            acc[i][j][0] = fmaf(a[i][0], b.x, acc[i][j][0]);
-            acc[i][j][1] = fmaf(a[i][0], b.y, acc[i][j][1]);
-            acc[i][j][2] = fmaf(a[i][1], b.x, acc[i][j][2]);
-            acc[i][j][3] = fmaf(a[i][1], b.y, acc[i][j][3]);
-          }
-        }
-      }
-      continue;  // the FFMA route has no tensor-core pass
-    }
-    const float* ws = wst + (s & 1) * 2 * S::kHalf + cn + g;
-#pragma unroll
-    for (int kk = 0; kk < kKT; kk += 8) {
-      if (kk > 0 && s * kKT + kk >= K) break;  // K is a multiple of 16, not always of kKT
-      if constexpr (ROUTE == kBf16) {
-        uint32_t a[S::MT][2];
-#pragma unroll
-        for (int i = 0; i < S::MT; ++i)
-          load_a_kmajor_bf16(a_st + kk * kLd + pm + i * 16, kLd, g, t, a[i]);
-        const float* wk = ws + (kk + 2 * t) * S::kLdw;
-        mma1_step(part, a, [&](int j) { return pack_bf16(wk[j * 8], wk[j * 8 + S::kLdw]); });
-      } else {
-        uint32_t ahi[S::MT][4], alo[S::MT][4];
-#pragma unroll
-        for (int i = 0; i < S::MT; ++i)
-          load_a_kmajor_split(a_st + kk * kLd + pm + i * 16, kLd, g, t, ahi[i], alo[i]);
-        const float* wk = ws + (kk + t) * S::kLdw;
-        auto bfrag = [&](int j, uint32_t(&bh)[2], uint32_t(&bl)[2]) {
-          const float* b = wk + j * 8;
-          bh[0] = __float_as_uint(b[0]);
-          bh[1] = __float_as_uint(b[4 * S::kLdw]);
-          bl[0] = __float_as_uint(b[S::kHalf]);
-          bl[1] = __float_as_uint(b[S::kHalf + 4 * S::kLdw]);
-        };
-        mma3_step<4>(part, ahi, alo, bfrag);
-      }
-      if (kk & 8) promote(acc, part);
-    }
-  }
-  __syncthreads();  // every warp is done reading the input
-
-#pragma unroll
-  for (int j = 0; j < S::NT; ++j) {
-    const int col = cn + j * 8 + 2 * t;
-    const float b0 = BWD ? 0.f : __ldg(bias + col);
-    const float b1 = BWD ? 0.f : __ldg(bias + col + 1);
-#pragma unroll
-    for (int i = 0; i < S::MT; ++i) {
-      const int p = pm + i * 16 + g;
-      float v[4] = {acc[i][j][0], acc[i][j][1], acc[i][j][2], acc[i][j][3]};
-      if (!BWD) {
-        v[0] = fmaxf(v[0] + b0, 0.f);
-        v[1] = fmaxf(v[1] + b1, 0.f);
-        v[2] = fmaxf(v[2] + b0, 0.f);
-        v[3] = fmaxf(v[3] + b1, 0.f);
-      }
-      t_sm[col * kLd + p] = v[0];
-      t_sm[(col + 1) * kLd + p] = v[1];
-      t_sm[col * kLd + p + 8] = v[2];
-      t_sm[(col + 1) * kLd + p + 8] = v[3];
-    }
-  }
-  __syncthreads();
-  // the tile to global memory in 16-byte rows (and the backward's ReLU gate)
-  for (int e = threadIdx.x; e < H * (kTileP / 4); e += kThreads) {
-    const int col = e / (kTileP / 4);
-    const int p = (e % (kTileP / 4)) * 4;
-    float4* o = reinterpret_cast<float4*>(t_sm + col * kLd + p);
-    float4 v = *o;
-    if (BWD) {
-      const float4 gt =
-          *reinterpret_cast<const float4*>(gate + static_cast<size_t>(col) * Np + n0 + p);
-      v.x = gt.x > 0.f ? v.x : 0.f;
-      v.y = gt.y > 0.f ? v.y : 0.f;
-      v.z = gt.z > 0.f ? v.z : 0.f;
-      v.w = gt.w > 0.f ? v.w : 0.f;
-      *o = v;
-    }
-    *reinterpret_cast<float4*>(dst + static_cast<size_t>(col) * Np + n0 + p) = v;
-  }
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
 }
 
-// The weight images the products read, once per call: w0 (z = 0) and
-// wh[z-1] as given, and wh[z-1]^T for the backward chain (32x32 tiles
-// through shared memory). The float32 route's TF32 halves; the bfloat16
-// route's bf16 roundings and the highest route's fp32 values in the hi half.
-template <int ROUTE>
-__device__ __forceinline__ void weight_image(float v, float* hi, float* lo, size_t i) {
-  if constexpr (ROUTE == kTf32x3) {
-    uint32_t h, l;
-    split_tf32(v, h, l);
-    hi[i] = __uint_as_float(h);
-    lo[i] = __uint_as_float(l);
-  } else {
-    hi[i] = ROUTE == kBf16 ? round_bf16(v) : v;
-  }
+// bytes (a multiple of 16) global -> shared by the TMA unit; completion
+// counted on the mbarrier's transaction count.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
-template <int ROUTE>
-__global__ void weight_split_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
-                                    float* __restrict__ w0hi, float* __restrict__ w0lo,
-                                    float* __restrict__ whhi, float* __restrict__ whlo,
-                                    float* __restrict__ whThi, float* __restrict__ whTlo, int D,
-                                    int H) {
-  __shared__ float tile[32][33];
-  const int bx = blockIdx.x * 32, by = blockIdx.y * 32;
-  const int tx = threadIdx.x;
-  if (blockIdx.z == 0) {
-    for (int r = threadIdx.y; r < 32; r += blockDim.y) {
-      if (by + r >= D) break;
-      const size_t i = static_cast<size_t>(by + r) * H + bx + tx;
-      weight_image<ROUTE>(w0[i], w0hi, w0lo, i);
-    }
-    return;
-  }
-  if (by >= H) return;  // uniform over the block
-  const size_t base = static_cast<size_t>(blockIdx.z - 1) * H * H;
-  for (int r = threadIdx.y; r < 32; r += blockDim.y) {
-    const size_t i = base + static_cast<size_t>(by + r) * H + bx + tx;
-    const float v = wh[i];
-    weight_image<ROUTE>(v, whhi, whlo, i);
-    tile[r][tx] = v;
-  }
-  __syncthreads();
-  for (int r = threadIdx.y; r < 32; r += blockDim.y) {
-    const size_t i = base + static_cast<size_t>(bx + r) * H + by + tx;
-    weight_image<ROUTE>(tile[tx][r], whThi, whTlo, i);
-  }
+// Orders this thread's generic writes to shared memory before later reads
+// of it by the async proxy (wgmma's B operand).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Pointers into the TF32 halves of the scratch.
-struct WSplit {
-  float *w0hi, *w0lo, *whhi, *whlo, *whThi, *whTlo;
-};
-
-WSplit wsplit_at(float* base, int D, int H, int L1) {
-  const size_t dh = static_cast<size_t>(D) * H, hh = static_cast<size_t>(L1) * H * H;
-  WSplit w;
-  w.w0hi = base;
-  w.w0lo = w.w0hi + dh;
-  w.whhi = w.w0lo + dh;
-  w.whlo = w.whhi + hh;
-  w.whThi = w.whlo + hh;
-  w.whTlo = w.whThi + hh;
-  return w;
+// Named barrier of the two consumer warpgroups (not the producer's).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 }
 
-// Forward trunk of one 64-point tile; A_0 = x and every A_i go to act
-// ([D + L*H][Np]), the 4 raw head outputs to out4 ([4][Np]). Layer 0 reads
-// x back from act, one 32-row stage at a time. head_bf16: the head's
-// operands rounded to bf16.
-template <int H, bool INLINE_PE, int ROUTE>
-__global__ void __launch_bounds__(kThreads, 1)
-train_fwd_kernel(const float* __restrict__ in, const float* __restrict__ feats,
-                 const float* __restrict__ e2, const float* __restrict__ c, const WSplit ws,
-                 const float* __restrict__ b0, const float* __restrict__ bh,
-                 const float* __restrict__ wout, const float* __restrict__ bout,
-                 float* __restrict__ act, float* __restrict__ out4, int N, int Np, int n_raw,
-                 int n_phase, int Fd, int D, int L1, bool head_bf16) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* tile = smem;  // [H][kLd], each layer's output (layers >= 1 in place)
-  float* wst = tile + H * kLd;
-  float* xst = wst + Dense<H>::kSmem;  // layer 0's input stages
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * kTileP;
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
 
-  for (int idx = tid; idx < D * kTileP; idx += kThreads) {
-    const int k = idx / kTileP;
-    const int p = idx % kTileP;
-    const int n = n0 + p;
-    float v = 0.f;
-    if (n < N) {
-      if (INLINE_PE) {
-        const float* r = in + static_cast<size_t>(n) * n_raw;
-        if (k < n_raw) {
-          v = r[k];
-        } else if (k < n_raw + n_phase) {
-          const int col = k - n_raw;
-          float a = c[col];
-          for (int d = 0; d < n_raw; ++d) a = __fadd_rn(a, __fmul_rn(r[d], e2[d * n_phase + col]));
-          v = sinf(a);
-        } else if (k < n_raw + n_phase + Fd) {
-          v = feats[static_cast<size_t>(n) * Fd + (k - n_raw - n_phase)];
-        }
-      } else {
-        v = in[static_cast<size_t>(n) * D + k];
-      }
-    }
-    act[static_cast<size_t>(k) * Np + n] = v;
-  }
-  __syncthreads();  // x is in act before layer 0's stages copy it back
+// Keeps the compiler from moving accesses of d across a wgmma fence or wait.
+template <int NR>
+__device__ __forceinline__ void fence_regs(float (&d)[NR]) {
+#pragma unroll
+  for (int i = 0; i < NR; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
 
-  for (int l = 0; l <= L1; ++l) {  // layer 0 streams x (D wide) from act, the others H wide
-    const size_t off = static_cast<size_t>(l > 0 ? l - 1 : 0) * H * H;
-    dense_tc<H, false, ROUTE>(tile, l ? ws.whhi + off : ws.w0hi, l ? ws.whlo + off : ws.w0lo,
-                       l ? bh + static_cast<size_t>(l - 1) * H : b0, l ? H : D, wst,
-                       act + (static_cast<size_t>(D) + static_cast<size_t>(l) * H) * Np, nullptr,
-                       Np, n0, l ? nullptr : act, xst);
-  }
-  __syncthreads();
+// Shared-memory matrix descriptor of a K-major operand in the 128-byte
+// swizzle: rows of 128 bytes, 8-row groups 1024 bytes apart (SBO), the
+// leading offset unused; the start advances 32 bytes per k-step of 8.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) | (static_cast<uint64_t>(1) << 62);
+}
 
-  // head, fp32 FMAs (of bf16-rounded operands with head_bf16): thread ->
-  // (point, output column)
-  for (int e = tid; e < kTileP * kHead; e += kThreads) {
-    const int p = e >> 2;
-    const int o = e & 3;
-    float acc = 0.f;
-    if (head_bf16) {
-      for (int k = 0; k < H; ++k)
-        acc = fmaf(round_bf16(tile[k * kLd + p]), round_bf16(__ldg(wout + k * kOutPad + o)), acc);
-    } else {
-      for (int k = 0; k < H; ++k) acc = fmaf(tile[k * kLd + p], __ldg(wout + k * kOutPad + o), acc);
-    }
-    out4[static_cast<size_t>(o) * Np + n0 + p] = acc + __ldg(bout + o);
-  }
+// The same in the 64-byte swizzle (layout type 2): rows of 64 bytes, 8-row
+// groups 512 bytes apart; the start advances 32 bytes per k-step (8 tf32 or
+// 16 bf16).
+__device__ __forceinline__ uint64_t sw64_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(512 >> 4) << 32) | (static_cast<uint64_t>(2) << 62);
+}
+
+// d (+)= a.b for a 64 x N tile and one k-step of 8: A (64 x 8) from
+// registers, B (8 x N) by descriptor; scale_d = 0 overwrites d.
+__device__ __forceinline__ void wgmma_m64n64k8(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k8(float (&d)[64], const uint32_t (&a)[4],
+                                               uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+
+// d (+)= a.b for a 64 x N tile and one bf16 k-step of 16: A (64 x 16) from
+// registers, B (16 x N, K-major, not transposed) by descriptor.
+__device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], const uint32_t (&a)[4],
+                                                     uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], const uint32_t (&a)[4],
+                                                      uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t desc_b, int scale_d) {
+  wgmma_m64n64k16_bf16(d, a, desc_b, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  wgmma_m64n128k16_bf16(d, a, desc_b, scale_d);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], const uint32_t (&a)[4],
+                                           uint64_t desc_b, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_tf32<64>(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t desc_b, int scale_d) {
+  wgmma_m64n64k8(d, a, desc_b, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_tf32<128>(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t desc_b, int scale_d) {
+  wgmma_m64n128k8(d, a, desc_b, scale_d);
+}
+
+// d (+)= a.b for a 64 x 128 tile and one k-step, both operands by
+// descriptor from shared memory (K-major): 8 tf32, or 16 bf16.
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_ss_bf16(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
 // Per-ray compositing state of one warp, in dynamic shared memory (9*S
@@ -949,77 +938,799 @@ render_composite_kernel(const float* __restrict__ out4, const float* __restrict_
                      g_weights + nb, gout);
 }
 
-// Backward chain of one 64-point tile: delta_L = (g_out.wout[:, :4]^T) *
-// [A_L > 0] (exact fp32), then delta_i = (delta_{i+1}.wh[i-1]^T) * [A_i > 0]
-// on the tensor cores; each delta goes to gbuf ([L*H][Np], delta_i at row
-// (i-1)*H). head_bf16: the seed's operands rounded to bf16.
-template <int H, int ROUTE>
-__global__ void __launch_bounds__(kThreads, 1)
-train_bwd_kernel(const float* __restrict__ gout, const float* __restrict__ wout, const WSplit ws,
-                 const float* __restrict__ act, float* __restrict__ gbuf, int N, int Np, int D,
-                 int L1, bool head_bf16) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* tile = smem;  // [H][kLd], each layer in place
-  float* wst = tile + H * kLd;
-  const int tid = threadIdx.x;
-  const int n0 = blockIdx.x * kTileP;
-  const float* hL = act + (static_cast<size_t>(D) + static_cast<size_t>(L1) * H) * Np;
-  float* dL = gbuf + static_cast<size_t>(L1) * H * Np;
 
-  for (int idx = tid; idx < H * kTileP; idx += kThreads) {
-    const int k = idx / kTileP;
-    const int p = idx % kTileP;
-    const int n = n0 + p;
-    float v = 0.f;
-    if (n < N) {
-      const float* wk = wout + k * kOutPad;
-      const bool r = head_bf16;
-      float s = head_in(gout[n], r) * head_in(__ldg(wk + 0), r);
-      s = fmaf(head_in(gout[static_cast<size_t>(Np) + n], r), head_in(__ldg(wk + 1), r), s);
-      s = fmaf(head_in(gout[2 * static_cast<size_t>(Np) + n], r), head_in(__ldg(wk + 2), r), s);
-      s = fmaf(head_in(gout[3 * static_cast<size_t>(Np) + n], r), head_in(__ldg(wk + 3), r), s);
-      v = hL[static_cast<size_t>(k) * Np + n] > 0.f ? s : 0.f;
-    }
-    tile[k * kLd + p] = v;
-    dL[static_cast<size_t>(k) * Np + n] = v;
-  }
+// Offset of (row, point n) in an image of `rows` rows per 32-point block:
+// block n / 32 holds its rows one after the other, 32 points each, the
+// 16-byte chunks of row r swizzled to chunk c ^ (r % 8).
+__device__ __forceinline__ size_t img_at(int rows, int row, int n) {
+  const int q = n & (kBlk - 1);
+  return (static_cast<size_t>(n >> 5) * rows + row) * kBlk + ((((q >> 2) ^ (row & 7))) << 2) +
+         (q & 3);
+}
 
-  for (int l = L1 - 1; l >= 0; --l) {
-    // delta_{l+1} = (delta_{l+2} . wh[l]^T) * [A_{l+1} > 0]
-    const size_t off = static_cast<size_t>(l) * H * H;
-    dense_tc<H, true, ROUTE>(tile, ws.whThi + off, ws.whTlo + off, nullptr, H, wst,
-                      gbuf + static_cast<size_t>(l) * H * Np,
-                      act + (static_cast<size_t>(D) + static_cast<size_t>(l) * H) * Np, Np, n0);
+// ---- launch 1: the weights' images ----
+
+// w0's image row-major (render_dx's): the float32 route's TF32 halves; the
+// bfloat16 route's bf16 roundings and the highest route's fp32 values in
+// the hi half.
+template <int ROUTE>
+__device__ __forceinline__ void weight_image(float v, float* hi, float* lo, size_t i) {
+  if constexpr (ROUTE == kTf32x3) {
+    uint32_t h, l;
+    split_tf32(v, h, l);
+    hi[i] = __uint_as_float(h);
+    lo[i] = __uint_as_float(l);
+  } else {
+    hi[i] = ROUTE == kBf16 ? round_bf16(v) : v;
   }
 }
 
+// Stage blockIdx.y of the images (the forward's w0 and wh[l] stages, then
+// the backward's wh[l]^T, l from L1 - 1 down), output rows [32*blockIdx.x,
+// +32), through a KS x 32 tile in shared memory; the blocks past the stages
+// write w0's row-major image, 32 rows each.
+template <int H, int ROUTE>
+__global__ void __launch_bounds__(256)
+weight_image_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
+                    uint8_t* __restrict__ images, float* __restrict__ w0hi,
+                    float* __restrict__ w0lo, int D, int L1, int n_fwd, int n_stages) {
+  using T = Trunk<H, ROUTE>;
+  constexpr int KS = T::KS;
+  __shared__ float tile[KS][33];
+  const int nb = blockIdx.x * 32;
+  const int tid = threadIdx.x;
+  const int st = blockIdx.y;
+  if (st >= n_stages) {
+    const int r0 = (st - n_stages) * 32;
+    for (int e = tid; e < 32 * 32; e += 256) {
+      const int r = r0 + e / 32;
+      if (r < D) {
+        const size_t i = static_cast<size_t>(r) * H + nb + e % 32;
+        weight_image<ROUTE>(w0[i], w0hi, w0lo, i);
+      }
+    }
+    return;
+  }
+  const int s0 = cdiv(D, KS), per = H / KS;
+  // tile[r][c]: the stage's input row k0 + r, output row nb + c (zero past K)
+  if (st < n_fwd) {
+    const float* W = st < s0 ? w0 : wh + static_cast<size_t>((st - s0) / per) * H * H;
+    const int k0 = (st < s0 ? st : (st - s0) % per) * KS;
+    const int K = st < s0 ? D : H;
+    for (int e = tid; e < KS * 32; e += 256) {
+      const int r = e / 32, c = e % 32;
+      tile[r][c] = k0 + r < K ? W[static_cast<size_t>(k0 + r) * H + nb + c] : 0.f;
+    }
+  } else {  // wh[l]^T: input row j of the chain is column j of wh[l]
+    const int b = st - n_fwd;
+    const float* W = wh + static_cast<size_t>(L1 - 1 - b / per) * H * H;
+    const int k0 = (b % per) * KS;
+    for (int e = tid; e < KS * 32; e += 256) {
+      const int r = e % KS, c = e / KS;
+      tile[r][c] = W[static_cast<size_t>(nb + c) * H + k0 + r];
+    }
+  }
+  __syncthreads();
+  uint8_t* img = images + static_cast<size_t>(st) * T::kStageBytes;
+  if constexpr (ROUTE == kFp32) {  // the KS rows as they are, [KS][H]
+    float* o = reinterpret_cast<float*>(img);
+    for (int e = tid; e < KS * 32; e += 256) {
+      const int r = e / 32, c = e % 32;
+      o[r * H + nb + c] = tile[r][c];
+    }
+  } else if constexpr (ROUTE == kBf16) {  // row n's k-slot kk, 64-byte swizzle
+    uint16_t* o = reinterpret_cast<uint16_t*>(img);
+    for (int e = tid; e < KS * 32; e += 256) {
+      const int kk = e % KS, n = nb + e / KS;
+      o[n * KS + ((((kk >> 3) ^ ((n >> 1) & 3))) << 3) + (kk & 7)] =
+          static_cast<uint16_t>(pack_bf16(0.f, tile[kk][n - nb]) >> 16);
+    }
+  } else {  // row n's k-slot s holds input row 8*(s/8) + (j < 4 ? 2j : 2j - 7), j = s % 8
+    float* o = reinterpret_cast<float*>(img);
+    for (int e = tid; e < KS * 32; e += 256) {
+      const int s = e % KS, n = nb + e / KS;
+      const int j = s & 7;
+      const int r = (s & ~7) + (j < 4 ? 2 * j : 2 * j - 7);
+      uint32_t hi, lo;
+      split_tf32(tile[r][n - nb], hi, lo);
+      const int pos = n * KS + ((((s >> 2) ^ ((n >> 1) & 3))) << 2) + (s & 3);
+      o[pos] = __uint_as_float(hi);
+      o[H * KS + pos] = __uint_as_float(lo);
+    }
+  }
+}
+
+// ---- launches 2 and 4: the trunk, forward and backward ----
+
+// What the trunk kernel reads and writes; the forward uses the input, the
+// biases, act, out4 and writes the masks, the backward reads gout and the
+// masks and writes gbuf.
+struct TrunkArgs {
+  const float *in, *feats, *e2, *c;  // layer 0's input (inline PE: raw and feats)
+  const float *b0, *bh, *wout, *bout;
+  const uint8_t* images;  // this pass's weight stages, in order
+  float* act;             // A_0 .. A_L images, act_rows rows a block
+  float* out4;            // the 4 raw head outputs, [4][Np]
+  const float* gout;      // the head cotangent, [4][Np]
+  float* gbuf;            // delta_1 .. delta_L and g_out images, g_rows rows a block
+  uint32_t* mask;         // [A_i > 0], per tile, layer and thread
+  int N, Np, tiles, stages, n_raw, n_phase, Fd, D, L1, act_rows, g_rows, head_bf16;
+};
+
+// Dynamic shared memory: the stage ring (1024-byte aligned), the activation
+// tile, two layer-0 input slices, wout's live columns, the mbarriers.
+template <int H, int ROUTE>
+constexpr size_t trunk_smem() {
+  return 1024 + kRingBytes +
+         sizeof(float) * (static_cast<size_t>(kTileP) * (H + kActPad + 2 * kXLd) + H * kHead) +
+         2 * Trunk<H, ROUTE>::NS * sizeof(uint64_t);
+}
+static_assert(trunk_smem<256, kTf32x3>() <= 232448 && trunk_smem<256, kBf16>() <= 232448 &&
+                  trunk_smem<256, kFp32>() <= 232448 && trunk_smem<128, kBf16>() <= 232448,
+              "the trunk's shared memory fits a block");
+
+// The two consumer warpgroups of a trunk pass.
+template <int H, int MODE, bool INLINE_PE, bool STAGED, int ROUTE>
+__device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring,
+                                               const uint8_t* ring_ptr, float* __restrict__ act_sm,
+                                               float* __restrict__ xbuf, float* __restrict__ whead,
+                                               uint32_t full0, uint32_t empty0) {
+  using T = Trunk<H, ROUTE>;
+  constexpr int KS = T::KS;
+  constexpr int ld = T::LD;
+  constexpr int xld = T::XLD;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2;            // warpgroup: columns [wg*NW, +NW)
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = 16 * (warp & 3) + g;  // fragment rows r0, r0 + 8
+  const int c0 = wg * T::NW;
+  // The FFMA route's threads own PR points x 8 columns each (points pl +
+  // PL*p, columns c0 + 8*cgi + {0..7}): a warp's lanes take consecutive
+  // points, so its image stores are as coalesced as a fragment's, and a
+  // point's 4 inputs or a row's 8 weights are 16-byte loads. The wgmma
+  // routes' threads own their fragments' (points r0 + 8p). pt_of and
+  // col_of give accumulator i's point (its p = pidx(i)) and column; the
+  // epilogues, the masks and the backward seed all go through them.
+  constexpr int NP = ROUTE == kFp32 ? T::PR : 2;  // points a thread owns
+  const int pl = (tid & 127) % T::PL, cgi = (tid & 127) / T::PL;
+  auto pidx = [](int i) { return ROUTE == kFp32 ? i >> 3 : (i >> 1) & 1; };
+  auto pt_at = [&](int p) { return ROUTE == kFp32 ? pl + T::PL * p : r0 + 8 * p; };
+  auto pt_of = [&](int i) { return pt_at(pidx(i)); };
+  auto col_of = [&](int i) {
+    return ROUTE == kFp32 ? c0 + 8 * cgi + (i & 7) : c0 + 8 * (i >> 2) + 2 * t + (i & 1);
+  };
+  const int L = a.L1 + 1;
+  const bool hb = a.head_bf16 != 0;
+  float acc[T::NR], part[T::NR];
+#pragma unroll
+  for (int i = 0; i < T::NR; ++i) part[i] = 0.f;
+  int it = 0;
+  // the head's four live columns, once per CTA (rounded to bf16 with head_bf16)
+  for (int e = tid; e < H * kHead; e += kConsumers) {
+    const float w = __ldg(a.wout + (e / kHead) * kOutPad + e % kHead);
+    whead[e] = hb ? round_bf16(w) : w;
+  }
+  consumers_sync();
+
+  for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+    const int n0 = tile * kTileP;
+    // the thread's mask words of layer output A_{layer+1}
+    auto mask_at = [&](int layer) {
+      return a.mask + (static_cast<size_t>(tile) * L + layer) * T::MW * kConsumers + tid;
+    };
+    // columns [32*sl, +32) of layer 0's input to dst[p*ldd + j] (point-major)
+    // and to the act image (A_0); a warp takes 32 points of one column
+    auto build_x = [&](int sl, float* dst, int ldd) {
+      for (int idx = tid; idx < kTileP * kXK; idx += kConsumers) {
+        const int j = idx / kTileP, p = idx % kTileP;
+        const int k = sl * kXK + j;
+        const int n = n0 + p;
+        float v = 0.f;
+        if (n < a.N && k < a.D) {
+          if (INLINE_PE) {
+            const float* r = a.in + static_cast<size_t>(n) * a.n_raw;
+            if (k < a.n_raw) {
+              v = r[k];
+            } else if (k < a.n_raw + a.n_phase) {
+              const int col = k - a.n_raw;
+              float ph = a.c[col];
+              for (int d = 0; d < a.n_raw; ++d)
+                ph = __fadd_rn(ph, __fmul_rn(r[d], a.e2[d * a.n_phase + col]));
+              v = sinf(ph);
+            } else if (k < a.n_raw + a.n_phase + a.Fd) {
+              v = a.feats[static_cast<size_t>(n) * a.Fd + (k - a.n_raw - a.n_phase)];
+            }
+          } else {
+            v = a.in[static_cast<size_t>(n) * a.D + k];
+          }
+        }
+        dst[p * ldd + j] = v;
+        if (k < a.D) a.act[img_at(a.act_rows, k, n)] = v;
+      }
+    };
+    auto xslice = [&](int sl) { return xbuf + (sl & 1) * kTileP * kXLd; };  // kXLd: the widest
+
+    // acc = the layer's products over K input rows: the tile's (from_tile)
+    // or, a STAGED layer 0, x's slices; the stages come from the ring in
+    // the producer's order
+    auto products = [&](int K, bool from_tile) {
+      const int nst = cdiv(K, KS);
+#pragma unroll
+      for (int i = 0; i < T::NR; ++i) acc[i] = 0.f;
+      const int sld = from_tile ? ld : xld;
+      auto src_of = [&](int st) {
+        return from_tile ? act_sm + st * KS : xslice(st * KS / kXK) + (st * KS) % kXK;
+      };
+      // before stage st: a STAGED layer 0 builds the slice that st starts
+      auto next_slice = [&](int st) {
+        if (!from_tile && (st * KS) % kXK == 0) {
+          build_x(st * KS / kXK, xslice(st * KS / kXK), xld);
+          consumers_sync();
+        }
+      };
+      if constexpr (ROUTE == kFp32) {
+        // FFMAs over the stage's fp32 rows, four at a time (K is a multiple
+        // of 16): each point's 4 inputs and each row's 8 weights in 16-byte
+        // loads
+        for (int st = 0; st < nst; ++st) {
+          const int s = it % T::NS;
+          const int rows = K - st * KS >= KS ? KS : 16;
+          mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
+          const float* w =
+              reinterpret_cast<const float*>(ring_ptr + s * T::kStageBytes) + c0 + 8 * cgi;
+          const float* src = src_of(st) + pl * sld;
+#pragma unroll 1
+          for (int k4 = 0; k4 < rows; k4 += 4) {
+            float4 av[T::PR];
+#pragma unroll
+            for (int p = 0; p < T::PR; ++p)
+              av[p] = *reinterpret_cast<const float4*>(src + T::PL * p * sld + k4);
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const float4 b0 = *reinterpret_cast<const float4*>(w + (k4 + kk) * H);
+              const float4 b1 = *reinterpret_cast<const float4*>(w + (k4 + kk) * H + 4);
+              const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+              for (int p = 0; p < T::PR; ++p) {
+                const float x = kk == 0 ? av[p].x : kk == 1 ? av[p].y : kk == 2 ? av[p].z : av[p].w;
+#pragma unroll
+                for (int c = 0; c < 8; ++c) acc[8 * p + c] = fmaf(x, bv[c], acc[8 * p + c]);
+              }
+            }
+          }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
+          if (st + 1 < nst) next_slice(st + 1);
+          ++it;
+        }
+      } else if constexpr (ROUTE == kBf16) {
+        // A fragments of stage st's two k-steps of 16, rounded to bf16
+        auto load_a = [&](int st, uint32_t (&af)[2][4]) {
+          const int live = K - st * KS >= KS ? 2 : 1;
+          const float* src = src_of(st);
+#pragma unroll
+          for (int q = 0; q < 2; ++q) {
+            if (q < live) {
+              const float* p = src + r0 * sld + 16 * q + 2 * t;
+              const float2 u = *reinterpret_cast<const float2*>(p);
+              const float2 v = *reinterpret_cast<const float2*>(p + 8);
+              const float2 w = *reinterpret_cast<const float2*>(p + 8 * sld);
+              const float2 x = *reinterpret_cast<const float2*>(p + 8 * sld + 8);
+              af[q][0] = pack_bf16(u.x, u.y);
+              af[q][1] = pack_bf16(w.x, w.y);
+              af[q][2] = pack_bf16(v.x, v.y);
+              af[q][3] = pack_bf16(x.x, x.y);
+            }
+          }
+        };
+        auto stage = [&](int st, uint32_t (&af)[2][4], uint32_t (&nx)[2][4]) {
+          const int s = it % T::NS;
+          const int live = K - st * KS >= KS ? 2 : 1;
+          mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
+          const uint32_t img = ring + s * T::kStageBytes + c0 * (KS * 2);
+          fence_regs(part);
+          wgmma_fence();
+#pragma unroll
+          for (int q = 0; q < 2; ++q)
+            if (q < live) wgmma_bf16<T::NW>(part, af[q], sw64_desc(img + 32 * q), q > 0);
+          wgmma_commit();
+          if (st + 1 < nst) {
+            next_slice(st + 1);
+            load_a(st + 1, nx);
+          }
+          wgmma_wait_all();
+          fence_regs(part);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
+#pragma unroll
+          for (int i = 0; i < T::NR; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+          ++it;
+        };
+        uint32_t f0[2][4], f1[2][4];
+        load_a(0, f0);
+        for (int st = 0; st < nst; st += 2) {
+          stage(st, f0, f1);
+          if (st + 1 < nst) stage(st + 1, f1, f0);
+        }
+      } else {
+        // A fragments of stages st .. st + n - 1 (n <= 2: 32 input rows, four
+        // k-steps of 8), split into TF32 halves: slots t and t+4 of a k-step
+        // are its input rows 2t and 2t+1
+        auto load_a = [&](int st, int n, uint32_t (&hi)[4][4], uint32_t (&lo)[4][4]) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (q < 2 * n) {
+              const float* p = src_of(st + (q >> 1)) + r0 * sld + 8 * (q & 1) + 2 * t;
+              const float2 u = *reinterpret_cast<const float2*>(p);
+              const float2 w = *reinterpret_cast<const float2*>(p + 8 * sld);
+              split_fast(u.x, hi[q][0], lo[q][0]);
+              split_fast(w.x, hi[q][1], lo[q][1]);
+              split_fast(u.y, hi[q][2], lo[q][2]);
+              split_fast(w.y, hi[q][3], lo[q][3]);
+            }
+          }
+        };
+        // one chain of the stages st, st + 1 (12 wgmma, or 6 for a last odd
+        // stage), promoted once, as kernel 2 promotes its 32-row stages; the
+        // next two stages' fragments are read while the chain runs
+        auto chain = [&](int st, uint32_t (&hi)[4][4], uint32_t (&lo)[4][4],
+                         uint32_t (&nhi)[4][4], uint32_t (&nlo)[4][4]) {
+          const int n = nst - st >= 2 ? 2 : 1;
+          fence_regs(part);
+          wgmma_fence();
+#pragma unroll
+          for (int g = 0; g < 2; ++g) {
+            if (g < n) {
+              const int s = (it + g) % T::NS;
+              mbar_wait(full0 + 8 * s, ((it + g) / T::NS) & 1);
+              const uint32_t hi_img = ring + s * T::kStageBytes + c0 * (KS * 4);
+              const uint32_t lo_img = hi_img + H * KS * 4;
+#pragma unroll
+              for (int k = 0; k < 2; ++k) {
+                const int q = 2 * g + k;
+                wgmma_tf32<T::NW>(part, lo[q], sw64_desc(hi_img + 32 * k), q > 0);
+                wgmma_tf32<T::NW>(part, hi[q], sw64_desc(lo_img + 32 * k), 1);
+                wgmma_tf32<T::NW>(part, hi[q], sw64_desc(hi_img + 32 * k), 1);
+              }
+            }
+          }
+          wgmma_commit();
+          if (st + n < nst) {
+            next_slice(st + n);
+            load_a(st + n, nst - st - n >= 2 ? 2 : 1, nhi, nlo);
+          }
+          wgmma_wait_all();
+          fence_regs(part);
+          __syncwarp();
+          if (lane == 0)
+            for (int g = 0; g < n; ++g) mbar_arrive(empty0 + 8 * ((it + g) % T::NS));
+#pragma unroll
+          for (int i = 0; i < T::NR; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+          it += n;
+        };
+        uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
+        load_a(0, nst >= 2 ? 2 : 1, h0, l0);
+        for (int st = 0; st < nst; st += 4) {
+          chain(st, h0, l0, h1, l1);
+          if (st + 2 < nst) chain(st + 2, h1, l1, h0, l0);
+        }
+      }
+    };
+
+    // v (the thread's NR outputs) over the tile in place and to an image
+    auto write_out = [&](const float (&v)[T::NR], float* img, int rows, int row0) {
+#pragma unroll
+      for (int i = 0; i < T::NR; i += 2) {  // i, i + 1: one point, adjacent columns
+        *reinterpret_cast<float2*>(act_sm + pt_of(i) * ld + col_of(i)) = make_float2(v[i], v[i + 1]);
+        img[img_at(rows, row0 + col_of(i), n0 + pt_of(i))] = v[i];
+        img[img_at(rows, row0 + col_of(i) + 1, n0 + pt_of(i))] = v[i + 1];
+      }
+    };
+
+    if constexpr (MODE == kFwd) {
+      const int nx = cdiv(a.D, kXK);
+      if (STAGED) {
+        build_x(0, xslice(0), xld);
+      } else {
+        for (int sl = 0; sl < nx; ++sl) build_x(sl, act_sm + sl * kXK, ld);
+      }
+      consumers_sync();
+      for (int l = 0; l <= a.L1; ++l) {
+        products(l ? H : a.D, !STAGED || l > 0);
+        consumers_sync();  // every warp is done reading the layer's input
+        const float* bias = l ? a.bh + static_cast<size_t>(l - 1) * H : a.b0;
+        uint32_t m[T::MW];
+#pragma unroll
+        for (int w = 0; w < T::MW; ++w) m[w] = 0u;
+#pragma unroll
+        for (int i = 0; i < T::NR; ++i) {
+          acc[i] = fmaxf(acc[i] + __ldg(bias + col_of(i)), 0.f);
+          if (acc[i] > 0.f) m[i >> 5] |= 1u << (i & 31);
+        }
+        write_out(acc, a.act, a.act_rows, a.D + l * H);
+        uint32_t* mk = mask_at(l);
+#pragma unroll
+        for (int w = 0; w < T::MW; ++w) mk[w * kConsumers] = m[w];
+        consumers_sync();
+      }
+      // head, fp32 FMAs (bf16-rounded operands with head_bf16): thread ->
+      // (point, output column)
+      if (tid < kTileP * kHead) {
+        const int p = tid >> 2;
+        const int o = tid & 3;
+        float s = 0.f;
+        if (hb) {
+#pragma unroll 16
+          for (int k = 0; k < H; ++k)
+            s = fmaf(round_bf16(act_sm[p * ld + k]), whead[k * kHead + o], s);
+        } else {
+#pragma unroll 16
+          for (int k = 0; k < H; ++k) s = fmaf(act_sm[p * ld + k], whead[k * kHead + o], s);
+        }
+        a.out4[static_cast<size_t>(o) * a.Np + n0 + p] = s + __ldg(a.bout + o);
+      }
+      consumers_sync();  // the head has read the tile before the next input build
+    } else {
+      // delta_L = (g_out.wout[:, :4]^T) * [A_L > 0], exact fp32
+      {
+        const uint32_t* mk = mask_at(a.L1);
+        uint32_t m[T::MW];
+#pragma unroll
+        for (int w = 0; w < T::MW; ++w) m[w] = mk[w * kConsumers];
+        float gv[NP][kHead];
+#pragma unroll
+        for (int p = 0; p < NP; ++p) {
+          const int n = n0 + pt_at(p);
+#pragma unroll
+          for (int o = 0; o < kHead; ++o)
+            gv[p][o] = n < a.N ? head_in(a.gout[static_cast<size_t>(o) * a.Np + n], hb) : 0.f;
+        }
+#pragma unroll
+        for (int i = 0; i < T::NR; ++i) {
+          const float* wk = whead + col_of(i) * kHead;
+          float s = gv[pidx(i)][0] * wk[0];
+          s = fmaf(gv[pidx(i)][1], wk[1], s);
+          s = fmaf(gv[pidx(i)][2], wk[2], s);
+          s = fmaf(gv[pidx(i)][3], wk[3], s);
+          acc[i] = n0 + pt_of(i) < a.N && ((m[i >> 5] >> (i & 31)) & 1u) ? s : 0.f;
+        }
+        write_out(acc, a.gbuf, a.g_rows, a.L1 * H);
+        // g_out beside the deltas, for the head's dW (zero past N)
+        for (int e = tid; e < kHead * kTileP; e += kConsumers) {
+          const int o = e / kTileP, n = n0 + e % kTileP;
+          a.gbuf[img_at(a.g_rows, L * H + o, n)] =
+              n < a.N ? a.gout[static_cast<size_t>(o) * a.Np + n] : 0.f;
+        }
+      }
+      consumers_sync();
+      for (int l = a.L1 - 1; l >= 0; --l) {
+        // delta_{l+1} = (delta_{l+2} . wh[l]^T) * [A_{l+1} > 0]
+        const uint32_t* mk = mask_at(l);
+        uint32_t m[T::MW];
+#pragma unroll
+        for (int w = 0; w < T::MW; ++w) m[w] = mk[w * kConsumers];
+        products(H, true);
+        consumers_sync();  // every warp is done reading delta_{l+2}
+#pragma unroll
+        for (int i = 0; i < T::NR; ++i)
+          if (!((m[i >> 5] >> (i & 31)) & 1u)) acc[i] = 0.f;
+        write_out(acc, a.gbuf, a.g_rows, l * H);
+        consumers_sync();
+      }
+    }
+  }
+}
+
+// A trunk pass: the producer warpgroup and the consumers' roles.
+template <int H, int MODE, bool INLINE_PE, bool STAGED, int ROUTE>
+__device__ __forceinline__ void trunk(const TrunkArgs& a) {
+  using T = Trunk<H, ROUTE>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_u32(smem_raw);
+  uint8_t* base = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
+  const uint32_t ring = smem_u32(base);
+  float* act_sm = reinterpret_cast<float*>(base + kRingBytes);  // (64, H + 8)
+  float* xbuf = act_sm + kTileP * T::LD;        // two (64, 40) layer-0 input slices
+  float* whead = xbuf + 2 * kTileP * kXLd;      // (H, 4): wout's live columns
+  uint64_t* bars = reinterpret_cast<uint64_t*>(whead + H * kHead);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + T::NS);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+
+  if (tid == 0) {
+    for (int s = 0; s < T::NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers / 32);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // The roles never meet again: registers move from the producer warpgroup
+  // (one thread of which issues the copies) to the consumers.
+  if (warp >= kConsumers / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == kConsumers / 32 && lane == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x)
+        for (int st = 0; st < a.stages; ++st, ++it) {
+          const int s = it % T::NS;
+          mbar_wait(empty0 + 8 * s, ((it / T::NS) & 1) ^ 1);
+          mbar_arrive_expect_tx(full0 + 8 * s, T::kStageBytes);
+          bulk_copy(ring + s * T::kStageBytes, a.images + static_cast<size_t>(st) * T::kStageBytes,
+                    T::kStageBytes, full0 + 8 * s);
+        }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    trunk_consumer<H, MODE, INLINE_PE, STAGED, ROUTE>(a, ring, base, act_sm, xbuf, whead, full0,
+                                                      empty0);
+  }
+}
+
+// The forward pass (STAGED: an input wider than the tile, in slices).
+template <int H, bool INLINE_PE, bool STAGED, int ROUTE>
+__global__ void __launch_bounds__(kThreads, 1) train_fwd_kernel(const TrunkArgs a) {
+  trunk<H, kFwd, INLINE_PE, STAGED, ROUTE>(a);
+}
+
+// The backward chain.
+template <int H, int ROUTE>
+__global__ void __launch_bounds__(kThreads, 1) train_bwd_kernel(const TrunkArgs a) {
+  trunk<H, kBwd, false, false, ROUTE>(a);
+}
+
+// ---- launch 5: the dW products ----
+
 // One dW product: out[k][j] = sum_n A[k][n] * G[j][n] (j < J, zero for
-// j >= Jreal), db[j] = sum_n G[j][n].
+// j >= Jreal), db[j] = sum_n G[j][n]; A is rows a_row.. of the act image,
+// G rows g_row.. of the gbuf image.
 struct DwJob {
-  const float* A;
-  const float* G;
-  int K, J, Jreal, tiles;
+  int a_row, g_row, K, J, Jreal, tiles;
   size_t out, db;  // offsets in the flattened gradient
 };
 struct DwJobs {
   DwJob job[kMaxJobs];
   int n;
 };
+struct DwArgs {
+  const float* act;
+  const float* gbuf;
+  float* partial;
+  size_t Fp;  // floats of one partial
+  int act_rows, g_rows, nblk, chunk_blk;
+};
+
+// A route's dW stages: kConv bytes of one of the two wgmma images the
+// consumers convert a stage's A and delta rows into (TF32 halves in the
+// 128-byte swizzle, bf16 in the 64-byte one; none for the FFMAs), and the
+// depth of the ring of raw stages that fits beside them.
+template <int ROUTE>
+struct DwStage {
+  static constexpr int kConv =
+      ROUTE == kTf32x3 ? 2 * 2 * kDwT * kBlk * 4 : (ROUTE == kBf16 ? 2 * kDwT * kBlk * 2 : 0);
+  static constexpr int NS = ROUTE == kTf32x3 ? 3 : 4;
+  static constexpr size_t kSmem = 1024 + NS * kDwSlot + 2 * kConv + 2 * NS * sizeof(uint64_t);
+  static_assert(kSmem <= 232448, "train_dw's shared memory fits a block");
+};
+
+// The consumers of one dW tile (rows k0.., columns j0..) over nst 32-point
+// stages: warpgroup wg owns rows [64*wg, +64) of the tile. The db sums take
+// thread tid's half (points [16*(tid%2), +16)) of delta row tid/2.
+template <int ROUTE>
+__device__ __forceinline__ void dw_consumer(const DwJob& jd, const DwArgs& d, int k0, int j0,
+                                            int nst, const uint8_t* ring_ptr, uint32_t conv,
+                                            uint8_t* conv_ptr, uint32_t full0, uint32_t empty0) {
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const bool sum_db = k0 == 0;
+  const int jrow = tid >> 1, half = tid & 1;
+  float gsum = 0.f, gcomp = 0.f;
+  float* out = d.partial + blockIdx.y * d.Fp;
+  auto slot_a = [&](int s) { return reinterpret_cast<const float*>(ring_ptr + s * kDwSlot); };
+  auto slot_g = [&](int s) { return slot_a(s) + kDwT * kBlk; };
+  // the (raw fp32) value of the thread's delta row at chunk c of its half
+  auto g_chunk = [&](const float* G, int c) {  // also A's row jrow
+    return *reinterpret_cast<const float4*>(G + jrow * kBlk + (((c ^ (jrow & 7))) << 2));
+  };
+
+  if constexpr (ROUTE == kFp32) {
+    // FFMAs: thread (rg, cg) of its warpgroup owns rows 64*wg + rg + 8a and
+    // columns cg + 16c (a, c < 8); each stage's 32 products go to part, then
+    // one round-to-nearest add per output: the point axis in two levels
+    const int i = tid & 127, rg = i >> 4, cg = i & 15;
+    float acc[8][8], part[8][8];
+#pragma unroll
+    for (int x = 0; x < 8; ++x)
+#pragma unroll
+      for (int y = 0; y < 8; ++y) acc[x][y] = part[x][y] = 0.f;
+    for (int b = 0; b < nst; ++b) {
+      const int s = b % DwStage<ROUTE>::NS;
+      mbar_wait(full0 + 8 * s, (b / DwStage<ROUTE>::NS) & 1);
+      const float* A = slot_a(s);
+      const float* G = slot_g(s);
+      if (sum_db) {  // a compensated (Kahan) sum: a thread adds ~N/2 terms
+#pragma unroll
+        for (int c = 4 * half; c < 4 * half + 4; ++c) {
+          const float4 v = g_chunk(G, c);
+          const float vs[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float y = __fsub_rn(vs[e], gcomp);
+            const float sum = __fadd_rn(gsum, y);
+            gcomp = __fsub_rn(__fsub_rn(sum, gsum), y);
+            gsum = sum;
+          }
+        }
+      }
+#pragma unroll 2
+      for (int ch = 0; ch < kBlk / 4; ++ch) {
+        float4 av[8];
+#pragma unroll
+        for (int x = 0; x < 8; ++x) {
+          const int r = 64 * wg + rg + 8 * x;
+          av[x] = *reinterpret_cast<const float4*>(A + r * kBlk + ((ch ^ (r & 7)) << 2));
+        }
+#pragma unroll
+        for (int y = 0; y < 8; ++y) {
+          const int cc = cg + 16 * y;
+          const float4 gv = *reinterpret_cast<const float4*>(G + cc * kBlk + ((ch ^ (cc & 7)) << 2));
+#pragma unroll
+          for (int x = 0; x < 8; ++x) {
+            part[x][y] = fmaf(av[x].x, gv.x, part[x][y]);
+            part[x][y] = fmaf(av[x].y, gv.y, part[x][y]);
+            part[x][y] = fmaf(av[x].z, gv.z, part[x][y]);
+            part[x][y] = fmaf(av[x].w, gv.w, part[x][y]);
+          }
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
+#pragma unroll
+      for (int x = 0; x < 8; ++x)
+#pragma unroll
+        for (int y = 0; y < 8; ++y) {
+          acc[x][y] = __fadd_rn(acc[x][y], part[x][y]);
+          part[x][y] = 0.f;
+        }
+    }
+#pragma unroll
+    for (int x = 0; x < 8; ++x) {
+      const int k = k0 + 64 * wg + rg + 8 * x;
+      if (k >= jd.K) continue;
+#pragma unroll
+      for (int y = 0; y < 8; ++y) {
+        const int col = j0 + cg + 16 * y;
+        if (col < jd.J)
+          out[jd.out + static_cast<size_t>(k) * jd.J + col] = col < jd.Jreal ? acc[x][y] : 0.f;
+      }
+    }
+    gsum = __fsub_rn(gsum, gcomp);
+  } else {
+    constexpr int kConv = DwStage<ROUTE>::kConv;
+    constexpr int kImg = kConv / 2;  // one operand's image: A, then G
+    const int r0 = 64 * wg + 16 * (warp & 3) + g;  // the accumulators' rows r0, r0 + 8
+    float acc[64], part[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = part[i] = 0.f;
+    // the stage's rows of both operands (the thread's half of A row jrow and
+    // of delta row jrow) into B-operand image cb: TF32 halves [hi | lo] in
+    // the 128-byte swizzle, or the bf16 rounding in the 64-byte swizzle; and
+    // db's partial from the fp32 delta values
+    auto convert = [&](int s, int cb) {
+      uint8_t* dst = conv_ptr + cb * kConv;
+#pragma unroll
+      for (int op = 0; op < 2; ++op) {
+        const float* src = op ? slot_g(s) : slot_a(s);
+#pragma unroll
+        for (int c = 4 * half; c < 4 * half + 4; ++c) {
+          const float4 v = g_chunk(src, c);
+          if (op == 1 && sum_db) {
+            gsum += v.x;
+            gsum += v.y;
+            gsum += v.z;
+            gsum += v.w;
+          }
+          if constexpr (ROUTE == kTf32x3) {
+            uint4 hi, lo;
+            split_fast(v.x, hi.x, lo.x);
+            split_fast(v.y, hi.y, lo.y);
+            split_fast(v.z, hi.z, lo.z);
+            split_fast(v.w, hi.w, lo.w);
+            const int off = op * kImg + (jrow * kBlk + ((c ^ (jrow & 7)) << 2)) * 4;
+            *reinterpret_cast<uint4*>(dst + off) = hi;
+            *reinterpret_cast<uint4*>(dst + off + kImg / 2) = lo;
+          } else {  // bf16 chunk c/2 of the row's 64 bytes, its 8-byte half c%2
+            const int off = op * kImg + jrow * 64 + ((((c >> 1) ^ ((jrow >> 1) & 3))) << 4) +
+                            (c & 1) * 8;
+            *reinterpret_cast<uint2*>(dst + off) =
+                make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
+          }
+        }
+      }
+      fence_proxy_async();
+    };
+    // stage b's products from image b % 2 (A rows [64*wg, +64), all 128 G
+    // rows), then the next stage's conversion while they run
+    auto step = [&](int b) {
+      const uint32_t img = conv + (b & 1) * kConv;
+      fence_regs(part);
+      wgmma_fence();
+      if constexpr (ROUTE == kTf32x3) {
+        const uint32_t a_hi = img + wg * 64 * 128, a_lo = a_hi + kImg / 2;
+        const uint32_t g_hi = img + kImg, g_lo = g_hi + kImg / 2;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          wgmma_ss_tf32(part, sw128_desc(a_lo + 32 * q), sw128_desc(g_hi + 32 * q), q > 0);
+          wgmma_ss_tf32(part, sw128_desc(a_hi + 32 * q), sw128_desc(g_lo + 32 * q), 1);
+          wgmma_ss_tf32(part, sw128_desc(a_hi + 32 * q), sw128_desc(g_hi + 32 * q), 1);
+        }
+      } else {
+        const uint32_t a = img + wg * 64 * 64, gi = img + kImg;
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          wgmma_ss_bf16(part, sw64_desc(a + 32 * q), sw64_desc(gi + 32 * q), q > 0);
+      }
+      wgmma_commit();
+      if (b + 1 < nst) {
+        const int s = (b + 1) % DwStage<ROUTE>::NS;
+        mbar_wait(full0 + 8 * s, ((b + 1) / DwStage<ROUTE>::NS) & 1);
+        convert(s, (b + 1) & 1);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
+      }
+      wgmma_wait_all();
+      fence_regs(part);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+      consumers_sync();  // image (b + 1) % 2 is written; image b % 2 is read
+    };
+    if (nst > 0) {
+      mbar_wait(full0, 0);
+      convert(0, 0);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty0);
+      consumers_sync();
+    }
+    for (int b = 0; b < nst; ++b) step(b);
+#pragma unroll
+    for (int j = 0; j < kDwT / 8; ++j) {
+      const int col = j0 + 8 * j + 2 * t;
+      if (col >= jd.J) continue;
+      const bool live = col < jd.Jreal;
+      const int k = k0 + r0;
+      if (k < jd.K)
+        *reinterpret_cast<float2*>(out + jd.out + static_cast<size_t>(k) * jd.J + col) =
+            live ? make_float2(acc[4 * j], acc[4 * j + 1]) : make_float2(0.f, 0.f);
+      if (k + 8 < jd.K)
+        *reinterpret_cast<float2*>(out + jd.out + static_cast<size_t>(k + 8) * jd.J + col) =
+            live ? make_float2(acc[4 * j + 2], acc[4 * j + 3]) : make_float2(0.f, 0.f);
+    }
+  }
+  if (sum_db) {
+    const float v = gsum + __shfl_xor_sync(0xffffffffu, gsum, 1);
+    const int col = j0 + jrow;
+    if (half == 0 && col < jd.J) out[jd.db + col] = col < jd.Jreal ? v : 0.f;
+  }
+}
 
 // One 128x128 tile (rows k, columns j) of a dW product over one part of
-// the point axis, on the tensor cores: 2x4 warps of 64x32, the operands'
-// 32-point stages through a ring of kDwStages cp.async buffers (both are
-// feature-major, so a stage is 128 rows of 32 contiguous points each), one
-// barrier per stage. Rows past K and columns past Jreal are zero-filled; so
-// are points past the part's end. The CTAs of the tile row k0 = 0 also sum
-// db from the G fragments (the fp32 values, whatever the route).
+// the point axis (blockIdx.y): the producer streams each 32-point block's
+// tile rows of A and G (rows past K or Jreal are not copied; their outputs
+// are not written, or written as zero) into the ring.
 template <int ROUTE>
 __global__ void __launch_bounds__(kThreads, 1)
-train_dw_kernel(const DwJobs jobs, float* __restrict__ partial, int N, int Np, size_t Fp,
-                int chunk) {
-  extern __shared__ float4 dsm4[];
-  float* sm = reinterpret_cast<float*>(dsm4);
+train_dw_kernel(const DwJobs jobs, const DwArgs d) {
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw_addr = smem_u32(smem_raw);
+  uint8_t* base = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
+  const uint32_t ring = smem_u32(base);
+  constexpr int NS = DwStage<ROUTE>::NS;
+  uint8_t* conv_ptr = base + NS * kDwSlot;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(conv_ptr + 2 * DwStage<ROUTE>::kConv);
+  const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + NS);
   int tile = blockIdx.x;
   int jb = 0;
   while (jb + 1 < jobs.n && tile >= jobs.job[jb].tiles) {
@@ -1027,161 +1738,42 @@ train_dw_kernel(const DwJobs jobs, float* __restrict__ partial, int N, int Np, s
     ++jb;
   }
   const DwJob& jd = jobs.job[jb];
-  const int tiles_j = (jd.J + kDwT - 1) / kDwT;
+  const int tiles_j = cdiv(jd.J, kDwT);
   const int k0 = (tile / tiles_j) * kDwT;
   const int j0 = (tile % tiles_j) * kDwT;
-  const int nb = blockIdx.y * chunk;
-  const int ne = min(N, nb + chunk);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int wm = warp >> 2, wn = warp & 3;
-  const bool live = j0 + wn * 32 < jd.Jreal;  // else the warp's G rows are all padding
-  const bool sum_db = k0 == 0 && wm == 0;
+  const int b0 = blockIdx.y * d.chunk_blk;
+  const int nst = max(min(d.nblk, b0 + d.chunk_blk) - b0, 0);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
 
-  float acc[4][4][4], part[4][4][4];
-  float gsum[4] = {0.f, 0.f, 0.f, 0.f};
-  float gcomp[4] = {0.f, 0.f, 0.f, 0.f};  // the compensations of the kFp32 route's db sums
-  zero_block(acc);
-  zero_block(part);
-
-  auto load = [&](int s) {
-    float* st = sm + (s % kDwStages) * kDwStage;
-    const int n = nb + s * kBN;
-    constexpr int kRowChunks = kBN / 4;
-#pragma unroll
-    for (int v = 0; v < 2 * kDwT * kRowChunks / kThreads; ++v) {
-      const int c = threadIdx.x + v * kThreads;
-      const int op = c / (kDwT * kRowChunks);  // 0: A, 1: G
-      const int r = (c / kRowChunks) % kDwT;
-      const int q = c % kRowChunks;
-      const int np = n + q * 4;
-      int bytes = 4 * min(max(ne - np, 0), 4);
-      const float* src;
-      if (op == 0) {
-        if (k0 + r >= jd.K) bytes = 0;
-        src = jd.A + static_cast<size_t>(k0 + r) * Np + np;
-      } else {
-        if (j0 + r >= jd.Jreal) bytes = 0;
-        src = jd.G + static_cast<size_t>(j0 + r) * Np + np;
-      }
-      cp_async16(st + (op * kDwT + r) * kDwLd + q * 4, bytes ? src : jd.A, bytes);
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, kConsumers / 32);
     }
-    cp_async_commit();
-  };
-
-  const int n_stages = ne > nb ? (ne - nb + kBN - 1) / kBN : 0;
-  for (int s = 0; s < kDwStages - 1 && s < n_stages; ++s) load(s);
-  for (int s = 0; s < n_stages; ++s) {
-    // stage s has landed once at most the stages after it are pending
-    if (s + kDwStages - 2 < n_stages) {
-      cp_async_wait<kDwStages - 2>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // stage s is visible; every warp is done with stage s-1
-    if (s + kDwStages - 1 < n_stages) load(s + kDwStages - 1);  // into stage s-1's buffer
-    const float* As = sm + (s % kDwStages) * kDwStage + wm * 64 * kDwLd;
-    const float* Gs = sm + (s % kDwStages) * kDwStage + (kDwT + wn * 32) * kDwLd;
-    if (live && ROUTE == kFp32) {
-      // each stage's 32 products into part, then one round-to-nearest add
-      // per output: the point axis is summed in two levels, not as one
-      // chain of up to kPartRows FMAs
-#pragma unroll 4
-      for (int k = 0; k < kBN; ++k) {
-        float a[4][2], b[4][2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          a[i][0] = As[(i * 16 + g) * kDwLd + k];
-          a[i][1] = As[(i * 16 + g + 8) * kDwLd + k];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          b[j][0] = Gs[(j * 8 + 2 * t) * kDwLd + k];
-          b[j][1] = Gs[(j * 8 + 2 * t + 1) * kDwLd + k];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            part[i][j][0] = fmaf(a[i][0], b[j][0], part[i][j][0]);
-            part[i][j][1] = fmaf(a[i][0], b[j][1], part[i][j][1]);
-            part[i][j][2] = fmaf(a[i][1], b[j][0], part[i][j][2]);
-            part[i][j][3] = fmaf(a[i][1], b[j][1], part[i][j][3]);
-          }
-      }
-      promote(acc, part);
-      if (sum_db) {  // db as a compensated (Kahan) sum: a thread adds ~N/4 terms
-#pragma unroll
-        for (int kk = 0; kk < kBN; kk += 8) {
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const float* b = Gs + (j * 8 + g) * kDwLd + kk + t;
-            const float y = __fsub_rn(__fadd_rn(b[0], b[4]), gcomp[j]);
-            const float sum = __fadd_rn(gsum[j], y);
-            gcomp[j] = __fsub_rn(__fsub_rn(sum, gsum[j]), y);
-            gsum[j] = sum;
-          }
-        }
-      }
-    } else if (live && ROUTE == kBf16) {
-#pragma unroll
-      for (int kk = 0; kk < kBN; kk += 8) {
-        uint32_t a[4][2];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) load_a_mmajor_bf16(As + i * 16 * kDwLd + kk, kDwLd, g, t, a[i]);
-        mma1_step(part, a, [&](int j) {
-          const float2 v = *reinterpret_cast<const float2*>(Gs + (j * 8 + g) * kDwLd + kk + 2 * t);
-          if (sum_db) gsum[j] += v.x + v.y;  // db from the same fp32 values
-          return pack_bf16(v.x, v.y);
-        });
-        if (kk & 8) promote(acc, part);
-      }
-    } else if (live) {
-#pragma unroll
-      for (int kk = 0; kk < kBN; kk += 8) {
-        uint32_t ahi[4][4], alo[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          load_a_mmajor_split(As + i * 16 * kDwLd + kk, kDwLd, g, t, ahi[i], alo[i]);
-        auto bfrag = [&](int j, uint32_t(&bh)[2], uint32_t(&bl)[2]) {
-          const float* b = Gs + (j * 8 + g) * kDwLd + kk + t;
-          const float v0 = b[0], v1 = b[4];
-          if (sum_db) gsum[j] += v0 + v1;  // db from the same fp32 values
-          split_fast(v0, bh[0], bl[0]);
-          split_fast(v1, bh[1], bl[1]);
-        };
-        mma3_step<2>(part, ahi, alo, bfrag);
-        if (kk & 8) promote(acc, part);
-      }
-    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  __syncthreads();
 
-  float* out = partial + blockIdx.y * Fp;
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int col = j0 + wn * 32 + j * 8 + 2 * t;
-    if (col >= jd.J) continue;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = k0 + wm * 64 + i * 16 + g;
-      if (k < jd.K)
-        *reinterpret_cast<float2*>(out + jd.out + static_cast<size_t>(k) * jd.J + col) =
-            make_float2(acc[i][j][0], acc[i][j][1]);
-      if (k + 8 < jd.K)
-        *reinterpret_cast<float2*>(out + jd.out + static_cast<size_t>(k + 8) * jd.J + col) =
-            make_float2(acc[i][j][2], acc[i][j][3]);
+  if (warp >= kConsumers / 32) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
+    if (warp == kConsumers / 32 && lane == 0) {
+      const int ka = min(kDwT, jd.K - k0), jg = min(kDwT, jd.Jreal - j0);
+      for (int b = 0; b < nst; ++b) {
+        const int s = b % NS;
+        const uint32_t slot = ring + s * kDwSlot;
+        mbar_wait(empty0 + 8 * s, ((b / NS) & 1) ^ 1);
+        mbar_arrive_expect_tx(full0 + 8 * s, (ka + jg) * kBlk * 4);
+        const size_t blk = static_cast<size_t>(b0 + b);
+        bulk_copy(slot, d.act + (blk * d.act_rows + jd.a_row + k0) * kBlk, ka * kBlk * 4,
+                  full0 + 8 * s);
+        bulk_copy(slot + kDwT * kBlk * 4, d.gbuf + (blk * d.g_rows + jd.g_row + j0) * kBlk,
+                  jg * kBlk * 4, full0 + 8 * s);
+      }
     }
-  }
-  if (sum_db) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float v = gsum[j];
-      v += __shfl_xor_sync(0xffffffffu, v, 1);
-      v += __shfl_xor_sync(0xffffffffu, v, 2);
-      const int col = j0 + wn * 32 + j * 8 + g;
-      if (t == 0 && col < jd.J) out[jd.db + col] = v;
-    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
+    dw_consumer<ROUTE>(jd, d, k0, j0, nst, base, smem_u32(conv_ptr), conv_ptr, full0, empty0);
   }
 }
 
@@ -1210,16 +1802,16 @@ loss_sum_kernel(const float* __restrict__ loss_r, float* __restrict__ loss, int 
 
 // The input cotangent of the differentiable render: dx[n][k] = sum_j
 // delta_1[j][n] * w0[k][j], (N, H) x (H, D), with delta_1 the ReLU-gated
-// cotangent of the first layer (gbuf rows 0..H-1, [H][Np]), on the tensor
+// cotangent of the first layer (rows 0..H-1 of the gbuf image), on the tensor
 // cores: 64 points x 64 input columns per CTA, 2x4 warps of 32x16, the
 // reduction over j in cp.async stages of 32 (delta_1 split on the fly, the
-// halves of w0 from weight_split); the bfloat16 and highest routes read
-// w0's image from the hi half, as dense_tc does.
+// halves of w0's row-major image from weight_image); the bfloat16 and
+// highest routes read w0's bf16 or fp32 image from the hi half.
 template <int ROUTE>
-__global__ void __launch_bounds__(kThreads, 1)
-render_dx_kernel(const float* __restrict__ delta1, const float* __restrict__ w0hi,
-                 const float* __restrict__ w0lo, float* __restrict__ dx, int N, int Np, int D,
-                 int H) {
+__global__ void __launch_bounds__(kDxThreads, 1)
+render_dx_kernel(const float* __restrict__ gbuf, const float* __restrict__ w0hi,
+                 const float* __restrict__ w0lo, float* __restrict__ dx, int N, int D, int H,
+                 int g_rows) {
   extern __shared__ float4 xsm4[];
   float* sm = reinterpret_cast<float*>(xsm4);
   const int n0 = blockIdx.x * kDxP;
@@ -1240,14 +1832,16 @@ render_dx_kernel(const float* __restrict__ delta1, const float* __restrict__ w0h
     constexpr int kDChunks = kDxJ * kDxP / 4;        // 512
     constexpr int kWChunks = kDxK * kDxJ / 4;        // 512 per half
     constexpr int kAll = kDChunks + (ROUTE == kTf32x3 ? 2 : 1) * kWChunks;
-    static_assert(kAll % kThreads == 0, "dx stage copies per thread");
+    static_assert(kAll % kDxThreads == 0, "dx stage copies per thread");
 #pragma unroll
-    for (int v = 0; v < kAll / kThreads; ++v) {
-      const int c = threadIdx.x + v * kThreads;
+    for (int v = 0; v < kAll / kDxThreads; ++v) {
+      const int c = threadIdx.x + v * kDxThreads;
       if (c < kDChunks) {
         const int r = c / (kDxP / 4), q = c % (kDxP / 4);
-        cp_async16(st + r * kDxLdD + q * 4,
-                   delta1 + static_cast<size_t>(j0 + r) * Np + n0 + q * 4, 16);
+        const int n = n0 + q * 4, j = j0 + r;  // 4 points of row j: one chunk of the image
+        const size_t src = (static_cast<size_t>(n >> 5) * g_rows + j) * kBlk +
+                           ((((n & 31) >> 2) ^ (j & 7)) << 2);
+        cp_async16(st + r * kDxLdD + q * 4, gbuf + src, 16);
       } else {
         const int c2 = c - kDChunks;
         const int half = c2 / kWChunks;
@@ -1342,140 +1936,198 @@ render_dx_kernel(const float* __restrict__ delta1, const float* __restrict__ w0h
   }
 }
 
+
+// ---- launchers ----
+
+struct Scratch {
+  float *act, *gbuf, *gout, *out4, *loss_r, *part, *w0hi, *w0lo;
+  uint32_t* mask;
+  uint8_t* img;
+};
+
+Scratch carve(const Layout& s, float* scratch, int D, int H) {
+  Scratch b;
+  b.act = scratch + s.act;
+  b.gbuf = scratch + s.gbuf;
+  b.gout = scratch + s.gout;
+  b.out4 = scratch + s.out4;
+  b.loss_r = scratch + s.loss_r;
+  b.part = scratch + s.part;
+  b.w0hi = scratch + s.w0x;
+  b.w0lo = b.w0hi + static_cast<size_t>(D) * H;
+  b.mask = reinterpret_cast<uint32_t*>(scratch + s.mask);
+  b.img = reinterpret_cast<uint8_t*>(scratch + s.img);
+  return b;
+}
+
+// The launches above 48 KB of dynamic shared memory need the limit raised
+// (a host call, made before each launch).
+template <class K>
+cudaError_t smem_limit(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+// The weights' stage images (and, with_w0, w0's row-major image).
+template <int H, int ROUTE>
+cudaError_t launch_weights(const float* w0, const float* wh, const Scratch& b, int D, int L1,
+                           bool with_w0, cudaStream_t st) {
+  const int n_fwd = fwd_stages<H, ROUTE>(D, L1);
+  const int n_stages = n_fwd + bwd_stages<H, ROUTE>(L1);
+  const int extra = with_w0 ? cdiv(D, 32) : 0;
+  weight_image_kernel<H, ROUTE><<<dim3(H / 32, n_stages + extra), 256, 0, st>>>(
+      w0, wh, b.img, b.w0hi, b.w0lo, D, L1, n_fwd, n_stages);
+  return cudaGetLastError();
+}
+
+// One trunk pass (MODE kFwd or kBwd) over every tile, by persistent CTAs.
+template <int H, int MODE, bool INLINE_PE, int ROUTE>
+cudaError_t launch_trunk(const TrunkArgs& a, int device, cudaStream_t st) {
+  constexpr size_t smem = trunk_smem<H, ROUTE>();
+  void (*kernel)(TrunkArgs) = train_bwd_kernel<H, ROUTE>;
+  // a forward input wider than the activation tile streams through the slices
+  if constexpr (MODE == kFwd)
+    kernel = a.D > H ? train_fwd_kernel<H, INLINE_PE, true, ROUTE>
+                     : train_fwd_kernel<H, INLINE_PE, false, ROUTE>;
+  cudaError_t err = smem_limit(kernel, smem);
+  if (err != cudaSuccess) return err;
+  int sms = 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.tiles < sms ? a.tiles : sms, kThreads, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+// The trunk's arguments for a call; the launchers set images and stages.
+TrunkArgs trunk_args(const Layout& s, const Scratch& b, const float* in, const float* feats,
+                     const float* e2, const float* c, const float* b0, const float* bh,
+                     const float* wout, const float* bout, int n_raw, int n_phase, int Fd, int D,
+                     int L1, bool head_bf16) {
+  TrunkArgs a;
+  a.in = in;
+  a.feats = feats;
+  a.e2 = e2;
+  a.c = c;
+  a.b0 = b0;
+  a.bh = bh;
+  a.wout = wout;
+  a.bout = bout;
+  a.images = nullptr;
+  a.act = b.act;
+  a.out4 = b.out4;
+  a.gout = b.gout;
+  a.gbuf = b.gbuf;
+  a.mask = b.mask;
+  a.N = s.N;
+  a.Np = s.Np;
+  a.tiles = s.tiles;
+  a.stages = 0;
+  a.n_raw = n_raw;
+  a.n_phase = n_phase;
+  a.Fd = Fd;
+  a.D = D;
+  a.L1 = L1;
+  a.act_rows = s.act_rows;
+  a.g_rows = s.g_rows;
+  a.head_bf16 = head_bf16;
+  return a;
+}
+
+// The recompute of the trunk: every layer's activations and masks, and
+// the 4 head outputs of each 64-point tile.
+template <int H, bool INLINE_PE, int ROUTE>
+cudaError_t launch_forward(TrunkArgs a, const Scratch& b, int device, cudaStream_t st) {
+  a.images = b.img;
+  a.stages = fwd_stages<H, ROUTE>(a.D, a.L1);
+  return launch_trunk<H, kFwd, INLINE_PE, ROUTE>(a, device, st);
+}
+
+// The backward chain of each 64-point tile, from the head cotangent gout.
+template <int H, int ROUTE>
+cudaError_t launch_backward(TrunkArgs a, const Scratch& b, int device, cudaStream_t st) {
+  a.images = b.img + static_cast<size_t>(fwd_stages<H, ROUTE>(a.D, a.L1)) *
+                         Trunk<H, ROUTE>::kStageBytes;
+  a.stages = bwd_stages<H, ROUTE>(a.L1);
+  return launch_trunk<H, kBwd, false, ROUTE>(a, device, st);
+}
+
+template <int ROUTE>
+cudaError_t launch_dw_route(const DwJobs& jobs, const DwArgs& d, int tiles, int P,
+                            cudaStream_t st) {
+  constexpr size_t smem = DwStage<ROUTE>::kSmem;
+  const cudaError_t err = smem_limit(train_dw_kernel<ROUTE>, smem);
+  if (err != cudaSuccess) return err;
+  train_dw_kernel<ROUTE><<<dim3(tiles, P), kThreads, smem, st>>>(jobs, d);
+  return cudaGetLastError();
+}
+
 // Every dW = A^T.delta and db = sum delta (layer 0, the L1 hidden layers,
 // the head) over fixed point-axis parts, then the fixed-order sum of the
 // parts into grads. The layers' products take dw_route, the head's
 // head_route: one launch when they agree, else one per route (into the
 // same partials).
-void launch_dw(const Layout& s, const float* act, const float* gbuf, const float* gout,
-               float* part, float* grads, int D, int H, int L1, int dw_route, int head_route,
-               cudaStream_t stream) {
+cudaError_t launch_dw(const Layout& s, const Scratch& b, float* grads, int D, int H, int L1,
+                      int dw_route, int head_route, cudaStream_t st) {
   DwJobs jobs[2];
   int total_tiles[2] = {0, 0};
   jobs[0].n = jobs[1].n = 0;
-  auto add = [&](int grp, const float* A, const float* G, int K, int J, int Jreal, size_t out,
-                 size_t db) {
+  auto add = [&](int grp, int a_row, int g_row, int K, int J, int Jreal, size_t out, size_t db) {
     DwJob& j = jobs[grp].job[jobs[grp].n++];
-    j.A = A;
-    j.G = G;
+    j.a_row = a_row;
+    j.g_row = g_row;
     j.K = K;
     j.J = J;
     j.Jreal = Jreal;
-    j.tiles = ((K + kDwT - 1) / kDwT) * ((J + kDwT - 1) / kDwT);
+    j.tiles = cdiv(K, kDwT) * cdiv(J, kDwT);
     j.out = out;
     j.db = db;
     total_tiles[grp] += j.tiles;
   };
-  const size_t np = s.Np;
   const size_t off_w0 = 0, off_b0 = static_cast<size_t>(D) * H;
   const size_t off_wh = off_b0 + H;
   const size_t off_bh = off_wh + static_cast<size_t>(L1) * H * H;
   const size_t off_wout = off_bh + static_cast<size_t>(L1) * H;
   const size_t off_bout = off_wout + static_cast<size_t>(H) * kOutPad;
-  add(0, act, gbuf, D, H, H, off_w0, off_b0);
-  for (int l = 0; l < L1; ++l) {
-    add(0, act + (static_cast<size_t>(D) + static_cast<size_t>(l) * H) * np,
-        gbuf + static_cast<size_t>(l + 1) * H * np, H, H, H,
-        off_wh + static_cast<size_t>(l) * H * H, off_bh + static_cast<size_t>(l) * H);
-  }
-  add(head_route == dw_route ? 0 : 1, act + (static_cast<size_t>(D) + static_cast<size_t>(L1) * H) * np,
-      gout, H, kOutPad, kHead, off_wout, off_bout);
-  const size_t Fp = round_up(s.F, 64);
+  add(0, 0, 0, D, H, H, off_w0, off_b0);
+  for (int l = 0; l < L1; ++l)
+    add(0, D + l * H, (l + 1) * H, H, H, H, off_wh + static_cast<size_t>(l) * H * H,
+        off_bh + static_cast<size_t>(l) * H);
+  add(head_route == dw_route ? 0 : 1, D + L1 * H, (L1 + 1) * H, H, kOutPad, kHead, off_wout,
+      off_bout);
+  DwArgs d;
+  d.act = b.act;
+  d.gbuf = b.gbuf;
+  d.partial = b.part;
+  d.Fp = round_up(s.F, 64);
+  d.act_rows = s.act_rows;
+  d.g_rows = s.g_rows;
+  d.nblk = s.nblk;
+  d.chunk_blk = s.chunk_blk;
   for (int grp = 0; grp < 2; ++grp) {
     if (jobs[grp].n == 0) continue;
     const int route = grp ? head_route : dw_route;
-    const dim3 grid(total_tiles[grp], s.P);
+    cudaError_t err;
     if (route == kBf16)
-      train_dw_kernel<kBf16><<<grid, kThreads, kDwSmem, stream>>>(jobs[grp], part, s.N, s.Np, Fp,
-                                                                  s.chunk);
+      err = launch_dw_route<kBf16>(jobs[grp], d, total_tiles[grp], s.P, st);
     else if (route == kFp32)
-      train_dw_kernel<kFp32><<<grid, kThreads, kDwSmem, stream>>>(jobs[grp], part, s.N, s.Np, Fp,
-                                                                  s.chunk);
+      err = launch_dw_route<kFp32>(jobs[grp], d, total_tiles[grp], s.P, st);
     else
-      train_dw_kernel<kTf32x3><<<grid, kThreads, kDwSmem, stream>>>(jobs[grp], part, s.N, s.Np,
-                                                                    Fp, s.chunk);
+      err = launch_dw_route<kTf32x3>(jobs[grp], d, total_tiles[grp], s.P, st);
+    if (err != cudaSuccess) return err;
   }
-  train_finalize_kernel<<<static_cast<unsigned>((s.F + 255) / 256), 256, 0, stream>>>(
-      part, grads, s.F, Fp, s.P);
+  train_finalize_kernel<<<static_cast<unsigned>((s.F + 255) / 256), 256, 0, st>>>(
+      b.part, grads, s.F, d.Fp, s.P);
+  return cudaGetLastError();
 }
 
-// The recompute of the trunk: the weights' images, then every layer's
-// activations and the 4 head outputs of each 64-point tile.
-template <int H, bool INLINE_PE, int ROUTE>
-void launch_forward(const Layout& s, const float* in, const float* feats, const float* e2,
-                    const float* c, const float* w0, const float* b0, const float* wh,
-                    const float* bh, const float* wout, const float* bout, float* act, float* out4,
-                    const WSplit& ws, int n_raw, int n_phase, int Fd, int D, int L1,
-                    bool head_bf16, cudaStream_t stream) {
-  const int rows = D > H ? D : H;
-  weight_split_kernel<ROUTE><<<dim3(H / 32, (rows + 31) / 32, 1 + L1), dim3(32, 8), 0, stream>>>(
-      w0, wh, ws.w0hi, ws.w0lo, ws.whhi, ws.whlo, ws.whThi, ws.whTlo, D, H);
-  train_fwd_kernel<H, INLINE_PE, ROUTE><<<s.Np / kTileP, kThreads, Dense<H>::kFwdSmem, stream>>>(
-      in, feats, e2, c, ws, b0, bh, wout, bout, act, out4, s.N, s.Np, n_raw, n_phase, Fd, D, L1,
-      head_bf16);
-}
-
-// The backward chain of each 64-point tile, from the head cotangent gout.
-template <int H, int ROUTE>
-void launch_backward(const Layout& s, const float* gout, const float* wout, const WSplit& ws,
-                     const float* act, float* gbuf, int D, int L1, bool head_bf16,
-                     cudaStream_t stream) {
-  train_bwd_kernel<H, ROUTE><<<s.Np / kTileP, kThreads, Dense<H>::kBwdSmem, stream>>>(
-      gout, wout, ws, act, gbuf, s.N, s.Np, D, L1, head_bf16);
-}
-
-struct Scratch {
-  float *act, *gbuf, *gout, *out4, *loss_r, *part;
-  WSplit ws;
-};
-
-Scratch carve(const Layout& s, float* scratch, int D, int H, int L1) {
-  return Scratch{scratch + s.act,    scratch + s.gbuf, scratch + s.gout, scratch + s.out4,
-                 scratch + s.loss_r, scratch + s.part, wsplit_at(scratch + s.wsplit, D, H, L1)};
-}
-
-// The shapes the launches take: every K and N a multiple of the tiles'
-// edges, and S samples within the composite's shared memory.
-bool shapes_ok(int S, int D, int H, int L1) {
-  return S >= 1 && S <= kMaxS && D > 0 && D % 16 == 0 && D <= kMaxD && (H == 128 || H == 256) &&
-         L1 >= 0 && L1 + 2 <= kMaxJobs;
+// The shapes the launches take: every K a multiple of 16, S samples within
+// the composite's shared memory, at most kMaxJobs dW products.
+bool shapes_ok(int R, int S, int D, int H, int L1) {
+  return R >= 1 && S >= 1 && S <= kMaxS && D > 0 && D % 16 == 0 && D <= kMaxD &&
+         (H == 128 || H == 256) && L1 >= 0 && L1 + 2 <= kMaxJobs;
 }
 
 bool route_ok(int route) { return route == kTf32x3 || route == kBf16 || route == kFp32; }
-
-// The launches above 48 KB of dynamic shared memory need the limit raised,
-// which is a host call; it is made once per device and width, for the most
-// any call of that width asks for.
-template <int H, int ROUTE>
-cudaError_t raise_route_smem_limits() {
-  const cudaFuncAttribute a = cudaFuncAttributeMaxDynamicSharedMemorySize;
-  cudaError_t err = cudaFuncSetAttribute(train_fwd_kernel<H, true, ROUTE>, a, Dense<H>::kFwdSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(train_fwd_kernel<H, false, ROUTE>, a, Dense<H>::kFwdSmem);
-  if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(train_bwd_kernel<H, ROUTE>, a, Dense<H>::kBwdSmem);
-  if (err == cudaSuccess) err = cudaFuncSetAttribute(train_dw_kernel<ROUTE>, a, kDwSmem);
-  if (err == cudaSuccess) err = cudaFuncSetAttribute(render_dx_kernel<ROUTE>, a, kDxSmem);
-  return err;
-}
-
-template <int H>
-cudaError_t raise_smem_limits() {
-  cudaError_t err = raise_route_smem_limits<H, kTf32x3>();
-  if (err == cudaSuccess) err = raise_route_smem_limits<H, kBf16>();
-  if (err == cudaSuccess) err = raise_route_smem_limits<H, kFp32>();
-  return err;
-}
-
-cudaError_t smem_limits_once(int device, int H) {
-  static std::atomic<unsigned long long> done[2];  // a bit per device, for H = 128 and 256
-  std::atomic<unsigned long long>& d = done[H == 256];
-  const unsigned long long bit = 1ull << (device & 63);
-  if (d.load(std::memory_order_acquire) & bit) return cudaSuccess;
-  const cudaError_t err = H == 256 ? raise_smem_limits<256>() : raise_smem_limits<128>();
-  if (err == cudaSuccess) d.fetch_or(bit, std::memory_order_release);
-  return err;
-}
 
 // The objective's arguments, as nerf_train_objective takes them.
 struct TrainArgs {
@@ -1490,87 +2142,89 @@ struct TrainArgs {
 // The objective on route ROUTE; the dW products on a.dw_route, the head in
 // exact fp32 with a.head_vpu (its dW then kFp32 too).
 template <int H, bool INLINE_PE, int ROUTE>
-cudaError_t launch(const TrainArgs& a, cudaStream_t stream) {
+cudaError_t launch(const TrainArgs& a, int device, cudaStream_t stream) {
   const Layout s = make_layout(a.R, a.S, a.D, H, a.L1);
-  const Scratch b = carve(s, a.scratch, a.D, H, a.L1);
+  const Scratch b = carve(s, a.scratch, a.D, H);
   const bool head_bf16 = ROUTE == kBf16 && !a.head_vpu;
-  launch_forward<H, INLINE_PE, ROUTE>(s, a.in, a.feats, a.e2, a.c, a.w0, a.b0, a.wh, a.bh,
-                                      a.wout, a.bout, b.act, b.out4, b.ws, a.n_raw, a.n_phase,
-                                      a.Fd, a.D, a.L1, head_bf16, stream);
+  cudaError_t err = launch_weights<H, ROUTE>(a.w0, a.wh, b, a.D, a.L1, false, stream);
+  const TrunkArgs ta = trunk_args(s, b, a.in, a.feats, a.e2, a.c, a.b0, a.bh, a.wout, a.bout,
+                                  a.n_raw, a.n_phase, a.Fd, a.D, a.L1, head_bf16);
+  if (err == cudaSuccess) err = launch_forward<H, INLINE_PE, ROUTE>(ta, b, device, stream);
+  if (err != cudaSuccess) return err;
 
   const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(a.S);  // < 48 KB
   train_composite_kernel<ROUTE == kFp32><<<a.R, 32, comp_smem, stream>>>(
       b.out4, a.z, a.dnorm, a.tgt, a.mask, a.inv_denom, a.tgt_depth, b.gout, b.loss_r, a.S, s.Np,
       a.white_bkgd, a.rgb_c, a.reg_c, a.depth_c);
 
-  launch_backward<H, ROUTE>(s, b.gout, a.wout, b.ws, b.act, b.gbuf, a.D, a.L1, head_bf16, stream);
-  launch_dw(s, b.act, b.gbuf, b.gout, b.part, a.grads, a.D, H, a.L1, a.dw_route,
-            a.head_vpu ? kFp32 : a.dw_route, stream);
+  err = launch_backward<H, ROUTE>(ta, b, device, stream);
+  if (err == cudaSuccess)
+    err = launch_dw(s, b, a.grads, a.D, H, a.L1, a.dw_route, a.head_vpu ? kFp32 : a.dw_route,
+                    stream);
+  if (err != cudaSuccess) return err;
   loss_sum_kernel<<<1, 256, 0, stream>>>(b.loss_r, a.loss, a.R);
   return cudaGetLastError();
 }
 
 template <int H, bool INLINE_PE>
-cudaError_t dispatch_route(int route, const TrainArgs& a, cudaStream_t st) {
-  if (route == kBf16) return launch<H, INLINE_PE, kBf16>(a, st);
-  if (route == kFp32) return launch<H, INLINE_PE, kFp32>(a, st);
-  return launch<H, INLINE_PE, kTf32x3>(a, st);
+cudaError_t dispatch_route(int route, const TrainArgs& a, int device, cudaStream_t st) {
+  if (route == kBf16) return launch<H, INLINE_PE, kBf16>(a, device, st);
+  if (route == kFp32) return launch<H, INLINE_PE, kFp32>(a, device, st);
+  return launch<H, INLINE_PE, kTf32x3>(a, device, st);
 }
 
 template <int H>
-cudaError_t dispatch(int inline_pe, int route, const TrainArgs& a, cudaStream_t st) {
-  return inline_pe ? dispatch_route<H, true>(route, a, st) : dispatch_route<H, false>(route, a, st);
+cudaError_t dispatch(int inline_pe, int route, const TrainArgs& a, int device, cudaStream_t st) {
+  return inline_pe ? dispatch_route<H, true>(route, a, device, st)
+                   : dispatch_route<H, false>(route, a, device, st);
 }
+
+// The render VJP's arguments, as nerf_render_bwd takes them.
+struct RenderBwdArgs {
+  const float *x, *z, *dnorm, *w0, *b0, *wh, *bh, *wout, *bout;
+  const float *g_rgb, *g_depth, *g_acc, *g_weights;
+  float *dx, *grads, *scratch;
+  int R, S, D, L1, white_bkgd;
+};
 
 // Kernel 3: the VJP of the render from a pre-encoded x. Recomputes the
 // forward, composites backward from the external cotangents, runs the
 // backward chain and the dW products, and (dx != nullptr) the input
 // cotangent, every product on route ROUTE.
 template <int H, int ROUTE>
-cudaError_t launch_render_bwd(const float* x, const float* z, const float* dnorm,
-                              const float* w0, const float* b0, const float* wh,
-                              const float* bh, const float* wout, const float* bout,
-                              const float* g_rgb, const float* g_depth, const float* g_acc,
-                              const float* g_weights, float* dx, float* grads, float* scratch,
-                              int R, int S, int D, int L1, int white_bkgd, cudaStream_t stream) {
-  const Layout s = make_layout(R, S, D, H, L1);
-  const Scratch b = carve(s, scratch, D, H, L1);
+cudaError_t launch_render_bwd(const RenderBwdArgs& a, int device, cudaStream_t stream) {
+  const Layout s = make_layout(a.R, a.S, a.D, H, a.L1);
+  const Scratch b = carve(s, a.scratch, a.D, H);
   constexpr bool head_bf16 = ROUTE == kBf16;
-  launch_forward<H, false, ROUTE>(s, x, nullptr, nullptr, nullptr, w0, b0, wh, bh, wout, bout,
-                                  b.act, b.out4, b.ws, 0, 0, 0, D, L1, head_bf16, stream);
+  cudaError_t err = launch_weights<H, ROUTE>(a.w0, a.wh, b, a.D, a.L1, a.dx != nullptr, stream);
+  const TrunkArgs ta = trunk_args(s, b, a.x, nullptr, nullptr, nullptr, a.b0, a.bh, a.wout,
+                                  a.bout, 0, 0, 0, a.D, a.L1, head_bf16);
+  if (err == cudaSuccess) err = launch_forward<H, false, ROUTE>(ta, b, device, stream);
+  if (err != cudaSuccess) return err;
 
-  const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(S);  // < 48 KB
-  render_composite_kernel<ROUTE == kFp32><<<R, 32, comp_smem, stream>>>(b.out4, z, dnorm, g_rgb, g_depth, g_acc,
-                                                        g_weights, b.gout, S, s.Np, white_bkgd);
+  const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(a.S);  // < 48 KB
+  render_composite_kernel<ROUTE == kFp32><<<a.R, 32, comp_smem, stream>>>(
+      b.out4, a.z, a.dnorm, a.g_rgb, a.g_depth, a.g_acc, a.g_weights, b.gout, a.S, s.Np,
+      a.white_bkgd);
 
-  launch_backward<H, ROUTE>(s, b.gout, wout, b.ws, b.act, b.gbuf, D, L1, head_bf16, stream);
-  launch_dw(s, b.act, b.gbuf, b.gout, b.part, grads, D, H, L1, ROUTE, ROUTE, stream);
-  if (dx != nullptr) {
+  err = launch_backward<H, ROUTE>(ta, b, device, stream);
+  if (err == cudaSuccess) err = launch_dw(s, b, a.grads, a.D, H, a.L1, ROUTE, ROUTE, stream);
+  if (err != cudaSuccess) return err;
+  if (a.dx != nullptr) {
+    err = smem_limit(render_dx_kernel<ROUTE>, kDxSmem);
+    if (err != cudaSuccess) return err;
     render_dx_kernel<ROUTE>
-        <<<dim3(s.Np / kDxP, (D + kDxK - 1) / kDxK), kThreads, kDxSmem, stream>>>(
-            b.gbuf, b.ws.w0hi, b.ws.w0lo, dx, s.N, s.Np, D, H);
+        <<<dim3(s.Np / kDxP, cdiv(a.D, kDxK)), kDxThreads, kDxSmem, stream>>>(
+            b.gbuf, b.w0hi, b.w0lo, a.dx, s.N, a.D, H, s.g_rows);
   }
   return cudaGetLastError();
 }
 
 template <int H>
-cudaError_t render_bwd_route(int route, const float* x, const float* z, const float* dnorm,
-                             const float* w0, const float* b0, const float* wh, const float* bh,
-                             const float* wout, const float* bout, const float* g_rgb,
-                             const float* g_depth, const float* g_acc, const float* g_weights,
-                             float* dx, float* grads, float* scratch, int R, int S, int D, int L1,
-                             int white_bkgd, cudaStream_t st) {
-  if (route == kBf16)
-    return launch_render_bwd<H, kBf16>(x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth,
-                                       g_acc, g_weights, dx, grads, scratch, R, S, D, L1,
-                                       white_bkgd, st);
-  if (route == kFp32)
-    return launch_render_bwd<H, kFp32>(x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth,
-                                       g_acc, g_weights, dx, grads, scratch, R, S, D, L1,
-                                       white_bkgd, st);
-  return launch_render_bwd<H, kTf32x3>(x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth,
-                                       g_acc, g_weights, dx, grads, scratch, R, S, D, L1,
-                                       white_bkgd, st);
+cudaError_t render_bwd_route(int route, const RenderBwdArgs& a, int device, cudaStream_t st) {
+  if (route == kBf16) return launch_render_bwd<H, kBf16>(a, device, st);
+  if (route == kFp32) return launch_render_bwd<H, kFp32>(a, device, st);
+  return launch_render_bwd<H, kTf32x3>(a, device, st);
 }
 
 }  // namespace
@@ -1596,17 +2250,15 @@ extern "C" int nerf_train_objective(const float* in, const float* feats, const f
                                     void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (!shapes_ok(S, D, H, L1) || !route_ok(route) || !route_ok(dw_route))
+  if (!shapes_ok(R, S, D, H, L1) || !route_ok(route) || !route_ok(dw_route))
     return cudaErrorInvalidValue;
-  err = smem_limits_once(device, H);
-  if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const TrainArgs a{in,   feats, z,     dnorm,   tgt,     mask,   inv_denom, tgt_depth,
                     e2,   c,     w0,    b0,      wh,      bh,     wout,      bout,
                     loss, grads, scratch, R,     S,       n_raw,  n_phase,   Fd,
                     D,    L1,    white_bkgd, rgb_c, reg_c, depth_c, dw_route, head_vpu};
-  if (H == 256) return dispatch<256>(inline_pe, route, a, st);
-  return dispatch<128>(inline_pe, route, a, st);
+  if (H == 256) return dispatch<256>(inline_pe, route, a, device, st);
+  return dispatch<128>(inline_pe, route, a, device, st);
 }
 
 extern "C" int nerf_render_bwd(const float* x, const float* z, const float* dnorm,
@@ -1617,15 +2269,12 @@ extern "C" int nerf_render_bwd(const float* x, const float* z, const float* dnor
                                int L1, int white_bkgd, int route, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (!shapes_ok(S, D, H, L1) || !route_ok(route)) return cudaErrorInvalidValue;
-  err = smem_limits_once(device, H);
-  if (err != cudaSuccess) return err;
+  if (!shapes_ok(R, S, D, H, L1) || !route_ok(route)) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H == 256)
-    return render_bwd_route<256>(route, x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth,
-                                 g_acc, g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd, st);
-  return render_bwd_route<128>(route, x, z, dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth,
-                               g_acc, g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd, st);
+  const RenderBwdArgs a{x,       z,     dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth,
+                        g_acc,   g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd};
+  if (H == 256) return render_bwd_route<256>(route, a, device, st);
+  return render_bwd_route<128>(route, a, device, st);
 }
 
 extern "C" const char* nerf_cuda_error_string(int err) {

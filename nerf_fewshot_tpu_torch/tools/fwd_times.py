@@ -98,6 +98,9 @@ def summarize(path: str, base: str, change: str) -> None:
     n = min(len(a), len(b))
     print(f"{n} pairs ({base} -> {change}), ms:")
     for key in a[0]["ms"]:
+        if key not in b[0]["ms"]:  # a grid launch the other build does not make
+            print(f"  {key}: {base} only")
+            continue
         x = np.array([r["ms"][key] for r in a[:n]])
         y = np.array([r["ms"][key] for r in b[:n]])
         pairs = ", ".join(f"{float(p)!r} -> {float(q)!r}" for p, q in zip(x, y))

@@ -4,7 +4,7 @@ report their quality band: best PSNR, SSIM and LPIPS (with its
 
     python nerf_fewshot_tpu_torch/tools/quality_runs.py --out chiprun_out/quality.jsonl \
         [--configs baseline.yaml dino_nerf.yaml multiscale.yaml] [--epochs N] [--seed S] \
-        [--backend xla] [--compute-dtype bfloat16] [--device cuda]
+        [--backend xla] [--compute-dtype bfloat16] [--features MAPS.npz] [--device cuda]
 
 Each config runs as ``python -m nerf_fewshot_tpu_torch.cli train --config
 experiments/<name> --synthetic`` in a fresh process, from a temporary
@@ -19,7 +19,10 @@ jitter and the DINO extractors' init follow it; the scene does not.
 pipeline and autograd instead of the kernels, to tell the kernels' numerics
 from a recipe's own dynamics; ``--compute-dtype`` a copy with
 ``rendering.compute_dtype`` set, the kernels' precision route (``bfloat16``:
-one bf16 pass per product, the rounding the TPU runs had). A
+one bf16 pass per product, the rounding the TPU runs had); ``--features``
+trains on the feature maps of an ``.npz`` (``cli train --features``, for
+example the JAX package's maps from ``tools/export_multiscale_maps.py``)
+instead of the config's extractor's. A
 config with ``log_format: "csv"`` runs as a copy with the JSONL sink: the
 CSV sink keeps only the first record's columns, so its eval rows carry no
 PSNR. From the run's ``log.jsonl`` it takes every eval record's PSNR, SSIM
@@ -42,7 +45,8 @@ import time
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def run(name: str, epochs, device: str, seed=None, backend=None, compute_dtype=None) -> dict:
+def run(name: str, epochs, device: str, seed=None, backend=None, compute_dtype=None,
+        features=None) -> dict:
     from nerf_fewshot_tpu_torch.training.config import load_config
 
     path = os.path.join(ROOT, "experiments", name)
@@ -70,6 +74,8 @@ def run(name: str, epochs, device: str, seed=None, backend=None, compute_dtype=N
                "--synthetic", "--device", device]
         if epochs is not None:
             cmd += ["--epochs", str(epochs)]
+        if features is not None:
+            cmd += ["--features", os.path.abspath(features)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, cwd=tmp, env=env, capture_output=True, text=True)
         wall = time.perf_counter() - t0
@@ -83,7 +89,7 @@ def run(name: str, epochs, device: str, seed=None, backend=None, compute_dtype=N
     train = [r for r in recs if "train_loss" in r]
     return {
         "config": name, "seed": cfg.seed, "backend": cfg.rendering.backend,
-        "compute_dtype": cfg.rendering.compute_dtype,
+        "compute_dtype": cfg.rendering.compute_dtype, "features": features,
         "epochs": epochs if epochs is not None else cfg.epochs,
         "wall_s": wall, "best_psnr": summary["best_psnr"],
         "best_epoch": best.get("epoch"), "ssim_at_best": best.get("ssim"),
@@ -109,6 +115,9 @@ def main() -> None:
     ap.add_argument("--compute-dtype", default=None, choices=["float32", "bfloat16", "highest"],
                     help="run each config with this rendering.compute_dtype (default: the "
                          "file's, float32)")
+    ap.add_argument("--features", default=None, metavar="NPZ",
+                    help="train on the feature maps in NPZ (cli train --features) instead of "
+                         "the config's extractor's")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--out", required=True, help="the JSON-lines file each run appends to")
     args = ap.parse_args()
@@ -120,7 +129,8 @@ def main() -> None:
                              check=True).stdout.strip().splitlines()[0]
         print(smi, flush=True)
     for name in args.configs:
-        rec = run(name, args.epochs, args.device, args.seed, args.backend, args.compute_dtype)
+        rec = run(name, args.epochs, args.device, args.seed, args.backend, args.compute_dtype,
+                  args.features)
         with open(args.out, "a") as f:
             f.write(json.dumps(rec) + "\n")
         print(json.dumps(rec), flush=True)

@@ -82,6 +82,8 @@ from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
 from nerf_fewshot_tpu_torch.render.kernels import (
     KERNEL_WIDTHS,
     MAX_INPUT_WIDTH,
+    MAX_LAYERS,
+    MAX_SAMPLES,
     pe_layout,
     pe_width,
 )
@@ -294,6 +296,16 @@ class Trainer:
         if pe_width(x_dim) > MAX_INPUT_WIDTH:
             return (f"the MLP input is {x_dim} wide; the CUDA kernels take at most "
                     f"{MAX_INPUT_WIDTH}")
+        if n.num_layers > MAX_LAYERS:
+            return (f"num_layers={n.num_layers}; the CUDA training kernels take at most "
+                    f"{MAX_LAYERS} trunk layers")
+        # a training step renders each phase's samples, and with importance
+        # sampling the merged coarse and fine ones, through the train kernel
+        n_importance = self.cfg.rendering.n_importance
+        samples = max((p.n_samples for p in self.cfg.phases), default=0) + n_importance
+        if samples > MAX_SAMPLES:
+            return (f"{samples} samples per ray (n_samples + n_importance "
+                    f"{n_importance}); the CUDA training kernels take at most {MAX_SAMPLES}")
         return None
 
     def _use_fused(self) -> bool:

@@ -149,6 +149,37 @@ def test_extract_features_writes_the_jax_shape(tmp_path, monkeypatch, capsys):
     assert shapes[0] == shapes[1] == (2, 2, 2, 64)
 
 
+def test_train_on_feature_maps_from_a_file(tmp_path, monkeypatch, capsys):
+    """``train --features x.npz`` conditions on the file's ``maps`` (as
+    ``tools/export_multiscale_maps.py`` writes them) and runs no extractor;
+    maps of another shape, or a config without conditioning, are refused."""
+    from nerf_fewshot_tpu_torch.training import trainer as trainer_mod
+
+    path = _write_config(tmp_path, "maps", dino="single_scale", epochs=1)
+    maps = np.random.default_rng(0).standard_normal((2, 2, 2, 64)).astype(np.float32)
+    npz = str(tmp_path / "maps.npz")
+    np.savez(npz, maps=maps)
+    seen = []
+    init = trainer_mod.Trainer.__init__
+
+    def spy(self, *args, dino_features=None, **kw):
+        seen.append(dino_features)
+        init(self, *args, dino_features=dino_features, **kw)
+
+    monkeypatch.setattr(trainer_mod.Trainer, "__init__", spy)
+    monkeypatch.setattr(tcli, "_precompute_features", lambda *a: pytest.fail("extractor ran"))
+    tcli.main(["train", "--config", path, "--synthetic", "--device", "cpu", "--features", npz])
+    got = _summary(capsys.readouterr().out)
+    assert np.isfinite(got["final_metrics"]["psnr"])
+    np.testing.assert_array_equal(seen[0], maps)
+    np.savez(npz, maps=maps[..., :32])
+    with pytest.raises(SystemExit, match="need \\(2, Hp, Wp, 64\\)"):
+        tcli.main(["train", "--config", path, "--synthetic", "--device", "cpu", "--features", npz])
+    with pytest.raises(SystemExit, match="conditions on no features"):
+        tcli.main(["train", "--config", _write_config(tmp_path, "plain"), "--synthetic",
+                   "--device", "cpu", "--features", npz])
+
+
 @pytest.mark.parametrize("argv", [
     ["train", "--data-parallel"], ["train", "--multihost"], ["train", "--wandb"],
     ["evaluate"], ["bench-scaling"],

@@ -180,17 +180,49 @@ def _train_inputs(R, S, H, L, device, seed=0, **case):
     return chip_smoke.random_train_args(np.random.default_rng(seed), R, S, H, L, device, **case)
 
 
-def _check_train(got, want, grad_tol):
+def _within_gate_or_f64(name, g, w, tol, exact):
+    """The gradient vector ``g`` within ``tol`` (rel) of the plain version's
+    ``w``; or, when ``exact()`` (a float64 run of the plain version) is
+    given, no further from it than ``F64_FACTOR`` times ``w`` is. On a
+    37-ray case a new order of the trunk's sums can round one ReLU gate to
+    the other side than the fp32 plain version (~7e-4 of the vector), so
+    these cases hold the kernel against float64 as well; the reading is
+    printed when the second rule decides."""
+    rel = ((g - w).norm() / w.norm()).item()
+    if rel <= tol or exact is None:
+        assert rel <= tol, rel
+        return
+    e = exact()
+    k64 = ((g - e).norm() / e.norm()).item()
+    p64 = ((w - e).norm() / e.norm()).item()
+    print(f"{name}: rel {rel:.3e} > {tol:.0e} against the plain version; against float64 "
+          f"kernel {k64:.3e}, plain {p64:.3e} (ratio {k64 / p64:.2f})")
+    assert k64 <= F64_FACTOR * p64, (rel, k64, p64)
+
+
+F64_FACTOR = 2.0
+
+
+def _check_train(got, want, grad_tol, exact=None, name=""):
+    """``exact``: the float64 objective of the same inputs (a callable), for
+    the 37-ray cases' second rule (``_within_gate_or_f64``)."""
     (gl, gd), (wl, wd) = got, want
     g = torch.cat([t.reshape(-1).double() for t in gd])
     w = torch.cat([t.reshape(-1).double() for t in wd])
     assert torch.isfinite(gl) and torch.isfinite(g).all()
     assert w.norm().item() > 1e-6
     assert abs(gl.item() - wl.item()) <= 1e-5 * abs(wl.item())
-    rel = ((g - w).norm() / w.norm()).item()
-    assert rel <= grad_tol, rel
+    f64 = None if exact is None else (
+        lambda: torch.cat([t.reshape(-1).double() for t in exact()[1]]))
+    _within_gate_or_f64(name, g, w, grad_tol, f64)
     for a, b in zip(gd, wd):
         assert a.shape == b.shape
+
+
+def _objective_f64(args, opts):
+    from nerf_fewshot_tpu_torch.tools.f64_cases import objective_f64
+
+    return lambda: objective_f64(args, opts)
 
 
 @pytest.mark.cuda
@@ -205,7 +237,8 @@ def test_train_kernel_matches_plain(h100, S, H, L, case):
     torch.cuda.synchronize()
     assert tt.fused_train_objective.launches[name] == before + 1
     want = tt.fused_train_objective_reference(*args, **opts)
-    _check_train(got, want, 2e-2 if case == "sigma_bias_5" else 1e-4)
+    _check_train(got, want, 2e-2 if case == "sigma_bias_5" else 1e-4,
+                 _objective_f64(args, opts), f"train_kernel[{case}-{H}-{L}-{S}]")
 
 
 @pytest.mark.cuda
@@ -355,23 +388,33 @@ def test_train_epoch_on_the_card_matches_the_cpu(h100, monkeypatch):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("width,backend", [(64, "auto"), (64, "fused"), (384, "auto"),
-                                           (384, "fused")])
+                                           (384, "fused"), ("samples", "auto"),
+                                           ("samples", "fused"), ("layers", "auto"),
+                                           ("layers", "fused")])
 def test_trainer_on_the_card_refuses_configs_the_kernels_cannot_take(h100, width, backend):
     """As the JAX trainer: width 64, which the JAX kernels do not take,
     trains on the plain path under ``auto`` (no kernel launched,
     ``kernel_path`` "plain" with the JAX reason) and raises under ``fused``.
-    Width 384, which the JAX kernels take and the port has no CUDA build
-    for, raises on the card in ``train_epoch`` and in eval under both: no
-    step or view falls back to the plain path."""
+    What the JAX kernels take and the port's kernels do not (width 384,
+    which has no CUDA build; ``MAX_SAMPLES`` + 1 samples per ray, as
+    n_samples + n_importance; ``MAX_LAYERS`` + 1 trunk layers) raises on the
+    card in ``train_epoch`` and in eval under both, naming the cap and
+    ``backend: xla``: no step or view falls back to the plain path."""
     from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
+    hidden = width if isinstance(width, int) else 128
+    layers = tk.MAX_LAYERS + 1 if width == "layers" else 2
+    n_importance = tk.MAX_SAMPLES + 1 - 16 if width == "samples" else 0
     cfg = config_from_dict({
-        "data": {"resolution": 16}, "nerf_model": {"hidden_dim": width, "num_layers": 2},
+        "data": {"resolution": 16}, "nerf_model": {"hidden_dim": hidden, "num_layers": layers},
         "training": {"phases": [{"start": 0, "H": 16, "n_samples": 16, "batch_size": 64}]},
-        "rendering": {"chunk_size": 64, "backend": backend},
+        "rendering": {"chunk_size": 64, "backend": backend, "n_importance": n_importance},
     })
+    cap = {384: "hidden_dim=384 has no CUDA build",
+           "samples": f"{tk.MAX_SAMPLES + 1} samples per ray .* at most {tk.MAX_SAMPLES}",
+           "layers": f"num_layers={layers}; .* at most {tk.MAX_LAYERS} trunk layers"}.get(width)
     data = make_scene_dataset(lego_like_scene(), 1, img_size=16, gt_samples=16, device="cpu")
     tr = Trainer(cfg, data, data, device=h100)
     before = (dict(tt.fused_train_objective.launches), tk.fused_render_fwd_pe.launches)
@@ -381,9 +424,10 @@ def test_trainer_on_the_card_refuses_configs_the_kernels_cannot_take(h100, width
         assert (tr.kernel_path, tr.kernel_path_reason) == ("plain",
                                                            "hidden_dim=64 not 128-lane aligned")
     else:
-        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda"):
+        hint = rf": {cap}.*\(backend: xla trains" if cap else ""
+        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda{hint}"):
             tr.train_epoch(0)
-        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda"):
+        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda{hint}"):
             tr.render_views(data.poses[:1])
     assert (dict(tt.fused_train_objective.launches), tk.fused_render_fwd_pe.launches) == before
 
@@ -423,13 +467,14 @@ def test_fwd_x_kernel_matches_plain(h100, S, H, L, case):
         assert err <= TOL[name], (name, err)
 
 
-def _check_vjp(got, want, tol):
+def _check_vjp(got, want, tol, exact=None, name=""):
+    """``exact``: the float64 VJP of the same inputs (a callable), for the
+    37-ray cases' second rule (``_within_gate_or_f64``)."""
     flat = lambda dx, dp: torch.cat([t.reshape(-1).double() for t in (dx, *dp)])
     g, w = flat(*got), flat(*want)
     assert torch.isfinite(g).all()
     assert w.norm().item() > 1e-6
-    rel = ((g - w).norm() / w.norm()).item()
-    assert rel <= tol, rel
+    _within_gate_or_f64(name, g, w, tol, None if exact is None else lambda: flat(*exact()))
     for a, b in zip((got[0], *got[1]), (want[0], *want[1])):
         assert a.shape == b.shape
 
@@ -447,7 +492,11 @@ def test_render_bwd_kernel_matches_plain(h100, S, H, L, case):
     torch.cuda.synchronize()
     assert tk.fused_render_bwd.launches == before + 1
     want = tk.fused_render_bwd_reference(x, z, dnorm, packed, *cot, white_bkgd=white)
-    _check_vjp(got, want, 2e-2 if case == "sigma_bias_5" else 1e-4)
+    f64 = lambda t: tuple(u.double() for u in t)
+    _check_vjp(got, want, 2e-2 if case == "sigma_bias_5" else 1e-4,
+               lambda: tk.fused_render_bwd_reference(x.double(), z.double(), dnorm.double(),
+                                                     f64(packed), *f64(cot), white_bkgd=white),
+               f"render_bwd[{case}-{H}-{L}-{S}]")
     # without dx: the same packed gradients, bit for bit, and no dx
     dx, dpacked = tk.fused_render_bwd(x, z, dnorm, packed, *cot, white_bkgd=white,
                                       need_dx=False)
@@ -791,7 +840,8 @@ def test_script_width_kernels_at_a_ragged_shape(h100, kernel):
         args, opts = _train_inputs(37, 48, 256, 8, h100, feat_dim=768, white_bkgd=True, ragged=5)
         assert args[-1][0].shape[0] == 864
         got = tt.fused_train_objective(*args, **opts)
-        _check_train(got, tt.fused_train_objective_reference(*args, **opts), 1e-4)
+        _check_train(got, tt.fused_train_objective_reference(*args, **opts), 1e-4,
+                     _objective_f64(args, opts), "script_width_kernels[1]")
         assert torch.count_nonzero(got[1][0][858:]) == 0
         return
     args = chip_smoke.random_fwd_pe_args(np.random.default_rng(10), 37, 48, 256, 8, 768, h100,

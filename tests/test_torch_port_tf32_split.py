@@ -19,7 +19,8 @@ of the head) stay exact: the kernels run the first two in exact fp32 on the
 CUDA cores; the third, 0.4 % of the dW work, kernels 1, 5 and 3 run as
 3xTF32, which this emulation leaves out. The emulation does not model the
 tensor cores' accumulation order or rounding (the kernels add the products
-of every two k-steps (``train_pe.cu``) or of every 32-row weight stage
+of every 32 weight rows of the trunk and every 32-point stage of the dW
+products (``train_pe.cu``) or of every 32-row weight stage
 (``fwd_pe.cu``) into the running sum with round-to-nearest FADDs). Nothing
 in the package uses it.
 

@@ -24,6 +24,7 @@ from nerf_fewshot_tpu.data import make_scene_dataset as jax_make_scene
 from nerf_fewshot_tpu.training import config as jcfg
 from nerf_fewshot_tpu.utils import logging as jlogging
 from nerf_fewshot_tpu_torch.data.blender import BlenderDataset
+from nerf_fewshot_tpu_torch.render import kernels as tk
 from nerf_fewshot_tpu_torch.render import train_kernel as tt
 from nerf_fewshot_tpu_torch.training import config as tcfg
 from nerf_fewshot_tpu_torch.training.trainer import Trainer
@@ -231,34 +232,46 @@ def test_save_png_writes_the_pixels_the_jax_package_writes(tmp_path):
 def _unfit_config(unfit, backend):
     """The tiny config made unfit for the kernels: a trunk width the JAX
     kernels do not take (64), sigma noise (outside the strict reference
-    behavior), or a width the JAX kernels take and the port has no CUDA
-    build for (384)."""
+    behavior), or what the JAX kernels take and the port's CUDA kernels
+    do not: a width with no CUDA build (384), a phase of more samples per
+    ray than the train kernel holds (``MAX_SAMPLES`` + 1, in phase 1 only:
+    the refusal comes before the first step), a trunk deeper than its
+    ``MAX_LAYERS``."""
     raw = _config(tcfg).raw
+    phases = [dict(p) for p in raw["training"]["phases"]]
+    phases[1]["n_samples"] = tk.MAX_SAMPLES + 1
     over = {"narrow": {"nerf_model": {**raw["nerf_model"], "hidden_dim": 64}},
             "noisy": {"strict_reference_behavior": False,
                       "rendering": {**raw["rendering"], "noise_std": 1.0}},
-            "wide": {"nerf_model": {**raw["nerf_model"], "hidden_dim": 384}}}[unfit]
+            "wide": {"nerf_model": {**raw["nerf_model"], "hidden_dim": 384}},
+            "many_samples": {"training": {**raw["training"], "phases": phases}},
+            "deep": {"nerf_model": {**raw["nerf_model"],
+                                    "num_layers": tk.MAX_LAYERS + 1}}}[unfit]
     d = {**raw, **over}
     d["rendering"] = {**d["rendering"], "backend": backend}
     return tcfg.config_from_dict(d)
 
 
-@pytest.mark.parametrize("unfit", ["narrow", "noisy", "wide"])
+@pytest.mark.parametrize("unfit", ["narrow", "noisy", "wide", "many_samples", "deep"])
 @pytest.mark.parametrize("backend", ["auto", "fused", "xla"])
 def test_configs_the_kernels_cannot_take(scene, unfit, backend):
     """The path follows the JAX trainer. A config the JAX kernels do not
     take (``narrow``, ``noisy``) trains on the plain path under ``auto`` on
     every device, with the JAX trainer's reason in ``kernel_path_reason``,
     and raises under ``fused``. A config only the port's kernels cannot
-    take (``wide``) raises under ``fused``, and on a card under ``auto``
-    too (checked with the trainer's device set to cuda: the choice raises
-    before any tensor is made); only the CPU or ``xla`` take the plain path
-    for it."""
+    take (``wide``, ``many_samples``, ``deep``) raises under ``fused``, and
+    on a card under ``auto`` too (checked with the trainer's device set to
+    cuda: the choice raises before any tensor is made), naming the cap and
+    ``backend: xla``; only the CPU or ``xla`` take the plain path for it."""
     train, _ = scene
     ptr = Trainer(_unfit_config(unfit, backend), _port_data(train), device="cpu")
     jax_reason = {"narrow": "hidden_dim=64 not 128-lane aligned",
                   "noisy": "sigma noise_std != 0 is not implemented in the kernels",
-                  "wide": None}[unfit]
+                  "wide": None, "many_samples": None, "deep": None}[unfit]
+    gap = {"wide": "hidden_dim=384 has no CUDA build",
+           "many_samples": f"{tk.MAX_SAMPLES + 1} samples per ray .* at most {tk.MAX_SAMPLES}",
+           "deep": f"num_layers={tk.MAX_LAYERS + 1}; .* at most {tk.MAX_LAYERS} trunk layers",
+           }.get(unfit, "")
     if backend == "fused":
         with pytest.raises(ValueError, match="backend=fused rejected on cpu"):
             ptr.train_epoch(0)
@@ -274,7 +287,8 @@ def test_configs_the_kernels_cannot_take(scene, unfit, backend):
         assert ptr._use_fused() is False
         assert ptr.kernel_path == "plain"
     else:
-        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda"):
+        hint = rf": {gap}.*\(backend: xla trains" if gap else ""
+        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda{hint}"):
             ptr._use_fused()
 
 

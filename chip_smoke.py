@@ -47,11 +47,13 @@ its seconds:
    version, ``bfloat16`` apart from the ``float32`` route; CUDA-event
    times and the bound at the route's rate; kernels 1 and 3 at D 96 also
    the device time of each grid launch at each route;
-6b. float32 route vs the parent build: with ``$NERF_PARENT_CHECKOUT`` (a
+6b. the routes vs the parent build: with ``$NERF_PARENT_CHECKOUT`` (a
    checkout of the parent commit), ``tools/route_bits.py`` on both trees:
-   kernels 2 and 4's ``float32`` outputs bit-equal on the main path's
-   inputs, kernels 1, 5 and 3 (whose sums the wgmma redesign reorders)
-   reported with their relative difference; then kernels 1, 5 and 3 timed
+   all five kernels' outputs at all three routes bit-equal to the parent's
+   at trunk widths 256 (the main path's inputs, the DINO width) and 128
+   (``REORDERED_VS_PARENT``, empty, would name kernels whose sums a change
+   reorders on purpose: those are reported, not gated); then kernels 1, 5
+   and 3 timed
    against the parent in alternating pairs (``tools/train_times.py``) at
    every shape and route of ``PERF.md``'s kernel tables; without it the
    phase says it was not checked;
@@ -107,7 +109,19 @@ its seconds:
    coarse pass, kernel 5) against the inline-PE step;
 13. repair check: ``experiments/smoke.yaml`` (width 64) trains a phase-0
    epoch on the plain path under ``backend: auto`` and says so in
-   ``kernel_path``; under ``fused`` it raises, and width 384 raises too;
+   ``kernel_path``; under ``fused`` it raises, and width 640 raises too;
+13a. wide trunks: ``baseline.yaml`` with ``nerf_model.hidden_dim`` 512,
+   then 384 (built in code; no config ships at these widths, which the JAX
+   kernels take), 8 layers: the five kernels on the trainer's init at the
+   main path's shapes (kernels 2 and 4 on a 2048x64 eval chunk, 1, 5 and 3
+   on the phase-2 batch of 512x64) at ``float32``, ``bfloat16`` and
+   ``highest`` against their plain versions (two calls bit for bit, the
+   §2 gates, float64 distances, times, bounds and shares); then, counts at
+   0, eval at init, epochs 0, 1 and 100 (H 384: 0) through kernel 1 once
+   per step, epoch 0 within rel 1e-4 of a ``backend: xla`` trainer, eval
+   after (kernel 2 once per chunk; PSNR rising at 512), 5 differentiable
+   render steps (kernels 4 and 3) within rel 1e-4 of plain autograd and
+   one ``inline_pe=False`` step (kernel 5);
 14. DINO kernel widths: kernel 1 at 512x64 and kernel 2 at a 1024x64 eval
    chunk, pos_freq 12, with 64 and 128 features (inputs padded to D 176
    and 240), against their plain versions; times and bounds;
@@ -215,7 +229,9 @@ numbers (the five kernels, kernels 1 and 2 at the DINO widths with the
 pretrained-format run's launches, then at the trunk-LoRA width, then the
 five at the script recipes' widths, then each kernel at ``bfloat16`` and
 at ``highest`` (``<name>_bf16``, ``<name>_highest``: main-path times, the
-route's bound, launches from the route trainings); kernel 1's row counts the gradient
+route's bound, launches from the route trainings), then the five at trunk
+widths 384 and 512 (``<name>_h384``, ``<name>_h512``: the wide phase's
+launches and ``float32`` numbers, the other routes under ``routes``); kernel 1's row counts the gradient
 gate's two launches and the data-parallel phase's, kernel 2's the
 world-1 eval's), and
 ``{"ok": true, "device": {...}}``.
@@ -424,6 +440,13 @@ ROUTE_APART_OUT, ROUTE_APART_GRAD = 1e-5, 1e-4
 ROUTE_EPOCHS = (0, 1, 100)
 BF16_LOSS_BAND = 1e-3
 ROUTE_RENDER_STEPS = 2
+# The wide trunks: baseline.yaml at trunk widths 384 and 512 (no shipped
+# config; the JAX kernels take them), trained through the kernels at these
+# epochs (H 512: both 32x32 epochs and one 512x64 phase-2 epoch; H 384: one
+# epoch), with WIDE_RENDER_STEPS differentiable render steps each.
+WIDE_WIDTHS = (512, 384)
+WIDE_EPOCHS = {512: (0, 1, 100), 384: (0,)}
+WIDE_RENDER_STEPS = 5
 
 
 @contextmanager
@@ -1406,7 +1429,7 @@ def run_hierarchical_slice(train, test, device, tk, tt):
 def run_repair_check(train, device, tk, tt):
     """``smoke.yaml`` (width 64, ``backend: auto``) trains a phase-0 epoch on
     the card on the plain path, as the JAX trainer does, and records why in
-    ``kernel_path``; under ``backend: fused`` it raises, and so does width 384
+    ``kernel_path``; under ``backend: fused`` it raises, and so does width 640
     (the JAX kernels take it; the port has no build for it) under ``auto``."""
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
@@ -1422,8 +1445,8 @@ def run_repair_check(train, device, tk, tt):
         raise RuntimeError("the plain path launched a kernel")
     for label, over in (("width 64, backend fused", {"rendering": {
             **SMOKE_CONFIG["rendering"], "backend": "fused"}}),
-            ("width 384, backend auto", {"nerf_model": {
-                **SMOKE_CONFIG["nerf_model"], "hidden_dim": 384}})):
+            ("width 640, backend auto", {"nerf_model": {
+                **SMOKE_CONFIG["nerf_model"], "hidden_dim": 640}})):
         try:
             Trainer(config_from_dict({**SMOKE_CONFIG, **over}), train, device=device).train_epoch(0)
         except ValueError as err:
@@ -2703,24 +2726,24 @@ def run_data_parallel(device, tk, tmp):
     return one["launches"], eval_launches, [t["launches"] for t in two]
 
 
-# The kernels whose float32 sums this tree orders differently from its
-# parent's build by design (kernels 1, 5 and 3: the wgmma redesign of the
-# trunk stages); the parent check reports them, and the kernel phases hold
-# them against float64.
-REORDERED_VS_PARENT = ("train_pe", "train_x", "render_bwd")
+# The kernels (route_bits.py call-name prefixes) whose sums this tree
+# orders differently from its parent's build by design; the parent check
+# reports them instead of gating them bit for bit. None: trunk widths 384
+# and 512 are new builds, and widths 128 and 256 keep the parent's.
+REORDERED_VS_PARENT = ()
 
 
 def run_parent_bits():
-    """The float32 route of the five kernels against a parent checkout's
-    build, when ``$NERF_PARENT_CHECKOUT`` names one: ``tools/route_bits.py``
-    on both trees (each in its own process), bit-equal but for
+    """The five kernels at every route against a parent checkout's build,
+    when ``$NERF_PARENT_CHECKOUT`` names one: ``tools/route_bits.py`` on
+    both trees (each in its own process), bit-equal but for
     ``REORDERED_VS_PARENT``, whose relative difference is printed; then
     kernels 1, 5 and 3 timed in alternating pairs, parent / change / change
     / parent (``tools/train_times.py``), the pairs and means printed. A
     checkout of the repo alone has no parent, and the phase says so."""
     parent = os.environ.get("NERF_PARENT_CHECKOUT")
     if not parent:
-        print("  NERF_PARENT_CHECKOUT is not set: the float32 route and the kernel times are not "
+        print("  NERF_PARENT_CHECKOUT is not set: the routes and the kernel times are not "
               "compared with a parent build in this run (nerf_fewshot_tpu_torch/tools/"
               "route_bits.py, train_times.py)", flush=True)
         return
@@ -2753,13 +2776,15 @@ def route_bounds(flops, nbytes, compute_dtype):
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes", label
 
 
-def route_cases(trainer, test, device):
-    """The five kernels' inputs at the main path's shapes (D 96: a 2048x64
-    eval chunk for kernels 2 and 4, the phase-2 batch of 512x64 for kernels
-    1, 5 and 3) and at the DINO width (pos_freq 12 with 64 features: D 176
-    inline, a 256-wide x), each as ``(kernel, width, run(cd), plain(cd),
-    f64(cd), flops, nbytes)``; ``run`` and ``plain`` return flat tuples
-    (outputs, or dx / the loss and the packed gradients)."""
+def route_cases(trainer, test, device, label="d96", dino=True):
+    """The five kernels' inputs at the main path's shapes for the trainer's
+    widths and weights (a 2048x64 eval chunk for kernels 2 and 4, D 96 /
+    x 128; the phase-2 batch of 512x64 for kernels 1, 5 and 3), named
+    ``label``, and, with ``dino``, at the DINO width (pos_freq 12 with 64
+    features: D 176 inline, a 256-wide x, 8x256, random inputs), each as
+    ``(kernel, width, run(cd), plain(cd), f64(cd), flops, nbytes)``; ``run``
+    and ``plain`` return flat tuples (outputs, or dx / the loss and the
+    packed gradients)."""
     from nerf_fewshot_tpu_torch.render import kernels as tk
     from nerf_fewshot_tpu_torch.render import train_kernel as tt
     from nerf_fewshot_tpu_torch.tools.f64_cases import objective_f64, to_f64
@@ -2801,12 +2826,14 @@ def route_cases(trainer, test, device):
             lambda cd: flat_objective(objective_f64(a, with_cd(cd))),
             *train_cost(a, o, x_dim)))
 
-    fwd_pe("d96", main_path_fwd_pe_args(trainer, test.poses[0], device), False)
-    fwd_x("d96", main_path_fwd_x_args(trainer, test.poses[0], device), 90)
+    fwd_pe(label, main_path_fwd_pe_args(trainer, test.poses[0], device), False)
+    fwd_x(label, main_path_fwd_x_args(trainer, test.poses[0], device), 90)
     bw, cot = main_path_render_bwd_args(trainer, device)
-    render_bwd("d96", bw, cot, 90)
-    train("d96", *main_path_train_args(trainer, last, device))
-    train("d96", *main_path_train_args(trainer, last, device, inline_pe=False), x_dim=90)
+    render_bwd(label, bw, cot, 90)
+    train(label, *main_path_train_args(trainer, last, device))
+    train(label, *main_path_train_args(trainer, last, device, inline_pe=False), x_dim=90)
+    if not dino:
+        return cases
     fwd_pe("d176", random_fwd_pe_args(rng, 1024, 64, 256, 8, 64, device, pos_freq=12,
                                       d_pad=176), True)
     a, x_dim = random_render_args(rng, 2048, 64, 256, 8, device, feat_dim=64, pos_freq=12)
@@ -2820,18 +2847,23 @@ def route_cases(trainer, test, device):
     return cases
 
 
-def run_route_kernels(trainer, test, device):
-    """Every kernel at every precision route against its plain version at
-    the same route (TF32 off), on ``route_cases``: two calls bit for bit,
-    the route's tolerance, no further from a float64 run at the route than
-    F64_FACTOR times the plain version's distance, bfloat16 apart from the
-    float32 route; CUDA-event times and the bound at the route's rate.
+def run_route_kernels(cases, routes=ROUTES, launch_widths=("d96",)):
+    """Every kernel of ``cases`` (``route_cases``) at every route of
+    ``routes`` against its plain version at the same route (TF32 off): two
+    calls bit for bit; ``float32`` the §2 gates (TOL, gradient vectors rel
+    TRAIN_GRAD_TOL), the other routes ROUTE_TOL and no further from a
+    float64 run at the route than F64_FACTOR times the plain version's
+    distance, bfloat16 apart from the float32 route; the float64 distances
+    printed at every route; CUDA-event times and the bound at the route's
+    rate (3xTF32 at 495 TFLOP/s for ``float32``); kernels 1 and 3 at the
+    widths of ``launch_widths`` also the device time of each grid launch.
     Returns ``{(kernel, width, route): numbers}``."""
     rows = {}
     flat = lambda ts: torch.cat([t.reshape(-1).double() for t in ts if t is not None])
-    for kernel, width, run, plain, f64, flops, nbytes in route_cases(trainer, test, device):
+    rel = lambda a, b: ((flat(a) - flat(b)).norm() / flat(b).norm()).item()
+    for kernel, width, run, plain, f64, flops, nbytes in cases:
         forward = kernel in ("fwd_pe", "fwd")
-        for cd in ROUTES:
+        for cd in routes:
             label = f"{kernel} {width} {cd}"
             got, again = run(cd), run(cd)
             torch.cuda.synchronize()
@@ -2839,40 +2871,47 @@ def run_route_kernels(trainer, test, device):
                 raise RuntimeError(f"{label}: two calls on the same inputs differ")
             if not all(torch.isfinite(t).all() for t in got if t is not None):
                 raise RuntimeError(f"{label}: non-finite output")
-            want, f32, exact = plain(cd), run("float32"), f64(cd)
-            tol = ROUTE_TOL[cd]
+            want, exact = plain(cd), f64(cd)
+            tol = {**TOL, "grad": TRAIN_GRAD_TOL} if cd == "float32" else ROUTE_TOL[cd]
             max_err = (flat(got) - flat(want)).abs().max().item()
-            rel = lambda a, b: ((flat(a) - flat(b)).norm() / flat(b).norm()).item()
             if forward:
                 errs = {o: (g - w).abs().max().item()
                         for g, w, o in zip(got, want, ("rgb", "depth", "acc", "weights"))}
                 ok = all(errs[o] <= tol[o] for o in errs)
                 shown = ", ".join(f"{o} {v:.2e} (tol {tol[o]:.0e})" for o, v in errs.items())
-                apart = (flat(got) - flat(f32)).abs().max().item()
-                apart_ok = apart > ROUTE_APART_OUT
             else:
                 r = rel(got, want)
                 ok = r <= tol["grad"]
                 shown = f"rel {r:.2e} (tol {tol['grad']:.0e})"
-                apart = rel(got, f32)
-                apart_ok = apart > ROUTE_APART_GRAD
+            apart = ""
+            if cd == "bfloat16":
+                f32 = run("float32")
+                if forward:
+                    dist = (flat(got) - flat(f32)).abs().max().item()
+                    apart_ok = dist > ROUTE_APART_OUT
+                else:
+                    dist = rel(got, f32)
+                    apart_ok = dist > ROUTE_APART_GRAD
+                apart = f"; vs the float32 route {dist:.2e}"
+                if not apart_ok:
+                    raise RuntimeError(f"{label}: bfloat16 reads {dist} from the float32 route")
             k64, p64 = rel(got, exact), rel(want, exact)
-            ms = cuda_ms(lambda: run(cd), iters=10)
-            plain_ms = cuda_ms(lambda: plain(cd), iters=3)
-            b_ms, b_by, rate = route_bounds(flops, nbytes, cd)
+            ms = cuda_ms(lambda: run(cd), iters=10 if flops < 2e11 else 5)
+            plain_ms = cuda_ms(lambda: plain(cd), iters=3 if flops < 2e11 else 2)
+            if cd == "float32":
+                b_ms, b_by, rate = bounds(flops, nbytes, tensor_cores=True)
+            else:
+                b_ms, b_by, rate = route_bounds(flops, nbytes, cd)
             print(f"  {label}: vs plain {shown}, max abs err {max_err:.2e}; bit-equal; vs a "
-                  f"float64 run at the route: kernel rel {k64:.2e}, plain rel {p64:.2e}; "
-                  f"vs the float32 route {apart:.2e}; kernel {ms:.3f} ms, plain {plain_ms:.3f} "
-                  f"ms, bound {b_ms:.3f} ms by {b_by} ({rate}; share {b_ms / ms:.1%})",
-                  flush=True)
+                  f"float64 run at the route: kernel rel {k64:.2e}, plain rel {p64:.2e}{apart}; "
+                  f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b_ms:.3f} ms by {b_by} "
+                  f"({rate}; {flops / 1e9:.1f} GFLOP; share {b_ms / ms:.1%})", flush=True)
             if not ok:
                 raise RuntimeError(f"{label}: kernel disagrees with its plain version: {shown}")
-            if not k64 <= F64_FACTOR * p64:
+            if cd != "float32" and not k64 <= F64_FACTOR * p64:
                 raise RuntimeError(f"{label}: kernel rel {k64} from float64, plain {p64} "
                                    f"(factor {F64_FACTOR})")
-            if cd == "bfloat16" and not apart_ok:
-                raise RuntimeError(f"{label}: bfloat16 reads {apart} from the float32 route")
-            if width == "d96" and kernel in ("train_pe", "render_bwd") and cd != "float32":
+            if width in launch_widths and kernel in ("train_pe", "render_bwd"):
                 print_launch_times(f"{label}", lambda: run(cd))
             rows[(kernel, width, cd)] = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
                                              bound_ms=b_ms, bound_by=b_by, bound_rate=rate,
@@ -2953,6 +2992,108 @@ def run_route_training(cfg, train, test, device, tk, tt, f32_losses):
             raise RuntimeError(f"{cd}: launches {counts}, expected {want}")
         out[cd] = counts
     return out
+
+
+def wide_config(hidden_dim, backend="auto"):
+    """``experiments/baseline.yaml`` with ``nerf_model.hidden_dim`` set to a
+    trunk width the JAX kernels take and no shipped config uses (the JAX
+    trainer sends any multiple of 128 to its kernels), built in code; the
+    published widths otherwise (8 layers, pos_freq 10, view directions)."""
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+
+    return config_from_dict({**BASELINE_CONFIG, "nerf_model": {
+        **BASELINE_CONFIG["nerf_model"], "hidden_dim": hidden_dim}, "rendering": {
+        **BASELINE_CONFIG["rendering"], "backend": backend}})
+
+
+def run_wide_slice(hidden_dim, train, test, device, tk, tt):
+    """``baseline.yaml`` at trunk width ``hidden_dim`` (``wide_config``)
+    through ``Trainer(device="cuda")``: the five kernels at every route on
+    the trainer's init at the main path's shapes (``route_cases``,
+    ``run_route_kernels``); then, with every count set
+    to 0, eval at init (kernel 2 once per chunk), ``train_epoch`` at
+    ``WIDE_EPOCHS[hidden_dim]`` (kernel 1 once per step; epoch 0's per-step
+    losses within rel TRAIN_LOSS_RTOL of a ``backend: xla`` trainer from the
+    same seed, batches and jitter), eval after (PSNR must rise at 512),
+    WIDE_RENDER_STEPS differentiable render steps (kernels 4 and 3; per-step
+    losses within rel TRAIN_LOSS_RTOL of plain autograd) and one
+    ``inline_pe=False`` step (kernel 5) against its plain version; the
+    counts read after. Returns ``(rows, launches)``."""
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    cfg, pcfg = wide_config(hidden_dim), wide_config(hidden_dim, "xla")
+    n = cfg.nerf
+    if (n.hidden_dim, n.num_layers, n.pos_freq, cfg.phases[-1].n_samples,
+            cfg.rendering.chunk_size) != (hidden_dim, 8, 10, 64, 2048):
+        raise RuntimeError(f"wide config widths {n}")
+    ktr = Trainer(cfg, train, test, device=device)
+    ptr = Trainer(pcfg, train, test, device=device)
+    if not ktr._use_fused() or ktr.kernel_path != "kernel" or ptr._use_fused():
+        raise RuntimeError(f"H {hidden_dim}: kernel_path {ktr.kernel_path} "
+                           f"({ktr.kernel_path_reason}); xla must take the plain path")
+    label = f"h{hidden_dim}"
+    rows = run_route_kernels(route_cases(ktr, test, device, label, dino=False),
+                             ("float32", *ROUTES), (label,))
+    last = len(cfg.phases) - 1
+    for i in range(len(cfg.phases)):
+        ktr.phase_data(i)
+        ptr.phase_data(i)
+
+    tk.fused_render_fwd_pe.launches = tk.fused_render_fwd.launches = 0
+    tk.fused_render_bwd.launches = 0
+    tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+    psnr0 = ktr.evaluate()["psnr"]
+    steps, losses = 0, {}
+    for e in WIDE_EPOCHS[hidden_dim]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = ktr.train_epoch(e)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        k = len(ktr.last_step_losses)
+        steps += k
+        losses[e] = ktr.last_step_losses.copy()
+        if not np.isfinite(losses[e]).all():
+            raise RuntimeError(f"H {hidden_dim} epoch {e}: non-finite losses")
+        print(f"  H {hidden_dim} kernel trainer epoch {e}: loss {loss:.6f}, {k} steps, "
+              f"{sec / k * 1e3:.3f} ms/step", flush=True)
+    after = ktr.evaluate()["psnr"]
+    e0 = WIDE_EPOCHS[hidden_dim][0]
+    ptr.train_epoch(e0)
+    gap = float(np.max(np.abs(ptr.last_step_losses / losses[e0] - 1.0)))
+    print(f"  H {hidden_dim}: psnr {psnr0:.4f} dB at init, {after:.4f} dB after; epoch {e0} "
+          f"per-step max rel gap to the xla trainer {gap:.2e} (tol {TRAIN_LOSS_RTOL:.0e})",
+          flush=True)
+    if not gap <= TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"H {hidden_dim}: epoch {e0} losses {gap} from the xla trainer")
+    if hidden_dim == 512 and not after > psnr0:
+        raise RuntimeError(f"H {hidden_dim}: psnr after training {after} <= at init {psnr0}")
+    pd = ktr.phase_data(last)
+    fused = render_stepper(cfg, pd, device, 0, fused=True)
+    plain = render_stepper(cfg, pd, device, 0, fused=False)
+    got = np.array([fused().item() for _ in range(WIDE_RENDER_STEPS)])
+    want = np.array([plain().item() for _ in range(WIDE_RENDER_STEPS)])
+    render_gap = float(np.max(np.abs(got / want - 1.0)))
+    a, o = main_path_train_args(ktr, last, device, inline_pe=False)
+    x_err = compare_train(f"H {hidden_dim} inline_pe=False step (kernel 5)",
+                          tt.fused_train_objective(*a, **o),
+                          tt.fused_train_objective_reference(*a, **o), TRAIN_GRAD_TOL)
+    counts = {"train_pe": tt.fused_train_objective.launches["train_pe"],
+              "fwd_pe": tk.fused_render_fwd_pe.launches, "fwd": tk.fused_render_fwd.launches,
+              "render_bwd": tk.fused_render_bwd.launches,
+              "train_x": tt.fused_train_objective.launches["train_x"]}
+    chunks = 2 * -(-N_TEST_VIEWS * cfg.data.resolution ** 2 // cfg.rendering.chunk_size)
+    print(f"  H {hidden_dim}: {WIDE_RENDER_STEPS} render steps, per-step max rel gap to plain "
+          f"autograd {render_gap:.2e} (tol {TRAIN_LOSS_RTOL:.0e}); launches {counts} for {steps} "
+          f"steps, {chunks} eval chunks, {WIDE_RENDER_STEPS} render steps, 1 x-input step "
+          f"(max abs err {x_err:.2e})", flush=True)
+    if not (np.isfinite(got).all() and render_gap <= TRAIN_LOSS_RTOL):
+        raise RuntimeError(f"H {hidden_dim}: fused render steps {got} vs plain {want}")
+    expect = {"train_pe": steps, "fwd_pe": chunks, "fwd": WIDE_RENDER_STEPS,
+              "render_bwd": WIDE_RENDER_STEPS, "train_x": 1}
+    if counts != expect:
+        raise RuntimeError(f"H {hidden_dim}: launches {counts}, expected {expect}")
+    return rows, counts
 
 
 def main():
@@ -3151,9 +3292,9 @@ def main():
                    (exact[0], *exact[1]))
 
     with phase("precision routes: kernels vs plain"):
-        route_rows = run_route_kernels(trainer, test, device)
+        route_rows = run_route_kernels(route_cases(trainer, test, device))
 
-    with phase("float32 route and kernel times vs the parent build"):
+    with phase("routes and kernel times vs the parent build"):
         run_parent_bits()
 
     with phase("differentiable render steps"):
@@ -3236,6 +3377,11 @@ def main():
 
     with phase("repair check"):
         run_repair_check(train, device, tk, tt)
+
+    wide = {}
+    for hidden in WIDE_WIDTHS:
+        with phase(f"wide trunk H {hidden}"):
+            wide[hidden] = run_wide_slice(hidden, train, test, device, tk, tt)
 
     with phase("DINO kernel widths"):
         dino_rows = run_dino_kernel_widths(device, tk, tt)
@@ -3414,6 +3560,29 @@ def main():
                 "plain_f64_rel": main["plain_f64_rel"],
                 "at_d176": {k: dino[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err")}})
 
+    wide_sources = {"fwd_pe": ("fwd_pe", "kernels.py:251"), "fwd": ("fwd_pe", "kernels.py:139"),
+                    "render_bwd": ("train_pe", "kernels.py:292"),
+                    "train_pe": ("train_pe", "train_kernel.py:343"),
+                    "train_x": ("train_pe", "train_kernel.py:320")}
+    wide_kernel_rows = []
+    for hidden in sorted(wide):
+        rows, counts = wide[hidden]
+        for kernel, (source, where) in wide_sources.items():
+            f32 = rows[(kernel, f"h{hidden}", "float32")]
+            wide_kernel_rows.append({
+                "name": f"{kernel}_h{hidden}", "route": "cuda",
+                "source": f"nerf_fewshot_tpu_torch/csrc/{source}.cu",
+                "replaces": f"nerf_fewshot_tpu/render/{where}",
+                "configs": [f"baseline.yaml hidden_dim {hidden}"],
+                "shape": "2048x64" if kernel in ("fwd_pe", "fwd") else "512x64",
+                "launches": counts[kernel],
+                **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                                       "bound_rate")},
+                "library_ms": None,
+                "routes": {cd: {k: rows[(kernel, f"h{hidden}", cd)][k] for k in (
+                    "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_rate", "f64_rel",
+                    "plain_f64_rel")} for cd in ROUTES}})
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fwd_pe",
@@ -3465,7 +3634,7 @@ def main():
         "bound_fp32_ms": bwd_bound32_ms,
         "library_ms": None,
     }, *dino_kernel_rows, lora_row("train_pe"), lora_row("fwd_pe"), *script_kernel_rows,
-        *route_kernel_rows]}))
+        *route_kernel_rows, *wide_kernel_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

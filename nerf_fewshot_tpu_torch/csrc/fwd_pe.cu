@@ -74,6 +74,20 @@
 //      CTA) writes the four raw outputs to scratch ([4][Np]).
 //   3. fwd_composite: one warp per ray (8 rays per CTA): sigmoid, the
 //      log-space scan and the sums, written to rgb, depth, acc, weights.
+// Widths. At H 128 and 256 a layer is one pass over its stages: warpgroup g
+// owns H/2 columns, shared memory holds the 128 KB ring, the 64 x (H + 8)
+// tile, the two 64 x 40 layer-0 stage buffers and H x 4 head columns (219
+// KB at H 256). At H 384 and 512 the tile alone is 98 and 130 KB, and a
+// 64-point tile's sums and stage products (64 x H x 2 fp32) would fill 75 %
+// and all of the register file. So a layer runs in H/128 column passes of
+// 128 columns, 64 a warpgroup (the accumulators of H 128: NR 32 and 32
+// registers a thread), each pass streaming its own stage images (the 128
+// output rows of the pass, [hi | lo] of 32 KB) through a 96 KB (H 384) or
+// 64 KB (H 512) ring: 226 and 228 KB a block. A pass reads the whole layer
+// input from the tile, so a finished pass's relu(acc + b) waits in a
+// per-CTA global buffer (`held`, L2-resident: 96 KB a CTA per layer at H
+// 512) until the last pass has read the tile; then every pass is written
+// over it. A column's sums are the one-pass design's, in the same order.
 // Fragments (wgmma m64nNk8 .tf32, warp w of the warpgroup, g = lane/4,
 // t = lane%4): A a0 (16w+g, t), a1 (16w+g+8, t), a2 (16w+g, t+4),
 // a3 (16w+g+8, t+4); D d[4j+e] at row 16w+g (+8 for e >= 2), column
@@ -105,6 +119,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -119,6 +134,8 @@ constexpr int kXLd = kStageK + kActPad;  // row stride of a layer-0 input stage 
 constexpr int kOutPad = 128;        // packed head columns [r, g, b, sigma, 0...]
 constexpr int kHead = 4;            // live head columns
 constexpr int kMaxD = 896;          // widest padded input (7 x 128: the script recipes' 858)
+constexpr int kPassCols = 128;      // columns per pass of a layer wider than 256
+constexpr int kMaxCtas = 160;       // persistent CTAs at most (an H100 has 132 SMs)
 constexpr int kRaysPerCta = 8;      // composite: one warp per ray
 constexpr int kProducerRegs = 40;   // setmaxnreg: the producer warpgroup gives registers
 constexpr int kConsumerRegs = 232;  // to the consumer warpgroups
@@ -133,21 +150,31 @@ int cdiv(int a, int b) { return (a + b - 1) / b; }
 
 // Sizes shared by the launcher and nerf_fwd_scratch_floats; the scratch
 // holds the stage images from offset 0 (sized for the float32 route's, the
-// largest), then the head outputs at out4.
+// largest), then the head outputs at out4, then (H > 256) the finished
+// passes' outputs of each persistent CTA at held.
 struct Layout {
-  int N, Np, tiles, stages0, stages;  // stages0: of layer 0; stages: all layers
-  size_t out4, total;
+  int N, Np, tiles, ctas, stages0, stages;  // stages0: of layer 0; stages: all layers, full width
+  size_t out4, held, total;
 };
+
+// Passes of a layer, and the floats a CTA keeps of its finished passes: a
+// consumer thread's kPassCols / 4 accumulators each.
+int passes(int H) { return H > 256 ? H / kPassCols : 1; }
+size_t held_floats(int H) {
+  return static_cast<size_t>(passes(H) - 1) * (kPassCols / 4) * kConsumers;
+}
 
 Layout make_layout(int R, int S, int D, int H, int L1) {
   Layout s;
   s.N = R * S;
   s.tiles = cdiv(s.N, kTileP);
   s.Np = s.tiles * kTileP;
+  s.ctas = s.tiles < kMaxCtas ? s.tiles : kMaxCtas;
   s.stages0 = cdiv(D, kStageK);
   s.stages = s.stages0 + L1 * (H / kStageK);
   s.out4 = 2 * static_cast<size_t>(H) * kStageK * s.stages;
-  s.total = s.out4 + static_cast<size_t>(kHead) * s.Np;
+  s.held = s.out4 + static_cast<size_t>(kHead) * s.Np;
+  s.total = s.held + held_floats(H) * s.ctas;
   return s;
 }
 
@@ -372,46 +399,57 @@ __device__ __forceinline__ void split_fast(float v, uint32_t& hi, uint32_t& lo) 
 
 template <int H, int ROUTE>
 struct Trunk {
-  static constexpr int NW = H / kWarpgroups;     // output columns per warpgroup
+  static constexpr int NPASS = H > 256 ? H / kPassCols : 1;  // column passes of a layer
+  static constexpr int PW = H / NPASS;           // columns per pass
+  static constexpr int NW = PW / kWarpgroups;    // output columns per warpgroup and pass
   static constexpr int NR = NW / 2;              // accumulator registers per thread
-  // a stage image: [hi | lo] TF32 halves, the bf16 rounding, or the fp32 rows
-  static constexpr int kStageBytes =
-      ROUTE == kTf32x3 ? 2 * H * kStageK * 4 : (ROUTE == kBf16 ? H * kStageK * 2 : H * kStageK * 4);
-  static constexpr int NS = kRingBytes / kStageBytes;      // ring depth
-  static_assert(NS >= 2, "at least two stages");
+  static constexpr int kRing = H <= 256 ? kRingBytes : (H == 384 ? 96 * 1024 : 64 * 1024);
+  // a pass's stage image: [hi | lo] TF32 halves, the bf16 rounding, or the fp32 rows
+  static constexpr int kStageBytes = ROUTE == kTf32x3 ? 2 * PW * kStageK * 4
+                                                      : (ROUTE == kBf16 ? PW * kStageK * 2
+                                                                        : PW * kStageK * 4);
+  static constexpr int NS = kRing / kStageBytes;  // ring depth
+  static_assert(NS >= 2 && H % (kWarpgroups * 32) == 0, "at least two stages");
 };
 
 // Stage `stage` (one 32-row slice of w0 or of one wh layer), columns
 // [32*blockIdx.x, +32): a 32 x 32 tile through shared memory, read along n,
-// written along the k-slots (or, kFp32, along n).
+// written along the k-slots (or, kFp32, along n) of the image of the pass
+// that owns the columns. The images go in the consumers' order: per layer,
+// pass after pass, each over the layer's stages.
 template <int H, int ROUTE>
 __global__ void __launch_bounds__(256)
 fwd_split_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
                  float* __restrict__ wsplit, int D, int stages0) {
+  using T = Trunk<H, ROUTE>;
   __shared__ float tile[kStageK][33];
   const int stage = blockIdx.y;
-  const int nb = blockIdx.x * 32;
+  const int pass = blockIdx.x * 32 / T::PW;
+  const int nb = blockIdx.x * 32 - pass * T::PW;  // the first column within the pass
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  const int per = H / kStageK;
   const float* W;
-  int k0, K;
+  int k0, K, image;
   if (stage < stages0) {
     W = w0;
     k0 = stage * kStageK;
     K = D;
+    image = pass * stages0 + stage;
   } else {
-    const int per = H / kStageK;
-    W = wh + static_cast<size_t>((stage - stages0) / per) * H * H;
-    k0 = ((stage - stages0) % per) * kStageK;
+    const int layer = (stage - stages0) / per, sl = (stage - stages0) % per;
+    W = wh + static_cast<size_t>(layer) * H * H;
+    k0 = sl * kStageK;
     K = H;
+    image = T::NPASS * stages0 + (layer * T::NPASS + pass) * per + sl;
   }
   for (int r = ty; r < kStageK; r += 8)
-    tile[r][tx] = k0 + r < K ? W[static_cast<size_t>(k0 + r) * H + nb + tx] : 0.f;
+    tile[r][tx] = k0 + r < K ? W[static_cast<size_t>(k0 + r) * H + blockIdx.x * 32 + tx] : 0.f;
   __syncthreads();
-  uint8_t* img_bytes = reinterpret_cast<uint8_t*>(wsplit) +
-                       static_cast<size_t>(stage) * Trunk<H, ROUTE>::kStageBytes;
+  uint8_t* img_bytes =
+      reinterpret_cast<uint8_t*>(wsplit) + static_cast<size_t>(image) * T::kStageBytes;
   if constexpr (ROUTE == kFp32) {
     float* img = reinterpret_cast<float*>(img_bytes);
-    for (int r = ty; r < kStageK; r += 8) img[r * H + nb + tx] = tile[r][tx];
+    for (int r = ty; r < kStageK; r += 8) img[r * T::PW + nb + tx] = tile[r][tx];
     return;
   } else if constexpr (ROUTE == kBf16) {
     // row n's k-slot tx, in 16-byte chunk tx / 8 of its 64 bytes, swizzled
@@ -434,7 +472,7 @@ fwd_split_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
     const uint32_t lo = tf32_rna(v - __uint_as_float(hi));
     const int pos = n * kStageK + ((((tx >> 2) ^ (n & 7))) << 2) + (tx & 3);
     img[pos] = __uint_as_float(hi);
-    img[H * kStageK + pos] = __uint_as_float(lo);
+    img[T::PW * kStageK + pos] = __uint_as_float(lo);
   }
 }
 
@@ -445,12 +483,16 @@ fwd_split_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
 // mbarriers.
 template <int H, int ROUTE>
 constexpr size_t trunk_smem() {
-  return 1024 + kRingBytes +
+  return 1024 + Trunk<H, ROUTE>::kRing +
          sizeof(float) * (static_cast<size_t>(kTileP) * (H + kActPad + 2 * kXLd) + H * kHead) +
          2 * Trunk<H, ROUTE>::NS * sizeof(uint64_t);
 }
-static_assert(trunk_smem<256, kTf32x3>() <= 232448 && trunk_smem<256, kBf16>() <= 232448 &&
-                  trunk_smem<256, kFp32>() <= 232448 && trunk_smem<128, kBf16>() <= 232448,
+template <int H>
+constexpr bool trunk_fits() {
+  return trunk_smem<H, kTf32x3>() <= 232448 && trunk_smem<H, kBf16>() <= 232448 &&
+         trunk_smem<H, kFp32>() <= 232448;
+}
+static_assert(trunk_fits<128>() && trunk_fits<256>() && trunk_fits<384>() && trunk_fits<512>(),
               "fwd_trunk's shared memory fits a block");
 
 // The two consumer warpgroups of fwd_trunk_kernel.
@@ -461,19 +503,25 @@ __device__ __forceinline__ void fwd_trunk_consumer(
     const float* __restrict__ wout, const float* __restrict__ bout, float* __restrict__ out4,
     int N, int Np, int tiles, int n_raw, int n_phase, int Fd, int D, int L1,
     uint32_t ring, const uint8_t* ring_ptr, float* __restrict__ act, float* __restrict__ xbuf,
-    float* __restrict__ whead, uint32_t full0, uint32_t empty0) {
+    float* __restrict__ whead, float* __restrict__ held, uint32_t full0, uint32_t empty0) {
   using T = Trunk<H, ROUTE>;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int wg = warp >> 2;                       // warpgroup: columns [wg*NW, +NW)
+  const int wg = warp >> 2;                       // warpgroup: pass columns [wg*NW, +NW)
   const int g = lane >> 2, t = lane & 3;
   const int r0 = 16 * (warp & 3) + g;             // fragment rows r0, r0 + 8
-  const int c0 = wg * T::NW;
+  const int cw = wg * T::NW;
   constexpr int ld = H + kActPad;
   float acc[T::NR], part[T::NR];
 #pragma unroll
   for (int i = 0; i < T::NR; ++i) part[i] = 0.f;
   int it = 0;
+  // this thread's accumulators of finished pass `pass` in the CTA's held
+  // buffer, accumulator i at [i * kConsumers]
+  auto held_at = [&](int pass) {
+    return held + (static_cast<size_t>(blockIdx.x) * (T::NPASS - 1) + pass) * T::NR * kConsumers +
+           tid;
+  };
   // the head's four live columns, once per CTA (rounded to bf16 on that route)
   for (int e = tid; e < H * kHead; e += kConsumers) {
     if constexpr (ROUTE == kBf16)
@@ -519,8 +567,6 @@ __device__ __forceinline__ void fwd_trunk_consumer(
     for (int l = 0; l <= L1; ++l) {
       const int K = l ? H : D;
       const int nst = (K + kStageK - 1) / kStageK;
-#pragma unroll
-      for (int i = 0; i < T::NR; ++i) acc[i] = 0.f;
       const bool from_tile = !STAGED || l > 0;
       // the input rows of stage sl, point-major: the tile's or (a STAGED
       // layer 0) the stage's input buffer
@@ -533,151 +579,176 @@ __device__ __forceinline__ void fwd_trunk_consumer(
           for (int sl = 0; sl < nst; ++sl) build_x(sl, act + sl * kStageK, ld);
         consumers_sync();
       }
-      if constexpr (ROUTE == kFp32) {
-        // FFMAs over the stage's fp32 rows; K is a multiple of 16
-        for (int sl = 0; sl < nst; ++sl) {
-          const int s = it % T::NS;
-          const int rows = K - sl * kStageK >= kStageK ? kStageK : 16;
-          mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
-          const float* w = reinterpret_cast<const float*>(ring_ptr + s * T::kStageBytes) + c0 + 2 * t;
-          const float* src = a_src(sl);
+      // columns [pass*PW, +PW) of the layer's output, warpgroup wg's NW of
+      // them from the pass's images
+      for (int pass = 0; pass < T::NPASS; ++pass) {
+        if (pass > 0 && !from_tile) {  // layer 0's first stage again, once every warp is past it
+          consumers_sync();
+          build_x(0, xstage(0), kXLd);
+          consumers_sync();
+        }
+#pragma unroll
+        for (int i = 0; i < T::NR; ++i) acc[i] = 0.f;
+        if constexpr (ROUTE == kFp32) {
+          // FFMAs over the stage's fp32 rows; K is a multiple of 16
+          for (int sl = 0; sl < nst; ++sl) {
+            const int s = it % T::NS;
+            const int rows = K - sl * kStageK >= kStageK ? kStageK : 16;
+            mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
+            const float* w =
+                reinterpret_cast<const float*>(ring_ptr + s * T::kStageBytes) + cw + 2 * t;
+            const float* src = a_src(sl);
 #pragma unroll 4
-          for (int k = 0; k < rows; ++k) {
-            const float a0 = src[r0 * sld + k], a1 = src[(r0 + 8) * sld + k];
+            for (int k = 0; k < rows; ++k) {
+              const float a0 = src[r0 * sld + k], a1 = src[(r0 + 8) * sld + k];
 #pragma unroll
-            for (int j = 0; j < T::NW / 8; ++j) {
-              const float2 b = *reinterpret_cast<const float2*>(w + k * H + 8 * j);
-              acc[4 * j] = fmaf(a0, b.x, acc[4 * j]);
-              acc[4 * j + 1] = fmaf(a0, b.y, acc[4 * j + 1]);
-              acc[4 * j + 2] = fmaf(a1, b.x, acc[4 * j + 2]);
-              acc[4 * j + 3] = fmaf(a1, b.y, acc[4 * j + 3]);
+              for (int j = 0; j < T::NW / 8; ++j) {
+                const float2 b = *reinterpret_cast<const float2*>(w + k * T::PW + 8 * j);
+                acc[4 * j] = fmaf(a0, b.x, acc[4 * j]);
+                acc[4 * j + 1] = fmaf(a0, b.y, acc[4 * j + 1]);
+                acc[4 * j + 2] = fmaf(a1, b.x, acc[4 * j + 2]);
+                acc[4 * j + 3] = fmaf(a1, b.y, acc[4 * j + 3]);
+              }
             }
-          }
-          __syncwarp();
-          if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
-          if (sl + 1 < nst && !from_tile) {  // its buffer was last read before the last sync
-            build_x(sl + 1, xstage(sl + 1), kXLd);
-            consumers_sync();
-          }
-          ++it;
-        }
-      } else if constexpr (ROUTE == kBf16) {
-        // A fragments of stage sl's two k-steps of 16, rounded to bf16
-        auto load_a = [&](int sl, uint32_t (&a)[2][4]) {
-          const int live = K - sl * kStageK >= kStageK ? 2 : 1;
-          const float* src = a_src(sl);
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            if (q < live) {
-              const float* p = src + r0 * sld + 16 * q + 2 * t;
-              const float2 u = *reinterpret_cast<const float2*>(p);
-              const float2 v = *reinterpret_cast<const float2*>(p + 8);
-              const float2 w = *reinterpret_cast<const float2*>(p + 8 * sld);
-              const float2 x = *reinterpret_cast<const float2*>(p + 8 * sld + 8);
-              a[q][0] = pack_bf16(u.x, u.y);
-              a[q][1] = pack_bf16(w.x, w.y);
-              a[q][2] = pack_bf16(v.x, v.y);
-              a[q][3] = pack_bf16(x.x, x.y);
-            }
-          }
-        };
-        auto stage = [&](int sl, uint32_t (&a)[2][4], uint32_t (&next)[2][4]) {
-          const int s = it % T::NS;
-          const int live = K - sl * kStageK >= kStageK ? 2 : 1;
-          mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
-          const uint32_t img = ring + s * T::kStageBytes + c0 * (kStageK * 2);
-          fence_regs(part);
-          wgmma_fence();
-#pragma unroll
-          for (int q = 0; q < 2; ++q)
-            if (q < live) wgmma_bf16<T::NW>(part, a[q], sw64_desc(img + 32 * q), q > 0);
-          wgmma_commit();
-          if (sl + 1 < nst) {
-            if (!from_tile) {  // its buffer was last read by load_a(sl - 1), before the last sync
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
+            if (sl + 1 < nst && !from_tile) {  // its buffer was last read before the last sync
               build_x(sl + 1, xstage(sl + 1), kXLd);
               consumers_sync();
             }
-            load_a(sl + 1, next);
+            ++it;
           }
-          wgmma_wait_all();
-          fence_regs(part);
-          __syncwarp();
-          if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
+        } else if constexpr (ROUTE == kBf16) {
+          // A fragments of stage sl's two k-steps of 16, rounded to bf16
+          auto load_a = [&](int sl, uint32_t (&a)[2][4]) {
+            const int live = K - sl * kStageK >= kStageK ? 2 : 1;
+            const float* src = a_src(sl);
 #pragma unroll
-          for (int i = 0; i < T::NR; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
-          ++it;
-        };
-        uint32_t a0[2][4], a1[2][4];
-        load_a(0, a0);
-        for (int sl = 0; sl < nst; sl += 2) {
-          stage(sl, a0, a1);
-          if (sl + 1 < nst) stage(sl + 1, a1, a0);
+            for (int q = 0; q < 2; ++q) {
+              if (q < live) {
+                const float* p = src + r0 * sld + 16 * q + 2 * t;
+                const float2 u = *reinterpret_cast<const float2*>(p);
+                const float2 v = *reinterpret_cast<const float2*>(p + 8);
+                const float2 w = *reinterpret_cast<const float2*>(p + 8 * sld);
+                const float2 x = *reinterpret_cast<const float2*>(p + 8 * sld + 8);
+                a[q][0] = pack_bf16(u.x, u.y);
+                a[q][1] = pack_bf16(w.x, w.y);
+                a[q][2] = pack_bf16(v.x, v.y);
+                a[q][3] = pack_bf16(x.x, x.y);
+              }
+            }
+          };
+          auto stage = [&](int sl, uint32_t (&a)[2][4], uint32_t (&next)[2][4]) {
+            const int s = it % T::NS;
+            const int live = K - sl * kStageK >= kStageK ? 2 : 1;
+            mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
+            const uint32_t img = ring + s * T::kStageBytes + cw * (kStageK * 2);
+            fence_regs(part);
+            wgmma_fence();
+#pragma unroll
+            for (int q = 0; q < 2; ++q)
+              if (q < live) wgmma_bf16<T::NW>(part, a[q], sw64_desc(img + 32 * q), q > 0);
+            wgmma_commit();
+            if (sl + 1 < nst) {
+              if (!from_tile) {  // its buffer was last read by load_a(sl - 1), before the last sync
+                build_x(sl + 1, xstage(sl + 1), kXLd);
+                consumers_sync();
+              }
+              load_a(sl + 1, next);
+            }
+            wgmma_wait_all();
+            fence_regs(part);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
+#pragma unroll
+            for (int i = 0; i < T::NR; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+            ++it;
+          };
+          uint32_t a0[2][4], a1[2][4];
+          load_a(0, a0);
+          for (int sl = 0; sl < nst; sl += 2) {
+            stage(sl, a0, a1);
+            if (sl + 1 < nst) stage(sl + 1, a1, a0);
+          }
+        } else {
+          // A fragments of stage sl's k-steps, split into TF32 halves; K is a
+          // multiple of 16, so a stage has 2 or 4 live k-steps.
+          auto load_a = [&](int sl, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4]) {
+            const int kbase = sl * kStageK;
+            const int live = K - kbase >= kStageK ? 4 : 2;
+            const float* src = from_tile ? act + kbase : xstage(sl);
+            const int sld = from_tile ? ld : kXLd;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              if (q < live) {
+                const float* a0p = src + r0 * sld + 8 * q + 2 * t;
+                const float2 u = *reinterpret_cast<const float2*>(a0p);
+                const float2 w = *reinterpret_cast<const float2*>(a0p + 8 * sld);
+                split_fast(u.x, ahi[q][0], alo[q][0]);
+                split_fast(w.x, ahi[q][1], alo[q][1]);
+                split_fast(u.y, ahi[q][2], alo[q][2]);
+                split_fast(w.y, ahi[q][3], alo[q][3]);
+              }
+            }
+          };
+          // stage sl from the fragments in (ahi, alo); the next stage's are read
+          // into (nhi, nlo) while the tensor cores run
+          auto stage = [&](int sl, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4],
+                           uint32_t (&nhi)[4][4], uint32_t (&nlo)[4][4]) {
+            const int s = it % T::NS;
+            const int live = K - sl * kStageK >= kStageK ? 4 : 2;
+            mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
+            const uint32_t hi_img = ring + s * T::kStageBytes + cw * (kStageK * 4);
+            const uint32_t lo_img = hi_img + T::PW * kStageK * 4;
+            fence_regs(part);
+            wgmma_fence();
+#pragma unroll
+            for (int q = 0; q < 4; ++q) {
+              if (q < live) {
+                wgmma_tf32<T::NW>(part, alo[q], sw128_desc(hi_img + 32 * q), q > 0);
+                wgmma_tf32<T::NW>(part, ahi[q], sw128_desc(lo_img + 32 * q), 1);
+                wgmma_tf32<T::NW>(part, ahi[q], sw128_desc(hi_img + 32 * q), 1);
+              }
+            }
+            wgmma_commit();
+            if (sl + 1 < nst) {
+              if (!from_tile) {  // its buffer was last read by load_a(sl - 1), before the last sync
+                build_x(sl + 1, xstage(sl + 1), kXLd);
+                consumers_sync();
+              }
+              load_a(sl + 1, nhi, nlo);
+            }
+            wgmma_wait_all();
+            fence_regs(part);
+            __syncwarp();
+            if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
+#pragma unroll
+            for (int i = 0; i < T::NR; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
+            ++it;
+          };
+          uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
+          load_a(0, h0, l0);
+          for (int sl = 0; sl < nst; sl += 2) {
+            stage(sl, h0, l0, h1, l1);
+            if (sl + 1 < nst) stage(sl + 1, h1, l1, h0, l0);
+          }
         }
-      } else {
-        // A fragments of stage sl's k-steps, split into TF32 halves; K is a
-        // multiple of 16, so a stage has 2 or 4 live k-steps.
-        auto load_a = [&](int sl, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4]) {
-          const int kbase = sl * kStageK;
-          const int live = K - kbase >= kStageK ? 4 : 2;
-          const float* src = from_tile ? act + kbase : xstage(sl);
-          const int sld = from_tile ? ld : kXLd;
+        if (pass + 1 < T::NPASS) {  // a finished pass: relu(acc + b) waits until the tile is free
+          const float* bias = (l ? bh + static_cast<size_t>(l - 1) * H : b0) + pass * T::PW + cw;
+          float* hp = held_at(pass);
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if (q < live) {
-              const float* a0p = src + r0 * sld + 8 * q + 2 * t;
-              const float2 u = *reinterpret_cast<const float2*>(a0p);
-              const float2 w = *reinterpret_cast<const float2*>(a0p + 8 * sld);
-              split_fast(u.x, ahi[q][0], alo[q][0]);
-              split_fast(w.x, ahi[q][1], alo[q][1]);
-              split_fast(u.y, ahi[q][2], alo[q][2]);
-              split_fast(w.y, ahi[q][3], alo[q][3]);
-            }
+          for (int j = 0; j < T::NW / 8; ++j) {
+            const float bb0 = __ldg(bias + 8 * j + 2 * t), bb1 = __ldg(bias + 8 * j + 2 * t + 1);
+            hp[(4 * j) * kConsumers] = fmaxf(acc[4 * j] + bb0, 0.f);
+            hp[(4 * j + 1) * kConsumers] = fmaxf(acc[4 * j + 1] + bb1, 0.f);
+            hp[(4 * j + 2) * kConsumers] = fmaxf(acc[4 * j + 2] + bb0, 0.f);
+            hp[(4 * j + 3) * kConsumers] = fmaxf(acc[4 * j + 3] + bb1, 0.f);
           }
-        };
-        // stage sl from the fragments in (ahi, alo); the next stage's are read
-        // into (nhi, nlo) while the tensor cores run
-        auto stage = [&](int sl, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4],
-                         uint32_t (&nhi)[4][4], uint32_t (&nlo)[4][4]) {
-          const int s = it % T::NS;
-          const int live = K - sl * kStageK >= kStageK ? 4 : 2;
-          mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
-          const uint32_t hi_img = ring + s * T::kStageBytes + c0 * (kStageK * 4);
-          const uint32_t lo_img = hi_img + H * kStageK * 4;
-          fence_regs(part);
-          wgmma_fence();
-#pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            if (q < live) {
-              wgmma_tf32<T::NW>(part, alo[q], sw128_desc(hi_img + 32 * q), q > 0);
-              wgmma_tf32<T::NW>(part, ahi[q], sw128_desc(lo_img + 32 * q), 1);
-              wgmma_tf32<T::NW>(part, ahi[q], sw128_desc(hi_img + 32 * q), 1);
-            }
-          }
-          wgmma_commit();
-          if (sl + 1 < nst) {
-            if (!from_tile) {  // its buffer was last read by load_a(sl - 1), before the last sync
-              build_x(sl + 1, xstage(sl + 1), kXLd);
-              consumers_sync();
-            }
-            load_a(sl + 1, nhi, nlo);
-          }
-          wgmma_wait_all();
-          fence_regs(part);
-          __syncwarp();
-          if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
-#pragma unroll
-          for (int i = 0; i < T::NR; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
-          ++it;
-        };
-        uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
-        load_a(0, h0, l0);
-        for (int sl = 0; sl < nst; sl += 2) {
-          stage(sl, h0, l0, h1, l1);
-          if (sl + 1 < nst) stage(sl + 1, h1, l1, h0, l0);
         }
       }
       consumers_sync();  // every warp is done reading the layer's input
       const float* bias = l ? bh + static_cast<size_t>(l - 1) * H : b0;
+      const int c0 = (T::NPASS - 1) * T::PW + cw;  // the last pass's columns
 #pragma unroll
       for (int j = 0; j < T::NW / 8; ++j) {
         const int col = c0 + 8 * j + 2 * t;
@@ -686,6 +757,17 @@ __device__ __forceinline__ void fwd_trunk_consumer(
             make_float2(fmaxf(acc[4 * j] + bb0, 0.f), fmaxf(acc[4 * j + 1] + bb1, 0.f));
         *reinterpret_cast<float2*>(act + (r0 + 8) * ld + col) =
             make_float2(fmaxf(acc[4 * j + 2] + bb0, 0.f), fmaxf(acc[4 * j + 3] + bb1, 0.f));
+      }
+      for (int pass = 0; pass + 1 < T::NPASS; ++pass) {  // and the finished passes'
+        const float* hp = held_at(pass);
+#pragma unroll
+        for (int j = 0; j < T::NW / 8; ++j) {
+          const int col = pass * T::PW + cw + 8 * j + 2 * t;
+          *reinterpret_cast<float2*>(act + r0 * ld + col) =
+              make_float2(hp[(4 * j) * kConsumers], hp[(4 * j + 1) * kConsumers]);
+          *reinterpret_cast<float2*>(act + (r0 + 8) * ld + col) =
+              make_float2(hp[(4 * j + 2) * kConsumers], hp[(4 * j + 3) * kConsumers]);
+        }
       }
       consumers_sync();
     }
@@ -716,14 +798,15 @@ fwd_trunk_kernel(const float* __restrict__ in, const float* __restrict__ feats,
                  const float* __restrict__ e2, const float* __restrict__ c,
                  const float* __restrict__ wsplit, const float* __restrict__ b0,
                  const float* __restrict__ bh, const float* __restrict__ wout,
-                 const float* __restrict__ bout, float* __restrict__ out4, int N, int Np,
-                 int tiles, int n_raw, int n_phase, int Fd, int D, int L1) {
+                 const float* __restrict__ bout, float* __restrict__ out4,
+                 float* __restrict__ held, int N, int Np, int tiles, int n_raw, int n_phase,
+                 int Fd, int D, int L1) {
   using T = Trunk<H, ROUTE>;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_addr = smem_u32(smem_raw);
   uint8_t* base = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
   const uint32_t ring = smem_u32(base);
-  float* act = reinterpret_cast<float*>(base + kRingBytes);  // (64, H + 8)
+  float* act = reinterpret_cast<float*>(base + T::kRing);  // (64, H + 8)
   float* xbuf = act + kTileP * (H + kActPad);  // two (64, 40) layer-0 input stages
   float* whead = xbuf + 2 * kTileP * kXLd;     // (H, 4): wout's live columns
   uint64_t* bars = reinterpret_cast<uint64_t*>(whead + H * kHead);
@@ -732,7 +815,7 @@ fwd_trunk_kernel(const float* __restrict__ in, const float* __restrict__ feats,
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int stages0 = (D + kStageK - 1) / kStageK;
-  const int stages = stages0 + L1 * (H / kStageK);
+  const int stages = T::NPASS * (stages0 + L1 * (H / kStageK));  // pass images per tile
 
   if (tid == 0) {
     for (int s = 0; s < T::NS; ++s) {
@@ -763,7 +846,7 @@ fwd_trunk_kernel(const float* __restrict__ in, const float* __restrict__ feats,
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     fwd_trunk_consumer<H, INLINE_PE, STAGED, ROUTE>(in, feats, e2, c, b0, bh, wout, bout, out4, N,
                                                     Np, tiles, n_raw, n_phase, Fd, D, L1, ring,
-                                                    base, act, xbuf, whead, full0, empty0);
+                                                    base, act, xbuf, whead, held, full0, empty0);
   }
 }
 
@@ -844,6 +927,7 @@ cudaError_t launch(const float* in, const float* feats, const float* z, const fl
   const Layout lay = make_layout(R, S, D, H, L1);
   float* wsplit = scratch;
   float* out4 = scratch + lay.out4;
+  float* held = scratch + lay.held;
   fwd_split_kernel<H, ROUTE><<<dim3(H / 32, lay.stages), 256, 0, st>>>(w0, wh, wsplit, D,
                                                                        lay.stages0);
   cudaError_t err = cudaGetLastError();
@@ -859,9 +943,9 @@ cudaError_t launch(const float* in, const float* feats, const float* z, const fl
   int sms = 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return err;
-  const int grid = lay.tiles < sms ? lay.tiles : sms;  // persistent CTAs
+  const int grid = lay.ctas < sms ? lay.ctas : sms;  // persistent CTAs
   trunk<<<grid, kThreads, smem, st>>>(
-      in, feats, e2, c, wsplit, b0, bh, wout, bout, out4, lay.N, lay.Np, lay.tiles, n_raw,
+      in, feats, e2, c, wsplit, b0, bh, wout, bout, out4, held, lay.N, lay.Np, lay.tiles, n_raw,
       n_phase, Fd, D, L1);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -902,15 +986,18 @@ int dispatch(const float* in, const float* feats, const float* z, const float* d
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (H == 256)
-    return launch_route<256, INLINE_PE>(route, in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout,
-                                        bout, rgb, depth, acc, weights, scratch, R, S, n_raw,
-                                        n_phase, Fd, D, L1, white_bkgd, device, st);
-  if (H == 128)
-    return launch_route<128, INLINE_PE>(route, in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout,
-                                        bout, rgb, depth, acc, weights, scratch, R, S, n_raw,
-                                        n_phase, Fd, D, L1, white_bkgd, device, st);
-  return cudaErrorInvalidValue;
+  auto at = [&](auto width) {
+    return launch_route<decltype(width)::value, INLINE_PE>(
+        route, in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout, rgb, depth, acc, weights,
+        scratch, R, S, n_raw, n_phase, Fd, D, L1, white_bkgd, device, st);
+  };
+  switch (H) {
+    case 128: return at(std::integral_constant<int, 128>{});
+    case 256: return at(std::integral_constant<int, 256>{});
+    case 384: return at(std::integral_constant<int, 384>{});
+    case 512: return at(std::integral_constant<int, 512>{});
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace

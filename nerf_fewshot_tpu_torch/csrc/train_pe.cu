@@ -167,14 +167,23 @@
 // Shared memory per CTA at H 256 (of 227 KB): trunk 128 KB ring + 66 KB
 // activation tile + 20 KB layer-0 slices + 4 KB head columns = 219 KB; dW
 // 96 KB ring + two 64 KB images of both operands' TF32 halves = 225 KB (128
-// KB + 2 x 16 KB at bfloat16; 128 KB at highest). H 384
-// would need a 98 KB tile and 6 KB of head columns: the ring falls to 96 KB
-// (one 48 KB float32 stage of 16 rows, or 8-row stages), and its wgmma
-// m64n192 keeps 96 + 96 accumulator registers a consumer thread. H 512
-// needs a 130 KB tile, leaving ~70 KB for the ring and slices (8-row stages
-// of 64 KB: one stage), and 128 + 128 accumulator registers, past the 232 a
-// consumer holds: four consumer warpgroups of 128 columns each (or the
-// N-split across a cluster of two CTAs) instead.
+// KB + 2 x 16 KB at bfloat16; 128 KB at highest).
+// Widths 384 and 512: the tile is 98 and 130 KB, and one 64-point tile's
+// running sums and stage products (64 x H x 2 fp32) would take 75 % and all
+// of an SM's 64 K registers, so no split of the columns over warpgroups
+// holds them. A layer of the trunk (forward or backward chain) runs instead
+// in H/128 column passes of 128 columns, 64 a warpgroup: the accumulators
+// of H 128 (32 + 32 registers a thread, one mask word a thread and pass).
+// Each pass streams its own stage images (the pass's 128 output rows: 16
+// KB on every route) through a 96 KB (H 384: 6 stages, 12 at bfloat16) or
+// 64 KB (H 512: 4, or 8) ring, 226 and 228 KB a block. Every pass reads the
+// whole layer input from the tile, so a finished pass writes its outputs
+// (and masks) to the act or gbuf image only; once the last pass has read
+// the tile, each thread copies its own earlier outputs back from the image
+// into the tile (L2-resident, same-thread reads). A column's sums are the
+// one-pass design's, in the same order; H 128 and 256 are one pass, as
+// before. The dW tiles (128 x 128), the composites and render_dx (K = H in
+// 32-column stages) take any multiple of 128.
 // Fragments (wgmma m64nNk8 .tf32, warp w of the warpgroup, g = lane/4,
 // t = lane%4): A a0 (16w+g, t), a1 (16w+g+8, t), a2 (16w+g, t+4),
 // a3 (16w+g+8, t+4); D d[4j+e] at row 16w+g (+8 for e >= 2), column
@@ -189,13 +198,15 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kTileP = 64;             // points per trunk tile (wgmma's M)
 constexpr int kConsumers = 256;        // two consumer warpgroups
 constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
-constexpr int kRingBytes = 128 * 1024;  // the trunk's ring of weight stages
+constexpr int kRingBytes = 128 * 1024;  // the trunk's ring of weight stages (H <= 256)
+constexpr int kPassCols = 128;          // columns per pass of a layer wider than 256
 constexpr int kActPad = 8;             // activation row stride H + 8 (8 mod 32)
 constexpr int kXK = 32;                // layer-0 input columns per slice
 constexpr int kXLd = kXK + kActPad;    // row stride of a slice buffer (8 mod 32)
@@ -227,7 +238,7 @@ constexpr int kDxSmem = static_cast<int>(sizeof(float)) * 2 * kDxStage;
 constexpr int kMaxParts = 8;     // split of the point axis in the dW products
 constexpr int kPartRows = 4096;  // points per part before a further split
 constexpr int kMaxJobs = 16;     // dW products in one launch (layers + head)
-constexpr int kMaskWords = 2;    // mask words a thread keeps per layer at H 256
+constexpr int kMaskWords = 2;    // mask words a thread keeps per layer at H 256 (H/128)
 static_assert(kDxJ % 16 == 0, "render_dx promotes its products every two k-steps");
 
 size_t round_up(size_t a, size_t b) { return (a + b - 1) / b * b; }
@@ -236,16 +247,19 @@ __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 // A route's trunk stages at width H.
 template <int H, int ROUTE>
 struct Trunk {
-  static constexpr int NW = H / 2;    // output columns per consumer warpgroup
-  static constexpr int NR = NW / 2;   // accumulator registers per thread
-  static constexpr int MW = NR / 32;  // mask words per thread and layer
-  static constexpr int PR = NR / 8;   // FFMA route: points per thread (8 columns each)
+  static constexpr int NPASS = H > 256 ? H / kPassCols : 1;  // column passes of a layer
+  static constexpr int PW = H / NPASS;  // columns per pass
+  static constexpr int NW = PW / 2;     // output columns per consumer warpgroup and pass
+  static constexpr int NR = NW / 2;     // accumulator registers per thread
+  static constexpr int MW = NR / 32;    // mask words per thread, layer and pass
+  static constexpr int PR = NR / 8;     // FFMA route: points per thread (8 columns each)
   static constexpr int PL = kTileP / PR;  // and threads per column group
   static constexpr int KS = ROUTE == kTf32x3 ? 16 : 32;  // input rows per stage
-  // a stage image: [hi | lo] TF32 halves, the bf16 rounding, or the fp32 rows
+  static constexpr int kRing = H <= 256 ? kRingBytes : (H == 384 ? 96 * 1024 : 64 * 1024);
+  // a pass's stage image: [hi | lo] TF32 halves, the bf16 rounding, or the fp32 rows
   static constexpr int kStageBytes =
-      ROUTE == kTf32x3 ? 2 * H * KS * 4 : (ROUTE == kBf16 ? H * KS * 2 : H * KS * 4);
-  static constexpr int NS = kRingBytes / kStageBytes;  // ring depth
+      ROUTE == kTf32x3 ? 2 * PW * KS * 4 : (ROUTE == kBf16 ? PW * KS * 2 : PW * KS * 4);
+  static constexpr int NS = kRing / kStageBytes;  // ring depth
   // row strides of the activation tile and the layer-0 slices: 8 mod 32
   // words for the fragments' 8-byte loads, 4 mod 32 for the FFMA route's
   // 16-byte loads of 8 consecutive points
@@ -254,6 +268,8 @@ struct Trunk {
   static_assert(NS >= 4 && MW <= kMaskWords, "a ring of four stages or more");
 };
 
+// Full-width stages of the forward and the backward chain; each is NPASS
+// pass images.
 template <int H, int ROUTE>
 int fwd_stages(int D, int L1) {
   using T = Trunk<H, ROUTE>;
@@ -301,7 +317,8 @@ Layout make_layout(int R, int S, int D, int H, int L1) {
   s.gout = take(kHead * np);
   s.out4 = take(kHead * np);
   s.loss_r = take(R);
-  s.mask = take(static_cast<size_t>(s.tiles) * s.L * kConsumers * kMaskWords);
+  s.mask = take(static_cast<size_t>(s.tiles) * s.L * kConsumers *
+                (H / 128 > kMaskWords ? H / 128 : kMaskWords));
   s.img = take(img > img32 ? img : img32);
   s.w0x = take(2 * d * h);  // w0's image row-major for render_dx: hi, lo
   s.part = off;
@@ -967,7 +984,9 @@ __device__ __forceinline__ void weight_image(float v, float* hi, float* lo, size
 
 // Stage blockIdx.y of the images (the forward's w0 and wh[l] stages, then
 // the backward's wh[l]^T, l from L1 - 1 down), output rows [32*blockIdx.x,
-// +32), through a KS x 32 tile in shared memory; the blocks past the stages
+// +32), through a KS x 32 tile in shared memory, into the image of the pass
+// that owns the rows (per layer, the passes one after the other, each over
+// the layer's stages: the consumers' order); the blocks past the stages
 // write w0's row-major image, 32 rows each.
 template <int H, int ROUTE>
 __global__ void __launch_bounds__(256)
@@ -992,6 +1011,14 @@ weight_image_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
     return;
   }
   const int s0 = cdiv(D, KS), per = H / KS;
+  const int pass = nb / T::PW, np = nb - pass * T::PW;  // the pass, its first row
+  int image;
+  if (st < s0)
+    image = pass * s0 + st;
+  else if (st < n_fwd)
+    image = T::NPASS * s0 + ((st - s0) / per * T::NPASS + pass) * per + (st - s0) % per;
+  else
+    image = T::NPASS * n_fwd + ((st - n_fwd) / per * T::NPASS + pass) * per + (st - n_fwd) % per;
   // tile[r][c]: the stage's input row k0 + r, output row nb + c (zero past K)
   if (st < n_fwd) {
     const float* W = st < s0 ? w0 : wh + static_cast<size_t>((st - s0) / per) * H * H;
@@ -1011,31 +1038,31 @@ weight_image_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
     }
   }
   __syncthreads();
-  uint8_t* img = images + static_cast<size_t>(st) * T::kStageBytes;
-  if constexpr (ROUTE == kFp32) {  // the KS rows as they are, [KS][H]
+  uint8_t* img = images + static_cast<size_t>(image) * T::kStageBytes;
+  if constexpr (ROUTE == kFp32) {  // the KS rows as they are, [KS][PW]
     float* o = reinterpret_cast<float*>(img);
     for (int e = tid; e < KS * 32; e += 256) {
       const int r = e / 32, c = e % 32;
-      o[r * H + nb + c] = tile[r][c];
+      o[r * T::PW + np + c] = tile[r][c];
     }
   } else if constexpr (ROUTE == kBf16) {  // row n's k-slot kk, 64-byte swizzle
     uint16_t* o = reinterpret_cast<uint16_t*>(img);
     for (int e = tid; e < KS * 32; e += 256) {
-      const int kk = e % KS, n = nb + e / KS;
+      const int kk = e % KS, n = np + e / KS;
       o[n * KS + ((((kk >> 3) ^ ((n >> 1) & 3))) << 3) + (kk & 7)] =
-          static_cast<uint16_t>(pack_bf16(0.f, tile[kk][n - nb]) >> 16);
+          static_cast<uint16_t>(pack_bf16(0.f, tile[kk][n - np]) >> 16);
     }
   } else {  // row n's k-slot s holds input row 8*(s/8) + (j < 4 ? 2j : 2j - 7), j = s % 8
     float* o = reinterpret_cast<float*>(img);
     for (int e = tid; e < KS * 32; e += 256) {
-      const int s = e % KS, n = nb + e / KS;
+      const int s = e % KS, n = np + e / KS;
       const int j = s & 7;
       const int r = (s & ~7) + (j < 4 ? 2 * j : 2 * j - 7);
       uint32_t hi, lo;
-      split_tf32(tile[r][n - nb], hi, lo);
+      split_tf32(tile[r][n - np], hi, lo);
       const int pos = n * KS + ((((s >> 2) ^ ((n >> 1) & 3))) << 2) + (s & 3);
       o[pos] = __uint_as_float(hi);
-      o[H * KS + pos] = __uint_as_float(lo);
+      o[T::PW * KS + pos] = __uint_as_float(lo);
     }
   }
 }
@@ -1061,12 +1088,16 @@ struct TrunkArgs {
 // tile, two layer-0 input slices, wout's live columns, the mbarriers.
 template <int H, int ROUTE>
 constexpr size_t trunk_smem() {
-  return 1024 + kRingBytes +
+  return 1024 + Trunk<H, ROUTE>::kRing +
          sizeof(float) * (static_cast<size_t>(kTileP) * (H + kActPad + 2 * kXLd) + H * kHead) +
          2 * Trunk<H, ROUTE>::NS * sizeof(uint64_t);
 }
-static_assert(trunk_smem<256, kTf32x3>() <= 232448 && trunk_smem<256, kBf16>() <= 232448 &&
-                  trunk_smem<256, kFp32>() <= 232448 && trunk_smem<128, kBf16>() <= 232448,
+template <int H>
+constexpr bool trunk_fits() {
+  return trunk_smem<H, kTf32x3>() <= 232448 && trunk_smem<H, kBf16>() <= 232448 &&
+         trunk_smem<H, kFp32>() <= 232448;
+}
+static_assert(trunk_fits<128>() && trunk_fits<256>() && trunk_fits<384>() && trunk_fits<512>(),
               "the trunk's shared memory fits a block");
 
 // The two consumer warpgroups of a trunk pass.
@@ -1081,10 +1112,11 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
   constexpr int xld = T::XLD;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
-  const int wg = warp >> 2;            // warpgroup: columns [wg*NW, +NW)
+  const int wg = warp >> 2;            // warpgroup: pass columns [wg*NW, +NW)
   const int g = lane >> 2, t = lane & 3;
   const int r0 = 16 * (warp & 3) + g;  // fragment rows r0, r0 + 8
-  const int c0 = wg * T::NW;
+  const int cw = wg * T::NW;           // in a pass's images
+  int c0 = cw;                         // in the layer: the pass's, pass * PW + cw
   // The FFMA route's threads own PR points x 8 columns each (points pl +
   // PL*p, columns c0 + 8*cgi + {0..7}): a warp's lanes take consecutive
   // points, so its image stores are as coalesced as a fragment's, and a
@@ -1115,9 +1147,10 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
 
   for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
     const int n0 = tile * kTileP;
-    // the thread's mask words of layer output A_{layer+1}
-    auto mask_at = [&](int layer) {
-      return a.mask + (static_cast<size_t>(tile) * L + layer) * T::MW * kConsumers + tid;
+    // the thread's mask words of layer output A_{layer+1}, pass `pass`
+    auto mask_at = [&](int layer, int pass) {
+      return a.mask + (static_cast<size_t>(tile) * L + layer) * T::NPASS * T::MW * kConsumers +
+             pass * T::MW * kConsumers + tid;
     };
     // columns [32*sl, +32) of layer 0's input to dst[p*ldd + j] (point-major)
     // and to the act image (A_0); a warp takes 32 points of one column
@@ -1178,7 +1211,7 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
           const int rows = K - st * KS >= KS ? KS : 16;
           mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
           const float* w =
-              reinterpret_cast<const float*>(ring_ptr + s * T::kStageBytes) + c0 + 8 * cgi;
+              reinterpret_cast<const float*>(ring_ptr + s * T::kStageBytes) + cw + 8 * cgi;
           const float* src = src_of(st) + pl * sld;
 #pragma unroll 1
           for (int k4 = 0; k4 < rows; k4 += 4) {
@@ -1188,8 +1221,8 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
               av[p] = *reinterpret_cast<const float4*>(src + T::PL * p * sld + k4);
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk) {
-              const float4 b0 = *reinterpret_cast<const float4*>(w + (k4 + kk) * H);
-              const float4 b1 = *reinterpret_cast<const float4*>(w + (k4 + kk) * H + 4);
+              const float4 b0 = *reinterpret_cast<const float4*>(w + (k4 + kk) * T::PW);
+              const float4 b1 = *reinterpret_cast<const float4*>(w + (k4 + kk) * T::PW + 4);
               const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
               for (int p = 0; p < T::PR; ++p) {
@@ -1228,7 +1261,7 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
           const int s = it % T::NS;
           const int live = K - st * KS >= KS ? 2 : 1;
           mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
-          const uint32_t img = ring + s * T::kStageBytes + c0 * (KS * 2);
+          const uint32_t img = ring + s * T::kStageBytes + cw * (KS * 2);
           fence_regs(part);
           wgmma_fence();
 #pragma unroll
@@ -1284,8 +1317,8 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
             if (g < n) {
               const int s = (it + g) % T::NS;
               mbar_wait(full0 + 8 * s, ((it + g) / T::NS) & 1);
-              const uint32_t hi_img = ring + s * T::kStageBytes + c0 * (KS * 4);
-              const uint32_t lo_img = hi_img + H * KS * 4;
+              const uint32_t hi_img = ring + s * T::kStageBytes + cw * (KS * 4);
+              const uint32_t lo_img = hi_img + T::PW * KS * 4;
 #pragma unroll
               for (int k = 0; k < 2; ++k) {
                 const int q = 2 * g + k;
@@ -1318,13 +1351,28 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
       }
     };
 
-    // v (the thread's NR outputs) over the tile in place and to an image
-    auto write_out = [&](const float (&v)[T::NR], float* img, int rows, int row0) {
+    // v (the thread's NR outputs of columns c0..) to an image and, to_tile,
+    // over the tile in place
+    auto write_out = [&](const float (&v)[T::NR], float* img, int rows, int row0, bool to_tile) {
 #pragma unroll
       for (int i = 0; i < T::NR; i += 2) {  // i, i + 1: one point, adjacent columns
-        *reinterpret_cast<float2*>(act_sm + pt_of(i) * ld + col_of(i)) = make_float2(v[i], v[i + 1]);
+        if (to_tile)
+          *reinterpret_cast<float2*>(act_sm + pt_of(i) * ld + col_of(i)) =
+              make_float2(v[i], v[i + 1]);
         img[img_at(rows, row0 + col_of(i), n0 + pt_of(i))] = v[i];
         img[img_at(rows, row0 + col_of(i) + 1, n0 + pt_of(i))] = v[i + 1];
+      }
+    };
+    // the passes before the last: their outputs, written by this thread to
+    // the image only, over the tile (once every warp is done reading it)
+    auto restore = [&](const float* img, int rows, int row0) {
+      for (int pass = 0; pass + 1 < T::NPASS; ++pass) {
+        c0 = pass * T::PW + cw;
+#pragma unroll
+        for (int i = 0; i < T::NR; i += 2)
+          *reinterpret_cast<float2*>(act_sm + pt_of(i) * ld + col_of(i)) =
+              make_float2(img[img_at(rows, row0 + col_of(i), n0 + pt_of(i))],
+                          img[img_at(rows, row0 + col_of(i) + 1, n0 + pt_of(i))]);
       }
     };
 
@@ -1337,21 +1385,31 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
       }
       consumers_sync();
       for (int l = 0; l <= a.L1; ++l) {
-        products(l ? H : a.D, !STAGED || l > 0);
-        consumers_sync();  // every warp is done reading the layer's input
-        const float* bias = l ? a.bh + static_cast<size_t>(l - 1) * H : a.b0;
-        uint32_t m[T::MW];
+        for (int pass = 0; pass < T::NPASS; ++pass) {
+          c0 = pass * T::PW + cw;
+          const bool last = pass + 1 == T::NPASS;
+          if (pass > 0 && STAGED && l == 0) {  // x's first slice again, once every warp is past it
+            consumers_sync();
+            build_x(0, xslice(0), xld);
+            consumers_sync();
+          }
+          products(l ? H : a.D, !STAGED || l > 0);
+          if (last) consumers_sync();  // every warp is done reading the layer's input
+          const float* bias = l ? a.bh + static_cast<size_t>(l - 1) * H : a.b0;
+          uint32_t m[T::MW];
 #pragma unroll
-        for (int w = 0; w < T::MW; ++w) m[w] = 0u;
+          for (int w = 0; w < T::MW; ++w) m[w] = 0u;
 #pragma unroll
-        for (int i = 0; i < T::NR; ++i) {
-          acc[i] = fmaxf(acc[i] + __ldg(bias + col_of(i)), 0.f);
-          if (acc[i] > 0.f) m[i >> 5] |= 1u << (i & 31);
+          for (int i = 0; i < T::NR; ++i) {
+            acc[i] = fmaxf(acc[i] + __ldg(bias + col_of(i)), 0.f);
+            if (acc[i] > 0.f) m[i >> 5] |= 1u << (i & 31);
+          }
+          write_out(acc, a.act, a.act_rows, a.D + l * H, last);
+          uint32_t* mk = mask_at(l, pass);
+#pragma unroll
+          for (int w = 0; w < T::MW; ++w) mk[w * kConsumers] = m[w];
         }
-        write_out(acc, a.act, a.act_rows, a.D + l * H);
-        uint32_t* mk = mask_at(l);
-#pragma unroll
-        for (int w = 0; w < T::MW; ++w) mk[w * kConsumers] = m[w];
+        restore(a.act, a.act_rows, a.D + l * H);
         consumers_sync();
       }
       // head, fp32 FMAs (bf16-rounded operands with head_bf16): thread ->
@@ -1374,10 +1432,6 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
     } else {
       // delta_L = (g_out.wout[:, :4]^T) * [A_L > 0], exact fp32
       {
-        const uint32_t* mk = mask_at(a.L1);
-        uint32_t m[T::MW];
-#pragma unroll
-        for (int w = 0; w < T::MW; ++w) m[w] = mk[w * kConsumers];
         float gv[NP][kHead];
 #pragma unroll
         for (int p = 0; p < NP; ++p) {
@@ -1386,16 +1440,23 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
           for (int o = 0; o < kHead; ++o)
             gv[p][o] = n < a.N ? head_in(a.gout[static_cast<size_t>(o) * a.Np + n], hb) : 0.f;
         }
+        for (int pass = 0; pass < T::NPASS; ++pass) {
+          c0 = pass * T::PW + cw;
+          const uint32_t* mk = mask_at(a.L1, pass);
+          uint32_t m[T::MW];
 #pragma unroll
-        for (int i = 0; i < T::NR; ++i) {
-          const float* wk = whead + col_of(i) * kHead;
-          float s = gv[pidx(i)][0] * wk[0];
-          s = fmaf(gv[pidx(i)][1], wk[1], s);
-          s = fmaf(gv[pidx(i)][2], wk[2], s);
-          s = fmaf(gv[pidx(i)][3], wk[3], s);
-          acc[i] = n0 + pt_of(i) < a.N && ((m[i >> 5] >> (i & 31)) & 1u) ? s : 0.f;
+          for (int w = 0; w < T::MW; ++w) m[w] = mk[w * kConsumers];
+#pragma unroll
+          for (int i = 0; i < T::NR; ++i) {
+            const float* wk = whead + col_of(i) * kHead;
+            float s = gv[pidx(i)][0] * wk[0];
+            s = fmaf(gv[pidx(i)][1], wk[1], s);
+            s = fmaf(gv[pidx(i)][2], wk[2], s);
+            s = fmaf(gv[pidx(i)][3], wk[3], s);
+            acc[i] = n0 + pt_of(i) < a.N && ((m[i >> 5] >> (i & 31)) & 1u) ? s : 0.f;
+          }
+          write_out(acc, a.gbuf, a.g_rows, a.L1 * H, true);  // the seed reads no tile
         }
-        write_out(acc, a.gbuf, a.g_rows, a.L1 * H);
         // g_out beside the deltas, for the head's dW (zero past N)
         for (int e = tid; e < kHead * kTileP; e += kConsumers) {
           const int o = e / kTileP, n = n0 + e % kTileP;
@@ -1406,16 +1467,21 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
       consumers_sync();
       for (int l = a.L1 - 1; l >= 0; --l) {
         // delta_{l+1} = (delta_{l+2} . wh[l]^T) * [A_{l+1} > 0]
-        const uint32_t* mk = mask_at(l);
-        uint32_t m[T::MW];
+        for (int pass = 0; pass < T::NPASS; ++pass) {
+          c0 = pass * T::PW + cw;
+          const bool last = pass + 1 == T::NPASS;
+          const uint32_t* mk = mask_at(l, pass);
+          uint32_t m[T::MW];
 #pragma unroll
-        for (int w = 0; w < T::MW; ++w) m[w] = mk[w * kConsumers];
-        products(H, true);
-        consumers_sync();  // every warp is done reading delta_{l+2}
+          for (int w = 0; w < T::MW; ++w) m[w] = mk[w * kConsumers];
+          products(H, true);
+          if (last) consumers_sync();  // every warp is done reading delta_{l+2}
 #pragma unroll
-        for (int i = 0; i < T::NR; ++i)
-          if (!((m[i >> 5] >> (i & 31)) & 1u)) acc[i] = 0.f;
-        write_out(acc, a.gbuf, a.g_rows, l * H);
+          for (int i = 0; i < T::NR; ++i)
+            if (!((m[i >> 5] >> (i & 31)) & 1u)) acc[i] = 0.f;
+          write_out(acc, a.gbuf, a.g_rows, l * H, last);
+        }
+        restore(a.gbuf, a.g_rows, l * H);
         consumers_sync();
       }
     }
@@ -1430,7 +1496,7 @@ __device__ __forceinline__ void trunk(const TrunkArgs& a) {
   const uint32_t raw_addr = smem_u32(smem_raw);
   uint8_t* base = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
   const uint32_t ring = smem_u32(base);
-  float* act_sm = reinterpret_cast<float*>(base + kRingBytes);  // (64, H + 8)
+  float* act_sm = reinterpret_cast<float*>(base + T::kRing);  // (64, H + 8)
   float* xbuf = act_sm + kTileP * T::LD;        // two (64, 40) layer-0 input slices
   float* whead = xbuf + 2 * kTileP * kXLd;      // (H, 4): wout's live columns
   uint64_t* bars = reinterpret_cast<uint64_t*>(whead + H * kHead);
@@ -2038,16 +2104,17 @@ TrunkArgs trunk_args(const Layout& s, const Scratch& b, const float* in, const f
 template <int H, bool INLINE_PE, int ROUTE>
 cudaError_t launch_forward(TrunkArgs a, const Scratch& b, int device, cudaStream_t st) {
   a.images = b.img;
-  a.stages = fwd_stages<H, ROUTE>(a.D, a.L1);
+  a.stages = Trunk<H, ROUTE>::NPASS * fwd_stages<H, ROUTE>(a.D, a.L1);
   return launch_trunk<H, kFwd, INLINE_PE, ROUTE>(a, device, st);
 }
 
 // The backward chain of each 64-point tile, from the head cotangent gout.
 template <int H, int ROUTE>
 cudaError_t launch_backward(TrunkArgs a, const Scratch& b, int device, cudaStream_t st) {
-  a.images = b.img + static_cast<size_t>(fwd_stages<H, ROUTE>(a.D, a.L1)) *
-                         Trunk<H, ROUTE>::kStageBytes;
-  a.stages = bwd_stages<H, ROUTE>(a.L1);
+  using T = Trunk<H, ROUTE>;
+  a.images = b.img + static_cast<size_t>(T::NPASS) * fwd_stages<H, ROUTE>(a.D, a.L1) *
+                         T::kStageBytes;
+  a.stages = T::NPASS * bwd_stages<H, ROUTE>(a.L1);
   return launch_trunk<H, kBwd, false, ROUTE>(a, device, st);
 }
 
@@ -2124,7 +2191,7 @@ cudaError_t launch_dw(const Layout& s, const Scratch& b, float* grads, int D, in
 // the composite's shared memory, at most kMaxJobs dW products.
 bool shapes_ok(int R, int S, int D, int H, int L1) {
   return R >= 1 && S >= 1 && S <= kMaxS && D > 0 && D % 16 == 0 && D <= kMaxD &&
-         (H == 128 || H == 256) && L1 >= 0 && L1 + 2 <= kMaxJobs;
+         (H == 128 || H == 256 || H == 384 || H == 512) && L1 >= 0 && L1 + 2 <= kMaxJobs;
 }
 
 bool route_ok(int route) { return route == kTf32x3 || route == kBf16 || route == kFp32; }
@@ -2177,6 +2244,17 @@ template <int H>
 cudaError_t dispatch(int inline_pe, int route, const TrainArgs& a, int device, cudaStream_t st) {
   return inline_pe ? dispatch_route<H, true>(route, a, device, st)
                    : dispatch_route<H, false>(route, a, device, st);
+}
+
+// f(std::integral_constant<int, H>) at the trunk widths shapes_ok takes.
+template <class F>
+cudaError_t at_width(int H, F f) {
+  switch (H) {
+    case 128: return f(std::integral_constant<int, 128>{});
+    case 256: return f(std::integral_constant<int, 256>{});
+    case 384: return f(std::integral_constant<int, 384>{});
+    default: return f(std::integral_constant<int, 512>{});
+  }
 }
 
 // The render VJP's arguments, as nerf_render_bwd takes them.
@@ -2257,8 +2335,9 @@ extern "C" int nerf_train_objective(const float* in, const float* feats, const f
                     e2,   c,     w0,    b0,      wh,      bh,     wout,      bout,
                     loss, grads, scratch, R,     S,       n_raw,  n_phase,   Fd,
                     D,    L1,    white_bkgd, rgb_c, reg_c, depth_c, dw_route, head_vpu};
-  if (H == 256) return dispatch<256>(inline_pe, route, a, device, st);
-  return dispatch<128>(inline_pe, route, a, device, st);
+  return at_width(H, [&](auto w) {
+    return dispatch<decltype(w)::value>(inline_pe, route, a, device, st);
+  });
 }
 
 extern "C" int nerf_render_bwd(const float* x, const float* z, const float* dnorm,
@@ -2273,8 +2352,9 @@ extern "C" int nerf_render_bwd(const float* x, const float* z, const float* dnor
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const RenderBwdArgs a{x,       z,     dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth,
                         g_acc,   g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd};
-  if (H == 256) return render_bwd_route<256>(route, a, device, st);
-  return render_bwd_route<128>(route, a, device, st);
+  return at_width(H, [&](auto w) {
+    return render_bwd_route<decltype(w)::value>(route, a, device, st);
+  });
 }
 
 extern "C" const char* nerf_cuda_error_string(int err) {

@@ -2,7 +2,8 @@
 ``nerf_fewshot_tpu/data/blender.py``), numpy on the host.
 
 PIL is imported inside ``load_blender`` only, so the rest of the port runs
-where PIL is absent.
+where PIL is absent; ``save_blender`` writes its PNGs with the port's own
+zlib writer (``utils/logging.py:save_png``).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import os
 from typing import Optional
 
 import numpy as np
+
+from nerf_fewshot_tpu_torch.utils.logging import save_png
 
 
 @dataclasses.dataclass
@@ -95,3 +98,24 @@ def load_blender(
     return BlenderDataset(
         images=images_np, poses=np.stack(poses), H=H, W=W, focal=float(focal)
     )
+
+
+def save_blender(
+    basedir: str,
+    split: str,
+    images: np.ndarray,
+    poses: np.ndarray,
+    camera_angle_x: float,
+) -> None:
+    """Write a split in Blender-synthetic layout: ``<split>/r_<i>.png`` (RGB
+    or RGBA, pixels ``uint8(clip(255 * x, 0, 255))``) and
+    ``transforms_<split>.json`` with the poses and ``camera_angle_x``, as
+    the JAX package's ``save_blender`` writes it (a round trip for tests)."""
+    os.makedirs(os.path.join(basedir, split), exist_ok=True)
+    frames = []
+    for i, (img, pose) in enumerate(zip(images, poses)):
+        rel = f"./{split}/r_{i}"
+        save_png(os.path.join(basedir, f"{rel}.png"), np.asarray(img))
+        frames.append({"file_path": rel, "transform_matrix": np.asarray(pose).tolist()})
+    with open(os.path.join(basedir, f"transforms_{split}.json"), "w") as f:
+        json.dump({"camera_angle_x": camera_angle_x, "frames": frames}, f)

@@ -63,7 +63,7 @@ def run_smoke(coordinator: str, num_processes: int, process_id: int, rays_per_ho
         row = packed[torch.arange(sl.start, sl.stop)]
         ro, rd, tgt = make_global_batch(mesh, (row[:, 0:3], row[:, 3:6], row[:, 6:9]))
 
-        hidden = 128 if kernels else 64  # the kernels take widths 128 and 256
+        hidden = 128 if kernels else 64  # the kernels take widths 128, 256, 384 and 512
         model = NeRFMLP(pos_freq=6, dir_freq=2, use_viewdirs=True, hidden_dim=hidden,
                         num_layers=3, generator=torch.Generator().manual_seed(0)).to(mesh.device)
         opt = torch.optim.Adam(model.parameters(), lr=1e-3)

@@ -40,7 +40,7 @@ D_PAD = 128
 PE_ALIGN = 16
 MAX_INPUT_WIDTH = 896
 OUT_PAD = 128  # packed head columns: [r, g, b, sigma, 0...]
-KERNEL_WIDTHS = (128, 256)  # trunk widths the CUDA kernel is built for
+KERNEL_WIDTHS = (128, 256, 384, 512)  # trunk widths the CUDA kernels are built for
 MAX_SAMPLES = 1024  # per-ray sigma/rgb scratch of the kernel lives in smem
 # csrc/fwd_pe.cu:nerf_fwd_pe(17 pointers (the last the scratch), 11 ints, stream)
 FWD_PE_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]

@@ -1,25 +1,27 @@
-"""Save the five kernels' ``float32`` outputs on the main path's inputs from
-a given checkout, or compare two such files bit for bit: the check that a
-change to the kernels' sources left the float32 route as it was.
+"""Save the five kernels' outputs at every precision route on fixed
+inputs from a given checkout, or compare two such files bit for bit: the
+check that a change to the kernels' sources left the builds it did not
+mean to change as they were.
 
     python nerf_fewshot_tpu_torch/tools/route_bits.py --root DIR --out FILE.pt
     python nerf_fewshot_tpu_torch/tools/route_bits.py --compare A.pt B.pt \
-        [--reordered train_pe train_x render_bwd]
+        [--reordered NAME_PREFIX ...]
 
 A run imports ``nerf_fewshot_tpu_torch`` and ``chip_smoke`` from ``--root``
 (so one copy of this script drives the port of any checkout that has them;
 run each checkout in its own process, as they share the package's name),
-builds its kernels, and calls each at its default ``compute_dtype`` on the
-inputs ``chip_smoke`` makes for the main path: ``experiments/baseline.yaml``
-at its seed on the synthetic scene (kernel 2 and 4 on a 2048x64 eval chunk,
-kernels 1, 5 and 3 on the phase-2 batch of 512x64), and at the DINO width
-(pos_freq 12, 64 features: D 176 inline, a 256-wide x) from seed 0. The file
+builds its kernels, and calls each at ``compute_dtype`` ``float32``,
+``bfloat16`` and ``highest`` on the inputs ``chip_smoke`` makes: at trunk
+width 256 for the main path, ``experiments/baseline.yaml`` at its seed on
+the synthetic scene (kernels 2 and 4 on a 2048x64 eval chunk, kernels 1, 5
+and 3 on the phase-2 batch of 512x64), and at the DINO width (pos_freq 12,
+64 features: D 176 inline, a 256-wide x) from seed 0; at trunk width 128
+(3 layers, 64 features) from seed 1. Call names end in the route. The file
 holds the outputs and a digest of the inputs; ``--compare`` fails unless
 both files saw the same inputs and every output tensor is bit-equal.
 ``--reordered`` names the calls (by prefix) whose kernel sums in another
 order in the second tree, by design: those are reported, with the
-relative difference of their outputs as one vector, and not gated (the
-kernel phases hold them against float64 instead).
+relative difference of their outputs as one vector, and not gated.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import argparse
 import hashlib
 import os
 import sys
+
+ROUTES = ("float32", "bfloat16", "highest")
 
 
 def _digest(tensors) -> str:
@@ -75,7 +79,7 @@ def run(root: str, out: str) -> None:
     add("fwd_d96", tk.fused_render_fwd, *chip_smoke.main_path_fwd_x_args(
         trainer, test.poses[0], device))
     bw, cot = chip_smoke.main_path_render_bwd_args(trainer, device)
-    add("render_bwd_d96", lambda *a: flat(tk.fused_render_bwd(*a)), *bw, *cot)
+    add("render_bwd_d96", lambda *a, **k: flat(tk.fused_render_bwd(*a, **k)), *bw, *cot)
     for name, inline_pe in (("train_pe_d96", True), ("train_x_d96", False)):
         a, o = chip_smoke.main_path_train_args(trainer, last, device, inline_pe=inline_pe)
         add(name, lambda *a, **o: flat(tt.fused_train_objective(*a, **o)), *a, **o)
@@ -84,17 +88,32 @@ def run(root: str, out: str) -> None:
     a, _ = chip_smoke.random_render_args(rng, 2048, 64, 256, 8, device, feat_dim=64, pos_freq=12)
     add("fwd_d176", tk.fused_render_fwd, *a)
     a, _ = chip_smoke.random_render_args(rng, 512, 64, 256, 8, device, feat_dim=64, pos_freq=12)
-    add("render_bwd_d176", lambda *a: flat(tk.fused_render_bwd(*a)), *a,
+    add("render_bwd_d176", lambda *a, **k: flat(tk.fused_render_bwd(*a, **k)), *a,
         *chip_smoke.random_cotangents(rng, 512, 64, device))
     for name, inline_pe in (("train_pe_d176", True), ("train_x_d176", False)):
         a, o = chip_smoke.random_train_args(rng, 512, 64, 256, 8, device, feat_dim=64,
                                             pos_freq=12, inline_pe=inline_pe)
         add(name, lambda *a, **o: flat(tt.fused_train_objective(*a, **o)), *a, **o)
 
+    rng = np.random.default_rng(1)
+    a = chip_smoke.random_fwd_pe_args(rng, 1024, 64, 128, 3, 64, device, d_pad=160)
+    add("fwd_pe_h128", tk.fused_render_fwd_pe, *a, use_feats=True)
+    a, _ = chip_smoke.random_render_args(rng, 1024, 64, 128, 3, device, feat_dim=64)
+    add("fwd_h128", tk.fused_render_fwd, *a)
+    a, _ = chip_smoke.random_render_args(rng, 512, 64, 128, 3, device, feat_dim=64)
+    add("render_bwd_h128", lambda *a, **k: flat(tk.fused_render_bwd(*a, **k)), *a,
+        *chip_smoke.random_cotangents(rng, 512, 64, device))
+    for name, inline_pe in (("train_pe_h128", True), ("train_x_h128", False)):
+        a, o = chip_smoke.random_train_args(rng, 512, 64, 128, 3, device, feat_dim=64,
+                                            white_bkgd=True, ragged=9, inline_pe=inline_pe)
+        add(name, lambda *a, **o: flat(tt.fused_train_objective(*a, **o)), *a, **o)
+
     outputs, digests = {}, {}
     for name, (fn, args, kw, digest) in calls.items():
-        outputs[name] = [t.detach().cpu() for t in fn(*args, **kw) if t is not None]
-        digests[name] = digest
+        for cd in ROUTES:
+            got = fn(*args, **{**kw, "compute_dtype": cd})
+            outputs[f"{name}_{cd}"] = [t.detach().cpu() for t in got if t is not None]
+            digests[f"{name}_{cd}"] = digest
     torch.cuda.synchronize()
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     torch.save({"root": root, "device": torch.cuda.get_device_name(0), "inputs": digests,
@@ -115,13 +134,17 @@ def compare(a_path: str, b_path: str, reordered=()) -> bool:
         if name.startswith(tuple(reordered)):
             rel = ((flat(y) - flat(x)).norm() / flat(x).norm()).item()
             ok &= same_in
-            print(f"  {name}: inputs {'equal' if same_in else 'DIFFER'}, float32 outputs "
+            print(f"  {name}: inputs {'equal' if same_in else 'DIFFER'}, outputs "
                   f"{'bit-equal' if same else 'differ'} (sums reordered by design), rel "
                   f"{rel:.3e}", flush=True)
             continue
         ok &= same
-        print(f"  {name}: inputs {'equal' if same_in else 'DIFFER'}, float32 outputs "
+        print(f"  {name}: inputs {'equal' if same_in else 'DIFFER'}, outputs "
               f"{'bit-equal' if same else 'DIFFER'}", flush=True)
+    if set(a["outputs"]) != set(b["outputs"]):
+        print(f"  the files hold different calls: {sorted(set(a['outputs']) ^ set(b['outputs']))}",
+              flush=True)
+        ok = False
     return ok
 
 
@@ -134,7 +157,7 @@ def main() -> None:
     args = ap.parse_args()
     if args.compare:
         if not compare(*args.compare, reordered=args.reordered):
-            raise SystemExit("route_bits: the float32 outputs differ")
+            raise SystemExit("route_bits: the outputs differ")
     elif not args.out:
         ap.error("a run needs --out")
     else:

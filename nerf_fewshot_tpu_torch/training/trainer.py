@@ -14,10 +14,10 @@ follows the JAX trainer: ``rendering.backend: xla``, or under ``auto`` a
 config the JAX kernels do not take (``arch: module``, skip layers, a width
 that is not a multiple of 128, sigma noise), trains on the plain path on
 every device. A config the JAX kernels take but the port has no CUDA build
-for (a width of 384 or 512, an MLP input wider than 896 columns) raises on
-a card, and trains on the plain path only on the CPU or with ``backend:
-xla``. The path taken is in ``kernel_path``. Minibatch
-permutations come from ``np.random.default_rng(cfg.seed)`` exactly as in
+for (a width of 640 or more: the kernels take 128, 256, 384 and 512; an
+MLP input wider than 896 columns) raises on a card, and trains on the plain
+path only on the CPU or with ``backend: xla``. The path taken is in
+``kernel_path``. Minibatch permutations come from ``np.random.default_rng(cfg.seed)`` exactly as in
 the JAX trainer, so both draw the same batches. Eval renders every view
 through ``fused_render_rays(forward_only=True)`` on the kernel path.
 

@@ -80,16 +80,18 @@ def _png_chunk(tag: bytes, data: bytes) -> bytes:
 
 
 def save_png(path: str, image: np.ndarray) -> None:
-    """Save an (H, W, 3) float [0, 1] image as an 8-bit RGB PNG (pixels
-    ``uint8(clip(255 * x, 0, 255))``, as the JAX package writes them)."""
+    """Save an (H, W, 3) or (H, W, 4) float [0, 1] image as an 8-bit RGB or
+    RGBA PNG (pixels ``uint8(clip(255 * x, 0, 255))``, as the JAX package
+    writes them)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)) or ".", exist_ok=True)
     arr = np.clip(np.asarray(image) * 255.0, 0, 255).astype(np.uint8)
-    if arr.ndim != 3 or arr.shape[2] != 3:
-        raise ValueError(f"save_png: expected an (H, W, 3) image, got {arr.shape}")
-    H, W, _ = arr.shape
+    if arr.ndim != 3 or arr.shape[2] not in (3, 4):
+        raise ValueError(f"save_png: expected an (H, W, 3) or (H, W, 4) image, got {arr.shape}")
+    H, W, C = arr.shape
     rows = b"".join(b"\x00" + arr[y].tobytes() for y in range(H))  # filter 0 per row
+    color_type = 2 if C == 3 else 6  # truecolour, or truecolour with alpha
     png = (b"\x89PNG\r\n\x1a\n"
-           + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+           + _png_chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, color_type, 0, 0, 0))
            + _png_chunk(b"IDAT", zlib.compress(rows))
            + _png_chunk(b"IEND", b""))
     with open(path, "wb") as f:

@@ -244,13 +244,13 @@ def test_a_cuda_request_without_a_card_raises(tmp_path, monkeypatch):
 
 
 def test_load_datasets_reads_a_blender_scene_as_the_jax_cli(tmp_path):
-    """A Blender-layout scene on disk (written with the JAX package's
+    """A Blender-layout scene on disk (written with the port's
     ``save_blender``): both CLIs' ``_load_datasets`` give the same first
     ``num_views`` train views (``few_shot``), the whole test split, the same
     poses and focal."""
     from nerf_fewshot_tpu import cli as jcli
-    from nerf_fewshot_tpu.data.blender import save_blender
     from nerf_fewshot_tpu.training import config as jcfg
+    from nerf_fewshot_tpu_torch.data.blender import save_blender
     from nerf_fewshot_tpu_torch.training import config as tcfg
 
     rng = np.random.default_rng(0)

@@ -353,6 +353,109 @@ def test_every_kernel_at_every_route_matches_plain(h100, kernel, compute_dtype):
         assert dist(got, f32) > apart
 
 
+# The wide trunks (H 384 and 512: column passes of 128) at every route:
+# render outputs within WIDE_OUT_ATOL (TOL, or the bfloat16 route's bound),
+# the gradient vectors (with the loss) within WIDE_GRAD_RTOL, or, at float32
+# and highest, no further from a float64 run than F64_FACTOR times the
+# plain version (``_within_gate_or_f64``: a 37-ray case can round one ReLU
+# gate to the other side).
+WIDE_OUT_ATOL = {"float32": TOL, "highest": TOL,
+                 "bfloat16": {k: ROUTE_OUT_ATOL["bfloat16"] for k in TOL}}
+WIDE_GRAD_RTOL = {"float32": 1e-4, "bfloat16": ROUTE_GRAD_RTOL["bfloat16"], "highest": 1e-4}
+
+
+def _wide_case(kernel, H, device, R=37, S=48, L=4, staged=False):
+    """Random inputs of one kernel through an L x H trunk at R x S points
+    (37 x 48: the last 64-point tile ragged) with 64 point features, or at
+    the script recipes' input (768 features: D 864 inline, an 896-wide x)
+    when ``staged``; returns ``(launches(), run(cd), plain(cd), f64(cd))``,
+    the calls returning flat tuples."""
+    import chip_smoke
+    from nerf_fewshot_tpu_torch.tools.f64_cases import objective_f64, to_f64
+
+    rng = np.random.default_rng(11)
+    fd = 768 if staged else 64
+    if kernel == "fwd_pe":
+        a = chip_smoke.random_fwd_pe_args(rng, R, S, H, L, fd, device,
+                                          d_pad=tk.pe_width(90 + fd))
+        assert a[6][0].shape[0] == (864 if staged else 160)
+        return (lambda: tk.fused_render_fwd_pe.launches,
+                lambda cd: tk.fused_render_fwd_pe(*a, compute_dtype=cd, use_feats=True),
+                lambda cd: tk.fused_render_fwd_pe_reference(*a, compute_dtype=cd,
+                                                            use_feats=True), None)
+    if kernel in ("fwd_x", "render_bwd"):
+        a, _ = chip_smoke.random_render_args(rng, R, S, H, L, device, feat_dim=fd)
+        assert a[0].shape[1] == (896 if staged else 256)
+        if kernel == "fwd_x":
+            return (lambda: tk.fused_render_fwd.launches,
+                    lambda cd: tk.fused_render_fwd(*a, white_bkgd=True, compute_dtype=cd),
+                    lambda cd: tk.fused_render_reference(*a, white_bkgd=True, compute_dtype=cd),
+                    None)
+        cot = chip_smoke.random_cotangents(rng, R, S, device)
+        flat = lambda r: (r[0], *r[1])
+        return (lambda: tk.fused_render_bwd.launches,
+                lambda cd: flat(tk.fused_render_bwd(*a, *cot, compute_dtype=cd)),
+                lambda cd: flat(tk.fused_render_bwd_reference(*a, *cot, compute_dtype=cd)),
+                lambda cd: flat(tk.fused_render_bwd_reference(*to_f64(a), *to_f64(cot),
+                                                              compute_dtype=cd)))
+    a, o = chip_smoke.random_train_args(rng, R, S, H, L, device, feat_dim=fd, white_bkgd=True,
+                                        ragged=5, reg_weight=0.01, depth_weight=0.1,
+                                        inline_pe=kernel == "train_pe")
+    flat = lambda r: (r[0].reshape(1), *r[1])
+    with_cd = lambda cd: {**o, "compute_dtype": cd}
+    return (lambda: tt.fused_train_objective.launches[kernel],
+            lambda cd: flat(tt.fused_train_objective(*a, **with_cd(cd))),
+            lambda cd: flat(tt.fused_train_objective_reference(*a, **with_cd(cd))),
+            lambda cd: flat(objective_f64(a, with_cd(cd))))
+
+
+def _check_wide(kernel, H, compute_dtype, case):
+    """Two calls bit for bit, two launches, finite; then the bounds above."""
+    launches, run, plain, f64 = case
+    before = launches()
+    got, again = run(compute_dtype), run(compute_dtype)
+    torch.cuda.synchronize()
+    assert launches() == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    assert all(torch.isfinite(t).all() for t in got)
+    want = plain(compute_dtype)
+    name = f"{kernel}[{H}-{compute_dtype}]"
+    if f64 is None:
+        tol = WIDE_OUT_ATOL[compute_dtype]
+        for g, w, out in zip(got, want, ("rgb", "depth", "acc", "weights")):
+            err = (g - w).abs().max().item()
+            assert err <= tol[out], (name, out, err)
+        return
+    flat = lambda ts: torch.cat([t.reshape(-1).double() for t in ts])
+    exact = None if compute_dtype == "bfloat16" else lambda: flat(f64(compute_dtype))
+    _within_gate_or_f64(name, flat(got), flat(want), WIDE_GRAD_RTOL[compute_dtype], exact)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16", "highest"])
+@pytest.mark.parametrize("H", [384, 512])
+@pytest.mark.parametrize("kernel", ["fwd_pe", "fwd_x", "render_bwd", "train_pe", "train_x"])
+def test_every_kernel_at_the_wide_trunks_matches_plain(h100, kernel, H, compute_dtype):
+    """Each of the five kernels through a 4 x 384 and a 4 x 512 trunk at
+    every route, on 37 rays x 48 samples, against its plain version."""
+    _check_wide(kernel, H, compute_dtype, _wide_case(kernel, H, h100))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fwd_pe", "fwd_x", "render_bwd", "train_pe", "train_x"])
+def test_wide_trunk_kernels_at_the_script_input_widths(h100, kernel):
+    """At H 512 an input wider than the trunk streams layer 0 in slices
+    (STAGED) in every column pass: kernels 1 and 2 at D 864, kernels 3, 4
+    and 5 from an 896-wide x, float32, on 509 rays x 48 samples (the last
+    tile ragged). Not 37 rays: there one ReLU gate that the kernel's and
+    cuBLAS's fp32 sums round to two sides moves the gradient vector by up
+    to 3.5e-4 (read on an NVIDIA H100 80GB HBM3 at 700 W; a 4 x 512 trunk
+    over 1,776 points holds ~25 pre-activations within 1e-6 of zero),
+    whichever side float64 takes; over 509 rays such a gate weighs 14
+    times less."""
+    _check_wide(kernel, 512, "float32", _wide_case(kernel, 512, h100, R=509, staged=True))
+
+
 @pytest.mark.cuda
 def test_train_epoch_on_the_card_matches_the_cpu(h100, monkeypatch):
     """The trainer on the card launches the kernel once per step and gives
@@ -387,15 +490,15 @@ def test_train_epoch_on_the_card_matches_the_cpu(h100, monkeypatch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("width,backend", [(64, "auto"), (64, "fused"), (384, "auto"),
-                                           (384, "fused"), ("samples", "auto"),
+@pytest.mark.parametrize("width,backend", [(64, "auto"), (64, "fused"), (640, "auto"),
+                                           (640, "fused"), ("samples", "auto"),
                                            ("samples", "fused"), ("layers", "auto"),
                                            ("layers", "fused")])
 def test_trainer_on_the_card_refuses_configs_the_kernels_cannot_take(h100, width, backend):
     """As the JAX trainer: width 64, which the JAX kernels do not take,
     trains on the plain path under ``auto`` (no kernel launched,
     ``kernel_path`` "plain" with the JAX reason) and raises under ``fused``.
-    What the JAX kernels take and the port's kernels do not (width 384,
+    What the JAX kernels take and the port's kernels do not (width 640,
     which has no CUDA build; ``MAX_SAMPLES`` + 1 samples per ray, as
     n_samples + n_importance; ``MAX_LAYERS`` + 1 trunk layers) raises on the
     card in ``train_epoch`` and in eval under both, naming the cap and
@@ -412,7 +515,7 @@ def test_trainer_on_the_card_refuses_configs_the_kernels_cannot_take(h100, width
         "training": {"phases": [{"start": 0, "H": 16, "n_samples": 16, "batch_size": 64}]},
         "rendering": {"chunk_size": 64, "backend": backend, "n_importance": n_importance},
     })
-    cap = {384: "hidden_dim=384 has no CUDA build",
+    cap = {640: "hidden_dim=640 has no CUDA build",
            "samples": f"{tk.MAX_SAMPLES + 1} samples per ray .* at most {tk.MAX_SAMPLES}",
            "layers": f"num_layers={layers}; .* at most {tk.MAX_LAYERS} trunk layers"}.get(width)
     data = make_scene_dataset(lego_like_scene(), 1, img_size=16, gt_samples=16, device="cpu")

@@ -6,6 +6,7 @@ package, whose Trainer runs its Pallas inline-PE kernel in interpret mode
 
 import dataclasses
 import glob
+import json
 import os
 
 import jax
@@ -86,9 +87,10 @@ def test_white_composited_matches_jax():
 @pytest.mark.parametrize("kwargs", [{}, {"img_size": 6}, {"half_res": True},
                                     {"img_size": 6, "focal_convention": "physical"}])
 def test_load_blender_matches_jax(tmp_path, kwargs):
-    """A scene written by the JAX save_blender loads identically."""
-    from nerf_fewshot_tpu.data.blender import load_blender as jax_load, save_blender
-    from nerf_fewshot_tpu_torch.data.blender import load_blender
+    """A scene written by the port's save_blender loads identically through
+    both packages' load_blender."""
+    from nerf_fewshot_tpu.data.blender import load_blender as jax_load
+    from nerf_fewshot_tpu_torch.data.blender import load_blender, save_blender
 
     rng = np.random.default_rng(6)
     rgba = rng.uniform(0, 1, (2, 12, 12, 4)).astype(np.float32)
@@ -100,6 +102,41 @@ def test_load_blender_matches_jax(tmp_path, kwargs):
     np.testing.assert_array_equal(got.poses, want.poses)
     assert (got.H, got.W, got.focal) == (want.H, want.W, want.focal)
     np.testing.assert_allclose(got.white_composited(), want.white_composited(), atol=1e-6)
+
+
+@pytest.mark.parametrize("channels", [3, 4])
+def test_save_blender_round_trips_through_both_readers(tmp_path, channels):
+    """The port's save_blender (PNGs from its own zlib writer) writes what the
+    JAX package's does: the PNGs decode to the same pixels, the transforms
+    files are equal, and both packages' load_blender read the port's scene
+    back as equal datasets, with the written images to 1/255."""
+    from PIL import Image
+
+    from nerf_fewshot_tpu.data.blender import load_blender as jax_load
+    from nerf_fewshot_tpu.data.blender import save_blender as jax_save
+    from nerf_fewshot_tpu_torch.data.blender import load_blender, save_blender
+
+    rng = np.random.default_rng(7)
+    images = rng.uniform(-0.1, 1.1, (3, 10, 12, channels)).astype(np.float32)
+    poses = rng.standard_normal((3, 4, 4)).astype(np.float32)
+    save_blender(str(tmp_path / "port"), "test", images, poses, camera_angle_x=0.6911)
+    jax_save(str(tmp_path / "jax"), "test", images, poses, camera_angle_x=0.6911)
+    for i in range(3):
+        a, b = (np.asarray(Image.open(tmp_path / w / "test" / f"r_{i}.png"))
+                for w in ("port", "jax"))
+        assert a.shape == (10, 12, channels)
+        np.testing.assert_array_equal(a, b)
+    meta = [json.loads((tmp_path / w / "transforms_test.json").read_text())
+            for w in ("port", "jax")]
+    assert meta[0] == meta[1]
+    got = load_blender(str(tmp_path / "port"), "test")
+    want = jax_load(str(tmp_path / "port"), "test")
+    np.testing.assert_array_equal(got.images, want.images)
+    np.testing.assert_array_equal(got.poses, want.poses)
+    assert (got.H, got.W, got.focal) == (want.H, want.W, want.focal) == (10, 12, got.focal)
+    assert got.images.shape == (3, 10, 12, channels)
+    np.testing.assert_allclose(got.images, np.clip(images, 0, 1), rtol=0, atol=1 / 255)
+    np.testing.assert_array_equal(got.poses, poses)
 
 
 def test_psnr_ssim_match_jax():
@@ -203,4 +240,4 @@ def test_trainer_init_is_seeded_and_refuses_unported_work(scene):
                                      "nerf_model": {"hidden_dim": 64, "num_layers": 2},
                                      "rendering": {"backend": "fused"}})
         Trainer(cfg, _port_data(train), device="cpu")._use_fused()
-    assert tk.KERNEL_WIDTHS == (128, 256)
+    assert tk.KERNEL_WIDTHS == (128, 256, 384, 512)

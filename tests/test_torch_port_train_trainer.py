@@ -233,7 +233,7 @@ def _unfit_config(unfit, backend):
     """The tiny config made unfit for the kernels: a trunk width the JAX
     kernels do not take (64), sigma noise (outside the strict reference
     behavior), or what the JAX kernels take and the port's CUDA kernels
-    do not: a width with no CUDA build (384), a phase of more samples per
+    do not: a width with no CUDA build (640), a phase of more samples per
     ray than the train kernel holds (``MAX_SAMPLES`` + 1, in phase 1 only:
     the refusal comes before the first step), a trunk deeper than its
     ``MAX_LAYERS``."""
@@ -243,7 +243,7 @@ def _unfit_config(unfit, backend):
     over = {"narrow": {"nerf_model": {**raw["nerf_model"], "hidden_dim": 64}},
             "noisy": {"strict_reference_behavior": False,
                       "rendering": {**raw["rendering"], "noise_std": 1.0}},
-            "wide": {"nerf_model": {**raw["nerf_model"], "hidden_dim": 384}},
+            "wide": {"nerf_model": {**raw["nerf_model"], "hidden_dim": 640}},
             "many_samples": {"training": {**raw["training"], "phases": phases}},
             "deep": {"nerf_model": {**raw["nerf_model"],
                                     "num_layers": tk.MAX_LAYERS + 1}}}[unfit]
@@ -268,7 +268,7 @@ def test_configs_the_kernels_cannot_take(scene, unfit, backend):
     jax_reason = {"narrow": "hidden_dim=64 not 128-lane aligned",
                   "noisy": "sigma noise_std != 0 is not implemented in the kernels",
                   "wide": None, "many_samples": None, "deep": None}[unfit]
-    gap = {"wide": "hidden_dim=384 has no CUDA build",
+    gap = {"wide": "hidden_dim=640 has no CUDA build",
            "many_samples": f"{tk.MAX_SAMPLES + 1} samples per ray .* at most {tk.MAX_SAMPLES}",
            "deep": f"num_layers={tk.MAX_LAYERS + 1}; .* at most {tk.MAX_LAYERS} trunk layers",
            }.get(unfit, "")

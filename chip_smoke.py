@@ -122,6 +122,25 @@ its seconds:
    after (kernel 2 once per chunk; PSNR rising at 512), 5 differentiable
    render steps (kernels 4 and 3) within rel 1e-4 of plain autograd and
    one ``inline_pe=False`` step (kernel 5);
+13b. past the old caps (the kernels take any samples per ray,
+   trunk depth and input width, as the JAX kernels do): the five kernels
+   at ``CAP_CASES`` (S 2048 on 64 rays, the compositing state of kernels
+   1, 5 and 3 in shared memory past 48 KB; S 8192 on 16 rays, that state
+   in the scratch; L 16 and 24 at 512x64, the dW products in launches of
+   at most 16; inline D and x 1152 at 512x64; S 2048 and L 16 at H 512;
+   the widest case of each cap at all three routes, the rest at
+   ``float32``) against their plain versions (two calls bit for bit, the
+   §2 gates, float64 distances, times, bounds and shares beside the card's
+   ``nvidia-smi`` name and power limit); then, counts at 0 before each,
+   ``hierarchical.yaml`` at 32 + 1056 = 1,088 samples per ray (a phase-0
+   batch of 256), ``baseline.yaml`` at 16 layers and ``dino_nerf.yaml``
+   with ``model.dino_dim`` 1024 (seeded feature maps), built in code:
+   epoch 0 through kernel 1 once per step within rel 1e-4 of a ``backend:
+   xla`` twin (the hierarchical one: of a twin with kernel 1's plain
+   version, the xla twin within 1e-3, its coarse pass rounding cos
+   apart), one eval through kernel 2 once per chunk (twice with importance
+   sampling), a differentiable render step (kernels 4 and 3) and an
+   ``inline_pe=False`` step (kernel 5);
 14. DINO kernel widths: kernel 1 at 512x64 and kernel 2 at a 1024x64 eval
    chunk, pos_freq 12, with 64 and 128 features (inputs padded to D 176
    and 240), against their plain versions; times and bounds;
@@ -231,7 +250,9 @@ five at the script recipes' widths, then each kernel at ``bfloat16`` and
 at ``highest`` (``<name>_bf16``, ``<name>_highest``: main-path times, the
 route's bound, launches from the route trainings), then the five at trunk
 widths 384 and 512 (``<name>_h384``, ``<name>_h512``: the wide phase's
-launches and ``float32`` numbers, the other routes under ``routes``); kernel 1's row counts the gradient
+launches and ``float32`` numbers, the other routes under ``routes``), then
+the five past the old caps (``<name>_<case>`` of ``CAP_CASES``: the caps
+phase's launches by the trainer of that cap); kernel 1's row counts the gradient
 gate's two launches and the data-parallel phase's, kernel 2's the
 world-1 eval's), and
 ``{"ok": true, "device": {...}}``.
@@ -447,6 +468,39 @@ ROUTE_RENDER_STEPS = 2
 WIDE_WIDTHS = (512, 384)
 WIDE_EPOCHS = {512: (0, 1, 100), 384: (0,)}
 WIDE_RENDER_STEPS = 5
+
+
+# The caps the kernels once had and the JAX kernels never had:
+# samples per ray past 1024 (the objective's and the VJP's compositing state
+# in shared memory past 48 KB at S 2048, in the scratch at S 8192), trunks
+# deeper than 15 layers (the dW products in launches of at most 16) and
+# inputs wider than 896 columns (inline D 1152 and an x 1152 wide: 90 PE
+# columns + 1062 features). Per case: (R, S, H, L, features) and the routes
+# it runs at, the widest case of each cap at all three.
+ALL_ROUTES = ("float32", "bfloat16", "highest")
+CAP_CASES = {
+    "s2048": ((64, 2048, 256, 8, 0), ("float32",)),
+    "s8192": ((16, 8192, 256, 8, 0), ALL_ROUTES),
+    "l16": ((512, 64, 256, 16, 0), ("float32",)),
+    "l24": ((512, 64, 256, 24, 0), ALL_ROUTES),
+    "d1152": ((512, 64, 256, 8, 1062), ALL_ROUTES),
+    "s2048_h512": ((64, 2048, 512, 8, 0), ("float32",)),
+    "l16_h512": ((512, 64, 512, 16, 0), ("float32",)),
+}
+CAP_KERNELS = ("fwd_pe", "fwd", "render_bwd", "train_pe", "train_x")
+# The caps phase's trainers (configs built in code, as wide_config; no
+# experiment file ships past a cap): hierarchical.yaml with 32 + 1056 =
+# 1,088 samples per ray at a phase-0 batch of 256 (training.batch_size 128:
+# the schedule doubles it before epoch 50), baseline.yaml at 16 layers, and
+# dino_nerf.yaml with model.dino_dim 1024 (an MLP input of 1,126 columns,
+# D 1136 inline, x 1152) on feature maps drawn from the seed. Which cap
+# cases' rows in the kernels line take each trainer's launches.
+CAP_TRAINERS = ("samples", "layers", "width")
+CAP_CONFIG_NAMES = {"samples": "hierarchical.yaml n_importance 1056 (1,088 samples)",
+                    "layers": "baseline.yaml num_layers 16",
+                    "width": "dino_nerf.yaml dino_dim 1024"}
+CAP_ROWS = {"samples": ("s2048", "s8192", "s2048_h512"), "layers": ("l16", "l24", "l16_h512"),
+            "width": ("d1152",)}
 
 
 @contextmanager
@@ -743,6 +797,45 @@ def compare_train(name, got, want, grad_tol):
         raise RuntimeError(f"{name}: kernel disagrees with its plain version "
                            f"(loss rel {loss_rel}, grad rel {grad_rel}, |g| {norm})")
     return max_err
+
+
+def compare_train_or_f64(name, a, o, tt):
+    """``compare_train`` of kernel 1 or 5 on ``(a, o)`` against its plain
+    version at TRAIN_GRAD_TOL or, where the gradients are further apart,
+    the §2 rules of the card tests: the kernel no further from a float64
+    run of the plain version than F64_FACTOR times the fp32 plain version
+    is (a ReLU gate near zero can round to two sides in two fp32 sum
+    orders); or, where a transmittance reaches the 1e-10 floor,
+    TRAIN_GRAD_TOL_SATURATED (the float32 route's T = exp(incl - log om),
+    as the JAX body computes it, loses digits there). Returns the max abs
+    error."""
+    from nerf_fewshot_tpu_torch.render import kernels as tk
+    from nerf_fewshot_tpu_torch.tools.f64_cases import objective_f64
+
+    got, want = tt.fused_train_objective(*a, **o), tt.fused_train_objective_reference(*a, **o)
+    try:
+        return compare_train(name, got, want, TRAIN_GRAD_TOL)
+    except RuntimeError:
+        flat = lambda r: torch.cat([t.reshape(-1).double() for t in r[1]])
+        exact = flat(objective_f64(a, o))
+        k64, p64 = (((flat(r) - exact).norm() / exact.norm()).item() for r in (got, want))
+        x = tk._pe_input(a[0], a[1], a[7], a[8], a[9][0].shape[0]) if o["inline_pe"] else a[0]
+        z = a[2]
+        sigma = tk._trunk(x, a[9])[0][:, 3].reshape(z.shape)
+        floor = int((tk._composite_terms(sigma, z, a[3])[1] < 2e-10).sum())
+        counts = dict(tt.fused_train_objective.launches)  # a reading, not the path's launch
+        h64 = ((flat(tt.fused_train_objective(*a, **{**o, "compute_dtype": "highest"}))
+                - exact).norm() / exact.norm()).item()
+        tt.fused_train_objective.launches = counts
+        print(f"  {name}: against a float64 run kernel rel {k64:.2e}, plain rel {p64:.2e} "
+              f"(factor {F64_FACTOR}), the kernel at highest rel {h64:.2e}; {floor} samples "
+              f"at the 1e-10 floor", flush=True)
+        if abs(got[0].item() / want[0].item() - 1.0) > 1e-5 or not (k64 <= F64_FACTOR * p64
+                                                                    or floor):
+            raise
+        if k64 <= F64_FACTOR * p64:
+            return max((x - y).abs().max().item() for x, y in zip(got[1], want[1]))
+        return compare_train(name, got, want, TRAIN_GRAD_TOL_SATURATED)
 
 
 def main_path_train_args(trainer, phase_idx, device, inline_pe=True, seed=0):
@@ -1198,25 +1291,32 @@ def main_path_render_bwd_args(trainer, device, seed=0):
     return args, random_cotangents(np.random.default_rng(seed), len(idx), p.n_samples, device)
 
 
-def render_stepper(cfg, pd, device, n_importance, fused, compute_dtype="float32"):
+def render_stepper(cfg, pd, device, n_importance, fused, compute_dtype="float32", trainer=None):
     """A function that takes one Adam step of the baseline ``NeRFMLP`` (its
-    init from ``cfg.seed``) on a batch of the last phase's shape (512 rays x
-    64 jittered samples of the 128x128 views) and returns its loss, a loss
-    on every output of the render:
+    init from ``cfg.seed``, or a copy of ``trainer``'s model with its train
+    view 0 features) on a batch of the last phase's shape (512 rays x 64
+    jittered samples of the 128x128 views) and returns its loss, a loss on
+    every output of the render:
     rgb MSE + 0.01 mean(w^2) + 1e-3 mean(|depth - 4|) + 1e-3 mean(acc),
     through ``fused_render_rays(forward_only=False)`` (``fused``) or the
     plain ``render_rays`` and autograd. Batches and uniforms come from a
     generator seeded with ``cfg.seed``, so both routes see the same ones."""
+    import copy
+
     from nerf_fewshot_tpu_torch.models.mlp import NeRFMLP
     from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
     from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings, render_rays
     from nerf_fewshot_tpu_torch.training.optim import make_optimizer
 
     n = cfg.nerf
-    model = NeRFMLP(pos_freq=n.pos_freq, dir_freq=n.dir_freq, use_viewdirs=n.use_viewdirs,
-                    hidden_dim=n.hidden_dim, num_layers=n.num_layers,
-                    sigma_bias_init=n.sigma_bias,
-                    generator=torch.Generator().manual_seed(cfg.seed)).to(device)
+    pf = None
+    if trainer is None:
+        model = NeRFMLP(pos_freq=n.pos_freq, dir_freq=n.dir_freq, use_viewdirs=n.use_viewdirs,
+                        hidden_dim=n.hidden_dim, num_layers=n.num_layers,
+                        sigma_bias_init=n.sigma_bias,
+                        generator=torch.Generator().manual_seed(cfg.seed)).to(device)
+    else:
+        model, pf = copy.deepcopy(trainer.model), trainer.feature_sampler(0)
     opt = make_optimizer(cfg.optimizer, model.parameters())
     r, p = cfg.rendering, cfg.phases[-1]
     S, n_rays = p.n_samples, pd.rays_o.shape[1]
@@ -1237,9 +1337,10 @@ def render_stepper(cfg, pd, device, n_importance, fused, compute_dtype="float32"
             out = fused_render_rays(dict(model.named_parameters()), ro, rd, settings,
                                     n.pos_freq, n.dir_freq, n.num_layers, n.hidden_dim,
                                     n.use_viewdirs, compute_dtype=compute_dtype,
-                                    device=device, uniforms=u, importance_uniforms=ui)
+                                    device=device, uniforms=u, importance_uniforms=ui,
+                                    point_features_fn=pf)
         else:
-            out = render_rays(model, ro, rd, settings, u, ui)
+            out = render_rays(model, ro, rd, settings, u, ui, point_features_fn=pf)
         loss = (torch.mean((out.rgb - tgt) ** 2) + 0.01 * torch.mean(out.weights ** 2)
                 + 1e-3 * torch.mean(torch.abs(out.depth - 4.0)) + 1e-3 * torch.mean(out.acc))
         opt.zero_grad(set_to_none=True)
@@ -2736,7 +2837,8 @@ REORDERED_VS_PARENT = ()
 def run_parent_bits():
     """The five kernels at every route against a parent checkout's build,
     when ``$NERF_PARENT_CHECKOUT`` names one: ``tools/route_bits.py`` on
-    both trees (each in its own process), bit-equal but for
+    both trees (each in its own process; the change's kernels on the
+    inputs the parent's glue made), bit-equal but for
     ``REORDERED_VS_PARENT``, whose relative difference is printed; then
     kernels 1, 5 and 3 timed in alternating pairs, parent / change / change
     / parent (``tools/train_times.py``), the pairs and means printed. A
@@ -2752,10 +2854,11 @@ def run_parent_bits():
     roots = (("parent", os.path.abspath(parent)), ("change", ROOT))
     try:
         files = []
-        for tag, root in roots:
+        for tag, root in roots:  # the change's kernels on the parent's inputs
             files.append(os.path.join(tmp, f"{tag}.pt"))
             subprocess.run([sys.executable, os.path.join(tools, "route_bits.py"), "--root", root,
-                            "--out", files[-1]], check=True, timeout=900)
+                            "--out", files[-1], *(["--inputs", files[0]] if tag == "change"
+                                                  else [])], check=True, timeout=900)
         subprocess.run([sys.executable, os.path.join(tools, "route_bits.py"), "--compare",
                         *files, "--reordered", *REORDERED_VS_PARENT], check=True, timeout=300)
         times = os.path.join(tmp, "times.jsonl")
@@ -2776,6 +2879,84 @@ def route_bounds(flops, nbytes, compute_dtype):
     return max(ops_s, bytes_s) * 1e3, "operations" if ops_s >= bytes_s else "bytes", label
 
 
+def fwd_pe_case(width, a, use_feats):
+    """Kernel 2 on ``a`` (``random_fwd_pe_args``) as a ``run_route_kernels``
+    case: ``(kernel, width, run(cd), plain(cd), f64(cd), flops, nbytes)``;
+    ``run`` and ``plain`` return flat tuples."""
+    from nerf_fewshot_tpu_torch.render import kernels as tk
+    from nerf_fewshot_tpu_torch.tools.f64_cases import to_f64
+
+    x32 = lambda: tk._pe_input(a[0], a[1] if use_feats else None, a[4], a[5], a[6][0].shape[0])
+    return ("fwd_pe", width,
+            lambda cd: tk.fused_render_fwd_pe(*a, compute_dtype=cd, use_feats=use_feats),
+            lambda cd: tk.fused_render_fwd_pe_reference(*a, compute_dtype=cd, use_feats=use_feats),
+            lambda cd: tk.fused_render_reference(*to_f64((x32(), *a[2:4], a[6])), compute_dtype=cd),
+            *fwd_pe_cost(a, use_feats))
+
+
+def fwd_x_case(width, a, x_dim):
+    """Kernel 4 on ``a`` (``random_render_args``), as ``fwd_pe_case``."""
+    from nerf_fewshot_tpu_torch.render import kernels as tk
+    from nerf_fewshot_tpu_torch.tools.f64_cases import to_f64
+
+    return ("fwd", width, lambda cd: tk.fused_render_fwd(*a, compute_dtype=cd),
+            lambda cd: tk.fused_render_reference(*a, compute_dtype=cd),
+            lambda cd: tk.fused_render_reference(*to_f64(a), compute_dtype=cd),
+            *render_cost(a, x_dim, backward=False))
+
+
+def render_bwd_case(width, a, cot, x_dim):
+    """Kernel 3 on ``a`` and the cotangents ``cot``, as ``fwd_pe_case``."""
+    from nerf_fewshot_tpu_torch.render import kernels as tk
+    from nerf_fewshot_tpu_torch.tools.f64_cases import to_f64
+
+    return ("render_bwd", width,
+            lambda cd: flat_objective(tk.fused_render_bwd(*a, *cot, compute_dtype=cd)),
+            lambda cd: flat_objective(tk.fused_render_bwd_reference(*a, *cot, compute_dtype=cd)),
+            lambda cd: flat_objective(tk.fused_render_bwd_reference(*to_f64(a), *to_f64(cot),
+                                                                    compute_dtype=cd)),
+            *render_cost(a, x_dim, backward=True))
+
+
+def train_case(width, a, o, x_dim=None):
+    """Kernel 1 (``o["inline_pe"]``) or 5 on ``(a, o)``
+    (``random_train_args``), as ``fwd_pe_case``."""
+    from nerf_fewshot_tpu_torch.render import train_kernel as tt
+    from nerf_fewshot_tpu_torch.tools.f64_cases import objective_f64
+
+    with_cd = lambda cd: {**o, "compute_dtype": cd}
+    return ("train_pe" if o["inline_pe"] else "train_x", width,
+            lambda cd: flat_objective(tt.fused_train_objective(*a, **with_cd(cd))),
+            lambda cd: flat_objective(tt.fused_train_objective_reference(*a, **with_cd(cd))),
+            lambda cd: flat_objective(objective_f64(a, with_cd(cd))),
+            *train_cost(a, o, x_dim))
+
+
+def cap_case(kernel, label, shape, device, seed=19):
+    """One kernel at a shape past a cap the kernels once had (``CAP_CASES``:
+    ``shape`` = (R, S, H, L, features)) on random inputs from ``seed``: the
+    inline-PE input padded to a multiple of 16 (90 PE columns + the
+    features), the x encoded to a multiple of 128; the objective with a
+    white background, an eighth of the rays masked, the w^2 and depth
+    terms. A ``run_route_kernels`` case."""
+    from nerf_fewshot_tpu_torch.render import kernels as tk
+
+    R, S, H, L, fd = shape
+    rng = np.random.default_rng(seed)
+    if kernel == "fwd_pe":
+        a = random_fwd_pe_args(rng, R, S, H, L, fd, device, d_pad=tk.pe_width(90 + fd))
+        return fwd_pe_case(label, a, fd > 0)
+    if kernel in ("fwd", "render_bwd"):
+        a, x_dim = random_render_args(rng, R, S, H, L, device, feat_dim=fd)
+        if kernel == "fwd":
+            return fwd_x_case(label, a, x_dim)
+        return render_bwd_case(label, a, random_cotangents(rng, R, S, device), x_dim)
+    inline = kernel == "train_pe"
+    a, o = random_train_args(rng, R, S, H, L, device, feat_dim=fd, white_bkgd=True,
+                             ragged=R // 8, reg_weight=0.01, depth_weight=0.1, inline_pe=inline)
+    return train_case(label, a, o, x_dim=None if inline else 90 + fd)
+
+
 def route_cases(trainer, test, device, label="d96", dino=True):
     """The five kernels' inputs at the main path's shapes for the trainer's
     widths and weights (a 2048x64 eval chunk for kernels 2 and 4, D 96 /
@@ -2785,65 +2966,28 @@ def route_cases(trainer, test, device, label="d96", dino=True):
     ``(kernel, width, run(cd), plain(cd), f64(cd), flops, nbytes)``; ``run``
     and ``plain`` return flat tuples (outputs, or dx / the loss and the
     packed gradients)."""
-    from nerf_fewshot_tpu_torch.render import kernels as tk
-    from nerf_fewshot_tpu_torch.render import train_kernel as tt
-    from nerf_fewshot_tpu_torch.tools.f64_cases import objective_f64, to_f64
-
     rng = np.random.default_rng(trainer.cfg.seed)
     last = len(trainer.cfg.phases) - 1
-    cases = []
-
-    def fwd_pe(width, a, use_feats):
-        x32 = lambda: tk._pe_input(a[0], a[1] if use_feats else None, a[4], a[5], a[6][0].shape[0])
-        cases.append((
-            "fwd_pe", width,
-            lambda cd: tk.fused_render_fwd_pe(*a, compute_dtype=cd, use_feats=use_feats),
-            lambda cd: tk.fused_render_fwd_pe_reference(*a, compute_dtype=cd, use_feats=use_feats),
-            lambda cd: tk.fused_render_reference(*to_f64((x32(), *a[2:4], a[6])), compute_dtype=cd),
-            *fwd_pe_cost(a, use_feats)))
-
-    def fwd_x(width, a, x_dim):
-        cases.append(("fwd", width, lambda cd: tk.fused_render_fwd(*a, compute_dtype=cd),
-                      lambda cd: tk.fused_render_reference(*a, compute_dtype=cd),
-                      lambda cd: tk.fused_render_reference(*to_f64(a), compute_dtype=cd),
-                      *render_cost(a, x_dim, backward=False)))
-
-    def render_bwd(width, a, cot, x_dim):
-        cases.append((
-            "render_bwd", width,
-            lambda cd: flat_objective(tk.fused_render_bwd(*a, *cot, compute_dtype=cd)),
-            lambda cd: flat_objective(tk.fused_render_bwd_reference(*a, *cot, compute_dtype=cd)),
-            lambda cd: flat_objective(tk.fused_render_bwd_reference(*to_f64(a), *to_f64(cot),
-                                                                    compute_dtype=cd)),
-            *render_cost(a, x_dim, backward=True)))
-
-    def train(width, a, o, x_dim=None):
-        name = "train_pe" if o["inline_pe"] else "train_x"
-        with_cd = lambda cd: {**o, "compute_dtype": cd}
-        cases.append((
-            name, width, lambda cd: flat_objective(tt.fused_train_objective(*a, **with_cd(cd))),
-            lambda cd: flat_objective(tt.fused_train_objective_reference(*a, **with_cd(cd))),
-            lambda cd: flat_objective(objective_f64(a, with_cd(cd))),
-            *train_cost(a, o, x_dim)))
-
-    fwd_pe(label, main_path_fwd_pe_args(trainer, test.poses[0], device), False)
-    fwd_x(label, main_path_fwd_x_args(trainer, test.poses[0], device), 90)
     bw, cot = main_path_render_bwd_args(trainer, device)
-    render_bwd(label, bw, cot, 90)
-    train(label, *main_path_train_args(trainer, last, device))
-    train(label, *main_path_train_args(trainer, last, device, inline_pe=False), x_dim=90)
+    cases = [fwd_pe_case(label, main_path_fwd_pe_args(trainer, test.poses[0], device), False),
+             fwd_x_case(label, main_path_fwd_x_args(trainer, test.poses[0], device), 90),
+             render_bwd_case(label, bw, cot, 90),
+             train_case(label, *main_path_train_args(trainer, last, device)),
+             train_case(label, *main_path_train_args(trainer, last, device, inline_pe=False),
+                        x_dim=90)]
     if not dino:
         return cases
-    fwd_pe("d176", random_fwd_pe_args(rng, 1024, 64, 256, 8, 64, device, pos_freq=12,
-                                      d_pad=176), True)
+    cases.append(fwd_pe_case("d176", random_fwd_pe_args(rng, 1024, 64, 256, 8, 64, device,
+                                                        pos_freq=12, d_pad=176), True))
     a, x_dim = random_render_args(rng, 2048, 64, 256, 8, device, feat_dim=64, pos_freq=12)
-    fwd_x("d176", a, x_dim)
+    cases.append(fwd_x_case("d176", a, x_dim))
     a, x_dim = random_render_args(rng, 512, 64, 256, 8, device, feat_dim=64, pos_freq=12)
-    render_bwd("d176", a, random_cotangents(rng, 512, 64, device), x_dim)
-    train("d176", *random_train_args(rng, 512, 64, 256, 8, device, feat_dim=64, pos_freq=12))
+    cases.append(render_bwd_case("d176", a, random_cotangents(rng, 512, 64, device), x_dim))
+    cases.append(train_case("d176", *random_train_args(rng, 512, 64, 256, 8, device, feat_dim=64,
+                                                       pos_freq=12)))
     a, o = random_train_args(rng, 512, 64, 256, 8, device, feat_dim=64, pos_freq=12,
                              inline_pe=False)
-    train("d176", a, o, x_dim=6 + 72 + 24 + 64)
+    cases.append(train_case("d176", a, o, x_dim=6 + 72 + 24 + 64))
     return cases
 
 
@@ -3094,6 +3238,146 @@ def run_wide_slice(hidden_dim, train, test, device, tk, tt):
     if counts != expect:
         raise RuntimeError(f"H {hidden_dim}: launches {counts}, expected {expect}")
     return rows, counts
+
+
+def cap_config(which, backend="auto"):
+    """The caps phase's config ``which`` (``CAP_TRAINERS``) at a backend."""
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict, load_config
+
+    if which == "samples":
+        raw = {**HIERARCHICAL_CONFIG,
+               "training": {**HIERARCHICAL_CONFIG["training"], "batch_size": 128},
+               "rendering": {**HIERARCHICAL_CONFIG["rendering"], "n_importance": 1056}}
+    elif which == "layers":
+        raw = {**BASELINE_CONFIG, "nerf_model": {**BASELINE_CONFIG["nerf_model"],
+                                                 "num_layers": 16}}
+    else:
+        raw = load_config(os.path.join(ROOT, "experiments", "dino_nerf.yaml")).raw
+        raw = {**raw, "model": {**raw["model"], "dino_dim": 1024}}
+    return config_from_dict({**raw, "rendering": {**raw["rendering"], "backend": backend}})
+
+
+@contextmanager
+def kernel_1_plain(tt):
+    """Kernel 1's plain version in place of the kernel on the card, for a
+    twin that shares everything else of a kernel trainer's step (the coarse
+    pass through kernel 2 included); its calls launch and count nothing."""
+    kernel = tt.fused_train_objective
+    tt.fused_train_objective = tt.fused_train_objective_reference
+    try:
+        yield
+    finally:
+        tt.fused_train_objective = kernel
+
+
+def run_cap_trainer(which, train, test, device, tk, tt):
+    """One caps-phase config (``cap_config``) through ``Trainer(device=
+    "cuda")``, every count set to 0 before it and read after: epoch 0
+    through kernel 1 once per step (with importance sampling, kernel 2 as
+    each step's coarse pass), its per-step losses within rel
+    TRAIN_LOSS_RTOL of a ``backend: xla`` twin (same seed, batches, jitter,
+    features). With 1,056 importance samples the xla twin's coarse weights
+    (the plain pipeline's: cos, not kernel 2's sin(x + pi/2), and sums in
+    another order) move the importance samples enough to reach the losses
+    (INLINE_PE_LOSS_RTOL: the xla twin is held there; at the shipped 64
+    they agree to 1e-7), so kernel 1 is held at TRAIN_LOSS_RTOL against a
+    twin that differs from the kernel trainer in kernel 1 alone
+    (``kernel_1_plain``);
+    one eval, kernel 2 once per chunk (twice with importance
+    sampling); one differentiable render step from the trained weights
+    (kernels 4 and 3, with the DINO config's features) within rel
+    TRAIN_LOSS_RTOL of plain autograd; one
+    ``inline_pe=False`` step (kernel 5, with importance sampling kernel 4
+    as its coarse pass) against its plain version. Returns the counts."""
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    cfg, pcfg = cap_config(which), cap_config(which, "xla")
+    feats = None
+    if which == "width":
+        rng = np.random.default_rng(cfg.seed)
+        feats = rng.standard_normal((N_TRAIN_VIEWS, 9, 9, cfg.dino.output_dim)).astype(np.float32)
+    ktr = Trainer(cfg, train, test, device=device, dino_features=feats)
+    ptr = Trainer(pcfg, train, test, device=device, dino_features=feats)
+    if not (ktr._use_fused() and ktr.kernel_path == "kernel") or ptr._use_fused():
+        raise RuntimeError(f"{which}: paths {ktr.kernel_path} ({ktr.kernel_path_reason}), "
+                           f"{ptr.kernel_path}")
+    p0, n = cfg.phases[0], cfg.nerf
+    n_imp = cfg.rendering.n_importance
+    x_dim = tk.pe_layout(n.pos_freq, n.dir_freq, n.use_viewdirs,
+                         cfg.dino.output_dim if ktr.use_dino else 0)[3]
+    shape = (f"{min(p0.batch_size, p0.H * p0.W)} rays x {p0.n_samples} + {n_imp} samples, "
+             f"{n.num_layers} x {n.hidden_dim}, MLP input {x_dim} (D {tk.pe_width(x_dim)})")
+    ptr.train_epoch(0)  # the twins first: their launches are not the path's
+    twins = {"xla": (ptr.last_step_losses, INLINE_PE_LOSS_RTOL if n_imp else TRAIN_LOSS_RTOL)}
+    if n_imp:
+        twin = Trainer(cfg, train, test, device=device, dino_features=feats)
+        with kernel_1_plain(tt):
+            twin.train_epoch(0)
+        twins["kernel 1 plain"] = (twin.last_step_losses, TRAIN_LOSS_RTOL)
+    ktr.phase_data(0)
+    tk.fused_render_fwd_pe.launches = tk.fused_render_fwd.launches = 0
+    tk.fused_render_bwd.launches = 0
+    tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = ktr.train_epoch(0)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    steps = len(ktr.last_step_losses)
+    gaps = {k: (float(np.max(np.abs(l / ktr.last_step_losses - 1.0))), t)
+            for k, (l, t) in twins.items()}
+    print(f"  {which}: {shape}: epoch 0 loss {loss:.6f}, {steps} steps, "
+          f"{sec / steps * 1e3:.3f} ms/step; per-step max rel gap to the " + ", ".join(
+              f"{k} twin {g:.2e} (tol {t:.0e})" for k, (g, t) in gaps.items()), flush=True)
+    if not (np.isfinite(ktr.last_step_losses).all() and all(g <= t for g, t in gaps.values())):
+        raise RuntimeError(f"{which}: epoch 0 losses from the twins {gaps}")
+    metrics = ktr.evaluate()
+    chunks = -(-N_TEST_VIEWS * cfg.data.resolution ** 2 // cfg.rendering.chunk_size)
+    # kernel 2: the steps' coarse passes and each eval chunk's passes;
+    # kernel 4: the render step's passes and the x step's coarse pass
+    expect = {"train_pe": steps, "fwd_pe": steps * (n_imp > 0) + chunks * (2 if n_imp else 1),
+              "fwd": 3 if n_imp else 1, "render_bwd": 1, "train_x": 1}
+    if not np.isfinite(metrics["psnr"]):
+        raise RuntimeError(f"{which}: eval psnr {metrics['psnr']}")
+    last = len(cfg.phases) - 1
+    pd = ktr.phase_data(last)
+    got = render_stepper(cfg, pd, device, n_imp, fused=True, trainer=ktr)().item()
+    want = render_stepper(cfg, pd, device, n_imp, fused=False, trainer=ktr)().item()
+    if not (np.isfinite(got) and abs(got / want - 1.0) <= TRAIN_LOSS_RTOL):
+        raise RuntimeError(f"{which}: fused render step {got} vs plain {want}")
+    print(f"  {which}: a differentiable render step ({cfg.phases[last].batch_size} rays x "
+          f"{cfg.phases[last].n_samples} + {n_imp} samples) rel gap to plain autograd "
+          f"{abs(got / want - 1.0):.2e}", flush=True)
+    a, o = main_path_train_args(ktr, last, device, inline_pe=False)
+    x_err = compare_train_or_f64(f"{which} inline_pe=False step (kernel 5, x {a[0].shape[1]} "
+                                 f"wide, {a[2].shape[0]}x{a[2].shape[1]})", a, o, tt)
+    counts = {"train_pe": tt.fused_train_objective.launches["train_pe"],
+              "fwd_pe": tk.fused_render_fwd_pe.launches, "fwd": tk.fused_render_fwd.launches,
+              "render_bwd": tk.fused_render_bwd.launches,
+              "train_x": tt.fused_train_objective.launches["train_x"]}
+    print(f"  {which}: eval psnr {metrics['psnr']:.4f} dB, {eval_ms(ktr)}; launches {counts} for "
+          f"{steps} steps, {chunks} eval chunks (max abs err of the x step {x_err:.2e})",
+          flush=True)
+    if counts != expect:
+        raise RuntimeError(f"{which}: launches {counts}, expected {expect}")
+    return counts
+
+
+def run_caps_phase(train, test, device, tk, tt, smi):
+    """Past the caps the kernels once had: every kernel at ``CAP_CASES`` against its
+    plain version at the routes named there (``run_route_kernels``: the §2
+    gates, two calls bit for bit, times, bounds and shares, the card's
+    ``nvidia-smi`` name and power limit beside them), then the three
+    ``CAP_TRAINERS`` (``run_cap_trainer``). Returns ``(rows, launches)``."""
+    print(f"  {smi}", flush=True)
+    rows = {}
+    for label, (shape, routes) in CAP_CASES.items():
+        cases = [cap_case(kernel, label, shape, device) for kernel in CAP_KERNELS]
+        rows.update(run_route_kernels(cases, routes, ()))
+        del cases
+    launches = {which: run_cap_trainer(which, train, test, device, tk, tt)
+                for which in CAP_TRAINERS}
+    return rows, launches
 
 
 def main():
@@ -3383,6 +3667,9 @@ def main():
         with phase(f"wide trunk H {hidden}"):
             wide[hidden] = run_wide_slice(hidden, train, test, device, tk, tt)
 
+    with phase("past the old caps: samples, depth, input width"):
+        cap_rows, cap_launches = run_caps_phase(train, test, device, tk, tt, smi)
+
     with phase("DINO kernel widths"):
         dino_rows = run_dino_kernel_widths(device, tk, tt)
 
@@ -3583,6 +3870,26 @@ def main():
                     "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_rate", "f64_rel",
                     "plain_f64_rel")} for cd in ROUTES}})
 
+    cap_kernel_rows = []
+    for which, labels in CAP_ROWS.items():
+        for label in labels:
+            shape, routes = CAP_CASES[label]
+            for kernel, (source, where) in wide_sources.items():
+                f32 = cap_rows[(kernel, label, "float32")]
+                cap_kernel_rows.append({
+                    "name": f"{kernel}_{label}", "route": "cuda",
+                    "source": f"nerf_fewshot_tpu_torch/csrc/{source}.cu",
+                    "replaces": f"nerf_fewshot_tpu/render/{where}",
+                    "shape": "R %d x S %d, %d x %d, features %d" % shape,
+                    "configs": [CAP_CONFIG_NAMES[which]],
+                    "launches": cap_launches[which][kernel],
+                    **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                           "bound_by", "bound_rate")},
+                    "library_ms": None,
+                    "routes": {cd: {k: cap_rows[(kernel, label, cd)][k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_rate", "f64_rel",
+                        "plain_f64_rel")} for cd in routes if cd != "float32"}})
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fwd_pe",
@@ -3634,7 +3941,7 @@ def main():
         "bound_fp32_ms": bwd_bound32_ms,
         "library_ms": None,
     }, *dino_kernel_rows, lora_row("train_pe"), lora_row("fwd_pe"), *script_kernel_rows,
-        *route_kernel_rows, *wide_kernel_rows]}))
+        *route_kernel_rows, *wide_kernel_rows, *cap_kernel_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

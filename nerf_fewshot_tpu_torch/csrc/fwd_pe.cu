@@ -65,15 +65,16 @@
 //      relu(acc + b) over the tile in place and meet again. Layer 0's input
 //      is built point-major (the PE phases, point features or the
 //      pre-encoded x read coalesced): up to H columns into the tile, before
-//      the layer; a wider one (STAGED, up to kMaxD = 896 columns, more than
-//      the tile holds beside the ring) is never held whole, each 32-column
+//      the layer; a wider one (STAGED, any width, more than the tile holds
+//      beside the ring) is never held whole, each 32-column
 //      stage built into one of two small stage buffers, the next one while
 //      the current chain runs on the tensor cores. The sums are the same
 //      either way, in the same order. The head
 //      (exact fp32, wout's live columns staged in shared memory once per
 //      CTA) writes the four raw outputs to scratch ([4][Np]).
 //   3. fwd_composite: one warp per ray (8 rays per CTA): sigmoid, the
-//      log-space scan and the sums, written to rgb, depth, acc, weights.
+//      log-space scan carried over 32-sample chunks (any S, no state kept)
+//      and the sums, written to rgb, depth, acc, weights.
 // Widths. At H 128 and 256 a layer is one pass over its stages: warpgroup g
 // owns H/2 columns, shared memory holds the 128 KB ring, the 64 x (H + 8)
 // tile, the two 64 x 40 layer-0 stage buffers and H x 4 head columns (219
@@ -117,6 +118,7 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
@@ -133,12 +135,12 @@ constexpr int kActPad = 8;          // activation row stride H + 8 (8 mod 32)
 constexpr int kXLd = kStageK + kActPad;  // row stride of a layer-0 input stage (8 mod 32)
 constexpr int kOutPad = 128;        // packed head columns [r, g, b, sigma, 0...]
 constexpr int kHead = 4;            // live head columns
-constexpr int kMaxD = 896;          // widest padded input (7 x 128: the script recipes' 858)
 constexpr int kPassCols = 128;      // columns per pass of a layer wider than 256
 constexpr int kMaxCtas = 160;       // persistent CTAs at most (an H100 has 132 SMs)
 constexpr int kRaysPerCta = 8;      // composite: one warp per ray
 constexpr int kProducerRegs = 40;   // setmaxnreg: the producer warpgroup gives registers
 constexpr int kConsumerRegs = 232;  // to the consumer warpgroups
+constexpr int kMaxGridY = 65535;    // a launch's grid rows
 constexpr float kFar = 1e10f;
 constexpr float kEps = 1e-10f;
 // Precision routes (render/kernels.py ROUTES)
@@ -420,10 +422,10 @@ struct Trunk {
 template <int H, int ROUTE>
 __global__ void __launch_bounds__(256)
 fwd_split_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
-                 float* __restrict__ wsplit, int D, int stages0) {
+                 float* __restrict__ wsplit, int D, int stages0, int y0) {
   using T = Trunk<H, ROUTE>;
   __shared__ float tile[kStageK][33];
-  const int stage = blockIdx.y;
+  const int stage = y0 + blockIdx.y;
   const int pass = blockIdx.x * 32 / T::PW;
   const int nb = blockIdx.x * 32 - pass * T::PW;  // the first column within the pass
   const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
@@ -928,10 +930,14 @@ cudaError_t launch(const float* in, const float* feats, const float* z, const fl
   float* wsplit = scratch;
   float* out4 = scratch + lay.out4;
   float* held = scratch + lay.held;
-  fwd_split_kernel<H, ROUTE><<<dim3(H / 32, lay.stages), 256, 0, st>>>(w0, wh, wsplit, D,
-                                                                       lay.stages0);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
+  cudaError_t err;
+  for (int y0 = 0; y0 < lay.stages; y0 += kMaxGridY) {  // any depth: grids of kMaxGridY rows
+    const int n = lay.stages - y0 < kMaxGridY ? lay.stages - y0 : kMaxGridY;
+    fwd_split_kernel<H, ROUTE><<<dim3(H / 32, n), 256, 0, st>>>(w0, wh, wsplit, D, lay.stages0,
+                                                                y0);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
 
   constexpr size_t smem = trunk_smem<H, ROUTE>();
   // an input wider than the activation tile streams through the stage buffers
@@ -981,7 +987,9 @@ int dispatch(const float* in, const float* feats, const float* z, const float* d
              const float* bh, const float* wout, const float* bout, float* rgb, float* depth,
              float* acc, float* weights, float* scratch, int R, int S, int n_raw, int n_phase,
              int Fd, int D, int H, int L1, int white_bkgd, int route, int device, void* stream) {
-  if (D % 16 != 0 || D > kMaxD || R < 1 || S < 1 || L1 < 0 || route < kTf32x3 || route > kFp32)
+  if (D <= 0 || D % 16 != 0 || R < 1 || S < 1 ||
+      static_cast<long long>(R) * S > INT_MAX - kTileP || L1 < 0 || route < kTf32x3 ||
+      route > kFp32)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;

@@ -128,14 +128,17 @@
 //      route's FFMA threads own 8 columns of 4 or 8 points each instead,
 //      fed by 16-byte loads of both operands. Layer 0's input x is built point-major (the PE phases, point
 //      features or the pre-encoded x) into the tile, or, when wider than H
-//      (up to kMaxD = 896), in 32-column slices through two small buffers,
+//      (any width), in 32-column slices through two small buffers,
 //      the next slice while the current chain runs; x goes to the act image
 //      as A_0 as it is built. Each layer's epilogue writes relu(acc + b)
 //      over the tile in place, to the act image (A_i), and the thread's
 //      [A_i > 0] as a bit mask (one bit per accumulator register, H/4 bits a
 //      thread); the head (exact fp32) writes the four raw outputs ([4][Np]);
 //   3. train_composite (objective) or render_composite (VJP): one warp per
-//      ray: sigmoid, log-space compositing with an fp32 shuffle prefix scan,
+//      ray, its state (9*S floats) in dynamic shared memory while it fits a
+//      block (S <= 6456; past 48 KB by opt-in), else in the ray's slice of
+//      the scratch, the same loop in the same order either way: sigmoid,
+//      log-space compositing with an fp32 shuffle prefix scan,
 //      the ray's loss partial (objective), then the suffix sum s_after as an
 //      fp32 shuffle scan run from the last sample (never a difference of
 //      prefix sums, which cancels when om ~ 1e-10), and the head cotangent;
@@ -146,8 +149,9 @@
 //      bit mask of the same thread (the same tile, columns and fragments),
 //      one coalesced load per layer. Each delta_i goes to the gbuf image,
 //      and g_out beside them (for the head's dW);
-//   5. train_dw: every dW_l = A_l^T.delta_l and db_l = sum delta_l as one
-//      launch of 128x128 output tiles (rows k, columns j), the point axis
+//   5. train_dw: every dW_l = A_l^T.delta_l and db_l = sum delta_l as
+//      launches of 128x128 output tiles (rows k, columns j; at most
+//      kMaxJobs products a launch, so one launch up to 15 layers), the point axis
 //      split in P fixed parts, each written to its own partial. A CTA of 384
 //      threads: the producer streams, per 32-point block, the tile's 128 A
 //      rows and 128 delta rows (two bulk copies out of the images) into a
@@ -196,9 +200,11 @@
 
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstddef>
 #include <cstdint>
 #include <type_traits>
+#include <vector>
 
 namespace {
 
@@ -232,12 +238,14 @@ constexpr int kDxJ = 32;              // dx reduction stage (trunk columns)
 constexpr int kDxLdD = kDxP + 8;      // delta_1 stage row stride (8 mod 32)
 constexpr int kDxLdW = kDxJ + 4;      // w0 stage row stride (4 mod 32)
 constexpr int kDxStage = kDxJ * kDxLdD + 2 * kDxK * kDxLdW;
-constexpr int kMaxD = 896;       // widest padded input (7 x 128: the script recipes' 858)
-constexpr int kMaxS = 1024;      // samples per ray: the composite's 9*S floats stay < 48 KB
+constexpr int kSmemDefault = 48 * 1024;  // dynamic shared memory without opting in
+constexpr int kSmemOptIn = 232448;       // a block's most, opted in (227 KB)
+constexpr int kCompFloats = 9;           // the composite's state: floats per sample
 constexpr int kDxSmem = static_cast<int>(sizeof(float)) * 2 * kDxStage;
 constexpr int kMaxParts = 8;     // split of the point axis in the dW products
 constexpr int kPartRows = 4096;  // points per part before a further split
-constexpr int kMaxJobs = 16;     // dW products in one launch (layers + head)
+constexpr int kMaxJobs = 16;     // dW products in one launch (layers + head), by value
+constexpr int kMaxGridY = 65535;  // a launch's grid rows
 constexpr int kMaskWords = 2;    // mask words a thread keeps per layer at H 256 (H/128)
 static_assert(kDxJ % 16 == 0, "render_dx promotes its products every two k-steps");
 
@@ -280,11 +288,16 @@ int bwd_stages(int L1) {
   return L1 * (H / Trunk<H, ROUTE>::KS);
 }
 
+// The composite's per-ray state of S samples, in bytes: dynamic shared
+// memory while it fits a block, else the scratch's ray state.
+size_t comp_bytes(int S) { return sizeof(float) * kCompFloats * static_cast<size_t>(S); }
+bool comp_in_smem(int S) { return comp_bytes(S) <= static_cast<size_t>(kSmemOptIn); }
+
 // Sizes shared by the launchers and nerf_train_scratch_floats.
 struct Layout {
   int N, Np, tiles, nblk, L, P, chunk_blk, act_rows, g_rows;
   size_t F;  // floats of the six packed gradients, flattened
-  size_t act, gbuf, gout, out4, loss_r, mask, img, w0x, part, total;  // scratch offsets
+  size_t act, gbuf, gout, out4, loss_r, mask, img, w0x, ray, part, total;  // scratch offsets
 };
 
 Layout make_layout(int R, int S, int D, int H, int L1) {
@@ -321,6 +334,8 @@ Layout make_layout(int R, int S, int D, int H, int L1) {
                 (H / 128 > kMaskWords ? H / 128 : kMaskWords));
   s.img = take(img > img32 ? img : img32);
   s.w0x = take(2 * d * h);  // w0's image row-major for render_dx: hi, lo
+  // the composite's ray state, when it does not fit a block's shared memory
+  s.ray = take(comp_in_smem(S) ? 0 : static_cast<size_t>(R) * kCompFloats * S);
   s.part = off;
   off += static_cast<size_t>(s.P) * round_up(s.F, 64);
   s.total = off;
@@ -728,13 +743,18 @@ __device__ __forceinline__ void wgmma_ss_bf16(float (&d)[64], uint64_t desc_a, u
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// Per-ray compositing state of one warp, in dynamic shared memory (9*S
-// floats): weights, transmittances, om, alpha, dists, raw sigma, sigmoid rgb.
+// Per-ray compositing state of one warp (kCompFloats*S floats): weights,
+// transmittances, om, alpha, dists, raw sigma, sigmoid rgb. In dynamic
+// shared memory, or (gstate, when S samples do not fit a block) in the
+// ray's slice of the scratch; each lane reads back only what it wrote.
 struct RaySmem {
   float *w, *T, *om, *alpha, *dist, *sig, *rgb;
 };
 
-__device__ __forceinline__ RaySmem ray_smem(float* base, int S) {
+__device__ __forceinline__ RaySmem ray_smem(float* smem, float* gstate, int S) {
+  float* base = gstate == nullptr
+                    ? smem
+                    : gstate + static_cast<size_t>(blockIdx.x) * kCompFloats * S;
   RaySmem m;
   m.w = base;
   m.T = m.w + S;
@@ -886,10 +906,10 @@ train_composite_kernel(const float* __restrict__ out4, const float* __restrict__
                        const float* __restrict__ dnorm, const float* __restrict__ tgt,
                        const float* __restrict__ mask, const float* __restrict__ inv_denom_p,
                        const float* __restrict__ tgt_depth, float* __restrict__ gout,
-                       float* __restrict__ loss_r, int S, int Np, int white_bkgd, float rgb_c,
-                       float reg_c, float depth_c) {
+                       float* __restrict__ loss_r, float* __restrict__ gstate, int S, int Np,
+                       int white_bkgd, float rgb_c, float reg_c, float depth_c) {
   extern __shared__ float4 csm4[];
-  const RaySmem m = ray_smem(reinterpret_cast<float*>(csm4), S);
+  const RaySmem m = ray_smem(reinterpret_cast<float*>(csm4), gstate, S);
   const int ray = blockIdx.x;
   const float* zr = z + static_cast<size_t>(ray) * S;
   const size_t nb = static_cast<size_t>(ray) * S;
@@ -937,10 +957,10 @@ __global__ void __launch_bounds__(32)
 render_composite_kernel(const float* __restrict__ out4, const float* __restrict__ z,
                         const float* __restrict__ dnorm, const float* __restrict__ g_rgb,
                         const float* __restrict__ g_depth, const float* __restrict__ g_acc,
-                        const float* __restrict__ g_weights, float* __restrict__ gout, int S,
-                        int Np, int white_bkgd) {
+                        const float* __restrict__ g_weights, float* __restrict__ gout,
+                        float* __restrict__ gstate, int S, int Np, int white_bkgd) {
   extern __shared__ float4 csm4[];
-  const RaySmem m = ray_smem(reinterpret_cast<float*>(csm4), S);
+  const RaySmem m = ray_smem(reinterpret_cast<float*>(csm4), gstate, S);
   const int ray = blockIdx.x;
   const float* zr = z + static_cast<size_t>(ray) * S;
   const size_t nb = static_cast<size_t>(ray) * S;
@@ -982,7 +1002,7 @@ __device__ __forceinline__ void weight_image(float v, float* hi, float* lo, size
   }
 }
 
-// Stage blockIdx.y of the images (the forward's w0 and wh[l] stages, then
+// Stage y0 + blockIdx.y of the images (the forward's w0 and wh[l] stages, then
 // the backward's wh[l]^T, l from L1 - 1 down), output rows [32*blockIdx.x,
 // +32), through a KS x 32 tile in shared memory, into the image of the pass
 // that owns the rows (per layer, the passes one after the other, each over
@@ -992,13 +1012,13 @@ template <int H, int ROUTE>
 __global__ void __launch_bounds__(256)
 weight_image_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
                     uint8_t* __restrict__ images, float* __restrict__ w0hi,
-                    float* __restrict__ w0lo, int D, int L1, int n_fwd, int n_stages) {
+                    float* __restrict__ w0lo, int D, int L1, int n_fwd, int n_stages, int y0) {
   using T = Trunk<H, ROUTE>;
   constexpr int KS = T::KS;
   __shared__ float tile[KS][33];
   const int nb = blockIdx.x * 32;
   const int tid = threadIdx.x;
-  const int st = blockIdx.y;
+  const int st = y0 + blockIdx.y;
   if (st >= n_stages) {
     const int r0 = (st - n_stages) * 32;
     for (int e = tid; e < 32 * 32; e += 256) {
@@ -2007,12 +2027,14 @@ render_dx_kernel(const float* __restrict__ gbuf, const float* __restrict__ w0hi,
 
 struct Scratch {
   float *act, *gbuf, *gout, *out4, *loss_r, *part, *w0hi, *w0lo;
+  float* ray;  // the composite's ray state, or nullptr (it fits shared memory)
   uint32_t* mask;
   uint8_t* img;
 };
 
-Scratch carve(const Layout& s, float* scratch, int D, int H) {
+Scratch carve(const Layout& s, float* scratch, int D, int H, int S) {
   Scratch b;
+  b.ray = comp_in_smem(S) ? nullptr : scratch + s.ray;
   b.act = scratch + s.act;
   b.gbuf = scratch + s.gbuf;
   b.gout = scratch + s.gout;
@@ -2034,16 +2056,29 @@ cudaError_t smem_limit(K kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// The composite's dynamic shared memory for S samples (0 when its state
+// goes to the scratch), the limit raised past kSmemDefault.
+template <class K>
+cudaError_t composite_smem(K kernel, int S, size_t& bytes) {
+  bytes = comp_in_smem(S) ? comp_bytes(S) : 0;
+  return bytes > static_cast<size_t>(kSmemDefault) ? smem_limit(kernel, bytes) : cudaSuccess;
+}
+
 // The weights' stage images (and, with_w0, w0's row-major image).
 template <int H, int ROUTE>
 cudaError_t launch_weights(const float* w0, const float* wh, const Scratch& b, int D, int L1,
                            bool with_w0, cudaStream_t st) {
   const int n_fwd = fwd_stages<H, ROUTE>(D, L1);
   const int n_stages = n_fwd + bwd_stages<H, ROUTE>(L1);
-  const int extra = with_w0 ? cdiv(D, 32) : 0;
-  weight_image_kernel<H, ROUTE><<<dim3(H / 32, n_stages + extra), 256, 0, st>>>(
-      w0, wh, b.img, b.w0hi, b.w0lo, D, L1, n_fwd, n_stages);
-  return cudaGetLastError();
+  const int rows = n_stages + (with_w0 ? cdiv(D, 32) : 0);
+  for (int y0 = 0; y0 < rows; y0 += kMaxGridY) {  // any depth: grids of kMaxGridY rows
+    const int n = rows - y0 < kMaxGridY ? rows - y0 : kMaxGridY;
+    weight_image_kernel<H, ROUTE><<<dim3(H / 32, n), 256, 0, st>>>(
+        w0, wh, b.img, b.w0hi, b.w0lo, D, L1, n_fwd, n_stages, y0);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 // One trunk pass (MODE kFwd or kBwd) over every tile, by persistent CTAs.
@@ -2131,15 +2166,15 @@ cudaError_t launch_dw_route(const DwJobs& jobs, const DwArgs& d, int tiles, int 
 // Every dW = A^T.delta and db = sum delta (layer 0, the L1 hidden layers,
 // the head) over fixed point-axis parts, then the fixed-order sum of the
 // parts into grads. The layers' products take dw_route, the head's
-// head_route: one launch when they agree, else one per route (into the
-// same partials).
+// head_route: one group when they agree, else one per route. A group goes
+// in launches of at most kMaxJobs products (one up to 15 layers); every
+// product writes its own rows of the same partials, so how the products
+// are split into launches changes no bit.
 cudaError_t launch_dw(const Layout& s, const Scratch& b, float* grads, int D, int H, int L1,
                       int dw_route, int head_route, cudaStream_t st) {
-  DwJobs jobs[2];
-  int total_tiles[2] = {0, 0};
-  jobs[0].n = jobs[1].n = 0;
+  std::vector<DwJob> jobs[2];
   auto add = [&](int grp, int a_row, int g_row, int K, int J, int Jreal, size_t out, size_t db) {
-    DwJob& j = jobs[grp].job[jobs[grp].n++];
+    DwJob j;
     j.a_row = a_row;
     j.g_row = g_row;
     j.K = K;
@@ -2148,7 +2183,7 @@ cudaError_t launch_dw(const Layout& s, const Scratch& b, float* grads, int D, in
     j.tiles = cdiv(K, kDwT) * cdiv(J, kDwT);
     j.out = out;
     j.db = db;
-    total_tiles[grp] += j.tiles;
+    jobs[grp].push_back(j);
   };
   const size_t off_w0 = 0, off_b0 = static_cast<size_t>(D) * H;
   const size_t off_wh = off_b0 + H;
@@ -2171,27 +2206,35 @@ cudaError_t launch_dw(const Layout& s, const Scratch& b, float* grads, int D, in
   d.nblk = s.nblk;
   d.chunk_blk = s.chunk_blk;
   for (int grp = 0; grp < 2; ++grp) {
-    if (jobs[grp].n == 0) continue;
     const int route = grp ? head_route : dw_route;
-    cudaError_t err;
-    if (route == kBf16)
-      err = launch_dw_route<kBf16>(jobs[grp], d, total_tiles[grp], s.P, st);
-    else if (route == kFp32)
-      err = launch_dw_route<kFp32>(jobs[grp], d, total_tiles[grp], s.P, st);
-    else
-      err = launch_dw_route<kTf32x3>(jobs[grp], d, total_tiles[grp], s.P, st);
-    if (err != cudaSuccess) return err;
+    for (size_t first = 0; first < jobs[grp].size(); first += kMaxJobs) {
+      DwJobs batch;
+      batch.n = 0;
+      int tiles = 0;
+      for (size_t i = first; i < jobs[grp].size() && batch.n < kMaxJobs; ++i) {
+        batch.job[batch.n++] = jobs[grp][i];
+        tiles += jobs[grp][i].tiles;
+      }
+      cudaError_t err;
+      if (route == kBf16)
+        err = launch_dw_route<kBf16>(batch, d, tiles, s.P, st);
+      else if (route == kFp32)
+        err = launch_dw_route<kFp32>(batch, d, tiles, s.P, st);
+      else
+        err = launch_dw_route<kTf32x3>(batch, d, tiles, s.P, st);
+      if (err != cudaSuccess) return err;
+    }
   }
   train_finalize_kernel<<<static_cast<unsigned>((s.F + 255) / 256), 256, 0, st>>>(
       b.part, grads, s.F, d.Fp, s.P);
   return cudaGetLastError();
 }
 
-// The shapes the launches take: every K a multiple of 16, S samples within
-// the composite's shared memory, at most kMaxJobs dW products.
+// The shapes the launches take: every K a multiple of 16, the R*S points
+// (padded to whole tiles) counted in an int; any S, D and depth.
 bool shapes_ok(int R, int S, int D, int H, int L1) {
-  return R >= 1 && S >= 1 && S <= kMaxS && D > 0 && D % 16 == 0 && D <= kMaxD &&
-         (H == 128 || H == 256 || H == 384 || H == 512) && L1 >= 0 && L1 + 2 <= kMaxJobs;
+  return R >= 1 && S >= 1 && static_cast<long long>(R) * S <= INT_MAX - kTileP && D > 0 &&
+         D % 16 == 0 && (H == 128 || H == 256 || H == 384 || H == 512) && L1 >= 0;
 }
 
 bool route_ok(int route) { return route == kTf32x3 || route == kBf16 || route == kFp32; }
@@ -2211,7 +2254,7 @@ struct TrainArgs {
 template <int H, bool INLINE_PE, int ROUTE>
 cudaError_t launch(const TrainArgs& a, int device, cudaStream_t stream) {
   const Layout s = make_layout(a.R, a.S, a.D, H, a.L1);
-  const Scratch b = carve(s, a.scratch, a.D, H);
+  const Scratch b = carve(s, a.scratch, a.D, H, a.S);
   const bool head_bf16 = ROUTE == kBf16 && !a.head_vpu;
   cudaError_t err = launch_weights<H, ROUTE>(a.w0, a.wh, b, a.D, a.L1, false, stream);
   const TrunkArgs ta = trunk_args(s, b, a.in, a.feats, a.e2, a.c, a.b0, a.bh, a.wout, a.bout,
@@ -2219,10 +2262,12 @@ cudaError_t launch(const TrainArgs& a, int device, cudaStream_t stream) {
   if (err == cudaSuccess) err = launch_forward<H, INLINE_PE, ROUTE>(ta, b, device, stream);
   if (err != cudaSuccess) return err;
 
-  const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(a.S);  // < 48 KB
+  size_t comp_smem = 0;
+  err = composite_smem(train_composite_kernel<ROUTE == kFp32>, a.S, comp_smem);
+  if (err != cudaSuccess) return err;
   train_composite_kernel<ROUTE == kFp32><<<a.R, 32, comp_smem, stream>>>(
-      b.out4, a.z, a.dnorm, a.tgt, a.mask, a.inv_denom, a.tgt_depth, b.gout, b.loss_r, a.S, s.Np,
-      a.white_bkgd, a.rgb_c, a.reg_c, a.depth_c);
+      b.out4, a.z, a.dnorm, a.tgt, a.mask, a.inv_denom, a.tgt_depth, b.gout, b.loss_r, b.ray,
+      a.S, s.Np, a.white_bkgd, a.rgb_c, a.reg_c, a.depth_c);
 
   err = launch_backward<H, ROUTE>(ta, b, device, stream);
   if (err == cudaSuccess)
@@ -2272,7 +2317,7 @@ struct RenderBwdArgs {
 template <int H, int ROUTE>
 cudaError_t launch_render_bwd(const RenderBwdArgs& a, int device, cudaStream_t stream) {
   const Layout s = make_layout(a.R, a.S, a.D, H, a.L1);
-  const Scratch b = carve(s, a.scratch, a.D, H);
+  const Scratch b = carve(s, a.scratch, a.D, H, a.S);
   constexpr bool head_bf16 = ROUTE == kBf16;
   cudaError_t err = launch_weights<H, ROUTE>(a.w0, a.wh, b, a.D, a.L1, a.dx != nullptr, stream);
   const TrunkArgs ta = trunk_args(s, b, a.x, nullptr, nullptr, nullptr, a.b0, a.bh, a.wout,
@@ -2280,9 +2325,11 @@ cudaError_t launch_render_bwd(const RenderBwdArgs& a, int device, cudaStream_t s
   if (err == cudaSuccess) err = launch_forward<H, false, ROUTE>(ta, b, device, stream);
   if (err != cudaSuccess) return err;
 
-  const size_t comp_smem = sizeof(float) * 9 * static_cast<size_t>(a.S);  // < 48 KB
+  size_t comp_smem = 0;
+  err = composite_smem(render_composite_kernel<ROUTE == kFp32>, a.S, comp_smem);
+  if (err != cudaSuccess) return err;
   render_composite_kernel<ROUTE == kFp32><<<a.R, 32, comp_smem, stream>>>(
-      b.out4, a.z, a.dnorm, a.g_rgb, a.g_depth, a.g_acc, a.g_weights, b.gout, a.S, s.Np,
+      b.out4, a.z, a.dnorm, a.g_rgb, a.g_depth, a.g_acc, a.g_weights, b.gout, b.ray, a.S, s.Np,
       a.white_bkgd);
 
   err = launch_backward<H, ROUTE>(ta, b, device, stream);

@@ -36,6 +36,38 @@ def get_rays(
     return rays_o, rays_d
 
 
+def _fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``a * b + c`` rounded once to fp32, as a fused multiply-add: the
+    product of two fp32 values is exact in float64, so only the sum rounds
+    there, then once more to fp32 (which differs from one rounding only for
+    a value that lands on an fp32 tie, about one in 2^29)."""
+    return (a.double() * b.double() + c.double()).to(c.dtype)
+
+
+def phase_rays(
+    H: int, W: int, focal: float, c2w: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training rays of a phase, as the JAX trainer's ``phase_data``
+    makes them: its C++ host op (``nerf_fewshot_tpu/native``,
+    ``nerf_get_rays``), whose shipped library fuses the first product and
+    the sum of each direction component, ``fma(r_k0, dx, r_k1 * dy) -
+    r_k2``, where ``get_rays`` (the jnp version's counterpart, the eval
+    rays) takes a matrix product. The two round an ulp apart, which the
+    samples' PE then amplifies.
+
+    Returns ``rays_o``, ``rays_d``: (H, W, 3)."""
+    dtype, device = c2w.dtype, c2w.device
+    i = torch.arange(W, dtype=dtype, device=device)[None, :]
+    j = torch.arange(H, dtype=dtype, device=device)[:, None]
+    dx = ((i - W * 0.5) / focal).expand(H, W)
+    dy = (-(j - H * 0.5) / focal).expand(H, W)
+    r = c2w[:3, :3]
+    rays_d = torch.stack([_fma(r[k, 0].expand(H, W), dx, r[k, 1] * dy) - r[k, 2]
+                          for k in range(3)], dim=-1)
+    rays_o = c2w[:3, 3].expand(rays_d.shape)
+    return rays_o, rays_d
+
+
 def project_points_to_image(
     points: torch.Tensor, c2w: torch.Tensor, focal: float, H: int, W: int
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:

@@ -33,22 +33,20 @@ from nerf_fewshot_tpu_torch.render import cuda_build
 # Input widths. The pre-encoded x of kernels 3, 4 and 5 is any multiple of
 # D_PAD (``encode_points`` pads to one, as the JAX kernels do), which keeps
 # the 64-column dx tiles of kernel 3 whole; the inline-PE input of kernels 1
-# and 2 is padded to a multiple of PE_ALIGN (``pe_width``). All five take
-# up to MAX_INPUT_WIDTH columns (csrc kMaxD in both sources): 7 x 128, the
-# script recipes' 831 / 858 live columns (D 832 / 864 inline, 896 encoded).
+# and 2 is padded to a multiple of PE_ALIGN (``pe_width``). As the JAX
+# kernels, all five take any such width, any number of samples per ray and
+# any trunk depth; the R*S points are counted in 32-bit ints (MAX_POINTS).
 D_PAD = 128
 PE_ALIGN = 16
-MAX_INPUT_WIDTH = 896
 OUT_PAD = 128  # packed head columns: [r, g, b, sigma, 0...]
 KERNEL_WIDTHS = (128, 256, 384, 512)  # trunk widths the CUDA kernels are built for
-MAX_SAMPLES = 1024  # per-ray sigma/rgb scratch of the kernel lives in smem
+MAX_POINTS = 2 ** 31 - 1 - 64  # R*S, padded to whole 64-point tiles, fits an int
 # csrc/fwd_pe.cu:nerf_fwd_pe(17 pointers (the last the scratch), 11 ints, stream)
 FWD_PE_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 # csrc/fwd_pe.cu:nerf_fwd_x(14 pointers (the last the scratch), 8 ints, stream)
 FWD_X_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 # csrc/train_pe.cu:nerf_render_bwd(16 pointers, 8 ints, stream)
 RENDER_BWD_ARGTYPES = [ctypes.c_void_p] * 16 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-MAX_LAYERS = 15  # trunk layers the backward kernels take (train_pe.cu kMaxJobs - 1)
 
 Packed = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -391,7 +389,8 @@ _SCRATCH: Dict[Tuple[torch.device, str], torch.Tensor] = {}
 def _scratch(lib, device: torch.device, R: int, S: int, D: int, H: int, L1: int,
              source: str = "train_pe") -> torch.Tensor:
     """The scratch ``csrc/<source>.cu`` needs for R x S points of a D-wide
-    input through an L1+1-layer, H-wide trunk."""
+    input through an L1+1-layer, H-wide trunk; raises ``MemoryError``
+    naming the shape and the bytes when the card cannot hold it."""
     size = getattr(lib, "nerf_fwd_scratch_floats" if source == "fwd_pe"
                    else "nerf_train_scratch_floats")
     if size.argtypes is None:
@@ -402,7 +401,13 @@ def _scratch(lib, device: torch.device, R: int, S: int, D: int, H: int, L1: int,
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < n_floats:
         _SCRATCH.pop(key, None)
-        buf = torch.empty(n_floats, dtype=torch.float32, device=device)
+        try:
+            buf = torch.empty(n_floats, dtype=torch.float32, device=device)
+        except torch.OutOfMemoryError:
+            raise MemoryError(
+                f"{source}: the scratch of {R} rays x {S} samples through a {L1 + 1} x {H} "
+                f"trunk from a {D}-wide input needs {4 * n_floats / 2 ** 30:.2f} GiB, more "
+                f"than {device} can allocate") from None
         _SCRATCH[key] = buf
     return buf
 
@@ -426,6 +431,13 @@ def _expect(t: torch.Tensor, name: str, shape, device: torch.device,
         )
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{caller}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+
+
+def _check_points(R: int, S: int, caller: str) -> None:
+    """Raise unless R >= 1 rays of S >= 1 samples, R*S within MAX_POINTS."""
+    if R < 1 or S < 1 or R * S > MAX_POINTS:
+        raise ValueError(f"{caller}: need R >= 1, S >= 1 and R*S <= {MAX_POINTS}; "
+                         f"got {R} x {S}")
 
 
 def _check_card(device: torch.device, caller: str) -> None:
@@ -470,13 +482,12 @@ def fused_render_fwd_pe(
     Fd = feats.shape[1] if use_feats else 0
     if H not in KERNEL_WIDTHS:
         raise ValueError(f"fused_render_fwd_pe: trunk width {H} not in {KERNEL_WIDTHS}")
-    if D % PE_ALIGN or D > MAX_INPUT_WIDTH or n_raw + n_phase + Fd > D:
+    if D % PE_ALIGN or n_raw + n_phase + Fd > D:
         raise ValueError(
             f"fused_render_fwd_pe: input width {n_raw}+{n_phase}+{Fd} needs "
-            f"d_pad >= it, a multiple of {PE_ALIGN} and <= {MAX_INPUT_WIDTH}; got {D}"
+            f"d_pad >= it and a multiple of {PE_ALIGN}; got {D}"
         )
-    if not (1 <= S <= MAX_SAMPLES) or R < 1:
-        raise ValueError(f"fused_render_fwd_pe: need R >= 1 and 1 <= S <= {MAX_SAMPLES}; got {R}, {S}")
+    _check_points(R, S, "fused_render_fwd_pe")
     _expect(raw, "raw", (R * S, n_raw), device)
     if use_feats:
         _expect(feats, "feats", (R * S, Fd), device)
@@ -521,13 +532,9 @@ def _check_x_render(x, z, dnorm, packed: Packed, caller: str):
     L1 = wh.shape[0]
     if H not in KERNEL_WIDTHS:
         raise ValueError(f"{caller}: trunk width {H} not in {KERNEL_WIDTHS}")
-    if D % D_PAD or D > MAX_INPUT_WIDTH:
-        raise ValueError(f"{caller}: x width {D} must be a multiple of {D_PAD} "
-                         f"and <= {MAX_INPUT_WIDTH}")
-    if not (1 <= S <= MAX_SAMPLES) or R < 1:
-        raise ValueError(f"{caller}: need R >= 1 and 1 <= S <= {MAX_SAMPLES}; got {R}, {S}")
-    if L1 + 1 > MAX_LAYERS:
-        raise ValueError(f"{caller}: at most {MAX_LAYERS} trunk layers; got {L1 + 1}")
+    if D % D_PAD:
+        raise ValueError(f"{caller}: x width {D} must be a multiple of {D_PAD}")
+    _check_points(R, S, caller)
     for t, name, shape in ((x, "x", (R * S, D)), (z, "z", (R, S)), (dnorm, "dnorm", (R, 1)),
                            (w0, "w0", (D, H)), (b0, "b0", (1, H)), (wh, "wh", (L1, H, H)),
                            (bh, "bh", (L1, H)), (wout, "wout", (H, OUT_PAD)),
@@ -539,7 +546,7 @@ def _check_x_render(x, z, dnorm, packed: Packed, caller: str):
 def fused_render_fwd(x, z, dnorm, packed: Packed, white_bkgd: bool = False,
                      compute_dtype: str = "float32"):
     """The render of kernel 4 from a pre-encoded (R*S, D) ``x``
-    (``encode_points``, D a multiple of 128 up to 896) with ``pack_params(d_pad=D)`` weights:
+    (``encode_points``, D a multiple of 128) with ``pack_params(d_pad=D)`` weights:
     ``(rgb (R,3), depth (R,1), acc (R,1), weights (R,S))``. CPU tensors run
     ``fused_render_reference``; CUDA tensors launch ``nerf_fwd_x`` and count
     one in ``fused_render_fwd.launches``."""

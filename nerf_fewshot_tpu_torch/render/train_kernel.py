@@ -27,14 +27,12 @@ from nerf_fewshot_tpu_torch.ops.sampling import hierarchical_sample, sample_alon
 from nerf_fewshot_tpu_torch.render.fused import encode_points
 from nerf_fewshot_tpu_torch.render.kernels import (
     KERNEL_WIDTHS,
-    MAX_LAYERS,
     D_PAD,
-    MAX_INPUT_WIDTH,
-    MAX_SAMPLES,
     OUT_PAD,
     PE_ALIGN,
     Packed,
     _check_card,
+    _check_points,
     _composite,
     _composite_terms,
     _expect,
@@ -215,17 +213,14 @@ def fused_train_objective(
     L1 = wh.shape[0]
     if H not in KERNEL_WIDTHS:
         raise ValueError(f"{CALLER}: trunk width {H} not in {KERNEL_WIDTHS}")
-    if not (1 <= S <= MAX_SAMPLES) or R < 1:
-        raise ValueError(f"{CALLER}: need R >= 1 and 1 <= S <= {MAX_SAMPLES}; got {R}, {S}")
-    if L1 + 1 > MAX_LAYERS:
-        raise ValueError(f"{CALLER}: at most {MAX_LAYERS} trunk layers; got {L1 + 1}")
+    _check_points(R, S, CALLER)
     if inline_pe:
         n_raw, n_phase = raw_or_x.shape[1], e2.shape[1]
         Fd = 0 if feats is None else feats.shape[1]
-        if D % PE_ALIGN or D > MAX_INPUT_WIDTH or n_raw + n_phase + Fd > D:
+        if D % PE_ALIGN or n_raw + n_phase + Fd > D:
             raise ValueError(
-                f"{CALLER}: input width {n_raw}+{n_phase}+{Fd} needs d_pad >= it, "
-                f"a multiple of {PE_ALIGN} and <= {MAX_INPUT_WIDTH}; got {D}")
+                f"{CALLER}: input width {n_raw}+{n_phase}+{Fd} needs d_pad >= it and "
+                f"a multiple of {PE_ALIGN}; got {D}")
         _expect(raw_or_x, "raw", (R * S, n_raw), device, CALLER)
         if feats is not None:
             _expect(feats, "feats", (R * S, Fd), device, CALLER)
@@ -233,9 +228,8 @@ def fused_train_objective(
         _expect(c, "c", (1, n_phase), device, CALLER)
     else:
         n_raw = n_phase = Fd = 0
-        if D % D_PAD or D > MAX_INPUT_WIDTH:
-            raise ValueError(f"{CALLER}: x width {D} must be a multiple of {D_PAD} "
-                             f"and <= {MAX_INPUT_WIDTH}")
+        if D % D_PAD:
+            raise ValueError(f"{CALLER}: x width {D} must be a multiple of {D_PAD}")
         _expect(raw_or_x, "x", (R * S, D), device, CALLER)
     _expect(z, "z", (R, S), device, CALLER)
     _expect(dnorm, "dnorm", (R, 1), device, CALLER)

@@ -3,7 +3,8 @@ inputs from a given checkout, or compare two such files bit for bit: the
 check that a change to the kernels' sources left the builds it did not
 mean to change as they were.
 
-    python nerf_fewshot_tpu_torch/tools/route_bits.py --root DIR --out FILE.pt
+    python nerf_fewshot_tpu_torch/tools/route_bits.py --root DIR --out FILE.pt \
+        [--inputs EARLIER.pt]
     python nerf_fewshot_tpu_torch/tools/route_bits.py --compare A.pt B.pt \
         [--reordered NAME_PREFIX ...]
 
@@ -19,9 +20,15 @@ and 3 on the phase-2 batch of 512x64), and at the DINO width (pos_freq 12,
 (3 layers, 64 features) from seed 1. Call names end in the route. The file
 holds the outputs and a digest of the inputs; ``--compare`` fails unless
 both files saw the same inputs and every output tensor is bit-equal.
+A run saves its calls' input tensors too; ``--inputs`` takes them from an
+earlier run's file instead of the tree's own glue, so that the kernels of
+two trees whose host glue rounds the inputs apart (the samples, say) are
+still compared on the same inputs.
 ``--reordered`` names the calls (by prefix) whose kernel sums in another
 order in the second tree, by design: those are reported, with the
-relative difference of their outputs as one vector, and not gated.
+relative difference of their outputs as one vector, and not gated. A run
+also prints ptxas' registers and spills of the compositing and dW kernels
+of the tree's ``train_pe.cu`` build.
 """
 
 from __future__ import annotations
@@ -42,13 +49,39 @@ def _digest(tensors) -> str:
     return h.hexdigest()
 
 
-def run(root: str, out: str) -> None:
+def _map(fn, a):
+    """``a`` with every tensor in it (tuples, lists, dict values) mapped."""
+    if isinstance(a, (tuple, list)):
+        return type(a)(_map(fn, x) for x in a)
+    if isinstance(a, dict):
+        return {k: _map(fn, v) for k, v in a.items()}
+    return fn(a) if hasattr(a, "detach") else a
+
+
+def print_registers(compiler_log: str, names=("composite", "train_dw")) -> None:
+    """ptxas' register and spill lines (``-Xptxas -v``) of the kernels whose
+    entry name holds one of ``names``, one line per template instance."""
+    import re
+
+    entry = None
+    for line in compiler_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1) if any(n in m.group(1) for n in names) else None
+        elif entry and ("spill" in line or "Used" in line):
+            short = re.search(r"\d+((?:train|render)_\w+?_kernel)I(\w+?)E", entry)
+            label = f"{short.group(1)}<{short.group(2)}>" if short else entry
+            print(f"  ptxas {label}: {line.split(':', 1)[-1].strip()}", flush=True)
+
+
+def run(root: str, out: str, inputs=None) -> None:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
 
     import chip_smoke
     from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
+    from nerf_fewshot_tpu_torch.render import cuda_build
     from nerf_fewshot_tpu_torch.render import kernels as tk
     from nerf_fewshot_tpu_torch.render import train_kernel as tt
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
@@ -108,6 +141,11 @@ def run(root: str, out: str) -> None:
                                             white_bkgd=True, ragged=9, inline_pe=inline_pe)
         add(name, lambda *a, **o: flat(tt.fused_train_objective(*a, **o)), *a, **o)
 
+    if inputs:
+        saved = torch.load(inputs)["args"]
+        for name, (fn, _, _, _) in list(calls.items()):
+            args, kw = _map(lambda t: t.to(device), saved[name])
+            add(name, fn, *args, **kw)
     outputs, digests = {}, {}
     for name, (fn, args, kw, digest) in calls.items():
         for cd in ROUTES:
@@ -116,9 +154,12 @@ def run(root: str, out: str) -> None:
             digests[f"{name}_{cd}"] = digest
     torch.cuda.synchronize()
     os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
+    saved_args = {name: _map(lambda t: t.detach().cpu(), (args, kw))
+                  for name, (_, args, kw, _) in calls.items()}
     torch.save({"root": root, "device": torch.cuda.get_device_name(0), "inputs": digests,
-                "outputs": outputs}, out)
+                "outputs": outputs, "args": saved_args}, out)
     print(f"route_bits: {len(outputs)} calls from {root} -> {out}", flush=True)
+    print_registers(cuda_build.load("train_pe")[1].compiler_log)
 
 
 def compare(a_path: str, b_path: str, reordered=()) -> bool:
@@ -154,6 +195,7 @@ def main() -> None:
     ap.add_argument("--out")
     ap.add_argument("--compare", nargs=2)
     ap.add_argument("--reordered", nargs="*", default=())
+    ap.add_argument("--inputs", help="take the calls' inputs from this earlier run's file")
     args = ap.parse_args()
     if args.compare:
         if not compare(*args.compare, reordered=args.reordered):
@@ -161,7 +203,7 @@ def main() -> None:
     elif not args.out:
         ap.error("a run needs --out")
     else:
-        run(args.root, args.out)
+        run(args.root, args.out, args.inputs)
 
 
 if __name__ == "__main__":

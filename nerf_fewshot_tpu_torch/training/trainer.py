@@ -14,8 +14,8 @@ follows the JAX trainer: ``rendering.backend: xla``, or under ``auto`` a
 config the JAX kernels do not take (``arch: module``, skip layers, a width
 that is not a multiple of 128, sigma noise), trains on the plain path on
 every device. A config the JAX kernels take but the port has no CUDA build
-for (a width of 640 or more: the kernels take 128, 256, 384 and 512; an
-MLP input wider than 896 columns) raises on a card, and trains on the plain
+(a width of 640 or more: the kernels take 128, 256, 384 and 512, and any
+input width, samples per ray and depth) raises on a card, and trains on the plain
 path only on the CPU or with ``backend: xla``. The path taken is in
 ``kernel_path``. Minibatch permutations come from ``np.random.default_rng(cfg.seed)`` exactly as in
 the JAX trainer, so both draw the same batches. Eval renders every view
@@ -73,6 +73,7 @@ from nerf_fewshot_tpu_torch.ops.composite import RenderOutputs
 from nerf_fewshot_tpu_torch.ops.interp import grid_sample
 from nerf_fewshot_tpu_torch.ops.rays import (
     get_rays,
+    phase_rays,
     project_points_script,
     project_points_to_image,
 )
@@ -81,11 +82,6 @@ from nerf_fewshot_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, process_l
 from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
 from nerf_fewshot_tpu_torch.render.kernels import (
     KERNEL_WIDTHS,
-    MAX_INPUT_WIDTH,
-    MAX_LAYERS,
-    MAX_SAMPLES,
-    pe_layout,
-    pe_width,
 )
 from nerf_fewshot_tpu_torch.render.pipeline import PointFeaturesFn, RenderSettings, render_rays
 from nerf_fewshot_tpu_torch.render.train_kernel import fused_train_loss_grad
@@ -286,26 +282,13 @@ class Trainer:
         return None
 
     def _port_gap_reason(self) -> Optional[str]:
-        """Why the port's kernels cannot take a config the JAX kernels take."""
+        """Why the port's kernels cannot take a config the JAX kernels take:
+        a trunk width they have no build for. Any input width, samples per
+        ray and depth the JAX kernels take, the CUDA kernels take too."""
         n = self.cfg.nerf
         if n.hidden_dim not in KERNEL_WIDTHS:
             return (f"hidden_dim={n.hidden_dim} has no CUDA build "
                     f"(the kernels are built for {KERNEL_WIDTHS})")
-        feat_dim = self.cfg.dino.output_dim if self.use_dino else 0
-        x_dim = pe_layout(n.pos_freq, n.dir_freq, n.use_viewdirs, feat_dim)[3]
-        if pe_width(x_dim) > MAX_INPUT_WIDTH:
-            return (f"the MLP input is {x_dim} wide; the CUDA kernels take at most "
-                    f"{MAX_INPUT_WIDTH}")
-        if n.num_layers > MAX_LAYERS:
-            return (f"num_layers={n.num_layers}; the CUDA training kernels take at most "
-                    f"{MAX_LAYERS} trunk layers")
-        # a training step renders each phase's samples, and with importance
-        # sampling the merged coarse and fine ones, through the train kernel
-        n_importance = self.cfg.rendering.n_importance
-        samples = max((p.n_samples for p in self.cfg.phases), default=0) + n_importance
-        if samples > MAX_SAMPLES:
-            return (f"{samples} samples per ray (n_samples + n_importance "
-                    f"{n_importance}); the CUDA training kernels take at most {MAX_SAMPLES}")
         return None
 
     def _use_fused(self) -> bool:
@@ -393,7 +376,9 @@ class Trainer:
     def phase_data(self, phase_idx: int) -> PhaseData:
         """Per-phase rays and targets of every train view, on the device:
         focal scaled with the phase resolution when ``cfg.focal_scaling``,
-        targets resized bilinearly (torch semantics, ``align_corners=False``)."""
+        the rays rounded as the JAX trainer's host op rounds them
+        (``phase_rays``), targets resized bilinearly (torch semantics,
+        ``align_corners=False``)."""
         if phase_idx in self._phase_data:
             return self._phase_data[phase_idx]
         p = self.cfg.phases[phase_idx]
@@ -401,7 +386,7 @@ class Trainer:
         focal = self.focal * (Hp / self.H) if self.cfg.focal_scaling else self.focal
         ros, rds, tgts = [], [], []
         for v in range(self.n_views):
-            ro, rd = get_rays(Hp, Wp, focal, torch.as_tensor(self.poses[v], device=self.device))
+            ro, rd = phase_rays(Hp, Wp, focal, torch.as_tensor(self.poses[v], device=self.device))
             tgt = torch.as_tensor(self.targets_full[v], device=self.device)
             if (Hp, Wp) != (self.H, self.W):
                 tgt = F.interpolate(tgt.permute(2, 0, 1)[None], size=(Hp, Wp), mode="bilinear",

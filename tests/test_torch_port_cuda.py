@@ -102,8 +102,8 @@ FWD_CASES = {
     # R*S = 1776 points: the last 64-point tile of the trunk is ragged
     "k2_ragged_white_feats": (2, 37, 48, 256, 8, 64, True),
     "k4_ragged_white_feats_x256_h128": (4, 37, 48, 128, 3, 64, True),
-    "k2_max_samples": (2, 3, tk.MAX_SAMPLES, 256, 8, 0, False),
-    "k4_max_samples": (4, 3, tk.MAX_SAMPLES, 256, 8, 0, False),
+    "k2_max_samples": (2, 3, 1024, 256, 8, 0, False),
+    "k4_max_samples": (4, 3, 1024, 256, 8, 0, False),
 }
 
 
@@ -113,7 +113,8 @@ def test_fwd_kernels_at_the_edges(h100, case):
     """Kernels 2 and 4 where the point tiles and the compositing meet their
     edges: R*S not a multiple of the tile (with a white background and
     features; kernel 4 with a 256-wide x through an H 128 trunk) and S =
-    MAX_SAMPLES; against their plain versions at the view tolerances."""
+    1024 (the kernels' former cap); against their plain versions at
+    the view tolerances."""
     kernel, R, S, H, L, feat_dim, white = FWD_CASES[case]
     args, kw, fn, ref = _fwd_case(kernel, R, S, H, L, feat_dim, h100)
     if kernel == 4:
@@ -456,6 +457,44 @@ def test_wide_trunk_kernels_at_the_script_input_widths(h100, kernel):
     _check_wide(kernel, 512, "float32", _wide_case(kernel, 512, h100, R=509, staged=True))
 
 
+# Past the caps the kernels once had (the JAX kernels never had
+# them): samples per ray past 1024 (the compositing state of kernels 1, 5
+# and 3 in shared memory past 48 KB at S 2048 and 2050, in the scratch at S
+# 8192), trunks deeper than 15 layers (the dW products in launches of at
+# most 16) and inputs wider than 896 columns (D / x 1152), each kernel
+# against its plain version at the bounds of the wide trunks (the §2 gates,
+# the float64 rule at float32 and highest), bit-equal on a second call.
+# The widest case of each cap at all three routes, the rest at float32;
+# shapes as chip_smoke.CAP_CASES, plus 37 rays x 2050 samples (the last
+# 64-point tile ragged) through a 4 x 256 trunk with 64 features.
+CAP_SHAPES = {  # R, S, H, L, features
+    "s2048": (64, 2048, 256, 8, 0), "s8192": (16, 8192, 256, 8, 0),
+    "l16": (512, 64, 256, 16, 0), "l24": (512, 64, 256, 24, 0),
+    "d1152": (512, 64, 256, 8, 1062), "s2048_h512": (64, 2048, 512, 8, 0),
+    "l16_h512": (512, 64, 512, 16, 0), "r37_s2050": (37, 2050, 256, 4, 64),
+}
+CAP_KERNELS = ("fwd_pe", "fwd", "render_bwd", "train_pe", "train_x")
+CAP_PARAMS = [(label, kernel, cd) for label in CAP_SHAPES for kernel in CAP_KERNELS
+              for cd in (("float32", "bfloat16", "highest")
+                         if label in ("s8192", "l24", "d1152") else ("float32",))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,kernel,compute_dtype", CAP_PARAMS)
+def test_every_kernel_past_the_old_caps_matches_plain(h100, label, kernel, compute_dtype):
+    import chip_smoke
+
+    name, _, run, plain, f64, _, _ = chip_smoke.cap_case(kernel, label, CAP_SHAPES[label], h100)
+    counts = {"fwd_pe": lambda: tk.fused_render_fwd_pe.launches,
+              "fwd": lambda: tk.fused_render_fwd.launches,
+              "render_bwd": lambda: tk.fused_render_bwd.launches,
+              "train_pe": lambda: tt.fused_train_objective.launches["train_pe"],
+              "train_x": lambda: tt.fused_train_objective.launches["train_x"]}[name]
+    forward = kernel in ("fwd_pe", "fwd")
+    _check_wide(kernel, CAP_SHAPES[label][2], compute_dtype,
+                (counts, run, plain, None if forward else f64))
+
+
 @pytest.mark.cuda
 def test_train_epoch_on_the_card_matches_the_cpu(h100, monkeypatch):
     """The trainer on the card launches the kernel once per step and gives
@@ -498,35 +537,47 @@ def test_trainer_on_the_card_refuses_configs_the_kernels_cannot_take(h100, width
     """As the JAX trainer: width 64, which the JAX kernels do not take,
     trains on the plain path under ``auto`` (no kernel launched,
     ``kernel_path`` "plain" with the JAX reason) and raises under ``fused``.
-    What the JAX kernels take and the port's kernels do not (width 640,
-    which has no CUDA build; ``MAX_SAMPLES`` + 1 samples per ray, as
-    n_samples + n_importance; ``MAX_LAYERS`` + 1 trunk layers) raises on the
-    card in ``train_epoch`` and in eval under both, naming the cap and
-    ``backend: xla``: no step or view falls back to the plain path."""
+    Width 640, which the JAX kernels take and the port has no CUDA build
+    for, raises on the card in ``train_epoch`` and in eval under both,
+    naming the width and ``backend: xla``: no step or view falls back to the
+    plain path. What the port's kernels once refused they now take
+    under both: 1025 samples per ray (n_samples 16 + n_importance 1009)
+    and 16 trunk layers train through kernel 1 (kernel 2 the coarse pass)
+    and render through kernel 2."""
     from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
     hidden = width if isinstance(width, int) else 128
-    layers = tk.MAX_LAYERS + 1 if width == "layers" else 2
-    n_importance = tk.MAX_SAMPLES + 1 - 16 if width == "samples" else 0
+    layers = 16 if width == "layers" else 2
+    n_importance = 1025 - 16 if width == "samples" else 0
     cfg = config_from_dict({
         "data": {"resolution": 16}, "nerf_model": {"hidden_dim": hidden, "num_layers": layers},
         "training": {"phases": [{"start": 0, "H": 16, "n_samples": 16, "batch_size": 64}]},
         "rendering": {"chunk_size": 64, "backend": backend, "n_importance": n_importance},
     })
-    cap = {640: "hidden_dim=640 has no CUDA build",
-           "samples": f"{tk.MAX_SAMPLES + 1} samples per ray .* at most {tk.MAX_SAMPLES}",
-           "layers": f"num_layers={layers}; .* at most {tk.MAX_LAYERS} trunk layers"}.get(width)
     data = make_scene_dataset(lego_like_scene(), 1, img_size=16, gt_samples=16, device="cpu")
     tr = Trainer(cfg, data, data, device=h100)
     before = (dict(tt.fused_train_objective.launches), tk.fused_render_fwd_pe.launches)
+    if width in ("samples", "layers"):
+        assert np.isfinite(tr.train_epoch(0))
+        assert (tr.kernel_path, tr.kernel_path_reason) == ("kernel", None)
+        steps = len(tr.last_step_losses)
+        assert tt.fused_train_objective.launches["train_pe"] - before[0]["train_pe"] == steps
+        coarse = steps if n_importance else 0
+        assert tk.fused_render_fwd_pe.launches - before[1] == coarse
+        assert np.isfinite(tr.render_views(data.poses[:1])[0]).all()
+        chunks = -(-16 * 16 // 64)
+        assert tk.fused_render_fwd_pe.launches - before[1] == coarse + chunks * (
+            2 if n_importance else 1)
+        return
     if width == 64 and backend == "auto":
         assert np.isfinite(tr.train_epoch(0))
         assert np.isfinite(tr.render_views(data.poses[:1])[0]).all()
         assert (tr.kernel_path, tr.kernel_path_reason) == ("plain",
                                                            "hidden_dim=64 not 128-lane aligned")
     else:
+        cap = "hidden_dim=640 has no CUDA build" if width == 640 else None
         hint = rf": {cap}.*\(backend: xla trains" if cap else ""
         with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda{hint}"):
             tr.train_epoch(0)

@@ -299,11 +299,12 @@ def test_objective_at_d832_matches_the_jax_interpret_kernel():
 
 def test_port_gap_reason_takes_the_script_widths_and_refuses_past_the_cap(scene):
     """D 832 (63 + 768) and D 864 (90 + 768) take the kernels, on the CPU and
-    as the choice a card makes; an input past ``MAX_INPUT_WIDTH`` (896) is
-    the port's gap: the plain path on the CPU under ``auto``, a raise on a
-    card and under ``backend: fused``, naming the width."""
+    as the choice a card makes; so, past the port's former 896-column cap,
+    does a wider input (963 live columns, D 976), under ``auto`` and
+    ``backend: fused``: the kernel path on the CPU (the kernels' plain
+    versions, one step of it here) and as the choice a card makes."""
     train, test, feats = scene
-    assert tk.MAX_INPUT_WIDTH == 896
+    assert not hasattr(tk, "MAX_INPUT_WIDTH")
     for name in ("script_baseline_live", "script_projection"):
         tr = Trainer(_script_config(tcfg, name), _port_data(train), device="cpu",
                      dino_features=feats)
@@ -311,16 +312,23 @@ def test_port_gap_reason_takes_the_script_widths_and_refuses_past_the_cap(scene)
         tr.device = torch.device("cuda", 0)
         assert tr._use_fused() and tr.kernel_path == "kernel"
     wide = np.zeros((2, 2, 2, 900), np.float32)
-    tr = Trainer(_script_config(tcfg, "script_baseline_live", model={"dino_dim": 900}),
-                 _port_data(train), device="cpu", dino_features=wide)
-    reason = tr._port_gap_reason()
-    assert "963 wide" in reason and "896" in reason
-    assert not tr._use_fused() and tr.kernel_path_reason == reason
-    tr.device = torch.device("cuda", 0)
-    with pytest.raises(ValueError, match="963 wide"):
-        tr._use_fused()
-    fused = Trainer(_script_config(tcfg, "script_baseline_live", model={"dino_dim": 900},
-                                   rendering={"backend": "fused"}),
-                    _port_data(train), device="cpu", dino_features=wide)
-    with pytest.raises(ValueError, match="backend=fused rejected on cpu"):
-        fused._use_fused()
+    for backend in ("auto", "fused"):
+        tr = Trainer(_script_config(tcfg, "script_baseline_live", model={"dino_dim": 900},
+                                    rendering={"backend": backend}),
+                     _port_data(train), device="cpu", dino_features=wide)
+        assert tk.pe_width(tk.pe_layout(10, 4, tr.cfg.nerf.use_viewdirs, 900)[3]) == 976
+        assert tr._port_gap_reason() is None
+        assert tr._use_fused() and (tr.kernel_path, tr.kernel_path_reason) == ("kernel", None)
+        tr.device = torch.device("cuda", 0)
+        assert tr._use_fused() and tr.kernel_path == "kernel"
+    tr.device = torch.device("cpu")
+    args, opts = tt.train_objective_inputs(
+        {k: v.detach() for k, v in tr.model.named_parameters()},
+        torch.zeros((4, 3)) + torch.tensor([0.0, 0.0, 4.0]),
+        torch.tensor([[0.0, 0.0, -1.0]]).repeat(4, 1), torch.rand(4, 3), torch.ones(4),
+        RenderSettings(near=2.0, far=6.0, n_samples=8), 10, 4, tr.cfg.nerf.num_layers,
+        tr.cfg.nerf.hidden_dim, use_viewdirs=tr.cfg.nerf.use_viewdirs,
+        point_features_fn=lambda p: torch.zeros((p.shape[0], 900)))
+    assert args[-1][0].shape[0] == 976
+    loss, grads = tt.fused_train_objective(*args, **opts)
+    assert torch.isfinite(loss) and all(torch.isfinite(g).all() for g in grads)

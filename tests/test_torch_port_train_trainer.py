@@ -24,7 +24,6 @@ from nerf_fewshot_tpu.data import make_scene_dataset as jax_make_scene
 from nerf_fewshot_tpu.training import config as jcfg
 from nerf_fewshot_tpu.utils import logging as jlogging
 from nerf_fewshot_tpu_torch.data.blender import BlenderDataset
-from nerf_fewshot_tpu_torch.render import kernels as tk
 from nerf_fewshot_tpu_torch.render import train_kernel as tt
 from nerf_fewshot_tpu_torch.training import config as tcfg
 from nerf_fewshot_tpu_torch.training.trainer import Trainer
@@ -232,21 +231,19 @@ def test_save_png_writes_the_pixels_the_jax_package_writes(tmp_path):
 def _unfit_config(unfit, backend):
     """The tiny config made unfit for the kernels: a trunk width the JAX
     kernels do not take (64), sigma noise (outside the strict reference
-    behavior), or what the JAX kernels take and the port's CUDA kernels
-    do not: a width with no CUDA build (640), a phase of more samples per
-    ray than the train kernel holds (``MAX_SAMPLES`` + 1, in phase 1 only:
-    the refusal comes before the first step), a trunk deeper than its
-    ``MAX_LAYERS``."""
+    behavior), or a width the JAX kernels take and the port's CUDA kernels
+    have no build for (640); or past a cap the port's kernels once had and
+    take now: a phase of 1025 samples per ray (in phase 1 only), a 16-layer
+    trunk."""
     raw = _config(tcfg).raw
     phases = [dict(p) for p in raw["training"]["phases"]]
-    phases[1]["n_samples"] = tk.MAX_SAMPLES + 1
+    phases[1]["n_samples"] = 1025
     over = {"narrow": {"nerf_model": {**raw["nerf_model"], "hidden_dim": 64}},
             "noisy": {"strict_reference_behavior": False,
                       "rendering": {**raw["rendering"], "noise_std": 1.0}},
             "wide": {"nerf_model": {**raw["nerf_model"], "hidden_dim": 640}},
             "many_samples": {"training": {**raw["training"], "phases": phases}},
-            "deep": {"nerf_model": {**raw["nerf_model"],
-                                    "num_layers": tk.MAX_LAYERS + 1}}}[unfit]
+            "deep": {"nerf_model": {**raw["nerf_model"], "num_layers": 16}}}[unfit]
     d = {**raw, **over}
     d["rendering"] = {**d["rendering"], "backend": backend}
     return tcfg.config_from_dict(d)
@@ -259,20 +256,29 @@ def test_configs_the_kernels_cannot_take(scene, unfit, backend):
     take (``narrow``, ``noisy``) trains on the plain path under ``auto`` on
     every device, with the JAX trainer's reason in ``kernel_path_reason``,
     and raises under ``fused``. A config only the port's kernels cannot
-    take (``wide``, ``many_samples``, ``deep``) raises under ``fused``, and
-    on a card under ``auto`` too (checked with the trainer's device set to
-    cuda: the choice raises before any tensor is made), naming the cap and
-    ``backend: xla``; only the CPU or ``xla`` take the plain path for it."""
+    take (``wide``) raises under ``fused``, and on a card under ``auto``
+    too (checked with the trainer's device set to cuda: the choice raises
+    before any tensor is made), naming the width and ``backend: xla``; only
+    the CPU or ``xla`` take the plain path for it. The samples and depth
+    the port's kernels once refused (``many_samples``, ``deep``)
+    take the kernel path under ``auto`` and ``fused``, on the CPU and as
+    the choice a card makes; ``xla`` keeps the plain path."""
     train, _ = scene
     ptr = Trainer(_unfit_config(unfit, backend), _port_data(train), device="cpu")
     jax_reason = {"narrow": "hidden_dim=64 not 128-lane aligned",
                   "noisy": "sigma noise_std != 0 is not implemented in the kernels",
                   "wide": None, "many_samples": None, "deep": None}[unfit]
-    gap = {"wide": "hidden_dim=640 has no CUDA build",
-           "many_samples": f"{tk.MAX_SAMPLES + 1} samples per ray .* at most {tk.MAX_SAMPLES}",
-           "deep": f"num_layers={tk.MAX_LAYERS + 1}; .* at most {tk.MAX_LAYERS} trunk layers",
-           }.get(unfit, "")
-    if backend == "fused":
+    gap = {"wide": "hidden_dim=640 has no CUDA build"}.get(unfit, "")
+    lifted = unfit in ("many_samples", "deep")
+    if lifted:
+        assert ptr._port_gap_reason() is None
+    if lifted and backend != "xla":
+        assert ptr._use_fused() is True
+        assert (ptr.kernel_path, ptr.kernel_path_reason) == ("kernel", None)
+        before = tt.fused_train_objective.launches["train_pe"]
+        assert np.isfinite(ptr.train_epoch(0))
+        assert tt.fused_train_objective.launches["train_pe"] == before  # the CPU: no launch
+    elif backend == "fused":
         with pytest.raises(ValueError, match="backend=fused rejected on cpu"):
             ptr.train_epoch(0)
     else:
@@ -286,6 +292,8 @@ def test_configs_the_kernels_cannot_take(scene, unfit, backend):
     if backend == "xla" or (backend == "auto" and jax_reason):
         assert ptr._use_fused() is False
         assert ptr.kernel_path == "plain"
+    elif lifted:
+        assert ptr._use_fused() is True and ptr.kernel_path == "kernel"
     else:
         hint = rf": {gap}.*\(backend: xla trains" if gap else ""
         with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda{hint}"):

@@ -109,7 +109,8 @@ its seconds:
    coarse pass, kernel 5) against the inline-PE step;
 13. repair check: ``experiments/smoke.yaml`` (width 64) trains a phase-0
    epoch on the plain path under ``backend: auto`` and says so in
-   ``kernel_path``; under ``fused`` it raises, and width 640 raises too;
+   ``kernel_path``; under ``fused`` it raises; width 640 (the kernels'
+   width-generic build) trains through kernel 1 under ``auto``;
 13a. wide trunks: ``baseline.yaml`` with ``nerf_model.hidden_dim`` 512,
    then 384 (built in code; no config ships at these widths, which the JAX
    kernels take), 8 layers: the five kernels on the trainer's init at the
@@ -121,7 +122,10 @@ its seconds:
    per step, epoch 0 within rel 1e-4 of a ``backend: xla`` trainer, eval
    after (kernel 2 once per chunk; PSNR rising at 512), 5 differentiable
    render steps (kernels 4 and 3) within rel 1e-4 of plain autograd and
-   one ``inline_pe=False`` step (kernel 5);
+   one ``inline_pe=False`` step (kernel 5); then the wider trunks past 512
+   (the width-generic build: no activation tile, every layer input
+   streamed from its image), the same at ``hidden_dim`` 1024 (epochs 0 and
+   100, PSNR rising), 768 and 640 (epoch 0);
 13b. past the old caps (the kernels take any samples per ray,
    trunk depth and input width, as the JAX kernels do): the five kernels
    at ``CAP_CASES`` (S 2048 on 64 rays, the compositing state of kernels
@@ -249,8 +253,9 @@ pretrained-format run's launches, then at the trunk-LoRA width, then the
 five at the script recipes' widths, then each kernel at ``bfloat16`` and
 at ``highest`` (``<name>_bf16``, ``<name>_highest``: main-path times, the
 route's bound, launches from the route trainings), then the five at trunk
-widths 384 and 512 (``<name>_h384``, ``<name>_h512``: the wide phase's
-launches and ``float32`` numbers, the other routes under ``routes``), then
+widths 384, 512, 640, 768 and 1024 (``<name>_h384`` .. ``<name>_h1024``:
+the wide phase's launches and ``float32`` numbers, the other routes under
+``routes``, the build under ``build``), then
 the five past the old caps (``<name>_<case>`` of ``CAP_CASES``: the caps
 phase's launches by the trainer of that cap); kernel 1's row counts the gradient
 gate's two launches and the data-parallel phase's, kernel 2's the
@@ -464,10 +469,24 @@ ROUTE_RENDER_STEPS = 2
 # The wide trunks: baseline.yaml at trunk widths 384 and 512 (no shipped
 # config; the JAX kernels take them), trained through the kernels at these
 # epochs (H 512: both 32x32 epochs and one 512x64 phase-2 epoch; H 384: one
-# epoch), with WIDE_RENDER_STEPS differentiable render steps each.
+# epoch), with WIDE_RENDER_STEPS differentiable render steps each; then the
+# wider trunks past 512 (the kernels' width-generic build) the same way (H
+# 1024: epochs 0 and 1; H 768 and 640: epoch 0). WIDE_PSNR_RISE: the epoch
+# after which PSNR must be above its value at init (an eval there). The
+# recipe's lr of 5e-4 kills a 1024-wide trunk in its first epoch at seed 0
+# (relu(sigma) zero everywhere, the dead basin; PERF.md §6), on the
+# plain path as on the kernels: H 1024 trains at the lr scaled with the
+# width from 256 (WIDE_LR), and first takes epoch 0 at the published lr on
+# both paths, held together. WIDE_TWIN_EPOCHS: the epochs held against the
+# xla twin (the others: the first).
 WIDE_WIDTHS = (512, 384)
-WIDE_EPOCHS = {512: (0, 1, 100), 384: (0,)}
+WIDER_WIDTHS = (1024, 768, 640)
+WIDE_EPOCHS = {512: (0, 1, 100), 384: (0,), 1024: (0, 1), 768: (0,), 640: (0,)}
+WIDE_PSNR_RISE = {512: 100, 1024: 1}
+WIDE_TWIN_EPOCHS = {1024: (0, 1)}
+WIDE_LR = {1024: BASELINE_CONFIG["optimizer"]["lr"] * 256 / 1024}
 WIDE_RENDER_STEPS = 5
+MAX_FIXED_WIDTH = 512  # the widest trunk with a build of its own (csrc kMaxFixedH)
 
 
 # The caps the kernels once had and the JAX kernels never had:
@@ -1530,8 +1549,9 @@ def run_hierarchical_slice(train, test, device, tk, tt):
 def run_repair_check(train, device, tk, tt):
     """``smoke.yaml`` (width 64, ``backend: auto``) trains a phase-0 epoch on
     the card on the plain path, as the JAX trainer does, and records why in
-    ``kernel_path``; under ``backend: fused`` it raises, and so does width 640
-    (the JAX kernels take it; the port has no build for it) under ``auto``."""
+    ``kernel_path``; under ``backend: fused`` it raises. Width 640 (the JAX
+    kernels take it, and the port's width-generic build) trains the epoch
+    through kernel 1 under ``auto``, once per step."""
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
@@ -1544,16 +1564,25 @@ def run_repair_check(train, device, tk, tt):
         raise RuntimeError(f"smoke.yaml: loss {loss}, path {tr.kernel_path}")
     if (dict(tt.fused_train_objective.launches), tk.fused_render_fwd_pe.launches) != before:
         raise RuntimeError("the plain path launched a kernel")
-    for label, over in (("width 64, backend fused", {"rendering": {
-            **SMOKE_CONFIG["rendering"], "backend": "fused"}}),
-            ("width 640, backend auto", {"nerf_model": {
-                **SMOKE_CONFIG["nerf_model"], "hidden_dim": 640}})):
-        try:
-            Trainer(config_from_dict({**SMOKE_CONFIG, **over}), train, device=device).train_epoch(0)
-        except ValueError as err:
-            print(f"  {label}: raises ({err})", flush=True)
-        else:
-            raise RuntimeError(f"{label} trained on the card")
+    try:
+        Trainer(config_from_dict({**SMOKE_CONFIG, "rendering": {
+            **SMOKE_CONFIG["rendering"], "backend": "fused"}}), train, device=device).train_epoch(0)
+    except ValueError as err:
+        print(f"  width 64, backend fused: raises ({err})", flush=True)
+    else:
+        raise RuntimeError("width 64, backend fused trained on the card")
+    wide = Trainer(config_from_dict({**SMOKE_CONFIG, "nerf_model": {
+        **SMOKE_CONFIG["nerf_model"], "hidden_dim": 640}}), train, device=device)
+    before = tt.fused_train_objective.launches["train_pe"]
+    loss = wide.train_epoch(0)
+    steps = len(wide.last_step_losses)
+    launched = tt.fused_train_objective.launches["train_pe"] - before
+    print(f"  width 640, backend auto: {steps} steps, loss {loss:.6f}, kernel_path "
+          f"{wide.kernel_path} ({wide.kernel_path_reason}), {launched} kernel-1 launches",
+          flush=True)
+    if not np.isfinite(loss) or wide.kernel_path != "kernel" or launched != steps:
+        raise RuntimeError(f"width 640: loss {loss}, path {wide.kernel_path}, {launched} "
+                           f"launches for {steps} steps")
 
 
 def run_dino_kernel_widths(device, tk, tt):
@@ -3138,16 +3167,18 @@ def run_route_training(cfg, train, test, device, tk, tt, f32_losses):
     return out
 
 
-def wide_config(hidden_dim, backend="auto"):
+def wide_config(hidden_dim, backend="auto", lr=None):
     """``experiments/baseline.yaml`` with ``nerf_model.hidden_dim`` set to a
     trunk width the JAX kernels take and no shipped config uses (the JAX
     trainer sends any multiple of 128 to its kernels), built in code; the
-    published widths otherwise (8 layers, pos_freq 10, view directions)."""
+    published widths otherwise (8 layers, pos_freq 10, view directions);
+    ``lr``: ``optimizer.lr`` in place of the published one."""
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
 
+    optimizer = {**BASELINE_CONFIG["optimizer"], **({"lr": lr} if lr else {})}
     return config_from_dict({**BASELINE_CONFIG, "nerf_model": {
         **BASELINE_CONFIG["nerf_model"], "hidden_dim": hidden_dim}, "rendering": {
-        **BASELINE_CONFIG["rendering"], "backend": backend}})
+        **BASELINE_CONFIG["rendering"], "backend": backend}, "optimizer": optimizer})
 
 
 def run_wide_slice(hidden_dim, train, test, device, tk, tt):
@@ -3158,14 +3189,17 @@ def run_wide_slice(hidden_dim, train, test, device, tk, tt):
     to 0, eval at init (kernel 2 once per chunk), ``train_epoch`` at
     ``WIDE_EPOCHS[hidden_dim]`` (kernel 1 once per step; epoch 0's per-step
     losses within rel TRAIN_LOSS_RTOL of a ``backend: xla`` trainer from the
-    same seed, batches and jitter), eval after (PSNR must rise at 512),
+    same seed, batches and jitter; also the later epochs of
+    WIDE_TWIN_EPOCHS), eval after (PSNR above init by the epoch of
+    WIDE_PSNR_RISE, with an eval there),
     WIDE_RENDER_STEPS differentiable render steps (kernels 4 and 3; per-step
     losses within rel TRAIN_LOSS_RTOL of plain autograd) and one
     ``inline_pe=False`` step (kernel 5) against its plain version; the
     counts read after. Returns ``(rows, launches)``."""
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
-    cfg, pcfg = wide_config(hidden_dim), wide_config(hidden_dim, "xla")
+    lr = WIDE_LR.get(hidden_dim)
+    cfg, pcfg = wide_config(hidden_dim, lr=lr), wide_config(hidden_dim, "xla", lr=lr)
     n = cfg.nerf
     if (n.hidden_dim, n.num_layers, n.pos_freq, cfg.phases[-1].n_samples,
             cfg.rendering.chunk_size) != (hidden_dim, 8, 10, 64, 2048):
@@ -3182,12 +3216,27 @@ def run_wide_slice(hidden_dim, train, test, device, tk, tt):
     for i in range(len(cfg.phases)):
         ktr.phase_data(i)
         ptr.phase_data(i)
+    if lr is not None:  # the published lr: epoch 0 on both paths, then eval
+        twins = [Trainer(wide_config(hidden_dim, b), train, test, device=device)
+                 for b in ("auto", "xla")]
+        e0 = WIDE_EPOCHS[hidden_dim][0]
+        for t in twins:
+            t.train_epoch(e0)
+        gap = float(np.max(np.abs(twins[1].last_step_losses / twins[0].last_step_losses - 1.0)))
+        read = [(t.evaluate()["psnr"], t.dead_sigma_probe()) for t in twins]
+        print(f"  H {hidden_dim} at the published lr {BASELINE_CONFIG['optimizer']['lr']}: epoch "
+              f"{e0} per-step max rel gap kernel / xla {gap:.2e}; psnr after {read[0][0]:.4f} / "
+              f"{read[1][0]:.4f} dB, dead-sigma probe {read[0][1]:.3e} / {read[1][1]:.3e}",
+              flush=True)
+        if not (gap <= TRAIN_LOSS_RTOL and abs(read[0][0] - read[1][0]) <= 1e-3):
+            raise RuntimeError(f"H {hidden_dim} at the published lr: kernel and xla apart")
 
     tk.fused_render_fwd_pe.launches = tk.fused_render_fwd.launches = 0
     tk.fused_render_bwd.launches = 0
     tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
     psnr0 = ktr.evaluate()["psnr"]
-    steps, losses = 0, {}
+    steps, losses, evals = 0, {}, 1
+    rise_at, risen = WIDE_PSNR_RISE.get(hidden_dim), None
     for e in WIDE_EPOCHS[hidden_dim]:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3201,17 +3250,24 @@ def run_wide_slice(hidden_dim, train, test, device, tk, tt):
             raise RuntimeError(f"H {hidden_dim} epoch {e}: non-finite losses")
         print(f"  H {hidden_dim} kernel trainer epoch {e}: loss {loss:.6f}, {k} steps, "
               f"{sec / k * 1e3:.3f} ms/step", flush=True)
+        if e == rise_at and e != WIDE_EPOCHS[hidden_dim][-1]:
+            risen = ktr.evaluate()["psnr"]
+            evals += 1
     after = ktr.evaluate()["psnr"]
-    e0 = WIDE_EPOCHS[hidden_dim][0]
-    ptr.train_epoch(e0)
-    gap = float(np.max(np.abs(ptr.last_step_losses / losses[e0] - 1.0)))
-    print(f"  H {hidden_dim}: psnr {psnr0:.4f} dB at init, {after:.4f} dB after; epoch {e0} "
-          f"per-step max rel gap to the xla trainer {gap:.2e} (tol {TRAIN_LOSS_RTOL:.0e})",
-          flush=True)
-    if not gap <= TRAIN_LOSS_RTOL:
-        raise RuntimeError(f"H {hidden_dim}: epoch {e0} losses {gap} from the xla trainer")
-    if hidden_dim == 512 and not after > psnr0:
-        raise RuntimeError(f"H {hidden_dim}: psnr after training {after} <= at init {psnr0}")
+    evals += 1
+    risen = after if risen is None else risen
+    gaps = {}
+    for e in WIDE_TWIN_EPOCHS.get(hidden_dim, WIDE_EPOCHS[hidden_dim][:1]):
+        ptr.train_epoch(e)
+        gaps[e] = float(np.max(np.abs(ptr.last_step_losses / losses[e] - 1.0)))
+    rise = "" if rise_at is None else f", {risen:.4f} dB after epoch {rise_at} (gate)"
+    print(f"  H {hidden_dim}: psnr {psnr0:.4f} dB at init{rise}, {after:.4f} dB after; per-step "
+          f"max rel gap to the xla trainer by epoch "
+          f"{ {e: f'{v:.2e}' for e, v in gaps.items()} } (tol {TRAIN_LOSS_RTOL:.0e})", flush=True)
+    if not max(gaps.values()) <= TRAIN_LOSS_RTOL:
+        raise RuntimeError(f"H {hidden_dim}: losses {gaps} from the xla trainer")
+    if rise_at is not None and not risen > psnr0:
+        raise RuntimeError(f"H {hidden_dim}: psnr after epoch {rise_at} {risen} <= at init {psnr0}")
     pd = ktr.phase_data(last)
     fused = render_stepper(cfg, pd, device, 0, fused=True)
     plain = render_stepper(cfg, pd, device, 0, fused=False)
@@ -3226,7 +3282,7 @@ def run_wide_slice(hidden_dim, train, test, device, tk, tt):
               "fwd_pe": tk.fused_render_fwd_pe.launches, "fwd": tk.fused_render_fwd.launches,
               "render_bwd": tk.fused_render_bwd.launches,
               "train_x": tt.fused_train_objective.launches["train_x"]}
-    chunks = 2 * -(-N_TEST_VIEWS * cfg.data.resolution ** 2 // cfg.rendering.chunk_size)
+    chunks = evals * -(-N_TEST_VIEWS * cfg.data.resolution ** 2 // cfg.rendering.chunk_size)
     print(f"  H {hidden_dim}: {WIDE_RENDER_STEPS} render steps, per-step max rel gap to plain "
           f"autograd {render_gap:.2e} (tol {TRAIN_LOSS_RTOL:.0e}); launches {counts} for {steps} "
           f"steps, {chunks} eval chunks, {WIDE_RENDER_STEPS} render steps, 1 x-input step "
@@ -3663,8 +3719,8 @@ def main():
         run_repair_check(train, device, tk, tt)
 
     wide = {}
-    for hidden in WIDE_WIDTHS:
-        with phase(f"wide trunk H {hidden}"):
+    for hidden in WIDE_WIDTHS + WIDER_WIDTHS:
+        with phase(f"{'wider' if hidden > MAX_FIXED_WIDTH else 'wide'} trunk H {hidden}"):
             wide[hidden] = run_wide_slice(hidden, train, test, device, tk, tt)
 
     with phase("past the old caps: samples, depth, input width"):
@@ -3860,7 +3916,9 @@ def main():
                 "name": f"{kernel}_h{hidden}", "route": "cuda",
                 "source": f"nerf_fewshot_tpu_torch/csrc/{source}.cu",
                 "replaces": f"nerf_fewshot_tpu/render/{where}",
-                "configs": [f"baseline.yaml hidden_dim {hidden}"],
+                "configs": [f"baseline.yaml hidden_dim {hidden}" +
+                            (f" lr {WIDE_LR[hidden]}" if hidden in WIDE_LR else "")],
+                "build": "generic" if hidden > MAX_FIXED_WIDTH else f"h{hidden}",
                 "shape": "2048x64" if kernel in ("fwd_pe", "fwd") else "512x64",
                 "launches": counts[kernel],
                 **{k: f32[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",

@@ -89,6 +89,24 @@
 // per-CTA global buffer (`held`, L2-resident: 96 KB a CTA per layer at H
 // 512) until the last pass has read the tile; then every pass is written
 // over it. A column's sums are the one-pass design's, in the same order.
+// Every wider H (any multiple of 128) runs one width-generic build (H read
+// at run time, template width kAnyH): the 64 x (H + 8) tile would not fit
+// beside the ring (162 KB at H 640, 260 KB at H 1024), so none is held.
+// The consumers write x, then each layer's output pass by pass, to the
+// CTA's images in `held` (L2-resident; 32-column slices of 64 points in
+// rows of 40 floats, so a slice is one contiguous 10 KB copy: 670 KB a CTA
+// at H 1024, D 96), and the producer copies each stage's input slice from
+// them by a bulk copy into the ring slot beside the stage's weights, on
+// the same full / empty mbarriers, once the layer before is written (a
+// `ready` mbarrier: each consumer warp arrives after fence.proxy.async,
+// which orders its generic stores before the copies' reads). The
+// consumers read their fragments from the slot as from a staged layer 0's
+// buffers; the head reads the last image and wout from global memory.
+// Shared memory is a 216 KB ring and the mbarriers, at every width; each
+// pass reads the layer input again, from L2 (2.5 H^2 bytes a layer and
+// tile with the rows' padding, beside the 8 H^2 of the weight halves).
+// The fragments and the k order are the column passes': a column's sums
+// are theirs.
 // Fragments (wgmma m64nNk8 .tf32, warp w of the warpgroup, g = lane/4,
 // t = lane%4): A a0 (16w+g, t), a1 (16w+g+8, t), a2 (16w+g, t+4),
 // a3 (16w+g+8, t+4); D d[4j+e] at row 16w+g (+8 for e >= 2), column
@@ -147,22 +165,32 @@ constexpr float kEps = 1e-10f;
 constexpr int kTf32x3 = 0;  // compute_dtype float32
 constexpr int kBf16 = 1;    // compute_dtype bfloat16
 constexpr int kFp32 = 2;    // compute_dtype highest
+constexpr int kAnyH = 0;    // the width-generic build's template width (H read at run time)
+constexpr int kMaxFixedH = 512;  // the widest build with a width of its own
+constexpr int kStreamRing = 216 * 1024;     // the generic build's ring: weights and inputs
+constexpr int kSliceFloats = kTileP * kXLd;  // an input slice: 64 points x 32 columns, rows of 40
 
-int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ constexpr int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
 
 // Sizes shared by the launcher and nerf_fwd_scratch_floats; the scratch
 // holds the stage images from offset 0 (sized for the float32 route's, the
 // largest), then the head outputs at out4, then (H > 256) the finished
-// passes' outputs of each persistent CTA at held.
+// passes' outputs of each persistent CTA at held (above kMaxFixedH: the
+// CTA's two 64 x H layer images).
 struct Layout {
   int N, Np, tiles, ctas, stages0, stages;  // stages0: of layer 0; stages: all layers, full width
   size_t out4, held, total;
 };
 
 // Passes of a layer, and the floats a CTA keeps of its finished passes: a
-// consumer thread's kPassCols / 4 accumulators each.
+// consumer thread's kPassCols / 4 accumulators each; the generic build keeps
+// its tile's x and two layer images whole, in slices of 64 x 32.
 int passes(int H) { return H > 256 ? H / kPassCols : 1; }
-size_t held_floats(int H) {
+size_t held_floats(int H, int D) {
+  if (H > kMaxFixedH)
+    return static_cast<size_t>(cdiv(D, kStageK) + 2 * (H / kStageK)) * kSliceFloats;
   return static_cast<size_t>(passes(H) - 1) * (kPassCols / 4) * kConsumers;
 }
 
@@ -176,7 +204,7 @@ Layout make_layout(int R, int S, int D, int H, int L1) {
   s.stages = s.stages0 + L1 * (H / kStageK);
   s.out4 = 2 * static_cast<size_t>(H) * kStageK * s.stages;
   s.held = s.out4 + static_cast<size_t>(kHead) * s.Np;
-  s.total = s.held + held_floats(H) * s.ctas;
+  s.total = s.held + held_floats(H, D) * s.ctas;
   return s;
 }
 
@@ -190,9 +218,13 @@ __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
 }
 
+// Waits for the phase of the given parity; a pipeline stalled for ~2^26
+// polls (seconds) traps, so that a fault fails the launch instead of
+// hanging the card.
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
+  uint32_t done = 0, polls = 0;
   while (!done) {
+    if (++polls == (1u << 26)) __trap();
     asm volatile(
         "{\n.reg .pred p;\n"
         "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
@@ -221,6 +253,12 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
           "r"(dst),
       "l"(src), "r"(bytes), "r"(bar)
       : "memory");
+}
+
+// Orders this thread's generic writes to global memory before later reads
+// of it by the async proxy (the producer's bulk copies).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // Named barrier of the two consumer warpgroups (not the producer's).
@@ -399,18 +437,25 @@ __device__ __forceinline__ void split_fast(float v, uint32_t& hi, uint32_t& lo) 
 
 // ---- launch 1: the weights' stage images ----
 
+// H == kAnyH: the width-generic build (STREAM), any H % 128 == 0 above
+// kMaxFixedH, the passes of the fixed widths above 256 with NPASS = H / 128
+// at run time (NPASS reads 0 here).
 template <int H, int ROUTE>
 struct Trunk {
-  static constexpr int NPASS = H > 256 ? H / kPassCols : 1;  // column passes of a layer
-  static constexpr int PW = H / NPASS;           // columns per pass
+  static constexpr bool STREAM = H == kAnyH;  // every layer's input copied into the ring
+  static constexpr int NPASS = STREAM ? 0 : (H > 256 ? H / kPassCols : 1);  // column passes of a layer
+  static constexpr int PW = STREAM ? kPassCols : H / NPASS;  // columns per pass
   static constexpr int NW = PW / kWarpgroups;    // output columns per warpgroup and pass
   static constexpr int NR = NW / 2;              // accumulator registers per thread
-  static constexpr int kRing = H <= 256 ? kRingBytes : (H == 384 ? 96 * 1024 : 64 * 1024);
   // a pass's stage image: [hi | lo] TF32 halves, the bf16 rounding, or the fp32 rows
   static constexpr int kStageBytes = ROUTE == kTf32x3 ? 2 * PW * kStageK * 4
                                                       : (ROUTE == kBf16 ? PW * kStageK * 2
                                                                         : PW * kStageK * 4);
-  static constexpr int NS = kRing / kStageBytes;  // ring depth
+  // a ring slot: the stage image, and (STREAM) the stage's input slice
+  static constexpr int kSlotBytes = kStageBytes + (STREAM ? kSliceFloats * 4 : 0);
+  static constexpr int kRing = STREAM ? kStreamRing / kSlotBytes * kSlotBytes
+                               : (H <= 256 ? kRingBytes : (H == 384 ? 96 * 1024 : 64 * 1024));
+  static constexpr int NS = kRing / kSlotBytes;  // ring depth
   static_assert(NS >= 2 && H % (kWarpgroups * 32) == 0, "at least two stages");
 };
 
@@ -418,12 +463,15 @@ struct Trunk {
 // [32*blockIdx.x, +32): a 32 x 32 tile through shared memory, read along n,
 // written along the k-slots (or, kFp32, along n) of the image of the pass
 // that owns the columns. The images go in the consumers' order: per layer,
-// pass after pass, each over the layer's stages.
-template <int H, int ROUTE>
+// pass after pass, each over the layer's stages. Hr: the width of the
+// generic build (H == kAnyH).
+template <int H0, int ROUTE>
 __global__ void __launch_bounds__(256)
 fwd_split_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
-                 float* __restrict__ wsplit, int D, int stages0, int y0) {
-  using T = Trunk<H, ROUTE>;
+                 float* __restrict__ wsplit, int D, int stages0, int y0, int Hr) {
+  using T = Trunk<H0, ROUTE>;
+  const int H = T::STREAM ? Hr : H0;
+  const int npass = T::STREAM ? H / kPassCols : T::NPASS;
   __shared__ float tile[kStageK][33];
   const int stage = y0 + blockIdx.y;
   const int pass = blockIdx.x * 32 / T::PW;
@@ -442,7 +490,7 @@ fwd_split_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
     W = wh + static_cast<size_t>(layer) * H * H;
     k0 = sl * kStageK;
     K = H;
-    image = T::NPASS * stages0 + (layer * T::NPASS + pass) * per + sl;
+    image = npass * stages0 + (layer * npass + pass) * per + sl;
   }
   for (int r = ty; r < kStageK; r += 8)
     tile[r][tx] = k0 + r < K ? W[static_cast<size_t>(k0 + r) * H + blockIdx.x * 32 + tx] : 0.f;
@@ -482,38 +530,62 @@ fwd_split_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
 
 // Dynamic shared memory, whatever D: the stage ring (1024-byte aligned),
 // the activation tile, two layer-0 input stages, wout's live columns, the
-// mbarriers.
+// mbarriers; the generic build holds the ring of weight stages and input
+// slices and the mbarriers alone, the same at every width.
 template <int H, int ROUTE>
 constexpr size_t trunk_smem() {
-  return 1024 + Trunk<H, ROUTE>::kRing +
+  using T = Trunk<H, ROUTE>;
+  if (T::STREAM) return 1024 + T::kRing + (2 * T::NS + 1) * sizeof(uint64_t);
+  return 1024 + T::kRing +
          sizeof(float) * (static_cast<size_t>(kTileP) * (H + kActPad + 2 * kXLd) + H * kHead) +
-         2 * Trunk<H, ROUTE>::NS * sizeof(uint64_t);
+         2 * T::NS * sizeof(uint64_t);
 }
 template <int H>
 constexpr bool trunk_fits() {
   return trunk_smem<H, kTf32x3>() <= 232448 && trunk_smem<H, kBf16>() <= 232448 &&
          trunk_smem<H, kFp32>() <= 232448;
 }
-static_assert(trunk_fits<128>() && trunk_fits<256>() && trunk_fits<384>() && trunk_fits<512>(),
+static_assert(trunk_fits<128>() && trunk_fits<256>() && trunk_fits<384>() && trunk_fits<512>() &&
+                  trunk_fits<kAnyH>(),
               "fwd_trunk's shared memory fits a block");
 
-// The two consumer warpgroups of fwd_trunk_kernel.
-template <int H, bool INLINE_PE, bool STAGED, int ROUTE>
+// The generic build's images of a CTA in held: its tile's x (cdiv(D, 32)
+// slices), then the outputs of even and of odd layers (H / 32 slices each);
+// a slice is 64 points x 32 columns in rows of kXLd floats, one bulk copy.
+__device__ __forceinline__ float* cta_images(float* held, int D, int H) {
+  return held + static_cast<size_t>(blockIdx.x) * (cdiv(D, kStageK) + 2 * (H / kStageK)) *
+                    kSliceFloats;
+}
+
+// The two consumer warpgroups of fwd_trunk_kernel. The generic build (H0
+// == kAnyH, width Hr) holds no activation tile: it writes x, then each
+// layer's relu(acc + b), pass by pass, to the CTA's images in held
+// (L2-resident), and the producer copies each stage's input slice from
+// them into the ring slot beside the stage's weights, once the layer
+// before is written (`ready`: every consumer warp arrives after a proxy
+// fence). The consumers read their A fragments from the slot as from a
+// STAGED layer 0's buffers; the head reads the last image, and wout's
+// columns from global memory. The same fragments in the same k order: a
+// column's sums are the column-pass design's.
+template <int H0, bool INLINE_PE, bool STAGED, int ROUTE>
 __device__ __forceinline__ void fwd_trunk_consumer(
     const float* __restrict__ in, const float* __restrict__ feats, const float* __restrict__ e2,
     const float* __restrict__ c, const float* __restrict__ b0, const float* __restrict__ bh,
     const float* __restrict__ wout, const float* __restrict__ bout, float* __restrict__ out4,
-    int N, int Np, int tiles, int n_raw, int n_phase, int Fd, int D, int L1,
+    int N, int Np, int tiles, int n_raw, int n_phase, int Fd, int D, int L1, int Hr,
     uint32_t ring, const uint8_t* ring_ptr, float* __restrict__ act, float* __restrict__ xbuf,
-    float* __restrict__ whead, float* __restrict__ held, uint32_t full0, uint32_t empty0) {
-  using T = Trunk<H, ROUTE>;
+    float* __restrict__ whead, float* __restrict__ held, uint32_t full0, uint32_t empty0,
+    uint32_t ready) {
+  using T = Trunk<H0, ROUTE>;
+  const int H = T::STREAM ? Hr : H0;
+  const int npass = T::STREAM ? H / kPassCols : T::NPASS;
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int wg = warp >> 2;                       // warpgroup: pass columns [wg*NW, +NW)
   const int g = lane >> 2, t = lane & 3;
   const int r0 = 16 * (warp & 3) + g;             // fragment rows r0, r0 + 8
   const int cw = wg * T::NW;
-  constexpr int ld = H + kActPad;
+  constexpr int ld = H0 + kActPad;
   float acc[T::NR], part[T::NR];
 #pragma unroll
   for (int i = 0; i < T::NR; ++i) part[i] = 0.f;
@@ -524,8 +596,19 @@ __device__ __forceinline__ void fwd_trunk_consumer(
     return held + (static_cast<size_t>(blockIdx.x) * (T::NPASS - 1) + pass) * T::NR * kConsumers +
            tid;
   };
+  // the generic build's images: x's, and layer l's output (the next layer's input)
+  float* ximg = T::STREAM ? cta_images(held, D, H) : nullptr;
+  auto img = [&](int l) {
+    return ximg + (cdiv(D, kStageK) + (l & 1) * (H / kStageK)) * kSliceFloats;
+  };
+  // (generic build) the layer's images are written: the producer may copy them
+  auto images_ready = [&]() {
+    fence_proxy_async_global();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ready);
+  };
   // the head's four live columns, once per CTA (rounded to bf16 on that route)
-  for (int e = tid; e < H * kHead; e += kConsumers) {
+  for (int e = tid; e < H0 * kHead; e += kConsumers) {
     if constexpr (ROUTE == kBf16)
       whead[e] = round_bf16(__ldg(wout + (e / kHead) * kOutPad + e % kHead));
     else
@@ -565,16 +648,31 @@ __device__ __forceinline__ void fwd_trunk_consumer(
       }
     };
     auto xstage = [&](int sl) { return xbuf + (sl & 1) * kTileP * kXLd; };
+    if constexpr (T::STREAM) {  // x, every slice, into its image
+      for (int sl = 0; sl < cdiv(D, kStageK); ++sl) build_x(sl, ximg + sl * kSliceFloats, kXLd);
+      images_ready();
+    }
 
     for (int l = 0; l <= L1; ++l) {
       const int K = l ? H : D;
       const int nst = (K + kStageK - 1) / kStageK;
-      const bool from_tile = !STAGED || l > 0;
-      // the input rows of stage sl, point-major: the tile's or (a STAGED
-      // layer 0) the stage's input buffer
-      auto a_src = [&](int sl) { return from_tile ? act + sl * kStageK : xstage(sl); };
+      const bool from_tile = !T::STREAM && (!STAGED || l > 0);
+      const bool staged = !T::STREAM && !from_tile;  // built here, stage by stage
+      // the input rows of stage sl (the ring's `ahead` stages past `it`),
+      // point-major: the tile's, a STAGED layer 0's stage buffer, or (the
+      // generic build) the ring slot's slice, once it has landed
+      auto a_src = [&](int sl, int ahead) -> const float* {
+        if constexpr (T::STREAM) {
+          const int i = it + ahead;
+          mbar_wait(full0 + 8 * (i % T::NS), (i / T::NS) & 1);
+          return reinterpret_cast<const float*>(ring_ptr + (i % T::NS) * T::kSlotBytes +
+                                                T::kStageBytes);
+        } else {
+          return from_tile ? act + sl * kStageK : xstage(sl);
+        }
+      };
       const int sld = from_tile ? ld : kXLd;
-      if (l == 0) {  // the first stage, or the whole input into the tile
+      if (l == 0 && !T::STREAM) {  // the first stage, or the whole input into the tile
         if (STAGED)
           build_x(0, xstage(0), kXLd);
         else
@@ -583,8 +681,8 @@ __device__ __forceinline__ void fwd_trunk_consumer(
       }
       // columns [pass*PW, +PW) of the layer's output, warpgroup wg's NW of
       // them from the pass's images
-      for (int pass = 0; pass < T::NPASS; ++pass) {
-        if (pass > 0 && !from_tile) {  // layer 0's first stage again, once every warp is past it
+      for (int pass = 0; pass < npass; ++pass) {
+        if (pass > 0 && staged) {  // layer 0's first stage again, once every warp is past it
           consumers_sync();
           build_x(0, xstage(0), kXLd);
           consumers_sync();
@@ -598,8 +696,8 @@ __device__ __forceinline__ void fwd_trunk_consumer(
             const int rows = K - sl * kStageK >= kStageK ? kStageK : 16;
             mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
             const float* w =
-                reinterpret_cast<const float*>(ring_ptr + s * T::kStageBytes) + cw + 2 * t;
-            const float* src = a_src(sl);
+                reinterpret_cast<const float*>(ring_ptr + s * T::kSlotBytes) + cw + 2 * t;
+            const float* src = a_src(sl, 0);
 #pragma unroll 4
             for (int k = 0; k < rows; ++k) {
               const float a0 = src[r0 * sld + k], a1 = src[(r0 + 8) * sld + k];
@@ -614,7 +712,7 @@ __device__ __forceinline__ void fwd_trunk_consumer(
             }
             __syncwarp();
             if (lane == 0) mbar_arrive(empty0 + 8 * s);  // the stage is free again
-            if (sl + 1 < nst && !from_tile) {  // its buffer was last read before the last sync
+            if (sl + 1 < nst && staged) {  // its buffer was last read before the last sync
               build_x(sl + 1, xstage(sl + 1), kXLd);
               consumers_sync();
             }
@@ -622,9 +720,9 @@ __device__ __forceinline__ void fwd_trunk_consumer(
           }
         } else if constexpr (ROUTE == kBf16) {
           // A fragments of stage sl's two k-steps of 16, rounded to bf16
-          auto load_a = [&](int sl, uint32_t (&a)[2][4]) {
+          auto load_a = [&](int sl, int ahead, uint32_t (&a)[2][4]) {
             const int live = K - sl * kStageK >= kStageK ? 2 : 1;
-            const float* src = a_src(sl);
+            const float* src = a_src(sl, ahead);
 #pragma unroll
             for (int q = 0; q < 2; ++q) {
               if (q < live) {
@@ -644,7 +742,7 @@ __device__ __forceinline__ void fwd_trunk_consumer(
             const int s = it % T::NS;
             const int live = K - sl * kStageK >= kStageK ? 2 : 1;
             mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
-            const uint32_t img = ring + s * T::kStageBytes + cw * (kStageK * 2);
+            const uint32_t img = ring + s * T::kSlotBytes + cw * (kStageK * 2);
             fence_regs(part);
             wgmma_fence();
 #pragma unroll
@@ -652,11 +750,11 @@ __device__ __forceinline__ void fwd_trunk_consumer(
               if (q < live) wgmma_bf16<T::NW>(part, a[q], sw64_desc(img + 32 * q), q > 0);
             wgmma_commit();
             if (sl + 1 < nst) {
-              if (!from_tile) {  // its buffer was last read by load_a(sl - 1), before the last sync
+              if (staged) {  // its buffer was last read by load_a(sl - 1), before the last sync
                 build_x(sl + 1, xstage(sl + 1), kXLd);
                 consumers_sync();
               }
-              load_a(sl + 1, next);
+              load_a(sl + 1, 1, next);
             }
             wgmma_wait_all();
             fence_regs(part);
@@ -667,7 +765,7 @@ __device__ __forceinline__ void fwd_trunk_consumer(
             ++it;
           };
           uint32_t a0[2][4], a1[2][4];
-          load_a(0, a0);
+          load_a(0, 0, a0);
           for (int sl = 0; sl < nst; sl += 2) {
             stage(sl, a0, a1);
             if (sl + 1 < nst) stage(sl + 1, a1, a0);
@@ -675,11 +773,10 @@ __device__ __forceinline__ void fwd_trunk_consumer(
         } else {
           // A fragments of stage sl's k-steps, split into TF32 halves; K is a
           // multiple of 16, so a stage has 2 or 4 live k-steps.
-          auto load_a = [&](int sl, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4]) {
+          auto load_a = [&](int sl, int ahead, uint32_t (&ahi)[4][4], uint32_t (&alo)[4][4]) {
             const int kbase = sl * kStageK;
             const int live = K - kbase >= kStageK ? 4 : 2;
-            const float* src = from_tile ? act + kbase : xstage(sl);
-            const int sld = from_tile ? ld : kXLd;
+            const float* src = a_src(sl, ahead);
 #pragma unroll
             for (int q = 0; q < 4; ++q) {
               if (q < live) {
@@ -700,7 +797,7 @@ __device__ __forceinline__ void fwd_trunk_consumer(
             const int s = it % T::NS;
             const int live = K - sl * kStageK >= kStageK ? 4 : 2;
             mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
-            const uint32_t hi_img = ring + s * T::kStageBytes + cw * (kStageK * 4);
+            const uint32_t hi_img = ring + s * T::kSlotBytes + cw * (kStageK * 4);
             const uint32_t lo_img = hi_img + T::PW * kStageK * 4;
             fence_regs(part);
             wgmma_fence();
@@ -714,11 +811,11 @@ __device__ __forceinline__ void fwd_trunk_consumer(
             }
             wgmma_commit();
             if (sl + 1 < nst) {
-              if (!from_tile) {  // its buffer was last read by load_a(sl - 1), before the last sync
+              if (staged) {  // its buffer was last read by load_a(sl - 1), before the last sync
                 build_x(sl + 1, xstage(sl + 1), kXLd);
                 consumers_sync();
               }
-              load_a(sl + 1, nhi, nlo);
+              load_a(sl + 1, 1, nhi, nlo);
             }
             wgmma_wait_all();
             fence_regs(part);
@@ -729,13 +826,25 @@ __device__ __forceinline__ void fwd_trunk_consumer(
             ++it;
           };
           uint32_t h0[4][4], l0[4][4], h1[4][4], l1[4][4];
-          load_a(0, h0, l0);
+          load_a(0, 0, h0, l0);
           for (int sl = 0; sl < nst; sl += 2) {
             stage(sl, h0, l0, h1, l1);
             if (sl + 1 < nst) stage(sl + 1, h1, l1, h0, l0);
           }
         }
-        if (pass + 1 < T::NPASS) {  // a finished pass: relu(acc + b) waits until the tile is free
+        if constexpr (T::STREAM) {  // relu(acc + b) to the layer's image
+          const float* bias = (l ? bh + static_cast<size_t>(l - 1) * H : b0) + pass * T::PW + cw;
+#pragma unroll
+          for (int j = 0; j < T::NW / 8; ++j) {
+            const int col = pass * T::PW + cw + 8 * j + 2 * t;
+            float* o = img(l) + (col / kStageK) * kSliceFloats + col % kStageK;
+            const float bb0 = __ldg(bias + 8 * j + 2 * t), bb1 = __ldg(bias + 8 * j + 2 * t + 1);
+            *reinterpret_cast<float2*>(o + r0 * kXLd) =
+                make_float2(fmaxf(acc[4 * j] + bb0, 0.f), fmaxf(acc[4 * j + 1] + bb1, 0.f));
+            *reinterpret_cast<float2*>(o + (r0 + 8) * kXLd) =
+                make_float2(fmaxf(acc[4 * j + 2] + bb0, 0.f), fmaxf(acc[4 * j + 3] + bb1, 0.f));
+          }
+        } else if (pass + 1 < T::NPASS) {  // a finished pass: relu(acc + b) waits until the tile is free
           const float* bias = (l ? bh + static_cast<size_t>(l - 1) * H : b0) + pass * T::PW + cw;
           float* hp = held_at(pass);
 #pragma unroll
@@ -748,30 +857,33 @@ __device__ __forceinline__ void fwd_trunk_consumer(
           }
         }
       }
-      consumers_sync();  // every warp is done reading the layer's input
-      const float* bias = l ? bh + static_cast<size_t>(l - 1) * H : b0;
-      const int c0 = (T::NPASS - 1) * T::PW + cw;  // the last pass's columns
-#pragma unroll
-      for (int j = 0; j < T::NW / 8; ++j) {
-        const int col = c0 + 8 * j + 2 * t;
-        const float bb0 = __ldg(bias + col), bb1 = __ldg(bias + col + 1);
-        *reinterpret_cast<float2*>(act + r0 * ld + col) =
-            make_float2(fmaxf(acc[4 * j] + bb0, 0.f), fmaxf(acc[4 * j + 1] + bb1, 0.f));
-        *reinterpret_cast<float2*>(act + (r0 + 8) * ld + col) =
-            make_float2(fmaxf(acc[4 * j + 2] + bb0, 0.f), fmaxf(acc[4 * j + 3] + bb1, 0.f));
-      }
-      for (int pass = 0; pass + 1 < T::NPASS; ++pass) {  // and the finished passes'
-        const float* hp = held_at(pass);
+      if (T::STREAM && l < L1) images_ready();  // the next layer's input
+      consumers_sync();  // every warp is done reading the layer's input (streamed: writing it)
+      if constexpr (!T::STREAM) {  // over the tile: the last pass, then the finished passes
+        const float* bias = l ? bh + static_cast<size_t>(l - 1) * H : b0;
+        const int c0 = (T::NPASS - 1) * T::PW + cw;  // the last pass's columns
 #pragma unroll
         for (int j = 0; j < T::NW / 8; ++j) {
-          const int col = pass * T::PW + cw + 8 * j + 2 * t;
+          const int col = c0 + 8 * j + 2 * t;
+          const float bb0 = __ldg(bias + col), bb1 = __ldg(bias + col + 1);
           *reinterpret_cast<float2*>(act + r0 * ld + col) =
-              make_float2(hp[(4 * j) * kConsumers], hp[(4 * j + 1) * kConsumers]);
+              make_float2(fmaxf(acc[4 * j] + bb0, 0.f), fmaxf(acc[4 * j + 1] + bb1, 0.f));
           *reinterpret_cast<float2*>(act + (r0 + 8) * ld + col) =
-              make_float2(hp[(4 * j + 2) * kConsumers], hp[(4 * j + 3) * kConsumers]);
+              make_float2(fmaxf(acc[4 * j + 2] + bb0, 0.f), fmaxf(acc[4 * j + 3] + bb1, 0.f));
         }
+        for (int pass = 0; pass + 1 < T::NPASS; ++pass) {  // and the finished passes'
+          const float* hp = held_at(pass);
+#pragma unroll
+          for (int j = 0; j < T::NW / 8; ++j) {
+            const int col = pass * T::PW + cw + 8 * j + 2 * t;
+            *reinterpret_cast<float2*>(act + r0 * ld + col) =
+                make_float2(hp[(4 * j) * kConsumers], hp[(4 * j + 1) * kConsumers]);
+            *reinterpret_cast<float2*>(act + (r0 + 8) * ld + col) =
+                make_float2(hp[(4 * j + 2) * kConsumers], hp[(4 * j + 3) * kConsumers]);
+          }
+        }
+        consumers_sync();
       }
-      consumers_sync();
     }
 
     // head, fp32 FMAs (bf16-rounded operands on that route): thread ->
@@ -780,12 +892,25 @@ __device__ __forceinline__ void fwd_trunk_consumer(
       const int p = tid >> 2;
       const int o = tid & 3;
       float s = 0.f;
+      if constexpr (T::STREAM) {  // the last layer's image, wout's columns from global memory
+        const float* h = img(L1) + p * kXLd;
 #pragma unroll 16
-      for (int k = 0; k < H; ++k) {
-        if constexpr (ROUTE == kBf16)
-          s = fmaf(round_bf16(act[p * ld + k]), whead[k * kHead + o], s);
-        else
-          s = fmaf(act[p * ld + k], whead[k * kHead + o], s);
+        for (int k = 0; k < H; ++k) {
+          const float v = h[(k / kStageK) * kSliceFloats + k % kStageK];
+          const float w = __ldg(wout + k * kOutPad + o);
+          if constexpr (ROUTE == kBf16)
+            s = fmaf(round_bf16(v), round_bf16(w), s);
+          else
+            s = fmaf(v, w, s);
+        }
+      } else {
+#pragma unroll 16
+        for (int k = 0; k < H0; ++k) {
+          if constexpr (ROUTE == kBf16)
+            s = fmaf(round_bf16(act[p * ld + k]), whead[k * kHead + o], s);
+          else
+            s = fmaf(act[p * ld + k], whead[k * kHead + o], s);
+        }
       }
       s += __ldg(bout + o);
       out4[static_cast<size_t>(o) * Np + n0 + p] = s;
@@ -794,7 +919,7 @@ __device__ __forceinline__ void fwd_trunk_consumer(
   }
 }
 
-template <int H, bool INLINE_PE, bool STAGED, int ROUTE>
+template <int H0, bool INLINE_PE, bool STAGED, int ROUTE>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_trunk_kernel(const float* __restrict__ in, const float* __restrict__ feats,
                  const float* __restrict__ e2, const float* __restrict__ c,
@@ -802,28 +927,35 @@ fwd_trunk_kernel(const float* __restrict__ in, const float* __restrict__ feats,
                  const float* __restrict__ bh, const float* __restrict__ wout,
                  const float* __restrict__ bout, float* __restrict__ out4,
                  float* __restrict__ held, int N, int Np, int tiles, int n_raw, int n_phase,
-                 int Fd, int D, int L1) {
-  using T = Trunk<H, ROUTE>;
+                 int Fd, int D, int L1, int Hr) {
+  using T = Trunk<H0, ROUTE>;
+  const int H = T::STREAM ? Hr : H0;
+  const int npass = T::STREAM ? H / kPassCols : T::NPASS;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw_addr = smem_u32(smem_raw);
   uint8_t* base = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
   const uint32_t ring = smem_u32(base);
-  float* act = reinterpret_cast<float*>(base + T::kRing);  // (64, H + 8)
-  float* xbuf = act + kTileP * (H + kActPad);  // two (64, 40) layer-0 input stages
-  float* whead = xbuf + 2 * kTileP * kXLd;     // (H, 4): wout's live columns
-  uint64_t* bars = reinterpret_cast<uint64_t*>(whead + H * kHead);
+  // the tile (64, H + 8), two (64, 40) input stages, wout's live columns
+  // (H, 4); the generic build has the mbarriers alone after its ring
+  float* act = T::STREAM ? nullptr : reinterpret_cast<float*>(base + T::kRing);
+  float* xbuf = T::STREAM ? nullptr : act + kTileP * (H0 + kActPad);
+  float* whead = T::STREAM ? nullptr : xbuf + 2 * kTileP * kXLd;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      T::STREAM ? base + T::kRing : reinterpret_cast<uint8_t*>(whead + H0 * kHead));
   const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + T::NS);
+  const uint32_t ready = smem_u32(bars + 2 * T::NS);  // (generic build) a layer's input written
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
   const int stages0 = (D + kStageK - 1) / kStageK;
-  const int stages = T::NPASS * (stages0 + L1 * (H / kStageK));  // pass images per tile
+  const int stages = npass * (stages0 + L1 * (H / kStageK));  // pass images per tile
 
   if (tid == 0) {
     for (int s = 0; s < T::NS; ++s) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, kConsumers / 32);
     }
+    if (T::STREAM) mbar_init(ready, kConsumers / 32);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -835,20 +967,49 @@ fwd_trunk_kernel(const float* __restrict__ in, const float* __restrict__ feats,
     if (warp == kConsumers / 32 && lane == 0) {
       const uint8_t* images = reinterpret_cast<const uint8_t*>(wsplit);
       int it = 0;
-      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
-        for (int st = 0; st < stages; ++st, ++it) {
-          const int s = it % T::NS;
-          mbar_wait(empty0 + 8 * s, ((it / T::NS) & 1) ^ 1);
-          mbar_arrive_expect_tx(full0 + 8 * s, T::kStageBytes);
-          bulk_copy(ring + s * T::kStageBytes, images + static_cast<size_t>(st) * T::kStageBytes,
-                    T::kStageBytes, full0 + 8 * s);
+      if constexpr (T::STREAM) {
+        // per layer, once its input is written: every pass's stages, each
+        // the weights' stage image and the input slice from the CTA's images
+        const float* ximg = cta_images(held, D, H);
+        int round = 0;
+        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+          int st = 0;
+          for (int l = 0; l <= L1; ++l) {
+            mbar_wait(ready, round++ & 1);
+            const float* src =
+                ximg + (l ? stages0 + ((l - 1) & 1) * (H / kStageK) : 0) * kSliceFloats;
+            const int nst = l ? H / kStageK : stages0;
+            for (int pass = 0; pass < npass; ++pass)
+              for (int sl = 0; sl < nst; ++sl, ++st, ++it) {
+                const int s = it % T::NS;
+                mbar_wait(empty0 + 8 * s, ((it / T::NS) & 1) ^ 1);
+                mbar_arrive_expect_tx(full0 + 8 * s, T::kSlotBytes);
+                bulk_copy(ring + s * T::kSlotBytes,
+                          images + static_cast<size_t>(st) * T::kStageBytes, T::kStageBytes,
+                          full0 + 8 * s);
+                bulk_copy(ring + s * T::kSlotBytes + T::kStageBytes, src + sl * kSliceFloats,
+                          kSliceFloats * 4, full0 + 8 * s);
+              }
+          }
         }
+      } else {
+        for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x)
+          for (int st = 0; st < stages; ++st, ++it) {
+            const int s = it % T::NS;
+            mbar_wait(empty0 + 8 * s, ((it / T::NS) & 1) ^ 1);
+            mbar_arrive_expect_tx(full0 + 8 * s, T::kStageBytes);
+            bulk_copy(ring + s * T::kStageBytes,
+                      images + static_cast<size_t>(st) * T::kStageBytes, T::kStageBytes,
+                      full0 + 8 * s);
+          }
+      }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
-    fwd_trunk_consumer<H, INLINE_PE, STAGED, ROUTE>(in, feats, e2, c, b0, bh, wout, bout, out4, N,
-                                                    Np, tiles, n_raw, n_phase, Fd, D, L1, ring,
-                                                    base, act, xbuf, whead, held, full0, empty0);
+    fwd_trunk_consumer<H0, INLINE_PE, STAGED, ROUTE>(in, feats, e2, c, b0, bh, wout, bout, out4,
+                                                     N, Np, tiles, n_raw, n_phase, Fd, D, L1, Hr,
+                                                     ring, base, act, xbuf, whead, held, full0,
+                                                     empty0, ready);
   }
 }
 
@@ -919,12 +1080,13 @@ fwd_composite_kernel(const float* __restrict__ out4, const float* __restrict__ z
   }
 }
 
-template <int H, bool INLINE_PE, int ROUTE>
+// H0: a fixed width's build, or kAnyH (the generic build) at width H.
+template <int H0, bool INLINE_PE, int ROUTE>
 cudaError_t launch(const float* in, const float* feats, const float* z, const float* dnorm,
                    const float* e2, const float* c, const float* w0, const float* b0,
                    const float* wh, const float* bh, const float* wout, const float* bout,
                    float* rgb, float* depth, float* acc, float* weights, float* scratch, int R,
-                   int S, int n_raw, int n_phase, int Fd, int D, int L1, int white_bkgd,
+                   int S, int n_raw, int n_phase, int Fd, int D, int H, int L1, int white_bkgd,
                    int device, cudaStream_t st) {
   const Layout lay = make_layout(R, S, D, H, L1);
   float* wsplit = scratch;
@@ -933,16 +1095,17 @@ cudaError_t launch(const float* in, const float* feats, const float* z, const fl
   cudaError_t err;
   for (int y0 = 0; y0 < lay.stages; y0 += kMaxGridY) {  // any depth: grids of kMaxGridY rows
     const int n = lay.stages - y0 < kMaxGridY ? lay.stages - y0 : kMaxGridY;
-    fwd_split_kernel<H, ROUTE><<<dim3(H / 32, n), 256, 0, st>>>(w0, wh, wsplit, D, lay.stages0,
-                                                                y0);
+    fwd_split_kernel<H0, ROUTE><<<dim3(H / 32, n), 256, 0, st>>>(w0, wh, wsplit, D, lay.stages0,
+                                                                 y0, H);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
 
-  constexpr size_t smem = trunk_smem<H, ROUTE>();
-  // an input wider than the activation tile streams through the stage buffers
-  const auto trunk = D > H ? fwd_trunk_kernel<H, INLINE_PE, true, ROUTE>
-                           : fwd_trunk_kernel<H, INLINE_PE, false, ROUTE>;
+  constexpr size_t smem = trunk_smem<H0, ROUTE>();
+  // an input wider than the activation tile streams through the stage
+  // buffers, as does every input of the generic build
+  const auto trunk = D > H0 ? fwd_trunk_kernel<H0, INLINE_PE, true, ROUTE>
+                            : fwd_trunk_kernel<H0, INLINE_PE, Trunk<H0, ROUTE>::STREAM, ROUTE>;
   err = cudaFuncSetAttribute(trunk, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return err;
@@ -952,7 +1115,7 @@ cudaError_t launch(const float* in, const float* feats, const float* z, const fl
   const int grid = lay.ctas < sms ? lay.ctas : sms;  // persistent CTAs
   trunk<<<grid, kThreads, smem, st>>>(
       in, feats, e2, c, wsplit, b0, bh, wout, bout, out4, held, lay.N, lay.Np, lay.tiles, n_raw,
-      n_phase, Fd, D, L1);
+      n_phase, Fd, D, L1, H);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -961,24 +1124,24 @@ cudaError_t launch(const float* in, const float* feats, const float* z, const fl
   return cudaGetLastError();
 }
 
-template <int H, bool INLINE_PE>
+template <int H0, bool INLINE_PE>
 cudaError_t launch_route(int route, const float* in, const float* feats, const float* z,
                          const float* dnorm, const float* e2, const float* c, const float* w0,
                          const float* b0, const float* wh, const float* bh, const float* wout,
                          const float* bout, float* rgb, float* depth, float* acc, float* weights,
                          float* scratch, int R, int S, int n_raw, int n_phase, int Fd, int D,
-                         int L1, int white_bkgd, int device, cudaStream_t st) {
+                         int H, int L1, int white_bkgd, int device, cudaStream_t st) {
   if (route == kBf16)
-    return launch<H, INLINE_PE, kBf16>(in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout,
-                                       rgb, depth, acc, weights, scratch, R, S, n_raw, n_phase,
-                                       Fd, D, L1, white_bkgd, device, st);
+    return launch<H0, INLINE_PE, kBf16>(in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout,
+                                        rgb, depth, acc, weights, scratch, R, S, n_raw, n_phase,
+                                        Fd, D, H, L1, white_bkgd, device, st);
   if (route == kFp32)
-    return launch<H, INLINE_PE, kFp32>(in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout,
-                                       rgb, depth, acc, weights, scratch, R, S, n_raw, n_phase,
-                                       Fd, D, L1, white_bkgd, device, st);
-  return launch<H, INLINE_PE, kTf32x3>(in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout,
-                                       rgb, depth, acc, weights, scratch, R, S, n_raw, n_phase,
-                                       Fd, D, L1, white_bkgd, device, st);
+    return launch<H0, INLINE_PE, kFp32>(in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout,
+                                        rgb, depth, acc, weights, scratch, R, S, n_raw, n_phase,
+                                        Fd, D, H, L1, white_bkgd, device, st);
+  return launch<H0, INLINE_PE, kTf32x3>(in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout,
+                                        rgb, depth, acc, weights, scratch, R, S, n_raw, n_phase,
+                                        Fd, D, H, L1, white_bkgd, device, st);
 }
 
 template <bool INLINE_PE>
@@ -989,7 +1152,7 @@ int dispatch(const float* in, const float* feats, const float* z, const float* d
              int Fd, int D, int H, int L1, int white_bkgd, int route, int device, void* stream) {
   if (D <= 0 || D % 16 != 0 || R < 1 || S < 1 ||
       static_cast<long long>(R) * S > INT_MAX - kTileP || L1 < 0 || route < kTf32x3 ||
-      route > kFp32)
+      route > kFp32 || H <= 0 || H % kPassCols != 0)
     return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -997,14 +1160,16 @@ int dispatch(const float* in, const float* feats, const float* z, const float* d
   auto at = [&](auto width) {
     return launch_route<decltype(width)::value, INLINE_PE>(
         route, in, feats, z, dnorm, e2, c, w0, b0, wh, bh, wout, bout, rgb, depth, acc, weights,
-        scratch, R, S, n_raw, n_phase, Fd, D, L1, white_bkgd, device, st);
+        scratch, R, S, n_raw, n_phase, Fd, D, H, L1, white_bkgd, device, st);
   };
+  // each width up to kMaxFixedH its own build; every wider one the generic build
   switch (H) {
     case 128: return at(std::integral_constant<int, 128>{});
     case 256: return at(std::integral_constant<int, 256>{});
     case 384: return at(std::integral_constant<int, 384>{});
     case 512: return at(std::integral_constant<int, 512>{});
-    default: return cudaErrorInvalidValue;
+    default:  // H % 128 == 0 past the fixed builds
+      return H > kMaxFixedH ? at(std::integral_constant<int, kAnyH>{}) : cudaErrorInvalidValue;
   }
 }
 

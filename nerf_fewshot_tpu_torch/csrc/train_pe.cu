@@ -188,6 +188,24 @@
 // one-pass design's, in the same order; H 128 and 256 are one pass, as
 // before. The dW tiles (128 x 128), the composites and render_dx (K = H in
 // 32-column stages) take any multiple of 128.
+// Every wider H (any multiple of 128) runs one width-generic build (H read
+// at run time, template width kAnyH): the tile would not fit beside a ring
+// of four stages (162 KB at H 640, 260 KB at H 1024), so none is held. x
+// and every layer's output go to the act or gbuf image only (where the dW
+// products and render_dx read them in any case), and the producer copies
+// each stage's input rows, the stage's KS rows of the tile's two 32-point
+// image blocks (two contiguous bulk copies of KS x 128 bytes), into the
+// ring slot beside the stage's weights, on the same full / empty
+// mbarriers, once the layer that wrote them is done (a `ready` mbarrier:
+// each consumer warp arrives after fence.proxy.async, which orders its
+// generic stores before the copies' reads). The consumers read their A
+// fragments from the slot's blocks (the image's swizzle puts a warp's 32
+// reads of one row on 32 banks); the head reads A_L from the act image
+// and wout from global memory. Shared memory is a 200 KB (float32) or 216
+// KB ring and the mbarriers, at every width; each pass reads the layer
+// input again from L2 (2 H^2 bytes a layer and tile beside 8 H^2 of
+// weight halves). The fragments and the k order are the column passes': a
+// column's sums are theirs.
 // Fragments (wgmma m64nNk8 .tf32, warp w of the warpgroup, g = lane/4,
 // t = lane%4): A a0 (16w+g, t), a1 (16w+g+8, t), a2 (16w+g, t+4),
 // a3 (16w+g+8, t+4); D d[4j+e] at row 16w+g (+8 for e >= 2), column
@@ -229,6 +247,9 @@ constexpr int kBf16 = 1;    // compute_dtype bfloat16
 constexpr int kFp32 = 2;    // compute_dtype highest
 constexpr int kFwd = 0;     // trunk passes
 constexpr int kBwd = 1;
+constexpr int kAnyH = 0;    // the width-generic build's template width (H read at run time)
+constexpr int kMaxFixedH = 512;  // the widest trunk with a build of its own
+constexpr int kStreamRing = 216 * 1024;  // the generic build's ring: weight stages and input slices
 constexpr int kDwT = 128;                     // dW output tile edge (rows k and columns j)
 constexpr int kDwSlot = 2 * kDwT * kBlk * 4;  // a dW stage: 128 A rows, 128 delta rows
 constexpr int kDxThreads = 256;       // render_dx: 8 warps
@@ -252,22 +273,30 @@ static_assert(kDxJ % 16 == 0, "render_dx promotes its products every two k-steps
 size_t round_up(size_t a, size_t b) { return (a + b - 1) / b * b; }
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
-// A route's trunk stages at width H.
+// A route's trunk stages at width H. H == kAnyH: the width-generic build
+// (STREAM), any H % 128 == 0 above kMaxFixedH, the column passes of the
+// fixed widths above 256 with NPASS = H / 128 at run time (NPASS reads 0).
 template <int H, int ROUTE>
 struct Trunk {
-  static constexpr int NPASS = H > 256 ? H / kPassCols : 1;  // column passes of a layer
-  static constexpr int PW = H / NPASS;  // columns per pass
+  static constexpr bool STREAM = H == kAnyH;  // every layer's input copied into the ring
+  static constexpr int NPASS = STREAM ? 0 : (H > 256 ? H / kPassCols : 1);  // column passes of a layer
+  static constexpr int PW = STREAM ? kPassCols : H / NPASS;  // columns per pass
   static constexpr int NW = PW / 2;     // output columns per consumer warpgroup and pass
   static constexpr int NR = NW / 2;     // accumulator registers per thread
   static constexpr int MW = NR / 32;    // mask words per thread, layer and pass
   static constexpr int PR = NR / 8;     // FFMA route: points per thread (8 columns each)
   static constexpr int PL = kTileP / PR;  // and threads per column group
   static constexpr int KS = ROUTE == kTf32x3 ? 16 : 32;  // input rows per stage
-  static constexpr int kRing = H <= 256 ? kRingBytes : (H == 384 ? 96 * 1024 : 64 * 1024);
   // a pass's stage image: [hi | lo] TF32 halves, the bf16 rounding, or the fp32 rows
   static constexpr int kStageBytes =
       ROUTE == kTf32x3 ? 2 * PW * KS * 4 : (ROUTE == kBf16 ? PW * KS * 2 : PW * KS * 4);
-  static constexpr int NS = kRing / kStageBytes;  // ring depth
+  // (STREAM) a stage's input slice: its KS rows of the tile's two 32-point
+  // image blocks, as they lie in the act or gbuf image
+  static constexpr int kSliceBytes = STREAM ? 2 * KS * kBlk * 4 : 0;
+  static constexpr int kSlotBytes = kStageBytes + kSliceBytes;  // a ring slot
+  static constexpr int kRing = STREAM ? kStreamRing / kSlotBytes * kSlotBytes
+                               : (H <= 256 ? kRingBytes : (H == 384 ? 96 * 1024 : 64 * 1024));
+  static constexpr int NS = kRing / kSlotBytes;  // ring depth
   // row strides of the activation tile and the layer-0 slices: 8 mod 32
   // words for the fragments' 8-byte loads, 4 mod 32 for the FFMA route's
   // 16-byte loads of 8 consecutive points
@@ -276,16 +305,16 @@ struct Trunk {
   static_assert(NS >= 4 && MW <= kMaskWords, "a ring of four stages or more");
 };
 
-// Full-width stages of the forward and the backward chain; each is NPASS
-// pass images.
-template <int H, int ROUTE>
-int fwd_stages(int D, int L1) {
-  using T = Trunk<H, ROUTE>;
+// Full-width stages of the forward and the backward chain at width H; each
+// is H / PW pass images.
+template <int H0, int ROUTE>
+int fwd_stages(int D, int H, int L1) {
+  using T = Trunk<H0, ROUTE>;
   return cdiv(D, T::KS) + L1 * (H / T::KS);
 }
-template <int H, int ROUTE>
-int bwd_stages(int L1) {
-  return L1 * (H / Trunk<H, ROUTE>::KS);
+template <int H0, int ROUTE>
+int bwd_stages(int H, int L1) {
+  return L1 * (H / Trunk<H0, ROUTE>::KS);
 }
 
 // The composite's per-ray state of S samples, in bytes: dynamic shared
@@ -548,6 +577,11 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_
 // of it by the async proxy (wgmma's B operand).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The same for its writes to global memory before bulk copies read them.
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // Named barrier of the two consumer warpgroups (not the producer's).
@@ -1007,13 +1041,17 @@ __device__ __forceinline__ void weight_image(float v, float* hi, float* lo, size
 // +32), through a KS x 32 tile in shared memory, into the image of the pass
 // that owns the rows (per layer, the passes one after the other, each over
 // the layer's stages: the consumers' order); the blocks past the stages
-// write w0's row-major image, 32 rows each.
-template <int H, int ROUTE>
+// write w0's row-major image, 32 rows each. Hr: the width of the generic
+// build (H0 == kAnyH).
+template <int H0, int ROUTE>
 __global__ void __launch_bounds__(256)
 weight_image_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
                     uint8_t* __restrict__ images, float* __restrict__ w0hi,
-                    float* __restrict__ w0lo, int D, int L1, int n_fwd, int n_stages, int y0) {
-  using T = Trunk<H, ROUTE>;
+                    float* __restrict__ w0lo, int D, int L1, int n_fwd, int n_stages, int y0,
+                    int Hr) {
+  using T = Trunk<H0, ROUTE>;
+  const int H = T::STREAM ? Hr : H0;
+  const int npass = T::STREAM ? H / kPassCols : T::NPASS;
   constexpr int KS = T::KS;
   __shared__ float tile[KS][33];
   const int nb = blockIdx.x * 32;
@@ -1036,9 +1074,9 @@ weight_image_kernel(const float* __restrict__ w0, const float* __restrict__ wh,
   if (st < s0)
     image = pass * s0 + st;
   else if (st < n_fwd)
-    image = T::NPASS * s0 + ((st - s0) / per * T::NPASS + pass) * per + (st - s0) % per;
+    image = npass * s0 + ((st - s0) / per * npass + pass) * per + (st - s0) % per;
   else
-    image = T::NPASS * n_fwd + ((st - n_fwd) / per * T::NPASS + pass) * per + (st - n_fwd) % per;
+    image = npass * n_fwd + ((st - n_fwd) / per * npass + pass) * per + (st - n_fwd) % per;
   // tile[r][c]: the stage's input row k0 + r, output row nb + c (zero past K)
   if (st < n_fwd) {
     const float* W = st < s0 ? w0 : wh + static_cast<size_t>((st - s0) / per) * H * H;
@@ -1101,32 +1139,48 @@ struct TrunkArgs {
   const float* gout;      // the head cotangent, [4][Np]
   float* gbuf;            // delta_1 .. delta_L and g_out images, g_rows rows a block
   uint32_t* mask;         // [A_i > 0], per tile, layer and thread
-  int N, Np, tiles, stages, n_raw, n_phase, Fd, D, L1, act_rows, g_rows, head_bf16;
+  int N, Np, tiles, stages, n_raw, n_phase, Fd, D, H, L1, act_rows, g_rows, head_bf16;
 };
 
 // Dynamic shared memory: the stage ring (1024-byte aligned), the activation
-// tile, two layer-0 input slices, wout's live columns, the mbarriers.
+// tile, two layer-0 input slices, wout's live columns, the mbarriers; the
+// generic build holds the ring of weight stages and input slices and the
+// mbarriers alone, the same at every width.
 template <int H, int ROUTE>
 constexpr size_t trunk_smem() {
-  return 1024 + Trunk<H, ROUTE>::kRing +
+  using T = Trunk<H, ROUTE>;
+  if (T::STREAM) return 1024 + T::kRing + (2 * T::NS + 1) * sizeof(uint64_t);
+  return 1024 + T::kRing +
          sizeof(float) * (static_cast<size_t>(kTileP) * (H + kActPad + 2 * kXLd) + H * kHead) +
-         2 * Trunk<H, ROUTE>::NS * sizeof(uint64_t);
+         2 * T::NS * sizeof(uint64_t);
 }
 template <int H>
 constexpr bool trunk_fits() {
   return trunk_smem<H, kTf32x3>() <= 232448 && trunk_smem<H, kBf16>() <= 232448 &&
          trunk_smem<H, kFp32>() <= 232448;
 }
-static_assert(trunk_fits<128>() && trunk_fits<256>() && trunk_fits<384>() && trunk_fits<512>(),
+static_assert(trunk_fits<128>() && trunk_fits<256>() && trunk_fits<384>() && trunk_fits<512>() &&
+                  trunk_fits<kAnyH>(),
               "the trunk's shared memory fits a block");
 
-// The two consumer warpgroups of a trunk pass.
-template <int H, int MODE, bool INLINE_PE, bool STAGED, int ROUTE>
+// The two consumer warpgroups of a trunk pass. The generic build (H0 ==
+// kAnyH, width a.H) holds no tile: x and each layer's output go to their
+// image only, and the producer copies each stage's input rows (x or A_l of
+// the forward, delta_{l+2} of the chain) from the image into the ring slot
+// beside the stage's weights, once that layer is written (`ready`: every
+// consumer warp arrives after a proxy fence). The consumers read their A
+// fragments from the slot's two 32-point blocks (rows of 32 points, the
+// image's swizzle: one bank per lane); the head reads A_L from the act
+// image and wout's columns from global memory. The same fragments in the
+// same k order: a column's sums are the column-pass design's.
+template <int H0, int MODE, bool INLINE_PE, bool STAGED, int ROUTE>
 __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring,
                                                const uint8_t* ring_ptr, float* __restrict__ act_sm,
                                                float* __restrict__ xbuf, float* __restrict__ whead,
-                                               uint32_t full0, uint32_t empty0) {
-  using T = Trunk<H, ROUTE>;
+                                               uint32_t full0, uint32_t empty0, uint32_t ready) {
+  using T = Trunk<H0, ROUTE>;
+  const int H = T::STREAM ? a.H : H0;
+  const int npass = T::STREAM ? H / kPassCols : T::NPASS;
   constexpr int KS = T::KS;
   constexpr int ld = T::LD;
   constexpr int xld = T::XLD;
@@ -1158,18 +1212,33 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
 #pragma unroll
   for (int i = 0; i < T::NR; ++i) part[i] = 0.f;
   int it = 0;
-  // the head's four live columns, once per CTA (rounded to bf16 with head_bf16)
-  for (int e = tid; e < H * kHead; e += kConsumers) {
+  // the head's four live columns, once per CTA (rounded to bf16 with
+  // head_bf16); the generic build reads them from global memory
+  for (int e = tid; e < H0 * kHead; e += kConsumers) {
     const float w = __ldg(a.wout + (e / kHead) * kOutPad + e % kHead);
     whead[e] = hb ? round_bf16(w) : w;
   }
   consumers_sync();
+  // (generic build) the layer's image is written: the producer may copy it
+  auto images_ready = [&]() {
+    fence_proxy_async_global();
+    __syncwarp();
+    if (lane == 0) mbar_arrive(ready);
+  };
+  auto head_w = [&](int k, int o) {
+    if constexpr (T::STREAM) {
+      const float w = __ldg(a.wout + k * kOutPad + o);
+      return hb ? round_bf16(w) : w;
+    } else {
+      return whead[k * kHead + o];
+    }
+  };
 
   for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
     const int n0 = tile * kTileP;
     // the thread's mask words of layer output A_{layer+1}, pass `pass`
     auto mask_at = [&](int layer, int pass) {
-      return a.mask + (static_cast<size_t>(tile) * L + layer) * T::NPASS * T::MW * kConsumers +
+      return a.mask + (static_cast<size_t>(tile) * L + layer) * npass * T::MW * kConsumers +
              pass * T::MW * kConsumers + tid;
     };
     // columns [32*sl, +32) of layer 0's input to dst[p*ldd + j] (point-major)
@@ -1198,7 +1267,7 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
             v = a.in[static_cast<size_t>(n) * a.D + k];
           }
         }
-        dst[p * ldd + j] = v;
+        if (!T::STREAM) dst[p * ldd + j] = v;
         if (k < a.D) a.act[img_at(a.act_rows, k, n)] = v;
       }
     };
@@ -1209,15 +1278,42 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
     // the producer's order
     auto products = [&](int K, bool from_tile) {
       const int nst = cdiv(K, KS);
+      const int it0 = it;  // the ring position of stage 0
 #pragma unroll
       for (int i = 0; i < T::NR; ++i) acc[i] = 0.f;
       const int sld = from_tile ? ld : xld;
-      auto src_of = [&](int st) {
-        return from_tile ? act_sm + st * KS : xslice(st * KS / kXK) + (st * KS) % kXK;
+      // stage st's input rows: the tile's or a STAGED layer 0's slice
+      // (point-major), or (the generic build) the ring slot's, once landed
+      auto src_of = [&](int st) -> const float* {
+        if constexpr (T::STREAM) {
+          const int i = it0 + st;
+          mbar_wait(full0 + 8 * (i % T::NS), (i / T::NS) & 1);
+          return reinterpret_cast<const float*>(ring_ptr + (i % T::NS) * T::kSlotBytes +
+                                                T::kStageBytes);
+        } else {
+          return from_tile ? act_sm + st * KS : xslice(st * KS / kXK) + (st * KS) % kXK;
+        }
+      };
+      // input (point pt, row k) of a stage's rows at src: point-major, or
+      // (the generic build) in the slot's blocks of 32 points per row, the
+      // 16-byte chunks of row k swizzled to chunk c ^ (k % 8), as the image
+      auto in_at = [&](const float* src, int pt, int k) {
+        if constexpr (T::STREAM)
+          return src[(pt >> 5) * (KS * kBlk) + k * kBlk + (((((pt & 31) >> 2) ^ (k & 7))) << 2) +
+                     (pt & 3)];
+        else
+          return src[pt * sld + k];
+      };
+      // inputs k, k + 1 of point pt (adjacent in a point-major row)
+      auto pair_at = [&](const float* src, int pt, int k) {
+        if constexpr (T::STREAM)
+          return make_float2(in_at(src, pt, k), in_at(src, pt, k + 1));
+        else
+          return *reinterpret_cast<const float2*>(src + pt * sld + k);
       };
       // before stage st: a STAGED layer 0 builds the slice that st starts
       auto next_slice = [&](int st) {
-        if (!from_tile && (st * KS) % kXK == 0) {
+        if (!T::STREAM && !from_tile && (st * KS) % kXK == 0) {
           build_x(st * KS / kXK, xslice(st * KS / kXK), xld);
           consumers_sync();
         }
@@ -1231,14 +1327,21 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
           const int rows = K - st * KS >= KS ? KS : 16;
           mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
           const float* w =
-              reinterpret_cast<const float*>(ring_ptr + s * T::kStageBytes) + cw + 8 * cgi;
-          const float* src = src_of(st) + pl * sld;
+              reinterpret_cast<const float*>(ring_ptr + s * T::kSlotBytes) + cw + 8 * cgi;
+          const float* src = src_of(st);
 #pragma unroll 1
           for (int k4 = 0; k4 < rows; k4 += 4) {
             float4 av[T::PR];
 #pragma unroll
-            for (int p = 0; p < T::PR; ++p)
-              av[p] = *reinterpret_cast<const float4*>(src + T::PL * p * sld + k4);
+            for (int p = 0; p < T::PR; ++p) {
+              if constexpr (T::STREAM) {
+                const int pt = pl + T::PL * p;
+                av[p] = make_float4(in_at(src, pt, k4), in_at(src, pt, k4 + 1),
+                                    in_at(src, pt, k4 + 2), in_at(src, pt, k4 + 3));
+              } else {
+                av[p] = *reinterpret_cast<const float4*>(src + (pl + T::PL * p) * sld + k4);
+              }
+            }
 #pragma unroll
             for (int kk = 0; kk < 4; ++kk) {
               const float4 b0 = *reinterpret_cast<const float4*>(w + (k4 + kk) * T::PW);
@@ -1265,11 +1368,11 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
 #pragma unroll
           for (int q = 0; q < 2; ++q) {
             if (q < live) {
-              const float* p = src + r0 * sld + 16 * q + 2 * t;
-              const float2 u = *reinterpret_cast<const float2*>(p);
-              const float2 v = *reinterpret_cast<const float2*>(p + 8);
-              const float2 w = *reinterpret_cast<const float2*>(p + 8 * sld);
-              const float2 x = *reinterpret_cast<const float2*>(p + 8 * sld + 8);
+              const int k = 16 * q + 2 * t;
+              const float2 u = pair_at(src, r0, k);
+              const float2 v = pair_at(src, r0, k + 8);
+              const float2 w = pair_at(src, r0 + 8, k);
+              const float2 x = pair_at(src, r0 + 8, k + 8);
               af[q][0] = pack_bf16(u.x, u.y);
               af[q][1] = pack_bf16(w.x, w.y);
               af[q][2] = pack_bf16(v.x, v.y);
@@ -1281,7 +1384,7 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
           const int s = it % T::NS;
           const int live = K - st * KS >= KS ? 2 : 1;
           mbar_wait(full0 + 8 * s, (it / T::NS) & 1);
-          const uint32_t img = ring + s * T::kStageBytes + cw * (KS * 2);
+          const uint32_t img = ring + s * T::kSlotBytes + cw * (KS * 2);
           fence_regs(part);
           wgmma_fence();
 #pragma unroll
@@ -1314,9 +1417,10 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             if (q < 2 * n) {
-              const float* p = src_of(st + (q >> 1)) + r0 * sld + 8 * (q & 1) + 2 * t;
-              const float2 u = *reinterpret_cast<const float2*>(p);
-              const float2 w = *reinterpret_cast<const float2*>(p + 8 * sld);
+              const float* src = src_of(st + (q >> 1));
+              const int k = 8 * (q & 1) + 2 * t;
+              const float2 u = pair_at(src, r0, k);
+              const float2 w = pair_at(src, r0 + 8, k);
               split_fast(u.x, hi[q][0], lo[q][0]);
               split_fast(w.x, hi[q][1], lo[q][1]);
               split_fast(u.y, hi[q][2], lo[q][2]);
@@ -1337,7 +1441,7 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
             if (g < n) {
               const int s = (it + g) % T::NS;
               mbar_wait(full0 + 8 * s, ((it + g) / T::NS) & 1);
-              const uint32_t hi_img = ring + s * T::kStageBytes + cw * (KS * 4);
+              const uint32_t hi_img = ring + s * T::kSlotBytes + cw * (KS * 4);
               const uint32_t lo_img = hi_img + T::PW * KS * 4;
 #pragma unroll
               for (int k = 0; k < 2; ++k) {
@@ -1372,11 +1476,11 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
     };
 
     // v (the thread's NR outputs of columns c0..) to an image and, to_tile,
-    // over the tile in place
+    // over the tile in place (the generic build: to the image only)
     auto write_out = [&](const float (&v)[T::NR], float* img, int rows, int row0, bool to_tile) {
 #pragma unroll
       for (int i = 0; i < T::NR; i += 2) {  // i, i + 1: one point, adjacent columns
-        if (to_tile)
+        if (!T::STREAM && to_tile)
           *reinterpret_cast<float2*>(act_sm + pt_of(i) * ld + col_of(i)) =
               make_float2(v[i], v[i + 1]);
         img[img_at(rows, row0 + col_of(i), n0 + pt_of(i))] = v[i];
@@ -1386,6 +1490,7 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
     // the passes before the last: their outputs, written by this thread to
     // the image only, over the tile (once every warp is done reading it)
     auto restore = [&](const float* img, int rows, int row0) {
+      if (T::STREAM) return;  // no tile
       for (int pass = 0; pass + 1 < T::NPASS; ++pass) {
         c0 = pass * T::PW + cw;
 #pragma unroll
@@ -1398,22 +1503,25 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
 
     if constexpr (MODE == kFwd) {
       const int nx = cdiv(a.D, kXK);
-      if (STAGED) {
+      if (T::STREAM) {  // x, whole, to the act image (A_0)
+        for (int sl = 0; sl < nx; ++sl) build_x(sl, nullptr, 0);
+        images_ready();
+      } else if (STAGED) {
         build_x(0, xslice(0), xld);
       } else {
         for (int sl = 0; sl < nx; ++sl) build_x(sl, act_sm + sl * kXK, ld);
       }
       consumers_sync();
       for (int l = 0; l <= a.L1; ++l) {
-        for (int pass = 0; pass < T::NPASS; ++pass) {
+        for (int pass = 0; pass < npass; ++pass) {
           c0 = pass * T::PW + cw;
-          const bool last = pass + 1 == T::NPASS;
-          if (pass > 0 && STAGED && l == 0) {  // x's first slice again, once every warp is past it
+          const bool last = pass + 1 == npass;
+          if (!T::STREAM && pass > 0 && STAGED && l == 0) {  // x's first slice again, once every warp is past it
             consumers_sync();
             build_x(0, xslice(0), xld);
             consumers_sync();
           }
-          products(l ? H : a.D, !STAGED || l > 0);
+          products(l ? H : a.D, !T::STREAM && (!STAGED || l > 0));
           if (last) consumers_sync();  // every warp is done reading the layer's input
           const float* bias = l ? a.bh + static_cast<size_t>(l - 1) * H : a.b0;
           uint32_t m[T::MW];
@@ -1430,6 +1538,7 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
           for (int w = 0; w < T::MW; ++w) mk[w * kConsumers] = m[w];
         }
         restore(a.act, a.act_rows, a.D + l * H);
+        if (T::STREAM && l < a.L1) images_ready();  // A_{l+1}, the next layer's input
         consumers_sync();
       }
       // head, fp32 FMAs (bf16-rounded operands with head_bf16): thread ->
@@ -1438,13 +1547,20 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
         const int p = tid >> 2;
         const int o = tid & 3;
         float s = 0.f;
-        if (hb) {
+        if constexpr (T::STREAM) {  // A_L from the act image
+          const int row = a.D + a.L1 * H;
 #pragma unroll 16
-          for (int k = 0; k < H; ++k)
+          for (int k = 0; k < H; ++k) {
+            const float v = a.act[img_at(a.act_rows, row + k, n0 + p)];
+            s = fmaf(hb ? round_bf16(v) : v, head_w(k, o), s);
+          }
+        } else if (hb) {
+#pragma unroll 16
+          for (int k = 0; k < H0; ++k)
             s = fmaf(round_bf16(act_sm[p * ld + k]), whead[k * kHead + o], s);
         } else {
 #pragma unroll 16
-          for (int k = 0; k < H; ++k) s = fmaf(act_sm[p * ld + k], whead[k * kHead + o], s);
+          for (int k = 0; k < H0; ++k) s = fmaf(act_sm[p * ld + k], whead[k * kHead + o], s);
         }
         a.out4[static_cast<size_t>(o) * a.Np + n0 + p] = s + __ldg(a.bout + o);
       }
@@ -1460,7 +1576,7 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
           for (int o = 0; o < kHead; ++o)
             gv[p][o] = n < a.N ? head_in(a.gout[static_cast<size_t>(o) * a.Np + n], hb) : 0.f;
         }
-        for (int pass = 0; pass < T::NPASS; ++pass) {
+        for (int pass = 0; pass < npass; ++pass) {
           c0 = pass * T::PW + cw;
           const uint32_t* mk = mask_at(a.L1, pass);
           uint32_t m[T::MW];
@@ -1468,11 +1584,11 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
           for (int w = 0; w < T::MW; ++w) m[w] = mk[w * kConsumers];
 #pragma unroll
           for (int i = 0; i < T::NR; ++i) {
-            const float* wk = whead + col_of(i) * kHead;
-            float s = gv[pidx(i)][0] * wk[0];
-            s = fmaf(gv[pidx(i)][1], wk[1], s);
-            s = fmaf(gv[pidx(i)][2], wk[2], s);
-            s = fmaf(gv[pidx(i)][3], wk[3], s);
+            const int k = col_of(i);
+            float s = gv[pidx(i)][0] * head_w(k, 0);
+            s = fmaf(gv[pidx(i)][1], head_w(k, 1), s);
+            s = fmaf(gv[pidx(i)][2], head_w(k, 2), s);
+            s = fmaf(gv[pidx(i)][3], head_w(k, 3), s);
             acc[i] = n0 + pt_of(i) < a.N && ((m[i >> 5] >> (i & 31)) & 1u) ? s : 0.f;
           }
           write_out(acc, a.gbuf, a.g_rows, a.L1 * H, true);  // the seed reads no tile
@@ -1484,17 +1600,18 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
               n < a.N ? a.gout[static_cast<size_t>(o) * a.Np + n] : 0.f;
         }
       }
+      if (T::STREAM && a.L1 > 0) images_ready();  // delta_L, the chain's first input
       consumers_sync();
       for (int l = a.L1 - 1; l >= 0; --l) {
         // delta_{l+1} = (delta_{l+2} . wh[l]^T) * [A_{l+1} > 0]
-        for (int pass = 0; pass < T::NPASS; ++pass) {
+        for (int pass = 0; pass < npass; ++pass) {
           c0 = pass * T::PW + cw;
-          const bool last = pass + 1 == T::NPASS;
+          const bool last = pass + 1 == npass;
           const uint32_t* mk = mask_at(l, pass);
           uint32_t m[T::MW];
 #pragma unroll
           for (int w = 0; w < T::MW; ++w) m[w] = mk[w * kConsumers];
-          products(H, true);
+          products(H, !T::STREAM);
           if (last) consumers_sync();  // every warp is done reading delta_{l+2}
 #pragma unroll
           for (int i = 0; i < T::NR; ++i)
@@ -1502,6 +1619,7 @@ __device__ __forceinline__ void trunk_consumer(const TrunkArgs& a, uint32_t ring
           write_out(acc, a.gbuf, a.g_rows, l * H, last);
         }
         restore(a.gbuf, a.g_rows, l * H);
+        if (T::STREAM && l > 0) images_ready();  // delta_{l+1}, the next step's input
         consumers_sync();
       }
     }
@@ -1516,11 +1634,15 @@ __device__ __forceinline__ void trunk(const TrunkArgs& a) {
   const uint32_t raw_addr = smem_u32(smem_raw);
   uint8_t* base = smem_raw + ((1024 - (raw_addr & 1023)) & 1023);
   const uint32_t ring = smem_u32(base);
-  float* act_sm = reinterpret_cast<float*>(base + T::kRing);  // (64, H + 8)
-  float* xbuf = act_sm + kTileP * T::LD;        // two (64, 40) layer-0 input slices
-  float* whead = xbuf + 2 * kTileP * kXLd;      // (H, 4): wout's live columns
-  uint64_t* bars = reinterpret_cast<uint64_t*>(whead + H * kHead);
+  // the tile (64, H + 8), two (64, 40) input slices, wout's live columns
+  // (H, 4); the generic build has the mbarriers alone after its ring
+  float* act_sm = T::STREAM ? nullptr : reinterpret_cast<float*>(base + T::kRing);
+  float* xbuf = T::STREAM ? nullptr : act_sm + kTileP * T::LD;
+  float* whead = T::STREAM ? nullptr : xbuf + 2 * kTileP * kXLd;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      T::STREAM ? base + T::kRing : reinterpret_cast<uint8_t*>(whead + H * kHead));
   const uint32_t full0 = smem_u32(bars), empty0 = smem_u32(bars + T::NS);
+  const uint32_t ready = smem_u32(bars + 2 * T::NS);  // (generic build) a layer's input written
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
 
@@ -1529,6 +1651,7 @@ __device__ __forceinline__ void trunk(const TrunkArgs& a) {
       mbar_init(full0 + 8 * s, 1);
       mbar_init(empty0 + 8 * s, kConsumers / 32);
     }
+    if (T::STREAM) mbar_init(ready, kConsumers / 32);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -1539,19 +1662,53 @@ __device__ __forceinline__ void trunk(const TrunkArgs& a) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kProducerRegs));
     if (warp == kConsumers / 32 && lane == 0) {
       int it = 0;
-      for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x)
-        for (int st = 0; st < a.stages; ++st, ++it) {
-          const int s = it % T::NS;
-          mbar_wait(empty0 + 8 * s, ((it / T::NS) & 1) ^ 1);
-          mbar_arrive_expect_tx(full0 + 8 * s, T::kStageBytes);
-          bulk_copy(ring + s * T::kStageBytes, a.images + static_cast<size_t>(st) * T::kStageBytes,
-                    T::kStageBytes, full0 + 8 * s);
+      if constexpr (T::STREAM) {
+        // per layer, once its input is written: every pass's stages, each
+        // the weights' stage image and the input rows of the tile's two
+        // image blocks (x and A_l in act, delta_{l+2} in gbuf)
+        const float* in = MODE == kFwd ? a.act : a.gbuf;
+        const int rows = MODE == kFwd ? a.act_rows : a.g_rows;
+        const int npass = a.H / kPassCols, L = a.L1 + 1;
+        int round = 0;
+        for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x) {
+          int st = 0;
+          for (int i = 0; i < (MODE == kFwd ? L : a.L1); ++i) {
+            const int l = MODE == kFwd ? i : a.L1 - 1 - i;  // the layer
+            const int row0 = MODE == kFwd ? (l ? a.D + (l - 1) * a.H : 0) : (l + 1) * a.H;
+            const int nst = MODE == kFwd && l == 0 ? cdiv(a.D, T::KS) : a.H / T::KS;
+            mbar_wait(ready, round++ & 1);
+            for (int pass = 0; pass < npass; ++pass)
+              for (int sl = 0; sl < nst; ++sl, ++st, ++it) {
+                const int s = it % T::NS;
+                const uint32_t slot = ring + s * T::kSlotBytes;
+                mbar_wait(empty0 + 8 * s, ((it / T::NS) & 1) ^ 1);
+                mbar_arrive_expect_tx(full0 + 8 * s, T::kSlotBytes);
+                bulk_copy(slot, a.images + static_cast<size_t>(st) * T::kStageBytes,
+                          T::kStageBytes, full0 + 8 * s);
+                for (int b = 0; b < 2; ++b)
+                  bulk_copy(slot + T::kStageBytes + b * (T::KS * kBlk * 4),
+                            in + ((static_cast<size_t>(tile) * 2 + b) * rows + row0 + sl * T::KS) *
+                                     kBlk,
+                            T::KS * kBlk * 4, full0 + 8 * s);
+              }
+          }
         }
+      } else {
+        for (int tile = blockIdx.x; tile < a.tiles; tile += gridDim.x)
+          for (int st = 0; st < a.stages; ++st, ++it) {
+            const int s = it % T::NS;
+            mbar_wait(empty0 + 8 * s, ((it / T::NS) & 1) ^ 1);
+            mbar_arrive_expect_tx(full0 + 8 * s, T::kStageBytes);
+            bulk_copy(ring + s * T::kStageBytes,
+                      a.images + static_cast<size_t>(st) * T::kStageBytes, T::kStageBytes,
+                      full0 + 8 * s);
+          }
+      }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kConsumerRegs));
     trunk_consumer<H, MODE, INLINE_PE, STAGED, ROUTE>(a, ring, base, act_sm, xbuf, whead, full0,
-                                                      empty0);
+                                                      empty0, ready);
   }
 }
 
@@ -2065,16 +2222,16 @@ cudaError_t composite_smem(K kernel, int S, size_t& bytes) {
 }
 
 // The weights' stage images (and, with_w0, w0's row-major image).
-template <int H, int ROUTE>
-cudaError_t launch_weights(const float* w0, const float* wh, const Scratch& b, int D, int L1,
-                           bool with_w0, cudaStream_t st) {
-  const int n_fwd = fwd_stages<H, ROUTE>(D, L1);
-  const int n_stages = n_fwd + bwd_stages<H, ROUTE>(L1);
+template <int H0, int ROUTE>
+cudaError_t launch_weights(const float* w0, const float* wh, const Scratch& b, int D, int H,
+                           int L1, bool with_w0, cudaStream_t st) {
+  const int n_fwd = fwd_stages<H0, ROUTE>(D, H, L1);
+  const int n_stages = n_fwd + bwd_stages<H0, ROUTE>(H, L1);
   const int rows = n_stages + (with_w0 ? cdiv(D, 32) : 0);
   for (int y0 = 0; y0 < rows; y0 += kMaxGridY) {  // any depth: grids of kMaxGridY rows
     const int n = rows - y0 < kMaxGridY ? rows - y0 : kMaxGridY;
-    weight_image_kernel<H, ROUTE><<<dim3(H / 32, n), 256, 0, st>>>(
-        w0, wh, b.img, b.w0hi, b.w0lo, D, L1, n_fwd, n_stages, y0);
+    weight_image_kernel<H0, ROUTE><<<dim3(H / 32, n), 256, 0, st>>>(
+        w0, wh, b.img, b.w0hi, b.w0lo, D, L1, n_fwd, n_stages, y0, H);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
@@ -2086,10 +2243,11 @@ template <int H, int MODE, bool INLINE_PE, int ROUTE>
 cudaError_t launch_trunk(const TrunkArgs& a, int device, cudaStream_t st) {
   constexpr size_t smem = trunk_smem<H, ROUTE>();
   void (*kernel)(TrunkArgs) = train_bwd_kernel<H, ROUTE>;
-  // a forward input wider than the activation tile streams through the slices
+  // a forward input wider than the activation tile streams through the
+  // slices, as does every input of the generic build
   if constexpr (MODE == kFwd)
     kernel = a.D > H ? train_fwd_kernel<H, INLINE_PE, true, ROUTE>
-                     : train_fwd_kernel<H, INLINE_PE, false, ROUTE>;
+                     : train_fwd_kernel<H, INLINE_PE, Trunk<H, ROUTE>::STREAM, ROUTE>;
   cudaError_t err = smem_limit(kernel, smem);
   if (err != cudaSuccess) return err;
   int sms = 0;
@@ -2103,7 +2261,7 @@ cudaError_t launch_trunk(const TrunkArgs& a, int device, cudaStream_t st) {
 TrunkArgs trunk_args(const Layout& s, const Scratch& b, const float* in, const float* feats,
                      const float* e2, const float* c, const float* b0, const float* bh,
                      const float* wout, const float* bout, int n_raw, int n_phase, int Fd, int D,
-                     int L1, bool head_bf16) {
+                     int H, int L1, bool head_bf16) {
   TrunkArgs a;
   a.in = in;
   a.feats = feats;
@@ -2127,6 +2285,7 @@ TrunkArgs trunk_args(const Layout& s, const Scratch& b, const float* in, const f
   a.n_phase = n_phase;
   a.Fd = Fd;
   a.D = D;
+  a.H = H;
   a.L1 = L1;
   a.act_rows = s.act_rows;
   a.g_rows = s.g_rows;
@@ -2139,7 +2298,7 @@ TrunkArgs trunk_args(const Layout& s, const Scratch& b, const float* in, const f
 template <int H, bool INLINE_PE, int ROUTE>
 cudaError_t launch_forward(TrunkArgs a, const Scratch& b, int device, cudaStream_t st) {
   a.images = b.img;
-  a.stages = Trunk<H, ROUTE>::NPASS * fwd_stages<H, ROUTE>(a.D, a.L1);
+  a.stages = a.H / Trunk<H, ROUTE>::PW * fwd_stages<H, ROUTE>(a.D, a.H, a.L1);
   return launch_trunk<H, kFwd, INLINE_PE, ROUTE>(a, device, st);
 }
 
@@ -2147,9 +2306,10 @@ cudaError_t launch_forward(TrunkArgs a, const Scratch& b, int device, cudaStream
 template <int H, int ROUTE>
 cudaError_t launch_backward(TrunkArgs a, const Scratch& b, int device, cudaStream_t st) {
   using T = Trunk<H, ROUTE>;
-  a.images = b.img + static_cast<size_t>(T::NPASS) * fwd_stages<H, ROUTE>(a.D, a.L1) *
+  const int npass = a.H / T::PW;
+  a.images = b.img + static_cast<size_t>(npass) * fwd_stages<H, ROUTE>(a.D, a.H, a.L1) *
                          T::kStageBytes;
-  a.stages = T::NPASS * bwd_stages<H, ROUTE>(a.L1);
+  a.stages = npass * bwd_stages<H, ROUTE>(a.H, a.L1);
   return launch_trunk<H, kBwd, false, ROUTE>(a, device, st);
 }
 
@@ -2231,10 +2391,11 @@ cudaError_t launch_dw(const Layout& s, const Scratch& b, float* grads, int D, in
 }
 
 // The shapes the launches take: every K a multiple of 16, the R*S points
-// (padded to whole tiles) counted in an int; any S, D and depth.
+// (padded to whole tiles) counted in an int; any S, D and depth; any trunk
+// width the JAX kernels take (a multiple of 128).
 bool shapes_ok(int R, int S, int D, int H, int L1) {
   return R >= 1 && S >= 1 && static_cast<long long>(R) * S <= INT_MAX - kTileP && D > 0 &&
-         D % 16 == 0 && (H == 128 || H == 256 || H == 384 || H == 512) && L1 >= 0;
+         D % 16 == 0 && H > 0 && H % kPassCols == 0 && L1 >= 0;
 }
 
 bool route_ok(int route) { return route == kTf32x3 || route == kBf16 || route == kFp32; }
@@ -2250,16 +2411,17 @@ struct TrainArgs {
 };
 
 // The objective on route ROUTE; the dW products on a.dw_route, the head in
-// exact fp32 with a.head_vpu (its dW then kFp32 too).
-template <int H, bool INLINE_PE, int ROUTE>
-cudaError_t launch(const TrainArgs& a, int device, cudaStream_t stream) {
+// exact fp32 with a.head_vpu (its dW then kFp32 too). H0: a fixed width's
+// build, or kAnyH (the generic build) at width H.
+template <int H0, bool INLINE_PE, int ROUTE>
+cudaError_t launch(const TrainArgs& a, int H, int device, cudaStream_t stream) {
   const Layout s = make_layout(a.R, a.S, a.D, H, a.L1);
   const Scratch b = carve(s, a.scratch, a.D, H, a.S);
   const bool head_bf16 = ROUTE == kBf16 && !a.head_vpu;
-  cudaError_t err = launch_weights<H, ROUTE>(a.w0, a.wh, b, a.D, a.L1, false, stream);
+  cudaError_t err = launch_weights<H0, ROUTE>(a.w0, a.wh, b, a.D, H, a.L1, false, stream);
   const TrunkArgs ta = trunk_args(s, b, a.in, a.feats, a.e2, a.c, a.b0, a.bh, a.wout, a.bout,
-                                  a.n_raw, a.n_phase, a.Fd, a.D, a.L1, head_bf16);
-  if (err == cudaSuccess) err = launch_forward<H, INLINE_PE, ROUTE>(ta, b, device, stream);
+                                  a.n_raw, a.n_phase, a.Fd, a.D, H, a.L1, head_bf16);
+  if (err == cudaSuccess) err = launch_forward<H0, INLINE_PE, ROUTE>(ta, b, device, stream);
   if (err != cudaSuccess) return err;
 
   size_t comp_smem = 0;
@@ -2269,7 +2431,7 @@ cudaError_t launch(const TrainArgs& a, int device, cudaStream_t stream) {
       b.out4, a.z, a.dnorm, a.tgt, a.mask, a.inv_denom, a.tgt_depth, b.gout, b.loss_r, b.ray,
       a.S, s.Np, a.white_bkgd, a.rgb_c, a.reg_c, a.depth_c);
 
-  err = launch_backward<H, ROUTE>(ta, b, device, stream);
+  err = launch_backward<H0, ROUTE>(ta, b, device, stream);
   if (err == cudaSuccess)
     err = launch_dw(s, b, a.grads, a.D, H, a.L1, a.dw_route, a.head_vpu ? kFp32 : a.dw_route,
                     stream);
@@ -2278,27 +2440,33 @@ cudaError_t launch(const TrainArgs& a, int device, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int H, bool INLINE_PE>
-cudaError_t dispatch_route(int route, const TrainArgs& a, int device, cudaStream_t st) {
-  if (route == kBf16) return launch<H, INLINE_PE, kBf16>(a, device, st);
-  if (route == kFp32) return launch<H, INLINE_PE, kFp32>(a, device, st);
-  return launch<H, INLINE_PE, kTf32x3>(a, device, st);
+template <int H0, bool INLINE_PE>
+cudaError_t dispatch_route(int route, const TrainArgs& a, int H, int device, cudaStream_t st) {
+  if (route == kBf16) return launch<H0, INLINE_PE, kBf16>(a, H, device, st);
+  if (route == kFp32) return launch<H0, INLINE_PE, kFp32>(a, H, device, st);
+  return launch<H0, INLINE_PE, kTf32x3>(a, H, device, st);
 }
 
-template <int H>
-cudaError_t dispatch(int inline_pe, int route, const TrainArgs& a, int device, cudaStream_t st) {
-  return inline_pe ? dispatch_route<H, true>(route, a, device, st)
-                   : dispatch_route<H, false>(route, a, device, st);
+template <int H0>
+cudaError_t dispatch(int inline_pe, int route, const TrainArgs& a, int H, int device,
+                     cudaStream_t st) {
+  return inline_pe ? dispatch_route<H0, true>(route, a, H, device, st)
+                   : dispatch_route<H0, false>(route, a, H, device, st);
 }
 
-// f(std::integral_constant<int, H>) at the trunk widths shapes_ok takes.
+// f(std::integral_constant<int, H0>) for trunk width H (shapes_ok's): each
+// width up to kMaxFixedH its own build, every wider one the generic build
+// (H0 == kAnyH), any other H refused.
 template <class F>
 cudaError_t at_width(int H, F f) {
   switch (H) {
     case 128: return f(std::integral_constant<int, 128>{});
     case 256: return f(std::integral_constant<int, 256>{});
     case 384: return f(std::integral_constant<int, 384>{});
-    default: return f(std::integral_constant<int, 512>{});
+    case 512: return f(std::integral_constant<int, 512>{});
+    default:
+      if (H > kMaxFixedH && H % kPassCols == 0) return f(std::integral_constant<int, kAnyH>{});
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -2314,15 +2482,16 @@ struct RenderBwdArgs {
 // forward, composites backward from the external cotangents, runs the
 // backward chain and the dW products, and (dx != nullptr) the input
 // cotangent, every product on route ROUTE.
-template <int H, int ROUTE>
-cudaError_t launch_render_bwd(const RenderBwdArgs& a, int device, cudaStream_t stream) {
+template <int H0, int ROUTE>
+cudaError_t launch_render_bwd(const RenderBwdArgs& a, int H, int device, cudaStream_t stream) {
   const Layout s = make_layout(a.R, a.S, a.D, H, a.L1);
   const Scratch b = carve(s, a.scratch, a.D, H, a.S);
   constexpr bool head_bf16 = ROUTE == kBf16;
-  cudaError_t err = launch_weights<H, ROUTE>(a.w0, a.wh, b, a.D, a.L1, a.dx != nullptr, stream);
+  cudaError_t err =
+      launch_weights<H0, ROUTE>(a.w0, a.wh, b, a.D, H, a.L1, a.dx != nullptr, stream);
   const TrunkArgs ta = trunk_args(s, b, a.x, nullptr, nullptr, nullptr, a.b0, a.bh, a.wout,
-                                  a.bout, 0, 0, 0, a.D, a.L1, head_bf16);
-  if (err == cudaSuccess) err = launch_forward<H, false, ROUTE>(ta, b, device, stream);
+                                  a.bout, 0, 0, 0, a.D, H, a.L1, head_bf16);
+  if (err == cudaSuccess) err = launch_forward<H0, false, ROUTE>(ta, b, device, stream);
   if (err != cudaSuccess) return err;
 
   size_t comp_smem = 0;
@@ -2332,7 +2501,7 @@ cudaError_t launch_render_bwd(const RenderBwdArgs& a, int device, cudaStream_t s
       b.out4, a.z, a.dnorm, a.g_rgb, a.g_depth, a.g_acc, a.g_weights, b.gout, b.ray, a.S, s.Np,
       a.white_bkgd);
 
-  err = launch_backward<H, ROUTE>(ta, b, device, stream);
+  err = launch_backward<H0, ROUTE>(ta, b, device, stream);
   if (err == cudaSuccess) err = launch_dw(s, b, a.grads, a.D, H, a.L1, ROUTE, ROUTE, stream);
   if (err != cudaSuccess) return err;
   if (a.dx != nullptr) {
@@ -2345,11 +2514,12 @@ cudaError_t launch_render_bwd(const RenderBwdArgs& a, int device, cudaStream_t s
   return cudaGetLastError();
 }
 
-template <int H>
-cudaError_t render_bwd_route(int route, const RenderBwdArgs& a, int device, cudaStream_t st) {
-  if (route == kBf16) return launch_render_bwd<H, kBf16>(a, device, st);
-  if (route == kFp32) return launch_render_bwd<H, kFp32>(a, device, st);
-  return launch_render_bwd<H, kTf32x3>(a, device, st);
+template <int H0>
+cudaError_t render_bwd_route(int route, const RenderBwdArgs& a, int H, int device,
+                             cudaStream_t st) {
+  if (route == kBf16) return launch_render_bwd<H0, kBf16>(a, H, device, st);
+  if (route == kFp32) return launch_render_bwd<H0, kFp32>(a, H, device, st);
+  return launch_render_bwd<H0, kTf32x3>(a, H, device, st);
 }
 
 }  // namespace
@@ -2383,7 +2553,7 @@ extern "C" int nerf_train_objective(const float* in, const float* feats, const f
                     loss, grads, scratch, R,     S,       n_raw,  n_phase,   Fd,
                     D,    L1,    white_bkgd, rgb_c, reg_c, depth_c, dw_route, head_vpu};
   return at_width(H, [&](auto w) {
-    return dispatch<decltype(w)::value>(inline_pe, route, a, device, st);
+    return dispatch<decltype(w)::value>(inline_pe, route, a, H, device, st);
   });
 }
 
@@ -2400,7 +2570,7 @@ extern "C" int nerf_render_bwd(const float* x, const float* z, const float* dnor
   const RenderBwdArgs a{x,       z,     dnorm, w0, b0, wh, bh, wout, bout, g_rgb, g_depth,
                         g_acc,   g_weights, dx, grads, scratch, R, S, D, L1, white_bkgd};
   return at_width(H, [&](auto w) {
-    return render_bwd_route<decltype(w)::value>(route, a, device, st);
+    return render_bwd_route<decltype(w)::value>(route, a, H, device, st);
   });
 }
 

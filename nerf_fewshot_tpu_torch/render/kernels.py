@@ -34,12 +34,14 @@ from nerf_fewshot_tpu_torch.render import cuda_build
 # D_PAD (``encode_points`` pads to one, as the JAX kernels do), which keeps
 # the 64-column dx tiles of kernel 3 whole; the inline-PE input of kernels 1
 # and 2 is padded to a multiple of PE_ALIGN (``pe_width``). As the JAX
-# kernels, all five take any such width, any number of samples per ray and
-# any trunk depth; the R*S points are counted in 32-bit ints (MAX_POINTS).
+# kernels, all five take any such width, any number of samples per ray, any
+# trunk depth and any trunk width that is a multiple of H_ALIGN (each of 128
+# to 512 a build of its own, every wider one the width-generic build); the
+# R*S points are counted in 32-bit ints (MAX_POINTS).
 D_PAD = 128
 PE_ALIGN = 16
 OUT_PAD = 128  # packed head columns: [r, g, b, sigma, 0...]
-KERNEL_WIDTHS = (128, 256, 384, 512)  # trunk widths the CUDA kernels are built for
+H_ALIGN = 128  # trunk widths: any multiple, the JAX kernels' check
 MAX_POINTS = 2 ** 31 - 1 - 64  # R*S, padded to whole 64-point tiles, fits an int
 # csrc/fwd_pe.cu:nerf_fwd_pe(17 pointers (the last the scratch), 11 ints, stream)
 FWD_PE_ARGTYPES = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
@@ -440,6 +442,13 @@ def _check_points(R: int, S: int, caller: str) -> None:
                          f"got {R} x {S}")
 
 
+def _check_width(H: int, caller: str) -> None:
+    """Raise unless the trunk width is one the kernels take (the JAX
+    kernels' ``H % 128 == 0``)."""
+    if H <= 0 or H % H_ALIGN:
+        raise ValueError(f"{caller}: trunk width {H} is not a multiple of {H_ALIGN}")
+
+
 def _check_card(device: torch.device, caller: str) -> None:
     """Raise unless ``device`` is a CUDA device of capability (9, 0)."""
     if device.type != "cuda":
@@ -480,8 +489,7 @@ def fused_render_fwd_pe(
     D, H = w0.shape
     L1 = wh.shape[0]
     Fd = feats.shape[1] if use_feats else 0
-    if H not in KERNEL_WIDTHS:
-        raise ValueError(f"fused_render_fwd_pe: trunk width {H} not in {KERNEL_WIDTHS}")
+    _check_width(H, "fused_render_fwd_pe")
     if D % PE_ALIGN or n_raw + n_phase + Fd > D:
         raise ValueError(
             f"fused_render_fwd_pe: input width {n_raw}+{n_phase}+{Fd} needs "
@@ -530,8 +538,7 @@ def _check_x_render(x, z, dnorm, packed: Packed, caller: str):
     R, S = z.shape
     D, H = w0.shape
     L1 = wh.shape[0]
-    if H not in KERNEL_WIDTHS:
-        raise ValueError(f"{caller}: trunk width {H} not in {KERNEL_WIDTHS}")
+    _check_width(H, caller)
     if D % D_PAD:
         raise ValueError(f"{caller}: x width {D} must be a multiple of {D_PAD}")
     _check_points(R, S, caller)

@@ -26,13 +26,13 @@ from torch import nn
 from nerf_fewshot_tpu_torch.ops.sampling import hierarchical_sample, sample_along_rays
 from nerf_fewshot_tpu_torch.render.fused import encode_points
 from nerf_fewshot_tpu_torch.render.kernels import (
-    KERNEL_WIDTHS,
     D_PAD,
     OUT_PAD,
     PE_ALIGN,
     Packed,
     _check_card,
     _check_points,
+    _check_width,
     _composite,
     _composite_terms,
     _expect,
@@ -211,8 +211,7 @@ def fused_train_objective(
     R, S = z.shape
     D, H = w0.shape
     L1 = wh.shape[0]
-    if H not in KERNEL_WIDTHS:
-        raise ValueError(f"{CALLER}: trunk width {H} not in {KERNEL_WIDTHS}")
+    _check_width(H, CALLER)
     _check_points(R, S, CALLER)
     if inline_pe:
         n_raw, n_phase = raw_or_x.shape[1], e2.shape[1]

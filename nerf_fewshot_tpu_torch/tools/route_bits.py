@@ -17,7 +17,9 @@ width 256 for the main path, ``experiments/baseline.yaml`` at its seed on
 the synthetic scene (kernels 2 and 4 on a 2048x64 eval chunk, kernels 1, 5
 and 3 on the phase-2 batch of 512x64), and at the DINO width (pos_freq 12,
 64 features: D 176 inline, a 256-wide x) from seed 0; at trunk width 128
-(3 layers, 64 features) from seed 1. Call names end in the route. The file
+(3 layers, 64 features) from seed 1; at trunk widths 384 and 512 (3
+layers, 64 features, 512 rays x 64 samples) from seeds 2 and 3. Call names
+end in the route. The file
 holds the outputs and a digest of the inputs; ``--compare`` fails unless
 both files saw the same inputs and every output tensor is bit-equal.
 A run saves its calls' input tensors too; ``--inputs`` takes them from an
@@ -140,6 +142,19 @@ def run(root: str, out: str, inputs=None) -> None:
         a, o = chip_smoke.random_train_args(rng, 512, 64, 128, 3, device, feat_dim=64,
                                             white_bkgd=True, ragged=9, inline_pe=inline_pe)
         add(name, lambda *a, **o: flat(tt.fused_train_objective(*a, **o)), *a, **o)
+
+    for seed, H in ((2, 384), (3, 512)):
+        rng = np.random.default_rng(seed)
+        a = chip_smoke.random_fwd_pe_args(rng, 512, 64, H, 3, 64, device, d_pad=160)
+        add(f"fwd_pe_h{H}", tk.fused_render_fwd_pe, *a, use_feats=True)
+        a, _ = chip_smoke.random_render_args(rng, 512, 64, H, 3, device, feat_dim=64)
+        add(f"fwd_h{H}", tk.fused_render_fwd, *a)
+        add(f"render_bwd_h{H}", lambda *a, **k: flat(tk.fused_render_bwd(*a, **k)), *a,
+            *chip_smoke.random_cotangents(rng, 512, 64, device))
+        for name, inline_pe in ((f"train_pe_h{H}", True), (f"train_x_h{H}", False)):
+            a, o = chip_smoke.random_train_args(rng, 512, 64, H, 3, device, feat_dim=64,
+                                                white_bkgd=True, ragged=9, inline_pe=inline_pe)
+            add(name, lambda *a, **o: flat(tt.fused_train_objective(*a, **o)), *a, **o)
 
     if inputs:
         saved = torch.load(inputs)["args"]

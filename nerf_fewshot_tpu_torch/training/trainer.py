@@ -13,11 +13,9 @@ with ``rendering.noise_std``. Which path a config takes
 follows the JAX trainer: ``rendering.backend: xla``, or under ``auto`` a
 config the JAX kernels do not take (``arch: module``, skip layers, a width
 that is not a multiple of 128, sigma noise), trains on the plain path on
-every device. A config the JAX kernels take but the port has no CUDA build
-(a width of 640 or more: the kernels take 128, 256, 384 and 512, and any
-input width, samples per ray and depth) raises on a card, and trains on the plain
-path only on the CPU or with ``backend: xla``. The path taken is in
-``kernel_path``. Minibatch permutations come from ``np.random.default_rng(cfg.seed)`` exactly as in
+every device; every config the JAX kernels take (any trunk width that is a
+multiple of 128, any input width, samples per ray and depth) takes the
+kernels. The path taken is in ``kernel_path``. Minibatch permutations come from ``np.random.default_rng(cfg.seed)`` exactly as in
 the JAX trainer, so both draw the same batches. Eval renders every view
 through ``fused_render_rays(forward_only=True)`` on the kernel path.
 
@@ -80,9 +78,6 @@ from nerf_fewshot_tpu_torch.ops.rays import (
 from nerf_fewshot_tpu_torch.parallel.fused_dp import make_dp_fused_loss_grad
 from nerf_fewshot_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, process_local_slice
 from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
-from nerf_fewshot_tpu_torch.render.kernels import (
-    KERNEL_WIDTHS,
-)
 from nerf_fewshot_tpu_torch.render.pipeline import PointFeaturesFn, RenderSettings, render_rays
 from nerf_fewshot_tpu_torch.render.train_kernel import fused_train_loss_grad
 from nerf_fewshot_tpu_torch.training.config import Config
@@ -281,16 +276,6 @@ class Trainer:
             return "sigma noise_std != 0 is not implemented in the kernels"
         return None
 
-    def _port_gap_reason(self) -> Optional[str]:
-        """Why the port's kernels cannot take a config the JAX kernels take:
-        a trunk width they have no build for. Any input width, samples per
-        ray and depth the JAX kernels take, the CUDA kernels take too."""
-        n = self.cfg.nerf
-        if n.hidden_dim not in KERNEL_WIDTHS:
-            return (f"hidden_dim={n.hidden_dim} has no CUDA build "
-                    f"(the kernels are built for {KERNEL_WIDTHS})")
-        return None
-
     def _use_fused(self) -> bool:
         """Whether training steps and renders go through the kernels
         (``fused_train_loss_grad``, ``fused_render_rays``): the CUDA kernels
@@ -299,24 +284,17 @@ class Trainer:
 
         ``backend: xla`` takes the plain path. A config the JAX kernels do
         not take takes it too under ``auto``, on every device, as the JAX
-        trainer does, and raises under ``fused``. A config only the port's
-        kernels cannot take raises under ``fused``, and on a card under
-        ``auto``: the JAX package would run its kernel there."""
+        trainer does, and raises under ``fused``. Every config the JAX
+        kernels take, the port's kernels take too."""
         backend = self.cfg.rendering.backend
         where = self.device.type
-        jax_reason, gap = self._jax_ineligible_reason(), self._port_gap_reason()
+        jax_reason = self._jax_ineligible_reason()
         if backend == "xla":
             reason = "rendering.backend: xla"
         elif jax_reason is not None:
             if backend == "fused":
                 raise ValueError(f"rendering.backend=fused rejected on {where}: {jax_reason}")
             reason = jax_reason
-        elif gap is not None:
-            if backend == "fused" or where != "cpu":
-                raise ValueError(
-                    f"rendering.backend={backend} rejected on {where}: {gap} "
-                    f"(backend: xla trains and renders on the plain path)")
-            reason = gap
         else:
             reason = None
         self.kernel_path = "kernel" if reason is None else "plain"

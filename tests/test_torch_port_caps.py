@@ -229,7 +229,7 @@ def test_trainer_epoch_at_16_layers_matches_jax(monkeypatch):
     data = lambda ds: BlenderDataset(np.asarray(ds.images), np.asarray(ds.poses), ds.H, ds.W,
                                      ds.focal)
     ptr = Trainer(tcfg.config_from_dict(cfg), data(train), data(test), device="cpu")
-    assert ptr._port_gap_reason() is None
+    assert not hasattr(ptr, "_port_gap_reason") and ptr._jax_ineligible_reason() is None
     assert ptr._use_fused() and ptr.kernel_path == "kernel"
     ptr.load_jax_params(jax.tree_util.tree_map(np.asarray, jtr.params))
     jtr.train_epoch(0)

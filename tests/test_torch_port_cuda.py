@@ -410,8 +410,67 @@ def _wide_case(kernel, H, device, R=37, S=48, L=4, staged=False):
             lambda cd: flat(objective_f64(a, with_cd(cd))))
 
 
-def _check_wide(kernel, H, compute_dtype, case):
-    """Two calls bit for bit, two launches, finite; then the bounds above."""
+def _f64_at_a_tie(f64, compute_dtype, flat, g, tol, ties=8, tie=1e-6):
+    """The gate rule of the wider trunks: the kernel's gradient vector ``g``
+    within ``tol`` (rel) of a float64 run of the plain version (``f64``) in
+    which one ReLU gate whose float64 pre-activation is within ``tie`` of
+    zero is taken to the other side (the ``ties`` nearest zero tried one at
+    a time). Such a gate is a tie at fp32 precision: a 640-term sum of fp32
+    products is ~1e-7 off its float64 value, so any order of the sums, the
+    kernel's, cuBLAS's or another route's, may land on either side, and
+    the vector then moves by ~1e-4 over 1,776 points (read on an NVIDIA
+    H100 80GB HBM3 at 700 W: ``train_x`` at H 640, a tie 1.4e-8 from zero
+    that both kernel routes take to the other side moves it 1.9e-4).
+    Returns the reading, or None when no tie explains ``g``."""
+    recorded = []
+    real = tk._trunk
+
+    def trunk(x, packed, dtype="float32", head_dtype=None, flip=None):
+        w0, b0, wh, bh, wout, bout = packed
+        h = x
+        for layer in range(wh.shape[0] + 1):
+            W, b = (w0, b0) if layer == 0 else (wh[layer - 1], bh[layer - 1])
+            z = tk._dot(h, W, dtype) + b
+            if flip is None:
+                recorded.append(z.detach())
+                h = torch.relu(z)
+            else:  # the gate of (point n, unit j) flipped; a gate open below 0 reads |z|
+                gate = (z > 0).to(z.dtype)
+                if flip[0] == layer:
+                    gate[flip[1], flip[2]] = 1.0 - gate[flip[1], flip[2]]
+                h = z * gate + (gate * (z.abs() - z)).detach()
+            if layer == 0:
+                states = [x]
+            states.append(h)
+        return tk._dot(h, wout[:, :4], head_dtype or dtype) + bout[:, :4], states
+
+    def with_trunk(fn):
+        tk._trunk = tt._trunk = fn
+        try:
+            return flat(f64(compute_dtype))
+        finally:
+            tk._trunk = tt._trunk = real
+
+    with_trunk(trunk)
+    near = torch.cat([z.abs().reshape(-1) for z in recorded])
+    sizes = [z.numel() for z in recorded]
+    best = None
+    for i in torch.topk(-near, ties).indices.tolist():
+        if near[i] > tie:
+            break
+        layer = next(k for k in range(len(sizes)) if i < sum(sizes[:k + 1]))
+        n, j = divmod(i - sum(sizes[:layer]), recorded[layer].shape[1])
+        e = with_trunk(lambda *a, **k: trunk(*a, **k, flip=(layer, n, j)))
+        rel = ((g - e).norm() / e.norm()).item()
+        if best is None or rel < best[0]:
+            best = (rel, layer, n, j, near[i].item())
+    return best if best is not None and best[0] <= tol else None
+
+
+def _check_wide(kernel, H, compute_dtype, case, ties=False):
+    """Two calls bit for bit, two launches, finite; then the bounds above;
+    ``ties``: a gradient vector that fails them may also pass the gate rule
+    of ``_f64_at_a_tie``."""
     launches, run, plain, f64 = case
     before = launches()
     got, again = run(compute_dtype), run(compute_dtype)
@@ -429,7 +488,16 @@ def _check_wide(kernel, H, compute_dtype, case):
         return
     flat = lambda ts: torch.cat([t.reshape(-1).double() for t in ts])
     exact = None if compute_dtype == "bfloat16" else lambda: flat(f64(compute_dtype))
-    _within_gate_or_f64(name, flat(got), flat(want), WIDE_GRAD_RTOL[compute_dtype], exact)
+    tol = WIDE_GRAD_RTOL[compute_dtype]
+    try:
+        _within_gate_or_f64(name, flat(got), flat(want), tol, exact)
+    except AssertionError:
+        if not ties:
+            raise
+        reading = _f64_at_a_tie(f64, compute_dtype, flat, flat(got), tol)
+        print(f"{name}: the gate rule: {reading} (rel to float64 with one tie flipped, "
+              f"layer, point, unit, |z|)")
+        assert reading is not None, name
 
 
 @pytest.mark.cuda
@@ -455,6 +523,29 @@ def test_wide_trunk_kernels_at_the_script_input_widths(h100, kernel):
     whichever side float64 takes; over 509 rays such a gate weighs 14
     times less."""
     _check_wide(kernel, 512, "float32", _wide_case(kernel, 512, h100, R=509, staged=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16", "highest"])
+@pytest.mark.parametrize("H", [640, 768, 1024])
+@pytest.mark.parametrize("kernel", ["fwd_pe", "fwd_x", "render_bwd", "train_pe", "train_x"])
+def test_every_kernel_at_the_wider_trunks_matches_plain(h100, kernel, H, compute_dtype):
+    """Each of the five kernels through a 4 x H trunk past 512 (the
+    width-generic build: no activation tile, every layer input streamed
+    from its image) at every route, on 37 rays x 48 samples, against its
+    plain version at the bounds of the wide trunks, bit-equal on a second
+    call; a gradient vector apart from both the plain version and float64
+    passes only if one ReLU tie explains it (``_f64_at_a_tie``)."""
+    _check_wide(kernel, H, compute_dtype, _wide_case(kernel, H, h100), ties=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["fwd_pe", "fwd_x", "render_bwd", "train_pe", "train_x"])
+def test_every_kernel_at_trunk_width_2048_matches_plain(h100, kernel):
+    """A 2 x 2048 trunk at float32 (37 rays x 48 samples): shared memory no
+    longer bounds the width (the generic build's is the same at every H;
+    the 64 x 2056 activation tile alone would take 526 KB)."""
+    _check_wide(kernel, 2048, "float32", _wide_case(kernel, 2048, h100, L=2), ties=True)
 
 
 # Past the caps the kernels once had (the JAX kernels never had
@@ -537,13 +628,10 @@ def test_trainer_on_the_card_refuses_configs_the_kernels_cannot_take(h100, width
     """As the JAX trainer: width 64, which the JAX kernels do not take,
     trains on the plain path under ``auto`` (no kernel launched,
     ``kernel_path`` "plain" with the JAX reason) and raises under ``fused``.
-    Width 640, which the JAX kernels take and the port has no CUDA build
-    for, raises on the card in ``train_epoch`` and in eval under both,
-    naming the width and ``backend: xla``: no step or view falls back to the
-    plain path. What the port's kernels once refused they now take
-    under both: 1025 samples per ray (n_samples 16 + n_importance 1009)
-    and 16 trunk layers train through kernel 1 (kernel 2 the coarse pass)
-    and render through kernel 2."""
+    What the port's kernels once refused they now take under both: width
+    640 (the width-generic build), 1025 samples per ray (n_samples 16 +
+    n_importance 1009) and 16 trunk layers train through kernel 1 (kernel 2
+    the coarse pass) and render through kernel 2."""
     from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
@@ -559,7 +647,7 @@ def test_trainer_on_the_card_refuses_configs_the_kernels_cannot_take(h100, width
     data = make_scene_dataset(lego_like_scene(), 1, img_size=16, gt_samples=16, device="cpu")
     tr = Trainer(cfg, data, data, device=h100)
     before = (dict(tt.fused_train_objective.launches), tk.fused_render_fwd_pe.launches)
-    if width in ("samples", "layers"):
+    if width in (640, "samples", "layers"):
         assert np.isfinite(tr.train_epoch(0))
         assert (tr.kernel_path, tr.kernel_path_reason) == ("kernel", None)
         steps = len(tr.last_step_losses)
@@ -577,11 +665,9 @@ def test_trainer_on_the_card_refuses_configs_the_kernels_cannot_take(h100, width
         assert (tr.kernel_path, tr.kernel_path_reason) == ("plain",
                                                            "hidden_dim=64 not 128-lane aligned")
     else:
-        cap = "hidden_dim=640 has no CUDA build" if width == 640 else None
-        hint = rf": {cap}.*\(backend: xla trains" if cap else ""
-        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda{hint}"):
+        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda"):
             tr.train_epoch(0)
-        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda{hint}"):
+        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda"):
             tr.render_views(data.poses[:1])
     assert (dict(tt.fused_train_objective.launches), tk.fused_render_fwd_pe.launches) == before
 

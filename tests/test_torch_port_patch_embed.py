@@ -4,7 +4,7 @@ JAX package, on the same numpy inputs: the PIL-free ``preprocess_vit_b16_input``
 ``ViTPatchEmbed`` on transplanted params, the torchvision weight discovery
 and load, ``build_feature_extractor('patch_embed')`` end to end, the script
 recipes' trainer (768-wide features: D 832 / 864) against the JAX trainer,
-and ``Trainer._port_gap_reason`` at the new width cap.
+and the trainer's kernel-path choice past the old input-width cap.
 
 Sizes are small: the trunks are 3 x 128, the scenes 32x32 with full-image
 steps at 16x16 and 8 samples per ray. Tolerances are stated per test; fp32
@@ -233,7 +233,7 @@ def test_script_trainer_matches_jax_trainer(scene, monkeypatch, name, d_pad, ove
                         _port_data(train), _port_data(test), device="cpu", dino_features=feats)
                 for b in ("auto", "xla")]
     ptr, plain = trainers
-    assert ptr._use_fused() and not plain._use_fused() and ptr._port_gap_reason() is None
+    assert ptr._use_fused() and not plain._use_fused() and ptr.kernel_path_reason is None
     x_dim = tk.pe_layout(10, 4, ptr.cfg.nerf.use_viewdirs, 768)[3]
     state = ptr.model.state_dict()
     w0 = state.get("trunk.0.weight", state.get("trunk.0.base.weight"))
@@ -302,13 +302,15 @@ def test_port_gap_reason_takes_the_script_widths_and_refuses_past_the_cap(scene)
     as the choice a card makes; so, past the port's former 896-column cap,
     does a wider input (963 live columns, D 976), under ``auto`` and
     ``backend: fused``: the kernel path on the CPU (the kernels' plain
-    versions, one step of it here) and as the choice a card makes."""
+    versions, one step of it here) and as the choice a card makes. (The
+    trainer's ``_port_gap_reason`` that this test once read is gone: every
+    config the JAX kernels take, the port's kernels take too.)"""
     train, test, feats = scene
     assert not hasattr(tk, "MAX_INPUT_WIDTH")
     for name in ("script_baseline_live", "script_projection"):
         tr = Trainer(_script_config(tcfg, name), _port_data(train), device="cpu",
                      dino_features=feats)
-        assert tr._port_gap_reason() is None
+        assert not hasattr(tr, "_port_gap_reason") and tr._jax_ineligible_reason() is None
         tr.device = torch.device("cuda", 0)
         assert tr._use_fused() and tr.kernel_path == "kernel"
     wide = np.zeros((2, 2, 2, 900), np.float32)
@@ -317,7 +319,7 @@ def test_port_gap_reason_takes_the_script_widths_and_refuses_past_the_cap(scene)
                                     rendering={"backend": backend}),
                      _port_data(train), device="cpu", dino_features=wide)
         assert tk.pe_width(tk.pe_layout(10, 4, tr.cfg.nerf.use_viewdirs, 900)[3]) == 976
-        assert tr._port_gap_reason() is None
+        assert tr._jax_ineligible_reason() is None
         assert tr._use_fused() and (tr.kernel_path, tr.kernel_path_reason) == ("kernel", None)
         tr.device = torch.device("cuda", 0)
         assert tr._use_fused() and tr.kernel_path == "kernel"

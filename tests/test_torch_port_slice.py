@@ -240,4 +240,4 @@ def test_trainer_init_is_seeded_and_refuses_unported_work(scene):
                                      "nerf_model": {"hidden_dim": 64, "num_layers": 2},
                                      "rendering": {"backend": "fused"}})
         Trainer(cfg, _port_data(train), device="cpu")._use_fused()
-    assert tk.KERNEL_WIDTHS == (128, 256, 384, 512)
+    assert not hasattr(tk, "KERNEL_WIDTHS") and tk.H_ALIGN == 128

@@ -231,10 +231,9 @@ def test_save_png_writes_the_pixels_the_jax_package_writes(tmp_path):
 def _unfit_config(unfit, backend):
     """The tiny config made unfit for the kernels: a trunk width the JAX
     kernels do not take (64), sigma noise (outside the strict reference
-    behavior), or a width the JAX kernels take and the port's CUDA kernels
-    have no build for (640); or past a cap the port's kernels once had and
-    take now: a phase of 1025 samples per ray (in phase 1 only), a 16-layer
-    trunk."""
+    behavior); or past a cap the port's kernels once had and take now: a
+    width past 512 (640, the width-generic build), a phase of 1025 samples
+    per ray (in phase 1 only), a 16-layer trunk."""
     raw = _config(tcfg).raw
     phases = [dict(p) for p in raw["training"]["phases"]]
     phases[1]["n_samples"] = 1025
@@ -255,23 +254,21 @@ def test_configs_the_kernels_cannot_take(scene, unfit, backend):
     """The path follows the JAX trainer. A config the JAX kernels do not
     take (``narrow``, ``noisy``) trains on the plain path under ``auto`` on
     every device, with the JAX trainer's reason in ``kernel_path_reason``,
-    and raises under ``fused``. A config only the port's kernels cannot
-    take (``wide``) raises under ``fused``, and on a card under ``auto``
-    too (checked with the trainer's device set to cuda: the choice raises
-    before any tensor is made), naming the width and ``backend: xla``; only
-    the CPU or ``xla`` take the plain path for it. The samples and depth
-    the port's kernels once refused (``many_samples``, ``deep``)
-    take the kernel path under ``auto`` and ``fused``, on the CPU and as
-    the choice a card makes; ``xla`` keeps the plain path."""
+    and raises under ``fused``. The width, samples and depth the port's
+    kernels once refused (``wide``, ``many_samples``, ``deep``) take the
+    kernel path under ``auto`` and ``fused``, on the CPU and as the choice
+    a card makes (checked with the trainer's device set to cuda: the choice
+    is made before any tensor is); ``xla`` keeps the plain path. No config
+    the JAX kernels take is refused: the trainer has no port gap left."""
     train, _ = scene
     ptr = Trainer(_unfit_config(unfit, backend), _port_data(train), device="cpu")
     jax_reason = {"narrow": "hidden_dim=64 not 128-lane aligned",
                   "noisy": "sigma noise_std != 0 is not implemented in the kernels",
                   "wide": None, "many_samples": None, "deep": None}[unfit]
-    gap = {"wide": "hidden_dim=640 has no CUDA build"}.get(unfit, "")
-    lifted = unfit in ("many_samples", "deep")
+    lifted = unfit in ("wide", "many_samples", "deep")
+    assert not hasattr(ptr, "_port_gap_reason")
     if lifted:
-        assert ptr._port_gap_reason() is None
+        assert ptr._jax_ineligible_reason() is None
     if lifted and backend != "xla":
         assert ptr._use_fused() is True
         assert (ptr.kernel_path, ptr.kernel_path_reason) == ("kernel", None)
@@ -295,8 +292,7 @@ def test_configs_the_kernels_cannot_take(scene, unfit, backend):
     elif lifted:
         assert ptr._use_fused() is True and ptr.kernel_path == "kernel"
     else:
-        hint = rf": {gap}.*\(backend: xla trains" if gap else ""
-        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda{hint}"):
+        with pytest.raises(ValueError, match=f"backend={backend} rejected on cuda"):
             ptr._use_fused()
 
 

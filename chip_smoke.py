@@ -55,7 +55,12 @@ its seconds:
    reorders on purpose: those are reported, not gated); then kernels 1, 5
    and 3 timed
    against the parent in alternating pairs (``tools/train_times.py``) at
-   every shape and route of ``PERF.md``'s kernel tables; without it the
+   every shape and route of ``PERF.md``'s kernel tables; then the
+   main-path trainer over the smoke's epochs in alternating pairs
+   (``tools/train_runs.py``, one process per run): every run's 670
+   per-step losses, final parameters and eval view bit-equal to the
+   parent's, the pairs' ms per step (``baseline``, ``dino_nerf``,
+   ``lora_trunk``), eval ms per view and traced epochs; without it the
    phase says it was not checked;
 7. differentiable render steps: the baseline ``NeRFMLP`` from its seed
    takes 30 Adam steps (512 rays x 64 samples of the 128x128 views, a loss
@@ -98,9 +103,16 @@ its seconds:
    (render and LPIPS apart), per orbit view, the call's wall time;
 11. train step breakdown: one phase-2 epoch untraced, then under
    ``torch.profiler`` with the CUDA activity only (the device's busy share
-   of the epoch, the stream synchronizations per step) and with the CPU
-   activity too (device time per step by part: the kernel's launches,
-   Adam, the rest);
+   of the epoch, the stream synchronizations and launches per step) and
+   with the CPU activity too (device time per step by part: the kernel's
+   launches, Adam, the rest; the host's ms per step by part); each traced
+   epoch must make at most one stream synchronization (the copy of its
+   losses); then an epoch's steps and a ``render_views_device`` call of
+   the 8 test views under ``torch.cuda.set_sync_debug_mode("error")``,
+   and a traced ``render_views`` call (at most one synchronization). The
+   hierarchical, DINO and LoRA-trunk slices and data-parallel world 1 run
+   their steps under the same mode, and the DINO and LoRA-trunk traced
+   epochs are held to one synchronization;
 12. hierarchical train slice: ``experiments/hierarchical.yaml`` (a literal
    dict) trains at the same epochs (every step: kernel 2 as the coarse
    pass, kernel 1 over the merged 96 / 112 / 128 samples), PSNR must rise;
@@ -887,19 +899,34 @@ KERNEL_GROUPS = ("train_fwd", "train_bwd", "train_dw", "train_composite", "rende
                  "fwd_trunk", "fwd_composite")
 
 
+# The CUDA API calls that launch a kernel (`cudaLaunch*` of the runtime,
+# through which the port's libraries and PyTorch's ops launch, and the
+# lower-level `cuLaunch*`).
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
+                "cudaLaunchCooperativeKernel")
+
+
 def trace(run, with_cpu):
     """``run()`` (which returns its number of steps) under ``torch.profiler``.
     With the CUDA activity only (``with_cpu`` False) the host is slowed
     least: the device's busy time is the union of its kernel and copy
     intervals, set against the run's wall time, and the stream
-    synchronizations the host made are counted. With the CPU activity too,
-    Adam's device time is read from the optimizer's own
-    ``Optimizer.step#...`` range. Device-side spans of annotated ranges are
-    not kernels and are left out. Returns the wall ms, the busy ms, and per
-    step: device ms by part (the CUDA kernels' launches by name, ``adam``
-    with the CPU activity, ``other``: gather, sampling, encoding,
-    ``pack_params`` and its backward, copies), device events and stream
-    synchronizations."""
+    synchronizations and kernel launches the host made are counted. With
+    the CPU activity too, Adam's device time is read from the optimizer's
+    own ``Optimizer.step#...`` range, and the host's time per step is split
+    by the top-level ranges of the stepping thread and the autograd
+    thread: ``adam`` (the optimizer's range), ``backward`` (the autograd
+    engine's), ``ops`` (every other top-level PyTorch op: gathers,
+    sampling, encoding, packing, the kernels' output allocations) and
+    ``python`` (the rest of the wall: the trainer's and the glue's Python,
+    the ctypes calls into the kernels), and by top-level range. Device-side
+    spans of annotated ranges are not kernels and are left out. Returns the wall ms, the busy
+    ms, the synchronizations of the whole run, and per step: device ms by
+    part (the CUDA kernels' launches by name, ``adam`` with the CPU
+    activity, ``other``: gather, sampling, encoding, ``pack_params`` and its
+    backward, copies), device events (also by kernel name), stream
+    synchronizations, launches and (with the CPU activity) host ms by part
+    and by top-level range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -910,10 +937,20 @@ def trace(run, with_cpu):
         steps = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    parts, spans, adam, syncs = {}, [], 0.0, 0
+    parts, spans, adam, syncs, launches = {}, [], 0.0, 0, 0
+    host = {"adam": 0.0, "backward": 0.0, "ops": 0.0}
+    host_ops, kernels = {}, {}
     for evt in prof.events():
         if evt.name == "cudaStreamSynchronize":
             syncs += 1
+        if evt.name in LAUNCH_CALLS:
+            launches += 1
+        if evt.device_type == DeviceType.CPU and evt.cpu_parent is None and with_cpu \
+                and not evt.name.startswith("cu"):
+            key = ("adam" if evt.name.startswith("Optimizer.step#") else
+                   "backward" if evt.name.startswith("autograd::engine") else "ops")
+            host[key] += evt.cpu_time_total / 1e3
+            host_ops[evt.name] = host_ops.get(evt.name, 0.0) + evt.cpu_time_total / 1e3
         if evt.name.startswith("Optimizer.step#"):
             if evt.device_type == DeviceType.CPU:
                 adam += evt.device_time_total / 1e3
@@ -921,11 +958,15 @@ def trace(run, with_cpu):
         if evt.device_type != DeviceType.CUDA or getattr(evt, "is_user_annotation", False):
             continue
         spans.append((evt.time_range.start, evt.time_range.end))
+        kernels[evt.name[:60]] = kernels.get(evt.name[:60], 0) + 1
         group = next((g for g in KERNEL_GROUPS if g in evt.name), "other")
         parts[group] = parts.get(group, 0.0) + evt.time_range.elapsed_us() / 1e3
     if with_cpu:
         parts["other"] = parts.get("other", 0.0) - adam
         parts["adam"] = adam
+        # the autograd thread's ranges overlap the stepping thread's wait in
+        # backward(): the stepping thread's wall less its ranges is Python
+        host["python"] = max(wall_ms - host["adam"] - host["ops"] - host["backward"], 0.0)
     busy_us, last = 0.0, float("-inf")
     for start, end in sorted(spans):
         if end > last:
@@ -933,7 +974,11 @@ def trace(run, with_cpu):
             last = end
     return dict(wall_ms=wall_ms, busy_ms=busy_us / 1e3,
                 parts={k: v / steps for k, v in parts.items()},
-                events=len(spans) / steps, syncs=syncs / steps, steps=steps)
+                events=len(spans) / steps, syncs=syncs / steps, syncs_total=syncs,
+                launches=launches / steps, steps=steps,
+                host={k: v / steps for k, v in host.items()} if with_cpu else None,
+                host_ops={k: v / steps for k, v in host_ops.items()},
+                kernels={k: v / steps for k, v in kernels.items()})
 
 
 def trace_epoch(trainer, epoch, with_cpu):
@@ -957,15 +1002,87 @@ def print_launch_times(label, fn, calls=10):
         + f", sum {sum(t['parts'].values()):.3f}", flush=True)
 
 
-def print_trace(label, t, untraced_ms):
+def print_trace(label, t, untraced_ms, max_syncs=None):
+    """Print a traced run; with ``max_syncs``, raise if the run made more
+    stream synchronizations than that."""
     if not t["busy_ms"] > 0:
         raise RuntimeError("the profiler recorded no device time")
+    host = "" if t["host"] is None else ", host ms " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sorted(t["host"].items(), key=lambda kv: -kv[1])) + \
+        f", sum {sum(t['host'].values()):.3f}"
     print(f"  {label}: wall {t['wall_ms']:.1f} ms ({t['wall_ms'] / untraced_ms:.3f}x untraced), "
           f"device busy {t['busy_ms']:.1f} ms ({t['busy_ms'] / t['wall_ms']:.1%} of the traced "
-          f"wall), per step: {t['events']:.1f} device events, {t['syncs']:.2f} stream "
-          f"synchronizations, device ms " + ", ".join(
+          f"wall), {t['syncs_total']} stream synchronizations in {t['steps']} steps; per step: "
+          f"{t['events']:.1f} device events, {t['syncs']:.3f} stream synchronizations, "
+          f"{t['launches']:.1f} launches, device ms " + ", ".join(
               f"{k} {v:.3f}" for k, v in sorted(t["parts"].items(), key=lambda kv: -kv[1]))
-          + f", sum {sum(t['parts'].values()):.3f}", flush=True)
+          + f", sum {sum(t['parts'].values()):.3f}{host}", flush=True)
+    if t["host"] is not None:
+        top = sorted(t["host_ops"].items(), key=lambda kv: -kv[1])[:12]
+        print("    host ms per step by top-level range: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in top), flush=True)
+        top = sorted(t["kernels"].items(), key=lambda kv: -kv[1])[:16]
+        print("    device events per step by name: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in top), flush=True)
+    if max_syncs is not None and t["syncs_total"] > max_syncs:
+        raise RuntimeError(f"{label}: {t['syncs_total']} stream synchronizations, more than "
+                           f"{max_syncs}")
+
+
+def adam_layouts_report(trainer, steps=5):
+    """Reported, not gated: Adam (the trainer's optimizer config) on copies
+    of a trainer's parameters (a trunk without LoRA or features, as the
+    baseline's), stepped with its step's gradients as they
+    come (views of the packed gradients: the weights' transposed) and with
+    contiguous copies of them; whether the parameters stay bit-equal, and
+    the launches per step of each (foreach's per-tensor fallback takes the
+    mixed layouts)."""
+    from nerf_fewshot_tpu_torch.render import kernels as tk
+    from nerf_fewshot_tpu_torch.render import train_kernel as tt
+    from nerf_fewshot_tpu_torch.training.optim import make_optimizer
+
+    cfg = trainer.cfg
+    a, o = main_path_train_args(trainer, len(cfg.phases) - 1, trainer.device)
+    params = dict(trainer.model.named_parameters())
+    with torch.no_grad():
+        _, dpacked = tt.fused_train_objective(*a, **o)
+    consts = tk.pe_constants(cfg.nerf.pos_freq, cfg.nerf.dir_freq, cfg.nerf.use_viewdirs, 0,
+                             trainer.device)
+    grads = tk.packed_grads(params, cfg.nerf.num_layers, cfg.nerf.hidden_dim, a[-1][0].shape[0],
+                            consts.row_perm, dpacked)
+    out = {}
+    for label, layout in (("as they come", lambda g: g), ("contiguous", torch.Tensor.contiguous)):
+        copies = [(k, torch.nn.Parameter(v.detach().clone())) for k, v in params.items()]
+        opt = make_optimizer(cfg.optimizer, copies)
+
+        def run():
+            for _ in range(steps):
+                for k, p in copies:
+                    p.grad = layout(grads[k])
+                opt.step()
+            return steps
+
+        t = trace(run, with_cpu=False)
+        out[label] = ([p.detach().clone() for _, p in copies], t["launches"])
+    same = all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(out["as they come"][0], out["contiguous"][0]))
+    print(f"  Adam over {steps} steps on the step's gradients as they come: "
+          f"{out['as they come'][1]:.1f} launches per step; on contiguous copies: "
+          f"{out['contiguous'][1]:.1f} (copies included); parameters bit-equal: {same} "
+          f"(reported)", flush=True)
+
+
+def no_sync_run(label, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("error")``: raises at
+    the first call that would make the host wait for the card."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"  {label}: no synchronization under set_sync_debug_mode('error')", flush=True)
+    return out
 
 
 def eval_chunk(trainer, pose, device):
@@ -995,14 +1112,13 @@ def main_path_fwd_pe_args(trainer, pose, device):
     pf = trainer.feature_sampler(0)
     feats = None if pf is None else pf(pts.reshape(-1, 3)).contiguous()
     viewdirs = cfg.nerf.use_viewdirs
-    perm, e2, c, x_dim = tk.pe_layout(cfg.nerf.pos_freq, cfg.nerf.dir_freq, viewdirs,
-                                      0 if feats is None else feats.shape[1])
+    consts = tk.pe_constants(cfg.nerf.pos_freq, cfg.nerf.dir_freq, viewdirs,
+                             0 if feats is None else feats.shape[1], device)
     packed = tk.pack_params(trainer.model.state_dict(), cfg.nerf.num_layers,
-                            cfg.nerf.hidden_dim, d_pad=tk.pe_width(x_dim), row_perm=perm,
-                            lora_alpha=cfg.nerf.lora_alpha)
+                            cfg.nerf.hidden_dim, d_pad=tk.pe_width(consts.x_dim),
+                            row_perm=consts.row_perm, lora_alpha=cfg.nerf.lora_alpha)
     return (tk._raw_block(pts, rd, viewdirs), feats, z,
-            torch.linalg.norm(rd, dim=-1, keepdim=True),
-            torch.as_tensor(e2, device=device), torch.as_tensor(c, device=device), packed)
+            torch.linalg.norm(rd, dim=-1, keepdim=True), consts.e2, consts.c, packed)
 
 
 def main_path_fwd_x_args(trainer, pose, device):
@@ -1495,6 +1611,10 @@ def run_hierarchical_slice(train, test, device, tk, tt):
         raise RuntimeError("eval: not two kernel-2 launches per chunk")
     if not after["psnr"] > psnr0:
         raise RuntimeError(f"psnr after training {after['psnr']} <= at init {psnr0}")
+    no_sync_run(f"hierarchical epoch {TRAIN_EPOCHS[-1]}'s steps",
+                lambda: tr.epoch_steps(TRAIN_EPOCHS[-1]))
+    no_sync_run("hierarchical render_views_device of 2 test views",
+                lambda: tr.render_views_device(test.poses[:2]))
 
     # kernel times at the step's shapes (phase 2: 512 rays, 64 + 64 samples)
     last = len(cfg.phases) - 1
@@ -1774,7 +1894,10 @@ def run_dino_slice(name, train, test, device, tk, tt, feats=None, epochs=None, l
         untraced_ms = (time.perf_counter() - t0) * 1e3
         for with_cpu in (False, True):
             print_trace(f"{name} epoch {epoch} traced ({'CPU+CUDA' if with_cpu else 'CUDA only'})",
-                        trace_epoch(ktr, epoch, with_cpu), untraced_ms)
+                        trace_epoch(ktr, epoch, with_cpu), untraced_ms, max_syncs=1)
+        no_sync_run(f"{name} epoch {epoch}'s steps", lambda: ktr.epoch_steps(epoch))
+        no_sync_run(f"{name} render_views_device of 2 test views",
+                    lambda: ktr.render_views_device(test.poses[:2]))
     return out
 
 
@@ -2007,7 +2130,10 @@ def run_lora_trunk_slice(train, test, device, tk, tt):
     ktr.train_epoch(epoch)
     torch.cuda.synchronize()
     untraced_ms = (time.perf_counter() - t0) * 1e3
-    print_trace(f"epoch {epoch} traced (CUDA only)", trace_epoch(ktr, epoch, False), untraced_ms)
+    for with_cpu in (False, True):
+        print_trace(f"epoch {epoch} traced ({'CPU+CUDA' if with_cpu else 'CUDA only'})",
+                    trace_epoch(ktr, epoch, with_cpu), untraced_ms, max_syncs=1)
+    no_sync_run(f"epoch {epoch}'s steps", lambda: ktr.epoch_steps(epoch))
     out.update(psnr0=psnr0, psnr=after["psnr"], trainer=ktr, cfg=cfg, feats=feats, epoch=epoch)
     return out
 
@@ -2760,6 +2886,8 @@ def run_data_parallel(device, tk, tmp):
         tk.fused_render_fwd_pe.launches = 0
         metrics = trainer.evaluate()
         eval_launches = tk.fused_render_fwd_pe.launches
+        no_sync_run(f"world 1 epoch {DP_EPOCHS[-1]}'s steps (NCCL)",
+                    lambda: trainer.epoch_steps(DP_EPOCHS[-1]))
     finally:
         dist.destroy_process_group()
     n_steps = [len(s) for s in one["steps"]]
@@ -2861,6 +2989,8 @@ def run_data_parallel(device, tk, tmp):
 # reports them instead of gating them bit for bit. None: trunk widths 384
 # and 512 are new builds, and widths 128 and 256 keep the parent's.
 REORDERED_VS_PARENT = ()
+# the configs tools/train_runs.py times against the parent beside the baseline
+TRAIN_RUNS_CONFIGS = ("baseline", "dino_nerf", "lora_trunk")
 
 
 def run_parent_bits():
@@ -2870,7 +3000,12 @@ def run_parent_bits():
     inputs the parent's glue made), bit-equal but for
     ``REORDERED_VS_PARENT``, whose relative difference is printed; then
     kernels 1, 5 and 3 timed in alternating pairs, parent / change / change
-    / parent (``tools/train_times.py``), the pairs and means printed. A
+    / parent (``tools/train_times.py``), the pairs and means printed; then
+    the main-path trainer (``baseline.yaml`` over the smoke's epochs, 670
+    steps) in the same order (``tools/train_runs.py``, each run in its own
+    process): every run's per-step losses, final parameters and eval view
+    bit-equal to the parent's first, and the pairs' ms per step (also of
+    ``TRAIN_RUNS_CONFIGS``), eval ms per view and traced epochs printed. A
     checkout of the repo alone has no parent, and the phase says so."""
     parent = os.environ.get("NERF_PARENT_CHECKOUT")
     if not parent:
@@ -2897,6 +3032,21 @@ def run_parent_bits():
                            stdout=subprocess.DEVNULL)
         subprocess.run([sys.executable, os.path.join(tools, "train_times.py"), "--summarize",
                         times, "--base", "parent", "--change", "change"], check=True, timeout=60)
+        # the main-path trainer over the smoke's epochs, A B B A: bit-equal
+        # losses, parameters and eval view, then the step and eval times
+        runs = os.path.join(tmp, "runs.jsonl")
+        bits = []
+        for i, (tag, root) in enumerate((*roots, *roots[::-1])):
+            bits.append(os.path.join(tmp, f"{tag}{i}.pt"))
+            subprocess.run([sys.executable, os.path.join(tools, "train_runs.py"), "--root", root,
+                            "--tag", tag, "--out", runs, "--bits", bits[-1], "--configs",
+                            *TRAIN_RUNS_CONFIGS], check=True, timeout=900,
+                           stdout=subprocess.DEVNULL)
+        for other in bits[1:]:
+            subprocess.run([sys.executable, os.path.join(tools, "train_runs.py"),
+                            "--compare-bits", bits[0], other], check=True, timeout=120)
+        subprocess.run([sys.executable, os.path.join(tools, "train_runs.py"), "--summarize",
+                        runs, "--base", "parent", "--change", "change"], check=True, timeout=60)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3710,7 +3860,20 @@ def main():
               f"{untraced_ms / steps:.3f} ms/step", flush=True)
         for with_cpu in (False, True):
             print_trace(f"epoch {epoch} traced ({'CPU+CUDA' if with_cpu else 'CUDA only'})",
-                        trace_epoch(trainer, epoch, with_cpu), untraced_ms)
+                        trace_epoch(trainer, epoch, with_cpu), untraced_ms, max_syncs=1)
+        no_sync_run(f"epoch {epoch}'s steps", lambda: trainer.epoch_steps(epoch))
+        views = no_sync_run("render_views_device of the 8 test views",
+                            lambda: trainer.render_views_device(test.poses))
+        if not all(torch.isfinite(v).all() for v in views):
+            raise RuntimeError("render_views_device: non-finite views")
+        trace_views = trace(lambda: len([trainer.render_views(test.poses)]), with_cpu=False)
+        print(f"  render_views of the 8 test views traced: {trace_views['syncs_total']} stream "
+              f"synchronizations, {trace_views['launches']:.1f} launches, wall "
+              f"{trace_views['wall_ms']:.1f} ms, device busy {trace_views['busy_ms']:.1f} ms",
+              flush=True)
+        if trace_views["syncs_total"] > 1:
+            raise RuntimeError(f"render_views: {trace_views['syncs_total']} synchronizations")
+        adam_layouts_report(trainer)
 
     with phase("hierarchical train slice"):
         x_launches_hier = run_hierarchical_slice(train, test, device, tk, tt)

@@ -17,11 +17,12 @@ from nerf_fewshot_tpu_torch.ops.encoding import positional_encoding
 from nerf_fewshot_tpu_torch.ops.sampling import hierarchical_sample, sample_along_rays
 from nerf_fewshot_tpu_torch.render.kernels import (
     D_PAD,
+    Packed,
     _raw_block,
     fused_render,
     fused_render_fwd_pe,
     pack_params,
-    pe_layout,
+    pe_constants,
     pe_width,
 )
 from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings
@@ -33,6 +34,13 @@ def _pad_lanes(x: torch.Tensor, multiple: int = D_PAD) -> torch.Tensor:
     if pad == 0:
         return x
     return torch.cat([x, x.new_zeros(x.shape[:-1] + (pad,))], dim=-1)
+
+
+def encoded_width(pos_freq: int, dir_freq: int, use_viewdirs: bool, feat_dim: int = 0) -> int:
+    """The width of ``encode_points``' output: its live columns padded to a
+    multiple of ``D_PAD``."""
+    live = 3 * (2 * pos_freq + 1) + (3 * (2 * dir_freq + 1) if use_viewdirs else 0) + feat_dim
+    return -(-live // D_PAD) * D_PAD
 
 
 def encode_points(
@@ -73,6 +81,7 @@ def fused_render_rays(
     importance_uniforms: Optional[torch.Tensor] = None,
     point_features_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
     lora_alpha: float = 16.0,
+    packed: Optional[Packed] = None,
 ) -> RenderOutputs:
     """Render (R, 3) rays of a NeRFMLP (``params``: its state dict, or its
     named parameters to differentiate) through the render kernels on
@@ -91,9 +100,14 @@ def fused_render_rays(
     drawn from the coarse weights under stop-gradient.
     ``point_features_fn(pts (N, 3)) -> (N, Fd)`` appends per-point features
     to the MLP input. LoRA trunk layers are merged with ``lora_alpha``
-    (``pack_params``)."""
+    (``pack_params``). ``packed``: with ``forward_only``, the
+    ``pack_params(row_perm=pe_constants(...).row_perm)`` weights of
+    ``params`` packed once by the caller for many calls (an eval call's
+    chunks), used instead of packing ``params`` in every pass."""
     if settings.noise_std != 0.0:
         raise ValueError("fused backend: sigma noise is not supported")
+    if packed is not None and not forward_only:
+        raise ValueError("fused_render_rays: packed weights are for forward_only calls")
     dev = resolve_device(device)
     rays_o = rays_o.to(dev)
     rays_d = rays_d.to(dev)
@@ -105,23 +119,23 @@ def fused_render_rays(
         if point_features_fn is not None:
             feats = point_features_fn(pts.reshape(-1, 3))
         if forward_only:
-            perm, e2, c, x_dim = pe_layout(pos_freq, dir_freq, use_viewdirs,
-                                           0 if feats is None else feats.shape[1])
-            packed = pack_params(state, num_layers, hidden_dim,
-                                 d_pad=pe_width(x_dim), row_perm=perm, lora_alpha=lora_alpha)
+            consts = pe_constants(pos_freq, dir_freq, use_viewdirs,
+                                  0 if feats is None else feats.shape[1], dev)
+            pw = packed if packed is not None else pack_params(
+                state, num_layers, hidden_dim, d_pad=pe_width(consts.x_dim),
+                row_perm=consts.row_perm, lora_alpha=lora_alpha)
             rgb, depth, acc, weights = fused_render_fwd_pe(
                 _raw_block(pts, rays_d, use_viewdirs),
                 None if feats is None else feats.contiguous(), z.contiguous(), dnorm,
-                torch.as_tensor(e2, device=dev), torch.as_tensor(c, device=dev), packed,
-                white_bkgd=settings.white_bkgd, compute_dtype=compute_dtype,
-                use_feats=feats is not None,
+                consts.e2, consts.c, pw, white_bkgd=settings.white_bkgd,
+                compute_dtype=compute_dtype, use_feats=feats is not None,
             )
         else:
             x = encode_points(pts, rays_d, pos_freq, dir_freq, use_viewdirs, feats).contiguous()
-            packed = pack_params(state, num_layers, hidden_dim, d_pad=x.shape[-1],
-                                 lora_alpha=lora_alpha)
+            pw = pack_params(state, num_layers, hidden_dim, d_pad=x.shape[-1],
+                             lora_alpha=lora_alpha)
             rgb, depth, acc, weights = fused_render(
-                x, z, dnorm, packed, white_bkgd=settings.white_bkgd, compute_dtype=compute_dtype)
+                x, z, dnorm, pw, white_bkgd=settings.white_bkgd, compute_dtype=compute_dtype)
         return RenderOutputs(rgb=rgb, depth=depth[:, 0], acc=acc[:, 0], weights=weights)
 
     with torch.set_grad_enabled(torch.is_grad_enabled() and not forward_only):

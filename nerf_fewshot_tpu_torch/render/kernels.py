@@ -23,7 +23,8 @@ an int, the plain versions round as that route rounds (``_dot``).
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Mapping, Optional, Sequence, Tuple
+import functools
+from typing import Dict, List, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -95,6 +96,57 @@ def pe_layout(pos_freq: int, dir_freq: int, use_viewdirs: bool, feat_dim: int):
     return np.asarray(perm, np.int64), E2, C, n_raw + n_phase + feat_dim
 
 
+def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A copy of the host array ``a`` on ``device`` that makes the host wait
+    for nothing: on a card the array is staged in pinned memory and copied
+    with ``non_blocking`` (stream-ordered; the pinned block is kept until
+    the copy has run), elsewhere copied as it is."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if device.type != "cuda":
+        return t.clone().to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+class PEConstants(NamedTuple):
+    """``pe_layout``'s constants as tensors on one device: ``row_perm``
+    (int64), ``e2`` and ``c`` (fp32), and ``x_dim``."""
+
+    row_perm: torch.Tensor
+    e2: torch.Tensor
+    c: torch.Tensor
+    x_dim: int
+
+
+_PE_CONSTANTS: Dict[tuple, PEConstants] = {}
+# id(row_perm tensor) -> (the tensor, its host values): pack_params plans its
+# gather from the host values without reading the device.
+_HOST_PERM: Dict[int, Tuple[torch.Tensor, np.ndarray]] = {}
+
+
+def _canonical(device) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def pe_constants(pos_freq: int, dir_freq: int, use_viewdirs: bool, feat_dim: int,
+                 device) -> PEConstants:
+    """``pe_layout``'s ``(row_perm, E2, C, x_dim)`` on ``device``, made once
+    per device and layout (``to_device``) and the same tensors on every
+    later call, so a step or an eval chunk copies nothing to the card."""
+    device = _canonical(device)
+    key = (pos_freq, dir_freq, bool(use_viewdirs), feat_dim, device)
+    consts = _PE_CONSTANTS.get(key)
+    if consts is None:
+        perm, e2, c, x_dim = pe_layout(pos_freq, dir_freq, use_viewdirs, feat_dim)
+        consts = PEConstants(to_device(perm, device), to_device(e2, device),
+                             to_device(c, device), x_dim)
+        _HOST_PERM[id(consts.row_perm)] = (consts.row_perm, perm)
+        _PE_CONSTANTS[key] = consts
+    return consts
+
+
 def pe_width(x_dim: int) -> int:
     """The padded width D of the inline-PE kernels' input for ``x_dim``
     live columns: the next multiple of ``PE_ALIGN`` (176 for the 166
@@ -128,23 +180,201 @@ def _trunk_layer(state: Mapping[str, torch.Tensor], i: int, lora_alpha: float):
             state[f"trunk.{i}.base.bias"])
 
 
+RowPerm = Union[Sequence[int], np.ndarray, torch.Tensor]
+
+
+def _host_perm(row_perm: RowPerm) -> np.ndarray:
+    """The values of ``row_perm``: a ``pe_constants`` tensor's from the
+    host copy kept beside it, any other's read from its device."""
+    if isinstance(row_perm, torch.Tensor):
+        known = _HOST_PERM.get(id(row_perm))
+        if known is not None and known[0] is row_perm:
+            return known[1]
+        return row_perm.detach().cpu().numpy().astype(np.int64)
+    return np.asarray(row_perm, np.int64)
+
+
+@functools.lru_cache(maxsize=None)
+def _src_names(num_layers: int) -> Tuple[str, ...]:
+    """The state-dict entries a trunk without LoRA packs from, in the order
+    ``_GatherPack`` takes them."""
+    names = []
+    for i in range(num_layers):
+        names += [f"trunk.{i}.weight", f"trunk.{i}.bias"]
+    return tuple(names + ["rgb_head.weight", "rgb_head.bias", "sigma_head.weight",
+                          "sigma_head.bias"])
+
+
+class _PackPlan(NamedTuple):
+    """Where each packed element comes from: ``fwd`` indexes the sources
+    flattened in ``_src_names`` order with one zero appended (the pads).
+    ``w0_rows``: with ``row_perm``, for each input row of the first layer
+    its row in ``w0`` (the permutation's inverse; ``None`` without
+    ``row_perm``)."""
+
+    fwd: torch.Tensor
+    shapes: Tuple[Tuple[int, ...], ...]
+    in_dim: int
+    w0_rows: Optional[torch.Tensor]
+
+
+_PACK_PLANS: Dict[tuple, _PackPlan] = {}
+_ZEROS: Dict[Tuple[torch.device, torch.dtype], torch.Tensor] = {}
+
+
+def _zero(device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """A cached one-element zero (never written)."""
+    key = (device, dtype)
+    if key not in _ZEROS:
+        _ZEROS[key] = torch.zeros(1, dtype=dtype, device=device)
+    return _ZEROS[key]
+
+
+def _pack_plan(src_shapes, hidden_dim: int, d_pad: int, perm: Optional[np.ndarray],
+               device: torch.device) -> _PackPlan:
+    """The gather of ``pack_params`` for a trunk without LoRA, built on the
+    host once per shapes, ``d_pad``, ``row_perm`` and device."""
+    key = (src_shapes, hidden_dim, d_pad, None if perm is None else perm.tobytes(), device)
+    plan = _PACK_PLANS.get(key)
+    if plan is not None:
+        return plan
+    H = hidden_dim
+    offs = np.cumsum([0] + [int(np.prod(s)) for s in src_shapes])
+    zero = int(offs[-1])
+    L = (len(src_shapes) - 4) // 2
+    in_dim = src_shapes[0][1]
+    rows = np.arange(in_dim) if perm is None else perm
+    cols = np.arange(H)
+    w0 = np.full((d_pad, H), zero, np.int64)
+    w0[: len(rows)] = offs[0] + cols[None, :] * in_dim + rows[:, None]  # W0.T[rows]
+    b0 = offs[1] + cols[None, :]
+    wh = np.stack([offs[2 * i] + cols[None, :] * H + cols[:, None] for i in range(1, L)]) \
+        if L > 1 else np.zeros((0, H, H), np.int64)
+    bh = np.stack([offs[2 * i + 1] + cols for i in range(1, L)]) if L > 1 else \
+        np.zeros((0, H), np.int64)
+    wout = np.full((H, OUT_PAD), zero, np.int64)
+    wout[:, :3] = offs[2 * L] + np.arange(3)[None, :] * H + cols[:, None]
+    wout[:, 3] = offs[2 * L + 2] + cols
+    bout = np.full((1, OUT_PAD), zero, np.int64)
+    bout[0, :3] = offs[2 * L + 1] + np.arange(3)
+    bout[0, 3] = offs[2 * L + 3]
+    parts = (w0, b0, wh, bh, wout, bout)
+    plan = _PackPlan(to_device(np.concatenate([p.reshape(-1) for p in parts]), device),
+                     tuple(p.shape for p in parts), in_dim,
+                     None if perm is None else to_device(np.argsort(perm), device))
+    _PACK_PLANS[key] = plan
+    return plan
+
+
+class _GatherPack(torch.autograd.Function):
+    """``pack_params`` of a trunk without LoRA as one gather from the
+    flattened sources (two launches), and its backward as the views of the
+    packed gradients that the per-layer transposes, stacks and
+    concatenations it replaces gave back, with their strides, and the row
+    gather's backward (``w0_rows``: a gather plus the +0.0 that its
+    accumulation onto zeros added, which turns a -0.0 into +0.0; no launch
+    without ``row_perm``, two with it). Pure data movement: the tensors,
+    the gradients and their layouts are the per-layer packing's, bit for
+    bit."""
+
+    @staticmethod
+    def forward(ctx, plan: _PackPlan, *srcs):
+        ctx.plan = plan
+        zero = _zero(srcs[0].device, srcs[0].dtype)
+        flat = torch.cat([s.reshape(-1) for s in srcs] + [zero]).index_select(0, plan.fwd)
+        sizes = [int(np.prod(s)) for s in plan.shapes]
+        return tuple(t.view(s) for t, s in zip(torch.split(flat, sizes), plan.shapes))
+
+    @staticmethod
+    def backward(ctx, *dpacked):
+        return (None, *_unpack(ctx.plan, *dpacked))
+
+
+def _unpack(plan: _PackPlan, gw0, gb0, gwh, gbh, gwout, gbout) -> List[torch.Tensor]:
+    """The sources' gradients (``_src_names`` order) from the packed ones."""
+    if plan.w0_rows is not None:
+        dk0 = gw0.index_select(0, plan.w0_rows) + 0.0
+    else:
+        dk0 = gw0[:plan.in_dim]
+    grads = [dk0.T, gb0[0]]
+    for i in range(gwh.shape[0]):
+        grads += [gwh[i].T, gbh[i]]
+    return grads + [gwout[:, 0:3].T, gbout[0, 0:3], gwout[:, 3:4].T, gbout[0, 3:4]]
+
+
+def _gather_plan(state, num_layers: int, hidden_dim: int, d_pad: int,
+                 row_perm: Optional[RowPerm]):
+    """``(plan, sources)`` of ``pack_params``' gather, or ``None`` for a
+    trunk with LoRA layers or a ``row_perm`` that is not a permutation of
+    the first layer's input rows."""
+    names = _src_names(num_layers)
+    if not all(n in state for n in names):
+        return None
+    srcs = [state[n] for n in names]
+    shapes = tuple(tuple(s.shape) for s in srcs)
+    perm = None if row_perm is None else _host_perm(row_perm)
+    if perm is not None and not np.array_equal(np.sort(perm), np.arange(shapes[0][1])):
+        return None
+    n_rows = shapes[0][1]
+    if n_rows > d_pad:
+        raise ValueError(f"pack_params: {n_rows} input rows exceed d_pad={d_pad}")
+    for i in range(1, num_layers):
+        if shapes[2 * i] != (hidden_dim, hidden_dim):
+            raise ValueError(
+                f"pack_params requires a uniform {hidden_dim}x{hidden_dim} trunk; "
+                f"trunk.{i} has (in, out) shape {shapes[2 * i][::-1]} (skip connections "
+                f"are not supported by the fused kernels)")
+    return _pack_plan(shapes, hidden_dim, d_pad, perm, _canonical(srcs[0].device)), srcs
+
+
+def packed_grads(state: Mapping[str, torch.Tensor], num_layers: int, hidden_dim: int,
+                 d_pad: int, row_perm: Optional[RowPerm], dpacked: Packed
+                 ) -> Dict[str, torch.Tensor]:
+    """The gradients of a trunk without LoRA's parameters, by name, from the
+    gradients of ``pack_params(state, ..., d_pad, row_perm)``'s six tensors:
+    what autograd through the packing gives back for a cotangent of one,
+    without the autograd engine (``_unpack``: views with the layer-by-layer
+    packing's strides, and the gather of ``w0``'s rows)."""
+    found = _gather_plan(state, num_layers, hidden_dim, d_pad, row_perm)
+    if found is None:
+        raise ValueError("packed_grads: the trunk has LoRA layers (or row_perm is not a "
+                         "permutation); take its gradients through the packing by autograd")
+    return dict(zip(_src_names(num_layers), _unpack(found[0], *dpacked)))
+
+
 def pack_params(
     state: Mapping[str, torch.Tensor],
     num_layers: int,
     hidden_dim: int,
     d_pad: int = D_PAD,
-    row_perm: Optional[Sequence[int]] = None,
+    row_perm: Optional[RowPerm] = None,
     lora_alpha: float = 16.0,
 ) -> Packed:
     """A NeRFMLP state dict -> the kernel's ``(w0 (d_pad,H), b0 (1,H),
     wh (L-1,H,H), bh (L-1,H), wout (H,128), bout (1,128))``, weights laid
     out (in, out). ``row_perm`` reorders the first layer's input rows
-    (``pe_layout``) before the zero padding. LoRA trunk layers are merged
-    (``_trunk_layer``); gradients reach ``lora_a`` and ``lora_b`` through
-    the merge by autograd. A trunk with skip layers is refused."""
+    (``pe_layout``'s sequence or ``pe_constants``' device tensor) before the
+    zero padding. A trunk without LoRA is packed by one cached gather
+    (``_GatherPack``; a ``row_perm`` that is no permutation of the input
+    rows takes the layer-by-layer path); LoRA trunk layers are merged
+    (``_trunk_layer``) and gradients reach ``lora_a`` and ``lora_b`` through
+    the merge by autograd.
+    A trunk with skip layers is refused."""
+    found = _gather_plan(state, num_layers, hidden_dim, d_pad, row_perm)
+    if found is not None:
+        plan, srcs = found
+        return _GatherPack.apply(plan, *srcs)
+    return _pack_merged(state, num_layers, hidden_dim, d_pad, row_perm, lora_alpha)
+
+
+def _pack_merged(state, num_layers, hidden_dim, d_pad, row_perm, lora_alpha) -> Packed:
+    """``pack_params`` layer by layer: per-layer transposes (and LoRA
+    merges), the row gather, stacks and concatenations."""
     k0, bias0 = _trunk_layer(state, 0, lora_alpha)
     if row_perm is not None:
-        k0 = k0[torch.as_tensor(np.asarray(row_perm), dtype=torch.long, device=k0.device)]
+        if not isinstance(row_perm, torch.Tensor):
+            row_perm = torch.as_tensor(np.asarray(row_perm), dtype=torch.long)
+        k0 = k0[row_perm.to(k0.device)]
     if k0.shape[0] > d_pad:
         raise ValueError(f"pack_params: {k0.shape[0]} input rows exceed d_pad={d_pad}")
     w0 = k0.new_zeros((d_pad, hidden_dim))

@@ -24,7 +24,7 @@ import torch
 from torch import nn
 
 from nerf_fewshot_tpu_torch.ops.sampling import hierarchical_sample, sample_along_rays
-from nerf_fewshot_tpu_torch.render.fused import encode_points
+from nerf_fewshot_tpu_torch.render.fused import encode_points, encoded_width
 from nerf_fewshot_tpu_torch.render.kernels import (
     D_PAD,
     OUT_PAD,
@@ -43,11 +43,13 @@ from nerf_fewshot_tpu_torch.render.kernels import (
     _render_vjp,
     _scratch,
     _split_grads,
+    _src_names,
     _trunk,
     fused_render_fwd,
     fused_render_fwd_pe,
     pack_params,
-    pe_layout,
+    packed_grads,
+    pe_constants,
     pe_width,
     route_of,
 )
@@ -185,7 +187,7 @@ def fused_train_objective(
     """``(loss (), dpacked)`` of the training objective over R rays x S samples.
 
     ``raw_or_x``: the thin (R*S, n_raw) ``[pts | dirs?]`` block with
-    ``inline_pe`` (``e2``/``c`` from ``pe_layout``, ``feats`` (R*S, Fd) or
+    ``inline_pe`` (``e2``/``c`` from ``pe_constants``, ``feats`` (R*S, Fd) or
     ``None``), else the pre-encoded (R*S, D) ``x`` (``feats``, ``e2``, ``c``
     unused). ``z`` (R, S), ``dnorm``/``mask`` (R, 1), ``tgt`` (R, 3),
     ``inv_denom`` (1,) = 1/(3*denominator rays), ``tgt_depth`` (R, 1) or
@@ -281,32 +283,25 @@ class _TrainObjective(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        return (None,) * 10 + tuple(grad_out * d for d in ctx.saved_tensors)
+        # one multi-tensor launch for the six products ``grad_out * d``
+        return (None,) * 10 + tuple(torch._foreach_mul(list(ctx.saved_tensors), grad_out))
 
 
 @torch.no_grad()
-def _coarse_weights(params, pts, rays_d, z, dnorm, settings, pos_freq, dir_freq, num_layers,
-                    hidden_dim, use_viewdirs, compute_dtype, inline_pe, point_features_fn,
-                    lora_alpha):
+def _coarse_weights(packed: Packed, consts, pts, rays_d, z, dnorm, settings, use_viewdirs,
+                    compute_dtype, inline_pe, pos_freq, dir_freq, feats):
     """The hierarchical coarse pass: the compositing weights (R, S) of the
-    stratified samples, through kernel 2 (``inline_pe``) or kernel 4, with no
-    gradient (the sampling distribution is stop-gradient)."""
-    feats = None
-    if point_features_fn is not None:
-        feats = point_features_fn(pts.reshape(-1, 3)).contiguous()
+    stratified samples, through kernel 2 (``inline_pe``: ``consts`` from
+    ``pe_constants``) or kernel 4, with the step's packed weights
+    (detached) and no gradient (the sampling distribution is
+    stop-gradient)."""
+    packed = tuple(p.detach() for p in packed)
     if inline_pe:
-        perm, e2, c, x_dim = pe_layout(pos_freq, dir_freq, use_viewdirs,
-                                       0 if feats is None else feats.shape[1])
-        packed = pack_params(params, num_layers, hidden_dim,
-                             d_pad=pe_width(x_dim), row_perm=perm, lora_alpha=lora_alpha)
         out = fused_render_fwd_pe(
-            _raw_block(pts, rays_d, use_viewdirs), feats, z.contiguous(), dnorm,
-            torch.as_tensor(e2, device=z.device), torch.as_tensor(c, device=z.device), packed,
-            settings.white_bkgd, compute_dtype, use_feats=feats is not None)
+            _raw_block(pts, rays_d, use_viewdirs), feats, z.contiguous(), dnorm, consts.e2,
+            consts.c, packed, settings.white_bkgd, compute_dtype, use_feats=feats is not None)
     else:
         x = encode_points(pts, rays_d, pos_freq, dir_freq, use_viewdirs, feats).contiguous()
-        packed = pack_params(params, num_layers, hidden_dim, d_pad=x.shape[-1],
-                             lora_alpha=lora_alpha)
         out = fused_render_fwd(x, z.contiguous(), dnorm, packed, settings.white_bkgd,
                                compute_dtype)
     return out[3]
@@ -355,31 +350,39 @@ def train_objective_inputs(
         uniforms=uniforms if settings.perturb else None, lindisp=settings.lindisp,
     )
     dnorm = torch.linalg.norm(rays_d, dim=-1, keepdim=True)
-    if settings.n_importance > 0:
-        weights_c = _coarse_weights(params, pts, rays_d, z, dnorm, settings, pos_freq, dir_freq,
-                                    num_layers, hidden_dim, use_viewdirs, compute_dtype,
-                                    inline_pe, point_features_fn, lora_alpha)
-        pts, z = hierarchical_sample(
-            rays_o, rays_d, z, weights_c, settings.n_importance,
-            uniforms=importance_uniforms if settings.perturb else None)
     feats = None
     if point_features_fn is not None:
         feats = point_features_fn(pts.reshape(-1, 3)).contiguous()
-    denom = torch.sum(mask) if denom_rays is None else torch.as_tensor(
-        denom_rays, dtype=rays_o.dtype, device=rays_o.device)
+    feat_dim = 0 if feats is None else feats.shape[1]
+    consts = None
+    if inline_pe:
+        consts = pe_constants(pos_freq, dir_freq, use_viewdirs, feat_dim, rays_o.device)
+        d_pad, row_perm = pe_width(consts.x_dim), consts.row_perm
+    else:
+        d_pad, row_perm = encoded_width(pos_freq, dir_freq, use_viewdirs, feat_dim), None
+    packed = pack_params(params, num_layers, hidden_dim, d_pad=d_pad, row_perm=row_perm,
+                         lora_alpha=lora_alpha)
+    if settings.n_importance > 0:
+        weights_c = _coarse_weights(packed, consts, pts, rays_d, z, dnorm, settings,
+                                    use_viewdirs, compute_dtype, inline_pe, pos_freq, dir_freq,
+                                    feats)
+        pts, z = hierarchical_sample(
+            rays_o, rays_d, z, weights_c, settings.n_importance,
+            uniforms=importance_uniforms if settings.perturb else None)
+        if point_features_fn is not None:
+            feats = point_features_fn(pts.reshape(-1, 3)).contiguous()
+    if denom_rays is None:
+        denom = torch.sum(mask)
+    elif isinstance(denom_rays, torch.Tensor):
+        denom = denom_rays.to(dtype=rays_o.dtype, device=rays_o.device)
+    else:  # a fill on the device, not a copy from the host
+        denom = torch.full((), float(denom_rays), dtype=rays_o.dtype, device=rays_o.device)
     inv_denom = (1.0 / (3.0 * torch.clamp(denom, min=1.0))).reshape(1)
     if inline_pe:
-        feat_dim = 0 if feats is None else feats.shape[1]
-        perm, e2, c, x_dim = pe_layout(pos_freq, dir_freq, use_viewdirs, feat_dim)
-        packed = pack_params(params, num_layers, hidden_dim,
-                             d_pad=pe_width(x_dim), row_perm=perm, lora_alpha=lora_alpha)
         inp = _raw_block(pts, rays_d, use_viewdirs)
-        e2 = torch.as_tensor(e2, device=rays_o.device)
-        c = torch.as_tensor(c, device=rays_o.device)
+        e2, c = consts.e2, consts.c
     else:
         inp = encode_points(pts, rays_d, pos_freq, dir_freq, use_viewdirs, feats).contiguous()
-        packed = pack_params(params, num_layers, hidden_dim, d_pad=inp.shape[-1],
-                             lora_alpha=lora_alpha)
         e2 = c = feats = None
     args = (inp, feats, z.contiguous(), dnorm, target.contiguous(),
             mask.reshape(-1, 1).to(rays_o.dtype).contiguous(), inv_denom, e2, c, packed)
@@ -435,17 +438,33 @@ def fused_train_loss_grad(
     picks the kernels' precision route (``float32``, ``bfloat16``,
     ``highest``); ``dw_precision="highest"`` and ``head_mode="vpu"`` pin the
     dW products and the head to exact fp32, as the JAX entry's pins do.
+    A trunk without LoRA takes its gradients from the kernel's packed ones
+    directly (``packed_grads``: the views and the row gather that autograd
+    through ``pack_params`` gives back for the loss's cotangent of one); a
+    LoRA trunk takes them through the merge by autograd.
     """
     if isinstance(model_or_state, nn.Module):
         params = dict(model_or_state.named_parameters())
     else:
         params = {k: v.detach().requires_grad_(True) for k, v in model_or_state.items()}
-    args, opts = train_objective_inputs(
-        params, rays_o, rays_d, target, mask, settings, pos_freq, dir_freq, num_layers,
-        hidden_dim, use_viewdirs, compute_dtype, uniforms, denom_rays, inline_pe,
-        reg_weight, depth_weight, target_depth, point_features_fn, rgb_weight,
-        importance_uniforms, lora_alpha, dw_precision, head_mode)
+    direct = set(params) == set(_src_names(num_layers))  # a trunk without LoRA
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not direct):
+        args, opts = train_objective_inputs(
+            params, rays_o, rays_d, target, mask, settings, pos_freq, dir_freq, num_layers,
+            hidden_dim, use_viewdirs, compute_dtype, uniforms, denom_rays, inline_pe,
+            reg_weight, depth_weight, target_depth, point_features_fn, rgb_weight,
+            importance_uniforms, lora_alpha, dw_precision, head_mode)
     *inputs, packed = args
+    if direct:  # the packing's backward without the autograd engine
+        loss, dpacked = fused_train_objective(*inputs, packed, **opts)
+        row_perm = None
+        if inline_pe:
+            feats = inputs[1]
+            row_perm = pe_constants(pos_freq, dir_freq, use_viewdirs,
+                                    0 if feats is None else feats.shape[1],
+                                    rays_o.device).row_perm
+        return loss.detach(), packed_grads(params, num_layers, hidden_dim,
+                                           packed[0].shape[0], row_perm, dpacked)
     loss = _TrainObjective.apply(*inputs, opts, *packed)
     names = list(params)
     grads = torch.autograd.grad(loss, [params[k] for k in names])

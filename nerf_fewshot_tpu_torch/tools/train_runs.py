@@ -1,9 +1,13 @@
 """Train the baseline at the smoke's depth with one seed, from a given
-checkout, and print its final loss, PSNR and step times as one JSON line;
-or summarize such lines as pairs of two checkouts.
+checkout, and print its final loss, PSNR, step and eval times and a traced
+phase-2 epoch as one JSON line (optionally the DINO and trunk-LoRA
+configs' too); or summarize such lines as pairs of two checkouts; or
+compare two runs' losses, parameters and eval view bit for bit.
 
-    python nerf_fewshot_tpu_torch/tools/train_runs.py --root DIR --seed S --tag T --out FILE
+    python nerf_fewshot_tpu_torch/tools/train_runs.py --root DIR --seed S --tag T --out FILE \
+        [--bits FILE.pt] [--configs baseline dino_nerf lora_trunk]
     python nerf_fewshot_tpu_torch/tools/train_runs.py --summarize FILE --base T1 --change T2
+    python nerf_fewshot_tpu_torch/tools/train_runs.py --compare-bits A.pt B.pt
 
 A run imports ``nerf_fewshot_tpu_torch`` and ``chip_smoke`` from ``--root``
 (so one copy of this script drives the port of any checkout that has
@@ -12,17 +16,30 @@ with ``seed: S`` on the synthetic lego-like scene at 128x128 (5 train, 8
 test views, the scene's own seed 0), and trains it through the kernel on
 the card over the smoke's epochs (0, 1, 50, 100-103: 670 steps of 1024x32,
 1024x48 and 512x64 rays x samples). It appends to ``--out``: the PSNR at
-init and after, the last epoch's mean and last step losses, and the
+init and after, the last epoch's mean and last step losses, the
 milliseconds per step of epochs 101-103 (phase 2, untraced, each epoch
-synchronized). Run the two checkouts alternately, in separate processes (they
-share the package's name), A B B A ...; ``--summarize`` pairs the i-th run
-of ``--base`` with the i-th of ``--change`` and prints each pair and the
-mean and standard deviation of the differences.
+synchronized), the milliseconds per view of a ``render_views`` call of the
+8 test views (after a first call), and epoch 104 traced (``trace``: the
+device's busy share of the wall, stream synchronizations, device events
+and launches per step, and, traced with the CPU activity, the host's
+milliseconds per step by part). ``--bits`` saves every epoch's per-step
+losses, the parameters after epoch 103 and test view 0 rendered then.
+``--configs`` adds ``experiments/dino_nerf.yaml`` and
+``experiments/lora_nerf_trunk.yaml`` (with ``sigma_bias: 0.1``, the
+smoke's live start), each on its ViT-B/14 feature maps from the card,
+trained at epochs 0, 100, 101 and 102 (the phase-2 steps of 101-102
+timed) and epoch 103 traced. The trace is this script's checkout's
+``chip_smoke.trace``, the same for both trees. Run the two checkouts
+alternately, in separate processes (they share the package's name), A B B
+A ...; ``--summarize`` pairs the i-th run of ``--base`` with the i-th of
+``--change`` and prints each pair and the mean and standard deviation of
+the differences, and each tree's mean trace.
 """
 
 from __future__ import annotations
 
 import argparse
+import importlib.util
 import json
 import os
 import sys
@@ -30,9 +47,82 @@ import time
 
 EPOCHS = (0, 1, 50, 100, 101, 102, 103)
 TIMED = (101, 102, 103)
+TRACED = 104
+OTHER_EPOCHS, OTHER_TIMED, OTHER_TRACED = (0, 100, 101, 102), (101, 102), 103
+CONFIGS = ("baseline", "dino_nerf", "lora_trunk")
+HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
-def run(root: str, seed: int, tag: str, out: str) -> dict:
+def _tool_smoke():
+    """This script's own checkout's ``chip_smoke`` (for ``trace``), loaded
+    under another name beside the ``--root`` one."""
+    spec = importlib.util.spec_from_file_location("chip_smoke_of_the_tool",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _timed_epochs(tr, epochs, timed):
+    """Train ``epochs``; returns each epoch's mean loss and the ms per step
+    of the ``timed`` ones (each synchronized)."""
+    import numpy as np
+    import torch
+
+    ms, losses, steps = {}, {}, {}
+    for e in epochs:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses[e] = tr.train_epoch(e)
+        torch.cuda.synchronize()
+        ms[e] = (time.perf_counter() - t0) / len(tr.last_step_losses) * 1e3
+        steps[e] = tr.last_step_losses.copy()
+        if not np.isfinite(tr.last_step_losses).all():
+            raise RuntimeError(f"epoch {e}: non-finite losses")
+    return losses, {e: ms[e] for e in timed}, steps
+
+
+def _traced(smoke, tr, epoch):
+    """``epoch`` traced with the CUDA activity only, then the next with the
+    CPU activity too: the numbers per step a pair compares."""
+    untraced = smoke.trace_epoch(tr, epoch, False)
+    cpu = smoke.trace_epoch(tr, epoch + 1, True)
+    return {"ms_per_step_traced": untraced["wall_ms"] / untraced["steps"],
+            "busy_share": untraced["busy_ms"] / untraced["wall_ms"],
+            "syncs_per_step": untraced["syncs"], "syncs_per_epoch": untraced["syncs_total"],
+            "events_per_step": untraced["events"], "launches_per_step": untraced["launches"],
+            "device_ms_per_step": sum(untraced["parts"].values()),
+            "host_ms_per_step": cpu["host"]}
+
+
+def _other(root, name, train, test, device, smoke):
+    """``dino_nerf`` or ``lora_trunk``: ms per phase-2 step and the trace."""
+    import numpy as np
+
+    from nerf_fewshot_tpu_torch.cli import _precompute_features
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict, load_config
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    file = {"dino_nerf": "dino_nerf.yaml", "lora_trunk": "lora_nerf_trunk.yaml"}[name]
+    cfg = load_config(os.path.join(root, "experiments", file))
+    if name == "lora_trunk":
+        cfg = config_from_dict({**cfg.raw, "nerf_model": {**cfg.raw["nerf_model"],
+                                                          "sigma_bias": 0.1}})
+    feats = _precompute_features(cfg, train, device)
+    tr = Trainer(cfg, train, test, device=device, dino_features=feats)
+    if not tr._use_fused():
+        raise RuntimeError(f"{name} must train through the kernel")
+    for i in range(len(cfg.phases)):
+        tr.phase_data(i)
+    losses, ms, _ = _timed_epochs(tr, OTHER_EPOCHS, OTHER_TIMED)
+    return {"loss_last_epoch": losses[OTHER_EPOCHS[-1]],
+            "ms_per_step": {str(e): v for e, v in ms.items()},
+            "ms_per_step_mean": float(np.mean(list(ms.values()))),
+            "trace": _traced(smoke, tr, OTHER_TRACED)}
+
+
+def run(root: str, seed: int, tag: str, out: str, bits: str = None,
+        configs=("baseline",)) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -45,6 +135,8 @@ def run(root: str, seed: int, tag: str, out: str) -> dict:
     if not torch.cuda.is_available():
         raise SystemExit("train_runs: no CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smoke = _tool_smoke()
     device = torch.device("cuda", 0)
     cfg = config_from_dict({**chip_smoke.BASELINE_CONFIG, "seed": seed})
     scene = lego_like_scene()
@@ -57,24 +149,63 @@ def run(root: str, seed: int, tag: str, out: str) -> dict:
     psnr0 = tr.evaluate()["psnr"]
     for i in range(len(cfg.phases)):  # set-up, kept out of the step times
         tr.phase_data(i)
-    ms, losses = {}, {}
-    for e in EPOCHS:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses[e] = tr.train_epoch(e)
-        torch.cuda.synchronize()
-        ms[e] = (time.perf_counter() - t0) / len(tr.last_step_losses) * 1e3
-        if not np.isfinite(tr.last_step_losses).all():
-            raise RuntimeError(f"epoch {e}: non-finite losses")
+    losses, ms, steps = _timed_epochs(tr, EPOCHS, TIMED)
+    if bits:
+        view = tr.render_views([test.poses[0]])
+        torch.save({"steps": steps, "view": view,
+                    "params": {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}},
+                   bits)
+    tr.render_views(test.poses)  # first use of this shape's buffers
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.render_views(test.poses)
+    eval_ms = (time.perf_counter() - t0) / len(test.poses) * 1e3
     rec = {"tag": tag, "root": root, "seed": seed, "psnr_init": psnr0,
            "psnr": tr.evaluate()["psnr"], "loss_last_epoch": losses[EPOCHS[-1]],
            "loss_last_step": float(tr.last_step_losses[-1]),
            "ms_per_step": {str(e): ms[e] for e in TIMED},
-           "ms_per_step_mean": float(np.mean([ms[e] for e in TIMED]))}
+           "ms_per_step_mean": float(np.mean([ms[e] for e in TIMED])),
+           "eval_ms_per_view": eval_ms, "trace": _traced(smoke, tr, TRACED)}
+    for name in configs:
+        if name != "baseline":
+            rec[name] = _other(root, name, train, test, device, smoke)
     with open(out, "a") as f:
         f.write(json.dumps(rec) + "\n")
     print(json.dumps(rec), flush=True)
     return rec
+
+
+def compare_bits(a: str, b: str) -> None:
+    """Raise unless two ``--bits`` files hold the same per-step losses,
+    parameters and view, bit for bit."""
+    import numpy as np
+    import torch
+
+    x, y = torch.load(a, weights_only=False), torch.load(b, weights_only=False)
+    if sorted(x["steps"]) != sorted(y["steps"]) or sorted(x["params"]) != sorted(y["params"]):
+        raise SystemExit(f"{a} and {b} hold different epochs or parameters")
+    bad = [f"epoch {e} losses" for e in x["steps"]
+           if not np.array_equal(x["steps"][e].view(np.int32), y["steps"][e].view(np.int32))]
+    bad += [f"parameter {k}" for k in x["params"]
+            if not torch.equal(x["params"][k].view(torch.int32), y["params"][k].view(torch.int32))]
+    bad += [f"view output {i}" for i, (p, q) in enumerate(zip(x["view"], y["view"]))
+            if not np.array_equal(p.view(np.int32), q.view(np.int32))]
+    n_steps = sum(len(s) for s in x["steps"].values())
+    if bad:
+        raise SystemExit(f"{a} vs {b}: not bit-equal: {', '.join(bad)}")
+    print(f"{a} vs {b}: the per-step losses of {n_steps} steps over epochs "
+          f"{sorted(x['steps'])}, all {len(x['params'])} parameters and test view 0's rgb, "
+          f"depth and acc bit-equal", flush=True)
+
+
+def _mean_trace(recs, key=None):
+    import numpy as np
+
+    traces = [(r if key is None else r[key])["trace"] for r in recs]
+    out = {k: float(np.mean([t[k] for t in traces])) for k in traces[0] if k != "host_ms_per_step"}
+    out["host_ms_per_step"] = {k: float(np.mean([t["host_ms_per_step"][k] for t in traces]))
+                               for k in traces[0]["host_ms_per_step"]}
+    return out
 
 
 def summarize(path: str, base: str, change: str) -> None:
@@ -89,12 +220,22 @@ def summarize(path: str, base: str, change: str) -> None:
         print(f"  seed {x['seed']}/{y['seed']}: psnr {x['psnr']!r} -> {y['psnr']!r}, loss "
               f"{x['loss_last_epoch']!r} -> {y['loss_last_epoch']!r}, ms "
               f"{x['ms_per_step_mean']!r} -> {y['ms_per_step_mean']!r}")
-    for key in ("psnr", "loss_last_epoch", "ms_per_step_mean"):
-        d = np.array([y[key] - x[key] for x, y in zip(a[:n], b[:n])])
+    keys = [(None, k) for k in ("psnr", "loss_last_epoch", "ms_per_step_mean", "eval_ms_per_view")
+            if k in a[0]]
+    keys += [(c, "ms_per_step_mean") for c in CONFIGS[1:] if c in a[0] and c in b[0]]
+    for cfg, key in keys:
+        get = (lambda r: r[key]) if cfg is None else (lambda r: r[cfg][key])
+        d = np.array([get(y) - get(x) for x, y in zip(a[:n], b[:n])])
         sd = float(d.std(ddof=1)) if n > 1 else float("nan")
-        print(f"  {key}: {base} mean {float(np.mean([x[key] for x in a[:n]]))!r}, {change} mean "
-              f"{float(np.mean([y[key] for y in b[:n]]))!r}; difference mean {float(d.mean())!r}, "
+        label = key if cfg is None else f"{cfg} {key}"
+        print(f"  {label}: {base} mean {float(np.mean([get(x) for x in a[:n]]))!r}, {change} mean "
+              f"{float(np.mean([get(y) for y in b[:n]]))!r}; difference mean {float(d.mean())!r}, "
               f"sd {sd!r}, {int((d > 0).sum())} of {n} above 0")
+    for cfg in (None,) + CONFIGS[1:]:
+        if "trace" not in a[0] or (cfg is not None and cfg not in a[0]):
+            continue
+        for tag, rs in ((base, a[:n]), (change, b[:n])):
+            print(f"  trace {cfg or 'baseline'} {tag}: {json.dumps(_mean_trace(rs, cfg))}")
 
 
 def main() -> None:
@@ -103,17 +244,22 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tag", default="run")
     ap.add_argument("--out", help="the JSON-lines file a run appends to")
+    ap.add_argument("--bits", help="a run saves its losses, parameters and view here")
+    ap.add_argument("--configs", nargs="+", default=["baseline"], choices=CONFIGS)
     ap.add_argument("--summarize")
     ap.add_argument("--base")
     ap.add_argument("--change")
+    ap.add_argument("--compare-bits", nargs=2)
     args = ap.parse_args()
     if args.summarize:
         summarize(args.summarize, args.base, args.change)
+    elif args.compare_bits:
+        compare_bits(*args.compare_bits)
     elif not args.out:
         ap.error("a run needs --out")
     else:
         os.makedirs(os.path.dirname(args.out) or ".", exist_ok=True)
-        run(args.root, args.seed, args.tag, args.out)
+        run(args.root, args.seed, args.tag, args.out, args.bits, args.configs)
 
 
 if __name__ == "__main__":

@@ -46,14 +46,16 @@ def multistep_lr(base_lr: float, milestones: Sequence[int], gamma: float):
 @torch.no_grad()
 def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> None:
     """Scale every ``.grad`` in place by ``max_norm / ||g||`` when the global
-    norm reaches ``max_norm`` (optax's rule: ``t / ||g|| * max_norm``)."""
+    norm reaches ``max_norm`` (optax's rule: ``t / ||g|| * max_norm``).
+    Stream-ordered: the choice is a select on the device, so the host never
+    waits for the norm; a gradient below the limit keeps its bits."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
     norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
-    if not bool(norm < max_norm):
-        for g in grads:
-            g.div_(norm).mul_(max_norm)
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
 
 
 def make_optimizer(

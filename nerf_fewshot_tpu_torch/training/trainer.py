@@ -78,6 +78,7 @@ from nerf_fewshot_tpu_torch.ops.rays import (
 from nerf_fewshot_tpu_torch.parallel.fused_dp import make_dp_fused_loss_grad
 from nerf_fewshot_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, process_local_slice
 from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
+from nerf_fewshot_tpu_torch.render.kernels import pack_params, pe_constants, pe_width, to_device
 from nerf_fewshot_tpu_torch.render.pipeline import PointFeaturesFn, RenderSettings, render_rays
 from nerf_fewshot_tpu_torch.render.train_kernel import fused_train_loss_grad
 from nerf_fewshot_tpu_torch.training.config import Config
@@ -306,25 +307,37 @@ class Trainer:
         """``(rays_o, rays_d, uniforms=None, importance_uniforms=None) ->
         RenderOutputs`` on the configured path, conditioned on ``pf``'s
         features. ``forward_only``: the eval render, under no-grad (the
-        inline-PE forward kernel on the kernel path); otherwise
+        inline-PE forward kernel on the kernel path, with the weights packed
+        once, here: the returned function renders the model as it was when
+        it was made); otherwise
         differentiable in the model's parameters (the fused ``fused_render``
         on the kernel path, autograd on the plain one, which also takes the
         sigma-noise ``normals`` and ``fine_normals``)."""
         cfg = self.cfg
         if self._use_fused():
-            params = (self.model.state_dict() if forward_only
-                      else dict(self.model.named_parameters()))
+            n = cfg.nerf
+            packed = None
+            if forward_only:  # the weights as they are now, packed once for every call
+                params = self.model.state_dict()
+                consts = pe_constants(n.pos_freq, n.dir_freq, n.use_viewdirs,
+                                      0 if pf is None else self.dino_features.shape[-1],
+                                      self.device)
+                packed = pack_params(params, n.num_layers, n.hidden_dim,
+                                     d_pad=pe_width(consts.x_dim), row_perm=consts.row_perm,
+                                     lora_alpha=n.lora_alpha)
+            else:
+                params = dict(self.model.named_parameters())
 
             def fn(ro, rd, uniforms=None, importance_uniforms=None) -> RenderOutputs:
                 return fused_render_rays(
                     params, ro, rd, settings,
-                    pos_freq=cfg.nerf.pos_freq, dir_freq=cfg.nerf.dir_freq,
-                    num_layers=cfg.nerf.num_layers, hidden_dim=cfg.nerf.hidden_dim,
-                    use_viewdirs=cfg.nerf.use_viewdirs,
+                    pos_freq=n.pos_freq, dir_freq=n.dir_freq,
+                    num_layers=n.num_layers, hidden_dim=n.hidden_dim,
+                    use_viewdirs=n.use_viewdirs,
                     compute_dtype=cfg.rendering.compute_dtype,
                     forward_only=forward_only, device=self.device,
                     uniforms=uniforms, importance_uniforms=importance_uniforms,
-                    point_features_fn=pf, lora_alpha=cfg.nerf.lora_alpha,
+                    point_features_fn=pf, lora_alpha=n.lora_alpha, packed=packed,
                 )
 
             return fn
@@ -472,7 +485,16 @@ class Trainer:
         ragged tail padded with index 0 and mask 0, one optimizer step per
         minibatch. Under a mesh the batch is padded to a multiple of the
         world size and each rank takes its rows of it. Returns the mean step
-        loss."""
+        loss. The steps (``epoch_steps``) only enqueue work; the copy of
+        their losses to the host is the epoch's one synchronization."""
+        self.last_step_losses = self.epoch_steps(epoch).cpu().numpy()
+        return float(np.mean(self.last_step_losses))
+
+    def epoch_steps(self, epoch: int) -> torch.Tensor:
+        """``train_epoch``'s steps: the per-step losses as one tensor on the
+        device. On a card the host waits for the device nowhere in here (the
+        batch indices reach it by a stream-ordered copy from pinned memory),
+        once the phase's data (``phase_data``) is on the device."""
         cfg = self.cfg
         phase_idx = self._phase_index(epoch)
         p = cfg.phases[phase_idx]
@@ -494,14 +516,13 @@ class Trainer:
         V = self.n_views
         pad_total = n_batches * B - n_rays
         idxs = np.empty((V, n_batches, B), np.int64)
-        masks = np.ones((V, n_batches * B), np.float32)
+        masks = np.ones((n_batches * B,), np.float32)  # every view's: the padded tail
+        masks[n_rays:] = 0.0
         for v in range(V):
             perm = self._np_rng.permutation(n_rays)
             idxs[v] = np.concatenate([perm, np.zeros(pad_total, perm.dtype)]).reshape(n_batches, B)
-            if pad_total:
-                masks[v, n_rays:] = 0.0
-        idxs_t = torch.as_tensor(idxs, device=self.device)
-        masks_t = torch.as_tensor(masks.reshape(V, n_batches, B), device=self.device)
+        idxs_t = to_device(idxs, self.device)
+        masks_t = to_device(masks.reshape(n_batches, B), self.device)
 
         settings = self._render_settings(p.n_samples, training=True)
         fused = self._use_fused()
@@ -522,7 +543,7 @@ class Trainer:
                 row = view_packed[idxs_t[v, b, rows]]
                 draws = {k: None if d is None else d[rows]
                          for k, d in self._draws(B, p.n_samples, settings).items()}
-                mask = masks_t[v, b]
+                mask = masks_t[b]
                 args = (row[:, 0:3], row[:, 3:6], row[:, 6:9], mask[rows], settings, draws, v)
                 if fused:
                     losses.append(self._kernel_loss_grad(*args, dp=dp))
@@ -530,8 +551,7 @@ class Trainer:
                     denom = None if self.mesh is None else torch.sum(mask)
                     losses.append(self._plain_loss_grad(*args, denom=denom))
                 self.optimizer.step()
-        self.last_step_losses = torch.stack(losses).cpu().numpy()
-        return float(np.mean(self.last_step_losses))
+        return torch.stack(losses)
 
     # ------------------------------------------------------------- health
 
@@ -557,7 +577,8 @@ class Trainer:
     def _eval_chunk_fn(self, n_samples: int) -> ChunkFn:
         """Per-chunk eval renderer: (ro, rd) -> (rgb, depth, acc), conditioned
         on train view 0's features whatever the pose (the reference's eval
-        quirk)."""
+        quirk); on the kernel path every chunk shares one packing of the
+        weights (``_ray_render_fn``)."""
         render = self._ray_render_fn(self._render_settings(n_samples, training=False),
                                      forward_only=True, pf=self.feature_sampler(0))
 
@@ -577,18 +598,28 @@ class Trainer:
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         """Render every pose's rays as one stream of fixed-size chunks (the
         last padded with copies of the last ray). Returns (V, H, W[, 3])
-        rgb, depth and acc numpy arrays."""
+        rgb, depth and acc numpy arrays, copied to the host at the end in
+        one copy: the call's one synchronization (``render_views_device``)."""
+        outs = self.render_views_device(poses, n_samples)
+        flat = torch.cat([t.reshape(-1) for t in outs]).cpu().numpy()
+        sizes = np.cumsum([t.numel() for t in outs])[:-1]
+        return tuple(a.reshape(t.shape) for a, t in zip(np.split(flat, sizes), outs))
+
+    def render_views_device(
+        self, poses: Sequence, n_samples: Optional[int] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``render_views``' renders as tensors on the device. On a card the
+        host waits for the device nowhere in here: the poses reach it by one
+        stream-ordered copy, the weights are packed once for every chunk."""
         cfg = self.cfg
         if n_samples is None:
             n_samples = cfg.phases[-1].n_samples
         chunk_size = cfg.rendering.chunk_size
         fn = self._eval_chunk_fn(n_samples)
+        poses_t = to_device(np.stack([np.asarray(p, np.float32) for p in poses]), self.device)
         ros, rds = [], []
-        for pose in poses:
-            ro, rd = get_rays(
-                self.H, self.W, self.focal,
-                torch.as_tensor(np.asarray(pose), dtype=torch.float32, device=self.device),
-            )
+        for pose in poses_t:
+            ro, rd = get_rays(self.H, self.W, self.focal, pose)
             ros.append(ro.reshape(-1, 3))
             rds.append(rd.reshape(-1, 3))
         ro = torch.cat(ros)
@@ -603,7 +634,7 @@ class Trainer:
         rgb = torch.cat([o[0] for o in outs])[:n].reshape(V, self.H, self.W, 3)
         depth = torch.cat([o[1] for o in outs])[:n].reshape(V, self.H, self.W)
         acc = torch.cat([o[2] for o in outs])[:n].reshape(V, self.H, self.W)
-        return rgb.cpu().numpy(), depth.cpu().numpy(), acc.cpu().numpy()
+        return rgb, depth, acc
 
     def evaluate(self, max_views: Optional[int] = None, dump_dir: Optional[str] = None) -> Dict[str, Any]:
         """Full-resolution eval on the test split: mean PSNR, SSIM and LPIPS,

@@ -1206,3 +1206,59 @@ def test_dp_world_2_gloo_on_one_card(h100):
         np.testing.assert_allclose(two[0]["steps"][e], want["steps"][e], rtol=1e-4)
     assert all(np.array_equal(two[0]["params"][k], two[1]["params"][k]) for k in want["params"])
     assert two[0]["launches"] == two[1]["launches"] == want["launches"]
+
+
+SYNC_KINDS = {"baseline": {}, "hierarchical": {"rendering": {"n_importance": 16}},
+              "lora": {"nerf_model": {"lora_rank": 4}},
+              "dino": {"model": {"use_dino": True, "dino_model_type": "single_scale"}},
+              "clip": {"optimizer": {"grad_clip": 0.05}}, "dp_world_1": {}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(SYNC_KINDS))
+def test_epoch_steps_and_render_views_make_no_synchronization(h100, kind):
+    """A phase-1 epoch's steps (``Trainer.epoch_steps``, jitter on, a masked
+    ragged tail) and a ``render_views_device`` call of two views run under
+    ``torch.cuda.set_sync_debug_mode("error")``: the host never waits for
+    the card before the copies that end ``train_epoch`` and
+    ``render_views``. The plain trunk, hierarchical sampling, trunk LoRA,
+    DINO features, the global-norm clip and a one-rank NCCL mesh; epoch 0
+    first, outside the check (the kernels' first use)."""
+    import torch.distributed as dist
+
+    from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
+    from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    d = {k: dict(v) for k, v in DP_CONFIG.items()}
+    for k, v in SYNC_KINDS[kind].items():
+        d[k] = {**d.get(k, {}), **v}
+    data = make_scene_dataset(lego_like_scene(), 2, img_size=24, gt_samples=64, device="cpu")
+    feats = (np.random.default_rng(4).standard_normal((2, 3, 3, 64)).astype(np.float32)
+             if kind == "dino" else None)
+    mesh = None
+    if kind == "dp_world_1":
+        pmesh.initialize_multihost(f"localhost:{pmesh.free_port()}", 1, 0, device=h100)
+        mesh = pmesh.make_mesh(h100)
+    try:
+        tr = Trainer(config_from_dict(d), data, data, device=None if mesh else h100, mesh=mesh,
+                     dino_features=feats)
+        assert tr._use_fused()
+        tr.train_epoch(0)
+        tr.render_views(data.poses[:1])
+        tr.phase_data(1)
+        before = tt.fused_train_objective.launches["train_pe"]
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            losses = tr.epoch_steps(1)
+            views = tr.render_views_device(data.poses[:2])
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert tt.fused_train_objective.launches["train_pe"] - before == 2 * 3
+        assert losses.shape == (6,) and torch.isfinite(losses).all()
+        assert views[0].shape == (2, 24, 24, 3) and all(torch.isfinite(v).all() for v in views)
+    finally:
+        if mesh is not None:
+            dist.destroy_process_group()

@@ -8,7 +8,8 @@ its seconds:
 
 1. device: the card's name, capability and ``nvidia-smi`` power limit;
 2. build: nvcc builds every kernel of the paths (``csrc/fwd_pe.cu``: kernels
-   2 and 4; ``csrc/train_pe.cu``: kernels 1, 5 and 3), one process per
+   2 and 4; ``csrc/train_pe.cu``: kernels 1, 5 and 3; ``csrc/adam.cu``: the
+   Adam step the graphed trainer replays), one process per
    source, all started together, and prints ptxas' register, shared-memory
    and spill lines;
 3. kernel vs plain: the inline-PE render kernel (kernel 2: trunk products
@@ -112,7 +113,19 @@ its seconds:
    and a traced ``render_views`` call (at most one synchronization). The
    hierarchical, DINO and LoRA-trunk slices and data-parallel world 1 run
    their steps under the same mode, and the DINO and LoRA-trunk traced
-   epochs are held to one synchronization;
+   epochs are held to one synchronization. The kernel-path trainers step as
+   CUDA graph replays (``training/step_graph.py``): a traced epoch counts a
+   graph launch as one launch from the host and prints the step mode and
+   each capture's capture and instantiate ms and pool MB. Then the Adam
+   kernel (``csrc/adam.cu``) against ``torch.optim.Adam(foreach=True)``
+   over 200 steps at weight decay 1e-6 and 0, with the clip on and off, and
+   ``AdamW``: parameters, moments and steps bit-equal (``run_adam_gate``);
+   its time, the foreach and the fused step's, and its bound;
+11a. graph vs eager step: ``baseline``, ``hierarchical``, ``dino_nerf.yaml``
+   and the LoRA trunk at each precision route over their slices' epochs, as
+   graph replays and through ``Trainer(_eager_step=True)``: losses,
+   parameters, moments and steps bit-equal, kernel 1 and the Adam kernel
+   once per step (kernel 2 once more, hierarchical; ``run_graph_vs_eager``);
 12. hierarchical train slice: ``experiments/hierarchical.yaml`` (a literal
    dict) trains at the same epochs (every step: kernel 2 as the coarse
    pass, kernel 1 over the merged 96 / 112 / 128 samples), PSNR must rise;
@@ -388,7 +401,7 @@ N_ORBIT, N_DEPTH_VIEWS = 8, 3
 # TF32 on the same pairs read 4.4-4.8e-5 off, inside 1e-4, so the gate sits at
 # 1e-5 to see that trap.
 LPIPS_RTOL = 1e-5
-KERNELS = ("fwd_pe", "train_pe")  # the sources, one nvcc each
+KERNELS = ("fwd_pe", "train_pe", "adam")  # the sources, one nvcc each
 # one epoch of each phase and one more at 32x32 and at 128x128: the first
 # epoch's steps include the first use (module loading) of every CUDA kernel
 TRAIN_EPOCHS = (0, 1, 50, 100, 101)
@@ -896,14 +909,14 @@ def main_path_train_args(trainer, phase_idx, device, inline_pe=True, seed=0):
 # Device-time groups of the profiled runs, by kernel name (first match).
 KERNEL_GROUPS = ("train_fwd", "train_bwd", "train_dw", "train_composite", "render_composite",
                  "render_dx", "train_finalize", "loss_sum", "weight_image", "fwd_split",
-                 "fwd_trunk", "fwd_composite")
+                 "fwd_trunk", "fwd_composite", "adam_step")
 
 
 # The CUDA API calls that launch a kernel (`cudaLaunch*` of the runtime,
 # through which the port's libraries and PyTorch's ops launch, and the
 # lower-level `cuLaunch*`).
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel", "cuLaunchKernelEx",
-                "cudaLaunchCooperativeKernel")
+                "cudaLaunchCooperativeKernel", "cudaGraphLaunch", "cuGraphLaunch")
 
 
 def trace(run, with_cpu):
@@ -982,14 +995,22 @@ def trace(run, with_cpu):
 
 
 def trace_epoch(trainer, epoch, with_cpu):
-    """One ``train_epoch`` under ``trace``."""
+    """One ``train_epoch`` under ``trace``, with the trainer's step mode and
+    its graph captures so far (``captures``: phase, capture and instantiate
+    ms, the private pool's MB)."""
     trainer.phase_data(trainer._phase_index(epoch))
 
     def run():
         trainer.train_epoch(epoch)
         return len(trainer.last_step_losses)
 
-    return trace(run, with_cpu)
+    t = trace(run, with_cpu)
+    # (a parent checkout's trainer, traced by tools/train_runs.py, has neither)
+    t["step_mode"] = (getattr(trainer, "step_mode", None) or "eager",
+                      getattr(trainer, "step_mode_reason", None))
+    t["captures"] = [{k: c[k] for k in ("phase", "capture_ms", "instantiate_ms", "pool_mb")}
+                     for c in getattr(trainer, "graph_captures", [])]
+    return t
 
 
 def print_launch_times(label, fn, calls=10):
@@ -1017,6 +1038,12 @@ def print_trace(label, t, untraced_ms, max_syncs=None):
           f"{t['launches']:.1f} launches, device ms " + ", ".join(
               f"{k} {v:.3f}" for k, v in sorted(t["parts"].items(), key=lambda kv: -kv[1]))
           + f", sum {sum(t['parts'].values()):.3f}{host}", flush=True)
+    if "step_mode" in t:
+        mode, reason = t["step_mode"]
+        print(f"    steps as {mode}" + (f" ({reason})" if reason else " replays") + "; captures: "
+              + ", ".join(f"phase {c['phase']} capture {c['capture_ms']:.1f} ms, instantiate "
+                          f"{c['instantiate_ms']:.1f} ms, pool {c['pool_mb']:.1f} MB"
+                          for c in t["captures"]), flush=True)
     if t["host"] is not None:
         top = sorted(t["host_ops"].items(), key=lambda kv: -kv[1])[:12]
         print("    host ms per step by top-level range: " + ", ".join(
@@ -1070,6 +1097,202 @@ def adam_layouts_report(trainer, steps=5):
           f"{out['as they come'][1]:.1f} launches per step; on contiguous copies: "
           f"{out['contiguous'][1]:.1f} (copies included); parameters bit-equal: {same} "
           f"(reported)", flush=True)
+
+
+# (kind, weight decay, global-norm clip) of the Adam kernel's gate
+ADAM_GATE_CASES = (("adam", 1e-6, 0.0), ("adam", 0.0, 0.0), ("adam", 1e-6, 1.0),
+                   ("adam", 0.0, 1.0), ("adamw", 1e-6, 0.0))
+ADAM_GATE_STEPS = 200
+ADAM_BYTES_PER_PARAM = 28  # reads p, g, m, v and writes p, m, v, fp32
+
+
+def adam_steps(device, kind, wd, clip, kernel, steps=ADAM_GATE_STEPS, epochs=4, seed=0):
+    """``steps`` optimizer steps of the baseline's 8x256 ``NeRFMLP`` from its
+    seed, in ``epochs`` epochs whose lr halves at each (milestones), on
+    gradients drawn from a seeded generator at scales over three decades
+    (a clip at 1.0 then acts on some steps and not on others): through the
+    Adam kernel (``AdamKernel``) or through torch's foreach step. Returns the
+    optimizer."""
+    from nerf_fewshot_tpu_torch.models.mlp import NeRFMLP
+    from nerf_fewshot_tpu_torch.training import optim as toptim
+    from nerf_fewshot_tpu_torch.training.config import OptimizerConfig
+
+    model = NeRFMLP(use_viewdirs=True, sigma_bias_init=0.1,
+                    generator=torch.Generator().manual_seed(seed)).to(device)
+    params = list(model.parameters())
+    opt = toptim.make_optimizer(OptimizerConfig(lr=5e-4, weight_decay=wd, kind=kind,
+                                                grad_clip=clip), params, clip_hook=False)
+    grads = [torch.zeros_like(p) for p in params]
+    for p, g in zip(params, grads):
+        p.grad = g
+    per = steps // epochs
+    adam = toptim.AdamKernel(opt, grads, per) if kernel else None
+    gen = torch.Generator(device).manual_seed(seed + 1)
+    scales = np.random.default_rng(seed).uniform(-4.0, -1.0, steps)
+    for e in range(epochs):
+        toptim.set_learning_rate(opt, 5e-4 * 0.5 ** e)
+        if adam is not None:
+            adam.begin_epoch(per)
+        for i in range(per):
+            for g in grads:
+                g.copy_(torch.randn(g.shape, generator=gen, device=device)
+                        * float(10.0 ** scales[e * per + i]))
+            if clip:
+                toptim.clip_by_global_norm_(params, clip)
+            (opt.step if adam is None else adam.step)()
+        if adam is not None:
+            adam.end_epoch(per)
+    return opt
+
+
+def run_adam_gate(device, iters=200):
+    """The Adam kernel (``csrc/adam.cu``) against ``torch.optim.Adam(foreach=
+    True)`` (``AdamW`` for ``adamw``) over ``ADAM_GATE_STEPS`` steps at each of
+    ``ADAM_GATE_CASES`` (``adam_steps``): parameters, both moments and the
+    step count bit-equal, or raise. Then at the baseline's parameters (the
+    main path's 0.59 M) the CUDA-event ms per step of the kernel, of the
+    foreach step (its plain version) and of ``Adam(fused=True)`` (one
+    library call), beside the bound: the bytes at the HBM rate. Returns the
+    numbers of the kernels line's row."""
+    from nerf_fewshot_tpu_torch.models.mlp import NeRFMLP
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.optim import AdamKernel, make_optimizer
+
+    worst = 0.0
+    for kind, wd, clip in ADAM_GATE_CASES:
+        got = adam_steps(device, kind, wd, clip, kernel=True)
+        want = adam_steps(device, kind, wd, clip, kernel=False)
+        bad = []
+        for i, (p, q) in enumerate(zip(got.param_groups[0]["params"],
+                                       want.param_groups[0]["params"])):
+            worst = max(worst, float((p.detach() - q.detach()).abs().max()))
+            pairs = [(p.detach(), q.detach())] + [(got.state[p][k], want.state[q][k])
+                                                  for k in ("exp_avg", "exp_avg_sq")]
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in pairs) \
+                    or float(got.state[p]["step"]) != float(want.state[q]["step"]):
+                bad.append(i)
+        print(f"  Adam kernel vs torch {kind} foreach, weight decay {wd}, clip {clip or 'off'}: "
+              f"{ADAM_GATE_STEPS} steps, parameters, moments and steps "
+              f"{'bit-equal' if not bad else f'differ in tensors {bad}'}", flush=True)
+        if bad:
+            raise RuntimeError(f"the Adam kernel is not bit-equal to torch's {kind} step")
+    cfg = config_from_dict(BASELINE_CONFIG).optimizer
+    model = NeRFMLP(use_viewdirs=True, sigma_bias_init=0.1,
+                    generator=torch.Generator().manual_seed(0)).to(device)
+    n = sum(p.numel() for p in model.parameters())
+
+    def copies():
+        ps = [torch.nn.Parameter(p.detach().clone()) for p in model.parameters()]
+        for p in ps:
+            p.grad = torch.randn(p.shape, generator=torch.Generator(device).manual_seed(3),
+                                 device=device) * 1e-3
+        return ps
+
+    kps = copies()
+    adam = AdamKernel(make_optimizer(cfg, kps, clip_hook=False), [p.grad for p in kps],
+                      3 * iters + 3)
+    adam.begin_epoch(3 * iters + 3)
+    kw = dict(lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=cfg.weight_decay)
+    steps = {"kernel": adam.step, "foreach": torch.optim.Adam(copies(), foreach=True, **kw).step,
+             "fused": torch.optim.Adam(copies(), fused=True, **kw).step}
+    # device ms a step (the profiler's kernel time: one launch of the kernel
+    # is shorter than its host's launch), and the CUDA-event wall of a loop
+    dev, wall = {}, {}
+    for name, step in steps.items():
+        wall[name] = cuda_ms(step, iters)
+        t = trace(lambda: len([step() for _ in range(iters)]), with_cpu=False)
+        dev[name] = sum(t["parts"].values())
+    bound_ms = n * ADAM_BYTES_PER_PARAM / HBM_BYTES_PER_S * 1e3
+    print(f"  Adam at the baseline's {n} parameters, device ms a step: kernel "
+          f"{dev['kernel']:.4f}, foreach {dev['foreach']:.4f}, fused {dev['fused']:.4f}; "
+          f"CUDA-event wall of {iters} in a loop: {wall['kernel']:.4f}, {wall['foreach']:.4f}, "
+          f"{wall['fused']:.4f}; bound {bound_ms:.4f} ms by bytes "
+          f"({n * ADAM_BYTES_PER_PARAM / 1e6:.2f} MB; share {bound_ms / dev['kernel']:.1%})",
+          flush=True)
+    return {"max_abs_err": worst, "ms": dev["kernel"], "plain_ms": dev["foreach"],
+            "library_ms": dev["fused"], "bound_ms": bound_ms, "bound_by": "bytes", "params": n,
+            "wall_ms": wall}
+
+
+# the graph gate's configs: the smoke's single-card kernel-path trainers at
+# their slices' epochs
+GRAPH_GATE_EPOCHS = {"baseline": TRAIN_EPOCHS, "hierarchical": TRAIN_EPOCHS,
+                     "dino_nerf": DINO_EPOCHS, "lora_trunk": LORA_EPOCHS}
+
+
+def run_graph_vs_eager(train, test, device):
+    """Every single-card kernel-path config the smoke trains (``baseline``,
+    ``hierarchical``, ``dino_nerf.yaml`` and the LoRA trunk on the card's
+    ViT-B/14 maps) at each precision route, over its slice's epochs, as
+    CUDA graph replays and through the card's eager step
+    (``Trainer(_eager_step=True)``): every epoch's per-step losses, the
+    final parameters, both Adam moments and the step counts bit-equal, the
+    graph's launches per step (kernel 1 and the Adam kernel once, kernel 2
+    once more with hierarchical sampling), or raise; the ms per step of
+    both and each capture's cost printed. Returns the graph trainers' ms per
+    step at ``float32``, by config."""
+    from nerf_fewshot_tpu_torch.cli import _precompute_features
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict, load_config
+    from nerf_fewshot_tpu_torch.training.step_graph import kernel_launch_counts
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    dcfg = load_config(os.path.join(ROOT, "experiments", "dino_nerf.yaml"))
+    _, lcfg = lora_trunk_configs()
+    bases = {"baseline": (BASELINE_CONFIG, None), "hierarchical": (HIERARCHICAL_CONFIG, None),
+             "dino_nerf": (dcfg.raw, _precompute_features(dcfg, train, device)),
+             "lora_trunk": (lcfg.raw, _precompute_features(lcfg, train, device))}
+    out = {}
+    for name, (raw, feats) in bases.items():
+        for route in ALL_ROUTES:
+            cfg = config_from_dict({**raw, "rendering": {**raw["rendering"],
+                                                         "compute_dtype": route}})
+            g = Trainer(cfg, train, test, device=device, dino_features=feats)
+            e = Trainer(cfg, train, test, device=device, dino_features=feats, _eager_step=True)
+            for i in range(len(cfg.phases)):
+                g.phase_data(i)
+                e.phase_data(i)
+            steps, sec = 0, {"graph": 0.0, "eager": 0.0}
+            for epoch in GRAPH_GATE_EPOCHS[name]:
+                before = kernel_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = g.epoch_steps(epoch).cpu()
+                sec["graph"] += time.perf_counter() - t0
+                after = kernel_launch_counts()
+                t0 = time.perf_counter()
+                want = e.epoch_steps(epoch).cpu()
+                sec["eager"] += time.perf_counter() - t0
+                n = want.shape[0]
+                steps += n
+                launched = {k: after[k] - before[k] for k in ("train_pe", "fwd_pe", "adam")}
+                expect = {"train_pe": n, "fwd_pe": n if name == "hierarchical" else 0, "adam": n}
+                if launched != expect:
+                    raise RuntimeError(f"{name} {route} epoch {epoch}: launches {launched}, "
+                                       f"expected {expect}")
+                if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                    raise RuntimeError(f"{name} {route} epoch {epoch}: graph and eager losses "
+                                       f"differ")
+            for (k, p), (_, q) in zip(g.model.named_parameters(), e.model.named_parameters()):
+                if not torch.equal(p.detach().view(torch.int32), q.detach().view(torch.int32)):
+                    raise RuntimeError(f"{name} {route}: parameter {k} differs")
+            for p, q in zip(g.optimizer.param_groups[0]["params"],
+                            e.optimizer.param_groups[0]["params"]):
+                for key in ("exp_avg", "exp_avg_sq", "step"):
+                    if not torch.equal(g.optimizer.state[p][key], e.optimizer.state[q][key]):
+                        raise RuntimeError(f"{name} {route}: Adam {key} differs")
+            if g.step_mode != "graph" or e.step_mode != "eager":
+                raise RuntimeError(f"{name} {route}: step modes {g.step_mode}, {e.step_mode}")
+            caps = ", ".join(f"phase {c['phase']} capture {c['capture_ms']:.1f} ms, instantiate "
+                             f"{c['instantiate_ms']:.1f} ms, pool {c['pool_mb']:.1f} MB"
+                             for c in g.graph_captures)
+            print(f"  {name} {route}: {steps} steps over epochs {GRAPH_GATE_EPOCHS[name]} "
+                  f"bit-equal (losses, parameters, moments, steps); ms per step graph "
+                  f"{sec['graph'] / steps * 1e3:.3f}, eager {sec['eager'] / steps * 1e3:.3f} "
+                  f"({e.step_mode_reason}); captures: {caps}", flush=True)
+            if route == "float32":
+                out[name] = sec["graph"] / steps * 1e3
+            del g, e
+    return out
 
 
 def no_sync_run(label, fn):
@@ -1172,8 +1395,11 @@ def run_train_slice(cfg, train, test, device, tmp, psnr_init, tt):
     ``TRAIN_EPOCHS``, then ``fit`` for two more epochs with eval and
     checkpoints into ``tmp``), check it against a plain-path trainer from
     the same seed, and return the launches of (train_pe, train_x), the
-    trained trainer and epoch 0's per-step losses of both trainers."""
+    trained trainer, epoch 0's per-step losses of both trainers and the
+    Adam kernel's launches (one per step: the trainer steps as graph
+    replays)."""
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.optim import AdamKernel
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
     out = {**BASELINE_CONFIG["output"], "save_dir": tmp, "val_freq": 2, "save_freq": 2}
@@ -1192,6 +1418,7 @@ def run_train_slice(cfg, train, test, device, tmp, psnr_init, tt):
         ptr.phase_data(i)
 
     tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+    AdamKernel.launches = 0
     steps, kernel_losses = 0, {}
     for e in TRAIN_EPOCHS:
         torch.cuda.synchronize()
@@ -1217,10 +1444,10 @@ def run_train_slice(cfg, train, test, device, tmp, psnr_init, tt):
     print(f"  fit epochs {ktr.epoch - 1}-{ktr.epoch}: {fit_steps} steps, eval, "
           f"{time.perf_counter() - t0:.3f} s; psnr {psnr0:.4f} dB at init, "
           f"{after['psnr']:.4f} dB after, ssim {after['ssim']:.5f}", flush=True)
-    counts = dict(tt.fused_train_objective.launches)
-    print(f"  launches: {counts} for {steps} steps", flush=True)
-    if counts["train_pe"] != steps:
-        raise RuntimeError(f"{counts['train_pe']} train kernel launches for {steps} steps")
+    counts = {**tt.fused_train_objective.launches, "adam": AdamKernel.launches}
+    print(f"  launches: {counts} for {steps} steps; steps as {ktr.step_mode} replays", flush=True)
+    if counts["train_pe"] != steps or counts["adam"] != steps or ktr.step_mode != "graph":
+        raise RuntimeError(f"{counts} kernel launches for {steps} steps, as {ktr.step_mode}")
     probe = ktr.dead_sigma_probe()
     if not probe > 0.0:
         raise RuntimeError(f"dead-sigma probe {probe}")
@@ -1253,7 +1480,10 @@ def run_train_slice(cfg, train, test, device, tmp, psnr_init, tt):
                 raise RuntimeError(f"epoch {e}: kernel and plain trainers differ by rel "
                                    f"{rel.max()} (tol {TRAIN_LOSS_RTOL})")
     epoch0 = {"kernel": kernel_losses[TRAIN_EPOCHS[0]], "plain": plain0}
-    return counts["train_pe"], counts["train_x"], ktr, epoch0
+    if ptr.step_mode != "eager" or "plain path" not in ptr.step_mode_reason:
+        raise RuntimeError(f"the plain trainer steps as {ptr.step_mode}: {ptr.step_mode_reason}")
+    print(f"  plain trainer steps eagerly: {ptr.step_mode_reason}", flush=True)
+    return counts["train_pe"], counts["train_x"], ktr, epoch0, counts["adam"]
 
 
 def lpips_card_vs_cpu(label, pairs):
@@ -3831,7 +4061,7 @@ def main():
     with phase("train slice"):
         tmp = tempfile.mkdtemp(prefix="chip_smoke_")
         try:
-            train_launches, x_launches, trained, epoch0 = run_train_slice(
+            train_launches, x_launches, trained, epoch0, adam_launches = run_train_slice(
                 cfg, train, test, device, tmp, metrics["psnr"], tt)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -3874,6 +4104,10 @@ def main():
         if trace_views["syncs_total"] > 1:
             raise RuntimeError(f"render_views: {trace_views['syncs_total']} synchronizations")
         adam_layouts_report(trainer)
+        adam_row = run_adam_gate(device)
+
+    with phase("graph vs eager step"):
+        run_graph_vs_eager(train, test, device)
 
     with phase("hierarchical train slice"):
         x_launches_hier = run_hierarchical_slice(train, test, device, tk, tt)
@@ -4161,6 +4395,25 @@ def main():
         "bound_rate": "3xTF32 at 495 TFLOP/s",
         "bound_fp32_ms": bwd_bound32_ms,
         "library_ms": None,
+    }, {
+        "name": "adam",
+        "route": "cuda",
+        "source": "nerf_fewshot_tpu_torch/csrc/adam.cu",
+        "replaces": "nerf_fewshot_tpu/training/optim.py:56",
+        "replaces_note": "no pallas_call: the optax chain (add_decayed_weights, scale_by_adam) "
+                         "that XLA fuses into the JAX trainer's epoch_fn (training/trainer.py:474)",
+        "configs": ["baseline.yaml"],
+        "launches": adam_launches,
+        "max_abs_err": adam_row["max_abs_err"],
+        "ms": adam_row["ms"],
+        "plain_ms": adam_row["plain_ms"],
+        "plain": "torch.optim.Adam(foreach=True)",
+        "bound_ms": adam_row["bound_ms"],
+        "bound_by": adam_row["bound_by"],
+        "library_ms": adam_row["library_ms"],
+        "library": "torch.optim.Adam(fused=True)",
+        "timing": "device ms a step (torch.profiler kernel time)",
+        "wall_ms_of_a_loop": adam_row["wall_ms"],
     }, *dino_kernel_rows, lora_row("train_pe"), lora_row("fwd_pe"), *script_kernel_rows,
         *route_kernel_rows, *wide_kernel_rows, *cap_kernel_rows]}))
     print(json.dumps({"ok": True, "device": {

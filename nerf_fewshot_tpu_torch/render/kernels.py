@@ -210,12 +210,15 @@ class _PackPlan(NamedTuple):
     flattened in ``_src_names`` order with one zero appended (the pads).
     ``w0_rows``: with ``row_perm``, for each input row of the first layer
     its row in ``w0`` (the permutation's inverse; ``None`` without
-    ``row_perm``)."""
+    ``row_perm``). ``bwd``: the inverse of ``fwd``, for each source element
+    in that order its place in the six packed tensors flattened one after
+    the other (every source element is packed once)."""
 
     fwd: torch.Tensor
     shapes: Tuple[Tuple[int, ...], ...]
     in_dim: int
     w0_rows: Optional[torch.Tensor]
+    bwd: torch.Tensor
 
 
 _PACK_PLANS: Dict[tuple, _PackPlan] = {}
@@ -259,9 +262,13 @@ def _pack_plan(src_shapes, hidden_dim: int, d_pad: int, perm: Optional[np.ndarra
     bout[0, :3] = offs[2 * L + 1] + np.arange(3)
     bout[0, 3] = offs[2 * L + 3]
     parts = (w0, b0, wh, bh, wout, bout)
-    plan = _PackPlan(to_device(np.concatenate([p.reshape(-1) for p in parts]), device),
-                     tuple(p.shape for p in parts), in_dim,
-                     None if perm is None else to_device(np.argsort(perm), device))
+    fwd = np.concatenate([p.reshape(-1) for p in parts])
+    live = np.nonzero(fwd != zero)[0]
+    bwd = np.empty(zero, np.int64)
+    bwd[fwd[live]] = live
+    plan = _PackPlan(to_device(fwd, device), tuple(p.shape for p in parts), in_dim,
+                     None if perm is None else to_device(np.argsort(perm), device),
+                     to_device(bwd, device))
     _PACK_PLANS[key] = plan
     return plan
 
@@ -327,19 +334,56 @@ def _gather_plan(state, num_layers: int, hidden_dim: int, d_pad: int,
     return _pack_plan(shapes, hidden_dim, d_pad, perm, _canonical(srcs[0].device)), srcs
 
 
+def _flat_of(dpacked: Packed) -> torch.Tensor:
+    """The six packed gradients as one flat tensor: the buffer they are
+    consecutive views of, as the kernels return them, else their
+    concatenation."""
+    base, off = dpacked[0]._base, dpacked[0].storage_offset()
+    total = sum(d.numel() for d in dpacked)
+    if (base is not None and base.dim() == 1 and base.is_contiguous()
+            and base.storage_offset() == off and base.numel() == total):
+        for d in dpacked:
+            if d._base is not base or d.storage_offset() != off or not d.is_contiguous():
+                break
+            off += d.numel()
+        else:
+            return base
+    return torch.cat([d.reshape(-1) for d in dpacked])
+
+
 def packed_grads(state: Mapping[str, torch.Tensor], num_layers: int, hidden_dim: int,
-                 d_pad: int, row_perm: Optional[RowPerm], dpacked: Packed
-                 ) -> Dict[str, torch.Tensor]:
+                 d_pad: int, row_perm: Optional[RowPerm], dpacked: Packed,
+                 out: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
     """The gradients of a trunk without LoRA's parameters, by name, from the
     gradients of ``pack_params(state, ..., d_pad, row_perm)``'s six tensors:
     what autograd through the packing gives back for a cotangent of one,
     without the autograd engine (``_unpack``: views with the layer-by-layer
-    packing's strides, and the gather of ``w0``'s rows)."""
+    packing's strides, and the gather of ``w0``'s rows).
+
+    ``out``: a flat float32 buffer of the parameters' numel in
+    ``_src_names`` order; the gradients are written there, each contiguous
+    in its parameter's shape, by one gather from the packed gradients (and,
+    with ``row_perm``, the +0.0 that ``_unpack`` adds to ``w0``'s), and the
+    dict holds views of it: the same values, bit for bit."""
     found = _gather_plan(state, num_layers, hidden_dim, d_pad, row_perm)
     if found is None:
         raise ValueError("packed_grads: the trunk has LoRA layers (or row_perm is not a "
                          "permutation); take its gradients through the packing by autograd")
-    return dict(zip(_src_names(num_layers), _unpack(found[0], *dpacked)))
+    plan, srcs = found
+    names = _src_names(num_layers)
+    if out is None:
+        return dict(zip(names, _unpack(plan, *dpacked)))
+    if out.dim() != 1 or not out.is_contiguous() or out.numel() != plan.bwd.numel():
+        raise ValueError(f"packed_grads: out must be a contiguous flat buffer of "
+                         f"{plan.bwd.numel()} elements; got {tuple(out.shape)}")
+    torch.index_select(_flat_of(dpacked), 0, plan.bwd, out=out)
+    if plan.w0_rows is not None:
+        out[:srcs[0].numel()].add_(0.0)
+    views, off = {}, 0
+    for n, s in zip(names, srcs):
+        views[n] = out[off:off + s.numel()].view(s.shape)
+        off += s.numel()
+    return views
 
 
 def pack_params(
@@ -642,6 +686,13 @@ def _scratch(lib, device: torch.device, R: int, S: int, D: int, H: int, L1: int,
                 f"than {device} can allocate") from None
         _SCRATCH[key] = buf
     return buf
+
+
+def scratch_buffers() -> List[torch.Tensor]:
+    """The kernels' scratch buffers as they are now. A CUDA graph that
+    captured a kernel call holds the scratch it was given: it keeps these
+    alive, as a later, larger call replaces the cached one."""
+    return list(_SCRATCH.values())
 
 
 def _split_grads(flat: torch.Tensor, packed: Packed) -> Packed:

@@ -417,6 +417,7 @@ def fused_train_loss_grad(
     lora_alpha: float = 16.0,
     dw_precision: Optional[str] = None,
     head_mode: str = "mxu",
+    grad_buffer: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(masked-MSE loss, parameter gradients by name) in one kernel call.
 
@@ -442,6 +443,12 @@ def fused_train_loss_grad(
     directly (``packed_grads``: the views and the row gather that autograd
     through ``pack_params`` gives back for the loss's cotangent of one); a
     LoRA trunk takes them through the merge by autograd.
+    ``grad_buffer``: a flat float32 buffer the size of every parameter
+    together; the gradients are also written there, each contiguous in its
+    parameter's shape, in ``_src_names`` order for a trunk without LoRA (one
+    gather from the packed gradients, ``packed_grads(out=)``) and in
+    ``params`` order for a LoRA trunk (one multi-tensor copy). The returned
+    gradients stay as they come, the layouts a reduction over them sums in.
     """
     if isinstance(model_or_state, nn.Module):
         params = dict(model_or_state.named_parameters())
@@ -463,9 +470,40 @@ def fused_train_loss_grad(
             row_perm = pe_constants(pos_freq, dir_freq, use_viewdirs,
                                     0 if feats is None else feats.shape[1],
                                     rays_o.device).row_perm
-        return loss.detach(), packed_grads(params, num_layers, hidden_dim,
-                                           packed[0].shape[0], row_perm, dpacked)
+        grads = packed_grads(params, num_layers, hidden_dim, packed[0].shape[0], row_perm,
+                             dpacked)
+        if grad_buffer is not None:
+            packed_grads(params, num_layers, hidden_dim, packed[0].shape[0], row_perm, dpacked,
+                         out=grad_buffer)
+        return loss.detach(), grads
     loss = _TrainObjective.apply(*inputs, opts, *packed)
     names = list(params)
     grads = torch.autograd.grad(loss, [params[k] for k in names])
+    if grad_buffer is not None:
+        torch._foreach_copy_(_views_of(grad_buffer, [params[k] for k in names]), list(grads))
     return loss.detach(), dict(zip(names, grads))
+
+
+def grad_buffer(params: Mapping[str, torch.Tensor], num_layers: int
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """A zeroed flat buffer for ``fused_train_loss_grad(grad_buffer=)`` over
+    ``params`` (a model's parameters by name) and its views by name, each
+    contiguous in its parameter's shape, laid out as the call writes them."""
+    names = list(_src_names(num_layers))
+    if set(params) != set(names):  # a LoRA trunk: in ``params`` order
+        names = list(params)
+    like = [params[n] for n in names]
+    flat = torch.zeros(sum(t.numel() for t in like), dtype=torch.float32,
+                       device=like[0].device)
+    return flat, dict(zip(names, _views_of(flat, like)))
+
+
+def _views_of(flat: torch.Tensor, like) -> list:
+    """Consecutive views of the flat ``flat`` shaped like the tensors of ``like``."""
+    out, off = [], 0
+    for t in like:
+        out.append(flat[off:off + t.numel()].view(t.shape))
+        off += t.numel()
+    if off != flat.numel():
+        raise ValueError(f"a flat buffer of {flat.numel()} elements for {off}")
+    return out

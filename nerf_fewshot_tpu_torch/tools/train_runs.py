@@ -22,7 +22,8 @@ synchronized), the milliseconds per view of a ``render_views`` call of the
 8 test views (after a first call), and epoch 104 traced (``trace``: the
 device's busy share of the wall, stream synchronizations, device events
 and launches per step, and, traced with the CPU activity, the host's
-milliseconds per step by part). ``--bits`` saves every epoch's per-step
+milliseconds per step by part; Adam's device ms a step, and the trainer's
+CUDA graph captures with their costs). ``--bits`` saves every epoch's per-step
 losses, the parameters after epoch 103 and test view 0 rendered then.
 ``--configs`` adds ``experiments/dino_nerf.yaml`` and
 ``experiments/lora_nerf_trunk.yaml`` (with ``sigma_bias: 0.1``, the
@@ -92,7 +93,10 @@ def _traced(smoke, tr, epoch):
             "syncs_per_step": untraced["syncs"], "syncs_per_epoch": untraced["syncs_total"],
             "events_per_step": untraced["events"], "launches_per_step": untraced["launches"],
             "device_ms_per_step": sum(untraced["parts"].values()),
-            "host_ms_per_step": cpu["host"]}
+            "adam_device_ms_per_step": (cpu["parts"].get("adam", 0.0)
+                                        + cpu["parts"].get("adam_step", 0.0)),
+            "host_ms_per_step": cpu["host"],
+            "captures": getattr(tr, "graph_captures", [])}
 
 
 def _other(root, name, train, test, device, smoke):
@@ -202,7 +206,10 @@ def _mean_trace(recs, key=None):
     import numpy as np
 
     traces = [(r if key is None else r[key])["trace"] for r in recs]
-    out = {k: float(np.mean([t[k] for t in traces])) for k in traces[0] if k != "host_ms_per_step"}
+    out = {k: float(np.mean([t[k] for t in traces])) for k in traces[0]
+           if k not in ("host_ms_per_step", "captures")}
+    if traces[0].get("captures"):
+        out["captures"] = traces[0]["captures"]
     out["host_ms_per_step"] = {k: float(np.mean([t["host_ms_per_step"][k] for t in traces]))
                                for k in traces[0]["host_ms_per_step"]}
     return out

@@ -37,6 +37,17 @@ step, so every rank takes the same step: the kernel path through
 autograd and one all-reduce. Eval and the dead-sigma probe render on each
 rank alone.
 
+On a card the kernel path's steps off a mesh run as a CUDA graph
+(``training/step_graph.py``): each phase's step body is captured once and
+replayed once per minibatch, its Adam step one launch of ``csrc/adam.cu``
+(``AdamKernel``), bit-equal to the eager step. ``step_mode`` says "graph" or
+"eager" and ``step_mode_reason`` why a trainer steps eagerly: the plain
+path, a mesh, the CPU, or ``Trainer(_eager_step=True)``, the card's eager
+step kept for the gates that hold the graph to it. Every trainer writes the
+step's gradients into contiguous ``.grad`` buffers allocated once
+(``grad_buffer``) and clips them, when the config clips, before the step
+with the norm summed over the gradients as the kernel gave them.
+
 ``arch: module`` trains ``NeRFWithDINO`` on the plain path. Trunk LoRA
 (``nerf_model.lora_rank``) runs through the kernels with the LoRA pairs
 merged into the trunk weights (``pack_params``), and
@@ -80,11 +91,18 @@ from nerf_fewshot_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, process_l
 from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
 from nerf_fewshot_tpu_torch.render.kernels import pack_params, pe_constants, pe_width, to_device
 from nerf_fewshot_tpu_torch.render.pipeline import PointFeaturesFn, RenderSettings, render_rays
-from nerf_fewshot_tpu_torch.render.train_kernel import fused_train_loss_grad
+from nerf_fewshot_tpu_torch.render.train_kernel import fused_train_loss_grad, grad_buffer
 from nerf_fewshot_tpu_torch.training.config import Config
 from nerf_fewshot_tpu_torch.training.losses import nerf_loss
 from nerf_fewshot_tpu_torch.training.metrics import LPIPSMetric, psnr, ssim
-from nerf_fewshot_tpu_torch.training.optim import make_optimizer, multistep_lr, set_learning_rate
+from nerf_fewshot_tpu_torch.training.optim import (
+    AdamKernel,
+    clip_by_global_norm_,
+    make_optimizer,
+    multistep_lr,
+    set_learning_rate,
+)
+from nerf_fewshot_tpu_torch.training.step_graph import WARMUP_STEPS, StaticStep, StepGraph
 from nerf_fewshot_tpu_torch.utils.checkpoint import (
     checkpoint_format,
     restore_checkpoint,
@@ -157,9 +175,12 @@ class Trainer:
         log_path: Optional[str] = None,
         dino_features: Optional[np.ndarray] = None,  # (V, Hp, Wp, Fd)
         mesh: Optional[Mesh] = None,
+        _eager_step: bool = False,
     ):
         self.cfg = cfg
         self.mesh = mesh
+        # the card's eager step, for the gates that hold the graph to it
+        self._eager_step = _eager_step
         if mesh is not None:
             if device is not None and resolve_device(device) != mesh.device:
                 raise ValueError(f"device {device} is not the mesh rank's device {mesh.device}")
@@ -203,9 +224,19 @@ class Trainer:
         self.lr_at = multistep_lr(
             cfg.optimizer.lr, cfg.optimizer.lr_milestones, cfg.optimizer.lr_gamma
         )
-        self.optimizer = make_optimizer(cfg.optimizer, self.model.named_parameters())
+        self.optimizer = self._make_optimizer()
         # the two-phase freeze has swapped in the LoRA-only optimizer
         self._lora_only_active = False
+        # "graph" or "eager" and why eager, set by every choice of the step
+        self.step_mode: Optional[str] = None
+        self.step_mode_reason: Optional[str] = None
+        # the contiguous gradient buffers (model identity, flat, views by name),
+        # and the last kernel step's gradients as the kernel gave them
+        self._grads = None
+        self._kernel_grads = None
+        # the current phase's static-buffer step, and every capture's costs
+        self._static: Optional[StaticStep] = None
+        self.graph_captures = []
         self.epoch = 0
         self.best_psnr = 0.0
         # consecutive epochs the dead-sigma probe reported acc == 0
@@ -236,6 +267,12 @@ class Trainer:
         from_jax = nerf_with_dino_from_jax if self.cfg.nerf.arch == "module" else nerf_mlp_from_jax
         self.model.load_state_dict(from_jax(params))
 
+    def _make_optimizer(self, lora_only: bool = False) -> torch.optim.Optimizer:
+        """The configured optimizer over the model's parameters, without the
+        clip hook: every step clips first (``_optimizer_step``)."""
+        return make_optimizer(self.cfg.optimizer, self.model.named_parameters(),
+                              lora_only=lora_only, clip_hook=False)
+
     def feature_sampler(self, view: int, global_mean: bool = False) -> Optional[PointFeaturesFn]:
         """Train view ``view``'s conditioning closure (``_feature_sampler``
         with the DINO config's conventions and the full-resolution
@@ -245,6 +282,11 @@ class Trainer:
         batch), by one all-reduce per call."""
         if not self.use_dino:
             return None
+        return self._sampler(self.dino_features[view], self._poses_t[view], global_mean)
+
+    def _sampler(self, feat_map: torch.Tensor, pose: torch.Tensor,
+                 global_mean: bool = False) -> PointFeaturesFn:
+        """``feature_sampler`` of the map ``feat_map`` seen from ``pose``."""
         d = self.cfg.dino
         batch_mean = None
         if global_mean and self.mesh is not None and d.invalid_fill == "mean":
@@ -255,7 +297,7 @@ class Trainer:
                 return total / (f.shape[0] * mesh.world_size)
 
         return _feature_sampler(
-            self.dino_features[view], self._poses_t[view], self.focal, self.H, self.W,
+            feat_map, pose, self.focal, self.H, self.W,
             align_corners=d.align_corners, invalid_fill=d.invalid_fill, projection=d.projection,
             batch_mean=batch_mean)
 
@@ -403,29 +445,67 @@ class Trainer:
 
     # ------------------------------------------------------------- train step
 
-    def _kernel_loss_grad(self, ro, rd, tgt, mask, settings, draws, view, dp=None) -> torch.Tensor:
-        """One step's loss on train view ``view``; its gradients land in the
-        parameters' ``.grad``. Under a mesh through ``dp``, the epoch's
-        ``make_dp_fused_loss_grad``, summed over the ranks."""
+    def _grad_buffer(self) -> torch.Tensor:
+        """The flat buffer of the step's gradients, made once per model
+        (``grad_buffer``), its views the parameters' ``.grad``."""
+        named = list(self.model.named_parameters())
+        key = tuple(id(p) for _, p in named)
+        if self._grads is None or self._grads[0] != key:
+            flat, views = grad_buffer(dict(named), self.cfg.nerf.num_layers)
+            self._grads = (key, flat, views)
+        _, flat, views = self._grads
+        for name, p in named:
+            if p.grad is not views[name]:
+                p.grad = views[name]
+        return flat
+
+    def _kernel_loss_grad(self, ro, rd, tgt, mask, settings, draws, view, dp=None,
+                          pf=None) -> torch.Tensor:
+        """One step's loss on train view ``view`` (or conditioned by ``pf``);
+        its gradients land in the parameters' ``.grad``: off a mesh the
+        contiguous buffers of ``_grad_buffer``, under a mesh through ``dp``,
+        the epoch's ``make_dp_fused_loss_grad``, summed over the ranks. Off
+        a mesh ``_kernel_grads`` keeps the gradients as the kernel gave them,
+        which the clip's norm sums over (``_optimizer_step``)."""
         cfg = self.cfg
+        self._kernel_grads = None
         if dp is not None:
             loss, grads = dp(self.model, draws["uniforms"], ro, rd, tgt, mask,
                              *((view,) if self.use_dino else ()),
                              importance_uniforms=draws["importance_uniforms"])
-        else:
-            loss, grads = fused_train_loss_grad(
-                self.model, ro, rd, tgt, mask, settings,
-                pos_freq=cfg.nerf.pos_freq, dir_freq=cfg.nerf.dir_freq,
-                num_layers=cfg.nerf.num_layers, hidden_dim=cfg.nerf.hidden_dim,
-                use_viewdirs=cfg.nerf.use_viewdirs, compute_dtype=cfg.rendering.compute_dtype,
-                uniforms=draws["uniforms"], importance_uniforms=draws["importance_uniforms"],
-                point_features_fn=self.feature_sampler(view),
-                rgb_weight=float(cfg.loss.rgb_weight),
-                reg_weight=self._kernel_reg_weight(), lora_alpha=cfg.nerf.lora_alpha,
-            )
-        for name, p in self.model.named_parameters():
-            p.grad = grads[name]
+            for name, p in self.model.named_parameters():
+                p.grad = grads[name]
+            return loss
+        loss, self._kernel_grads = fused_train_loss_grad(
+            self.model, ro, rd, tgt, mask, settings,
+            pos_freq=cfg.nerf.pos_freq, dir_freq=cfg.nerf.dir_freq,
+            num_layers=cfg.nerf.num_layers, hidden_dim=cfg.nerf.hidden_dim,
+            use_viewdirs=cfg.nerf.use_viewdirs, compute_dtype=cfg.rendering.compute_dtype,
+            uniforms=draws["uniforms"], importance_uniforms=draws["importance_uniforms"],
+            point_features_fn=self.feature_sampler(view) if pf is None else pf,
+            rgb_weight=float(cfg.loss.rgb_weight),
+            reg_weight=self._kernel_reg_weight(), lora_alpha=cfg.nerf.lora_alpha,
+            grad_buffer=self._grad_buffer(),
+        )
         return loss
+
+    def _optimizer_step(self, grads: Optional[Mapping[str, torch.Tensor]] = None,
+                        adam: Optional[AdamKernel] = None) -> None:
+        """The configured global-norm clip of the optimizer's ``.grad``, its
+        norm summed over ``grads`` (by name, as the kernel gave them) when
+        given, then one step: ``adam``'s when given, else the optimizer's."""
+        clip = self.cfg.optimizer.grad_clip
+        if clip > 0:
+            params = self.optimizer.param_groups[0]["params"]
+            norm_grads = None
+            if grads is not None:
+                names = {id(p): n for n, p in self.model.named_parameters()}
+                norm_grads = [grads[names[id(p)]] for p in params]
+            clip_by_global_norm_(params, float(clip), norm_grads)
+        if adam is not None:
+            adam.step()
+        else:
+            self.optimizer.step()
 
     def _kernel_reg_weight(self) -> float:
         cfg = self.cfg
@@ -480,6 +560,39 @@ class Trainer:
     def _batch_granularity(self) -> int:
         return 1 if self.mesh is None else self.mesh.world_size
 
+    def _use_graph(self) -> bool:
+        """Whether this epoch's steps run as CUDA graph replays (the kernel
+        path off a mesh, on a card). Records the choice in ``step_mode``
+        ("graph" or "eager") and ``step_mode_reason``."""
+        reason = None
+        if not self._use_fused():
+            reason = f"the plain path ({self.kernel_path_reason})"
+        elif self.mesh is not None:
+            reason = "a data-parallel mesh: its all-reduces are not captured"
+        elif self.device.type != "cuda":
+            reason = f"no CUDA graph on {self.device.type}"
+        elif self._eager_step:
+            reason = "the card's eager step, asked for by Trainer(_eager_step=True)"
+        self.step_mode = "graph" if reason is None else "eager"
+        self.step_mode_reason = reason
+        return reason is None
+
+    def _epoch_batches(self, n_rays: int, B: int) -> Tuple[np.ndarray, np.ndarray]:
+        """The epoch's minibatches: ``idxs`` (V, n_batches, B), each view's
+        fresh permutation (``np.random.default_rng(cfg.seed)``, one draw per
+        view in view order, as the JAX trainer draws them) with the ragged
+        tail padded with index 0, and ``masks`` (n_batches, B), 0 on the
+        padding (the same for every view)."""
+        n_batches = (n_rays + B - 1) // B
+        pad_total = n_batches * B - n_rays
+        idxs = np.empty((self.n_views, n_batches, B), np.int64)
+        masks = np.ones((n_batches * B,), np.float32)
+        masks[n_rays:] = 0.0
+        for v in range(self.n_views):
+            perm = self._np_rng.permutation(n_rays)
+            idxs[v] = np.concatenate([perm, np.zeros(pad_total, perm.dtype)]).reshape(n_batches, B)
+        return idxs, masks.reshape(n_batches, B)
+
     def train_epoch(self, epoch: int) -> float:
         """One epoch over all views: a fresh permutation per view, the
         ragged tail padded with index 0 and mask 0, one optimizer step per
@@ -494,35 +607,24 @@ class Trainer:
         """``train_epoch``'s steps: the per-step losses as one tensor on the
         device. On a card the host waits for the device nowhere in here (the
         batch indices reach it by a stream-ordered copy from pinned memory),
-        once the phase's data (``phase_data``) is on the device."""
+        once the phase's data (``phase_data``) is on the device. On the
+        kernel path off a mesh the steps are replays of the phase's CUDA
+        graph (``_static_epoch``); elsewhere each step is dispatched op by
+        op."""
         cfg = self.cfg
-        phase_idx = self._phase_index(epoch)
+        phase_idx = self._begin_epoch(epoch)
+        if self._use_graph():
+            return self._static_epoch(phase_idx, graphed=True)
         p = cfg.phases[phase_idx]
         pd = self.phase_data(phase_idx)
-        boundary = cfg.optimizer.lora_only_after_epoch
-        if boundary and epoch >= boundary and not self._lora_only_active:
-            # the two-phase freeze (JAX trainer.py:567-575): a fresh
-            # optimizer over the LoRA parameters alone, once
-            self.optimizer = make_optimizer(cfg.optimizer, self.model.named_parameters(),
-                                            lora_only=True)
-            self._lora_only_active = True
-        set_learning_rate(self.optimizer, self.lr_at(epoch))
-
         n_rays = pd.rays_o.shape[1]
         B = min(p.batch_size, n_rays)
         g = self._batch_granularity()
         B = -(-B // g) * g  # equal shards (JAX trainer.py:581-583)
-        n_batches = (n_rays + B - 1) // B
-        V = self.n_views
-        pad_total = n_batches * B - n_rays
-        idxs = np.empty((V, n_batches, B), np.int64)
-        masks = np.ones((n_batches * B,), np.float32)  # every view's: the padded tail
-        masks[n_rays:] = 0.0
-        for v in range(V):
-            perm = self._np_rng.permutation(n_rays)
-            idxs[v] = np.concatenate([perm, np.zeros(pad_total, perm.dtype)]).reshape(n_batches, B)
+        idxs, masks = self._epoch_batches(n_rays, B)
+        n_batches = masks.shape[0]
         idxs_t = to_device(idxs, self.device)
-        masks_t = to_device(masks.reshape(n_batches, B), self.device)
+        masks_t = to_device(masks, self.device)
 
         settings = self._render_settings(p.n_samples, training=True)
         fused = self._use_fused()
@@ -536,7 +638,7 @@ class Trainer:
                 point_features_builder=self.feature_sampler if self.use_dino else None,
                 reg_weight=self._kernel_reg_weight(), rgb_weight=float(cfg.loss.rgb_weight))
         losses = []
-        for v in range(V):
+        for v in range(self.n_views):
             # steps sample view v's map and pose (JAX trainer.py:608-613)
             view_packed = torch.cat([pd.rays_o[v], pd.rays_d[v], pd.targets[v]], dim=1)
             for b in range(n_batches):
@@ -545,13 +647,141 @@ class Trainer:
                          for k, d in self._draws(B, p.n_samples, settings).items()}
                 mask = masks_t[b]
                 args = (row[:, 0:3], row[:, 3:6], row[:, 6:9], mask[rows], settings, draws, v)
+                grads = None
                 if fused:
-                    losses.append(self._kernel_loss_grad(*args, dp=dp))
+                    loss = self._kernel_loss_grad(*args, dp=dp)
+                    grads = self._kernel_grads
                 else:
                     denom = None if self.mesh is None else torch.sum(mask)
-                    losses.append(self._plain_loss_grad(*args, denom=denom))
-                self.optimizer.step()
+                    loss = self._plain_loss_grad(*args, denom=denom)
+                losses.append(loss)
+                self._optimizer_step(grads)
         return torch.stack(losses)
+
+    def _begin_epoch(self, epoch: int) -> int:
+        """An epoch's set-up, whatever runs its steps: the phase's data on the
+        device, the two-phase freeze, the epoch's lr. Returns the phase."""
+        cfg = self.cfg
+        phase_idx = self._phase_index(epoch)
+        self.phase_data(phase_idx)
+        boundary = cfg.optimizer.lora_only_after_epoch
+        if boundary and epoch >= boundary and not self._lora_only_active:
+            # the two-phase freeze (JAX trainer.py:567-575): a fresh
+            # optimizer over the LoRA parameters alone, once
+            self.optimizer = self._make_optimizer(lora_only=True)
+            self._lora_only_active = True
+        set_learning_rate(self.optimizer, self.lr_at(epoch))
+        return phase_idx
+
+    # ------------------------------------------------- the static-buffer step
+
+    def _static_epoch_steps(self, epoch: int) -> torch.Tensor:
+        """``epoch_steps`` through the static-buffer body run as it is, with
+        no graph (the kernel path off a mesh): the CPU tests hold it to the
+        eager steps bit for bit."""
+        phase_idx = self._begin_epoch(epoch)
+        if not self._use_fused() or self.mesh is not None:
+            raise ValueError("the static-buffer step is the kernel path's, off a mesh")
+        return self._static_epoch(phase_idx, graphed=False)
+
+    def _static_step(self, phase_idx: int) -> StaticStep:
+        """The phase's ``StaticStep``, made at the phase's first epoch (the
+        previous phase's, and its graph, dropped), with an ``AdamKernel``
+        over the current optimizer: a new one, and no graph, after the
+        optimizer or its state tensors were replaced (the freeze, a
+        ``load``)."""
+        st = self._static
+        if st is None or st.phase_idx != phase_idx:
+            self._static = st = None
+            p = self.cfg.phases[phase_idx]
+            pd = self.phase_data(phase_idx)
+            n_rays = pd.rays_o.shape[1]
+            B = min(p.batch_size, n_rays)
+            n_steps = self.n_views * ((n_rays + B - 1) // B)
+            dev = self.device
+            rays = torch.cat([pd.rays_o, pd.rays_d, pd.targets], dim=2).reshape(-1, 9)
+            st = StaticStep(
+                phase_idx=phase_idx, batch=B, n_batches=n_steps // self.n_views,
+                n_samples=p.n_samples, settings=self._render_settings(p.n_samples, training=True),
+                rays=rays, rows=torch.zeros((n_steps, B), dtype=torch.int64, device=dev),
+                mask=torch.zeros((n_steps, B), dtype=torch.float32, device=dev),
+                views=torch.zeros(n_steps, dtype=torch.int64, device=dev),
+                losses=torch.zeros(n_steps, dtype=torch.float32, device=dev))
+            self._static = st
+        self._grad_buffer()
+        if st.adam is None or not st.adam.is_current(self.optimizer):
+            st.graph = None
+            st.adam = AdamKernel(self.optimizer,
+                                 [p.grad for p in self.optimizer.param_groups[0]["params"]],
+                                 st.n_steps, self.device)
+        return st
+
+    def _begin_static_epoch(self, st: StaticStep) -> None:
+        """The epoch's host work: its minibatches (``_epoch_batches``) as
+        rows of ``st.rays``, their masks and views, each one stream-ordered
+        copy into the phase's buffers, and the Adam kernel's table for the
+        epoch's steps at its lr."""
+        n_rays = st.rays.shape[0] // self.n_views
+        idxs, masks = self._epoch_batches(n_rays, st.batch)
+        rows = idxs + (np.arange(self.n_views, dtype=np.int64) * n_rays)[:, None, None]
+        st.rows.copy_(to_device(rows.reshape(st.n_steps, st.batch), self.device))
+        st.mask.copy_(to_device(np.tile(masks, (self.n_views, 1)), self.device))
+        st.views.copy_(to_device(np.repeat(np.arange(self.n_views, dtype=np.int64),
+                                           st.n_batches), self.device))
+        st.adam.begin_epoch(st.n_steps)
+
+    def _static_body(self, st: StaticStep) -> None:
+        """One step that reads only device buffers and the device step index
+        (``st.adam.counter[0]``): the batch's rows, mask and view gathered by
+        it, the jitter drawn, the objective and its gradients into the
+        ``.grad`` buffers, the loss into ``st.losses``, the clip and the Adam
+        step, which moves the index on."""
+        step = st.adam.counter[:1]
+        row = st.rays.index_select(0, st.rows.index_select(0, step).reshape(-1))
+        mask = st.mask.index_select(0, step).reshape(-1)
+        pf = None
+        if self.use_dino:
+            view = st.views.index_select(0, step)
+            pf = self._sampler(self.dino_features.index_select(0, view)[0],
+                               self._poses_t.index_select(0, view)[0])
+        draws = self._draws(st.batch, st.n_samples, st.settings)
+        loss = self._kernel_loss_grad(row[:, 0:3], row[:, 3:6], row[:, 6:9], mask, st.settings,
+                                      draws, None, pf=pf)
+        st.losses.index_copy_(0, step, loss.reshape(1))
+        self._optimizer_step(self._kernel_grads, adam=st.adam)
+
+    def _static_epoch(self, phase_idx: int, graphed: bool) -> torch.Tensor:
+        """An epoch of the static-buffer step: the host work once, then each
+        step the body, run as it is (``graphed`` False: the CPU tests hold it
+        to the eager steps) or as a replay of the phase's CUDA graph,
+        captured at the phase's first epoch (or after the optimizer was
+        replaced) after ``WARMUP_STEPS`` eager steps on a side stream."""
+        st = self._static_step(phase_idx)
+        n = st.n_steps
+        self._begin_static_epoch(st)
+        done = 0
+        if not graphed:
+            for _ in range(n):
+                self._static_body(st)
+            done = n
+        elif st.graph is None:
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                for _ in range(min(WARMUP_STEPS, n)):
+                    self._static_body(st)
+                    done += 1
+                st.graph = StepGraph(lambda: self._static_body(st), side, self._generator)
+            cur.wait_stream(side)
+            self.graph_captures.append({
+                "phase": phase_idx, "capture_ms": st.graph.capture_ms,
+                "instantiate_ms": st.graph.instantiate_ms, "pool_mb": st.graph.pool_mb,
+                "launches_per_replay": dict(st.graph.launches)})
+        for _ in range(n - done):
+            st.graph.replay()
+        st.adam.end_epoch(n)
+        return st.losses.clone()
 
     # ------------------------------------------------------------- health
 

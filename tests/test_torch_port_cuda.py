@@ -1257,8 +1257,146 @@ def test_epoch_steps_and_render_views_make_no_synchronization(h100, kind):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert tt.fused_train_objective.launches["train_pe"] - before == 2 * 3
+        assert (tr.step_mode == "graph") == (mesh is None), tr.step_mode_reason
         assert losses.shape == (6,) and torch.isfinite(losses).all()
         assert views[0].shape == (2, 24, 24, 3) and all(torch.isfinite(v).all() for v in views)
     finally:
         if mesh is not None:
             dist.destroy_process_group()
+
+
+# ---------------------------------------------- the Adam kernel and the graph
+
+# (kind, weight decay, global-norm clip) of the Adam kernel's gate
+ADAM_CASES = {"adam_wd1e-6": ("adam", 1e-6, 0.0), "adam_wd0": ("adam", 0.0, 0.0),
+              "adam_wd1e-6_clip": ("adam", 1e-6, 1.0), "adam_wd0_clip": ("adam", 0.0, 1.0),
+              "adamw_wd1e-6": ("adamw", 1e-6, 0.0)}
+
+
+def _same_bits(a, b):
+    return a.shape == b.shape and torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(ADAM_CASES))
+def test_adam_kernel_is_bit_equal_to_foreach_adam(h100, case):
+    """``AdamKernel`` (``csrc/adam.cu``, one launch a step) against
+    ``torch.optim.Adam(foreach=True)`` (``AdamW`` for ``adamw``) over 200
+    steps across three lr milestones, with and without weight decay and the
+    clip (``chip_smoke.adam_steps``: the baseline's parameters, gradients at
+    scales over three decades): parameters, both moments and the step count
+    bit-equal."""
+    from nerf_fewshot_tpu_torch.training.optim import AdamKernel
+
+    import chip_smoke
+
+    kind, wd, clip = ADAM_CASES[case]
+    before = AdamKernel.launches
+    got = chip_smoke.adam_steps(h100, kind, wd, clip, kernel=True)
+    assert AdamKernel.launches - before == 200
+    want = chip_smoke.adam_steps(h100, kind, wd, clip, kernel=False)
+    torch.cuda.synchronize()
+    for p, q in zip(got.param_groups[0]["params"], want.param_groups[0]["params"]):
+        assert _same_bits(p.detach(), q.detach())
+        for key in ("exp_avg", "exp_avg_sq"):
+            assert _same_bits(got.state[p][key], want.state[q][key]), key
+        assert float(got.state[p]["step"]) == float(want.state[q]["step"]) == 200.0
+
+
+GRAPH_KINDS = {"baseline": {}, "hierarchical": {"rendering": {"n_importance": 16}},
+               "lora": {"nerf_model": {"lora_rank": 4}, "optimizer": {"lora_only_after_epoch": 2}},
+               "dino": {"model": {"use_dino": True, "dino_model_type": "single_scale"}},
+               "clip": {"optimizer": {"grad_clip": 0.05}},
+               "bfloat16": {"rendering": {"compute_dtype": "bfloat16"}},
+               "highest": {"rendering": {"compute_dtype": "highest"}}}
+
+
+def _graph_trainer(kind, device, eager):
+    from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    d = {k: dict(v) for k, v in DP_CONFIG.items()}
+    for k, v in GRAPH_KINDS[kind].items():
+        d[k] = {**d.get(k, {}), **v}
+    data = make_scene_dataset(lego_like_scene(), 2, img_size=24, gt_samples=64, device="cpu")
+    feats = (np.random.default_rng(4).standard_normal((2, 3, 3, 64)).astype(np.float32)
+             if kind == "dino" else None)
+    return Trainer(config_from_dict(d), data, data, device=device, dino_features=feats,
+                   _eager_step=eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", sorted(GRAPH_KINDS))
+def test_graphed_epochs_are_bit_equal_to_the_eager_step(h100, kind):
+    """Epochs 0-3 (two phases, jitter on, ragged tails; the LoRA trunk
+    across its freeze at epoch 2) as CUDA graph replays and through the
+    card's eager step (``Trainer(_eager_step=True)``): per-step losses,
+    parameters, both Adam moments and the step counts bit-equal. The graph
+    launches kernel 1 and the Adam kernel once per step (kernel 2 once more
+    with hierarchical sampling), counted per replay; each trainer records
+    its step mode and the eager one why."""
+    from nerf_fewshot_tpu_torch.training.optim import AdamKernel
+    from nerf_fewshot_tpu_torch.training.step_graph import kernel_launch_counts
+
+    # the graphed trainer on the default device, "cuda" with no index, as
+    # the CLI makes it
+    graph, eager = _graph_trainer(kind, None, False), _graph_trainer(kind, h100, True)
+    for epoch in range(4):
+        before = kernel_launch_counts()
+        got = graph.epoch_steps(epoch)
+        after = kernel_launch_counts()
+        want = eager.epoch_steps(epoch)
+        n = want.shape[0]
+        assert _same_bits(got, want), epoch
+        assert after["train_pe"] - before["train_pe"] == n
+        assert after["adam"] - before["adam"] == n
+        assert after["fwd_pe"] - before["fwd_pe"] == (n if kind == "hierarchical" else 0)
+    assert graph.step_mode == "graph" and graph.step_mode_reason is None
+    assert eager.step_mode == "eager" and "_eager_step" in eager.step_mode_reason
+    assert len(graph.graph_captures) == (3 if kind == "lora" else 2)
+    assert all(c["launches_per_replay"]["adam"] == 1 for c in graph.graph_captures)
+    for (k, p), (_, q) in zip(graph.model.named_parameters(), eager.model.named_parameters()):
+        assert _same_bits(p.detach(), q.detach()), k
+    for p, q in zip(graph.optimizer.param_groups[0]["params"],
+                    eager.optimizer.param_groups[0]["params"]):
+        for key in ("exp_avg", "exp_avg_sq", "step"):
+            assert torch.equal(graph.optimizer.state[p][key].cpu(),
+                               eager.optimizer.state[q][key].cpu()), key
+    assert AdamKernel.launches > 0
+
+
+@pytest.mark.cuda
+def test_graphed_trainer_recaptures_after_a_load(h100, tmp_path):
+    """A graphed trainer saved after epoch 1 and loaded again (the
+    optimizer's state tensors replaced) recaptures its graph and trains on
+    bit-equal to the eager trainer that did the same."""
+    graph, eager = _graph_trainer("baseline", h100, False), _graph_trainer("baseline", h100, True)
+    for tr, name in ((graph, "g.ckpt"), (eager, "e.ckpt")):
+        tr.train_epoch(0)
+        tr.train_epoch(1)
+        tr.save(str(tmp_path / name))
+        tr.load(str(tmp_path / name))
+    captures = len(graph.graph_captures)
+    assert _same_bits(graph.epoch_steps(2), eager.epoch_steps(2))
+    assert len(graph.graph_captures) == captures + 1
+    for (k, p), (_, q) in zip(graph.model.named_parameters(), eager.model.named_parameters()):
+        assert _same_bits(p.detach(), q.detach()), k
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises(h100, monkeypatch):
+    """A body that cannot be captured (here: one that synchronizes) raises
+    from ``epoch_steps``; the trainer does not fall back to the eager step."""
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    tr = _graph_trainer("baseline", h100, False)
+    orig = Trainer._static_body
+
+    def body(self, st):
+        orig(self, st)
+        torch.cuda.synchronize()
+
+    monkeypatch.setattr(Trainer, "_static_body", body)
+    with pytest.raises(RuntimeError):
+        tr.epoch_steps(0)

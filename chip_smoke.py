@@ -9,7 +9,8 @@ its seconds:
 1. device: the card's name, capability and ``nvidia-smi`` power limit;
 2. build: nvcc builds every kernel of the paths (``csrc/fwd_pe.cu``: kernels
    2 and 4; ``csrc/train_pe.cu``: kernels 1, 5 and 3; ``csrc/adam.cu``: the
-   Adam step the graphed trainer replays), one process per
+   Adam step the graphed trainer replays; ``csrc/point_features.cu``: the
+   kernel path's per-point feature sampler), one process per
    source, all started together, and prints ptxas' register, shared-memory
    and spill lines;
 3. kernel vs plain: the inline-PE render kernel (kernel 2: trunk products
@@ -173,19 +174,36 @@ its seconds:
 14. DINO kernel widths: kernel 1 at 512x64 and kernel 2 at a 1024x64 eval
    chunk, pos_freq 12, with 64 and 128 features (inputs padded to D 176
    and 240), against their plain versions; times and bounds;
+14a. feature sampler kernel: ``csrc/point_features.cu`` against its plain
+   version at the shipped configs' shapes (``SAMPLER_CASES``: 64 and 128
+   channels on 9x9 maps at 512x64 points, the reference projection; the
+   script recipes' 768 channels on 14x14 maps at 4096x64 points, the script
+   projection, ``align_corners``; ``invalid_fill: mean``), a stack of 5
+   maps and the view index on the device, seeded points in front of and
+   behind the camera, on the map's pixel edges and integer coordinates, off
+   it, at integer world coordinates: features within 1e-5 of the map's
+   largest value, valid equal but at |z| < 1e-6, the mean within rel 1e-6
+   (or no further from float64 than the plain mean), a second call
+   bit-equal, the share of bit-equal elements printed, the launches
+   counted; the mean also on two Gloo ranks on the card (the sums
+   all-reduced between the launches) against one process; times, the byte
+   bound and share, ``F.grid_sample``'s time for the taps alone (a
+   yardstick, never called by the port);
 15. DINO slices: ``experiments/dino_nerf.yaml``, ``multiscale.yaml`` and
    ``lora.yaml`` read by the port's own YAML reader at full width (ViT-B/14
    12x768 extractor on the card, 8x256 trunk): feature maps (5, 9, 9, 64)
    or (5, 9, 9, 128); eval at init (kernel 2 with train view 0's features,
    one launch per chunk); epochs 0, 50, 100, 101 (``lora.yaml``: 0), every
-   step launching kernel 1 once; epoch 0 against a ``backend: xla`` trainer
+   step launching kernel 1 and the sampler kernel once (eval: once per
+   chunk; the ``backend: xla`` twin never); epoch 0 against a ``backend: xla`` trainer
    (rel 1e-4); PSNR must rise; the trained views against the plain
    pipeline; both kernels against their plain versions at the trainer's
-   shapes; the feature sampler's time; one ``dino_nerf`` phase-2 epoch
-   traced;
+   shapes; the feature sampler's time, the kernel and the plain sampler;
+   one ``dino_nerf`` phase-2 epoch traced;
 16. evaluate dino_nerf.yaml, right after the ``dino_nerf.yaml`` slice: the
    same for its trained trainer (features from the extractor on the card,
-   1024-ray chunks: 304 launches; the 5x5 feature-consistency matrix);
+   1024-ray chunks: 304 launches; the 5x5 feature-consistency matrix; the
+   sampler kernel once per chunk and per analysis view, 312);
 17. LoRA trunk kernel width: kernel 1 at 512x64 and 1024x64 and kernel 2
    at a 1024x64 eval chunk at the trunk-LoRA config's input (pos_freq 10,
    view directions, 64 features: D 160), against their plain versions;
@@ -222,7 +240,8 @@ its seconds:
    seed-0 init is dead as it stands trains with ``sigma_bias: 0.1``, which
    is printed; one epoch of each phase (``script_lora`` 0, 50, 51, 52
    across its freeze, base and heads bit-equal after it), 5 full-image
-   steps each through kernel 1 (launches = steps), epoch 0 against a
+   steps each through kernel 1 and the sampler kernel (launches = steps;
+   eval once per chunk, the twin never), epoch 0 against a
    ``backend: xla`` twin (rel 1e-4), eval through kernel 2 (one launch per
    chunk), PSNR rising, the trained views against the plain pipeline, both
    kernels and the 768-channel feature sampler at the trainer's shapes;
@@ -265,6 +284,9 @@ its seconds:
    per-step losses within rel 1e-4 of world 1's, kernel 1 once per step per
    rank on half the batch's rays. Printed, not gated: ms per step (no
    mesh, world 1, world 2) and the two all-reduces' share of a step.
+   ``dino_nerf.yaml`` on seeded maps at epoch 0 the same way (world 1 bit-
+   equal to no mesh, world 2 within rel 1e-4), each rank sampling its
+   shard through the sampler kernel once per step.
    Then ``multihost_train_smoke --kernels`` as two Gloo processes on the
    card (equal losses) and ``cli train --config experiments/dino_nerf.yaml
    --synthetic --epochs 2 --multihost`` at world 1 (NCCL, the group read
@@ -401,7 +423,7 @@ N_ORBIT, N_DEPTH_VIEWS = 8, 3
 # TF32 on the same pairs read 4.4-4.8e-5 off, inside 1e-4, so the gate sits at
 # 1e-5 to see that trap.
 LPIPS_RTOL = 1e-5
-KERNELS = ("fwd_pe", "train_pe", "adam")  # the sources, one nvcc each
+KERNELS = ("fwd_pe", "train_pe", "adam", "point_features")  # the sources, one nvcc each
 # one epoch of each phase and one more at 32x32 and at 128x128: the first
 # epoch's steps include the first use (module loading) of every CUDA kernel
 TRAIN_EPOCHS = (0, 1, 50, 100, 101)
@@ -459,6 +481,7 @@ NOISE_EPOCHS = (0, 1)
 # ranks on one device). World 2 against world 1: the order of the sums
 # differs, so per-step losses of epoch 0 within rel DP_LOSS_RTOL.
 DP_EPOCHS = (0, 1, 50)
+DP_DINO_EPOCHS = (0,)  # dino_nerf.yaml under a mesh: each rank samples its shard
 DP_LOSS_RTOL = 1e-4
 # The precision routes (render/kernels.py ROUTES) of all five kernels, and
 # the rates their bounds count at: bfloat16 one bf16 tensor-core product per
@@ -909,7 +932,7 @@ def main_path_train_args(trainer, phase_idx, device, inline_pe=True, seed=0):
 # Device-time groups of the profiled runs, by kernel name (first match).
 KERNEL_GROUPS = ("train_fwd", "train_bwd", "train_dw", "train_composite", "render_composite",
                  "render_dx", "train_finalize", "loss_sum", "weight_image", "fwd_split",
-                 "fwd_trunk", "fwd_composite", "adam_step")
+                 "fwd_trunk", "fwd_composite", "adam_step", "point_features")
 
 
 # The CUDA API calls that launch a kernel (`cudaLaunch*` of the runtime,
@@ -1228,7 +1251,8 @@ def run_graph_vs_eager(train, test, device):
     (``Trainer(_eager_step=True)``): every epoch's per-step losses, the
     final parameters, both Adam moments and the step counts bit-equal, the
     graph's launches per step (kernel 1 and the Adam kernel once, kernel 2
-    once more with hierarchical sampling), or raise; the ms per step of
+    once more with hierarchical sampling, the feature sampler's kernel once
+    with features), or raise; the ms per step of
     both and each capture's cost printed. Returns the graph trainers' ms per
     step at ``float32``, by config."""
     from nerf_fewshot_tpu_torch.cli import _precompute_features
@@ -1264,8 +1288,10 @@ def run_graph_vs_eager(train, test, device):
                 sec["eager"] += time.perf_counter() - t0
                 n = want.shape[0]
                 steps += n
-                launched = {k: after[k] - before[k] for k in ("train_pe", "fwd_pe", "adam")}
-                expect = {"train_pe": n, "fwd_pe": n if name == "hierarchical" else 0, "adam": n}
+                launched = {k: after[k] - before[k]
+                            for k in ("train_pe", "fwd_pe", "adam", "point_features")}
+                expect = {"train_pe": n, "fwd_pe": n if name == "hierarchical" else 0, "adam": n,
+                          "point_features": 0 if feats is None else n}
                 if launched != expect:
                     raise RuntimeError(f"{name} {route} epoch {epoch}: launches {launched}, "
                                        f"expected {expect}")
@@ -1521,11 +1547,14 @@ def run_evaluate_phase(name, trainer, train, test, device, tk, smi, tmp):
     the orbit and depth views within TOL, the depth means within 1e-3 and
     PSNR within 1e-3 dB; LPIPS on the card against the CPU; the ms per
     evaluated view (render and LPIPS apart), per orbit view and the wall
-    time of the call. Returns kernel 2's launches in the call."""
+    time of the call; the sampler kernel once per chunk and per analysis
+    view with DINO features, never on the plain harness. Returns kernel 2's
+    and the sampler's launches in the call."""
     import contextlib
     import io
 
     from nerf_fewshot_tpu_torch import cli as tcli
+    from nerf_fewshot_tpu_torch.render.point_features import sample_point_features as spf
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.evaluate import (comprehensive_evaluation,
                                                           generate_orbit_poses)
@@ -1538,6 +1567,7 @@ def run_evaluate_phase(name, trainer, train, test, device, tk, smi, tmp):
     want_launches = sum(-(-v * per // chunk) for v in (N_TEST_VIEWS, N_ORBIT, N_DEPTH_VIEWS))
     stdout = io.StringIO()
     tk.fused_render_fwd_pe.launches = 0
+    spf.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(stdout):
@@ -1546,6 +1576,7 @@ def run_evaluate_phase(name, trainer, train, test, device, tk, smi, tmp):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = tk.fused_render_fwd_pe.launches
+    sampler_launches = spf.launches
     lines = stdout.getvalue().splitlines()
     for line in lines[:-1]:
         print(f"  {line}", flush=True)
@@ -1558,6 +1589,13 @@ def run_evaluate_phase(name, trainer, train, test, device, tk, smi, tmp):
           f"views of {per} rays in {chunk}-ray chunks)", flush=True)
     if launches != want_launches:
         raise RuntimeError(f"{name}: evaluate launched kernel 2 {launches} times")
+    # the sampler: once per chunk, once per view of the consistency matrix,
+    # of the raw feature smoothness (two views) and of the field's smoothness
+    want_sampler = launches + N_TRAIN_VIEWS + 2 + 1 if trainer.use_dino else 0
+    print(f"  cli evaluate {name}: the sampler kernel {sampler_launches} launches (want "
+          f"{want_sampler}: one per chunk and per analysis view)", flush=True)
+    if sampler_launches != want_sampler:
+        raise RuntimeError(f"{name}: evaluate launched the sampler {sampler_launches} times")
 
     m = res["metrics"]
     if (list(res) != ["metrics", "novel_views", "feature_3d_consistency", "depth", "smoothness",
@@ -1598,9 +1636,10 @@ def run_evaluate_phase(name, trainer, train, test, device, tk, smi, tmp):
     if plain._use_fused():
         raise RuntimeError("backend: xla still selects the kernel")
     tk.fused_render_fwd_pe.launches = 0
+    spf.launches = 0
     pres = comprehensive_evaluation(plain, os.path.join(tmp, "plain"), n_orbit=N_ORBIT)
-    if tk.fused_render_fwd_pe.launches:
-        raise RuntimeError("the plain harness launched kernel 2")
+    if tk.fused_render_fwd_pe.launches or spf.launches:
+        raise RuntimeError("the plain harness launched kernel 2 or the sampler")
     orbit = list(generate_orbit_poses(N_ORBIT))
     for label, poses in (("orbit", orbit), ("depth", test.poses[:N_DEPTH_VIEWS])):
         got, want = trainer.render_views(poses), plain.render_views(poses)
@@ -1628,7 +1667,7 @@ def run_evaluate_phase(name, trainer, train, test, device, tk, smi, tmp):
     print(f"  {name} evaluate of {trainer.eval_seconds['views']} views: {eval_ms(trainer)}; "
           f"orbit {orbit_ms:.2f} ms/view; the whole cli evaluate call {wall:.2f} s; {smi}",
           flush=True)
-    return launches
+    return launches, sampler_launches
 
 
 def main_path_render_bwd_args(trainer, device, seed=0):
@@ -1987,6 +2026,282 @@ def run_dino_kernel_widths(device, tk, tt):
     return rows
 
 
+# The feature sampler kernel (csrc/point_features.cu) at the shipped
+# configs' shapes: name -> (points: rays x samples of the config's phase-2
+# step, the map stack (V, Hp, Wp, Fd): 5 train views of the extractor's grid,
+# projection, align_corners, invalid_fill). Every case samples view
+# SAMPLER_VIEW, its index read from the device.
+SAMPLER_CASES = {
+    "dino_nerf": (256 * 64, (5, 9, 9, 64), "reference", False, "zeros"),
+    "lora_nerf_trunk": (512 * 64, (5, 9, 9, 64), "reference", False, "zeros"),
+    "multiscale": (256 * 64, (5, 9, 9, 128), "reference", False, "zeros"),
+    "script": (4096 * 64, (5, 14, 14, 768), "script", True, "zeros"),
+    "mean": (256 * 64, (5, 9, 9, 128), "reference", False, "mean"),
+}
+SAMPLER_VIEW = 3
+SAMPLER_ROW = "dino_nerf"  # the kernels line's shape
+# Kernel vs plain: the plain version's 4x4 projection is cuBLAS's product,
+# whose order of the four terms is not known; a coordinate moves by a few
+# ulps, and a bilinear tap is continuous, so a feature moves by at most the
+# coordinate's error times the largest neighbour difference: 1e-5 of the
+# map's largest value. valid may differ only where |z| < SAMPLER_Z_TIE.
+SAMPLER_TOL, SAMPLER_Z_TIE, SAMPLER_MEAN_RTOL = 1e-5, 1e-6, 1e-6
+
+
+def sampler_points(rng, n, c2w, focal, res, map_hw, align_corners, projection):
+    """``n`` points made from ``rng`` around the camera ``c2w`` (float64,
+    then fp32): an eighth in front of and behind the camera at the map's
+    integer coordinates, on its pixel edges and off it (image x, y chosen,
+    then carried back through the pinhole of ``projection``: camera
+    ``R^T (p - t)`` for the reference one, ``R (p - t)`` for the script
+    one), a sixteenth at integer world coordinates, the rest uniform in the
+    scene's [-2, 2]^3."""
+    Hp, Wp = map_hw
+    n_edge, n_int = n // 8, n // 16
+    marks = []
+    for size in (Wp, Hp):
+        k = np.arange(-1, size + 1, dtype=np.float64)
+        grid = k * res / (size - 1) if align_corners else (k + 0.5) * res / size
+        marks.append(np.concatenate([grid, k * res / size, [-10.0 * res, 11.0 * res]]))
+    x = rng.choice(marks[0], n_edge)
+    y = rng.choice(marks[1], n_edge)
+    z = rng.uniform(2.0, 6.0, n_edge) * rng.choice([-1.0, 1.0], n_edge)
+    cam = np.stack([(x - res / 2) / focal * z, (y - res / 2) / focal * z, z], axis=-1)
+    c2w = np.asarray(c2w, np.float64)
+    rot = c2w[:3, :3] if projection == "script" else c2w[:3, :3].T
+    edge = cam @ rot + c2w[:3, 3]
+    pts = np.concatenate([edge, rng.integers(-3, 4, (n_int, 3)).astype(np.float64),
+                          rng.uniform(-2.0, 2.0, (n - n_edge - n_int, 3))])
+    return pts[rng.permutation(n)].astype(np.float32)
+
+
+def sampler_inputs(case, poses, focal, res, device, seed=20, spec=None):
+    """The wrapper's arguments of ``SAMPLER_CASES[case]`` (or of ``spec``,
+    a tuple of the same fields) on ``device``: seeded maps,
+    ``sampler_points`` around view SAMPLER_VIEW of ``poses`` (the scene's
+    train c2w), the pose stack the trainer passes (w2c by the single-view
+    inverse, or c2w for the script projection), the view as a device
+    tensor."""
+    n, shape, projection, align, fill = spec or SAMPLER_CASES[case]
+    rng = np.random.default_rng(seed)
+    c2w = torch.as_tensor(np.asarray(poses, np.float32), device=device)
+    stack = c2w if projection == "script" else torch.stack(
+        [torch.linalg.inv_ex(p)[0] for p in c2w])
+    maps = torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=device)
+    pts = sampler_points(rng, n, poses[SAMPLER_VIEW], focal, res, shape[1:3], align, projection)
+    return dict(pts=torch.as_tensor(pts, device=device), maps=maps,
+                view=torch.tensor([SAMPLER_VIEW], device=device), pose_mats=stack,
+                focal=float(focal), H=res, W=res, align_corners=align, projection=projection,
+                invalid_fill=fill)
+
+
+def sampler_call(fn, a, **over):
+    """``fn`` (the wrapper or its plain version) on the inputs ``a``."""
+    kw = {**a, **over}
+    return fn(kw.pop("pts"), kw.pop("maps"), kw.pop("view"), kw.pop("pose_mats"),
+              kw.pop("focal"), kw.pop("H"), kw.pop("W"), **kw)
+
+
+def sampler_depth(a):
+    """Each point's camera z in the sampled view, as the plain version
+    projects it."""
+    from nerf_fewshot_tpu_torch.ops.rays import project_points_script, project_points_w2c
+
+    pose = a["pose_mats"][SAMPLER_VIEW]
+    proj = project_points_script if a["projection"] == "script" else project_points_w2c
+    return proj(a["pts"], pose, a["focal"], a["H"], a["W"])[1]
+
+
+def check_sampler(label, got, again, want, a, raw=None):
+    """The kernel's ``(features, valid)`` against the plain version's on the
+    same inputs, or raise: features within SAMPLER_TOL of the map's largest
+    value, valid equal but where |z| < SAMPLER_Z_TIE, a second call
+    bit-equal; under ``invalid_fill: mean`` (``raw``: the plain features
+    before the fill) every invalid row the kernel's mean, which is within
+    rel SAMPLER_MEAN_RTOL of the plain mean or no further from the float64
+    mean than it. Returns the max abs error and prints the share of
+    elements bit-equal to the plain version."""
+    if not all(torch.equal(p, q) for p, q in zip(got, again)):
+        raise RuntimeError(f"{label}: two calls differ")
+    (f, valid), (pf, pvalid) = got, want
+    if f.shape != pf.shape or not torch.isfinite(f).all():
+        raise RuntimeError(f"{label}: features {tuple(f.shape)}, finite {bool(torch.isfinite(f).all())}")
+    tol = SAMPLER_TOL * a["maps"].abs().max().item()
+    err = (f - pf).abs().max().item()
+    bits = (f.view(torch.int32) == pf.view(torch.int32)).double().mean().item()
+    z = sampler_depth(a)
+    flips = int(((valid != pvalid) & (z.abs() >= SAMPLER_Z_TIE)).sum())
+    ties = int(((valid != pvalid) & (z.abs() < SAMPLER_Z_TIE)).sum())
+    line = (f"  {label}: max abs err {err:.3e} (tol {tol:.3e}), {bits:.4%} of the "
+            f"{f.numel()} elements bit-equal to the plain version, valid "
+            f"{int(valid.sum())} of {valid.numel()}, {flips} flips ({ties} at |z| < "
+            f"{SAMPLER_Z_TIE:.0e}); a second call bit-equal")
+    if raw is not None:
+        inv = ~valid
+        if not inv.any():
+            raise RuntimeError(f"{label}: no invalid point to fill")
+        mean = f[inv.nonzero()[0, 0]]
+        pmean = pf[(~pvalid).nonzero()[0, 0]]
+        m64 = raw.double().mean(dim=0)
+        if not torch.equal(f[inv], mean.expand(int(inv.sum()), -1)):
+            raise RuntimeError(f"{label}: the invalid rows are not all the mean")
+        rel = (mean - pmean).abs() / pmean.abs()
+        closer = (mean.double() - m64).abs() <= (pmean.double() - m64).abs()
+        line += (f"; mean rel {rel.max().item():.3e} to the plain mean (tol "
+                 f"{SAMPLER_MEAN_RTOL:.0e}; {int((rel > SAMPLER_MEAN_RTOL).sum())} channels past "
+                 f"it, each no further from the float64 mean than the plain one), float64 "
+                 f"distance kernel {(mean.double() - m64).abs().max().item():.3e}, plain "
+                 f"{(pmean.double() - m64).abs().max().item():.3e}")
+        if not ((rel <= SAMPLER_MEAN_RTOL) | closer).all():
+            raise RuntimeError(f"{label}: the kernel's mean is off the plain one: {line}")
+    print(line, flush=True)
+    if not err <= tol or flips:
+        raise RuntimeError(f"{label}: features off by {err} (tol {tol}), {flips} valid flips")
+    return err
+
+
+def sampler_cost(a):
+    """The bytes the sampler must move: each point read, the view's map
+    read, each feature and valid flag written once."""
+    n, (_, Hp, Wp, Fd) = a["pts"].shape[0], a["maps"].shape
+    return n * 12 + Hp * Wp * Fd * 4 + n * Fd * 4 + n
+
+
+def sampler_ms_pair(trainer, pts, iters):
+    """CUDA-event ms of ``trainer``'s view-0 sampler at ``pts``: the kernel
+    (the closure the kernel path takes on a card) and the plain sampler
+    (``_feature_sampler`` on the view's map and pose) on the same points."""
+    from nerf_fewshot_tpu_torch.training.trainer import _feature_sampler
+
+    d = trainer.cfg.dino
+    pf = trainer.feature_sampler(0)
+    plain = _feature_sampler(trainer.dino_features[0], trainer._poses_t[0], trainer.focal,
+                             trainer.H, trainer.W, align_corners=d.align_corners,
+                             invalid_fill=d.invalid_fill, projection=d.projection)
+    return cuda_ms(lambda: pf(pts), iters=iters), cuda_ms(lambda: plain(pts), iters=iters)
+
+
+def graph_ms(fn, calls=20, reps=5):
+    """Device ms per call of ``fn()``, which only enqueues work: ``calls``
+    calls captured into one CUDA graph (after a warm-up on a side stream),
+    replayed ``reps`` times between CUDA events, so the host's launch cost
+    is out of the reading (a microsecond kernel launched from Python is
+    otherwise timed at the host's pace)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
+def run_sampler_kernel(train, device):
+    """``sample_point_features_valid`` (``csrc/point_features.cu``) against
+    its plain version on the card at SAMPLER_CASES (the scene's train poses
+    and focal, the full resolution), ``check_sampler``'s gates, the launches
+    counted (one a call, four with the mean); ``invalid_fill: mean`` also on
+    two Gloo ranks (``dp_runs.sampler_rank``: each rank's half of the
+    points, the per-channel sums all-reduced between the launches) against
+    the plain version on one process over all the points; the device ms of
+    the kernel and the plain version (``graph_ms``; beside them a loop of
+    calls from the host, CUDA events), the byte bound and share,
+    ``F.grid_sample``'s ms for the taps alone (a yardstick for part of the
+    function: the port never calls it) and the ms of one read and write of
+    the (N, Fd) feature block (a copy: what folding the sampler into kernels
+    1 and 2 would still save). Returns ``{case: dict of the numbers}``."""
+    import torch.nn.functional as F
+
+    from nerf_fewshot_tpu_torch.ops.rays import project_points_script, project_points_w2c
+    from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
+    from nerf_fewshot_tpu_torch.render import point_features as tpf
+    from nerf_fewshot_tpu_torch.tools import dp_runs
+
+    res = train.H
+    rows = {}
+    for case in SAMPLER_CASES:
+        a = sampler_inputs(case, train.poses, train.focal, res, device)
+        before = tpf.sample_point_features.launches
+        got = sampler_call(tpf.sample_point_features_valid, a)
+        calls = tpf.sample_point_features.launches - before
+        again = sampler_call(tpf.sample_point_features_valid, a)
+        want = sampler_call(tpf.point_features_reference, a)
+        raw = None
+        if a["invalid_fill"] == "mean":
+            raw = sampler_call(tpf.point_features_reference, a, invalid_fill="zeros")[0]
+        n, shape = a["pts"].shape[0], tuple(a["maps"].shape)
+        label = (f"{case}: {n} points, maps {shape}, {a['projection']}, align_corners "
+                 f"{a['align_corners']}, {a['invalid_fill']}")
+        err = check_sampler(label, got, again, want, a, raw)
+        if calls != (4 if raw is not None else 1):
+            raise RuntimeError(f"{case}: {calls} launches counted")
+        kernel = lambda: sampler_call(tpf.sample_point_features, a)
+        plain = lambda: sampler_call(tpf.point_features_reference, a)
+        k_ms, p_ms = graph_ms(kernel), graph_ms(plain, calls=5)
+        k_loop_ms, p_loop_ms = cuda_ms(kernel, iters=50), cuda_ms(plain, iters=10)
+        block = want[0].clone()
+        fold_ms = graph_ms(lambda: block.copy_(want[0]))
+        nbytes = sampler_cost(a)
+        b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        pose = a["pose_mats"][SAMPLER_VIEW]
+        proj = project_points_script if a["projection"] == "script" else project_points_w2c
+        grid = proj(a["pts"], pose, a["focal"], res, res)[0].reshape(1, 1, n, 2).contiguous()
+        image = a["maps"][SAMPLER_VIEW].permute(2, 0, 1)[None].contiguous()
+        taps = lambda: F.grid_sample(image, grid, mode="bilinear", padding_mode="zeros",
+                                     align_corners=a["align_corners"])
+        g_ms = graph_ms(taps)
+        taps_err = (taps()[0, :, 0].T - raw if raw is not None else
+                    taps()[0, :, 0].T - want[0]).abs().max().item()
+        rows[case] = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+                          bytes=nbytes, grid_sample_ms=g_ms, launches_per_call=calls,
+                          points=n, maps=shape, ms_event_loop=k_loop_ms,
+                          plain_ms_event_loop=p_loop_ms, fold_remainder_ms=fold_ms)
+        print(f"  {case}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms (device, graph replays; "
+              f"a loop of calls from the host: {k_loop_ms:.4f} / {p_loop_ms:.4f} ms), bound "
+              f"{b_ms:.4f} ms by bytes ({nbytes / 1e6:.2f} MB; share {b_ms / k_ms:.1%}); "
+              f"F.grid_sample of the taps alone {g_ms:.4f} ms (a yardstick for part of the "
+              f"function, off the plain taps by {taps_err:.1e}; the port never calls it); the "
+              f"(N, Fd) block's read and write (a copy of the features, what a fold into kernels "
+              f"1 and 2 would still save) {fold_ms:.4f} ms", flush=True)
+
+    # invalid_fill mean over two ranks' shards, against one process over all
+    a = sampler_inputs("mean", train.poses, train.focal, res, device)
+    want = sampler_call(tpf.point_features_reference, a)
+    raw = sampler_call(tpf.point_features_reference, a, invalid_fill="zeros")[0]
+    host = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v) for k, v in a.items()}
+    t0 = time.perf_counter()
+    two = pmesh.launch(dp_runs.sampler_rank, [device, device], (host,), backend="gloo",
+                       timeout_s=600)
+    sec = time.perf_counter() - t0
+    for r, t in enumerate(two):
+        if t["launches"] != 4 * 2:
+            raise RuntimeError(f"mean on two ranks: rank {r} counted {t['launches']} launches")
+        if not np.array_equal(t["kernel"][0], t["again"][0]):
+            raise RuntimeError(f"mean on two ranks: rank {r}'s two calls differ")
+        if not np.array_equal(t["kernel"][0], t["plain"][0]) and \
+                np.abs(t["kernel"][0] - t["plain"][0]).max() > \
+                SAMPLER_TOL * np.abs(host["maps"]).max():
+            raise RuntimeError(f"mean on two ranks: rank {r}'s kernel off its plain version")
+    cat = lambda key, i: torch.as_tensor(np.concatenate([t[key][i] for t in two]), device=device)
+    err = check_sampler("mean on two Gloo ranks (each half the points, the sums all-reduced) "
+                        f"vs one process, {sec:.1f} s with start-up",
+                        (cat("kernel", 0), cat("kernel", 1)), (cat("again", 0), cat("again", 1)),
+                        want, a, raw)
+    rows["mean"]["max_abs_err_two_ranks"] = err
+    return rows
+
+
 def run_dino_slice(name, train, test, device, tk, tt, feats=None, epochs=None, label=None):
     """``experiments/<name>`` through the port's ``load_config`` at full
     width: the extractor (ViT-B/14, 12x768) on the card, one feature map per
@@ -2002,6 +2317,7 @@ def run_dino_slice(name, train, test, device, tk, tt, feats=None, epochs=None, l
     ``label`` names the run in the output. Returns a dict of the
     numbers."""
     from nerf_fewshot_tpu_torch.cli import _precompute_features
+    from nerf_fewshot_tpu_torch.render.point_features import sample_point_features as spf
     from nerf_fewshot_tpu_torch.training.config import config_from_dict, load_config
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
@@ -2035,14 +2351,16 @@ def run_dino_slice(name, train, test, device, tk, tt, feats=None, epochs=None, l
         raise RuntimeError(f"{name}: paths {ktr.kernel_path}, {ptr.kernel_path}")
     n_chunks = -(-N_TEST_VIEWS * cfg.data.resolution ** 2 // cfg.rendering.chunk_size)
     tk.fused_render_fwd_pe.launches = 0
+    spf.launches = 0
     psnr0 = ktr.evaluate()["psnr"]
-    if tk.fused_render_fwd_pe.launches != n_chunks:
-        raise RuntimeError(f"{name}: eval {tk.fused_render_fwd_pe.launches} launches, "
-                           f"{n_chunks} chunks")
+    if tk.fused_render_fwd_pe.launches != n_chunks or spf.launches != n_chunks:
+        raise RuntimeError(f"{name}: eval {tk.fused_render_fwd_pe.launches} kernel-2 and "
+                           f"{spf.launches} sampler launches, {n_chunks} chunks")
     for e in epochs:
         ktr.phase_data(ktr._phase_index(e))
 
     tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+    spf.launches = 0
     steps, losses0, step_ms = 0, None, None
     for e in epochs:
         torch.cuda.synchronize()
@@ -2063,9 +2381,12 @@ def run_dino_slice(name, train, test, device, tk, tt, feats=None, epochs=None, l
         if not np.isfinite(ktr.last_step_losses).all():
             raise RuntimeError(f"{name} epoch {e}: non-finite losses")
     launches = tt.fused_train_objective.launches["train_pe"]
-    print(f"  {name} launches: kernel 1 {launches} for {steps} steps", flush=True)
-    if launches != steps:
-        raise RuntimeError(f"{name}: {launches} kernel-1 launches for {steps} steps")
+    sampler_launches = spf.launches
+    print(f"  {name} launches: kernel 1 {launches}, the sampler kernel {sampler_launches} for "
+          f"{steps} steps", flush=True)
+    if launches != steps or sampler_launches != steps:
+        raise RuntimeError(f"{name}: {launches} kernel-1 and {sampler_launches} sampler "
+                           f"launches for {steps} steps")
 
     ptr.train_epoch(0)
     rel = np.abs(ptr.last_step_losses / losses0 - 1.0).max()
@@ -2073,20 +2394,30 @@ def run_dino_slice(name, train, test, device, tk, tt, feats=None, epochs=None, l
           f"(tol {TRAIN_LOSS_RTOL:.0e})", flush=True)
     if not rel <= TRAIN_LOSS_RTOL:
         raise RuntimeError(f"{name}: epoch 0 kernel and plain trainers differ by rel {rel}")
+    if spf.launches != sampler_launches:
+        raise RuntimeError(f"{name}: the backend: xla trainer launched the sampler kernel")
 
     tk.fused_render_fwd_pe.launches = 0
+    spf.launches = 0
     after = ktr.evaluate()
     eval_launches = tk.fused_render_fwd_pe.launches
+    eval_sampler = spf.launches
     print(f"  {name} evaluate: psnr {psnr0:.4f} dB at init, {after['psnr']:.4f} dB after "
-          f"{steps} steps, ssim {after['ssim']:.5f}, {eval_ms(ktr)}, "
-          f"{eval_launches} launches for {n_chunks} chunks", flush=True)
-    if eval_launches != n_chunks:
-        raise RuntimeError(f"{name}: eval launched kernel 2 {eval_launches} times")
+          f"{steps} steps, ssim {after['ssim']:.5f}, {eval_ms(ktr)}, kernel 2 "
+          f"{eval_launches} and the sampler {eval_sampler} launches for {n_chunks} chunks",
+          flush=True)
+    if eval_launches != n_chunks or eval_sampler != n_chunks:
+        raise RuntimeError(f"{name}: eval launched kernel 2 {eval_launches} and the sampler "
+                           f"{eval_sampler} times")
     if name != "lora.yaml" and not after["psnr"] > psnr0:
         raise RuntimeError(f"{name}: psnr after training {after['psnr']} <= at init {psnr0}")
 
     ptr.model.load_state_dict(ktr.model.state_dict())
-    got, want = ktr.render_views(test.poses), ptr.render_views(test.poses)
+    got = ktr.render_views(test.poses)
+    before = spf.launches
+    want = ptr.render_views(test.poses)
+    if spf.launches != before:
+        raise RuntimeError(f"{name}: the backend: xla trainer's eval launched the sampler")
     errs = {out: float(np.abs(g - w).max()) for g, w, out in zip(got, want, ("rgb", "depth", "acc"))}
     print(f"  {name} views vs the plain pipeline (trained weights): max abs err " + ", ".join(
         f"{k} {v:.3e} (tol {TOL[k]:.0e})" for k, v in errs.items()), flush=True)
@@ -2095,7 +2426,8 @@ def run_dino_slice(name, train, test, device, tk, tt, feats=None, epochs=None, l
 
     # the kernels against their plain versions at the trainer's own shapes
     out = dict(launches=launches, eval_launches=eval_launches, step_ms=step_ms, fd=fd, d=d,
-               psnr0=psnr0, psnr=after["psnr"], extract_s=extract_s, trainer=ktr)
+               psnr0=psnr0, psnr=after["psnr"], extract_s=extract_s, trainer=ktr,
+               sampler_launches=sampler_launches + eval_sampler)
     last = len(cfg.phases) - 1
     a, o = main_path_train_args(ktr, last, device)
     if a[-1][0].shape[0] != d or a[1].shape[1] != fd:
@@ -2111,10 +2443,10 @@ def run_dino_slice(name, train, test, device, tk, tt, feats=None, epochs=None, l
                              tk.fused_render_fwd_pe(*args, use_feats=True),
                              tk.fused_render_fwd_pe_reference(*args, use_feats=True))
     pts = torch.rand((R * S, 3), device=device) * 3.0 - 1.5
-    pf = ktr.feature_sampler(0)
-    out["sampler_ms"] = cuda_ms(lambda: pf(pts), iters=20)
+    out["sampler_ms"], out["sampler_plain_ms"] = sampler_ms_pair(ktr, pts, iters=20)
     print(f"  {name} at the step's shape: kernel 1 {out['train_ms']:.3f} ms, feature sampling of "
-          f"{R * S} points {out['sampler_ms']:.3f} ms (CUDA events)", flush=True)
+          f"{R * S} points {out['sampler_ms']:.4f} ms by the kernel, {out['sampler_plain_ms']:.4f} "
+          f"ms by the plain sampler (CUDA events)", flush=True)
     if traced:
         epoch = DINO_EPOCHS[-1]
         torch.cuda.synchronize()
@@ -2561,6 +2893,7 @@ def run_script_slice(train, test, device, tk, tt):
     epochs reported, not gated. Returns a dict of the numbers per file."""
     from nerf_fewshot_tpu_torch.cli import _precompute_features
     from nerf_fewshot_tpu_torch.models.lora import lora_label_fn
+    from nerf_fewshot_tpu_torch.render.point_features import sample_point_features as spf
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
@@ -2599,14 +2932,16 @@ def run_script_slice(train, test, device, tk, tt):
         if not (ktr._use_fused() and ktr.kernel_path == "kernel") or ptr._use_fused():
             raise RuntimeError(f"{name}: paths {ktr.kernel_path}, {ptr.kernel_path}")
         tk.fused_render_fwd_pe.launches = 0
+        spf.launches = 0
         psnr0 = ktr.evaluate()["psnr"]
-        if tk.fused_render_fwd_pe.launches != n_chunks:
-            raise RuntimeError(f"{name}: eval {tk.fused_render_fwd_pe.launches} launches, "
-                               f"{n_chunks} chunks")
+        if tk.fused_render_fwd_pe.launches != n_chunks or spf.launches != n_chunks:
+            raise RuntimeError(f"{name}: eval {tk.fused_render_fwd_pe.launches} kernel-2 and "
+                               f"{spf.launches} sampler launches, {n_chunks} chunks")
         for e in epochs:
             ktr.phase_data(ktr._phase_index(e))
         boundary = cfg.optimizer.lora_only_after_epoch
         tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+        spf.launches = 0
         steps, out = 0, dict(d=d, psnr0=psnr0, extract_s=extract_s, probe_as_is=probe,
                              sigma_bias=cfg.nerf.sigma_bias)
         for e in epochs:
@@ -2640,9 +2975,12 @@ def run_script_slice(train, test, device, tk, tt):
                 print(f"  {name} freeze: {len(before)} base and head tensors bit-equal across "
                       f"epochs {boundary}-{e}, all {len(lora_b)} lora_b moved", flush=True)
         out["launches"] = tt.fused_train_objective.launches["train_pe"]
-        print(f"  {name} launches: kernel 1 {out['launches']} for {steps} steps", flush=True)
-        if out["launches"] != steps:
-            raise RuntimeError(f"{name}: {out['launches']} kernel-1 launches for {steps} steps")
+        out["sampler_launches"] = spf.launches
+        print(f"  {name} launches: kernel 1 {out['launches']}, the sampler kernel "
+              f"{out['sampler_launches']} for {steps} steps", flush=True)
+        if out["launches"] != steps or out["sampler_launches"] != steps:
+            raise RuntimeError(f"{name}: {out['launches']} kernel-1 and "
+                               f"{out['sampler_launches']} sampler launches for {steps} steps")
 
         ptr.train_epoch(0)
         rel = np.abs(ptr.last_step_losses / losses0 - 1.0).max()
@@ -2650,15 +2988,21 @@ def run_script_slice(train, test, device, tk, tt):
               f"(tol {TRAIN_LOSS_RTOL:.0e})", flush=True)
         if not rel <= TRAIN_LOSS_RTOL:
             raise RuntimeError(f"{name}: epoch 0 kernel and plain trainers differ by rel {rel}")
+        if spf.launches != out["sampler_launches"]:
+            raise RuntimeError(f"{name}: the backend: xla twin launched the sampler kernel")
 
         tk.fused_render_fwd_pe.launches = 0
+        spf.launches = 0
         after = ktr.evaluate()
         out.update(eval_launches=tk.fused_render_fwd_pe.launches, psnr=after["psnr"])
+        out["sampler_launches"] += spf.launches
         print(f"  {name} evaluate: psnr {psnr0:.4f} dB at init, {after['psnr']:.4f} dB after "
-              f"{steps} steps, ssim {after['ssim']:.5f}, {eval_ms(ktr)}, "
-              f"{out['eval_launches']} launches for {n_chunks} chunks", flush=True)
-        if out["eval_launches"] != n_chunks:
-            raise RuntimeError(f"{name}: eval launched kernel 2 {out['eval_launches']} times")
+              f"{steps} steps, ssim {after['ssim']:.5f}, {eval_ms(ktr)}, kernel 2 "
+              f"{out['eval_launches']} and the sampler {spf.launches} launches for {n_chunks} "
+              f"chunks", flush=True)
+        if out["eval_launches"] != n_chunks or spf.launches != n_chunks:
+            raise RuntimeError(f"{name}: eval launched kernel 2 {out['eval_launches']} and the "
+                               f"sampler {spf.launches} times")
         if not after["psnr"] > psnr0:
             raise RuntimeError(f"{name}: psnr after training {after['psnr']} <= at init {psnr0}")
 
@@ -2689,12 +3033,12 @@ def run_script_slice(train, test, device, tk, tt):
                                  tk.fused_render_fwd_pe_reference(*args, use_feats=True))
         out["fwd_ms"] = cuda_ms(lambda: tk.fused_render_fwd_pe(*args, use_feats=True), iters=20)
         pts = torch.rand((R * S, 3), device=device) * 3.0 - 1.5
-        pf = ktr.feature_sampler(0)
-        out["sampler_ms"] = cuda_ms(lambda: pf(pts), iters=10)
+        out["sampler_ms"], out["sampler_plain_ms"] = sampler_ms_pair(ktr, pts, iters=10)
         print(f"  {name} at the trainer's shapes: kernel 1 {R}x{S} {out['train_ms']:.3f} ms, "
               f"kernel 2 {args[2].shape[0]}x{args[2].shape[1]} {out['fwd_ms']:.3f} ms, feature "
-              f"sampling of {R * S} points x {SCRIPT_FD} channels {out['sampler_ms']:.3f} ms "
-              f"(CUDA events)", flush=True)
+              f"sampling of {R * S} points x {SCRIPT_FD} channels {out['sampler_ms']:.4f} ms by "
+              f"the kernel, {out['sampler_plain_ms']:.4f} ms by the plain sampler (CUDA events)",
+              flush=True)
         del a, o, args
         if name == SCRIPT_TRACED:
             epoch = epochs[-1] + 1
@@ -3171,6 +3515,8 @@ def run_data_parallel(device, tk, tmp):
               f"{n_params} gradients {ar['loss_and_grads']:.3f} ms; {share:.1%} of a step",
               flush=True)
 
+    sampler = run_data_parallel_dino(device)
+
     env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
     address = f"localhost:{pmesh.free_port()}"
     harness = [subprocess.Popen(
@@ -3211,7 +3557,55 @@ def run_data_parallel(device, tk, tmp):
         raise RuntimeError("cli train --multihost wrote no final.ckpt")
     print(f"  cli train dino_nerf.yaml --synthetic --epochs 2 --multihost (world 1 from the "
           f"environment): exit 0, {mesh_line!r}, kernel path, final.ckpt", flush=True)
-    return one["launches"], eval_launches, [t["launches"] for t in two]
+    return one["launches"], eval_launches, [t["launches"] for t in two], sampler
+
+
+def run_data_parallel_dino(device):
+    """``dino_nerf.yaml`` on seeded maps at DP_DINO_EPOCHS with no mesh, on a
+    one-rank NCCL mesh and on two Gloo ranks on the card, each rank sampling
+    its shard's features through the sampler kernel: world 1 bit-equal to no
+    mesh, the ranks bit-equal, world 2 within DP_LOSS_RTOL of world 1; the
+    sampler and kernel 1 once per step on every rank, or raise. Returns the
+    sampler's launches by run."""
+    import torch.distributed as dist
+
+    from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
+    from nerf_fewshot_tpu_torch.tools import dp_runs
+    from nerf_fewshot_tpu_torch.training.config import load_config
+
+    raw = load_config(os.path.join(ROOT, "experiments", "dino_nerf.yaml")).raw
+    maps = np.random.default_rng(13).standard_normal((N_TRAIN_VIEWS, 9, 9, 64)).astype(np.float32)
+    plain = dp_runs.dp_run(dp_runs.dp_trainer(raw, device=device, dino_features=maps),
+                           DP_DINO_EPOCHS)
+    pmesh.initialize_multihost(f"localhost:{pmesh.free_port()}", 1, 0, device=device)
+    try:
+        one = dp_runs.dp_run(dp_runs.dp_trainer(raw, pmesh.make_mesh(device),
+                                                dino_features=maps), DP_DINO_EPOCHS)
+    finally:
+        dist.destroy_process_group()
+    two = pmesh.launch(dp_runs.dp_rank, [device, device], (raw, DP_DINO_EPOCHS, maps),
+                       backend="gloo", timeout_s=600)
+    steps = sum(len(s) for s in plain["steps"])
+    if any(not np.array_equal(g, w) for g, w in zip(one["steps"], plain["steps"])) or any(
+            not np.array_equal(one["params"][k], v) for k, v in plain["params"].items()):
+        raise RuntimeError("dino_nerf world 1: losses or parameters differ from no mesh")
+    if any(not np.array_equal(g, w) for g, w in zip(two[0]["steps"], two[1]["steps"])):
+        raise RuntimeError("dino_nerf world 2: the ranks' losses differ")
+    rel = max(np.abs(g / w - 1).max() for g, w in zip(two[0]["steps"], one["steps"]))
+    launches = {"no mesh": plain["sampler_launches"], "world 1 nccl": one["sampler_launches"],
+                "world 2 gloo per rank": [t["sampler_launches"] for t in two]}
+    print(f"  dino_nerf.yaml (seeded 9x9x64 maps) at epochs {DP_DINO_EPOCHS}: world 1 bit-equal "
+          f"to no mesh; world 2 ranks bit-equal, max rel {rel:.3e} to world 1 (tol "
+          f"{DP_LOSS_RTOL:.0e}); {steps} steps, the sampler kernel's launches {launches}, kernel "
+          f"1's {[plain['launches'], one['launches']] + [t['launches'] for t in two]}",
+          flush=True)
+    if not rel <= DP_LOSS_RTOL:
+        raise RuntimeError(f"dino_nerf world 2: per-step losses off world 1 by rel {rel}")
+    counts = [plain["sampler_launches"], one["sampler_launches"], plain["launches"],
+              one["launches"]] + [t[k] for t in two for k in ("sampler_launches", "launches")]
+    if counts != [steps] * len(counts):
+        raise RuntimeError(f"dino_nerf data parallel: launches {counts} for {steps} steps")
+    return launches
 
 
 # The kernels (route_bits.py call-name prefixes) whose sums this tree
@@ -4072,8 +4466,9 @@ def main():
     with phase("evaluate baseline.yaml"):
         tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
         try:
-            eval_launches = {"baseline.yaml": run_evaluate_phase(
-                "baseline.yaml", trained, train, test, device, tk, smi, tmp)}
+            eval_launches, eval_sampler = {}, {}
+            eval_launches["baseline.yaml"], eval_sampler["baseline.yaml"] = run_evaluate_phase(
+                "baseline.yaml", trained, train, test, device, tk, smi, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
         del trained
@@ -4126,6 +4521,9 @@ def main():
     with phase("DINO kernel widths"):
         dino_rows = run_dino_kernel_widths(device, tk, tt)
 
+    with phase("feature sampler kernel"):
+        sampler_rows = run_sampler_kernel(train, device)
+
     dino = {}
     for name in DINO_CONFIGS:
         with phase(f"DINO slice {name}"):
@@ -4134,7 +4532,7 @@ def main():
             with phase(f"evaluate {name}"):
                 tmp = tempfile.mkdtemp(prefix="chip_smoke_eval_")
                 try:
-                    eval_launches[name] = run_evaluate_phase(
+                    eval_launches[name], eval_sampler[name] = run_evaluate_phase(
                         name, dino[name]["trainer"], train, test, device, tk, smi, tmp)
                 finally:
                     shutil.rmtree(tmp, ignore_errors=True)
@@ -4190,10 +4588,17 @@ def main():
     with phase("data parallel"):
         tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
         try:
-            dp_train, dp_eval, dp_ranks = run_data_parallel(device, tk, tmp)
+            dp_train, dp_eval, dp_ranks, dp_sampler = run_data_parallel(device, tk, tmp)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
+    # the sampler kernel's launches on the main path, by run
+    sampler_launches = {**{n: dino[n]["sampler_launches"] for n in dino},
+                        **{n: script[n]["sampler_launches"] for n in SCRIPT_EPOCHS},
+                        "cli evaluate dino_nerf.yaml": eval_sampler["dino_nerf.yaml"],
+                        "dino_nerf.yaml data parallel world 1 nccl": dp_sampler["world 1 nccl"],
+                        "dino_nerf.yaml data parallel world 2 gloo, both ranks":
+                            sum(dp_sampler["world 2 gloo per rank"])}
     last = len(cfg.phases) - 1
 
     def train_row(name, cu_line, launches):
@@ -4345,6 +4750,29 @@ def main():
                         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_rate", "f64_rel",
                         "plain_f64_rel")} for cd in routes if cd != "float32"}})
 
+    srow = sampler_rows[SAMPLER_ROW]
+    sampler_row = {
+        "name": "point_features", "route": "cuda",
+        "source": "nerf_fewshot_tpu_torch/csrc/point_features.cu",
+        "replaces": "nerf_fewshot_tpu/training/trainer.py:76",
+        "replaces_note": "no pallas_call: XLA's fusion of the JAX trainer's sampler closure "
+                         "(_feature_sampler, training/trainer.py:76-105: project_points_to_image "
+                         "or project_points_script, then grid_sample)",
+        "shape": f"{srow['points']} points, maps {list(srow['maps'])} ({SAMPLER_ROW})",
+        "configs": list(sampler_launches), "launches": sum(sampler_launches.values()),
+        "launches_by_run": sampler_launches,
+        "max_abs_err": max(max(r["max_abs_err"], r.get("max_abs_err_two_ranks", 0.0))
+                           for r in sampler_rows.values()),
+        "ms": srow["ms"], "plain_ms": srow["plain_ms"], "bound_ms": srow["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "timing": "device ms a call: 20 calls captured in a CUDA graph, replayed between CUDA "
+                  "events (ms_event_loop: a loop of calls from the host)",
+        "grid_sample_taps_ms": srow["grid_sample_ms"],
+        "grid_sample_note": "F.grid_sample of the taps alone: a yardstick for part of the "
+                            "function (no projection, no mask), never called by the port",
+        "cases": {k: {key: (list(v) if isinstance(v, tuple) else v) for key, v in r.items()}
+                  for k, r in sampler_rows.items()}}
+
     print(smi)
     print(json.dumps({"kernels": [{
         "name": "fwd_pe",
@@ -4414,7 +4842,7 @@ def main():
         "library": "torch.optim.Adam(fused=True)",
         "timing": "device ms a step (torch.profiler kernel time)",
         "wall_ms_of_a_loop": adam_row["wall_ms"],
-    }, *dino_kernel_rows, lora_row("train_pe"), lora_row("fwd_pe"), *script_kernel_rows,
+    }, sampler_row, *dino_kernel_rows, lora_row("train_pe"), lora_row("fwd_pe"), *script_kernel_rows,
         *route_kernel_rows, *wide_kernel_rows, *cap_kernel_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -78,7 +78,14 @@ def project_points_to_image(
     in front of the camera get ``z < 0`` and ``valid`` False); reproduced,
     not fixed. The inverse is ``torch.linalg.inv_ex``, which does not
     synchronize with the device."""
-    w2c = torch.linalg.inv_ex(c2w)[0]
+    return project_points_w2c(points, torch.linalg.inv_ex(c2w)[0], focal, H, W)
+
+
+def project_points_w2c(
+    points: torch.Tensor, w2c: torch.Tensor, focal: float, H: int, W: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``project_points_to_image`` through a world-to-camera matrix taken
+    once per view (``torch.linalg.inv_ex(c2w)[0]``), the same arithmetic."""
     homo = torch.cat([points, torch.ones_like(points[..., :1])], dim=-1)
     cam = homo @ w2c.T
     z = cam[..., 2]

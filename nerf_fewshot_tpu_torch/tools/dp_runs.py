@@ -42,10 +42,11 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
-def dp_trainer(cfg_dict: Dict, mesh=None, device=None, with_test: bool = False):
+def dp_trainer(cfg_dict: Dict, mesh=None, device=None, with_test: bool = False,
+               dino_features: Optional[np.ndarray] = None):
     """The config's trainer on the synthetic scene at its resolution (5
     train views; 8 test views with ``with_test``), under ``mesh`` or on
-    ``device`` without one."""
+    ``device`` without one, conditioned on ``dino_features`` when given."""
     from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
@@ -56,14 +57,16 @@ def dp_trainer(cfg_dict: Dict, mesh=None, device=None, with_test: bool = False):
     train = make_scene_dataset(lego_like_scene(), 5, img_size=res, seed=cfg.seed, device=dev)
     test = (make_scene_dataset(lego_like_scene(), 8, img_size=res, seed=cfg.seed, split="test",
                                device=dev) if with_test else None)
-    return Trainer(cfg, train, test, device=dev, mesh=mesh)
+    return Trainer(cfg, train, test, device=dev, mesh=mesh, dino_features=dino_features)
 
 
 def dp_run(trainer, epochs: Sequence[int]) -> Dict:
     """Train ``epochs``: each epoch's per-step losses and ms per step (host
-    clock around synchronized epochs), kernel 1's launches (counted from 0
-    here) and the ray count of each call of its wrapper, the parameters."""
+    clock around synchronized epochs), kernel 1's and the feature sampler's
+    launches (counted from 0 here) and the ray count of each call of kernel
+    1's wrapper, the parameters."""
     from nerf_fewshot_tpu_torch.render import train_kernel as tt
+    from nerf_fewshot_tpu_torch.render.point_features import sample_point_features
 
     for e in epochs:
         trainer.phase_data(trainer._phase_index(e))  # set-up, outside the times
@@ -75,6 +78,7 @@ def dp_run(trainer, epochs: Sequence[int]) -> Dict:
         return orig(*args, **kw)
 
     orig.launches["train_pe"] = 0
+    sample_point_features.launches = 0
     recorded.launches = orig.launches
     tt.fused_train_objective = recorded
     steps, ms = [], []
@@ -89,6 +93,7 @@ def dp_run(trainer, epochs: Sequence[int]) -> Dict:
     finally:
         tt.fused_train_objective = orig
     return {"steps": steps, "ms_per_step": ms, "launches": orig.launches["train_pe"],
+            "sampler_launches": sample_point_features.launches,
             "rays": rays, "params": {k: v.cpu().numpy() for k, v in
                                      trainer.model.state_dict().items()}}
 
@@ -111,14 +116,46 @@ def allreduce_ms(mesh, n_params: int) -> Dict[str, float]:
     return out
 
 
-def dp_rank(mesh, cfg_dict: Dict, epochs: Sequence[int]) -> Dict:
+def dp_rank(mesh, cfg_dict: Dict, epochs: Sequence[int],
+            dino_features: Optional[np.ndarray] = None) -> Dict:
     """One rank of a DP run (a spawned process): ``dp_run`` and the
     all-reduce times on its mesh."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    trainer = dp_trainer(cfg_dict, mesh)
+    trainer = dp_trainer(cfg_dict, mesh, dino_features=dino_features)
     out = dp_run(trainer, epochs)
     out["allreduce_ms"] = allreduce_ms(mesh, sum(p.numel() for p in trainer.model.parameters()))
     return out
+
+
+def sampler_rank(mesh, inputs: Dict) -> Dict:
+    """One rank of the feature sampler's ``invalid_fill: mean`` across
+    ranks (a spawned process): ``inputs`` the wrapper's arguments with
+    numpy arrays; this rank's contiguous rows of the points sampled by the
+    kernel (twice) and by its plain version, each with the mean's sums and
+    point count all-reduced over the ranks; returns ``(features, valid)``
+    of each as numpy and the kernel's launches."""
+    from nerf_fewshot_tpu_torch.parallel.mesh import all_reduce_sum, process_local_slice
+    from nerf_fewshot_tpu_torch.render import point_features as tpf
+
+    a = {k: torch.as_tensor(v, device=mesh.device) if isinstance(v, np.ndarray) else v
+         for k, v in inputs.items()}
+    a["pts"] = a["pts"][process_local_slice(a["pts"].shape[0], mesh)].contiguous()
+
+    def batch_sum(s, n):
+        (total,) = all_reduce_sum(mesh, [s])
+        return total, n * mesh.world_size
+
+    def call(fn):
+        kw = dict(a)
+        f, valid = fn(kw.pop("pts"), kw.pop("maps"), kw.pop("view"), kw.pop("pose_mats"),
+                      kw.pop("focal"), kw.pop("H"), kw.pop("W"), batch_sum=batch_sum, **kw)
+        return f.cpu().numpy(), valid.cpu().numpy()
+
+    before = tpf.sample_point_features.launches
+    kernel, again = call(tpf.sample_point_features_valid), call(tpf.sample_point_features_valid)
+    launches = tpf.sample_point_features.launches - before
+    return {"kernel": kernel, "again": again, "plain": call(tpf.point_features_reference),
+            "launches": launches}
 
 
 def summary(world: int, runs: Sequence[Dict], one: Dict, epochs: Sequence[int]) -> Dict:

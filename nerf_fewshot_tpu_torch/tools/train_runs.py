@@ -29,7 +29,9 @@ losses, the parameters after epoch 103 and test view 0 rendered then.
 ``experiments/lora_nerf_trunk.yaml`` (with ``sigma_bias: 0.1``, the
 smoke's live start), each on its ViT-B/14 feature maps from the card,
 trained at epochs 0, 100, 101 and 102 (the phase-2 steps of 101-102
-timed) and epoch 103 traced. The trace is this script's checkout's
+timed), an eval of the 8 test views timed and traced (busy share,
+device events and launches per view, device ms by part), and epoch 103
+traced. The trace is this script's checkout's
 ``chip_smoke.trace``, the same for both trees. Run the two checkouts
 alternately, in separate processes (they share the package's name), A B B
 A ...; ``--summarize`` pairs the i-th run of ``--base`` with the i-th of
@@ -93,6 +95,10 @@ def _traced(smoke, tr, epoch):
             "syncs_per_step": untraced["syncs"], "syncs_per_epoch": untraced["syncs_total"],
             "events_per_step": untraced["events"], "launches_per_step": untraced["launches"],
             "device_ms_per_step": sum(untraced["parts"].values()),
+            # by part: this checkout's chip_smoke.KERNEL_GROUPS name the
+            # hand-written kernels (the feature sampler's "point_features"),
+            # the rest is "other"
+            "device_ms_by_part": untraced["parts"],
             "adam_device_ms_per_step": (cpu["parts"].get("adam", 0.0)
                                         + cpu["parts"].get("adam_step", 0.0)),
             "host_ms_per_step": cpu["host"],
@@ -122,7 +128,25 @@ def _other(root, name, train, test, device, smoke):
     return {"loss_last_epoch": losses[OTHER_EPOCHS[-1]],
             "ms_per_step": {str(e): v for e, v in ms.items()},
             "ms_per_step_mean": float(np.mean(list(ms.values()))),
+            **_eval_times(smoke, tr, test),
             "trace": _traced(smoke, tr, OTHER_TRACED)}
+
+
+def _eval_times(smoke, tr, test):
+    """ms per view of a ``render_views`` call of the 8 test views (after a
+    first call), and the same call traced: the device's busy share, its
+    events and the host's launches per view, device ms per view by part."""
+    import torch
+
+    tr.render_views(test.poses)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr.render_views(test.poses)
+    ms = (time.perf_counter() - t0) / len(test.poses) * 1e3
+    t = smoke.trace(lambda: len([tr.render_views(test.poses)]) * len(test.poses), False)
+    return {"eval_ms_per_view": ms, "eval_trace": {
+        "busy_share": t["busy_ms"] / t["wall_ms"], "events_per_view": t["events"],
+        "launches_per_view": t["launches"], "device_ms_by_part": t["parts"]}}
 
 
 def run(root: str, seed: int, tag: str, out: str, bits: str = None,
@@ -207,7 +231,10 @@ def _mean_trace(recs, key=None):
 
     traces = [(r if key is None else r[key])["trace"] for r in recs]
     out = {k: float(np.mean([t[k] for t in traces])) for k in traces[0]
-           if k not in ("host_ms_per_step", "captures")}
+           if k not in ("host_ms_per_step", "captures", "device_ms_by_part")}
+    parts = sorted({p for t in traces for p in t.get("device_ms_by_part", {})})
+    out["device_ms_by_part"] = {p: float(np.mean([t["device_ms_by_part"].get(p, 0.0)
+                                                  for t in traces])) for p in parts}
     if traces[0].get("captures"):
         out["captures"] = traces[0]["captures"]
     out["host_ms_per_step"] = {k: float(np.mean([t["host_ms_per_step"][k] for t in traces]))
@@ -229,7 +256,8 @@ def summarize(path: str, base: str, change: str) -> None:
               f"{x['ms_per_step_mean']!r} -> {y['ms_per_step_mean']!r}")
     keys = [(None, k) for k in ("psnr", "loss_last_epoch", "ms_per_step_mean", "eval_ms_per_view")
             if k in a[0]]
-    keys += [(c, "ms_per_step_mean") for c in CONFIGS[1:] if c in a[0] and c in b[0]]
+    keys += [(c, k) for c in CONFIGS[1:] if c in a[0] and c in b[0]
+             for k in ("ms_per_step_mean", "eval_ms_per_view") if k in a[0][c] and k in b[0][c]]
     for cfg, key in keys:
         get = (lambda r: r[key]) if cfg is None else (lambda r: r[cfg][key])
         d = np.array([get(y) - get(x) for x, y in zip(a[:n], b[:n])])
@@ -243,6 +271,8 @@ def summarize(path: str, base: str, change: str) -> None:
             continue
         for tag, rs in ((base, a[:n]), (change, b[:n])):
             print(f"  trace {cfg or 'baseline'} {tag}: {json.dumps(_mean_trace(rs, cfg))}")
+            if cfg is not None and "eval_trace" in rs[0][cfg]:
+                print(f"  eval trace {cfg} {tag}: {json.dumps(rs[0][cfg]['eval_trace'])}")
 
 
 def main() -> None:

@@ -13,6 +13,8 @@ and the metric suite.
 Every view is rendered by ``Trainer.render_views``: through the inline-PE
 render kernel (kernel 2) on a card on the kernel path, conditioned on
 train view 0's features whatever the pose (the reference's eval quirk).
+There the analyses' feature samples come from the sampler kernel
+(``csrc/point_features.cu``) too.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch
 from nerf_fewshot_tpu_torch.data.synthetic import orbit_pose
 from nerf_fewshot_tpu_torch.ops.interp import grid_sample
 from nerf_fewshot_tpu_torch.ops.rays import project_points_to_image
+from nerf_fewshot_tpu_torch.render.point_features import sample_point_features_valid
 from nerf_fewshot_tpu_torch.utils.logging import save_png
 from nerf_fewshot_tpu_torch.utils.plots import save_colormapped, save_heatmap, save_histogram
 
@@ -54,7 +57,14 @@ def novel_view_synthesis(trainer, out_dir: str, n_orbit: int = 8) -> List[str]:
 
 def _view_features(trainer, view: int, pts: torch.Tensor):
     """Train view ``view``'s map sampled at the reference projection of
-    ``pts``: ``(features (N, Fd), valid (N,))`` as numpy."""
+    ``pts``: ``(features (N, Fd), valid (N,))`` as numpy; on a kernel-path
+    trainer on a card by ``csrc/point_features.cu``."""
+    if trainer._sampler_kernel():
+        f, valid = sample_point_features_valid(
+            pts.contiguous(), trainer.dino_features, view, trainer._w2c_t, trainer.focal,
+            trainer.H, trainer.W, align_corners=trainer.cfg.dino.align_corners,
+            projection="reference", invalid_fill="zeros")
+        return f.cpu().numpy(), valid.cpu().numpy()
     p2d, _, valid = project_points_to_image(pts, trainer._poses_t[view], trainer.focal,
                                             trainer.H, trainer.W)
     f = grid_sample(trainer.dino_features[view], p2d,

@@ -8,9 +8,11 @@ host work done once per epoch (the permutations, the masks, the lr and the
 Adam table, copied into the buffers of ``StaticStep``, allocated once per
 phase) and a per-step body that reads only device buffers and a device step
 index (the Adam kernel's counter): the batch gather, the jitter draws,
-``fused_train_loss_grad``, the gradient buffers, the clip and the Adam
-kernel. ``StepGraph`` captures that body once per phase shape, after
-warm-up steps on a side stream, and replays it once per minibatch: the host
+``fused_train_loss_grad`` (with DINO conditioning, the feature sampler's
+kernel first, the step's view read from the device), the gradient buffers,
+the clip and the Adam kernel. ``StepGraph`` captures that body once per
+phase shape, after warm-up steps on a side stream, and replays it once per
+minibatch: the host
 pays one graph launch a step, the device runs the same kernels in the same
 order, bit for bit. The trainer's generator is registered with the graph,
 so every replay draws the jitter the eager step would have.
@@ -31,6 +33,7 @@ import torch
 
 from nerf_fewshot_tpu_torch.render import kernels as tk
 from nerf_fewshot_tpu_torch.render import train_kernel as tt
+from nerf_fewshot_tpu_torch.render.point_features import sample_point_features
 from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings
 from nerf_fewshot_tpu_torch.training.optim import AdamKernel
 
@@ -42,7 +45,7 @@ WARMUP_STEPS = 2
 # the wrappers that count their kernels' launches (the functions themselves,
 # bound here: a caller may put another function in a module's place)
 _WRAPPERS = {"fwd_pe": tk.fused_render_fwd_pe, "fwd": tk.fused_render_fwd,
-             "render_bwd": tk.fused_render_bwd}
+             "render_bwd": tk.fused_render_bwd, "point_features": sample_point_features}
 _TRAIN = tt.fused_train_objective
 
 

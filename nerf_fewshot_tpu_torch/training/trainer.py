@@ -25,7 +25,11 @@ gradient reaches them, as in the reference). Each step's points are
 projected into its view and sampled from that view's map
 (``feature_sampler``); eval and the dead-sigma probe use train view 0's
 map and pose for every pose, the reference's quirk. On the kernel path the
-features enter kernel 1 and kernel 2 as their ``feats`` input.
+features enter kernel 1 and kernel 2 as their ``feats`` input; on a card
+they are sampled there by one launch of ``csrc/point_features.cu``
+(``render/point_features.py``) over the map stack and the per-view
+world-to-camera stack ``_w2c_t``, inverted once at construction; the plain
+path and the CPU keep the plain sampler.
 
 Under a data-parallel ``mesh`` (``parallel/mesh.py``), every rank holds
 the model, draws the same permutations and uniforms and takes a contiguous
@@ -64,7 +68,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import time
-from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -91,6 +95,7 @@ from nerf_fewshot_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, process_l
 from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
 from nerf_fewshot_tpu_torch.render.kernels import pack_params, pe_constants, pe_width, to_device
 from nerf_fewshot_tpu_torch.render.pipeline import PointFeaturesFn, RenderSettings, render_rays
+from nerf_fewshot_tpu_torch.render.point_features import sample_point_features, select_view
 from nerf_fewshot_tpu_torch.render.train_kernel import fused_train_loss_grad, grad_buffer
 from nerf_fewshot_tpu_torch.training.config import Config
 from nerf_fewshot_tpu_torch.training.losses import nerf_loss
@@ -193,6 +198,10 @@ class Trainer:
         self.poses = np.asarray(train_data.poses, np.float32)
         self.n_views = train_data.n_views
         self._poses_t = torch.as_tensor(self.poses, device=self.device)
+        # each view's world-to-camera matrix, taken once here by the single-view
+        # inverse the reference projection takes at every call
+        # (project_points_to_image): the sampler kernel's pose stack
+        self._w2c_t = torch.stack([torch.linalg.inv_ex(p)[0] for p in self._poses_t])
         # as the JAX trainer: conditioning needs the config's flag and the maps
         self.use_dino = cfg.dino.use_dino and dino_features is not None
         self.dino_features = (
@@ -274,32 +283,58 @@ class Trainer:
                               lora_only=lora_only, clip_hook=False)
 
     def feature_sampler(self, view: int, global_mean: bool = False) -> Optional[PointFeaturesFn]:
-        """Train view ``view``'s conditioning closure (``_feature_sampler``
-        with the DINO config's conventions and the full-resolution
-        intrinsics), or None without conditioning. ``global_mean``: under a
-        mesh, ``invalid_fill: mean`` takes the mean over every rank's points
-        (the JAX trainer's plain step does: its mean is over the sharded
-        batch), by one all-reduce per call."""
+        """Train view ``view``'s conditioning closure, or None without
+        conditioning. ``global_mean``: under a mesh, ``invalid_fill: mean``
+        takes the mean over every rank's points (the JAX trainer's plain step
+        does: its mean is over the sharded batch), by one all-reduce per
+        call."""
         if not self.use_dino:
             return None
-        return self._sampler(self.dino_features[view], self._poses_t[view], global_mean)
+        return self._sampler(view, global_mean)
 
-    def _sampler(self, feat_map: torch.Tensor, pose: torch.Tensor,
-                 global_mean: bool = False) -> PointFeaturesFn:
-        """``feature_sampler`` of the map ``feat_map`` seen from ``pose``."""
+    def _sampler_kernel(self) -> bool:
+        """Whether conditioning samples through ``csrc/point_features.cu``:
+        on the kernel path on a card. The plain path and the CPU keep
+        ``_feature_sampler``."""
+        return self._use_fused() and self.device.type == "cuda"
+
+    def _sampler(self, view: Union[int, torch.Tensor], global_mean: bool = False
+                 ) -> PointFeaturesFn:
+        """``feature_sampler`` of view ``view``, an int or a one-element
+        int64 tensor on the device: with the DINO config's conventions and
+        the full-resolution intrinsics, ``sample_point_features`` over the
+        whole map stack and the per-view pose stack (``_sampler_kernel``),
+        else ``_feature_sampler`` of the view's map and pose."""
         d = self.cfg.dino
-        batch_mean = None
-        if global_mean and self.mesh is not None and d.invalid_fill == "mean":
-            mesh = self.mesh
+        mesh = self.mesh if global_mean and d.invalid_fill == "mean" else None
+        if self._sampler_kernel():
+            batch_sum = None
+            if mesh is not None:
+                def batch_sum(s, n):
+                    (total,) = all_reduce_sum(mesh, [s])
+                    return total, n * mesh.world_size
 
+            maps = self.dino_features
+            poses = self._poses_t if d.projection == "script" else self._w2c_t
+
+            def fn(pts: torch.Tensor) -> torch.Tensor:
+                return sample_point_features(
+                    pts.contiguous(), maps, view, poses, self.focal, self.H, self.W,
+                    align_corners=d.align_corners, projection=d.projection,
+                    invalid_fill=d.invalid_fill, batch_sum=batch_sum)
+
+            return fn
+
+        batch_mean = None
+        if mesh is not None:
             def batch_mean(f):
                 (total,) = all_reduce_sum(mesh, [torch.sum(f, dim=0, keepdim=True)])
                 return total / (f.shape[0] * mesh.world_size)
 
         return _feature_sampler(
-            feat_map, pose, self.focal, self.H, self.W,
-            align_corners=d.align_corners, invalid_fill=d.invalid_fill, projection=d.projection,
-            batch_mean=batch_mean)
+            select_view(self.dino_features, view), select_view(self._poses_t, view), self.focal,
+            self.H, self.W, align_corners=d.align_corners, invalid_fill=d.invalid_fill,
+            projection=d.projection, batch_mean=batch_mean)
 
     def _jax_ineligible_reason(self) -> Optional[str]:
         """Why the JAX package's kernels would not take this config (its
@@ -739,11 +774,7 @@ class Trainer:
         step = st.adam.counter[:1]
         row = st.rays.index_select(0, st.rows.index_select(0, step).reshape(-1))
         mask = st.mask.index_select(0, step).reshape(-1)
-        pf = None
-        if self.use_dino:
-            view = st.views.index_select(0, step)
-            pf = self._sampler(self.dino_features.index_select(0, view)[0],
-                               self._poses_t.index_select(0, view)[0])
+        pf = self._sampler(st.views.index_select(0, step)) if self.use_dino else None
         draws = self._draws(st.batch, st.n_samples, st.settings)
         loss = self._kernel_loss_grad(row[:, 0:3], row[:, 3:6], row[:, 6:9], mask, st.settings,
                                       draws, None, pf=pf)

@@ -1222,12 +1222,14 @@ def test_epoch_steps_and_render_views_make_no_synchronization(h100, kind):
     ``torch.cuda.set_sync_debug_mode("error")``: the host never waits for
     the card before the copies that end ``train_epoch`` and
     ``render_views``. The plain trunk, hierarchical sampling, trunk LoRA,
-    DINO features, the global-norm clip and a one-rank NCCL mesh; epoch 0
-    first, outside the check (the kernels' first use)."""
+    DINO features (sampled through the sampler kernel at every step and
+    chunk), the global-norm clip and a one-rank NCCL mesh; epoch 0 first,
+    outside the check (the kernels' first use)."""
     import torch.distributed as dist
 
     from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
     from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
+    from nerf_fewshot_tpu_torch.render.point_features import sample_point_features
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
@@ -1249,6 +1251,7 @@ def test_epoch_steps_and_render_views_make_no_synchronization(h100, kind):
         tr.render_views(data.poses[:1])
         tr.phase_data(1)
         before = tt.fused_train_objective.launches["train_pe"]
+        sampled = sample_point_features.launches
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")
         try:
@@ -1257,6 +1260,10 @@ def test_epoch_steps_and_render_views_make_no_synchronization(h100, kind):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert tt.fused_train_objective.launches["train_pe"] - before == 2 * 3
+        # the DINO steps and eval chunks sample through the sampler kernel
+        chunks = -(-2 * 24 * 24 // DP_CONFIG["rendering"]["chunk_size"])
+        assert sample_point_features.launches - sampled == (2 * 3 + chunks if feats is not None
+                                                            else 0)
         assert (tr.step_mode == "graph") == (mesh is None), tr.step_mode_reason
         assert losses.shape == (6,) and torch.isfinite(losses).all()
         assert views[0].shape == (2, 24, 24, 3) and all(torch.isfinite(v).all() for v in views)
@@ -1334,7 +1341,8 @@ def test_graphed_epochs_are_bit_equal_to_the_eager_step(h100, kind):
     card's eager step (``Trainer(_eager_step=True)``): per-step losses,
     parameters, both Adam moments and the step counts bit-equal. The graph
     launches kernel 1 and the Adam kernel once per step (kernel 2 once more
-    with hierarchical sampling), counted per replay; each trainer records
+    with hierarchical sampling, the feature sampler's kernel once with DINO
+    features), counted per replay; each trainer records
     its step mode and the eager one why."""
     from nerf_fewshot_tpu_torch.training.optim import AdamKernel
     from nerf_fewshot_tpu_torch.training.step_graph import kernel_launch_counts
@@ -1352,6 +1360,7 @@ def test_graphed_epochs_are_bit_equal_to_the_eager_step(h100, kind):
         assert after["train_pe"] - before["train_pe"] == n
         assert after["adam"] - before["adam"] == n
         assert after["fwd_pe"] - before["fwd_pe"] == (n if kind == "hierarchical" else 0)
+        assert after["point_features"] - before["point_features"] == (n if kind == "dino" else 0)
     assert graph.step_mode == "graph" and graph.step_mode_reason is None
     assert eager.step_mode == "eager" and "_eager_step" in eager.step_mode_reason
     assert len(graph.graph_captures) == (3 if kind == "lora" else 2)
@@ -1400,3 +1409,70 @@ def test_a_failed_capture_raises(h100, monkeypatch):
     monkeypatch.setattr(Trainer, "_static_body", body)
     with pytest.raises(RuntimeError):
         tr.epoch_steps(0)
+
+
+# ------------------------------------------------- the feature sampler kernel
+
+# chip_smoke's cases at the shipped shapes, plus the kernel's scalar path
+# (Fd % 4 != 0) and a view passed as a Python int
+SAMPLER_EXTRA = {"fd6_int_view": (1000, (5, 9, 9, 6), "reference", True, "zeros"),
+                 "fd13_mean": (999, (5, 7, 11, 13), "reference", False, "mean")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["dino_nerf", "lora_nerf_trunk", "multiscale", "script",
+                                  "mean", *sorted(SAMPLER_EXTRA)])
+def test_point_features_kernel_matches_plain(h100, case):
+    """``csrc/point_features.cu`` against its plain version on the card
+    (``chip_smoke.check_sampler``): features within 1e-5 of the map's
+    largest value, valid equal but at |z| < 1e-6, under ``mean`` the fill
+    the kernel's mean, within rel 1e-6 of the plain one or no further from
+    float64; a second call bit-equal; one launch counted a call, four with
+    the mean."""
+    import chip_smoke
+    from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
+    from nerf_fewshot_tpu_torch.render import point_features as tpf
+
+    train = make_scene_dataset(lego_like_scene(), 5, img_size=128, seed=0, device="cpu")
+    a = chip_smoke.sampler_inputs(case, train.poses, train.focal, 128, h100,
+                                  spec=SAMPLER_EXTRA.get(case))
+    if case == "fd6_int_view":
+        a["view"] = chip_smoke.SAMPLER_VIEW
+    before = tpf.sample_point_features.launches
+    got = chip_smoke.sampler_call(tpf.sample_point_features_valid, a)
+    again = chip_smoke.sampler_call(tpf.sample_point_features_valid, a)
+    torch.cuda.synchronize()
+    per_call = 4 if a["invalid_fill"] == "mean" else 1
+    assert tpf.sample_point_features.launches - before == 2 * per_call
+    want = chip_smoke.sampler_call(tpf.point_features_reference, a)
+    raw = None
+    if a["invalid_fill"] == "mean":
+        raw = chip_smoke.sampler_call(tpf.point_features_reference, a, invalid_fill="zeros")[0]
+    chip_smoke.check_sampler(case, got, again, want, a, raw)
+
+
+@pytest.mark.cuda
+def test_point_features_mean_on_two_gloo_ranks(h100):
+    """``invalid_fill: mean`` on two Gloo ranks on ``cuda:0``, each rank's
+    half of the points through the kernel with the per-channel sums
+    all-reduced between its launches (``dp_runs.sampler_rank``): the
+    concatenated features against the plain version over all the points in
+    one process, at ``check_sampler``'s gates; four launches a call on each
+    rank."""
+    import chip_smoke
+    from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
+    from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
+    from nerf_fewshot_tpu_torch.render import point_features as tpf
+    from nerf_fewshot_tpu_torch.tools import dp_runs
+
+    train = make_scene_dataset(lego_like_scene(), 5, img_size=128, seed=0, device="cpu")
+    a = chip_smoke.sampler_inputs("mean", train.poses, train.focal, 128, h100)
+    want = chip_smoke.sampler_call(tpf.point_features_reference, a)
+    raw = chip_smoke.sampler_call(tpf.point_features_reference, a, invalid_fill="zeros")[0]
+    host = {k: (v.cpu().numpy() if isinstance(v, torch.Tensor) else v) for k, v in a.items()}
+    two = pmesh.launch(dp_runs.sampler_rank, ["cuda:0", "cuda:0"], (host,), backend="gloo",
+                       timeout_s=600)
+    assert [t["launches"] for t in two] == [8, 8]
+    cat = lambda key, i: torch.as_tensor(np.concatenate([t[key][i] for t in two]), device=h100)
+    chip_smoke.check_sampler("mean on two ranks", (cat("kernel", 0), cat("kernel", 1)),
+                             (cat("again", 0), cat("again", 1)), want, a, raw)

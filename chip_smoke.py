@@ -475,12 +475,13 @@ LOAD_LINE = "[dino] loaded pretrained backbone weights from "
 NOISE_REASON = "sigma noise_std != 0 is not implemented in the kernels"
 NOISE_EPOCHS = (0, 1)
 # Data parallelism: the baseline at its published widths under a mesh.
-# Epochs 0 and 1 (five 1024 x 32 steps each) gate the ranks, epoch 50
-# (twenty 1024 x 48 steps) is timed. World 1 runs on NCCL in this process,
-# world 2 as two spawned ranks on the one card over Gloo (NCCL refuses two
-# ranks on one device). World 2 against world 1: the order of the sums
-# differs, so per-step losses of epoch 0 within rel DP_LOSS_RTOL.
-DP_EPOCHS = (0, 1, 50)
+# Epochs 0 and 1 (five 1024 x 32 steps each) gate the ranks, epochs 50 (twenty
+# 1024 x 48 steps, the phase's capture) and 51 (replays only) are timed.
+# World 1 runs on NCCL in this process (graphed, and eager beside it), world
+# 2 as two spawned ranks on the one card over Gloo (NCCL refuses two ranks on
+# one device; Gloo steps eagerly). World 2 against world 1: the order of the
+# sums differs, so per-step losses of epoch 0 within rel DP_LOSS_RTOL.
+DP_EPOCHS = (0, 1, 50, 51)
 DP_DINO_EPOCHS = (0,)  # dino_nerf.yaml under a mesh: each rank samples its shard
 DP_LOSS_RTOL = 1e-4
 # The precision routes (render/kernels.py ROUTES) of all five kernels, and
@@ -1252,9 +1253,11 @@ def run_graph_vs_eager(train, test, device):
     final parameters, both Adam moments and the step counts bit-equal, the
     graph's launches per step (kernel 1 and the Adam kernel once, kernel 2
     once more with hierarchical sampling, the feature sampler's kernel once
-    with features), or raise; the ms per step of
-    both and each capture's cost printed. Returns the graph trainers' ms per
-    step at ``float32``, by config."""
+    with features), or raise; each capture's cost printed, and the ms per
+    step of both over the epochs in which the graph only replayed apart from
+    those in which it captured (the warm-up steps, the capture, the
+    instantiation and first uses). Returns the graph trainers' ms per
+    replayed step at ``float32``, by config."""
     from nerf_fewshot_tpu_torch.cli import _precompute_features
     from nerf_fewshot_tpu_torch.training.config import config_from_dict, load_config
     from nerf_fewshot_tpu_torch.training.step_graph import kernel_launch_counts
@@ -1275,19 +1278,24 @@ def run_graph_vs_eager(train, test, device):
             for i in range(len(cfg.phases)):
                 g.phase_data(i)
                 e.phase_data(i)
-            steps, sec = 0, {"graph": 0.0, "eager": 0.0}
+            # (mode, whether the graph captured in the epoch) -> [seconds, steps]
+            sec = {(m, c): [0.0, 0] for m in ("graph", "eager") for c in (False, True)}
             for epoch in GRAPH_GATE_EPOCHS[name]:
                 before = kernel_launch_counts()
+                captures = len(g.graph_captures)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 got = g.epoch_steps(epoch).cpu()
-                sec["graph"] += time.perf_counter() - t0
+                t_graph = time.perf_counter() - t0
                 after = kernel_launch_counts()
                 t0 = time.perf_counter()
                 want = e.epoch_steps(epoch).cpu()
-                sec["eager"] += time.perf_counter() - t0
+                t_eager = time.perf_counter() - t0
                 n = want.shape[0]
-                steps += n
+                captured = len(g.graph_captures) > captures
+                for m, t in (("graph", t_graph), ("eager", t_eager)):
+                    sec[(m, captured)][0] += t
+                    sec[(m, captured)][1] += n
                 launched = {k: after[k] - before[k]
                             for k in ("train_pe", "fwd_pe", "adam", "point_features")}
                 expect = {"train_pe": n, "fwd_pe": n if name == "hierarchical" else 0, "adam": n,
@@ -1311,12 +1319,17 @@ def run_graph_vs_eager(train, test, device):
             caps = ", ".join(f"phase {c['phase']} capture {c['capture_ms']:.1f} ms, instantiate "
                              f"{c['instantiate_ms']:.1f} ms, pool {c['pool_mb']:.1f} MB"
                              for c in g.graph_captures)
+            ms = {k: t / n * 1e3 if n else float("nan") for k, (t, n) in sec.items()}
+            steps = sec[("graph", False)][1] + sec[("graph", True)][1]
             print(f"  {name} {route}: {steps} steps over epochs {GRAPH_GATE_EPOCHS[name]} "
-                  f"bit-equal (losses, parameters, moments, steps); ms per step graph "
-                  f"{sec['graph'] / steps * 1e3:.3f}, eager {sec['eager'] / steps * 1e3:.3f} "
+                  f"bit-equal (losses, parameters, moments, steps); ms per step over the "
+                  f"{sec[('graph', False)][1]} steps of the epochs that only replayed: graph "
+                  f"{ms[('graph', False)]:.3f}, eager {ms[('eager', False)]:.3f}; over the "
+                  f"{sec[('graph', True)][1]} of the epochs that captured: graph "
+                  f"{ms[('graph', True)]:.3f}, eager {ms[('eager', True)]:.3f} "
                   f"({e.step_mode_reason}); captures: {caps}", flush=True)
             if route == "float32":
-                out[name] = sec["graph"] / steps * 1e3
+                out[name] = ms[("graph", False)]
             del g, e
     return out
 
@@ -3438,47 +3451,71 @@ def run_cli(tmp):
         raise RuntimeError("the CLI wrote no final.ckpt")
 
 
-def run_data_parallel(device, tk, tmp):
-    """World 1 on NCCL against the no-mesh trainer (bit for bit), its eval
-    (kernel 2 once per chunk), world 2 on Gloo against world 1, then
-    ``multihost_train_smoke --kernels`` as two Gloo processes on the card and
-    ``cli train --multihost`` on ``dino_nerf.yaml`` at world 1 (NCCL, read
-    from the environment). Returns the launches of kernels 1 and 2."""
+def run_data_parallel(device, tk, tmp, smi):
+    """World 1 on NCCL as CUDA graph replays (each replay: kernel 1, the
+    Adam kernel and the all-reduce of the gradients and the loss, once)
+    against the no-mesh trainer and an eager one-rank mesh trainer
+    (``Trainer(_eager_step=True)``), bit for bit in per-step losses,
+    parameters and Adam moments; its eval (kernel 2 once per chunk); no
+    synchronization in a graphed mesh epoch; ms per step of the three and
+    the all-reduce's share of a graphed step; world 2 on Gloo (eager, its
+    reason recorded) against world 1; then ``multihost_train_smoke
+    --kernels`` as two Gloo processes on the card and ``cli train
+    --multihost`` on ``dino_nerf.yaml`` at world 1 (NCCL, read from the
+    environment). Returns the graphed world 1's launches of kernels 1 and 2
+    and the Adam kernel, the Gloo ranks' of kernel 1 and the sampler's."""
     import torch.distributed as dist
 
     from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
     from nerf_fewshot_tpu_torch.tools import dp_runs
+    from nerf_fewshot_tpu_torch.training.optim import AdamKernel
 
     plain = dp_runs.dp_run(dp_runs.dp_trainer(BASELINE_CONFIG, device=device), DP_EPOCHS)
     pmesh.initialize_multihost(f"localhost:{pmesh.free_port()}", 1, 0, device=device)
     try:
         mesh = pmesh.make_mesh(device)
         trainer = dp_runs.dp_trainer(BASELINE_CONFIG, mesh, with_test=True)
+        adam0, reduced0 = AdamKernel.launches, pmesh.all_reduce_sum_.launches
         one = dp_runs.dp_run(trainer, DP_EPOCHS)
+        adam_launches = AdamKernel.launches - adam0
+        reduced = pmesh.all_reduce_sum_.launches - reduced0
+        eager = dp_runs.dp_run(dp_runs.dp_trainer(BASELINE_CONFIG, mesh, eager=True), DP_EPOCHS)
         n_params = sum(p.numel() for p in trainer.model.parameters())
-        one["allreduce_ms"] = dp_runs.allreduce_ms(mesh, n_params)
+        one["collective_ms"] = dp_runs.collective_ms(mesh, n_params)
         tk.fused_render_fwd_pe.launches = 0
         metrics = trainer.evaluate()
         eval_launches = tk.fused_render_fwd_pe.launches
-        no_sync_run(f"world 1 epoch {DP_EPOCHS[-1]}'s steps (NCCL)",
+        no_sync_run(f"world 1 epoch {DP_EPOCHS[-1]}'s steps (NCCL, graph replays)",
                     lambda: trainer.epoch_steps(DP_EPOCHS[-1]))
     finally:
         dist.destroy_process_group()
     n_steps = [len(s) for s in one["steps"]]
-    print(f"  world 1 ({mesh.backend}, {mesh.device}): {n_steps} steps at epochs {DP_EPOCHS}, "
-          f"kernel 1 {one['launches']} launches on {sorted(set(one['rays']))} rays; eval psnr "
-          f"{metrics['psnr']:.4f} dB, kernel 2 {eval_launches} launches", flush=True)
-    for e, g, w in zip(DP_EPOCHS, one["steps"], plain["steps"]):
-        if not np.array_equal(g, w):
-            raise RuntimeError(f"world 1 epoch {e}: per-step losses differ from the "
-                               f"no-mesh trainer's (max rel {np.abs(g / w - 1).max():.3e})")
-    if any(not np.array_equal(one["params"][k], v) for k, v in plain["params"].items()):
-        raise RuntimeError("world 1: parameters differ from the no-mesh trainer's")
-    print("  world 1 against no mesh: per-step losses and parameters bit-equal", flush=True)
+    print(f"  world 1 ({mesh.backend}, {mesh.device}): step modes {one['step_mode']} / "
+          f"{eager['step_mode']} ({eager['step_mode_reason']}); {n_steps} steps at epochs "
+          f"{DP_EPOCHS}, kernel 1 {one['launches']} launches on {sorted(set(one['rays']))} rays, "
+          f"the Adam kernel {adam_launches}, the all-reduce {reduced}; one replay "
+          f"{one['launches_per_replay']}; eval psnr {metrics['psnr']:.4f} dB, kernel 2 "
+          f"{eval_launches} launches", flush=True)
+    if (one["step_mode"], one["step_mode_reason"]) != ("graph", None) \
+            or eager["step_mode"] != "eager":
+        raise RuntimeError(f"world 1 step modes: {one['step_mode']} "
+                           f"({one['step_mode_reason']}), {eager['step_mode']}")
+    for label, other in (("the no-mesh trainer", plain), ("the eager mesh step", eager)):
+        differs = dp_runs.run_difference(one, other)
+        if differs is not None:
+            raise RuntimeError(f"world 1 graph: {differs} differ from {label}'s")
+    print("  world 1 graph against no mesh and against the eager mesh step: per-step losses, "
+          "parameters and Adam moments bit-equal", flush=True)
     n_chunks = -(-N_TEST_VIEWS * trainer.H * trainer.W // trainer.cfg.rendering.chunk_size)
-    if one["launches"] != sum(n_steps) or eval_launches != n_chunks:
-        raise RuntimeError(f"world 1: kernel 1 {one['launches']} launches for {sum(n_steps)} "
-                           f"steps, kernel 2 {eval_launches} for {n_chunks} chunks")
+    per = one["launches_per_replay"] or {}
+    if one["launches"] != sum(n_steps) or eval_launches != n_chunks \
+            or adam_launches != sum(n_steps) or reduced != sum(n_steps) \
+            or {k: per.get(k) for k in ("train_pe", "adam", "allreduce")} != \
+            {"train_pe": 1, "adam": 1, "allreduce": 1} \
+            or any(v for k, v in per.items() if k not in ("train_pe", "adam", "allreduce")):
+        raise RuntimeError(f"world 1: kernel 1 {one['launches']}, Adam {adam_launches}, "
+                           f"all-reduce {reduced} launches for {sum(n_steps)} steps, kernel 2 "
+                           f"{eval_launches} for {n_chunks} chunks; a replay {per}")
     del trainer
 
     t0 = time.perf_counter()
@@ -3491,29 +3528,48 @@ def run_data_parallel(device, tk, tmp):
                 raise RuntimeError(f"world 2: rank {r}'s losses of epoch {e} differ from rank 0's")
     if any(not np.array_equal(two[1]["params"][k], v) for k, v in two[0]["params"].items()):
         raise RuntimeError("world 2: the ranks' parameters differ")
+    reason = two[0]["step_mode_reason"] or ""
+    if any(t["step_mode"] != "eager" for t in two) or not reason.startswith("a gloo mesh"):
+        raise RuntimeError(f"world 2 gloo: step modes {[t['step_mode'] for t in two]} "
+                           f"({reason})")
     rel = np.abs(two[0]["steps"][0] / one["steps"][0] - 1).max()
-    print(f"  world 2 (gloo, two ranks on {device}, {sec:.1f} s with start-up): ranks bit-equal in "
-          f"losses and parameters; epoch 0 per step max rel {rel:.3e} to world 1 (tol "
-          f"{DP_LOSS_RTOL:.0e}); kernel 1 {[t['launches'] for t in two]} launches per rank on "
-          f"{sorted(set(two[0]['rays']))} rays", flush=True)
+    print(f"  world 2 (gloo, two ranks on {device}, {sec:.1f} s with start-up): eager ({reason}); "
+          f"ranks bit-equal in losses and parameters; epoch 0 per step max rel {rel:.3e} to "
+          f"world 1 (tol {DP_LOSS_RTOL:.0e}); kernel 1 {[t['launches'] for t in two]} launches "
+          f"per rank on {sorted(set(two[0]['rays']))} rays", flush=True)
     if not rel <= DP_LOSS_RTOL:
         raise RuntimeError(f"world 2 epoch 0: per-step losses differ from world 1 by rel {rel}")
-    half = sorted({r // 2 for r in one["rays"]})
+    half = sorted({r // 2 for r in eager["rays"]})
     for t in two:
         if t["launches"] != sum(n_steps) or sorted(set(t["rays"])) != half:
             raise RuntimeError(f"world 2: kernel 1 {t['launches']} launches on "
                                f"{sorted(set(t['rays']))} rays; want {sum(n_steps)} on {half}")
-    epoch = DP_EPOCHS[-1]
-    print(f"  ms per step at epoch {epoch} (1024 x 48): no mesh {plain['ms_per_step'][-1]:.3f}, "
-          f"world 1 nccl {one['ms_per_step'][-1]:.3f}, world 2 gloo "
-          f"{[round(t['ms_per_step'][-1], 3) for t in two]} per rank (two ranks share the card; "
-          f"gloo's numbers do not represent nccl's)", flush=True)
-    for label, t in (("world 1 nccl", one), ("world 2 gloo rank 0", two[0])):
-        ar = t["allreduce_ms"]
-        share = (ar["count"] + ar["loss_and_grads"]) / t["ms_per_step"][-1]
-        print(f"  {label}: all-reduce of the count {ar['count']:.3f} ms, of the loss and "
-              f"{n_params} gradients {ar['loss_and_grads']:.3f} ms; {share:.1%} of a step",
-              flush=True)
+    at = {e: i for i, e in enumerate(DP_EPOCHS)}
+    for e in DP_EPOCHS[-2:]:
+        what = "the phase's capture" if one["captured"][at[e]] else "replays only"
+        print(f"  ms per step at epoch {e} ({what}; {n_steps[at[e]]} steps): no mesh "
+              f"{plain['ms_per_step'][at[e]]:.3f}, world 1 nccl graph "
+              f"{one['ms_per_step'][at[e]]:.3f}, world 1 nccl eager "
+              f"{eager['ms_per_step'][at[e]]:.3f}, world 2 gloo "
+              f"{[round(t['ms_per_step'][at[e]], 3) for t in two]} per rank (two ranks share the "
+              f"card; gloo's numbers do not represent nccl's); {smi}", flush=True)
+    last = DP_EPOCHS[-1]
+    ar = one["collective_ms"]
+    if ar["graph"] is not None:
+        raise AssertionError("world 1: collective_ms timed a graph, which holds no device work")
+    # at world 1 the in-place all-reduce enqueues no device work, so a graph
+    # of it is empty and its per-replay count is the capture's Python call:
+    # the captured collective with device work runs in tools/dp_runs.py only
+    print(f"  the mesh step's all-reduce of the loss and {n_params} gradients ({smi}): "
+          f"{ar['eager']:.4f} ms eager, {ar['eager'] / eager['ms_per_step'][-1]:.1%} of an eager "
+          f"world 1 step at epoch {last} ({eager['ms_per_step'][-1]:.3f} ms); in a graph at "
+          f"world 1 it is no device work (one rank: nothing to sum), so no graph time is given "
+          f"and the 'allreduce' per replay counts the call the capture recorded; a captured "
+          f"collective that moves data runs only under tools/dp_runs.py on several cards",
+          flush=True)
+    ar = two[0]["collective_ms"]
+    print(f"  world 2 gloo rank 0: the all-reduce {ar['eager']:.3f} ms, "
+          f"{ar['eager'] / two[0]['ms_per_step'][-1]:.1%} of a step", flush=True)
 
     sampler = run_data_parallel_dino(device)
 
@@ -3557,16 +3613,17 @@ def run_data_parallel(device, tk, tmp):
         raise RuntimeError("cli train --multihost wrote no final.ckpt")
     print(f"  cli train dino_nerf.yaml --synthetic --epochs 2 --multihost (world 1 from the "
           f"environment): exit 0, {mesh_line!r}, kernel path, final.ckpt", flush=True)
-    return one["launches"], eval_launches, [t["launches"] for t in two], sampler
+    return one["launches"], eval_launches, adam_launches, [t["launches"] for t in two], sampler
 
 
 def run_data_parallel_dino(device):
     """``dino_nerf.yaml`` on seeded maps at DP_DINO_EPOCHS with no mesh, on a
-    one-rank NCCL mesh and on two Gloo ranks on the card, each rank sampling
-    its shard's features through the sampler kernel: world 1 bit-equal to no
-    mesh, the ranks bit-equal, world 2 within DP_LOSS_RTOL of world 1; the
-    sampler and kernel 1 once per step on every rank, or raise. Returns the
-    sampler's launches by run."""
+    one-rank NCCL mesh (graph replays) and on two Gloo ranks on the card
+    (eager), each rank sampling its shard's features through the sampler
+    kernel: world 1 bit-equal to no mesh in losses, parameters and Adam
+    moments, the ranks bit-equal, world 2 within DP_LOSS_RTOL of world 1;
+    the sampler and kernel 1 once per step on every rank, or raise. Returns
+    the sampler's launches by run."""
     import torch.distributed as dist
 
     from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
@@ -3586,16 +3643,20 @@ def run_data_parallel_dino(device):
     two = pmesh.launch(dp_runs.dp_rank, [device, device], (raw, DP_DINO_EPOCHS, maps),
                        backend="gloo", timeout_s=600)
     steps = sum(len(s) for s in plain["steps"])
-    if any(not np.array_equal(g, w) for g, w in zip(one["steps"], plain["steps"])) or any(
-            not np.array_equal(one["params"][k], v) for k, v in plain["params"].items()):
-        raise RuntimeError("dino_nerf world 1: losses or parameters differ from no mesh")
+    differs = dp_runs.run_difference(one, plain)
+    if differs is not None:
+        raise RuntimeError(f"dino_nerf world 1: {differs} differ from no mesh")
+    if one["step_mode"] != "graph" or any(t["step_mode"] != "eager" for t in two):
+        raise RuntimeError(f"dino_nerf step modes: world 1 {one['step_mode']}, world 2 "
+                           f"{[t['step_mode'] for t in two]}")
     if any(not np.array_equal(g, w) for g, w in zip(two[0]["steps"], two[1]["steps"])):
         raise RuntimeError("dino_nerf world 2: the ranks' losses differ")
     rel = max(np.abs(g / w - 1).max() for g, w in zip(two[0]["steps"], one["steps"]))
     launches = {"no mesh": plain["sampler_launches"], "world 1 nccl": one["sampler_launches"],
                 "world 2 gloo per rank": [t["sampler_launches"] for t in two]}
-    print(f"  dino_nerf.yaml (seeded 9x9x64 maps) at epochs {DP_DINO_EPOCHS}: world 1 bit-equal "
-          f"to no mesh; world 2 ranks bit-equal, max rel {rel:.3e} to world 1 (tol "
+    print(f"  dino_nerf.yaml (seeded 9x9x64 maps) at epochs {DP_DINO_EPOCHS}: world 1 (graph "
+          f"replays) bit-equal to no mesh in losses, parameters and Adam moments; world 2 "
+          f"(eager) ranks bit-equal, max rel {rel:.3e} to world 1 (tol "
           f"{DP_LOSS_RTOL:.0e}); {steps} steps, the sampler kernel's launches {launches}, kernel "
           f"1's {[plain['launches'], one['launches']] + [t['launches'] for t in two]}",
           flush=True)
@@ -4588,7 +4649,8 @@ def main():
     with phase("data parallel"):
         tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
         try:
-            dp_train, dp_eval, dp_ranks, dp_sampler = run_data_parallel(device, tk, tmp)
+            dp_train, dp_eval, dp_adam, dp_ranks, dp_sampler = run_data_parallel(
+                device, tk, tmp, smi)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4794,7 +4856,8 @@ def main():
         "library_ms": None,
     }, {**train_row("train_pe", 343, train_launches + gate_launches + dp_train),
         "launches_kernel_gradient_check": gate_launches,
-        "launches_data_parallel": {"world 1 nccl": dp_train, "world 2 gloo per rank": dp_ranks}},
+        "launches_data_parallel": {"world 1 nccl graph replays": dp_train,
+                                   "world 2 gloo per rank": dp_ranks}},
         train_row("train_x", 320, x_launches + x_launches_hier), {
         "name": "fwd",
         "route": "cuda",
@@ -4830,8 +4893,9 @@ def main():
         "replaces": "nerf_fewshot_tpu/training/optim.py:56",
         "replaces_note": "no pallas_call: the optax chain (add_decayed_weights, scale_by_adam) "
                          "that XLA fuses into the JAX trainer's epoch_fn (training/trainer.py:474)",
-        "configs": ["baseline.yaml"],
-        "launches": adam_launches,
+        "configs": ["baseline.yaml", "baseline.yaml data parallel"],
+        "launches": adam_launches + dp_adam,
+        "launches_data_parallel": {"world 1 nccl graph replays": dp_adam},
         "max_abs_err": adam_row["max_abs_err"],
         "ms": adam_row["ms"],
         "plain_ms": adam_row["plain_ms"],

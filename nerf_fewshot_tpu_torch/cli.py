@@ -200,9 +200,7 @@ def _train_rank(mesh, args) -> dict:
 
 def cmd_train(args) -> None:
     if args.multihost:
-        import torch.distributed as dist
-
-        from nerf_fewshot_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+        from nerf_fewshot_tpu_torch.parallel.mesh import initialize_multihost, make_mesh, shutdown
 
         initialize_multihost(device=args.device)
         try:
@@ -211,7 +209,7 @@ def cmd_train(args) -> None:
                   f"{mesh.world_size} processes ({mesh.backend})")
             summary = _train(args, mesh)
         finally:
-            dist.destroy_process_group()
+            shutdown()
     elif args.data_parallel and resolve_device(args.device).type == "cuda" \
             and torch.cuda.device_count() > 1:
         from nerf_fewshot_tpu_torch.parallel.mesh import launch

@@ -5,7 +5,10 @@ The strategy is the JAX package's: ray-batch data parallelism. The NeRF
 MLP is replicated; each rank holds one device and takes a contiguous block
 of every minibatch's rows; the loss and the gradients are summed over the
 ranks. Where the JAX package lets XLA insert the ``psum``, the port calls
-one all-reduce over a flat buffer (``all_reduce_sum``).
+one all-reduce over a flat buffer: ``all_reduce_sum`` concatenates its
+tensors, ``all_reduce_sum_`` sums one flat tensor in place (the trainer's
+gradient buffer with the loss beside it), which a CUDA graph can capture on
+an NCCL mesh (``can_capture``).
 
 One process per rank. The backend follows the rank's device: NCCL on a
 card, Gloo on the CPU, or whatever the caller names. Gloo all-reduces CUDA
@@ -18,9 +21,11 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import gc
 import os
 import queue
 import socket
+import sys
 import time
 import traceback
 from typing import Any, Callable, List, Optional, Sequence, Tuple
@@ -133,6 +138,26 @@ def all_reduce_sum(mesh: Mesh, tensors: Sequence[torch.Tensor]) -> List[torch.Te
             zip(torch.split(flat, [t.numel() for t in tensors]), tensors)]
 
 
+def all_reduce_sum_(mesh: Mesh, flat: torch.Tensor) -> torch.Tensor:
+    """``flat`` summed over the ranks in place, by one all-reduce (no copy:
+    a CUDA graph captured on an NCCL mesh replays it on the same buffer).
+    Counts every call in ``all_reduce_sum_.launches``."""
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.group)
+    all_reduce_sum_.launches += 1
+    return flat
+
+
+all_reduce_sum_.launches = 0
+
+
+def can_capture(mesh: Mesh) -> bool:
+    """Whether the mesh's collectives can be captured in a CUDA graph: NCCL
+    enqueues its kernels on the card's streams, which a capture records once
+    its communicator exists (the trainer's warm-up steps, outside the
+    capture, make it); Gloo runs its collectives on the host."""
+    return mesh.backend == "nccl"
+
+
 def _rows(n_global: int, rank: int, world_size: int) -> slice:
     if n_global % world_size:
         raise ValueError(f"{n_global} rows do not split evenly over {world_size} ranks "
@@ -201,16 +226,35 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
+def shutdown() -> None:
+    """Leave the process group: drop the locals of the frames an exception
+    in flight has left (called from a ``finally``), collect garbage, then
+    ``dist.destroy_process_group()``. NCCL destroys a communicator only
+    once every CUDA graph that captured one of its collectives is destroyed
+    (a graphed mesh trainer's step, ``training/step_graph.py``), so a graph
+    still alive, in a reference cycle or a live trainer, blocks this call
+    for good: drop the mesh's trainers first."""
+    error = sys.exc_info()[1]
+    if error is not None:
+        traceback.clear_frames(error.__traceback__)
+    gc.collect()
+    dist.destroy_process_group()
+
+
 def _rank_main(fn, rank, devices, address, backend, args, results) -> None:
     try:
         initialize_multihost(address, len(devices), rank, backend=backend, device=devices[rank])
-        try:
-            out = fn(make_mesh(devices[rank]), *args)
-        finally:
-            dist.destroy_process_group()
     except BaseException:
         results.put((rank, False, traceback.format_exc()))
         raise
+    try:
+        out = fn(make_mesh(devices[rank]), *args)
+    except BaseException:
+        # put before the teardown: a failed rank's peers may wait in a collective
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    finally:
+        shutdown()
     results.put((rank, True, out))
 
 

@@ -22,12 +22,35 @@ import tempfile
 from typing import Optional
 
 import numpy as np
-import torch.distributed as dist
-
 from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
-from nerf_fewshot_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+from nerf_fewshot_tpu_torch.parallel.mesh import initialize_multihost, make_mesh, shutdown
 from nerf_fewshot_tpu_torch.training.config import config_from_dict
 from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+
+def _train(mesh, epochs: int, process_id: int, kernels: bool) -> list:
+    """``epochs`` epochs of a small config on the mesh: the mean loss of each."""
+    res = 16
+    cfg = config_from_dict({
+        "experiment": {"name": "multihost-train-smoke"},
+        "data": {"resolution": res, "num_views": 2, "near": 2.0, "far": 6.0},
+        "nerf_model": {"pos_freq": 6, "dir_freq": 2, "hidden_dim": 128 if kernels else 64,
+                       "num_layers": 2, "sigma_bias": 0.1},
+        "training": {"epochs": epochs, "phases": [
+            {"start": 0, "H": res, "n_samples": 8, "batch_size": 128}]},
+        "optimizer": {"lr": 5e-3, "weight_decay": 0.0, "lr_milestones": []},
+        "rendering": {"chunk_size": 256, "white_bkgd": True,
+                      "backend": "auto" if kernels else "xla"},
+        "output": {"save_dir": os.path.join(tempfile.gettempdir(), f"mh_train_{process_id}"),
+                   "val_freq": 1000, "save_freq": 1000},
+    })
+    data = make_scene_dataset(lego_like_scene(), n_views=2, img_size=res, gt_samples=32,
+                              device=mesh.device)
+    trainer = Trainer(cfg, data, mesh=mesh)
+    if trainer._use_fused() != kernels:
+        raise RuntimeError(f"the trainer took the {trainer.kernel_path} path "
+                           f"({trainer.kernel_path_reason})")
+    return [trainer.train_epoch(e) for e in range(epochs)]
 
 
 def run(coordinator: str, num_processes: int, process_id: int, epochs: int = 2,
@@ -35,29 +58,9 @@ def run(coordinator: str, num_processes: int, process_id: int, epochs: int = 2,
     initialize_multihost(coordinator, num_processes, process_id, backend=backend, device=device)
     try:
         mesh = make_mesh(device)
-        res = 16
-        cfg = config_from_dict({
-            "experiment": {"name": "multihost-train-smoke"},
-            "data": {"resolution": res, "num_views": 2, "near": 2.0, "far": 6.0},
-            "nerf_model": {"pos_freq": 6, "dir_freq": 2, "hidden_dim": 128 if kernels else 64,
-                           "num_layers": 2, "sigma_bias": 0.1},
-            "training": {"epochs": epochs, "phases": [
-                {"start": 0, "H": res, "n_samples": 8, "batch_size": 128}]},
-            "optimizer": {"lr": 5e-3, "weight_decay": 0.0, "lr_milestones": []},
-            "rendering": {"chunk_size": 256, "white_bkgd": True,
-                          "backend": "auto" if kernels else "xla"},
-            "output": {"save_dir": os.path.join(tempfile.gettempdir(), f"mh_train_{process_id}"),
-                       "val_freq": 1000, "save_freq": 1000},
-        })
-        data = make_scene_dataset(lego_like_scene(), n_views=2, img_size=res, gt_samples=32,
-                                  device=mesh.device)
-        trainer = Trainer(cfg, data, mesh=mesh)
-        if trainer._use_fused() != kernels:
-            raise RuntimeError(f"the trainer took the {trainer.kernel_path} path "
-                               f"({trainer.kernel_path_reason})")
-        losses = [trainer.train_epoch(e) for e in range(epochs)]
+        losses = _train(mesh, epochs, process_id, kernels)
     finally:
-        dist.destroy_process_group()
+        shutdown()  # the trainer, and its graphs, went with _train's frame
     if not np.isfinite(losses).all():
         raise RuntimeError(f"non-finite losses {losses}")
     print(f"multihost_train_smoke proc {process_id}/{num_processes}: devices={mesh.world_size} "

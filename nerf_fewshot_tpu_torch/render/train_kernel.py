@@ -484,18 +484,32 @@ def fused_train_loss_grad(
     return loss.detach(), dict(zip(names, grads))
 
 
-def grad_buffer(params: Mapping[str, torch.Tensor], num_layers: int
+def grad_buffer(params: Mapping[str, torch.Tensor], num_layers: int, extra: int = 0
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """A zeroed flat buffer for ``fused_train_loss_grad(grad_buffer=)`` over
     ``params`` (a model's parameters by name) and its views by name, each
-    contiguous in its parameter's shape, laid out as the call writes them."""
+    contiguous in its parameter's shape, laid out as the call writes them;
+    ``extra`` more elements after the gradients (a mesh step's loss: one
+    all-reduce sums both, ``parallel/fused_dp.py``)."""
+    names = _grad_names(params, num_layers)
+    flat = torch.zeros(sum(params[n].numel() for n in names) + extra, dtype=torch.float32,
+                       device=params[names[0]].device)
+    return flat, grad_views(params, num_layers, flat[:flat.numel() - extra])
+
+
+def grad_views(params: Mapping[str, torch.Tensor], num_layers: int, flat: torch.Tensor
+               ) -> Dict[str, torch.Tensor]:
+    """The views by name of a flat gradient buffer laid out as
+    ``grad_buffer`` lays it out (``flat``: exactly the gradients)."""
+    names = _grad_names(params, num_layers)
+    return dict(zip(names, _views_of(flat, [params[n] for n in names])))
+
+
+def _grad_names(params: Mapping[str, torch.Tensor], num_layers: int) -> list:
+    """The order of ``grad_buffer``'s layout: ``_src_names`` for a trunk
+    without LoRA, ``params``' own for a LoRA trunk."""
     names = list(_src_names(num_layers))
-    if set(params) != set(names):  # a LoRA trunk: in ``params`` order
-        names = list(params)
-    like = [params[n] for n in names]
-    flat = torch.zeros(sum(t.numel() for t in like), dtype=torch.float32,
-                       device=like[0].device)
-    return flat, dict(zip(names, _views_of(flat, like)))
+    return names if set(params) == set(names) else list(params)
 
 
 def _views_of(flat: torch.Tensor, like) -> list:

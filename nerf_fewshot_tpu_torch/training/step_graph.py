@@ -10,17 +10,23 @@ phase) and a per-step body that reads only device buffers and a device step
 index (the Adam kernel's counter): the batch gather, the jitter draws,
 ``fused_train_loss_grad`` (with DINO conditioning, the feature sampler's
 kernel first, the step's view read from the device), the gradient buffers,
-the clip and the Adam kernel. ``StepGraph`` captures that body once per
-phase shape, after warm-up steps on a side stream, and replays it once per
-minibatch: the host
-pays one graph launch a step, the device runs the same kernels in the same
-order, bit for bit. The trainer's generator is registered with the graph,
-so every replay draws the jitter the eager step would have.
+the clip and the Adam kernel. Under an NCCL mesh (the JAX trainer's
+``jax.jit(epoch_fn, in_shardings=...)`` with the ``psum`` inside its
+``shard_map``) each rank's body gathers its rows of the batch and holds the
+all-reduce of the gradient buffer and the loss
+(``parallel/mesh.py:all_reduce_sum_``) between kernel 1 and the clip.
+``StepGraph`` captures that body once per phase shape, after warm-up steps
+on a side stream (under a mesh they also make NCCL's communicator, which a
+capture cannot), and replays it once per minibatch: the host pays one graph
+launch a step, the device runs the same kernels in the same order, bit for
+bit. The trainer's generator is registered with the graph, so every replay
+draws the jitter the eager step would have.
 
-A kernel wrapper counts its launches when it is called; a replay calls no
-wrapper. ``StepGraph`` therefore takes back the counts the capture added
-(nothing ran then) and adds, at every replay, the launches the capture
-recorded: the counts stay the kernels' real executions.
+A kernel wrapper counts its launches when it is called, and so does
+``all_reduce_sum_`` (``allreduce``); a replay calls no wrapper.
+``StepGraph`` therefore takes back the counts the capture added (nothing ran
+then) and adds, at every replay, the launches the capture recorded: the
+counts stay the kernels' and collectives' real executions.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from nerf_fewshot_tpu_torch.parallel.mesh import all_reduce_sum_
 from nerf_fewshot_tpu_torch.render import kernels as tk
 from nerf_fewshot_tpu_torch.render import train_kernel as tt
 from nerf_fewshot_tpu_torch.render.point_features import sample_point_features
@@ -45,12 +52,14 @@ WARMUP_STEPS = 2
 # the wrappers that count their kernels' launches (the functions themselves,
 # bound here: a caller may put another function in a module's place)
 _WRAPPERS = {"fwd_pe": tk.fused_render_fwd_pe, "fwd": tk.fused_render_fwd,
-             "render_bwd": tk.fused_render_bwd, "point_features": sample_point_features}
+             "render_bwd": tk.fused_render_bwd, "point_features": sample_point_features,
+             "allreduce": all_reduce_sum_}
 _TRAIN = tt.fused_train_objective
 
 
 def kernel_launch_counts() -> Dict[str, int]:
-    """Every hand-written kernel's launch count, by kernel."""
+    """Every hand-written kernel's launch count, by kernel, and the mesh
+    step's all-reduces (``allreduce``)."""
     return {**{k: f.launches for k, f in _WRAPPERS.items()}, **_TRAIN.launches,
             "adam": AdamKernel.launches}
 
@@ -71,7 +80,7 @@ class StepGraph:
     what the capture cost: ``capture_ms`` (the body's host time under
     capture), ``instantiate_ms`` (``capture_end``), ``pool_mb`` (device
     memory the graph's private pool reserved) and ``launches`` (the kernel
-    launches one replay makes, by kernel)."""
+    launches one replay makes, by kernel, and its all-reduces)."""
 
     def __init__(self, body: Callable[[], None], stream: torch.cuda.Stream,
                  generator: torch.Generator):
@@ -115,13 +124,16 @@ class StaticStep:
     ``rays``, ``mask`` (n_steps, B) its validity, ``views`` (n_steps,) its
     view, ``losses`` (n_steps,) its loss, filled by the step; ``adam`` the
     Adam kernel over the trainer's optimizer (its counter is the device step
-    index); ``graph`` the captured body, once captured."""
+    index); ``graph`` the captured body, once captured. Under a mesh
+    ``batch`` is padded to a multiple of the world size and ``shard`` is
+    this rank's rows of it (else all of them)."""
 
     phase_idx: int
     batch: int
     n_batches: int
     n_samples: int
     settings: RenderSettings
+    shard: slice
     rays: torch.Tensor
     rows: torch.Tensor
     mask: torch.Tensor

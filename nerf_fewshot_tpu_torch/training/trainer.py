@@ -37,20 +37,25 @@ block of each minibatch's rows (the batch padded to a multiple of the world
 size); the step's masked means divide by the batch's valid-ray count, and
 the loss and gradients are summed over the ranks before the optimizer
 step, so every rank takes the same step: the kernel path through
-``parallel/fused_dp.make_dp_fused_loss_grad``, the plain path through
-autograd and one all-reduce. Eval and the dead-sigma probe render on each
-rank alone.
+``parallel/fused_dp.make_dp_fused_loss_grad`` (the count from the whole
+batch's mask, which every rank holds; the gradients and the loss summed by
+one in-place all-reduce of the ``.grad`` buffer with the loss beside it),
+the plain path through autograd and one all-reduce. Eval and the
+dead-sigma probe render on each rank alone.
 
-On a card the kernel path's steps off a mesh run as a CUDA graph
+On a card the kernel path's steps run as a CUDA graph
 (``training/step_graph.py``): each phase's step body is captured once and
 replayed once per minibatch, its Adam step one launch of ``csrc/adam.cu``
-(``AdamKernel``), bit-equal to the eager step. ``step_mode`` says "graph" or
+(``AdamKernel``), bit-equal to the eager step. Under an NCCL mesh each rank
+captures its own body, the all-reduce inside it; a Gloo mesh's collectives
+run on the host and cannot be captured. ``step_mode`` says "graph" or
 "eager" and ``step_mode_reason`` why a trainer steps eagerly: the plain
-path, a mesh, the CPU, or ``Trainer(_eager_step=True)``, the card's eager
-step kept for the gates that hold the graph to it. Every trainer writes the
-step's gradients into contiguous ``.grad`` buffers allocated once
-(``grad_buffer``) and clips them, when the config clips, before the step
-with the norm summed over the gradients as the kernel gave them.
+path, a Gloo mesh, the CPU, or ``Trainer(_eager_step=True)``, the card's
+eager step kept for the gates that hold the graph to it. Every trainer
+writes the step's gradients into contiguous ``.grad`` buffers allocated
+once (``grad_buffer``) and clips them, when the config clips, before the
+step with the norm summed over the gradients as the kernel gave them (under
+a mesh: as the all-reduce summed them, in the buffers).
 
 ``arch: module`` trains ``NeRFWithDINO`` on the plain path. Trunk LoRA
 (``nerf_model.lora_rank``) runs through the kernels with the LoRA pairs
@@ -91,7 +96,12 @@ from nerf_fewshot_tpu_torch.ops.rays import (
     project_points_to_image,
 )
 from nerf_fewshot_tpu_torch.parallel.fused_dp import make_dp_fused_loss_grad
-from nerf_fewshot_tpu_torch.parallel.mesh import Mesh, all_reduce_sum, process_local_slice
+from nerf_fewshot_tpu_torch.parallel.mesh import (
+    Mesh,
+    all_reduce_sum,
+    can_capture,
+    process_local_slice,
+)
 from nerf_fewshot_tpu_torch.render.fused import fused_render_rays
 from nerf_fewshot_tpu_torch.render.kernels import pack_params, pe_constants, pe_width, to_device
 from nerf_fewshot_tpu_torch.render.pipeline import PointFeaturesFn, RenderSettings, render_rays
@@ -482,11 +492,13 @@ class Trainer:
 
     def _grad_buffer(self) -> torch.Tensor:
         """The flat buffer of the step's gradients, made once per model
-        (``grad_buffer``), its views the parameters' ``.grad``."""
+        (``grad_buffer``), its views the parameters' ``.grad``; under a mesh
+        one element more, the loss's slot of the step's all-reduce."""
         named = list(self.model.named_parameters())
         key = tuple(id(p) for _, p in named)
         if self._grads is None or self._grads[0] != key:
-            flat, views = grad_buffer(dict(named), self.cfg.nerf.num_layers)
+            flat, views = grad_buffer(dict(named), self.cfg.nerf.num_layers,
+                                      extra=0 if self.mesh is None else 1)
             self._grads = (key, flat, views)
         _, flat, views = self._grads
         for name, p in named:
@@ -495,21 +507,21 @@ class Trainer:
         return flat
 
     def _kernel_loss_grad(self, ro, rd, tgt, mask, settings, draws, view, dp=None,
-                          pf=None) -> torch.Tensor:
-        """One step's loss on train view ``view`` (or conditioned by ``pf``);
-        its gradients land in the parameters' ``.grad``: off a mesh the
-        contiguous buffers of ``_grad_buffer``, under a mesh through ``dp``,
-        the epoch's ``make_dp_fused_loss_grad``, summed over the ranks. Off
-        a mesh ``_kernel_grads`` keeps the gradients as the kernel gave them,
-        which the clip's norm sums over (``_optimizer_step``)."""
+                          pf=None, denom=None) -> torch.Tensor:
+        """One step's loss on train view ``view`` (an int, or under a mesh
+        also a device index; or conditioned by ``pf``); its gradients land
+        in the contiguous ``.grad`` buffers of ``_grad_buffer``, under a mesh
+        through ``dp`` (``_dp_loss_grad``), summed over the ranks with the
+        loss, ``denom`` the batch's valid-ray count. Off a mesh
+        ``_kernel_grads`` keeps the gradients as the kernel gave them, which
+        the clip's norm sums over (``_optimizer_step``)."""
         cfg = self.cfg
         self._kernel_grads = None
         if dp is not None:
-            loss, grads = dp(self.model, draws["uniforms"], ro, rd, tgt, mask,
-                             *((view,) if self.use_dino else ()),
-                             importance_uniforms=draws["importance_uniforms"])
-            for name, p in self.model.named_parameters():
-                p.grad = grads[name]
+            loss, _ = dp(self.model, draws["uniforms"], ro, rd, tgt, mask,
+                         *((view,) if self.use_dino else ()),
+                         importance_uniforms=draws["importance_uniforms"], denom_rays=denom,
+                         grad_buffer=self._grad_buffer())
             return loss
         loss, self._kernel_grads = fused_train_loss_grad(
             self.model, ro, rd, tgt, mask, settings,
@@ -595,15 +607,27 @@ class Trainer:
     def _batch_granularity(self) -> int:
         return 1 if self.mesh is None else self.mesh.world_size
 
+    def _dp_loss_grad(self, settings: RenderSettings) -> Callable:
+        """The kernel path's step under the mesh (``make_dp_fused_loss_grad``)
+        at ``settings``, DINO-conditioned through ``feature_sampler``."""
+        cfg = self.cfg
+        return make_dp_fused_loss_grad(
+            self.mesh, settings, cfg.nerf.pos_freq, cfg.nerf.dir_freq, cfg.nerf.num_layers,
+            cfg.nerf.hidden_dim, use_viewdirs=cfg.nerf.use_viewdirs,
+            lora_alpha=cfg.nerf.lora_alpha, compute_dtype=cfg.rendering.compute_dtype,
+            point_features_builder=self.feature_sampler if self.use_dino else None,
+            reg_weight=self._kernel_reg_weight(), rgb_weight=float(cfg.loss.rgb_weight))
+
     def _use_graph(self) -> bool:
         """Whether this epoch's steps run as CUDA graph replays (the kernel
-        path off a mesh, on a card). Records the choice in ``step_mode``
-        ("graph" or "eager") and ``step_mode_reason``."""
+        path on a card, off a mesh or under an NCCL one). Records the choice
+        in ``step_mode`` ("graph" or "eager") and ``step_mode_reason``."""
         reason = None
         if not self._use_fused():
             reason = f"the plain path ({self.kernel_path_reason})"
-        elif self.mesh is not None:
-            reason = "a data-parallel mesh: its all-reduces are not captured"
+        elif self.mesh is not None and not can_capture(self.mesh):
+            reason = (f"a {self.mesh.backend} mesh: its collectives run on the host and cannot "
+                      f"be captured in a CUDA graph")
         elif self.device.type != "cuda":
             reason = f"no CUDA graph on {self.device.type}"
         elif self._eager_step:
@@ -643,9 +667,9 @@ class Trainer:
         device. On a card the host waits for the device nowhere in here (the
         batch indices reach it by a stream-ordered copy from pinned memory),
         once the phase's data (``phase_data``) is on the device. On the
-        kernel path off a mesh the steps are replays of the phase's CUDA
-        graph (``_static_epoch``); elsewhere each step is dispatched op by
-        op."""
+        kernel path on a card, off a mesh or under an NCCL one, the steps
+        are replays of the phase's CUDA graph (``_static_epoch``); elsewhere
+        each step is dispatched op by op."""
         cfg = self.cfg
         phase_idx = self._begin_epoch(epoch)
         if self._use_graph():
@@ -664,14 +688,7 @@ class Trainer:
         settings = self._render_settings(p.n_samples, training=True)
         fused = self._use_fused()
         rows = slice(0, B) if self.mesh is None else process_local_slice(B, self.mesh)
-        dp = None
-        if fused and self.mesh is not None:
-            dp = make_dp_fused_loss_grad(
-                self.mesh, settings, cfg.nerf.pos_freq, cfg.nerf.dir_freq, cfg.nerf.num_layers,
-                cfg.nerf.hidden_dim, use_viewdirs=cfg.nerf.use_viewdirs,
-                lora_alpha=cfg.nerf.lora_alpha, compute_dtype=cfg.rendering.compute_dtype,
-                point_features_builder=self.feature_sampler if self.use_dino else None,
-                reg_weight=self._kernel_reg_weight(), rgb_weight=float(cfg.loss.rgb_weight))
+        dp = self._dp_loss_grad(settings) if fused and self.mesh is not None else None
         losses = []
         for v in range(self.n_views):
             # steps sample view v's map and pose (JAX trainer.py:608-613)
@@ -683,11 +700,11 @@ class Trainer:
                 mask = masks_t[b]
                 args = (row[:, 0:3], row[:, 3:6], row[:, 6:9], mask[rows], settings, draws, v)
                 grads = None
+                denom = None if self.mesh is None else torch.sum(mask)
                 if fused:
-                    loss = self._kernel_loss_grad(*args, dp=dp)
+                    loss = self._kernel_loss_grad(*args, dp=dp, denom=denom)
                     grads = self._kernel_grads
                 else:
-                    denom = None if self.mesh is None else torch.sum(mask)
                     loss = self._plain_loss_grad(*args, denom=denom)
                 losses.append(loss)
                 self._optimizer_step(grads)
@@ -712,11 +729,11 @@ class Trainer:
 
     def _static_epoch_steps(self, epoch: int) -> torch.Tensor:
         """``epoch_steps`` through the static-buffer body run as it is, with
-        no graph (the kernel path off a mesh): the CPU tests hold it to the
-        eager steps bit for bit."""
+        no graph (the kernel path, off a mesh or under one): the CPU tests
+        hold it to the eager steps bit for bit."""
         phase_idx = self._begin_epoch(epoch)
-        if not self._use_fused() or self.mesh is not None:
-            raise ValueError("the static-buffer step is the kernel path's, off a mesh")
+        if not self._use_fused():
+            raise ValueError("the static-buffer step is the kernel path's")
         return self._static_epoch(phase_idx, graphed=False)
 
     def _static_step(self, phase_idx: int) -> StaticStep:
@@ -724,7 +741,9 @@ class Trainer:
         previous phase's, and its graph, dropped), with an ``AdamKernel``
         over the current optimizer: a new one, and no graph, after the
         optimizer or its state tensors were replaced (the freeze, a
-        ``load``)."""
+        ``load``). Under a mesh the batch is padded to a multiple of the
+        world size, as ``epoch_steps`` pads it, and ``shard`` is this
+        rank's rows of it."""
         st = self._static
         if st is None or st.phase_idx != phase_idx:
             self._static = st = None
@@ -732,12 +751,16 @@ class Trainer:
             pd = self.phase_data(phase_idx)
             n_rays = pd.rays_o.shape[1]
             B = min(p.batch_size, n_rays)
+            g = self._batch_granularity()
+            B = -(-B // g) * g  # equal shards (JAX trainer.py:581-583)
             n_steps = self.n_views * ((n_rays + B - 1) // B)
             dev = self.device
             rays = torch.cat([pd.rays_o, pd.rays_d, pd.targets], dim=2).reshape(-1, 9)
+            settings = self._render_settings(p.n_samples, training=True)
             st = StaticStep(
                 phase_idx=phase_idx, batch=B, n_batches=n_steps // self.n_views,
-                n_samples=p.n_samples, settings=self._render_settings(p.n_samples, training=True),
+                n_samples=p.n_samples, settings=settings,
+                shard=slice(0, B) if self.mesh is None else process_local_slice(B, self.mesh),
                 rays=rays, rows=torch.zeros((n_steps, B), dtype=torch.int64, device=dev),
                 mask=torch.zeros((n_steps, B), dtype=torch.float32, device=dev),
                 views=torch.zeros(n_steps, dtype=torch.int64, device=dev),
@@ -767,17 +790,28 @@ class Trainer:
 
     def _static_body(self, st: StaticStep) -> None:
         """One step that reads only device buffers and the device step index
-        (``st.adam.counter[0]``): the batch's rows, mask and view gathered by
-        it, the jitter drawn, the objective and its gradients into the
-        ``.grad`` buffers, the loss into ``st.losses``, the clip and the Adam
-        step, which moves the index on."""
+        (``st.adam.counter[0]``): the batch's rows (this rank's, ``st.shard``),
+        mask and view gathered by it, the whole batch's jitter drawn and the
+        rank's rows taken, the objective and its gradients into the ``.grad``
+        buffers (under a mesh summed over the ranks with the loss, by the
+        all-reduce of ``_dp_loss_grad``), the loss into ``st.losses``, the clip and
+        the Adam step, which moves the index on."""
         step = st.adam.counter[:1]
-        row = st.rays.index_select(0, st.rows.index_select(0, step).reshape(-1))
+        row = st.rays.index_select(0, st.rows.index_select(0, step).reshape(-1)[st.shard])
         mask = st.mask.index_select(0, step).reshape(-1)
-        pf = self._sampler(st.views.index_select(0, step)) if self.use_dino else None
-        draws = self._draws(st.batch, st.n_samples, st.settings)
-        loss = self._kernel_loss_grad(row[:, 0:3], row[:, 3:6], row[:, 6:9], mask, st.settings,
-                                      draws, None, pf=pf)
+        view = st.views.index_select(0, step) if self.use_dino else None
+        draws = {k: None if d is None else d[st.shard]
+                 for k, d in self._draws(st.batch, st.n_samples, st.settings).items()}
+        args = (row[:, 0:3], row[:, 3:6], row[:, 6:9], mask[st.shard], st.settings, draws)
+        if self.mesh is None:
+            pf = self._sampler(view) if self.use_dino else None
+            loss = self._kernel_loss_grad(*args, None, pf=pf)
+        else:
+            # built per call, not kept in ``st``: its sampler is bound to the
+            # trainer, and a trainer in a reference cycle would keep its
+            # graphs, and so the NCCL communicator, alive (``mesh.shutdown``)
+            loss = self._kernel_loss_grad(*args, view, dp=self._dp_loss_grad(st.settings),
+                                          denom=torch.sum(mask))
         st.losses.index_copy_(0, step, loss.reshape(1))
         self._optimizer_step(self._kernel_grads, adam=st.adam)
 
@@ -786,7 +820,9 @@ class Trainer:
         step the body, run as it is (``graphed`` False: the CPU tests hold it
         to the eager steps) or as a replay of the phase's CUDA graph,
         captured at the phase's first epoch (or after the optimizer was
-        replaced) after ``WARMUP_STEPS`` eager steps on a side stream."""
+        replaced) after ``WARMUP_STEPS`` eager steps on a side stream. Under
+        an NCCL mesh every rank captures at the same epoch and replays as
+        often: the warm-up makes the communicator, outside the capture."""
         st = self._static_step(phase_idx)
         n = st.n_steps
         self._begin_static_epoch(st)

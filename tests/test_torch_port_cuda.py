@@ -1264,7 +1264,8 @@ def test_epoch_steps_and_render_views_make_no_synchronization(h100, kind):
         chunks = -(-2 * 24 * 24 // DP_CONFIG["rendering"]["chunk_size"])
         assert sample_point_features.launches - sampled == (2 * 3 + chunks if feats is not None
                                                             else 0)
-        assert (tr.step_mode == "graph") == (mesh is None), tr.step_mode_reason
+        # a one-rank NCCL mesh graphs its step too, the all-reduce inside
+        assert tr.step_mode == "graph", tr.step_mode_reason
         assert losses.shape == (6,) and torch.isfinite(losses).all()
         assert views[0].shape == (2, 24, 24, 3) and all(torch.isfinite(v).all() for v in views)
     finally:
@@ -1409,6 +1410,145 @@ def test_a_failed_capture_raises(h100, monkeypatch):
     monkeypatch.setattr(Trainer, "_static_body", body)
     with pytest.raises(RuntimeError):
         tr.epoch_steps(0)
+
+
+MESH_GRAPH_KINDS = ("baseline", "dino", "hierarchical", "lora")
+
+
+def _mesh_graph_trainer(kind, mesh, eager):
+    from nerf_fewshot_tpu_torch.data.synthetic import lego_like_scene, make_scene_dataset
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    d = {k: dict(v) for k, v in DP_CONFIG.items()}
+    for k, v in GRAPH_KINDS[kind].items():
+        d[k] = {**d.get(k, {}), **v}
+    data = make_scene_dataset(lego_like_scene(), 2, img_size=24, gt_samples=64, device="cpu")
+    feats = (np.random.default_rng(4).standard_normal((2, 3, 3, 64)).astype(np.float32)
+             if kind == "dino" else None)
+    return Trainer(config_from_dict(d), data, data, device=None if mesh else "cuda", mesh=mesh,
+                   dino_features=feats, _eager_step=eager)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", MESH_GRAPH_KINDS)
+def test_dp_world_1_nccl_graph_is_bit_equal_to_eager_and_no_mesh(h100, kind):
+    """A one-rank NCCL mesh steps as CUDA graph replays, each rank's capture
+    holding the all-reduce of the gradient buffer and the loss: epochs 0-3
+    (two phases, jitter on, ragged tails; the LoRA trunk across its freeze
+    at 2, a recapture) give the eager mesh step's
+    (``Trainer(_eager_step=True)``) and the no-mesh graph's per-step losses,
+    parameters and both Adam moments bit for bit. One replay launches
+    kernel 1, the Adam kernel and the all-reduce once each (kernel 2 once
+    more with hierarchical sampling, the sampler once with DINO), as the
+    counts over the epochs show."""
+    import torch.distributed as dist
+
+    from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
+    from nerf_fewshot_tpu_torch.training.step_graph import kernel_launch_counts
+
+    nomesh = _mesh_graph_trainer(kind, None, False)
+    pmesh.initialize_multihost(f"localhost:{pmesh.free_port()}", 1, 0, device=h100)
+    try:
+        mesh = pmesh.make_mesh(h100)
+        graph, eager = _mesh_graph_trainer(kind, mesh, False), _mesh_graph_trainer(kind, mesh, True)
+        for epoch in range(4):
+            before = kernel_launch_counts()
+            got = graph.epoch_steps(epoch)
+            after = kernel_launch_counts()
+            want = eager.epoch_steps(epoch)
+            ref = nomesh.epoch_steps(epoch)
+            n = want.shape[0]
+            assert _same_bits(got, want) and _same_bits(got, ref), epoch
+            launched = {k: after[k] - before[k] for k in after}
+            assert launched == {"train_pe": n, "train_x": 0, "adam": n, "allreduce": n,
+                                "fwd_pe": n if kind == "hierarchical" else 0, "fwd": 0,
+                                "render_bwd": 0, "point_features": n if kind == "dino" else 0}
+        assert graph.step_mode == "graph" and graph.step_mode_reason is None
+        assert eager.step_mode == "eager" and "_eager_step" in eager.step_mode_reason
+        assert len(graph.graph_captures) == (3 if kind == "lora" else 2)
+        for c in graph.graph_captures:
+            per = c["launches_per_replay"]
+            assert (per["train_pe"], per["adam"], per["allreduce"]) == (1, 1, 1), per
+        for other in (eager, nomesh):
+            for (k, p), (_, q) in zip(graph.model.named_parameters(),
+                                      other.model.named_parameters()):
+                assert _same_bits(p.detach(), q.detach()), k
+            for p, q in zip(graph.optimizer.param_groups[0]["params"],
+                            other.optimizer.param_groups[0]["params"]):
+                for key in ("exp_avg", "exp_avg_sq", "step"):
+                    assert torch.equal(graph.optimizer.state[p][key].cpu(),
+                                       other.optimizer.state[q][key].cpu()), key
+    finally:
+        dist.destroy_process_group()
+
+
+class _Cycle:
+    def __init__(self):
+        self.me = self
+
+
+def _nccl_graph_in_a_cycle(mesh):
+    """One rank of two: an eager in-place all-reduce (it makes the
+    communicator), then one captured in a CUDA graph that a reference cycle
+    holds, replayed once; the sum the replay left."""
+    from nerf_fewshot_tpu_torch.parallel.mesh import all_reduce_sum_
+
+    buf = torch.full((1 << 20,), float(mesh.rank + 1), device=mesh.device)
+    all_reduce_sum_(mesh, buf)  # 1 + 2 on both ranks
+    holder = _Cycle()
+    holder.graph = torch.cuda.CUDAGraph()
+    side = torch.cuda.Stream(mesh.device)
+    side.wait_stream(torch.cuda.current_stream(mesh.device))
+    with torch.cuda.stream(side):
+        holder.graph.capture_begin()
+        all_reduce_sum_(mesh, buf)
+        holder.graph.capture_end()
+    torch.cuda.current_stream(mesh.device).wait_stream(side)
+    holder.graph.replay()  # 3 + 3
+    return float(buf[0].cpu())
+
+
+@pytest.mark.cuda
+def test_dp_world_2_nccl_teardown_with_a_captured_collective_in_a_cycle(h100):
+    """Two NCCL ranks, one card each: a rank whose CUDA graph holding an
+    all-reduce is left in a reference cycle still leaves the group
+    (``parallel.mesh.shutdown`` collects the graph first; NCCL destroys a
+    communicator only once every graph that captured one of its collectives
+    is gone, and a graphed DINO mesh trainer once sat in such a cycle), so
+    ``launch`` returns with both ranks' replayed sums."""
+    from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two cards: NCCL refuses two ranks on one card")
+    assert pmesh.launch(_nccl_graph_in_a_cycle, ["cuda:0", "cuda:1"], timeout_s=120) == [6.0, 6.0]
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_on_an_nccl_mesh_raises(h100, monkeypatch):
+    """On a one-rank NCCL mesh a body that cannot be captured (here: one
+    that synchronizes) raises from ``epoch_steps``; the trainer does not
+    step eagerly in its place."""
+    import torch.distributed as dist
+
+    from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    orig = Trainer._static_body
+
+    def body(self, st):
+        orig(self, st)
+        torch.cuda.synchronize()
+
+    pmesh.initialize_multihost(f"localhost:{pmesh.free_port()}", 1, 0, device=h100)
+    try:
+        tr = _mesh_graph_trainer("baseline", pmesh.make_mesh(h100), False)
+        monkeypatch.setattr(Trainer, "_static_body", body)
+        with pytest.raises(RuntimeError):
+            tr.epoch_steps(0)
+        assert tr.step_mode == "graph"
+    finally:
+        dist.destroy_process_group()
 
 
 # ------------------------------------------------- the feature sampler kernel

@@ -207,7 +207,13 @@ its seconds:
 17. LoRA trunk kernel width: kernel 1 at 512x64 and 1024x64 and kernel 2
    at a 1024x64 eval chunk at the trunk-LoRA config's input (pos_freq 10,
    view directions, 64 features: D 160), against their plain versions;
-   times and bounds;
+   times and bounds; then the LoRA pack kernels (``csrc/lora_pack.cu``) at
+   ``lora_nerf_trunk.yaml``'s and ``script_lora.yaml``'s shapes and at H
+   1024: the packed weights and the base, bias and head gradients bit-equal
+   to the plain versions, ``lora_a`` / ``lora_b`` within rel 1e-6 of
+   autograd and no further from a float64 run, a second call bit-equal;
+   device ms of each (20 calls in a CUDA graph), its byte bound, the plain
+   versions' and ``torch.baddbmm``'s (layers 1.. of the merge, TF32 off);
 18. LoRA trunk slice: ``experiments/lora_nerf_trunk.yaml`` read by the
    port's reader (8x256 trunk, rank-4 LoRA on every layer, the ViT-B/14
    extractor on the card), trained with ``sigma_bias: 0.1`` (the file as it
@@ -217,7 +223,10 @@ its seconds:
    ``backend: xla`` twin and the freeze as the first call of a kernel and an
    ``xla`` trainer (rel 1e-4), eval through kernel 2 (PSNR must rise), the
    views against the plain pipeline, both kernels at the trainer's shapes,
-   one phase-2 epoch traced;
+   one phase-2 epoch traced; every kernel-path step packs and un-packs the
+   trunk with one launch each of the LoRA pack kernels and never calls
+   into the autograd engine (counted, and no ``autograd::engine`` range in
+   the traced epoch), an eval call packs once;
 19. reference checkpoint: the trained LoRA weights written in the
    reference's PyTorch layout (``.pth``) and loaded into a fresh trainer,
    whose views through kernel 2 must equal the first trainer's;
@@ -286,7 +295,9 @@ its seconds:
    mesh, world 1, world 2) and the two all-reduces' share of a step.
    ``dino_nerf.yaml`` on seeded maps at epoch 0 the same way (world 1 bit-
    equal to no mesh, world 2 within rel 1e-4), each rank sampling its
-   shard through the sampler kernel once per step.
+   shard through the sampler kernel once per step; ``lora_nerf_trunk.yaml``
+   on seeded maps at world 1, graphed and eager, bit-equal to no mesh, each
+   step (and replay) launching both LoRA pack kernels once.
    Then ``multihost_train_smoke --kernels`` as two Gloo processes on the
    card (equal losses) and ``cli train --config experiments/dino_nerf.yaml
    --synthetic --epochs 2 --multihost`` at world 1 (NCCL, the group read
@@ -297,7 +308,10 @@ Any failure raises and exits non-zero. On success the last three lines are
 the ``nvidia-smi`` name/power-limit line, a JSON line with the kernels'
 numbers (the five kernels, kernels 1 and 2 at the DINO widths with the
 pretrained-format run's launches, then at the trunk-LoRA width, then the
-five at the script recipes' widths, then each kernel at ``bfloat16`` and
+LoRA pack kernels (``lora_pack``, ``lora_pack_vjp``: the LoRA trunk
+slice's, ``script_lora.yaml``'s, ``script_projection.yaml``'s (rank 16) and
+the LoRA data-parallel run's launches),
+then the five at the script recipes' widths, then each kernel at ``bfloat16`` and
 at ``highest`` (``<name>_bf16``, ``<name>_highest``: main-path times, the
 route's bound, launches from the route trainings), then the five at trunk
 widths 384, 512, 640, 768 and 1024 (``<name>_h384`` .. ``<name>_h1024``:
@@ -423,7 +437,7 @@ N_ORBIT, N_DEPTH_VIEWS = 8, 3
 # TF32 on the same pairs read 4.4-4.8e-5 off, inside 1e-4, so the gate sits at
 # 1e-5 to see that trap.
 LPIPS_RTOL = 1e-5
-KERNELS = ("fwd_pe", "train_pe", "adam", "point_features")  # the sources, one nvcc each
+KERNELS = ("fwd_pe", "train_pe", "adam", "point_features", "lora_pack")  # one nvcc each
 # one epoch of each phase and one more at 32x32 and at 128x128: the first
 # epoch's steps include the first use (module loading) of every CUDA kernel
 TRAIN_EPOCHS = (0, 1, 50, 100, 101)
@@ -443,6 +457,13 @@ DINO_WIDTHS = {"single_scale": (64, 176), "multi_scale": (128, 240)}
 LORA_TRUNK_CONFIG = "lora_nerf_trunk.yaml"
 LORA_EPOCHS = (0, 50, 51, 52, 100)
 LORA_WIDTH = (64, 160)
+# The LoRA pack kernels' shapes: (pos_freq, dir_freq, view directions,
+# features, H, layers, rank) of lora_nerf_trunk.yaml, script_lora.yaml and a
+# 1024-wide trunk at the former's input; the first is the kernels' row.
+LORA_PACK_CASES = {"lora_nerf_trunk.yaml": (10, 4, True, 64, 256, 8, 4),
+                   "script_lora.yaml": (10, 4, False, 768, 256, 8, 4),
+                   "H 1024": (10, 4, True, 64, 1024, 8, 4)}
+LORA_PACK_VJP_RTOL = 1e-6  # lora_a / lora_b: sums in float64, autograd's in fp32
 # arch: module (multiscale.yaml) trains one epoch of each of its first two phases
 MODULE_EPOCHS = (0, 50)
 # The script recipes (experiments/script_*.yaml): the 768 channels of the
@@ -933,7 +954,8 @@ def main_path_train_args(trainer, phase_idx, device, inline_pe=True, seed=0):
 # Device-time groups of the profiled runs, by kernel name (first match).
 KERNEL_GROUPS = ("train_fwd", "train_bwd", "train_dw", "train_composite", "render_composite",
                  "render_dx", "train_finalize", "loss_sum", "weight_image", "fwd_split",
-                 "fwd_trunk", "fwd_composite", "adam_step", "point_features")
+                 "fwd_trunk", "fwd_composite", "adam_step", "point_features", "lora_pack_fwd",
+                 "lora_pack_vjp")
 
 
 # The CUDA API calls that launch a kernel (`cudaLaunch*` of the runtime,
@@ -1253,7 +1275,8 @@ def run_graph_vs_eager(train, test, device):
     final parameters, both Adam moments and the step counts bit-equal, the
     graph's launches per step (kernel 1 and the Adam kernel once, kernel 2
     once more with hierarchical sampling, the feature sampler's kernel once
-    with features), or raise; each capture's cost printed, and the ms per
+    with features, the LoRA pack kernels once each with a LoRA trunk), no
+    call into the autograd engine in either, or raise; each capture's cost printed, and the ms per
     step of both over the epochs in which the graph only replayed apart from
     those in which it captured (the warm-up steps, the capture, the
     instantiation and first uses). Returns the graph trainers' ms per
@@ -1284,22 +1307,29 @@ def run_graph_vs_eager(train, test, device):
                 before = kernel_launch_counts()
                 captures = len(g.graph_captures)
                 torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                got = g.epoch_steps(epoch).cpu()
-                t_graph = time.perf_counter() - t0
-                after = kernel_launch_counts()
-                t0 = time.perf_counter()
-                want = e.epoch_steps(epoch).cpu()
-                t_eager = time.perf_counter() - t0
+                with autograd_calls() as calls:
+                    t0 = time.perf_counter()
+                    got = g.epoch_steps(epoch).cpu()
+                    t_graph = time.perf_counter() - t0
+                    after = kernel_launch_counts()
+                    t0 = time.perf_counter()
+                    want = e.epoch_steps(epoch).cpu()
+                    t_eager = time.perf_counter() - t0
+                if calls:
+                    raise RuntimeError(f"{name} {route} epoch {epoch}: {len(calls)} calls into "
+                                       f"the autograd engine on the kernel path")
                 n = want.shape[0]
                 captured = len(g.graph_captures) > captures
                 for m, t in (("graph", t_graph), ("eager", t_eager)):
                     sec[(m, captured)][0] += t
                     sec[(m, captured)][1] += n
-                launched = {k: after[k] - before[k]
-                            for k in ("train_pe", "fwd_pe", "adam", "point_features")}
+                launched = {k: after[k] - before[k] for k in (
+                    "train_pe", "fwd_pe", "adam", "point_features", "lora_pack",
+                    "lora_pack_vjp")}
+                lora = n if name == "lora_trunk" else 0
                 expect = {"train_pe": n, "fwd_pe": n if name == "hierarchical" else 0, "adam": n,
-                          "point_features": 0 if feats is None else n}
+                          "point_features": 0 if feats is None else n, "lora_pack": lora,
+                          "lora_pack_vjp": lora}
                 if launched != expect:
                     raise RuntimeError(f"{name} {route} epoch {epoch}: launches {launched}, "
                                        f"expected {expect}")
@@ -2532,6 +2562,154 @@ def run_lora_kernel_width(device, tk, tt):
     return rows
 
 
+def random_lora_state(rng, in_dim, H, L, rank, device):
+    """A LoRA trunk's state in ``NeRFMLP.named_parameters``' order:
+    torch-default-bounded weights and biases, ``lora_a`` bounded alike,
+    ``lora_b`` live (``N(0, 0.05^2)``; a model starts it at zero)."""
+    u = lambda shape, fan: rng.uniform(-1, 1, shape).astype(np.float32) / np.float32(fan ** 0.5)
+    state = {}
+    for i in range(L):
+        fan = in_dim if i == 0 else H
+        state[f"trunk.{i}.lora_a"] = u((fan, rank), fan)
+        state[f"trunk.{i}.lora_b"] = (0.05 * rng.standard_normal((rank, H))).astype(np.float32)
+        state[f"trunk.{i}.base.weight"] = u((H, fan), fan)
+        state[f"trunk.{i}.base.bias"] = u((H,), fan)
+    state.update({"sigma_head.weight": u((1, H), H), "sigma_head.bias": np.full(1, 0.1, np.float32),
+                  "rgb_head.weight": u((3, H), H), "rgb_head.bias": u((3,), H)})
+    return {k: torch.from_numpy(v).to(device) for k, v in state.items()}
+
+
+def bit_equal(a, b):
+    return a.shape == b.shape and torch.equal(a.contiguous().view(torch.int32),
+                                              b.contiguous().view(torch.int32))
+
+
+def rel_dist(got, want):
+    """``||got - want|| / ||want||`` over the tensors of two lists, in float64."""
+    d = sum(float(torch.sum((g.double() - w.double()) ** 2)) for g, w in zip(got, want))
+    n = sum(float(torch.sum(w.double() ** 2)) for w in want)
+    return (d / n) ** 0.5 if n else d ** 0.5
+
+
+def run_lora_pack_kernels(device):
+    """``lora_pack`` / ``lora_pack_vjp`` (``csrc/lora_pack.cu``) against their
+    plain versions at LORA_PACK_CASES, each with the inline-PE layout's
+    ``row_perm``, seeded weights and packed cotangents (a third of them
+    -0.0): the six packed tensors bit-equal to ``_pack_merged``, the base,
+    bias and head gradients bit-equal to autograd's, ``lora_a`` / ``lora_b``
+    within LORA_PACK_VJP_RTOL of autograd and no further from a float64 run
+    than autograd, a second call of each bit-equal, or raise. Device ms
+    (``graph_ms``) of each kernel, of each plain version and of
+    ``torch.baddbmm`` over layers 1.. of the merge (TF32 off: a partial
+    yardstick, no layer 0, no permutation, no heads), and the byte bounds.
+    Returns ``{case: row}``."""
+    from nerf_fewshot_tpu_torch.render import kernels as tk
+    from nerf_fewshot_tpu_torch.render import lora_pack as lp
+
+    rows = {}
+    for n_case, (label, (pos, dirs, vd, fd, H, L, r)) in enumerate(LORA_PACK_CASES.items()):
+        consts = tk.pe_constants(pos, dirs, vd, fd, device)
+        in_dim, d_pad, perm = consts.x_dim, tk.pe_width(consts.x_dim), consts.row_perm
+        rng = np.random.default_rng(250 + n_case)
+        state = random_lora_state(rng, in_dim, H, L, r, device)
+        args = (L, H, d_pad, perm, 16.0)
+        got, want, again = lp.lora_pack(state, *args), lp.lora_pack_reference(state, *args), \
+            lp.lora_pack(state, *args)
+        bad = [k for k, (g, w, a) in enumerate(zip(got, want, again))
+               if not (bit_equal(g, w) and bit_equal(a, g))]
+        if bad:
+            raise RuntimeError(f"lora_pack {label}: packed tensors {bad} not bit-equal to the "
+                               f"plain version (or to a second call)")
+        g = torch.Generator().manual_seed(n_case)
+        cots = []
+        for w in want:
+            c = torch.randn(w.shape, generator=g)
+            c[c.abs() < 0.45] = -0.0
+            cots.append(c.to(device))
+        cots = tuple(cots)
+        vargs = (L, H, perm, 16.0)
+        kg, ag = lp.lora_pack_vjp(state, cots, *vargs), lp.lora_pack_vjp_reference(state, cots,
+                                                                                    *vargs)
+        k2 = lp.lora_pack_vjp(state, cots, *vargs)
+        f64 = lp.lora_pack_vjp_reference({k: v.double() for k, v in state.items()},
+                                         tuple(c.double() for c in cots), *vargs)
+        lora = [k for k in state if "lora" in k]
+        bad = [k for k in state if not bit_equal(k2[k], kg[k])
+               or ("lora" not in k and not bit_equal(kg[k], ag[k]))]
+        rel = max(rel_dist([kg[k]], [ag[k]]) for k in lora)
+        # each LoRA tensor's distance from float64, the kernel's against autograd's
+        f64_gap = {k: rel_dist([kg[k]], [f64[k]]) - rel_dist([ag[k]], [f64[k]]) for k in lora}
+        worst = max(f64_gap, key=f64_gap.get)
+        d_k, d_p = rel_dist([kg[worst]], [f64[worst]]), rel_dist([ag[worst]], [f64[worst]])
+        print(f"  {label} (D {d_pad}, {L}x{H}, rank {r}): packed weights bit-equal to "
+              f"_pack_merged; VJP base, bias and head gradients "
+              f"{'bit-equal' if not bad else 'DIFFER: ' + str(bad[:4])} to autograd, lora_a / "
+              f"lora_b max rel {rel:.2e} (tol {LORA_PACK_VJP_RTOL:.0e}), from float64 per "
+              f"tensor: worst gap {worst} kernel {d_k:.3e} / autograd {d_p:.3e}, "
+              f"{sum(v <= 0 for v in f64_gap.values())} of {len(lora)} no further; second "
+              f"calls bit-equal", flush=True)
+        if bad or not rel <= LORA_PACK_VJP_RTOL or not f64_gap[worst] <= 0:
+            raise RuntimeError(f"lora_pack_vjp {label}: {bad}, rel {rel}, f64 {worst} {d_k} vs "
+                               f"{d_p}")
+
+        out = lp.pack_buffer(L, H, d_pad, device)
+        gbuf = torch.empty(sum(v.numel() for v in state.values()), device=device)
+        wt = torch.stack([state[f"trunk.{i}.base.weight"].T for i in range(1, L)])
+        a_s = torch.stack([state[f"trunk.{i}.lora_a"] for i in range(1, L)])
+        b_s = torch.stack([state[f"trunk.{i}.lora_b"] for i in range(1, L)])
+        ms = {"fwd": graph_ms(lambda: lp.lora_pack(state, *args, out=out)),
+              "vjp": graph_ms(lambda: lp.lora_pack_vjp(state, cots, *vargs, out=gbuf)),
+              "fwd_plain": graph_ms(lambda: lp.lora_pack_reference(state, *args), calls=5),
+              "vjp_plain": graph_ms(lambda: lp.lora_pack_vjp_reference(state, cots, *vargs),
+                                    calls=5),
+              "baddbmm": graph_ms(lambda: torch.baddbmm(wt, a_s, b_s, alpha=4.0))}
+        n_state = sum(v.numel() for v in state.values())
+        n_packed = sum(w.numel() for w in want)
+        n_lora = sum(state[k].numel() for k in lora)
+        fwd_bytes = 4 * (n_state + n_packed) + 8 * in_dim
+        # the VJP reads only the packed gradients that reach a parameter: gw0's
+        # in_dim live rows, gwh, the biases, wout's columns 0-3 and bout's 0-3
+        n_live = in_dim * H + (L - 1) * H * H + L * H + 4 * H + 4
+        vjp_bytes = 4 * (n_live + n_lora + n_state) + 8 * in_dim
+        bound = {k: b / HBM_BYTES_PER_S * 1e3 for k, b in (("fwd", fwd_bytes),
+                                                            ("vjp", vjp_bytes))}
+        print(f"  {label} device ms (20 calls in a CUDA graph): lora_pack_fwd {ms['fwd']:.4f} "
+              f"(bound {bound['fwd']:.4f} by bytes, {fwd_bytes / 1e6:.2f} MB, share "
+              f"{bound['fwd'] / ms['fwd']:.1%}), plain {ms['fwd_plain']:.4f}; lora_pack_vjp "
+              f"{ms['vjp']:.4f} (bound {bound['vjp']:.4f}, {vjp_bytes / 1e6:.2f} MB, share "
+              f"{bound['vjp'] / ms['vjp']:.1%}), plain (autograd) {ms['vjp_plain']:.4f}; "
+              f"torch.baddbmm of layers 1-{L - 1}'s merge {ms['baddbmm']:.4f}", flush=True)
+        err = {"fwd": max(float((g - w).abs().max()) for g, w in zip(got, want)),
+               "vjp": max(float((kg[k] - ag[k]).abs().max()) for k in state)}
+        rows[label] = {"ms": ms, "bound_ms": bound, "bytes": {"fwd": fwd_bytes,
+                                                              "vjp": vjp_bytes},
+                       "max_abs_err": err,
+                       "vjp_rel": rel, "vjp_f64": d_k, "vjp_plain_f64": d_p,
+                       "shape": f"D {d_pad}, {L}x{H}, rank {r}"}
+    return rows
+
+
+@contextmanager
+def autograd_calls():
+    """Count the calls into the autograd engine (``torch.autograd.grad`` and
+    ``torch.autograd.backward``, through which ``Tensor.backward`` goes)
+    made inside the block: yields a list, one entry a call."""
+    calls, grad, backward = [], torch.autograd.grad, torch.autograd.backward
+
+    def counted(fn, name):
+        def call(*a, **k):
+            calls.append(name)
+            return fn(*a, **k)
+        return call
+
+    torch.autograd.grad, torch.autograd.backward = (counted(grad, "grad"),
+                                                    counted(backward, "backward"))
+    try:
+        yield calls
+    finally:
+        torch.autograd.grad, torch.autograd.backward = grad, backward
+
+
 def lora_trunk_configs():
     """``experiments/lora_nerf_trunk.yaml`` through the port's ``load_config``
     as it stands, and the config the slice trains: the same with
@@ -2566,6 +2744,7 @@ def run_lora_trunk_slice(train, test, device, tk, tt):
     phase-2 epoch traced. Returns a dict of the numbers and the trainer."""
     from nerf_fewshot_tpu_torch.cli import _precompute_features
     from nerf_fewshot_tpu_torch.models.lora import lora_label_fn
+    from nerf_fewshot_tpu_torch.render.lora_pack import lora_pack, lora_pack_vjp
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
@@ -2589,9 +2768,14 @@ def run_lora_trunk_slice(train, test, device, tk, tt):
         raise RuntimeError(f"paths {ktr.kernel_path}, {ptr.kernel_path}")
     n_chunks = -(-N_TEST_VIEWS * cfg.data.resolution ** 2 // cfg.rendering.chunk_size)
     tk.fused_render_fwd_pe.launches = 0
+    lora_pack.launches = lora_pack_vjp.launches = 0
     psnr0 = ktr.evaluate()["psnr"]
     if tk.fused_render_fwd_pe.launches != n_chunks:
         raise RuntimeError(f"eval {tk.fused_render_fwd_pe.launches} launches, {n_chunks} chunks")
+    out = {"eval_packs": lora_pack.launches}
+    if lora_pack.launches != 1 or lora_pack_vjp.launches:
+        raise RuntimeError(f"eval at init: {lora_pack.launches} packs, {lora_pack_vjp.launches} "
+                           f"VJPs (one pack a render_views call, no VJP)")
     for e in LORA_EPOCHS:
         ktr.phase_data(ktr._phase_index(e))
 
@@ -2606,7 +2790,8 @@ def run_lora_trunk_slice(train, test, device, tk, tt):
             raise RuntimeError(f"{label}: base or head parameters moved after the freeze: {moved}")
 
     tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
-    steps, out = 0, {}
+    lora_pack.launches = lora_pack_vjp.launches = 0
+    steps = 0
     for e in LORA_EPOCHS:
         if e == boundary:
             before = frozen(ktr)
@@ -2614,9 +2799,13 @@ def run_lora_trunk_slice(train, test, device, tk, tt):
                       if k.endswith("lora_b")}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        loss = ktr.train_epoch(e)
+        with autograd_calls() as calls:
+            loss = ktr.train_epoch(e)
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
+        if calls:
+            raise RuntimeError(f"epoch {e}: the kernel-path steps called into the autograd "
+                               f"engine {len(calls)} times ({sorted(set(calls))})")
         n = len(ktr.last_step_losses)
         steps += n
         if e == 0:
@@ -2638,9 +2827,13 @@ def run_lora_trunk_slice(train, test, device, tk, tt):
             print(f"  freeze: {len(before)} base and head tensors bit-equal across epochs "
                   f"{boundary}-{e}, all {len(lora_b)} lora_b moved", flush=True)
     out["launches"] = tt.fused_train_objective.launches["train_pe"]
-    print(f"  launches: kernel 1 {out['launches']} for {steps} steps", flush=True)
-    if out["launches"] != steps:
-        raise RuntimeError(f"{out['launches']} kernel-1 launches for {steps} steps")
+    out["pack_launches"] = (lora_pack.launches, lora_pack_vjp.launches)
+    print(f"  launches: kernel 1 {out['launches']}, lora_pack_fwd {lora_pack.launches}, "
+          f"lora_pack_vjp {lora_pack_vjp.launches} for {steps} steps (graph replays counted per "
+          f"replay), no call into the autograd engine", flush=True)
+    if [out["launches"], *out["pack_launches"]] != [steps] * 3:
+        raise RuntimeError(f"{out['launches']} kernel-1 launches, {out['pack_launches']} "
+                           f"pack / VJP launches for {steps} steps")
     check_frozen(ktr, before, f"epochs {boundary}-{LORA_EPOCHS[-1]}")
 
     ptr.train_epoch(0)
@@ -2664,8 +2857,10 @@ def run_lora_trunk_slice(train, test, device, tk, tt):
     del twins
 
     tk.fused_render_fwd_pe.launches = 0
+    packs = lora_pack.launches
     after = ktr.evaluate()
     out["eval_launches"] = tk.fused_render_fwd_pe.launches
+    out["eval_packs"] += lora_pack.launches - packs
     print(f"  evaluate: psnr {psnr0:.4f} dB at init, {after['psnr']:.4f} dB after {steps} steps, "
           f"ssim {after['ssim']:.5f}, {eval_ms(ktr)}, "
           f"{out['eval_launches']} launches for {n_chunks} chunks", flush=True)
@@ -2705,9 +2900,22 @@ def run_lora_trunk_slice(train, test, device, tk, tt):
     ktr.train_epoch(epoch)
     torch.cuda.synchronize()
     untraced_ms = (time.perf_counter() - t0) * 1e3
+    traces = {}
     for with_cpu in (False, True):
+        traces[with_cpu] = trace_epoch(ktr, epoch, with_cpu)
         print_trace(f"epoch {epoch} traced ({'CPU+CUDA' if with_cpu else 'CUDA only'})",
-                    trace_epoch(ktr, epoch, with_cpu), untraced_ms, max_syncs=1)
+                    traces[with_cpu], untraced_ms, max_syncs=1)
+    t = traces[False]
+    print(f"  phase-2 step traced: {t['events']:.1f} device events, device ms "
+          f"{sum(t['parts'].values()):.4f}, other {t['parts'].get('other', 0.0):.4f}, "
+          f"lora_pack_fwd {t['parts'].get('lora_pack_fwd', 0.0):.4f}, lora_pack_vjp "
+          f"{t['parts'].get('lora_pack_vjp', 0.0):.4f}; host ms in the autograd engine "
+          f"{traces[True]['host']['backward']:.4f}", flush=True)
+    if traces[True]["host"]["backward"] > 0 or not all(
+            t["parts"].get(k, 0.0) > 0 for k in ("lora_pack_fwd", "lora_pack_vjp")):
+        raise RuntimeError("the traced LoRA-trunk epoch ran the autograd engine or missed a "
+                           "LoRA pack kernel")
+    out["trace"] = {"events": t["events"], "parts": t["parts"]}
     no_sync_run(f"epoch {epoch}'s steps", lambda: ktr.epoch_steps(epoch))
     out.update(psnr0=psnr0, psnr=after["psnr"], trainer=ktr, cfg=cfg, feats=feats, epoch=epoch)
     return out
@@ -2906,6 +3114,7 @@ def run_script_slice(train, test, device, tk, tt):
     epochs reported, not gated. Returns a dict of the numbers per file."""
     from nerf_fewshot_tpu_torch.cli import _precompute_features
     from nerf_fewshot_tpu_torch.models.lora import lora_label_fn
+    from nerf_fewshot_tpu_torch.render.lora_pack import lora_pack, lora_pack_vjp
     from nerf_fewshot_tpu_torch.render.point_features import sample_point_features as spf
     from nerf_fewshot_tpu_torch.training.config import config_from_dict
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
@@ -2954,7 +3163,7 @@ def run_script_slice(train, test, device, tk, tt):
             ktr.phase_data(ktr._phase_index(e))
         boundary = cfg.optimizer.lora_only_after_epoch
         tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
-        spf.launches = 0
+        spf.launches = lora_pack.launches = lora_pack_vjp.launches = 0
         steps, out = 0, dict(d=d, psnr0=psnr0, extract_s=extract_s, probe_as_is=probe,
                              sigma_bias=cfg.nerf.sigma_bias)
         for e in epochs:
@@ -2989,11 +3198,16 @@ def run_script_slice(train, test, device, tk, tt):
                       f"epochs {boundary}-{e}, all {len(lora_b)} lora_b moved", flush=True)
         out["launches"] = tt.fused_train_objective.launches["train_pe"]
         out["sampler_launches"] = spf.launches
+        out["pack_launches"] = [lora_pack.launches, lora_pack_vjp.launches]
         print(f"  {name} launches: kernel 1 {out['launches']}, the sampler kernel "
-              f"{out['sampler_launches']} for {steps} steps", flush=True)
-        if out["launches"] != steps or out["sampler_launches"] != steps:
-            raise RuntimeError(f"{name}: {out['launches']} kernel-1 and "
-                               f"{out['sampler_launches']} sampler launches for {steps} steps")
+              f"{out['sampler_launches']}, [lora_pack_fwd, lora_pack_vjp] "
+              f"{out['pack_launches']} for {steps} steps", flush=True)
+        lora_steps = steps if cfg.nerf.lora_rank else 0
+        if out["launches"] != steps or out["sampler_launches"] != steps \
+                or out["pack_launches"] != [lora_steps] * 2:
+            raise RuntimeError(f"{name}: {out['launches']} kernel-1, {out['sampler_launches']} "
+                               f"sampler and {out['pack_launches']} LoRA pack launches for "
+                               f"{steps} steps")
 
         ptr.train_epoch(0)
         rel = np.abs(ptr.last_step_losses / losses0 - 1.0).max()
@@ -3462,8 +3676,10 @@ def run_data_parallel(device, tk, tmp, smi):
     reason recorded) against world 1; then ``multihost_train_smoke
     --kernels`` as two Gloo processes on the card and ``cli train
     --multihost`` on ``dino_nerf.yaml`` at world 1 (NCCL, read from the
-    environment). Returns the graphed world 1's launches of kernels 1 and 2
-    and the Adam kernel, the Gloo ranks' of kernel 1 and the sampler's."""
+    environment); ``lora_nerf_trunk.yaml`` at world 1 (``run_data_parallel_lora``).
+    Returns the graphed world 1's launches of kernels 1 and 2 and the Adam
+    kernel, the Gloo ranks' of kernel 1, the sampler's and the LoRA pack
+    kernels'."""
     import torch.distributed as dist
 
     from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
@@ -3572,6 +3788,7 @@ def run_data_parallel(device, tk, tmp, smi):
           f"{ar['eager'] / two[0]['ms_per_step'][-1]:.1%} of a step", flush=True)
 
     sampler = run_data_parallel_dino(device)
+    lora_dp = run_data_parallel_lora(device)
 
     env = {**os.environ, "PYTHONPATH": ROOT + os.pathsep + os.environ.get("PYTHONPATH", "")}
     address = f"localhost:{pmesh.free_port()}"
@@ -3613,7 +3830,8 @@ def run_data_parallel(device, tk, tmp, smi):
         raise RuntimeError("cli train --multihost wrote no final.ckpt")
     print(f"  cli train dino_nerf.yaml --synthetic --epochs 2 --multihost (world 1 from the "
           f"environment): exit 0, {mesh_line!r}, kernel path, final.ckpt", flush=True)
-    return one["launches"], eval_launches, adam_launches, [t["launches"] for t in two], sampler
+    return (one["launches"], eval_launches, adam_launches, [t["launches"] for t in two], sampler,
+            lora_dp)
 
 
 def run_data_parallel_dino(device):
@@ -3669,13 +3887,60 @@ def run_data_parallel_dino(device):
     return launches
 
 
+def run_data_parallel_lora(device):
+    """``lora_nerf_trunk.yaml`` (``sigma_bias: 0.1``) on seeded 9x9x64 maps at
+    DP_DINO_EPOCHS with no mesh and on a one-rank NCCL mesh, as graph
+    replays and through the eager mesh step: both bit-equal to no mesh in
+    losses, parameters and Adam moments, every step launching kernel 1 and
+    the two LoRA pack kernels once (a replay each once), or raise. Returns
+    the LoRA pack kernels' launches by run."""
+    import torch.distributed as dist
+
+    from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
+    from nerf_fewshot_tpu_torch.tools import dp_runs
+
+    raw = lora_trunk_configs()[1].raw
+    maps = np.random.default_rng(14).standard_normal((N_TRAIN_VIEWS, 9, 9, 64)).astype(np.float32)
+    plain = dp_runs.dp_run(dp_runs.dp_trainer(raw, device=device, dino_features=maps),
+                           DP_DINO_EPOCHS)
+    pmesh.initialize_multihost(f"localhost:{pmesh.free_port()}", 1, 0, device=device)
+    try:
+        mesh = pmesh.make_mesh(device)
+        runs = {mode: dp_runs.dp_run(dp_runs.dp_trainer(raw, mesh, dino_features=maps,
+                                                        eager=mode == "eager"), DP_DINO_EPOCHS)
+                for mode in ("graph", "eager")}
+    finally:
+        pmesh.shutdown()
+    steps = sum(len(s) for s in plain["steps"])
+    for mode, run in runs.items():
+        differs = dp_runs.run_difference(run, plain)
+        if differs is not None or run["step_mode"] != mode:
+            raise RuntimeError(f"lora trunk world 1 {mode} ({run['step_mode']}): {differs} "
+                               f"differ from no mesh")
+    per = runs["graph"]["launches_per_replay"] or {}
+    counts = {"no mesh": plain["lora_launches"],
+              **{f"world 1 nccl {m}": r["lora_launches"] for m, r in runs.items()}}
+    print(f"  lora_nerf_trunk.yaml (seeded 9x9x64 maps) at epochs {DP_DINO_EPOCHS}: world 1 "
+          f"graph replays and eager mesh steps bit-equal to no mesh in losses, parameters and "
+          f"Adam moments; {steps} steps, [lora_pack_fwd, lora_pack_vjp] launches {counts}, "
+          f"kernel 1's {[plain['launches']] + [r['launches'] for r in runs.values()]}; one "
+          f"replay {per}", flush=True)
+    if any(c != [steps, steps] for c in counts.values()) \
+            or any(r["launches"] != steps for r in (plain, *runs.values())) \
+            or [per.get(k) for k in ("train_pe", "lora_pack", "lora_pack_vjp", "allreduce")] \
+            != [1, 1, 1, 1]:
+        raise RuntimeError(f"lora trunk data parallel: launches {counts} for {steps} steps, "
+                           f"a replay {per}")
+    return counts
+
+
 # The kernels (route_bits.py call-name prefixes) whose sums this tree
 # orders differently from its parent's build by design; the parent check
 # reports them instead of gating them bit for bit. None: trunk widths 384
 # and 512 are new builds, and widths 128 and 256 keep the parent's.
 REORDERED_VS_PARENT = ()
 # the configs tools/train_runs.py times against the parent beside the baseline
-TRAIN_RUNS_CONFIGS = ("baseline", "dino_nerf", "lora_trunk")
+TRAIN_RUNS_CONFIGS = ("baseline", "dino_nerf", "lora_trunk", "script_lora")
 
 
 def run_parent_bits():
@@ -4602,6 +4867,9 @@ def main():
     with phase("LoRA trunk kernel width"):
         lora_rows = run_lora_kernel_width(device, tk, tt)
 
+    with phase("LoRA pack kernels"):
+        pack_rows = run_lora_pack_kernels(device)
+
     with phase(f"LoRA trunk slice {LORA_TRUNK_CONFIG}"):
         lora = run_lora_trunk_slice(train, test, device, tk, tt)
 
@@ -4649,7 +4917,7 @@ def main():
     with phase("data parallel"):
         tmp = tempfile.mkdtemp(prefix="chip_smoke_dp_")
         try:
-            dp_train, dp_eval, dp_adam, dp_ranks, dp_sampler = run_data_parallel(
+            dp_train, dp_eval, dp_adam, dp_ranks, dp_sampler, dp_lora = run_data_parallel(
                 device, tk, tmp, smi)
         finally:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -4812,6 +5080,41 @@ def main():
                         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_rate", "f64_rel",
                         "plain_f64_rel")} for cd in routes if cd != "float32"}})
 
+    def pack_row(kernel, k):
+        key = ("fwd", "vjp")[k]
+        row = pack_rows[next(iter(LORA_PACK_CASES))]
+        runs = {f"{LORA_TRUNK_CONFIG} train": lora["pack_launches"][k],
+                f"{LORA_TRUNK_CONFIG} eval": lora["eval_packs"] if k == 0 else 0,
+                **{f"{n} train": script[n]["pack_launches"][k]
+                   for n in ("script_lora.yaml", "script_projection.yaml")},
+                f"{LORA_TRUNK_CONFIG} data parallel world 1 nccl (graph and eager)":
+                    sum(dp_lora[f"world 1 nccl {m}"][k] for m in ("graph", "eager"))}
+        return {
+            "name": kernel, "route": "cuda", "source": "nerf_fewshot_tpu_torch/csrc/lora_pack.cu",
+            "replaces": "nerf_fewshot_tpu/render/kernels.py:660",
+            "replaces_note": "no pallas_call: jax.vjp over pack_params of a LoRA trunk (the "
+                             "merge W + (alpha/r) A @ B, render/kernels.py:679-684), which XLA "
+                             "fuses into the jitted step (render/train_kernel.py:720-747)",
+            "shape": f"{row['shape']} ({next(iter(LORA_PACK_CASES))})",
+            "configs": list(runs), "launches": sum(runs.values()), "launches_by_run": runs,
+            "max_abs_err": max(r["max_abs_err"][key] for r in pack_rows.values()),
+            "ms": row["ms"][key], "plain_ms": row["ms"][key + "_plain"],
+            "plain": "_pack_merged" if k == 0 else "torch.autograd.grad through _pack_merged",
+            "bound_ms": row["bound_ms"][key], "bound_by": "bytes",
+            "library_ms": row["ms"]["baddbmm"] if k == 0 else None,
+            "library": ("torch.baddbmm of layers 1.. of the merge, TF32 off: a partial "
+                        "yardstick (no layer 0, no permutation, no heads), never called by "
+                        "the port") if k == 0 else None,
+            "timing": "device ms a call: 20 calls captured in a CUDA graph, replayed between "
+                      "CUDA events",
+            "cases": {label: {"ms": r["ms"][key], "plain_ms": r["ms"][key + "_plain"],
+                              "bound_ms": r["bound_ms"][key], "bytes": r["bytes"][key],
+                              "shape": r["shape"],
+                              **({"vjp_rel": r["vjp_rel"], "vjp_f64": r["vjp_f64"],
+                                  "vjp_plain_f64": r["vjp_plain_f64"]} if k else
+                                 {"baddbmm_ms": r["ms"]["baddbmm"]})}
+                      for label, r in pack_rows.items()}}
+
     srow = sampler_rows[SAMPLER_ROW]
     sampler_row = {
         "name": "point_features", "route": "cuda",
@@ -4906,7 +5209,8 @@ def main():
         "library": "torch.optim.Adam(fused=True)",
         "timing": "device ms a step (torch.profiler kernel time)",
         "wall_ms_of_a_loop": adam_row["wall_ms"],
-    }, sampler_row, *dino_kernel_rows, lora_row("train_pe"), lora_row("fwd_pe"), *script_kernel_rows,
+    }, sampler_row, *dino_kernel_rows, lora_row("train_pe"), lora_row("fwd_pe"),
+        pack_row("lora_pack", 0), pack_row("lora_pack_vjp", 1), *script_kernel_rows,
         *route_kernel_rows, *wide_kernel_rows, *cap_kernel_rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -400,10 +400,17 @@ def pack_params(
     (``pe_layout``'s sequence or ``pe_constants``' device tensor) before the
     zero padding. A trunk without LoRA is packed by one cached gather
     (``_GatherPack``; a ``row_perm`` that is no permutation of the input
-    rows takes the layer-by-layer path); LoRA trunk layers are merged
-    (``_trunk_layer``) and gradients reach ``lora_a`` and ``lora_b`` through
-    the merge by autograd.
+    rows takes the layer-by-layer path); a LoRA trunk by ``lora_pack``
+    (``render/lora_pack.py``: one launch of its kernel on a card, its
+    backward the VJP kernel; the layer-by-layer merge of ``_trunk_layer``,
+    differentiated by autograd, on the CPU).
     A trunk with skip layers is refused."""
+    from nerf_fewshot_tpu_torch.render.lora_pack import is_lora_trunk, lora_pack
+
+    if is_lora_trunk(state, num_layers):
+        device = next(iter(state.values())).device
+        return lora_pack(state, num_layers, hidden_dim, d_pad, row_perm, lora_alpha,
+                         plain=device.type == "cpu")
     found = _gather_plan(state, num_layers, hidden_dim, d_pad, row_perm)
     if found is not None:
         plan, srcs = found

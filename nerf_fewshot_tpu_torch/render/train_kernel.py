@@ -9,10 +9,11 @@ same source built for a pre-encoded ``x``) and runs
 ``fused_train_objective_reference``, the plain PyTorch version, on CPU
 tensors. There is no other route.
 
-Gradients reach the ``NeRFMLP`` parameters through the differentiable
-``pack_params``: ``_TrainObjective`` returns the kernel's packed gradients,
-scaled by the incoming cotangent, as its backward, which is what the JAX
-package's ``jax.vjp`` over ``pack_params`` does.
+``fused_train_loss_grad`` maps the kernel's packed gradients back to the
+``NeRFMLP`` parameters, which is what the JAX package's ``jax.vjp`` over
+``pack_params`` does, without the autograd engine: ``packed_grads`` for a
+trunk without LoRA, ``lora_pack_vjp`` (``csrc/lora_pack.cu`` on a card) for
+a LoRA trunk.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from torch import nn
 
 from nerf_fewshot_tpu_torch.ops.sampling import hierarchical_sample, sample_along_rays
 from nerf_fewshot_tpu_torch.render.fused import encode_points, encoded_width
+from nerf_fewshot_tpu_torch.render.lora_pack import is_lora_trunk, lora_pack_vjp
 from nerf_fewshot_tpu_torch.render.kernels import (
     D_PAD,
     OUT_PAD,
@@ -268,25 +270,6 @@ def fused_train_objective(
 fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
 
 
-class _TrainObjective(torch.autograd.Function):
-    """The objective as a differentiable function of the six packed
-    tensors: forward runs ``fused_train_objective`` and keeps its packed
-    gradients; backward returns them times the incoming cotangent."""
-
-    @staticmethod
-    def forward(ctx, raw_or_x, feats, z, dnorm, tgt, mask, inv_denom, e2, c, opts, *packed):
-        loss, dpacked = fused_train_objective(
-            raw_or_x, feats, z, dnorm, tgt, mask, inv_denom, e2, c,
-            tuple(p.detach() for p in packed), **opts)
-        ctx.save_for_backward(*dpacked)
-        return loss
-
-    @staticmethod
-    def backward(ctx, grad_out):
-        # one multi-tensor launch for the six products ``grad_out * d``
-        return (None,) * 10 + tuple(torch._foreach_mul(list(ctx.saved_tensors), grad_out))
-
-
 @torch.no_grad()
 def _coarse_weights(packed: Packed, consts, pts, rays_d, z, dnorm, settings, use_viewdirs,
                     compute_dtype, inline_pe, pos_freq, dir_freq, feats):
@@ -439,30 +422,30 @@ def fused_train_loss_grad(
     picks the kernels' precision route (``float32``, ``bfloat16``,
     ``highest``); ``dw_precision="highest"`` and ``head_mode="vpu"`` pin the
     dW products and the head to exact fp32, as the JAX entry's pins do.
-    A trunk without LoRA takes its gradients from the kernel's packed ones
-    directly (``packed_grads``: the views and the row gather that autograd
-    through ``pack_params`` gives back for the loss's cotangent of one); a
-    LoRA trunk takes them through the merge by autograd.
+    The gradients come from the kernel's packed ones without the autograd
+    engine (``_pack_vjp``): what autograd through ``pack_params`` gives back
+    for the loss's cotangent of one.
     ``grad_buffer``: a flat float32 buffer the size of every parameter
     together; the gradients are also written there, each contiguous in its
     parameter's shape, in ``_src_names`` order for a trunk without LoRA (one
     gather from the packed gradients, ``packed_grads(out=)``) and in
-    ``params`` order for a LoRA trunk (one multi-tensor copy). The returned
-    gradients stay as they come, the layouts a reduction over them sums in.
+    ``params`` order for a LoRA trunk (``lora_pack_vjp(out=)``: the VJP
+    kernel writes them there on a card; its plain version's copied there on
+    the CPU). The returned gradients are the plain version's as they come,
+    the layouts a reduction over them sums in (on a card a LoRA trunk's are
+    the buffer's views).
     """
     if isinstance(model_or_state, nn.Module):
         params = dict(model_or_state.named_parameters())
     else:
-        params = {k: v.detach().requires_grad_(True) for k, v in model_or_state.items()}
-    direct = set(params) == set(_src_names(num_layers))  # a trunk without LoRA
-    with torch.set_grad_enabled(torch.is_grad_enabled() and not direct):
+        params = dict(model_or_state)
+    with torch.no_grad():
         args, opts = train_objective_inputs(
             params, rays_o, rays_d, target, mask, settings, pos_freq, dir_freq, num_layers,
             hidden_dim, use_viewdirs, compute_dtype, uniforms, denom_rays, inline_pe,
             reg_weight, depth_weight, target_depth, point_features_fn, rgb_weight,
             importance_uniforms, lora_alpha, dw_precision, head_mode)
-    *inputs, packed = args
-    if direct:  # the packing's backward without the autograd engine
+        *inputs, packed = args
         loss, dpacked = fused_train_objective(*inputs, packed, **opts)
         row_perm = None
         if inline_pe:
@@ -470,18 +453,28 @@ def fused_train_loss_grad(
             row_perm = pe_constants(pos_freq, dir_freq, use_viewdirs,
                                     0 if feats is None else feats.shape[1],
                                     rays_o.device).row_perm
-        grads = packed_grads(params, num_layers, hidden_dim, packed[0].shape[0], row_perm,
-                             dpacked)
-        if grad_buffer is not None:
-            packed_grads(params, num_layers, hidden_dim, packed[0].shape[0], row_perm, dpacked,
-                         out=grad_buffer)
-        return loss.detach(), grads
-    loss = _TrainObjective.apply(*inputs, opts, *packed)
-    names = list(params)
-    grads = torch.autograd.grad(loss, [params[k] for k in names])
+        grads = _pack_vjp(params, num_layers, hidden_dim, row_perm, lora_alpha, dpacked,
+                          grad_buffer)
+    return loss.detach(), grads
+
+
+def _pack_vjp(params: Mapping[str, torch.Tensor], num_layers: int, hidden_dim: int,
+              row_perm, lora_alpha: float, dpacked: Packed,
+              grad_buffer: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The parameters' gradients, by name, from the gradients ``dpacked`` of
+    ``pack_params(params, ..., row_perm)``: ``packed_grads`` for a trunk
+    without LoRA, ``lora_pack_vjp`` for a LoRA trunk (its kernel on a card,
+    its plain version on the CPU); each also written into ``grad_buffer``
+    when given."""
+    if is_lora_trunk(params, num_layers):
+        cpu = dpacked[0].device.type == "cpu"
+        return lora_pack_vjp(params, dpacked, num_layers, hidden_dim, row_perm, lora_alpha,
+                             out=grad_buffer, plain=cpu)
+    d_pad = dpacked[0].shape[0]
+    grads = packed_grads(params, num_layers, hidden_dim, d_pad, row_perm, dpacked)
     if grad_buffer is not None:
-        torch._foreach_copy_(_views_of(grad_buffer, [params[k] for k in names]), list(grads))
-    return loss.detach(), dict(zip(names, grads))
+        packed_grads(params, num_layers, hidden_dim, d_pad, row_perm, dpacked, out=grad_buffer)
+    return grads
 
 
 def grad_buffer(params: Mapping[str, torch.Tensor], num_layers: int, extra: int = 0

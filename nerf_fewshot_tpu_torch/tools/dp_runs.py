@@ -82,10 +82,13 @@ def dp_run(trainer, epochs: Sequence[int]) -> Dict:
     """Train ``epochs``: each epoch's per-step losses, ms per step (host
     clock around synchronized epochs) and whether it captured a graph,
     kernel 1's and the feature sampler's launches (counted from 0 here) and
-    the ray count of each call of kernel 1's wrapper (a replay calls none),
+    the LoRA pack kernels' launches (``lora_launches``: the packing's and
+    the VJP's, counted from 0 here), the ray count of each call of kernel
+    1's wrapper (a replay calls none),
     the step mode and its reason, one replay's launches, the parameters and
     the Adam moments by name."""
     from nerf_fewshot_tpu_torch.render import train_kernel as tt
+    from nerf_fewshot_tpu_torch.render.lora_pack import lora_pack, lora_pack_vjp
     from nerf_fewshot_tpu_torch.render.point_features import sample_point_features
 
     for e in epochs:
@@ -98,7 +101,7 @@ def dp_run(trainer, epochs: Sequence[int]) -> Dict:
         return orig(*args, **kw)
 
     orig.launches["train_pe"] = 0
-    sample_point_features.launches = 0
+    sample_point_features.launches = lora_pack.launches = lora_pack_vjp.launches = 0
     recorded.launches = orig.launches
     tt.fused_train_objective = recorded
     steps, ms, captured = [], [], []
@@ -122,6 +125,7 @@ def dp_run(trainer, epochs: Sequence[int]) -> Dict:
     return {"steps": steps, "ms_per_step": ms, "captured": captured,
             "launches": orig.launches["train_pe"],
             "sampler_launches": sample_point_features.launches, "rays": rays,
+            "lora_launches": [lora_pack.launches, lora_pack_vjp.launches],
             "step_mode": trainer.step_mode, "step_mode_reason": trainer.step_mode_reason,
             "launches_per_replay": dict(caps[-1]["launches_per_replay"]) if caps else None,
             "params": {k: v.cpu().numpy() for k, v in trainer.model.state_dict().items()},

@@ -5,7 +5,7 @@ configs' too); or summarize such lines as pairs of two checkouts; or
 compare two runs' losses, parameters and eval view bit for bit.
 
     python nerf_fewshot_tpu_torch/tools/train_runs.py --root DIR --seed S --tag T --out FILE \
-        [--bits FILE.pt] [--configs baseline dino_nerf lora_trunk]
+        [--bits FILE.pt] [--configs baseline dino_nerf lora_trunk script_lora]
     python nerf_fewshot_tpu_torch/tools/train_runs.py --summarize FILE --base T1 --change T2
     python nerf_fewshot_tpu_torch/tools/train_runs.py --compare-bits A.pt B.pt
 
@@ -25,9 +25,10 @@ and launches per step, and, traced with the CPU activity, the host's
 milliseconds per step by part; Adam's device ms a step, and the trainer's
 CUDA graph captures with their costs). ``--bits`` saves every epoch's per-step
 losses, the parameters after epoch 103 and test view 0 rendered then.
-``--configs`` adds ``experiments/dino_nerf.yaml`` and
-``experiments/lora_nerf_trunk.yaml`` (with ``sigma_bias: 0.1``, the
-smoke's live start), each on its ViT-B/14 feature maps from the card,
+``--configs`` adds ``experiments/dino_nerf.yaml``,
+``experiments/lora_nerf_trunk.yaml`` and ``experiments/script_lora.yaml``
+(the LoRA ones with ``sigma_bias: 0.1``, the smoke's live start), each on
+its feature maps from the card (ViT-B/14; the script's patch embedding),
 trained at epochs 0, 100, 101 and 102 (the phase-2 steps of 101-102
 timed), an eval of the 8 test views timed and traced (busy share,
 device events and launches per view, device ms by part), and epoch 103
@@ -52,7 +53,9 @@ EPOCHS = (0, 1, 50, 100, 101, 102, 103)
 TIMED = (101, 102, 103)
 TRACED = 104
 OTHER_EPOCHS, OTHER_TIMED, OTHER_TRACED = (0, 100, 101, 102), (101, 102), 103
-CONFIGS = ("baseline", "dino_nerf", "lora_trunk")
+CONFIGS = ("baseline", "dino_nerf", "lora_trunk", "script_lora")
+FILES = {"dino_nerf": "dino_nerf.yaml", "lora_trunk": "lora_nerf_trunk.yaml",
+         "script_lora": "script_lora.yaml"}
 HERE = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -106,16 +109,16 @@ def _traced(smoke, tr, epoch):
 
 
 def _other(root, name, train, test, device, smoke):
-    """``dino_nerf`` or ``lora_trunk``: ms per phase-2 step and the trace."""
+    """``dino_nerf``, ``lora_trunk`` or ``script_lora``: ms per phase-2 step
+    and the trace."""
     import numpy as np
 
     from nerf_fewshot_tpu_torch.cli import _precompute_features
     from nerf_fewshot_tpu_torch.training.config import config_from_dict, load_config
     from nerf_fewshot_tpu_torch.training.trainer import Trainer
 
-    file = {"dino_nerf": "dino_nerf.yaml", "lora_trunk": "lora_nerf_trunk.yaml"}[name]
-    cfg = load_config(os.path.join(root, "experiments", file))
-    if name == "lora_trunk":
+    cfg = load_config(os.path.join(root, "experiments", FILES[name]))
+    if name != "dino_nerf":
         cfg = config_from_dict({**cfg.raw, "nerf_model": {**cfg.raw["nerf_model"],
                                                           "sigma_bias": 0.1}})
     feats = _precompute_features(cfg, train, device)

@@ -9,8 +9,10 @@ Adam table, copied into the buffers of ``StaticStep``, allocated once per
 phase) and a per-step body that reads only device buffers and a device step
 index (the Adam kernel's counter): the batch gather, the jitter draws,
 ``fused_train_loss_grad`` (with DINO conditioning, the feature sampler's
-kernel first, the step's view read from the device), the gradient buffers,
-the clip and the Adam kernel. Under an NCCL mesh (the JAX trainer's
+kernel first, the step's view read from the device; with a LoRA trunk the
+packing kernel before kernel 1 and the VJP kernel after it, into the
+trainer's packed-weight and gradient buffers), the gradient buffers, the
+clip and the Adam kernel. Under an NCCL mesh (the JAX trainer's
 ``jax.jit(epoch_fn, in_shardings=...)`` with the ``psum`` inside its
 ``shard_map``) each rank's body gathers its rows of the batch and holds the
 all-reduce of the gradient buffer and the loss
@@ -40,6 +42,7 @@ import torch
 from nerf_fewshot_tpu_torch.parallel.mesh import all_reduce_sum_
 from nerf_fewshot_tpu_torch.render import kernels as tk
 from nerf_fewshot_tpu_torch.render import train_kernel as tt
+from nerf_fewshot_tpu_torch.render.lora_pack import lora_pack, lora_pack_vjp
 from nerf_fewshot_tpu_torch.render.point_features import sample_point_features
 from nerf_fewshot_tpu_torch.render.pipeline import RenderSettings
 from nerf_fewshot_tpu_torch.training.optim import AdamKernel
@@ -53,6 +56,7 @@ WARMUP_STEPS = 2
 # bound here: a caller may put another function in a module's place)
 _WRAPPERS = {"fwd_pe": tk.fused_render_fwd_pe, "fwd": tk.fused_render_fwd,
              "render_bwd": tk.fused_render_bwd, "point_features": sample_point_features,
+             "lora_pack": lora_pack, "lora_pack_vjp": lora_pack_vjp,
              "allreduce": all_reduce_sum_}
 _TRAIN = tt.fused_train_objective
 

@@ -1343,7 +1343,8 @@ def test_graphed_epochs_are_bit_equal_to_the_eager_step(h100, kind):
     parameters, both Adam moments and the step counts bit-equal. The graph
     launches kernel 1 and the Adam kernel once per step (kernel 2 once more
     with hierarchical sampling, the feature sampler's kernel once with DINO
-    features), counted per replay; each trainer records
+    features, the two LoRA pack kernels once each with a LoRA trunk),
+    counted per replay; each trainer records
     its step mode and the eager one why."""
     from nerf_fewshot_tpu_torch.training.optim import AdamKernel
     from nerf_fewshot_tpu_torch.training.step_graph import kernel_launch_counts
@@ -1362,6 +1363,8 @@ def test_graphed_epochs_are_bit_equal_to_the_eager_step(h100, kind):
         assert after["adam"] - before["adam"] == n
         assert after["fwd_pe"] - before["fwd_pe"] == (n if kind == "hierarchical" else 0)
         assert after["point_features"] - before["point_features"] == (n if kind == "dino" else 0)
+        for k in ("lora_pack", "lora_pack_vjp"):
+            assert after[k] - before[k] == (n if kind == "lora" else 0), k
     assert graph.step_mode == "graph" and graph.step_mode_reason is None
     assert eager.step_mode == "eager" and "_eager_step" in eager.step_mode_reason
     assert len(graph.graph_captures) == (3 if kind == "lora" else 2)
@@ -1440,8 +1443,9 @@ def test_dp_world_1_nccl_graph_is_bit_equal_to_eager_and_no_mesh(h100, kind):
     (``Trainer(_eager_step=True)``) and the no-mesh graph's per-step losses,
     parameters and both Adam moments bit for bit. One replay launches
     kernel 1, the Adam kernel and the all-reduce once each (kernel 2 once
-    more with hierarchical sampling, the sampler once with DINO), as the
-    counts over the epochs show."""
+    more with hierarchical sampling, the sampler once with DINO, the two
+    LoRA pack kernels once each with a LoRA trunk), as the counts over the
+    epochs show."""
     import torch.distributed as dist
 
     from nerf_fewshot_tpu_torch.parallel import mesh as pmesh
@@ -1461,9 +1465,11 @@ def test_dp_world_1_nccl_graph_is_bit_equal_to_eager_and_no_mesh(h100, kind):
             n = want.shape[0]
             assert _same_bits(got, want) and _same_bits(got, ref), epoch
             launched = {k: after[k] - before[k] for k in after}
+            lora = n if kind == "lora" else 0
             assert launched == {"train_pe": n, "train_x": 0, "adam": n, "allreduce": n,
                                 "fwd_pe": n if kind == "hierarchical" else 0, "fwd": 0,
-                                "render_bwd": 0, "point_features": n if kind == "dino" else 0}
+                                "render_bwd": 0, "point_features": n if kind == "dino" else 0,
+                                "lora_pack": lora, "lora_pack_vjp": lora}
         assert graph.step_mode == "graph" and graph.step_mode_reason is None
         assert eager.step_mode == "eager" and "_eager_step" in eager.step_mode_reason
         assert len(graph.graph_captures) == (3 if kind == "lora" else 2)

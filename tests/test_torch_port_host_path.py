@@ -193,22 +193,6 @@ def test_a_row_perm_that_is_no_permutation_is_packed_layer_by_layer(bad):
         tk.packed_grads(params, N_LAYERS, HIDDEN, 96, perm, cots)
 
 
-def test_objective_backward_is_bit_equal_to_per_tensor_products():
-    """``_TrainObjective``'s one multi-tensor product against ``grad_out *
-    d`` per packed gradient, at a cotangent that is not 1."""
-    g = torch.Generator().manual_seed(5)
-    saved = [torch.randn((37, 11), generator=g), torch.randn((5,), generator=g)]
-    saved[0][0, :3] = -0.0
-
-    class Ctx:
-        saved_tensors = tuple(saved)
-
-    grad_out = torch.tensor(0.7311)
-    got = tt._TrainObjective.backward(Ctx, grad_out)
-    assert got[:10] == (None,) * 10
-    _same(got[10:], [grad_out * d for d in saved])
-
-
 # ------------------------------------------------------------ the clip
 
 @pytest.mark.parametrize("max_norm", [1e3, 0.5])
@@ -288,15 +272,27 @@ def _per_step_glue(monkeypatch):
                               torch.as_tensor(c, device=device), x_dim)
 
     def layer_by_layer(state, num_layers, hidden_dim, d_pad=tk.D_PAD, row_perm=None,
-                       lora_alpha=16.0):
+                       lora_alpha=16.0, **_):
         if isinstance(row_perm, torch.Tensor):
             row_perm = row_perm.tolist()
         return tk._pack_merged(state, num_layers, hidden_dim, d_pad, row_perm, lora_alpha)
 
+    def by_autograd(params, num_layers, hidden_dim, row_perm, lora_alpha, dpacked, out):
+        names = list(params)
+        with torch.enable_grad():
+            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            packed = layer_by_layer(leaves, num_layers, hidden_dim, dpacked[0].shape[0],
+                                    row_perm, lora_alpha)
+            grads = torch.autograd.grad(packed, [leaves[k] for k in names], list(dpacked))
+        if out is not None:
+            torch._foreach_copy_(tt._views_of(out, [params[k] for k in names]), list(grads))
+        return dict(zip(names, grads))
+
     for mod in (tt, tf, trainer_mod):
         monkeypatch.setattr(mod, "pe_constants", fresh_constants, raising=False)
         monkeypatch.setattr(mod, "pack_params", layer_by_layer, raising=False)
-    monkeypatch.setattr(tt, "_src_names", lambda num_layers: ())
+    monkeypatch.setattr(tt, "_pack_vjp", by_autograd)
+    monkeypatch.setattr(tt, "_grad_names", lambda params, num_layers: list(params))
 
 
 @pytest.mark.parametrize("kind", ["baseline", "hierarchical", "lora", "dino", "clip"])

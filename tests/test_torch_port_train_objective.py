@@ -179,36 +179,6 @@ def test_denom_rays_and_depth_without_targets_match_jax():
     _grads_close(got_grads, want_grads)
 
 
-def test_objective_function_scales_by_the_cotangent_and_reaches_the_module():
-    """``_TrainObjective``'s backward returns ``g * dpacked``; through the
-    differentiable ``pack_params`` it lands on the ``NeRFMLP`` parameters."""
-    from nerf_fewshot_tpu_torch.models.mlp import NeRFMLP
-
-    model = NeRFMLP(10, 4, True, hidden_dim=HIDDEN, num_layers=N_LAYERS, sigma_bias_init=0.1,
-                    generator=torch.Generator().manual_seed(1))
-    rng = np.random.default_rng(9)
-    R = 16
-    ro, rd, tgt = (_t(rng.standard_normal((R, 3))) for _ in range(3))
-    settings = RenderSettings(n_samples=8)
-    loss, grads = tt.fused_train_loss_grad(model, ro, rd, tgt, torch.ones(R), settings,
-                                           10, 4, N_LAYERS, HIDDEN)
-    args, opts = tt.train_objective_inputs(dict(model.named_parameters()), ro, rd, tgt,
-                                           torch.ones(R), settings, 10, 4, N_LAYERS, HIDDEN)
-    *inputs, packed = args
-    (2.5 * tt._TrainObjective.apply(*inputs, opts, *packed)).backward()
-    for name, p in model.named_parameters():
-        torch.testing.assert_close(p.grad, 2.5 * grads[name], rtol=1e-6, atol=0)
-    # the plain pipeline's autograd gives the same gradient (cos vs sin(+pi/2))
-    from nerf_fewshot_tpu_torch.render.pipeline import render_rays
-
-    model.zero_grad()
-    out = render_rays(model, ro, rd, settings)
-    torch.mean((out.rgb - tgt) ** 2).backward()
-    g = torch.cat([p.grad.reshape(-1) for p in model.parameters()])
-    k = torch.cat([grads[n].reshape(-1) for n, _ in model.named_parameters()])
-    assert ((g - k).norm() / k.norm()).item() < 1e-4
-
-
 def test_train_objective_refuses_what_is_not_ported():
     state = {k: v for k, v in nerf_mlp_from_jax(_jax_params()).items()}
     ro, rd, tgt = torch.zeros(4, 3), torch.ones(4, 3), torch.zeros(4, 3)

@@ -57,8 +57,10 @@ its seconds:
    reorders on purpose: those are reported, not gated); then kernels 1, 5
    and 3 timed
    against the parent in alternating pairs (``tools/train_times.py``) at
-   every shape and route of ``PERF.md``'s kernel tables; then the
-   main-path trainer over the smoke's epochs in alternating pairs
+   every shape and route of ``PERF.md``'s kernel tables; the LoRA pack
+   kernels likewise (``tools/lora_pack_times.py``: outputs bit-equal to the
+   parent's, device ms); then the main-path trainer over the smoke's
+   epochs in alternating pairs
    (``tools/train_runs.py``, one process per run): every run's 670
    per-step losses, final parameters and eval view bit-equal to the
    parent's, the pairs' ms per step (``baseline``, ``dino_nerf``,
@@ -208,12 +210,16 @@ its seconds:
    at a 1024x64 eval chunk at the trunk-LoRA config's input (pos_freq 10,
    view directions, 64 features: D 160), against their plain versions;
    times and bounds; then the LoRA pack kernels (``csrc/lora_pack.cu``) at
-   ``lora_nerf_trunk.yaml``'s and ``script_lora.yaml``'s shapes and at H
-   1024: the packed weights and the base, bias and head gradients bit-equal
-   to the plain versions, ``lora_a`` / ``lora_b`` within rel 1e-6 of
-   autograd and no further from a float64 run, a second call bit-equal;
-   device ms of each (20 calls in a CUDA graph), its byte bound, the plain
-   versions' and ``torch.baddbmm``'s (layers 1.. of the merge, TF32 off);
+   ``lora_nerf_trunk.yaml``'s and ``script_lora.yaml``'s shapes, at H 1024
+   and at the former's widths at rank 1024 and at 40 layers: the packed
+   weights bit-equal to the plain version up to rank 1020 (at rank 1024,
+   summed in float64: within rel 1e-6 of it and no further from a float64
+   packing), the base, bias and head gradients bit-equal to autograd,
+   ``lora_a`` / ``lora_b`` within rel 1e-6 of autograd and no further from
+   a float64 run, a second call bit-equal, ceil(L / 32) launches a call;
+   device ms of each (20 calls in a CUDA graph), its bound (bytes, or the
+   operations at the peak of their type), the plain versions' and
+   ``torch.baddbmm``'s (layers 1.. of the merge, TF32 off);
 18. LoRA trunk slice: ``experiments/lora_nerf_trunk.yaml`` read by the
    port's reader (8x256 trunk, rank-4 LoRA on every layer, the ViT-B/14
    extractor on the card), trained with ``sigma_bias: 0.1`` (the file as it
@@ -227,6 +233,13 @@ its seconds:
    trunk with one launch each of the LoRA pack kernels and never calls
    into the autograd engine (counted, and no ``autograd::engine`` range in
    the traced epoch), an eval call packs once;
+18a. LoRA trunk past the pack kernels' old caps: ``lora_nerf_trunk.yaml``
+   (``sigma_bias: 0.1``) at ``lora_rank: 1024``, then at ``num_layers:
+   40``, on the slice's maps, counts at 0 before each: epoch 0 (32x32)
+   through kernel 1 once a step and each LoRA pack kernel ceil(L / 32)
+   times a step, no call into the autograd engine, per-step losses within
+   rel 1e-4 of a ``backend: xla`` twin; test view 0 through kernel 2 (once
+   per chunk, one packing) within the view tolerances of the twin's;
 19. reference checkpoint: the trained LoRA weights written in the
    reference's PyTorch layout (``.pth``) and loaded into a fresh trainer,
    whose views through kernel 2 must equal the first trainer's;
@@ -309,8 +322,9 @@ the ``nvidia-smi`` name/power-limit line, a JSON line with the kernels'
 numbers (the five kernels, kernels 1 and 2 at the DINO widths with the
 pretrained-format run's launches, then at the trunk-LoRA width, then the
 LoRA pack kernels (``lora_pack``, ``lora_pack_vjp``: the LoRA trunk
-slice's, ``script_lora.yaml``'s, ``script_projection.yaml``'s (rank 16) and
-the LoRA data-parallel run's launches),
+slice's, the rank-1024 and 40-layer trainers', ``script_lora.yaml``'s,
+``script_projection.yaml``'s (rank 16) and the LoRA data-parallel run's
+launches),
 then the five at the script recipes' widths, then each kernel at ``bfloat16`` and
 at ``highest`` (``<name>_bf16``, ``<name>_highest``: main-path times, the
 route's bound, launches from the route trainings), then the five at trunk
@@ -410,6 +424,7 @@ SMOKE_CONFIG = {
 # 3xTF32 (three TF32 products each), so their bound is 3 * FLOPs at the TF32
 # rate; the bound at the fp32 CUDA-core rate is printed beside it.
 FP32_FLOPS = 67e12
+FP64_FLOPS = 34e12  # NVIDIA's H100 SXM data sheet: float64 outside the tensor cores
 TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 # Kernel vs plain: the kernel's 3xTF32 trunk products (~2^-22 off each) and
@@ -458,12 +473,22 @@ LORA_TRUNK_CONFIG = "lora_nerf_trunk.yaml"
 LORA_EPOCHS = (0, 50, 51, 52, 100)
 LORA_WIDTH = (64, 160)
 # The LoRA pack kernels' shapes: (pos_freq, dir_freq, view directions,
-# features, H, layers, rank) of lora_nerf_trunk.yaml, script_lora.yaml and a
-# 1024-wide trunk at the former's input; the first is the kernels' row.
+# features, H, layers, rank) of lora_nerf_trunk.yaml, script_lora.yaml, a
+# 1024-wide trunk at the former's input, and the former at rank 1024 (the
+# merge's float64 sums) and at 40 layers (two launches of each kernel); the
+# first is the kernels' row.
 LORA_PACK_CASES = {"lora_nerf_trunk.yaml": (10, 4, True, 64, 256, 8, 4),
                    "script_lora.yaml": (10, 4, False, 768, 256, 8, 4),
-                   "H 1024": (10, 4, True, 64, 1024, 8, 4)}
+                   "H 1024": (10, 4, True, 64, 1024, 8, 4),
+                   "rank 1024": (10, 4, True, 64, 256, 8, 1024),
+                   "40 layers": (10, 4, True, 64, 256, 40, 4)}
 LORA_PACK_VJP_RTOL = 1e-6  # lora_a / lora_b: sums in float64, autograd's in fp32
+# above lora_pack.TORCH_ORDER_RANK the packing's float64 sums against the
+# plain packing's fp32 ones
+LORA_PACK_FWD_RTOL = 1e-6
+# lora_nerf_trunk.yaml past the LoRA pack kernels' old caps, one override
+# each (nerf_model), trained one epoch (0, 32x32) through the kernels
+LORA_CAP_CONFIGS = {"lora_rank 1024": {"lora_rank": 1024}, "num_layers 40": {"num_layers": 40}}
 # arch: module (multiscale.yaml) trains one epoch of each of its first two phases
 MODULE_EPOCHS = (0, 50)
 # The script recipes (experiments/script_*.yaml): the 768 channels of the
@@ -2591,18 +2616,41 @@ def rel_dist(got, want):
     return (d / n) ** 0.5 if n else d ** 0.5
 
 
+def lora_pack_bounds(in_dim, H, L, r, fwd_bytes, vjp_bytes):
+    """``{"fwd" / "vjp": (bound_ms, bound_by, rate)}`` of the LoRA pack
+    kernels: the larger of the bytes at the HBM rate and the operations (2 r
+    a merged element, a product and a sum; 4 r in the VJP's two reductions)
+    at the peak of their type: the forward's fp32 sums up to
+    ``lora_pack.TORCH_ORDER_RANK``, float64 above it; the VJP's float64
+    sums at every rank."""
+    from nerf_fewshot_tpu_torch.render.lora_pack import TORCH_ORDER_RANK
+
+    merged = (in_dim + (L - 1) * H) * H
+    out = {}
+    for key, nbytes, ops, f64 in (("fwd", fwd_bytes, 2 * r * merged, r > TORCH_ORDER_RANK),
+                                  ("vjp", vjp_bytes, 4 * r * merged, True)):
+        ops_s = ops / (FP64_FLOPS if f64 else FP32_FLOPS)
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        out[key] = (max(ops_s, bytes_s) * 1e3, "operations" if ops_s > bytes_s else "bytes",
+                    "fp64 at 34 TFLOP/s" if f64 else "fp32 at 67 TFLOP/s")
+    return out
+
+
 def run_lora_pack_kernels(device):
     """``lora_pack`` / ``lora_pack_vjp`` (``csrc/lora_pack.cu``) against their
     plain versions at LORA_PACK_CASES, each with the inline-PE layout's
     ``row_perm``, seeded weights and packed cotangents (a third of them
-    -0.0): the six packed tensors bit-equal to ``_pack_merged``, the base,
-    bias and head gradients bit-equal to autograd's, ``lora_a`` / ``lora_b``
-    within LORA_PACK_VJP_RTOL of autograd and no further from a float64 run
-    than autograd, a second call of each bit-equal, or raise. Device ms
+    -0.0): the six packed tensors bit-equal to ``_pack_merged`` up to rank
+    ``lp.TORCH_ORDER_RANK`` (above it the merged weights within
+    LORA_PACK_FWD_RTOL of it and no further from a float64 packing, the
+    rest bit-equal), the base, bias and head gradients bit-equal to
+    autograd's, ``lora_a`` / ``lora_b`` within LORA_PACK_VJP_RTOL of
+    autograd and no further from a float64 run than autograd, a second call
+    of each bit-equal, ceil(L / 32) launches of each, or raise. Device ms
     (``graph_ms``) of each kernel, of each plain version and of
     ``torch.baddbmm`` over layers 1.. of the merge (TF32 off: a partial
-    yardstick, no layer 0, no permutation, no heads), and the byte bounds.
-    Returns ``{case: row}``."""
+    yardstick, no layer 0, no permutation, no heads), and the bounds
+    (``lora_pack_bounds``). Returns ``{case: row}``."""
     from nerf_fewshot_tpu_torch.render import kernels as tk
     from nerf_fewshot_tpu_torch.render import lora_pack as lp
 
@@ -2613,13 +2661,32 @@ def run_lora_pack_kernels(device):
         rng = np.random.default_rng(250 + n_case)
         state = random_lora_state(rng, in_dim, H, L, r, device)
         args = (L, H, d_pad, perm, 16.0)
+        launches = len(lp.launch_layers(L))
+        before = (lp.lora_pack.launches, lp.lora_pack_vjp.launches)
         got, want, again = lp.lora_pack(state, *args), lp.lora_pack_reference(state, *args), \
             lp.lora_pack(state, *args)
-        bad = [k for k, (g, w, a) in enumerate(zip(got, want, again))
-               if not (bit_equal(g, w) and bit_equal(a, g))]
+        bad = [k for k, (g, a) in enumerate(zip(got, again)) if not bit_equal(a, g)]
+        fwd_note = "bit-equal to _pack_merged"
+        if r <= lp.TORCH_ORDER_RANK:
+            bad += [k for k, (g, w) in enumerate(zip(got, want)) if not bit_equal(g, w)]
+        else:  # the kernel's float64 sums
+            exact = lp.lora_pack_reference({k: v.double() for k, v in state.items()}, *args)
+            fwd_rel = max(rel_dist([g], [w]) for g, w in zip(got, want))
+            gaps = [rel_dist([g], [e]) - rel_dist([w], [e]) for g, w, e in zip(got, want, exact)]
+            bad += [k for k, (g, w) in enumerate(zip(got, want))
+                    if rel_dist([g], [w]) > LORA_PACK_FWD_RTOL or gaps[k] > 0
+                    or (k not in (0, 2) and not bit_equal(g, w))]
+            fwd_note = (f"within rel {fwd_rel:.2e} of _pack_merged (tol "
+                        f"{LORA_PACK_FWD_RTOL:.0e}; float64 sums above rank "
+                        f"{lp.TORCH_ORDER_RANK}), from a float64 packing w0 / wh "
+                        f"{rel_dist([got[0]], [exact[0]]):.3e} / "
+                        f"{rel_dist([got[2]], [exact[2]]):.3e}, plain "
+                        f"{rel_dist([want[0]], [exact[0]]):.3e} / "
+                        f"{rel_dist([want[2]], [exact[2]]):.3e}, heads and biases bit-equal")
+            del exact
         if bad:
-            raise RuntimeError(f"lora_pack {label}: packed tensors {bad} not bit-equal to the "
-                               f"plain version (or to a second call)")
+            raise RuntimeError(f"lora_pack {label}: packed tensors {bad} fail their gate against "
+                               f"the plain version (or differ from a second call)")
         g = torch.Generator().manual_seed(n_case)
         cots = []
         for w in want:
@@ -2631,6 +2698,10 @@ def run_lora_pack_kernels(device):
         kg, ag = lp.lora_pack_vjp(state, cots, *vargs), lp.lora_pack_vjp_reference(state, cots,
                                                                                     *vargs)
         k2 = lp.lora_pack_vjp(state, cots, *vargs)
+        counted = (lp.lora_pack.launches - before[0], lp.lora_pack_vjp.launches - before[1])
+        if counted != (2 * launches, 2 * launches):
+            raise RuntimeError(f"{label}: launches {counted} for two calls of each, expected "
+                               f"{launches} a call")
         f64 = lp.lora_pack_vjp_reference({k: v.double() for k, v in state.items()},
                                          tuple(c.double() for c in cots), *vargs)
         lora = [k for k in state if "lora" in k]
@@ -2641,8 +2712,10 @@ def run_lora_pack_kernels(device):
         f64_gap = {k: rel_dist([kg[k]], [f64[k]]) - rel_dist([ag[k]], [f64[k]]) for k in lora}
         worst = max(f64_gap, key=f64_gap.get)
         d_k, d_p = rel_dist([kg[worst]], [f64[worst]]), rel_dist([ag[worst]], [f64[worst]])
-        print(f"  {label} (D {d_pad}, {L}x{H}, rank {r}): packed weights bit-equal to "
-              f"_pack_merged; VJP base, bias and head gradients "
+        del f64
+        print(f"  {label} (D {d_pad}, {L}x{H}, rank {r}, {launches} launch"
+              f"{'es' if launches > 1 else ''} of each): packed weights {fwd_note}; VJP base, "
+              f"bias and head gradients "
               f"{'bit-equal' if not bad else 'DIFFER: ' + str(bad[:4])} to autograd, lora_a / "
               f"lora_b max rel {rel:.2e} (tol {LORA_PACK_VJP_RTOL:.0e}), from float64 per "
               f"tensor: worst gap {worst} kernel {d_k:.3e} / autograd {d_p:.3e}, "
@@ -2662,7 +2735,7 @@ def run_lora_pack_kernels(device):
               "fwd_plain": graph_ms(lambda: lp.lora_pack_reference(state, *args), calls=5),
               "vjp_plain": graph_ms(lambda: lp.lora_pack_vjp_reference(state, cots, *vargs),
                                     calls=5),
-              "baddbmm": graph_ms(lambda: torch.baddbmm(wt, a_s, b_s, alpha=4.0))}
+              "baddbmm": graph_ms(lambda: torch.baddbmm(wt, a_s, b_s, alpha=16.0 / r))}
         n_state = sum(v.numel() for v in state.values())
         n_packed = sum(w.numel() for w in want)
         n_lora = sum(state[k].numel() for k in lora)
@@ -2671,21 +2744,25 @@ def run_lora_pack_kernels(device):
         # in_dim live rows, gwh, the biases, wout's columns 0-3 and bout's 0-3
         n_live = in_dim * H + (L - 1) * H * H + L * H + 4 * H + 4
         vjp_bytes = 4 * (n_live + n_lora + n_state) + 8 * in_dim
-        bound = {k: b / HBM_BYTES_PER_S * 1e3 for k, b in (("fwd", fwd_bytes),
-                                                            ("vjp", vjp_bytes))}
+        bounds_ = lora_pack_bounds(in_dim, H, L, r, fwd_bytes, vjp_bytes)
+        bound = {k: v[0] for k, v in bounds_.items()}
         print(f"  {label} device ms (20 calls in a CUDA graph): lora_pack_fwd {ms['fwd']:.4f} "
-              f"(bound {bound['fwd']:.4f} by bytes, {fwd_bytes / 1e6:.2f} MB, share "
-              f"{bound['fwd'] / ms['fwd']:.1%}), plain {ms['fwd_plain']:.4f}; lora_pack_vjp "
-              f"{ms['vjp']:.4f} (bound {bound['vjp']:.4f}, {vjp_bytes / 1e6:.2f} MB, share "
+              f"(bound {bound['fwd']:.4f} by {bounds_['fwd'][1]} ({bounds_['fwd'][2]}), "
+              f"{fwd_bytes / 1e6:.2f} MB, share {bound['fwd'] / ms['fwd']:.1%}), plain "
+              f"{ms['fwd_plain']:.4f}; lora_pack_vjp {ms['vjp']:.4f} (bound {bound['vjp']:.4f} "
+              f"by {bounds_['vjp'][1]} ({bounds_['vjp'][2]}), {vjp_bytes / 1e6:.2f} MB, share "
               f"{bound['vjp'] / ms['vjp']:.1%}), plain (autograd) {ms['vjp_plain']:.4f}; "
               f"torch.baddbmm of layers 1-{L - 1}'s merge {ms['baddbmm']:.4f}", flush=True)
         err = {"fwd": max(float((g - w).abs().max()) for g, w in zip(got, want)),
                "vjp": max(float((kg[k] - ag[k]).abs().max()) for k in state)}
-        rows[label] = {"ms": ms, "bound_ms": bound, "bytes": {"fwd": fwd_bytes,
-                                                              "vjp": vjp_bytes},
-                       "max_abs_err": err,
+        rows[label] = {"ms": ms, "bound_ms": bound,
+                       "bound_by": {k: v[1] for k, v in bounds_.items()},
+                       "bound_rate": {k: v[2] for k, v in bounds_.items()},
+                       "bytes": {"fwd": fwd_bytes, "vjp": vjp_bytes},
+                       "max_abs_err": err, "launches_a_call": launches,
                        "vjp_rel": rel, "vjp_f64": d_k, "vjp_plain_f64": d_p,
                        "shape": f"D {d_pad}, {L}x{H}, rank {r}"}
+        del got, want, again, kg, ag, k2, out, gbuf, wt, a_s, b_s
     return rows
 
 
@@ -2918,6 +2995,83 @@ def run_lora_trunk_slice(train, test, device, tk, tt):
     out["trace"] = {"events": t["events"], "parts": t["parts"]}
     no_sync_run(f"epoch {epoch}'s steps", lambda: ktr.epoch_steps(epoch))
     out.update(psnr0=psnr0, psnr=after["psnr"], trainer=ktr, cfg=cfg, feats=feats, epoch=epoch)
+    return out
+
+
+def run_lora_cap_trainers(train, test, device, tk, tt, feats):
+    """``lora_nerf_trunk.yaml`` (``sigma_bias: 0.1``) past the LoRA pack
+    kernels' old caps, one LORA_CAP_CONFIGS override each, on the LoRA
+    slice's feature maps: epoch 0 (32x32) through the kernels, every count
+    set to 0 before it and read after: kernel 1 once a step, each LoRA pack
+    kernel ceil(L / 32) times a step, no call into the autograd engine; the
+    per-step losses within TRAIN_LOSS_RTOL of a ``backend: xla`` twin's
+    (same seed, batches, jitter and maps); then test view 0 rendered by both
+    from the kernel trainer's weights: kernel 2 once per chunk, one packing
+    (ceil(L / 32) launches), the views within TOL. Returns ``{label:
+    counts}``."""
+    from nerf_fewshot_tpu_torch.render.lora_pack import launch_layers, lora_pack, lora_pack_vjp
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    _, base = lora_trunk_configs()
+    out = {}
+    for label, over in LORA_CAP_CONFIGS.items():
+        raw = {**base.raw, "nerf_model": {**base.raw["nerf_model"], **over}}
+        cfg = config_from_dict(raw)
+        pcfg = config_from_dict({**raw, "rendering": {**raw["rendering"], "backend": "xla"}})
+        ktr = Trainer(cfg, train, test, device=device, dino_features=feats)
+        ptr = Trainer(pcfg, train, test, device=device, dino_features=feats)
+        if not (ktr._use_fused() and ktr.kernel_path == "kernel") or ptr._use_fused():
+            raise RuntimeError(f"{label}: paths {ktr.kernel_path} ({ktr.kernel_path_reason}), "
+                               f"{ptr.kernel_path}")
+        n, p0 = cfg.nerf, cfg.phases[0]
+        packs = len(launch_layers(n.num_layers))
+        ptr.train_epoch(0)  # the twin first: its launches are not the path's
+        pd = ktr.phase_data(0)
+        tt.fused_train_objective.launches = {"train_pe": 0, "train_x": 0}
+        tk.fused_render_fwd_pe.launches = 0
+        lora_pack.launches = lora_pack_vjp.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with autograd_calls() as calls:
+            loss = ktr.train_epoch(0)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        steps = len(ktr.last_step_losses)
+        counts = {"train_pe": tt.fused_train_objective.launches["train_pe"],
+                  "lora_pack": lora_pack.launches, "lora_pack_vjp": lora_pack_vjp.launches}
+        expect = {"train_pe": steps, "lora_pack": steps * packs, "lora_pack_vjp": steps * packs}
+        rel = float(np.max(np.abs(ptr.last_step_losses / ktr.last_step_losses - 1.0)))
+        d = tk.pe_width(tk.pe_layout(n.pos_freq, n.dir_freq, n.use_viewdirs, feats.shape[-1])[3])
+        print(f"  {label} ({n.num_layers}x{n.hidden_dim}, rank {n.lora_rank}, D {d}): epoch 0 "
+              f"({pd.H}x{pd.W}, {min(p0.batch_size, pd.rays_o.shape[1])} rays x "
+              f"{p0.n_samples} samples) loss {loss:.6f}, {steps} steps, "
+              f"{sec / steps * 1e3:.3f} ms/step; per-step max rel gap to the backend: xla twin "
+              f"{rel:.2e} (tol {TRAIN_LOSS_RTOL:.0e}); launches {counts} ({packs} a step of each "
+              f"LoRA pack kernel), {len(calls)} calls into the autograd engine", flush=True)
+        if counts != expect or calls:
+            raise RuntimeError(f"{label}: launches {counts}, expected {expect}; autograd calls "
+                               f"{len(calls)}")
+        if not (np.isfinite(ktr.last_step_losses).all() and rel <= TRAIN_LOSS_RTOL):
+            raise RuntimeError(f"{label}: epoch 0 losses from the xla twin by rel {rel}")
+        ptr.model.load_state_dict(ktr.model.state_dict())
+        got = ktr.render_views(test.poses[:1])
+        counts.update(eval_fwd_pe=tk.fused_render_fwd_pe.launches,
+                      eval_lora_pack=lora_pack.launches - counts["lora_pack"])
+        want = ptr.render_views(test.poses[:1])
+        chunks = -(-cfg.data.resolution ** 2 // cfg.rendering.chunk_size)
+        errs = {o: float(np.abs(g - w).max())
+                for g, w, o in zip(got, want, ("rgb", "depth", "acc"))}
+        print(f"  {label}: test view 0 against the xla twin's, the kernel trainer's weights: max "
+              f"abs err " + ", ".join(f"{k} {v:.3e} (tol {TOL[k]:.0e})" for k, v in errs.items())
+              + f"; kernel 2 {counts['eval_fwd_pe']} launches for {chunks} chunks, "
+              f"lora_pack {counts['eval_lora_pack']}", flush=True)
+        if (not all(np.isfinite(g).all() for g in got) or any(v > TOL[k] for k, v in errs.items())
+                or (counts["eval_fwd_pe"], counts["eval_lora_pack"]) != (chunks, packs)):
+            raise RuntimeError(f"{label}: eval view {errs}, launches {counts}")
+        out[label] = {**counts, "steps": steps, "ms_per_step": sec / steps * 1e3,
+                      "loss_rel_to_xla": rel, "view_err": errs}
+        del ktr, ptr
     return out
 
 
@@ -3950,7 +4104,9 @@ def run_parent_bits():
     inputs the parent's glue made), bit-equal but for
     ``REORDERED_VS_PARENT``, whose relative difference is printed; then
     kernels 1, 5 and 3 timed in alternating pairs, parent / change / change
-    / parent (``tools/train_times.py``), the pairs and means printed; then
+    / parent (``tools/train_times.py``), the pairs and means printed; the
+    LoRA pack kernels likewise (``tools/lora_pack_times.py``: outputs
+    bit-equal to the parent's at every shape both take, device ms); then
     the main-path trainer (``baseline.yaml`` over the smoke's epochs, 670
     steps) in the same order (``tools/train_runs.py``, each run in its own
     process): every run's per-step losses, final parameters and eval view
@@ -3982,6 +4138,14 @@ def run_parent_bits():
                            stdout=subprocess.DEVNULL)
         subprocess.run([sys.executable, os.path.join(tools, "train_times.py"), "--summarize",
                         times, "--base", "parent", "--change", "change"], check=True, timeout=60)
+        # the LoRA pack kernels, A B B A: outputs bit-equal, device ms a call
+        packs = os.path.join(tmp, "lora_pack.jsonl")
+        for tag, root in (*roots, *roots[::-1]):
+            subprocess.run([sys.executable, os.path.join(tools, "lora_pack_times.py"), "--root",
+                            root, "--tag", tag, "--out", packs], check=True, timeout=600,
+                           stdout=subprocess.DEVNULL)
+        subprocess.run([sys.executable, os.path.join(tools, "lora_pack_times.py"), "--summarize",
+                        packs, "--base", "parent", "--change", "change"], check=True, timeout=60)
         # the main-path trainer over the smoke's epochs, A B B A: bit-equal
         # losses, parameters and eval view, then the step and eval times
         runs = os.path.join(tmp, "runs.jsonl")
@@ -4873,6 +5037,9 @@ def main():
     with phase(f"LoRA trunk slice {LORA_TRUNK_CONFIG}"):
         lora = run_lora_trunk_slice(train, test, device, tk, tt)
 
+    with phase("LoRA trunk past the pack kernels' old caps"):
+        lora_caps = run_lora_cap_trainers(train, test, device, tk, tt, lora["feats"])
+
     with phase("reference checkpoint"):
         tmp = tempfile.mkdtemp(prefix="chip_smoke_pth_")
         try:
@@ -4977,7 +5144,11 @@ def main():
                "replaces": ("nerf_fewshot_tpu/render/train_kernel.py:343" if train
                             else "nerf_fewshot_tpu/render/kernels.py:251"),
                "shape": "512x64" if train else "1024x64", "configs": [LORA_TRUNK_CONFIG],
-               "launches": lora["launches" if train else "eval_launches"],
+               "launches": lora["launches" if train else "eval_launches"]
+               + sum(c["train_pe" if train else "eval_fwd_pe"] for c in lora_caps.values()),
+               "launches_past_the_pack_caps": {
+                   f"{LORA_TRUNK_CONFIG} {k}": c["train_pe" if train else "eval_fwd_pe"]
+                   for k, c in lora_caps.items()},
                "max_abs_err": max(err, lora["train_err" if train else "fwd_err"]),
                "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
                "bound_rate": "3xTF32 at 495 TFLOP/s", "bound_fp32_ms": b32_ms,
@@ -5088,7 +5259,10 @@ def main():
                 **{f"{n} train": script[n]["pack_launches"][k]
                    for n in ("script_lora.yaml", "script_projection.yaml")},
                 f"{LORA_TRUNK_CONFIG} data parallel world 1 nccl (graph and eager)":
-                    sum(dp_lora[f"world 1 nccl {m}"][k] for m in ("graph", "eager"))}
+                    sum(dp_lora[f"world 1 nccl {m}"][k] for m in ("graph", "eager")),
+                **{f"{LORA_TRUNK_CONFIG} {label} train and eval":
+                   c[kernel] + (c["eval_lora_pack"] if k == 0 else 0)
+                   for label, c in lora_caps.items()}}
         return {
             "name": kernel, "route": "cuda", "source": "nerf_fewshot_tpu_torch/csrc/lora_pack.cu",
             "replaces": "nerf_fewshot_tpu/render/kernels.py:660",
@@ -5100,7 +5274,8 @@ def main():
             "max_abs_err": max(r["max_abs_err"][key] for r in pack_rows.values()),
             "ms": row["ms"][key], "plain_ms": row["ms"][key + "_plain"],
             "plain": "_pack_merged" if k == 0 else "torch.autograd.grad through _pack_merged",
-            "bound_ms": row["bound_ms"][key], "bound_by": "bytes",
+            "bound_ms": row["bound_ms"][key], "bound_by": row["bound_by"][key],
+            "bound_rate": row["bound_rate"][key],
             "library_ms": row["ms"]["baddbmm"] if k == 0 else None,
             "library": ("torch.baddbmm of layers 1.. of the merge, TF32 off: a partial "
                         "yardstick (no layer 0, no permutation, no heads), never called by "
@@ -5108,8 +5283,10 @@ def main():
             "timing": "device ms a call: 20 calls captured in a CUDA graph, replayed between "
                       "CUDA events",
             "cases": {label: {"ms": r["ms"][key], "plain_ms": r["ms"][key + "_plain"],
-                              "bound_ms": r["bound_ms"][key], "bytes": r["bytes"][key],
-                              "shape": r["shape"],
+                              "bound_ms": r["bound_ms"][key], "bound_by": r["bound_by"][key],
+                              "bound_rate": r["bound_rate"][key], "bytes": r["bytes"][key],
+                              "launches_a_call": r["launches_a_call"], "shape": r["shape"],
+                              "max_abs_err": r["max_abs_err"][key],
                               **({"vjp_rel": r["vjp_rel"], "vjp_f64": r["vjp_f64"],
                                   "vjp_plain_f64": r["vjp_plain_f64"]} if k else
                                  {"baddbmm_ms": r["ms"]["baddbmm"]})}

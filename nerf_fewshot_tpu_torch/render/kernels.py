@@ -401,9 +401,9 @@ def pack_params(
     zero padding. A trunk without LoRA is packed by one cached gather
     (``_GatherPack``; a ``row_perm`` that is no permutation of the input
     rows takes the layer-by-layer path); a LoRA trunk by ``lora_pack``
-    (``render/lora_pack.py``: one launch of its kernel on a card, its
-    backward the VJP kernel; the layer-by-layer merge of ``_trunk_layer``,
-    differentiated by autograd, on the CPU).
+    (``render/lora_pack.py``: its kernel on a card, one launch per 32
+    layers, its backward the VJP kernel; the layer-by-layer merge of
+    ``_trunk_layer``, differentiated by autograd, on the CPU).
     A trunk with skip layers is refused."""
     from nerf_fewshot_tpu_torch.render.lora_pack import is_lora_trunk, lora_pack
 

@@ -6,16 +6,24 @@ A ``NeRFMLP`` whose every trunk layer is a ``LoRADense`` (``trunk.{i}.base``,
 the six tensors of ``pack_params``: every layer merged into ``W + (alpha / r)
 * A @ B``, the first layer's rows gathered through ``row_perm`` and padded to
 ``d_pad``, the heads padded to 128 columns. ``lora_pack`` writes them with
-one launch of ``nerf_lora_pack_fwd``, bit-equal to the layer-by-layer
-packing (``lora_pack_reference``, ``render/kernels.py:_pack_merged``), and
-``lora_pack_vjp`` maps the kernels' six packed gradients back to every
-parameter's gradient with one launch of ``nerf_lora_pack_vjp``, straight
-into a flat buffer in the state's order: the base weights, the biases and
-the heads bit-equal to autograd through the packing
-(``lora_pack_vjp_reference``), ``lora_a`` and ``lora_b`` (two reductions)
-in a fixed order of their own. A training step thus takes a LoRA trunk's
-gradients without the autograd engine, as a trunk without LoRA does
-(``render/kernels.py:packed_grads``).
+``nerf_lora_pack_fwd``, bit-equal to the layer-by-layer packing
+(``lora_pack_reference``, ``render/kernels.py:_pack_merged``) up to rank
+1020; above it, where torch's sum on the card splits across blocks in an
+order its launch heuristics choose, the kernel sums each merged element's
+fp32 products in float64 and rounds once. ``lora_pack_vjp`` maps the
+kernels' six packed gradients back to every parameter's gradient with
+``nerf_lora_pack_vjp``, straight into a flat buffer in the state's order:
+the base weights, the biases and the heads bit-equal to autograd through
+the packing (``lora_pack_vjp_reference``), ``lora_a`` and ``lora_b`` (two
+reductions) in float64, in a fixed order of their own. A training step
+thus takes a LoRA trunk's gradients without the autograd engine, as a
+trunk without LoRA does (``render/kernels.py:packed_grads``).
+
+Both take any rank and any depth: a launch of either kernel takes at most
+``LAYERS_PER_LAUNCH`` layers (its pointer table, passed by value, so that a
+CUDA graph holds it as captured), and a trunk of L layers takes ceil(L /
+``LAYERS_PER_LAUNCH``) launches of each, launch c the layers from
+``LAYERS_PER_LAUNCH * c``; the last also writes the heads.
 
 The kernels replace no Pallas kernel: they are the counterpart of XLA's
 fusion of the JAX step's ``pack_params`` over a LoRA trunk
@@ -56,20 +64,26 @@ from nerf_fewshot_tpu_torch.render.kernels import (
 PARTS = ("lora_a", "lora_b", "base.weight", "base.bias")  # a LoRADense's parameters
 HEADS = ("rgb_head.weight", "rgb_head.bias", "sigma_head.weight", "sigma_head.bias")
 # csrc/lora_pack.cu:nerf_lora_pack_fwd(layers, heads, outs (host arrays of
-# device pointers), row_perm, n_layers, hidden, in_dim, n_rows, d_pad, rank,
-# scale, stream)
+# device pointers), row_perm, n_layers, first, count, hidden, in_dim, n_rows,
+# d_pad, rank, scale, stream)
 _PTRS = ctypes.POINTER(ctypes.c_void_p)
-FWD_ARGTYPES = [_PTRS] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_float,
+FWD_ARGTYPES = [_PTRS] * 3 + [ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_float,
                                                                       ctypes.c_void_p]
 # nerf_lora_pack_vjp(lora, dpacked, grads, head_grads (host arrays), row_perm,
-# n_layers, hidden, in_dim, n_rows, rank, scale, stream)
-VJP_ARGTYPES = [_PTRS] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_float,
+# n_layers, first, count, hidden, in_dim, n_rows, rank, scale, stream)
+VJP_ARGTYPES = [_PTRS] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                                       ctypes.c_void_p]
-MAX_LAYERS = 32  # csrc/lora_pack.cu:kMaxLayers
-# csrc/lora_pack.cu:kMaxRank: from rank 1021 (256 products a thread) torch
-# may split the merge's sum across blocks, an order the forward kernel does
-# not follow
-MAX_RANK = 1020
+LAYERS_PER_LAUNCH = 32  # csrc/lora_pack.cu:kMaxLayers, a launch's pointer table
+# csrc/lora_pack.cu:kTorchOrderRank: up to this rank the packing follows the
+# plain merge's sum order on the card, bit for bit; above it (torch's sum
+# then splits across blocks) it sums each merged element in float64
+TORCH_ORDER_RANK = 1020
+
+
+def launch_layers(num_layers: int) -> List[Tuple[int, int]]:
+    """``(first, count)`` of each launch that a ``num_layers`` trunk takes."""
+    return [(first, min(LAYERS_PER_LAUNCH, num_layers - first))
+            for first in range(0, num_layers, LAYERS_PER_LAUNCH)]
 
 
 def lora_names(num_layers: int) -> Tuple[str, ...]:
@@ -127,7 +141,10 @@ def lora_pack_vjp_reference(state: Mapping[str, torch.Tensor], dpacked: Packed, 
         leaves = {k: v.detach().requires_grad_(True) for k, v in state.items()}
         packed = _pack_merged(leaves, num_layers, hidden_dim, dpacked[0].shape[0], row_perm,
                               lora_alpha)
-        grads = torch.autograd.grad(packed, [leaves[k] for k in names], list(dpacked))
+        # a 1-layer trunk's wh / bh are empty constants, outside the graph
+        live = [(p, d) for p, d in zip(packed, dpacked) if p.requires_grad]
+        grads = torch.autograd.grad([p for p, _ in live], [leaves[k] for k in names],
+                                    [d for _, d in live])
     return dict(zip(names, grads))
 
 
@@ -166,17 +183,9 @@ def _plan(state: Mapping[str, torch.Tensor], num_layers: int, hidden_dim: int,
           row_perm: Optional[RowPerm], lora_alpha: float, caller: str) -> _Plan:
     """The kernels' checks of a LoRA trunk on a card: names, device, dtype,
     contiguity and shapes."""
-    if not is_lora_trunk(state, num_layers):
+    if num_layers < 1 or not is_lora_trunk(state, num_layers):
         raise ValueError(f"{caller}: the state is not a {num_layers}-layer LoRA trunk (every "
                          f"trunk layer a LoRADense, and the two heads)")
-    if not 1 <= num_layers <= MAX_LAYERS:
-        raise ValueError(f"{caller}: {num_layers} trunk layers; the kernel takes 1 to "
-                         f"{MAX_LAYERS}")
-    rank = state["trunk.0.lora_a"].shape[-1]
-    if not 1 <= rank <= MAX_RANK:
-        raise ValueError(f"{caller}: LoRA rank {rank}; the kernels take 1 to {MAX_RANK} (from "
-                         f"rank {MAX_RANK + 1} the card's plain merge may sum in an order "
-                         f"they do not follow)")
     device = _canonical(state["trunk.0.lora_a"].device)
     if device.type != "cuda":
         raise ValueError(f"{caller}: no kernel for device {device}; the plain version is "
@@ -220,7 +229,8 @@ def _ptrs(tensors) -> ctypes.Array:
 
 def _launch_fwd(plan: _Plan, num_layers: int, hidden_dim: int, d_pad: int,
                 out: Optional[torch.Tensor]) -> Packed:
-    """One launch of ``nerf_lora_pack_fwd`` into ``out`` (or a new buffer)."""
+    """The launches of ``nerf_lora_pack_fwd`` into ``out`` (or a new
+    buffer), one per ``launch_layers`` entry."""
     if plan.in_dim > d_pad:
         raise ValueError(f"lora_pack: {plan.in_dim} input rows exceed d_pad={d_pad}")
     shapes = packed_shapes(num_layers, hidden_dim, d_pad)
@@ -231,13 +241,15 @@ def _launch_fwd(plan: _Plan, num_layers: int, hidden_dim: int, d_pad: int,
         raise ValueError(f"lora_pack: out must be float32 on {plan.device}")
     packed = tuple(_views(out, shapes))
     lib, fn = _lib_fn("lora_pack", "nerf_lora_pack_fwd", FWD_ARGTYPES)
-    perm = plan.row_perm
-    err = fn(_ptrs(plan.layers), _ptrs(plan.heads), _ptrs(packed),
-             None if perm is None else perm.data_ptr(), num_layers, hidden_dim, plan.in_dim,
-             plan.in_dim, d_pad, plan.rank, plan.scale,
-             torch.cuda.current_stream(plan.device).cuda_stream)
-    _raise_on(err, lib, "lora_pack_fwd")
-    lora_pack.launches += 1
+    perm = None if plan.row_perm is None else plan.row_perm.data_ptr()
+    heads, outs = _ptrs(plan.heads), _ptrs(packed)
+    stream = torch.cuda.current_stream(plan.device).cuda_stream
+    for first, count in launch_layers(num_layers):
+        err = fn(_ptrs(plan.layers[4 * first:4 * (first + count)]), heads, outs, perm,
+                 num_layers, first, count, hidden_dim, plan.in_dim, plan.in_dim, d_pad,
+                 plan.rank, plan.scale, stream)
+        _raise_on(err, lib, "lora_pack_fwd")
+        lora_pack.launches += 1
     return packed
 
 
@@ -270,8 +282,9 @@ def lora_pack(state: Mapping[str, torch.Tensor], num_layers: int, hidden_dim: in
     """``pack_params`` of a LoRA trunk: ``(w0 (d_pad, H), b0 (1, H), wh
     (L-1, H, H), bh (L-1, H), wout (H, 128), bout (1, 128))``.
 
-    ``plain``: the plain version (``lora_pack_reference``); otherwise one
-    launch of the kernel on the state's card (a CPU state raises).
+    ``plain``: the plain version (``lora_pack_reference``); otherwise the
+    kernel on the state's card, one launch per ``launch_layers`` entry (a
+    CPU state raises).
     ``row_perm``: ``pe_constants``' device tensor (or a host sequence), a
     permutation of the first layer's input rows. ``out``: a flat buffer of
     ``pack_buffer``'s size; the six tensors are written there and returned
@@ -306,8 +319,9 @@ def lora_pack_vjp(state: Mapping[str, torch.Tensor], dpacked: Packed, num_layers
     ``dpacked[0]``'s row count).
 
     ``plain``: the plain version (``lora_pack_vjp_reference``; with ``out``
-    the gradients are also copied there); otherwise one launch of the
-    kernel, which writes every gradient into ``out`` (a flat float32 buffer
+    the gradients are also copied there); otherwise the kernel, one launch
+    per ``launch_layers`` entry, which writes every gradient into ``out``
+    (a flat float32 buffer
     of the parameters' numel, each contiguous in its parameter's shape, in
     ``state``'s order) or a new such buffer, and returns its views."""
     names = list(state)
@@ -340,13 +354,15 @@ def lora_pack_vjp(state: Mapping[str, torch.Tensor], dpacked: Packed, num_layers
             ("base.weight", "base.bias", "lora_a", "lora_b")]
     srcs = [state[f"trunk.{i}.{p}"] for i in range(num_layers) for p in ("lora_a", "lora_b")]
     lib, fn = _lib_fn("lora_pack", "nerf_lora_pack_vjp", VJP_ARGTYPES)
-    perm = plan.row_perm
-    err = fn(_ptrs(srcs), _ptrs(dpacked), _ptrs(lora), _ptrs([grads[n] for n in HEADS]),
-             None if perm is None else perm.data_ptr(), num_layers, hidden_dim, plan.in_dim,
-             plan.in_dim, plan.rank, plan.scale,
-             torch.cuda.current_stream(plan.device).cuda_stream)
-    _raise_on(err, lib, "lora_pack_vjp")
-    lora_pack_vjp.launches += 1
+    perm = None if plan.row_perm is None else plan.row_perm.data_ptr()
+    packed, heads = _ptrs(dpacked), _ptrs([grads[n] for n in HEADS])
+    stream = torch.cuda.current_stream(plan.device).cuda_stream
+    for first, count in launch_layers(num_layers):
+        err = fn(_ptrs(srcs[2 * first:2 * (first + count)]), packed,
+                 _ptrs(lora[4 * first:4 * (first + count)]), heads, perm, num_layers, first,
+                 count, hidden_dim, plan.in_dim, plan.in_dim, plan.rank, plan.scale, stream)
+        _raise_on(err, lib, "lora_pack_vjp")
+        lora_pack_vjp.launches += 1
     return grads
 
 

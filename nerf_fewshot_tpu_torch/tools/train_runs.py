@@ -24,7 +24,9 @@ device's busy share of the wall, stream synchronizations, device events
 and launches per step, and, traced with the CPU activity, the host's
 milliseconds per step by part; Adam's device ms a step, and the trainer's
 CUDA graph captures with their costs). ``--bits`` saves every epoch's per-step
-losses, the parameters after epoch 103 and test view 0 rendered then.
+losses, the parameters after epoch 103 and test view 0 rendered then, and
+the same of each ``--configs`` entry (after its epoch 102);
+``--compare-bits`` compares them all.
 ``--configs`` adds ``experiments/dino_nerf.yaml``,
 ``experiments/lora_nerf_trunk.yaml`` and ``experiments/script_lora.yaml``
 (the LoRA ones with ``sigma_bias: 0.1``, the smoke's live start), each on
@@ -110,7 +112,8 @@ def _traced(smoke, tr, epoch):
 
 def _other(root, name, train, test, device, smoke):
     """``dino_nerf``, ``lora_trunk`` or ``script_lora``: ms per phase-2 step
-    and the trace."""
+    and the trace; and its bits (per-step losses, parameters, test view 0
+    after the timed epochs)."""
     import numpy as np
 
     from nerf_fewshot_tpu_torch.cli import _precompute_features
@@ -127,12 +130,20 @@ def _other(root, name, train, test, device, smoke):
         raise RuntimeError(f"{name} must train through the kernel")
     for i in range(len(cfg.phases)):
         tr.phase_data(i)
-    losses, ms, _ = _timed_epochs(tr, OTHER_EPOCHS, OTHER_TIMED)
+    losses, ms, steps = _timed_epochs(tr, OTHER_EPOCHS, OTHER_TIMED)
+    bits = _bits(tr, steps, test)
     return {"loss_last_epoch": losses[OTHER_EPOCHS[-1]],
             "ms_per_step": {str(e): v for e, v in ms.items()},
             "ms_per_step_mean": float(np.mean(list(ms.values()))),
             **_eval_times(smoke, tr, test),
-            "trace": _traced(smoke, tr, OTHER_TRACED)}
+            "trace": _traced(smoke, tr, OTHER_TRACED)}, bits
+
+
+def _bits(tr, steps, test):
+    """The per-step losses ``steps``, the trainer's parameters and test view
+    0 rendered now, on the host."""
+    return {"steps": steps, "view": tr.render_views([test.poses[0]]),
+            "params": {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}}
 
 
 def _eval_times(smoke, tr, test):
@@ -181,11 +192,7 @@ def run(root: str, seed: int, tag: str, out: str, bits: str = None,
     for i in range(len(cfg.phases)):  # set-up, kept out of the step times
         tr.phase_data(i)
     losses, ms, steps = _timed_epochs(tr, EPOCHS, TIMED)
-    if bits:
-        view = tr.render_views([test.poses[0]])
-        torch.save({"steps": steps, "view": view,
-                    "params": {k: v.detach().cpu() for k, v in tr.model.state_dict().items()}},
-                   bits)
+    saved = _bits(tr, steps, test)
     tr.render_views(test.poses)  # first use of this shape's buffers
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -197,36 +204,51 @@ def run(root: str, seed: int, tag: str, out: str, bits: str = None,
            "ms_per_step": {str(e): ms[e] for e in TIMED},
            "ms_per_step_mean": float(np.mean([ms[e] for e in TIMED])),
            "eval_ms_per_view": eval_ms, "trace": _traced(smoke, tr, TRACED)}
+    saved["configs"] = {}
     for name in configs:
         if name != "baseline":
-            rec[name] = _other(root, name, train, test, device, smoke)
+            rec[name], saved["configs"][name] = _other(root, name, train, test, device, smoke)
+    if bits:
+        torch.save(saved, bits)
     with open(out, "a") as f:
         f.write(json.dumps(rec) + "\n")
     print(json.dumps(rec), flush=True)
     return rec
 
 
-def compare_bits(a: str, b: str) -> None:
-    """Raise unless two ``--bits`` files hold the same per-step losses,
-    parameters and view, bit for bit."""
+def _differ(x, y, label):
+    """What of two runs' bits (``_bits``) differs, named under ``label``."""
     import numpy as np
     import torch
 
-    x, y = torch.load(a, weights_only=False), torch.load(b, weights_only=False)
     if sorted(x["steps"]) != sorted(y["steps"]) or sorted(x["params"]) != sorted(y["params"]):
-        raise SystemExit(f"{a} and {b} hold different epochs or parameters")
-    bad = [f"epoch {e} losses" for e in x["steps"]
+        return [f"{label}: different epochs or parameters"]
+    bad = [f"{label} epoch {e} losses" for e in x["steps"]
            if not np.array_equal(x["steps"][e].view(np.int32), y["steps"][e].view(np.int32))]
-    bad += [f"parameter {k}" for k in x["params"]
+    bad += [f"{label} parameter {k}" for k in x["params"]
             if not torch.equal(x["params"][k].view(torch.int32), y["params"][k].view(torch.int32))]
-    bad += [f"view output {i}" for i, (p, q) in enumerate(zip(x["view"], y["view"]))
+    bad += [f"{label} view output {i}" for i, (p, q) in enumerate(zip(x["view"], y["view"]))
             if not np.array_equal(p.view(np.int32), q.view(np.int32))]
-    n_steps = sum(len(s) for s in x["steps"].values())
+    return bad
+
+
+def compare_bits(a: str, b: str) -> None:
+    """Raise unless two ``--bits`` files hold the same per-step losses,
+    parameters and view, bit for bit, of the baseline and of every config
+    both ran."""
+    import torch
+
+    x, y = torch.load(a, weights_only=False), torch.load(b, weights_only=False)
+    runs = {"baseline": (x, y), **{n: (x["configs"][n], y["configs"][n])
+                                   for n in x.get("configs", {}) if n in y.get("configs", {})}}
+    bad = [d for n, (p, q) in runs.items() for d in _differ(p, q, n)]
     if bad:
         raise SystemExit(f"{a} vs {b}: not bit-equal: {', '.join(bad)}")
-    print(f"{a} vs {b}: the per-step losses of {n_steps} steps over epochs "
-          f"{sorted(x['steps'])}, all {len(x['params'])} parameters and test view 0's rgb, "
-          f"depth and acc bit-equal", flush=True)
+    for n, (p, _) in runs.items():
+        print(f"{a} vs {b}: {n}: the per-step losses of "
+              f"{sum(len(s) for s in p['steps'].values())} steps over epochs "
+              f"{sorted(p['steps'])}, all {len(p['params'])} parameters and test view 0's rgb, "
+              f"depth and acc bit-equal", flush=True)
 
 
 def _mean_trace(recs, key=None):

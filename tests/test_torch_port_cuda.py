@@ -1313,6 +1313,12 @@ def test_adam_kernel_is_bit_equal_to_foreach_adam(h100, case):
 
 GRAPH_KINDS = {"baseline": {}, "hierarchical": {"rendering": {"n_importance": 16}},
                "lora": {"nerf_model": {"lora_rank": 4}, "optimizer": {"lora_only_after_epoch": 2}},
+               # past one launch's 32 layers: each LoRA pack kernel twice a step
+               "lora_l40": {"nerf_model": {"lora_rank": 4, "num_layers": 40},
+                            "optimizer": {"lora_only_after_epoch": 2}},
+               # the merge's float64 sums above rank 1020
+               "lora_r1024": {"nerf_model": {"lora_rank": 1024},
+                              "optimizer": {"lora_only_after_epoch": 2}},
                "dino": {"model": {"use_dino": True, "dino_model_type": "single_scale"}},
                "clip": {"optimizer": {"grad_clip": 0.05}},
                "bfloat16": {"rendering": {"compute_dtype": "bfloat16"}},
@@ -1343,15 +1349,17 @@ def test_graphed_epochs_are_bit_equal_to_the_eager_step(h100, kind):
     parameters, both Adam moments and the step counts bit-equal. The graph
     launches kernel 1 and the Adam kernel once per step (kernel 2 once more
     with hierarchical sampling, the feature sampler's kernel once with DINO
-    features, the two LoRA pack kernels once each with a LoRA trunk),
-    counted per replay; each trainer records
-    its step mode and the eager one why."""
+    features, the two LoRA pack kernels ceil(L / 32) times each with a LoRA
+    trunk of L layers: 40 layers take two launches), counted per replay;
+    each trainer records its step mode and the eager one why."""
     from nerf_fewshot_tpu_torch.training.optim import AdamKernel
     from nerf_fewshot_tpu_torch.training.step_graph import kernel_launch_counts
 
     # the graphed trainer on the default device, "cuda" with no index, as
     # the CLI makes it
     graph, eager = _graph_trainer(kind, None, False), _graph_trainer(kind, h100, True)
+    lora = kind.startswith("lora")
+    packs = -(-graph.cfg.nerf.num_layers // 32) if lora else 0
     for epoch in range(4):
         before = kernel_launch_counts()
         got = graph.epoch_steps(epoch)
@@ -1364,10 +1372,10 @@ def test_graphed_epochs_are_bit_equal_to_the_eager_step(h100, kind):
         assert after["fwd_pe"] - before["fwd_pe"] == (n if kind == "hierarchical" else 0)
         assert after["point_features"] - before["point_features"] == (n if kind == "dino" else 0)
         for k in ("lora_pack", "lora_pack_vjp"):
-            assert after[k] - before[k] == (n if kind == "lora" else 0), k
+            assert after[k] - before[k] == n * packs, k
     assert graph.step_mode == "graph" and graph.step_mode_reason is None
     assert eager.step_mode == "eager" and "_eager_step" in eager.step_mode_reason
-    assert len(graph.graph_captures) == (3 if kind == "lora" else 2)
+    assert len(graph.graph_captures) == (3 if lora else 2)
     assert all(c["launches_per_replay"]["adam"] == 1 for c in graph.graph_captures)
     for (k, p), (_, q) in zip(graph.model.named_parameters(), eager.model.named_parameters()):
         assert _same_bits(p.detach(), q.detach()), k

@@ -5,26 +5,33 @@ branch they replace.
 On the CPU, on the same seeded numpy state (a JAX LoRA param tree and the
 port's state dict through ``nerf_mlp_from_jax``) at L 3, H 128, ranks 2 and
 4, with and without the inline-PE ``row_perm``, d_pad 96 > the 90 input
-rows: ``lora_pack_reference`` against the JAX ``pack_params`` (rel 1e-6: the
+rows, and at rank 1024 (L 2), at 33 layers (rank 2) and at 1 layer:
+``lora_pack_reference`` against the JAX ``pack_params`` (rel 1e-6: the
 r-term merge summed in another order; the rest only moves data) and
 ``lora_pack_vjp_reference`` against ``jax.vjp`` over it (rel 1e-5: the two
 reductions in other orders); ``fused_train_loss_grad`` of a LoRA trunk
 (``lora_nerf_trunk.yaml``'s widths cut to 3 layers) bit for bit against the
 autograd branch it replaced (``_TrainObjective`` and ``torch.autograd.grad``
 through the packing), and within rel 1e-4 of the plain pipeline's autograd;
-the kernel route refusing a CPU state.
+the kernel route refusing a CPU state at any rank and depth; the launches
+a deep trunk takes; a trainer at 40 layers and rank 1024 on the kernel
+path.
 
 Marked ``cuda`` (skipped here; on the card, without the JAX conftest:
 ``python -m pytest --noconftest -m cuda tests/test_torch_port_lora_pack.py``):
 both kernels against their plain versions at ``lora_nerf_trunk.yaml``'s
-D 160 / H 256 / rank 4, ``script_lora.yaml``'s D 832, H 512 and 1024 and
-16 layers, and at ranks 1 to 1020 (the kernels refuse 1021 and up): the
-packed weights, the base, bias and head gradients bit-equal, ``lora_a``
-and ``lora_b`` within rel 1e-6 of autograd and each no further from a
-float64 run than autograd's, a second call
-bit-equal; a kernel-path LoRA step launching each once and never entering
-the autograd engine. JAX is imported inside the CPU tests alone: the card
-machine has none.
+D 160 / H 256 / rank 4, ``script_lora.yaml``'s D 832, H 512 and 1024, 16,
+33 and 64 layers, 33 layers at rank 1024, and at ranks 1 to 2048: up to
+rank 1020 the packed weights bit-equal to the plain packing; above it
+(where the kernel sums in float64, and torch's sum on the card splits
+across blocks) each packed tensor within rel 1e-6 of it and no further
+from a float64 packing than it; the base, bias and head gradients
+bit-equal, ``lora_a`` and ``lora_b`` within rel 1e-6 of autograd and each
+no further from a float64 run than autograd's, a second call bit-equal,
+each kernel ceil(L / 32) launches a call; a kernel-path LoRA step (also at
+rank 1024 and at 40 layers) launching each ceil(L / 32) times and never
+entering the autograd engine. JAX is imported inside the CPU tests alone:
+the card machine has none.
 """
 
 import numpy as np
@@ -87,57 +94,61 @@ def _rel(got, want) -> float:
 
 # ------------------------------------------------------------ the CPU: against JAX
 
-CASES = [(2, True), (2, False), (4, True), (4, False)]
+# (rank, row_perm, layers): the shapes of L 3, then a rank past the card's
+# 1020, a trunk past one launch's 32 layers and a trunk of one
+CASES = [(2, True, N_LAYERS), (2, False, N_LAYERS), (4, True, N_LAYERS), (4, False, N_LAYERS),
+         (1024, True, 2), (2, True, 33), (3, False, 1)]
+CASE_IDS = [f"{r}-{p}" if L == N_LAYERS else f"{r}-{p}-L{L}" for r, p, L in CASES]
 
 
-def _jax_case(rank, perm, seed=7):
+def _jax_case(rank, perm, seed=7, layers=N_LAYERS):
     from nerf_fewshot_tpu.render import kernels as jk
 
-    tree = _jax_tree(np.random.default_rng(seed + rank), IN_DIM, HIDDEN, N_LAYERS, rank)
+    tree = _jax_tree(np.random.default_rng(seed + rank), IN_DIM, HIDDEN, layers, rank)
     row_perm = jk.pe_layout(10, 4, True, 0)[0] if perm else None
     return tree, row_perm
 
 
-@pytest.mark.parametrize("rank,perm", CASES)
-def test_lora_pack_reference_is_the_jax_pack(rank, perm):
+@pytest.mark.parametrize("rank,perm,layers", CASES, ids=CASE_IDS)
+def test_lora_pack_reference_is_the_jax_pack(rank, perm, layers):
     """The plain packing against the JAX ``pack_params`` of the same numpy
     state: the heads, biases and pads bit-equal (data movement), the merged
     weights within rel 1e-6."""
     import jax
     from nerf_fewshot_tpu.render import kernels as jk
 
-    tree, row_perm = _jax_case(rank, perm)
-    want = jax.jit(lambda p: jk.pack_params(p, N_LAYERS, HIDDEN, ALPHA, D_PAD, row_perm))(tree)
-    got = lp.lora_pack_reference(nerf_mlp_from_jax(tree), N_LAYERS, HIDDEN, D_PAD, row_perm,
+    tree, row_perm = _jax_case(rank, perm, layers=layers)
+    want = jax.jit(lambda p: jk.pack_params(p, layers, HIDDEN, ALPHA, D_PAD, row_perm))(tree)
+    got = lp.lora_pack_reference(nerf_mlp_from_jax(tree), layers, HIDDEN, D_PAD, row_perm,
                                  ALPHA)
     assert len(got) == 6
     for k, (g, w) in enumerate(zip(got, want)):
         w = torch.from_numpy(np.array(w))
-        assert tuple(g.shape) == tuple(w.shape) == lp.packed_shapes(N_LAYERS, HIDDEN, D_PAD)[k]
+        assert tuple(g.shape) == tuple(w.shape) == lp.packed_shapes(layers, HIDDEN, D_PAD)[k]
         if k in (0, 2):
             assert _rel([g], [w]) <= 1e-6, k
         else:
             _same(g, w, f"packed {k}")
 
 
-@pytest.mark.parametrize("rank,perm", CASES)
-def test_lora_pack_vjp_reference_is_the_jax_vjp(rank, perm):
+@pytest.mark.parametrize("rank,perm,layers", CASES, ids=CASE_IDS)
+def test_lora_pack_vjp_reference_is_the_jax_vjp(rank, perm, layers):
     """The plain VJP against ``jax.vjp`` over the JAX ``pack_params`` with the
     same cotangents, every parameter within rel 1e-5, under its port name."""
     import jax
     from nerf_fewshot_tpu.render import kernels as jk
 
-    tree, row_perm = _jax_case(rank, perm)
-    cots = _cotangents(lp.packed_shapes(N_LAYERS, HIDDEN, D_PAD), 11 + rank)
+    tree, row_perm = _jax_case(rank, perm, layers=layers)
+    cots = _cotangents(lp.packed_shapes(layers, HIDDEN, D_PAD), 11 + rank)
 
     def vjp(p, c):
-        return jax.vjp(lambda q: jk.pack_params(q, N_LAYERS, HIDDEN, ALPHA, D_PAD, row_perm),
+        return jax.vjp(lambda q: jk.pack_params(q, layers, HIDDEN, ALPHA, D_PAD, row_perm),
                        p)[1](c)[0]
 
     want = nerf_mlp_from_jax(jax.tree_util.tree_map(
         np.asarray, jax.jit(vjp)(tree, tuple(c.numpy() for c in cots))))
     state = nerf_mlp_from_jax(tree)
-    got = lp.lora_pack_vjp_reference(state, tuple(cots), N_LAYERS, HIDDEN, row_perm, ALPHA)
+    got = lp.lora_pack_vjp_reference(state, tuple(cots), layers, HIDDEN, row_perm, ALPHA)
     assert list(got) == list(state)
     for name in state:
         assert tuple(got[name].shape) == tuple(state[name].shape), name
@@ -163,12 +174,13 @@ class _OldTrainObjective(torch.autograd.Function):
         return (None,) * 10 + tuple(torch._foreach_mul(list(ctx.saved_tensors), grad_out))
 
 
-def _trunk_step_inputs(seed=3, R=24, S=8):
+def _trunk_step_inputs(seed=3, R=24, S=8, layers=N_LAYERS, rank=4):
     """``lora_nerf_trunk.yaml``'s widths cut to 3 layers (H 256, rank 4,
-    alpha 16, view directions, 64 features per point), seeded rays and
-    targets, jitter and a features function of the points."""
+    alpha 16, view directions, 64 features per point; or ``layers`` at
+    ``rank``), seeded rays and targets, jitter and a features function of
+    the points."""
     rng = np.random.default_rng(seed)
-    tree = _jax_tree(rng, IN_DIM + 64, 256, N_LAYERS, 4)
+    tree = _jax_tree(rng, IN_DIM + 64, 256, layers, rank)
     t = lambda a: torch.from_numpy(np.asarray(a, np.float32))
     ro = t(rng.uniform(-0.5, 0.5, (R, 3)) + np.array([0.0, 0.0, 4.0]))
     rd = t(rng.standard_normal((R, 3)) * 0.2 + np.array([0.0, 0.0, -1.0]))
@@ -178,7 +190,7 @@ def _trunk_step_inputs(seed=3, R=24, S=8):
     proj = t(rng.standard_normal((3, 64)))
     feats = lambda pts: torch.sin(pts @ proj)
     settings = RenderSettings(n_samples=S, perturb=True, near=2.0, far=6.0)
-    return nerf_mlp_from_jax(tree), (ro, rd, tgt, mask, settings, 10, 4, N_LAYERS, 256), dict(
+    return nerf_mlp_from_jax(tree), (ro, rd, tgt, mask, settings, 10, 4, layers, 256), dict(
         uniforms=uni, point_features_fn=feats, reg_weight=0.01, lora_alpha=ALPHA)
 
 
@@ -256,7 +268,9 @@ def test_lora_pack_out_and_plain_route():
 
 def test_the_kernel_route_needs_a_card():
     """Without ``plain`` a CPU state raises in both wrappers, and so does a
-    trunk without LoRA."""
+    trunk without LoRA. A rank above 1020 and a trunk deeper than one
+    launch's 32 layers are no longer refused: on the CPU they raise as any
+    CPU state does."""
     tree, row_perm = _jax_case(2, True)
     state = nerf_mlp_from_jax(tree)
     with pytest.raises(ValueError, match="no kernel for device cpu"):
@@ -267,11 +281,63 @@ def test_the_kernel_route_needs_a_card():
     plain = {k: v for k, v in state.items() if "lora" not in k}
     with pytest.raises(ValueError, match="not a 3-layer LoRA trunk"):
         lp.lora_pack(plain, N_LAYERS, HIDDEN, D_PAD, row_perm, ALPHA)
-    wide = nerf_mlp_from_jax(_jax_tree(np.random.default_rng(0), 8, HIDDEN, 1, lp.MAX_RANK + 1))
-    with pytest.raises(ValueError, match="LoRA rank 1021; the kernels take 1 to 1020"):
-        lp.lora_pack(wide, 1, HIDDEN, 128)
+    for rank, layers in ((1021, 1), (2, 33)):
+        big = nerf_mlp_from_jax(_jax_tree(np.random.default_rng(0), 8, HIDDEN, layers, rank))
+        with pytest.raises(ValueError, match="no kernel for device cpu"):
+            lp.lora_pack(big, layers, HIDDEN, 128)
+        cots = tuple(_cotangents(lp.packed_shapes(layers, HIDDEN, 128), 2))
+        with pytest.raises(ValueError, match="no kernel for device cpu"):
+            lp.lora_pack_vjp(big, cots, layers, HIDDEN)
     assert lp.is_lora_trunk(state, N_LAYERS) and not lp.is_lora_trunk(plain, N_LAYERS)
     assert lp.lora_pack.launches == 0 and lp.lora_pack_vjp.launches == 0
+
+
+def test_a_deep_trunk_takes_a_launch_per_32_layers():
+    """``launch_layers``: each launch's first layer and count, at most
+    ``LAYERS_PER_LAUNCH`` (the size of ``csrc/lora_pack.cu``'s pointer
+    table, ``kMaxLayers``), covering every layer once; the wrapper's
+    constants are the kernel source's, and no rank or depth cap is left in
+    either."""
+    import os
+    import re
+
+    assert lp.launch_layers(1) == [(0, 1)]
+    assert lp.launch_layers(32) == [(0, 32)]
+    assert lp.launch_layers(40) == [(0, 32), (32, 8)]
+    assert lp.launch_layers(65) == [(0, 32), (32, 32), (64, 1)]
+    for L in range(1, 100):
+        spans = lp.launch_layers(L)
+        assert len(spans) == -(-L // lp.LAYERS_PER_LAUNCH)
+        assert [i for f, n in spans for i in range(f, f + n)] == list(range(L))
+    src = open(os.path.join(os.path.dirname(lp.__file__), "..", "csrc", "lora_pack.cu")).read()
+    assert int(re.search(r"kMaxLayers = (\d+);", src).group(1)) == lp.LAYERS_PER_LAUNCH
+    assert int(re.search(r"kTorchOrderRank = (\d+);", src).group(1)) == lp.TORCH_ORDER_RANK
+    assert "kMaxRank" not in src and "max_layers" not in src
+    assert not hasattr(lp, "MAX_RANK") and not hasattr(lp, "MAX_LAYERS")
+
+
+def test_a_deep_high_rank_lora_trainer_takes_the_kernel_path():
+    """A trainer at 40 layers and LoRA rank 1024 (past the caps the LoRA pack
+    kernels once had) takes the kernel path with no reason recorded, on the
+    CPU (the kernels' plain versions) and as the choice a card makes."""
+    from nerf_fewshot_tpu_torch.data.blender import BlenderDataset
+    from nerf_fewshot_tpu_torch.training.config import config_from_dict
+    from nerf_fewshot_tpu_torch.training.trainer import Trainer
+
+    cfg = config_from_dict({
+        "data": {"resolution": 8, "num_views": 1},
+        "nerf_model": {"hidden_dim": HIDDEN, "num_layers": 40, "lora_rank": 1024,
+                       "lora_alpha": ALPHA, "sigma_bias": 0.1},
+        "training": {"phases": [{"start": 0, "H": 8, "n_samples": 8, "batch_size": 16}]},
+        "seed": 0})
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = 4.0
+    data = BlenderDataset(np.zeros((1, 8, 8, 3), np.float32), pose[None], 8, 8, 8.0)
+    tr = Trainer(cfg, data, device="cpu")
+    assert tr.model.trunk[39].lora_a.shape == (HIDDEN, 1024)
+    assert tr._use_fused() and (tr.kernel_path, tr.kernel_path_reason) == ("kernel", None)
+    tr.device = torch.device("cuda", 0)
+    assert tr._use_fused() and (tr.kernel_path, tr.kernel_path_reason) == ("kernel", None)
 
 
 # ------------------------------------------------------------ the card
@@ -292,8 +358,12 @@ CARD_CASES = [("lora_nerf_trunk D 160", 154, 256, 8, 4, True, False),
               ("script_lora D 832", 831, 256, 8, 4, True, False),
               ("H 512", 154, 512, 8, 4, True, False),
               ("H 1024", 154, 1024, 8, 4, False, False),
-              ("16 layers", 90, 256, 16, 4, True, False)]
-RANKS = [1, 2, 3, 5, 8, 16, 63, 64, 100, 256, 512, lp.MAX_RANK]
+              ("16 layers", 90, 256, 16, 4, True, False),
+              ("33 layers", 154, 256, 33, 4, True, False),
+              ("64 layers", 90, 128, 64, 4, True, False),
+              ("33 layers rank 1024", 90, 128, 33, 1024, True, False)]
+# up to 1020 torch's order on the card, from 1021 the kernel's float64 sums
+RANKS = [1, 2, 3, 5, 8, 16, 63, 64, 100, 256, 512, 1020, 1021, 1023, 1024, 2048]
 
 
 def card_case(device, in_dim, H, L, rank, perm, zero_b, seed=0, signed_zeros=True):
@@ -327,14 +397,28 @@ def check_card_case(state, row_perm, d_pad, L, H, seed=1):
     """Both kernels against their plain versions, as the module's docstring
     says; returns ``(max rel of lora_a / lora_b to autograd, the largest
     excess of a LoRA tensor's f64 distance over autograd's)``."""
+    launches = -(-L // 32)
+    before = (lp.lora_pack.launches, lp.lora_pack_vjp.launches)
     got = lp.lora_pack(state, L, H, d_pad, row_perm, ALPHA)
+    assert lp.lora_pack.launches - before[0] == launches
     want = lp.lora_pack_reference(state, L, H, d_pad, row_perm, ALPHA)
     again = lp.lora_pack(state, L, H, d_pad, row_perm, ALPHA)
-    for k, (g, w, a) in enumerate(zip(got, want, again)):
-        _same(g, w, f"packed {k} vs plain")
+    for k, (g, a) in enumerate(zip(got, again)):
         _same(a, g, f"packed {k} second call")
+    if state["trunk.0.lora_a"].shape[1] <= lp.TORCH_ORDER_RANK:
+        for k, (g, w) in enumerate(zip(got, want)):
+            _same(g, w, f"packed {k} vs plain")
+    else:  # the kernel's float64 sums: near the plain packing, no further from float64
+        exact = lp.lora_pack_reference({k: v.double() for k, v in state.items()}, L, H, d_pad,
+                                       row_perm, ALPHA)
+        for k, (g, w, e) in enumerate(zip(got, want, exact)):
+            assert _rel([g], [w]) <= 1e-6, (k, _rel([g], [w]))
+            assert _rel([g], [e]) <= _rel([w], [e]), (k, _rel([g], [e]), _rel([w], [e]))
+            if k not in (0, 2):
+                _same(g, w, f"packed {k} (data movement) vs plain")
     cots = tuple(_cotangents([w.shape for w in want], seed, state["trunk.0.lora_a"].device))
     kg = lp.lora_pack_vjp(state, cots, L, H, row_perm, ALPHA)
+    assert lp.lora_pack_vjp.launches - before[1] == launches
     ag = lp.lora_pack_vjp_reference(state, cots, L, H, row_perm, ALPHA)
     k2 = lp.lora_pack_vjp(state, cots, L, H, row_perm, ALPHA)
     f64 = lp.lora_pack_vjp_reference({k: v.double() for k, v in state.items()},
@@ -369,12 +453,11 @@ def test_lora_pack_kernels_at_every_rank(h100, rank):
     check_card_case(state, row_perm, d_pad, 3, 128)
 
 
-@pytest.mark.cuda
-def test_lora_trunk_step_launches_both_kernels_and_no_autograd(h100, monkeypatch):
-    """A kernel-path step of a LoRA trunk: kernel 1, the packing and the VJP
-    once each, into the gradient buffer, and no call into the autograd
-    engine."""
-    state, args, kw = _trunk_step_inputs()
+def _check_step_on_the_card(h100, monkeypatch, layers=N_LAYERS, rank=4):
+    """A kernel-path step of a LoRA trunk of ``layers`` layers at ``rank``:
+    kernel 1 once, the packing and the VJP ceil(layers / 32) times each,
+    into the gradient buffer, and no call into the autograd engine."""
+    state, args, kw = _trunk_step_inputs(layers=layers, rank=rank)
     state = {k: v.to(h100).contiguous() for k, v in state.items()}
     ro, rd, tgt, mask, *rest = args
     args = (ro.to(h100), rd.to(h100), tgt.to(h100), mask.to(h100), *rest)
@@ -388,13 +471,32 @@ def test_lora_trunk_step_launches_both_kernels_and_no_autograd(h100, monkeypatch
     monkeypatch.setattr(torch.autograd, "backward", refuse)
     before = (lp.lora_pack.launches, lp.lora_pack_vjp.launches,
               tt.fused_train_objective.launches["train_pe"])
-    buf, views = tt.grad_buffer(state, N_LAYERS)
+    buf, views = tt.grad_buffer(state, layers)
     loss, grads = tt.fused_train_loss_grad(state, *args, grad_buffer=buf, **kw)
     after = (lp.lora_pack.launches, lp.lora_pack_vjp.launches,
              tt.fused_train_objective.launches["train_pe"])
-    assert [b - a for a, b in zip(before, after)] == [1, 1, 1]
+    packs = -(-layers // 32)
+    assert [b - a for a, b in zip(before, after)] == [packs, packs, 1]
     assert all(grads[k].data_ptr() == views[k].data_ptr() for k in state)
     assert torch.isfinite(loss) and torch.isfinite(buf).all()
+
+
+@pytest.mark.cuda
+def test_lora_trunk_step_launches_both_kernels_and_no_autograd(h100, monkeypatch):
+    """A kernel-path step of a LoRA trunk: kernel 1, the packing and the VJP
+    once each, into the gradient buffer, and no call into the autograd
+    engine."""
+    _check_step_on_the_card(h100, monkeypatch)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,rank", [(8, 1024), (40, 4)])
+def test_deep_and_high_rank_lora_steps_launch_the_kernels_and_no_autograd(h100, monkeypatch,
+                                                                          layers, rank):
+    """``lora_nerf_trunk.yaml``'s step at rank 1024 (the merge's float64
+    sums) and at 40 layers (two launches of each LoRA pack kernel): kernel 1
+    once, each pack kernel ceil(layers / 32) times, no autograd engine."""
+    _check_step_on_the_card(h100, monkeypatch, layers, rank)
 
 
 @pytest.mark.cuda
